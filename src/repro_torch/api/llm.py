@@ -1,0 +1,210 @@
+"""`LLM` — the public way to load and run a model (port of
+repro/api/llm.py, dense serving).
+
+    from repro_torch.api import LLM, SamplingParams
+    llm = LLM.load("smollm-360m", tp=2, spd=0.25, comm="quant8")
+    outs = llm.generate(prompts, SamplingParams(max_new=16))
+
+Runs on the CUDA device by default; with no CUDA device it raises
+unless `device="cpu"` is asked for explicitly (there is no silent CPU
+path).  Arguments that belong to later slices of the port (paged
+caches, chunked prefill, speculation, cluster replicas, other backends,
+observability) raise NotImplementedError when given.
+"""
+from __future__ import annotations
+
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.api.outputs import RequestOutput
+from repro_torch.api.sampling import SamplingParams
+from repro_torch.api.scheduler import CacheConfig, Request, Scheduler
+from repro_torch.config.base import (SYNC_LEVELS, CommPolicy, ModelConfig,
+                                     SPDPlanConfig, replace)
+
+
+def _resolve_comm(comm, n_layers: int,
+                  logits: str = "exact") -> Optional[CommPolicy]:
+    """None | CommPolicy | level string -> CommPolicy (None = all exact)."""
+    if isinstance(comm, CommPolicy):
+        return comm
+    if comm is None:
+        comm = "exact"
+    if isinstance(comm, str):
+        if comm not in SYNC_LEVELS:
+            raise ValueError(f"comm={comm!r}: expected a CommPolicy or one "
+                             f"of {SYNC_LEVELS}")
+        if comm == "exact" and logits == "exact":
+            return None
+        return CommPolicy.uniform(n_layers, comm, logits=logits)
+    raise TypeError(f"comm must be None, a str, or CommPolicy: {comm!r}")
+
+
+def resolve_device(device) -> torch.device:
+    """`device`, or the CUDA device when None; raises without one."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the GPU; pass "
+                           "device='cpu' to run on the CPU on purpose")
+    return torch.device("cuda")
+
+
+def _as_prompts(prompts) -> List[np.ndarray]:
+    if isinstance(prompts, np.ndarray):
+        prompts = [prompts] if prompts.ndim == 1 else list(prompts)
+    elif len(prompts) and isinstance(prompts[0], (int, np.integer)):
+        prompts = [prompts]
+    return [np.asarray(p, np.int64) for p in prompts]
+
+
+def _per_request(sampling, n: int) -> List[SamplingParams]:
+    if sampling is None:
+        sampling = SamplingParams()
+    if isinstance(sampling, SamplingParams):
+        return [sampling] * n
+    if len(sampling) != n:
+        raise ValueError(f"got {len(sampling)} SamplingParams for "
+                         f"{n} prompts")
+    return list(sampling)
+
+
+class LLM:
+    """A loaded model + engine + placed params behind one object; build
+    it with `LLM.load(...)`."""
+
+    def __init__(self, cfg, plan, engine_kind, canonical,
+                 cache: CacheConfig, *, tp: int, dp: int, q_chunk: int,
+                 device):
+        self.cfg, self.plan = cfg, plan
+        self.engine_kind = engine_kind
+        self.canonical = canonical
+        self.cache = cache
+        self.tp, self.dp, self.q_chunk = tp, dp, q_chunk
+        self.device = device
+        self.engine = self.params = None
+        self._sched: Optional[Scheduler] = None
+        self._next_uid = -1
+
+    @classmethod
+    def load(cls, arch, *, tp: int = 1, dp: int = 1, engine: str = "sim",
+             spd: float = 0.0, plan: Optional[SPDPlanConfig] = None,
+             comm=None, comm_logits: str = "exact", page_size=None,
+             num_pages=None, prefill_chunk=None, cache_len: int = 128,
+             max_batch: int = 4, dtype: Optional[str] = None, seed: int = 0,
+             params=None, q_chunk: int = 64, spec=None,
+             dp_replicas: int = 1, obs=None, device=None) -> "LLM":
+        """Load `arch` (config name or ModelConfig) onto an engine.
+
+        spd        fraction of blocks to SPD-drop (first-k plan), ignored
+                   when an explicit `plan` is given.
+        comm       kept-sync comm policy: a CommPolicy, or a level string
+                   ("exact" | "quant8" | "quant4") for every kept sync;
+                   `comm_logits` sets the logits all-gather level.
+        params     canonical parameter tree (e.g. carried over from the
+                   reference with core.convert.from_reference); a fresh
+                   seeded `init_model` when omitted.
+        device     where the shards live: CUDA by default, "cpu" only on
+                   request.
+        """
+        for name, value in (("page_size", page_size),
+                            ("num_pages", num_pages),
+                            ("prefill_chunk", prefill_chunk), ("spec", spec),
+                            ("obs", obs)):
+            if value is not None:
+                raise NotImplementedError(
+                    f"LLM.load({name}=...) is not ported yet")
+        if dp_replicas != 1:
+            raise NotImplementedError("dp_replicas > 1 is not ported yet")
+        if engine != "sim":
+            raise NotImplementedError(
+                f"engine={engine!r} is not ported yet (only 'sim')")
+        from repro_torch.configs import get_config
+        from repro_torch.core import model as M
+
+        dev = resolve_device(device)
+        cfg = arch if isinstance(arch, ModelConfig) else get_config(arch)
+        if dtype is not None:
+            cfg = replace(cfg, dtype=dtype)
+        if plan is None:
+            k = int(round(cfg.n_layers * spd)) if cfg.spd_applicable else 0
+            plan = SPDPlanConfig.first_k(cfg.n_layers, k)
+        elif len(plan.drop_mask) != cfg.n_layers:
+            raise ValueError(f"plan covers {len(plan.drop_mask)} layers, "
+                             f"model has {cfg.n_layers}")
+        if comm is not None or comm_logits != "exact":
+            plan = plan.with_comm(_resolve_comm(comm, cfg.n_layers,
+                                                comm_logits))
+        canonical = (params if params is not None
+                     else M.init_model(cfg, seed=seed, device=dev))
+        llm = cls(cfg, plan, engine, canonical,
+                  CacheConfig(cache_len=cache_len, max_batch=max_batch),
+                  tp=tp, dp=dp, q_chunk=q_chunk, device=dev)
+        llm._build_engine()
+        return llm
+
+    def _build_engine(self):
+        """(Re)build the engine for `self.plan` and place the canonical
+        params into its layout."""
+        from repro_torch.core import model as M
+        from repro_torch.parallel.backend import make_backend
+        from repro_torch.runtime.engines import Engine
+
+        backend = make_backend(self.engine_kind, self.cfg, self.plan,
+                               tp=self.tp, dp=self.dp, device=self.device)
+        self.engine = Engine(self.cfg, self.plan, backend,
+                             q_chunk=self.q_chunk)
+        self.params = backend.place_params(M.stack_segments(
+            M.pad_model(self.canonical, self.cfg, self.tp), self.cfg,
+            self.plan))
+        self._sched = None
+
+    def serve(self) -> Scheduler:
+        """The (cached) scheduler `generate` drives."""
+        if self._sched is None:
+            self._sched = Scheduler(self.engine, self.params, self.cache)
+        return self._sched
+
+    def generate(self, prompts, sampling: Optional[SamplingParams] = None,
+                 max_steps: int = 100_000) -> List[RequestOutput]:
+        """Run `prompts` to completion; results in submission order.
+        `sampling` is one SamplingParams or one per prompt (default
+        greedy)."""
+        prompts = _as_prompts(prompts)
+        sps = _per_request(sampling, len(prompts))
+        sched = self.serve()
+        reqs = []
+        for p, sp in zip(prompts, sps):
+            reqs.append(Request(uid=self._next_uid, prompt=p,
+                                max_new=sp.max_new, sampling=sp))
+            self._next_uid -= 1
+        for req in reqs:              # all-or-nothing validation
+            sched.validate(req)
+        sched.queue.extend(reqs)
+        steps = 0
+        try:
+            while any(not r.done for r in reqs) and steps < max_steps:
+                if not sched.step():
+                    break
+                steps += 1
+        finally:
+            sched.cancel(reqs)
+        if any(not r.done for r in reqs):
+            raise RuntimeError(
+                f"generate did not converge in {steps} steps "
+                f"({sum(r.done for r in reqs)}/{len(reqs)} done)")
+        return [RequestOutput(index=i,
+                              prompt_token_ids=[int(t) for t in r.prompt],
+                              token_ids=list(r.out),
+                              finish_reason=r.finish_reason)
+                for i, r in enumerate(reqs)]
+
+    def set_comm_policy(self, comm, *, logits: str = "exact"):
+        """Attach a CommPolicy (or uniform level string) to the current
+        plan and rebuild the engine (params re-placed: the comm-refined
+        segmentation restacks them)."""
+        self.plan = self.plan.with_comm(_resolve_comm(comm, self.cfg.n_layers,
+                                                      logits))
+        self._build_engine()

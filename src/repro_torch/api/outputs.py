@@ -1,0 +1,26 @@
+"""Result types returned by the `repro_torch.api` facade (port of
+repro/api/outputs.py)."""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+__all__ = ["RequestOutput"]
+
+
+@dataclass
+class RequestOutput:
+    """One finished request, in submission order.
+
+    finish_reason: "stop" (EOS / stop token) or "length" (max_new).
+    """
+
+    index: int
+    prompt_token_ids: List[int]
+    token_ids: List[int] = field(default_factory=list)
+    finish_reason: Optional[str] = None
+    n_preempted: int = 0
+
+    @property
+    def finished(self) -> bool:
+        return self.finish_reason is not None

@@ -1,0 +1,176 @@
+"""Configuration dataclasses (port of repro/config/base.py).
+
+`ModelConfig` keeps the reference's fields and defaults one for one, so
+the two packages' configs compare field by field.  The family
+sub-configs (MoE/MLA/SSM) are carried as inert fields: this slice serves
+the dense family only.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_routed: int
+    n_shared: int
+    top_k: int
+    d_ff_expert: int
+    capacity_factor: float = 1.25
+    router_jitter: float = 0.0
+    n_dense_layers: int = 0
+    d_ff_dense: int = 0
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 0
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    chunk_size: int = 256
+    n_groups: int = 1
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Architecture description. `family` selects the block type."""
+
+    name: str
+    family: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    d_head: int = 0               # 0 => d_model // n_heads
+
+    # attention: "xla" runs the plain torch attention (the port of the
+    # reference's XLA path), "pallas" the hand-written flash kernel
+    attn_backend: str = "xla"
+    kv_dtype: str = "model"
+    weight_dtype: str = "model"
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    o_bias: bool = False
+    rope_theta: float = 10_000.0
+    rope_fraction: float = 1.0
+    attn_window: int = 0
+    global_attn_layers: Tuple[int, ...] = ()
+
+    mlp_bias: bool = False
+    gated_mlp: bool = True
+    act: str = "silu"
+
+    norm: str = "rmsnorm"
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    max_seq_len: int = 1 << 20
+    pos_emb: str = "rope"
+
+    frontend_dim: int = 0
+    frontend_len: int = 0
+
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
+    ssm: Optional[SSMConfig] = None
+    frontend: Optional[str] = None
+
+    dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        if self.d_head == 0 and self.n_heads > 0:
+            object.__setattr__(self, "d_head", self.d_model // self.n_heads)
+        if self.n_heads and self.n_kv_heads and \
+                self.n_heads % self.n_kv_heads:
+            raise ValueError(f"{self.name}: n_heads={self.n_heads} not "
+                             f"divisible by n_kv_heads={self.n_kv_heads}")
+
+    @property
+    def attn_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def spd_applicable(self) -> bool:
+        """SPD needs a second sync point (the MLP combine) to defer the
+        attention partial sum to."""
+        return not self.attn_free
+
+
+# Quantization levels a kept sync point (or the logits all-gather) may run at.
+SYNC_LEVELS = ("exact", "quant8", "quant4")
+
+
+@dataclass(frozen=True)
+class CommPolicy:
+    """Per-block precision of the syncs an SPD plan keeps, plus the level
+    of the final logits all-gather."""
+
+    block_modes: Tuple[str, ...]
+    logits_mode: str = "exact"
+
+    def __post_init__(self):
+        for m in self.block_modes + (self.logits_mode,):
+            if m not in SYNC_LEVELS:
+                raise ValueError(f"bad sync level {m!r} "
+                                 f"(expected one of {SYNC_LEVELS})")
+
+    @staticmethod
+    def uniform(n_layers: int, mode: str,
+                logits: str = "exact") -> "CommPolicy":
+        return CommPolicy(tuple([mode] * n_layers), logits_mode=logits)
+
+
+@dataclass(frozen=True)
+class SPDPlanConfig:
+    """Which blocks drop their attention-output sync point (True = SPD
+    block), and optionally the CommPolicy of the syncs that remain."""
+
+    drop_mask: Tuple[bool, ...]
+    comm: Optional[CommPolicy] = None
+
+    def __post_init__(self):
+        if (self.comm is not None
+                and len(self.comm.block_modes) != len(self.drop_mask)):
+            raise ValueError(
+                f"comm policy covers {len(self.comm.block_modes)} blocks, "
+                f"plan has {len(self.drop_mask)}")
+
+    @property
+    def n_dropped(self) -> int:
+        return sum(self.drop_mask)
+
+    @property
+    def qmodes(self) -> Optional[Tuple[str, ...]]:
+        """Per-layer kept-sync levels, or None for all-exact."""
+        return None if self.comm is None else self.comm.block_modes
+
+    @property
+    def logits_mode(self) -> str:
+        return "exact" if self.comm is None else self.comm.logits_mode
+
+    def block_mode(self, i: int) -> Optional[str]:
+        return None if self.comm is None else self.comm.block_modes[i]
+
+    def with_comm(self, comm: Optional[CommPolicy]) -> "SPDPlanConfig":
+        return SPDPlanConfig(self.drop_mask, comm)
+
+    @staticmethod
+    def first_k(n_layers: int, k: int) -> "SPDPlanConfig":
+        return SPDPlanConfig(tuple([i < k for i in range(n_layers)]))
+
+
+def replace(cfg, **kw):
+    return dataclasses.replace(cfg, **kw)

@@ -1,0 +1,328 @@
+"""Decoder-block math for TP and SPD execution — the paper's §4.1
+(port of repro/core/blocks.py, the dense GQA subset).
+
+Every activation is SHARD-STACKED: x (tp, B, S, d), dim 0 the TP shard.
+Block inputs and outputs are replicated (all shards equal); inside an
+SPD block the shards diverge.
+
+Block wiring (Fig 3):
+
+  TP block                       SPD block (no bias)
+  h  = norm1(x)                  h   = norm1(x)
+  y  = psum(attn(h))   <- SYNC   y_i = attn(h)            <- sync DROPPED
+  u  = x + y                     u_i = x + y_i             (divergent)
+  z  = psum(mlp(n2(u))) <- SYNC  s   = psum(mlp(n2(u_i)) + y_i)  <- SYNC
+  out= u + z                     out = x + s
+
+  With an out-proj bias b (Fig 3b): y_i = P_i + b feeds the MLP input;
+  only P_i rides the deferred residual; b is re-added once after the
+  sync: out = x + b + s, s = psum(Z_i + P_i).
+
+Parameters are canonical (unpadded); `pad_layer` produces the TP-layout
+tensors whose split axes `layer_specs` gives.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.config.base import ModelConfig
+from repro_torch.core.layer_kinds import LayerKind
+from repro_torch.models import attention as A
+from repro_torch.models.common import act_fn, apply_rope, norm_apply
+from repro_torch.parallel.collectives import (column_entry, shared_param,
+                                              sync_output)
+from repro_torch.parallel.layout import (REPLICATED, kv_head_orig,
+                                         make_gqa_layout, pad_heads,
+                                         q_head_orig)
+
+TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(cfg) -> torch.dtype:
+    return TORCH_DTYPES[cfg.dtype]
+
+
+def _check_ported(cfg: ModelConfig) -> None:
+    if cfg.kv_dtype != "model" or cfg.weight_dtype != "model":
+        raise NotImplementedError("int8 KV caches and int8 weights are not "
+                                  "ported yet (kv_dtype/weight_dtype must be "
+                                  "'model')")
+    if cfg.qk_norm or cfg.norm != "rmsnorm" or cfg.pos_emb != "rope":
+        raise NotImplementedError(f"{cfg.name}: qk_norm / layernorm / "
+                                  "learned positions are not ported yet")
+
+
+# ---------------------------------------------------------------------------
+# Small helpers
+# ---------------------------------------------------------------------------
+
+def _bcast(w, x):
+    """A per-shard vector (tp, n) shaped to broadcast over x (tp, ..., n)."""
+    return w.reshape((w.shape[0],) + (1,) * (x.dim() - 2) + (w.shape[-1],))
+
+
+def _norm(x, p, cfg):
+    return norm_apply(x, {"w": _bcast(p["w"], x)}, cfg)
+
+
+def _mm(h, w):
+    """Per-shard matmul: h (tp, ..., din) @ w (tp, din, dout)."""
+    tp, din = h.shape[0], h.shape[-1]
+    out = torch.bmm(h.reshape(tp, -1, din), w)
+    return out.reshape(tuple(h.shape[:-1]) + (w.shape[-1],))
+
+
+def _qkv(cfg, a, h, lay):
+    """h (tp,B,S,d) -> q (tp,B,S,HqL,dh), k/v (tp,B,S,HkvL,dh)."""
+    dh = cfg.d_head
+    q, k, v = _mm(h, a["wq"]), _mm(h, a["wk"]), _mm(h, a["wv"])
+    if cfg.qkv_bias:
+        q = q + _bcast(a["bq"], q)
+        k = k + _bcast(a["bk"], k)
+        v = v + _bcast(a["bv"], v)
+    lead = tuple(h.shape[:3])
+    return (q.reshape(lead + (lay.q_local, dh)),
+            k.reshape(lead + (lay.kv_local, dh)),
+            v.reshape(lead + (lay.kv_local, dh)))
+
+
+def _pack_kv(cfg, kc, vc):
+    _check_ported(cfg)
+    return {"k": kc, "v": vc}
+
+
+def _update_kv(cfg, cache, k_new, v_new, pos):
+    """Write one decode token into the cache, in place."""
+    _check_ported(cfg)
+    kc, vc = A.cache_update(cache["k"], cache["v"], k_new, v_new, pos)
+    return {"k": kc, "v": vc}
+
+
+# ---------------------------------------------------------------------------
+# Parameter initialization (canonical, unpadded) + TP-layout specs
+# ---------------------------------------------------------------------------
+
+def _dense(gen, d_in, d_out, cfg, device, scale=None):
+    s = scale if scale is not None else 1.0 / np.sqrt(d_in)
+    w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32,
+                    device=device)
+    return (w * s).to(torch_dtype(cfg))
+
+
+def _norm_init(cfg, d, device):
+    return {"w": torch.ones((d,), dtype=torch_dtype(cfg), device=device)}
+
+
+def init_attn(gen, cfg: ModelConfig, device) -> dict:
+    d, dh = cfg.d_model, cfg.d_head
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    zeros = lambda n: torch.zeros((n,), dtype=torch_dtype(cfg),  # noqa: E731
+                                  device=device)
+    p = {"wq": _dense(gen, d, hq * dh, cfg, device),
+         "wk": _dense(gen, d, hkv * dh, cfg, device),
+         "wv": _dense(gen, d, hkv * dh, cfg, device),
+         "wo": _dense(gen, hq * dh, d, cfg, device,
+                      scale=1.0 / np.sqrt(hq * dh) / np.sqrt(2 * cfg.n_layers))}
+    if cfg.qkv_bias:
+        p.update(bq=zeros(hq * dh), bk=zeros(hkv * dh), bv=zeros(hkv * dh))
+    if cfg.o_bias:
+        p["bo"] = zeros(d)
+    return p
+
+
+def attn_specs(cfg: ModelConfig) -> dict:
+    p = {"wq": 1, "wk": 1, "wv": 1, "wo": 0}
+    if cfg.qkv_bias:
+        p.update({"bq": 0, "bk": 0, "bv": 0})
+    if cfg.o_bias:
+        p["bo"] = REPLICATED
+    return p
+
+
+def init_mlp(gen, cfg: ModelConfig, d_ff: int, device) -> dict:
+    d = cfg.d_model
+    zeros = lambda n: torch.zeros((n,), dtype=torch_dtype(cfg),  # noqa: E731
+                                  device=device)
+    p = {"wu": _dense(gen, d, d_ff, cfg, device),
+         "wd": _dense(gen, d_ff, d, cfg, device,
+                      scale=1.0 / np.sqrt(d_ff) / np.sqrt(2 * cfg.n_layers))}
+    if cfg.gated_mlp:
+        p["wg"] = _dense(gen, d, d_ff, cfg, device)
+    if cfg.mlp_bias:
+        p.update(bu=zeros(d_ff), bd=zeros(d))
+        if cfg.gated_mlp:
+            p["bg"] = zeros(d_ff)
+    return p
+
+
+def mlp_specs(cfg: ModelConfig) -> dict:
+    p = {"wu": 1, "wd": 0}
+    if cfg.gated_mlp:
+        p["wg"] = 1
+    if cfg.mlp_bias:
+        p.update({"bu": 0, "bd": REPLICATED})
+        if cfg.gated_mlp:
+            p["bg"] = 0
+    return p
+
+
+def init_layer(gen, cfg: ModelConfig, kind: LayerKind, device) -> dict:
+    return {"ln1": _norm_init(cfg, cfg.d_model, device),
+            "attn": init_attn(gen, cfg, device),
+            "ln2": _norm_init(cfg, cfg.d_model, device),
+            "mlp": init_mlp(gen, cfg, kind.d_ff or cfg.d_ff, device)}
+
+
+def layer_specs(cfg: ModelConfig, kind: LayerKind) -> dict:
+    return {"ln1": {"w": REPLICATED}, "attn": attn_specs(cfg),
+            "ln2": {"w": REPLICATED}, "mlp": mlp_specs(cfg)}
+
+
+def pad_layer(p: dict, cfg: ModelConfig, kind: LayerKind, tp: int) -> dict:
+    """Pad canonical layer params so every split axis divides by tp."""
+    _check_ported(cfg)
+    dh = cfg.d_head
+    lay = make_gqa_layout(cfg.n_heads, cfg.n_kv_heads, tp)
+    qmap, kvmap = q_head_orig(lay), kv_head_orig(lay)
+    a = dict(p["attn"])
+    a["wq"] = pad_heads(a["wq"], 1, qmap, dh, cfg.n_heads)
+    a["wo"] = pad_heads(a["wo"], 0, qmap, dh, cfg.n_heads)
+    for nm in ("wk", "wv"):
+        a[nm] = pad_heads(a[nm], 1, kvmap, dh, cfg.n_kv_heads)
+    if cfg.qkv_bias:
+        a["bq"] = pad_heads(a["bq"], 0, qmap, dh, cfg.n_heads)
+        a["bk"] = pad_heads(a["bk"], 0, kvmap, dh, cfg.n_kv_heads)
+        a["bv"] = pad_heads(a["bv"], 0, kvmap, dh, cfg.n_kv_heads)
+    m = dict(p["mlp"])
+    ff = m["wu"].shape[1]
+    ffp = -(-ff // tp) * tp
+    if ffp != ff:
+        padm = np.concatenate([np.arange(ff), -np.ones(ffp - ff, np.int64)])
+        for nm in ("wu", "wg", "bu", "bg"):
+            if nm in m:
+                m[nm] = pad_heads(m[nm], 1 if nm[0] == "w" else 0, padm, 1, ff)
+        m["wd"] = pad_heads(m["wd"], 0, padm, 1, ff)
+    return dict(p, attn=a, mlp=m)
+
+
+# ---------------------------------------------------------------------------
+# Mixers (shard-local partial output, NO sync applied here)
+# ---------------------------------------------------------------------------
+
+def gqa_mixer_seq(cfg, kind, a, h, pos, lay, *, want_cache=False,
+                  q_chunk=1024):
+    """Sequence (prefill) attention: h (tp,B,S,d), pos (B,S) -> (partial
+    (tp,B,S,d), cache {"k","v"} (tp,B,S,HkvL,dh) or None)."""
+    q, k, v = _qkv(cfg, a, h, lay)
+    q = apply_rope(q, pos, cfg.rope_theta, cfg.rope_fraction)
+    k = apply_rope(k, pos, cfg.rope_theta, cfg.rope_fraction)
+    tp, b, s = h.shape[:3]
+    if cfg.attn_backend == "pallas":
+        # the hand-written flash kernel; the shard axis folds into batch
+        from repro_torch.kernels import ops as KOPS
+        o = KOPS.flash_attention(q.reshape((tp * b,) + q.shape[2:]),
+                                 k.reshape((tp * b,) + k.shape[2:]),
+                                 v.reshape((tp * b,) + v.shape[2:]))
+    else:
+        o = A.attention_any(q, k, v, pos, pos, q_chunk=q_chunk)
+    part = _mm(o.reshape(tp, b, s, -1), a["wo"])
+    return part, (_pack_kv(cfg, k, v) if want_cache else None)
+
+
+def gqa_mixer_dec(cfg, kind, a, h, pos, cache, lay):
+    """Decode attention: h (tp,B,1,d), pos (B,); cache {"k","v"}
+    (tp,B,S,HkvL,dh), updated in place."""
+    q, k, v = _qkv(cfg, a, h, lay)
+    q = apply_rope(q, pos[:, None], cfg.rope_theta, cfg.rope_fraction)
+    k = apply_rope(k, pos[:, None], cfg.rope_theta, cfg.rope_fraction)
+    cache = _update_kv(cfg, cache, k, v, pos)
+    o = A.decode_attend(q, cache["k"], cache["v"], pos)
+    part = _mm(o.reshape(tuple(h.shape[:3]) + (-1,)), a["wo"])
+    return part, cache
+
+
+# ---------------------------------------------------------------------------
+# FFN partial (shard-local, NO sync applied here)
+# ---------------------------------------------------------------------------
+
+def mlp_partial(cfg, m, h, *, divergent: bool):
+    act = act_fn(cfg.act)
+    up = _mm(h, m["wu"])
+    if cfg.mlp_bias:
+        up = up + _bcast(m["bu"], up)
+    if cfg.gated_mlp:
+        g = _mm(h, m["wg"])
+        if cfg.mlp_bias:
+            g = g + _bcast(m["bg"], g)
+        hid = act(g) * up
+    else:
+        hid = act(up)
+    return _mm(hid, m["wd"])      # the wd bias (bd) is added at the sync
+
+
+# ---------------------------------------------------------------------------
+# Full blocks: TP vs SPD wiring
+# ---------------------------------------------------------------------------
+
+def _mixer_seq(cfg, kind, p, x, pos, lay, want_cache, q_chunk):
+    """norm1 -> column entry -> mixer partial: (partial, bias_o, cache)."""
+    h = column_entry(_norm(x, p["ln1"], cfg))
+    part, cache = gqa_mixer_seq(cfg, kind, p["attn"], h, pos, lay,
+                                want_cache=want_cache, q_chunk=q_chunk)
+    return part, p["attn"].get("bo"), cache
+
+
+def _ffn_partial(cfg, kind, p, u, *, divergent):
+    """norm2 -> (column entry) -> ffn partial: (z_partial, bias_d)."""
+    ln2 = {"w": shared_param(p["ln2"]["w"])} if divergent else p["ln2"]
+    h2 = _norm(u, ln2, cfg)
+    h2 = h2 if divergent else column_entry(h2)
+    return mlp_partial(cfg, p["mlp"], h2, divergent=divergent), \
+        p["mlp"].get("bd")
+
+
+def _wire_post_mixer(cfg, kind, p, x, part, bo, *, drop: bool, comm=None):
+    """TP/SPD post-mixer wiring (Fig 3) shared by prefill and decode.  x
+    is the block input, `part` the shard-local mixer partial, `comm` the
+    block's kept-sync level."""
+    if not drop:
+        y = sync_output(part, mode=comm)
+        if bo is not None:
+            y = y + _bcast(bo, y)
+        u = x + y
+        z, bd = _ffn_partial(cfg, kind, p, u, divergent=False)
+        z = sync_output(z, mode=comm)
+        if bd is not None:
+            z = z + _bcast(bd, z)
+        return u + z
+    # ---- SPD wiring ----
+    y_i = part
+    if bo is not None:
+        y_i = y_i + _bcast(shared_param(bo), y_i)   # b on the divergent path
+    u_i = column_entry(x) + y_i
+    z_i, bd = _ffn_partial(cfg, kind, p, u_i, divergent=True)
+    out = x + sync_output(z_i + part, mode=comm)     # deferred residual: P_i
+    if bo is not None:
+        out = out + _bcast(bo, out)                  # bias re-added once
+    if bd is not None:
+        out = out + _bcast(bd, out)
+    return out
+
+
+def block_seq(cfg, kind, lay, p, x, pos, *, drop: bool, want_cache=False,
+              q_chunk=1024, comm=None):
+    """Sequence-mode block (prefill): x (tp,B,S,d).  Returns (out, cache)."""
+    part, bo, cache = _mixer_seq(cfg, kind, p, x, pos, lay, want_cache,
+                                 q_chunk)
+    out = _wire_post_mixer(cfg, kind, p, x, part, bo, drop=drop, comm=comm)
+    return out, cache
+
+
+def block_dec(cfg, kind, lay, p, x, pos, cache, *, drop: bool, comm=None):
+    """Decode-mode block: x (tp,B,1,d), pos (B,).  Returns (out, cache)."""
+    h = column_entry(_norm(x, p["ln1"], cfg))
+    part, cache = gqa_mixer_dec(cfg, kind, p["attn"], h, pos, cache, lay)
+    out = _wire_post_mixer(cfg, kind, p, x, part, p["attn"].get("bo"),
+                           drop=drop, comm=comm)
+    return out, cache

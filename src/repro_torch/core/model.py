@@ -1,0 +1,238 @@
+"""Full-model serving forward (port of repro/core/model.py, the dense
+serving subset).
+
+Layers are grouped into SEGMENTS of equal (kind, drop flag, sync level);
+each segment's parameters are stacked on a layer axis, as in the
+reference, and its layers run in a Python loop where the reference runs
+`lax.scan`.  Parameters after `simtp.split_stacked` are shard-stacked:
+every leaf has a leading (tp, ...) axis and segment leaves are
+(tp, layers, ...).  The vocab axis of the embedding is split over the
+shards (tied embeddings double as the LM head).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Tuple
+
+import torch
+
+from repro_torch.config.base import ModelConfig, SPDPlanConfig
+from repro_torch.core import blocks as B
+from repro_torch.core.layer_kinds import layer_kinds, plan_segments
+from repro_torch.models.common import norm_apply
+from repro_torch.parallel.collectives import (column_entry, comm_context,
+                                              ledger_paused, ledger_scale,
+                                              sync_output)
+from repro_torch.parallel.layout import make_gqa_layout
+from repro_torch.tree import tree_map
+
+
+# ---------------------------------------------------------------------------
+# Init / specs / padding
+# ---------------------------------------------------------------------------
+
+def init_model(cfg: ModelConfig, *, seed: int = 0, device="cpu") -> dict:
+    """Canonical (unpadded, unstacked) parameters from a seeded
+    torch.Generator (not the reference's numbers: parity tests carry the
+    reference's parameters across with `core.convert.from_reference`)."""
+    B._check_ported(cfg)
+    if not cfg.tie_embeddings:
+        raise NotImplementedError("untied LM heads are not ported yet")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    emb = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
+                      dtype=torch.float32, device=device) * 0.02
+    return {"emb": emb.to(B.torch_dtype(cfg)),
+            "lnf": B._norm_init(cfg, cfg.d_model, device),
+            "layers": [B.init_layer(gen, cfg, k, device)
+                       for k in layer_kinds(cfg)]}
+
+
+def vocab_pad(cfg: ModelConfig, tp: int) -> int:
+    return -(-cfg.vocab_size // tp) * tp
+
+
+def pad_model(p: dict, cfg: ModelConfig, tp: int) -> dict:
+    """Canonical -> TP-layout (padded) params; layers stay a list."""
+    out = {k: v for k, v in p.items() if k != "layers"}
+    pad = vocab_pad(cfg, tp) - cfg.vocab_size
+    if pad:
+        out["emb"] = torch.cat([p["emb"], p["emb"].new_zeros(
+            (pad, cfg.d_model))], 0)
+    out["layers"] = [B.pad_layer(lp, cfg, k, tp)
+                     for lp, k in zip(p["layers"], layer_kinds(cfg))]
+    return out
+
+
+def model_specs(cfg: ModelConfig) -> dict:
+    return {"emb": 0, "lnf": {"w": -1},
+            "layers": [B.layer_specs(cfg, k) for k in layer_kinds(cfg)]}
+
+
+def stack_segments(padded: dict, cfg: ModelConfig,
+                   plan: SPDPlanConfig) -> dict:
+    """Padded per-layer list -> per-segment stacked trees."""
+    out = {k: v for k, v in padded.items() if k != "layers"}
+    out["segs"] = []
+    for (start, length, _, _) in plan_segments(cfg, plan.drop_mask,
+                                               plan.qmodes):
+        ls = padded["layers"][start:start + length]
+        out["segs"].append(tree_map(lambda *xs: torch.stack(xs, 0), *ls))
+    return out
+
+
+def stacked_specs(cfg: ModelConfig, plan: SPDPlanConfig) -> dict:
+    s = model_specs(cfg)
+    out = {k: v for k, v in s.items() if k != "layers"}
+    out["segs"] = [s["layers"][start] for (start, _, _, _)
+                   in plan_segments(cfg, plan.drop_mask, plan.qmodes)]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Embedding / head (vocab-parallel)
+# ---------------------------------------------------------------------------
+
+def embed_tokens(emb, tokens):
+    """emb (tp, Vl, d); tokens (B,S) -> (tp,B,S,d) via a masked psum."""
+    tp, vl = emb.shape[:2]
+    shard = torch.arange(tp, device=emb.device).view(tp, 1, 1)
+    local = tokens[None] - shard * vl
+    valid = (local >= 0) & (local < vl)
+    e = emb[shard, local.clamp(0, vl - 1)]
+    e = torch.where(valid[..., None], e, torch.zeros_like(e))
+    return sync_output(e, compressible=False)
+
+
+def lm_logits(p, cfg, x):
+    """x (tp,B,S,d) replicated -> shard-local logits (tp,B,S,Vl) fp32."""
+    return B._mm(column_entry(x), p["emb"].transpose(1, 2)).float()
+
+
+def serve_logits(p, cfg, x, plan):
+    """lm_logits for the serving paths, honoring the comm policy's
+    logits level: a quantized level puts each shard's slice through the
+    wire qdq and logs the all-gather at quantized bytes."""
+    lg = lm_logits(p, cfg, x)
+    mode = plan.logits_mode if plan is not None else "exact"
+    if mode != "exact":
+        from repro_torch.parallel.compression import (QUANT_BITS,
+                                                      quantized_gather_payload)
+        lg = quantized_gather_payload(lg, "model", bits=QUANT_BITS[mode])
+    return lg
+
+
+def _final_norm(stacked, cfg, x):
+    return norm_apply(x, {"w": B._bcast(stacked["lnf"]["w"], x)}, cfg)
+
+
+def _gqa_layout(cfg, tp):
+    return make_gqa_layout(cfg.n_heads, cfg.n_kv_heads, tp)
+
+
+def _layer(seg_params, j):
+    return tree_map(lambda w: w[:, j], seg_params)
+
+
+# ---------------------------------------------------------------------------
+# Prefill / decode (serving)
+# ---------------------------------------------------------------------------
+
+def forward_seq(cfg, stacked, plan: SPDPlanConfig, tokens, *, tp,
+                q_chunk=1024, cache_len: int = 0, want_cache=False):
+    """Sequence forward.  tokens (B,S).  Returns (hidden (tp,B,S,d) after
+    the final norm, caches) — caches per segment {"k","v"} of shape
+    (tp, layers, B, max(S, cache_len), HkvL, dh), zero past S."""
+    lay = _gqa_layout(cfg, tp)
+    x = embed_tokens(stacked["emb"], tokens)
+    b, s = tokens.shape
+    pos = torch.arange(s, device=tokens.device).expand(b, s)
+    caches = []
+    for seg_i, (start, length, kind, dropped) in enumerate(
+            plan_segments(cfg, plan.drop_mask, plan.qmodes)):
+        sp = stacked["segs"][seg_i]
+        seg_cache = None
+        with ledger_scale(length), comm_context(block=start, phase="prefill"):
+            for j in range(length):
+                with ledger_paused(j > 0):
+                    x, c = B.block_seq(cfg, kind, lay, _layer(sp, j), x, pos,
+                                       drop=dropped, want_cache=want_cache,
+                                       q_chunk=q_chunk,
+                                       comm=plan.block_mode(start))
+                if want_cache:
+                    if seg_cache is None:
+                        shp = (tp, length, b, max(s, cache_len)) + \
+                            tuple(c["k"].shape[3:])
+                        seg_cache = {kk: c[kk].new_zeros(shp) for kk in c}
+                    for kk in c:
+                        seg_cache[kk][:, j, :, :s] = c[kk]
+        caches.append(seg_cache)
+    return _final_norm(stacked, cfg, x), (caches if want_cache else None)
+
+
+def prefill(cfg, stacked, plan, tokens, *, tp, q_chunk=1024,
+            cache_len: int = 0, lengths=None):
+    """Returns (next-token logits (tp,B,Vl) fp32 shard-local, caches).
+
+    `cache_len` pads the caches' sequence axis to the decode buffer
+    length; `lengths` (B,) are the real prompt lengths of a right-padded
+    batch (logits are taken at lengths-1; decode overwrites the padded
+    cache slots before they become causally visible)."""
+    x, caches = forward_seq(cfg, stacked, plan, tokens, tp=tp,
+                            q_chunk=q_chunk, cache_len=cache_len,
+                            want_cache=True)
+    if lengths is None:
+        xq = x[:, :, -1:]
+    else:
+        idx = (lengths.long() - 1).clamp(0, x.shape[2] - 1)
+        xq = x[:, torch.arange(x.shape[1], device=x.device), idx][:, :, None]
+    return serve_logits(stacked, cfg, xq, plan)[:, :, 0], caches
+
+
+def decode_step(cfg, stacked, plan, tokens, pos, caches, *, tp):
+    """One decode step: tokens (B,1), pos (B,), caches per segment
+    (updated in place).  Returns (logits (tp,B,Vl) fp32, caches)."""
+    lay = _gqa_layout(cfg, tp)
+    x = embed_tokens(stacked["emb"], tokens)
+    for seg_i, (start, length, kind, dropped) in enumerate(
+            plan_segments(cfg, plan.drop_mask, plan.qmodes)):
+        sp, cs = stacked["segs"][seg_i], caches[seg_i]
+        with ledger_scale(length), comm_context(block=start, phase="decode"):
+            for j in range(length):
+                with ledger_paused(j > 0):
+                    x, _ = B.block_dec(cfg, kind, lay, _layer(sp, j), x, pos,
+                                       _layer(cs, j), drop=dropped,
+                                       comm=plan.block_mode(start))
+    x = _final_norm(stacked, cfg, x)
+    return serve_logits(stacked, cfg, x, plan)[:, :, 0], caches
+
+
+# ---------------------------------------------------------------------------
+# Cache allocation
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class CacheStruct:
+    """Shape and dtype of one cache leaf (shard-logical: head axes carry
+    the full padded head count; backends split it)."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def cache_struct(cfg, plan: SPDPlanConfig, batch: int, seq_len: int,
+                 tp: int):
+    """Per segment {"k","v"} CacheStructs (layers, batch, S, kv_layout, dh)."""
+    lay = _gqa_layout(cfg, tp)
+    out = []
+    for (_, length, _, _) in plan_segments(cfg, plan.drop_mask,
+                                           plan.qmodes):
+        st = CacheStruct((length, batch, seq_len, lay.kv_layout, cfg.d_head),
+                         B.torch_dtype(cfg))
+        out.append({"k": st, "v": st})
+    return out
+
+
+def cache_specs_tree(cfg, plan: SPDPlanConfig):
+    """Split axis of each cache leaf in the cache_struct layout."""
+    return [{"k": 3, "v": 3} for _ in plan_segments(cfg, plan.drop_mask,
+                                                    plan.qmodes)]

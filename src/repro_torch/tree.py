@@ -1,0 +1,15 @@
+"""Nested dict/list parameter and cache trees (the port's stand-in for
+JAX pytrees): leaves are tensors or ints, containers are dicts (keys
+visited in sorted order, as JAX does) and lists/tuples."""
+from __future__ import annotations
+
+
+def tree_map(fn, tree, *rest):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *[r[k] for r in rest])
+                for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, t, *[r[i] for r in rest])
+                          for i, t in enumerate(tree))
+    return fn(tree, *rest)
+
