@@ -6,19 +6,27 @@
    versions, and builds every kernel from src/repro_torch/csrc with nvcc
    (one process per source, in parallel) into build/.
 2. Kernel phase: each hand-written kernel against its plain PyTorch
-   version on the card, at the serving path's shapes, with the stated
+   version on the card, at the serving paths' shapes, with the stated
    tolerance; timed with CUDA events beside its plain version, a
    library call where one exists, and its bound on the card.
-3. Main path: full-width SmolLM-360M through LLM.load(tp=2, spd=0.25,
-   kept syncs and logits gather at quant8, flash prefill) -> generate on
-   4 seeded prompts, 16 greedy tokens each.  Every kernel's launch count
-   is zeroed just before and read just after; each must be > 0.
-   A profiled generate then shows the device-busy share and the top
-   kernels by device time.
-4. Teacher-forced check: one prompt's prefill logits with the flash
-   kernel ("pallas") against the plain attention ("xla") on the same
-   parameters, in bf16 and in fp32.
-5. Prints the kernels JSON line, the card line, and last
+3. Dense main path: full-width SmolLM-360M through LLM.load(tp=2,
+   spd=0.25, kept syncs and logits gather at quant8, flash prefill) ->
+   generate on 4 seeded prompts, 16 greedy tokens each.  Every kernel's
+   launch count is zeroed just before and read just after; the dense
+   path's kernels must each be > 0.  A profiled generate then shows the
+   device-busy share and the top kernels by device time.
+4. Paged main path: the same model and settings plus page_size=16 and a
+   pool of 40 pages that the 4 requests outgrow at their peak (they need
+   41): every request finishes, at least one is preempted, and every page
+   comes back.  Then two prompts sharing a 256-token prefix: the second
+   admits warm (a prefix hit) and prefills its suffix through the paged
+   kernel at C=32.  Launch counts zeroed before and read after; every
+   kernel of the path must be > 0.  A profiled paged generate follows.
+5. Teacher-forced checks: prefill logits with the flash kernel against
+   the plain attention, and one decode step's logits through the paged
+   kernel against the dense plain decode, on the same parameters, in
+   bf16 and in fp32.
+6. Prints the kernels JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 
 Any failure raises (non-zero exit, no result line).  Without a CUDA
@@ -43,11 +51,22 @@ FLASH_FP32_ATOL = 2e-5                 # fp32 online vs one-shot softmax
 QDQ_NS = (960, 3840, 16 * 960, 24576)  # (2, N) payloads; bit-identical
 PROMPT_LENS = (17, 64, 200, 300)
 MAX_NEW = 16
+# paged serving: 16-token pages; the 4 requests need 41 pages at their
+# peak, so a 40-page pool must preempt
+PAGE_SIZE = 16
+NUM_PAGES = 40
+PREFIX_LEN = 256                       # shared prefix of the warm pair
+# paged kernel shapes: q (2, 4, C, 9, 64) against one layer of a
+# (2, 32, P+1, 16, 3, 64) pool leaf, table bucketed to 32 pages
+PAGED_POS = (16, 80, 216, 316)
+PAGED_PHYS = 96
 # prefill logits, flash kernel vs plain attention through 32 layers
 # (exact syncs): bf16 rounds each layer's attention output differently
 # (2^-8 relative per layer), fp32 only reorders sums
 TF_BF16_REL = 0.05                     # x max |logit|
 TF_FP32_ATOL = 1e-3
+# one decode step, paged kernel vs dense plain decode attention, after
+# the same prefill: the same reasons and limits as the prefill check
 
 
 def card_line() -> str:
@@ -167,10 +186,126 @@ def qdq_phase(torch):
             "shape": "(2,3840) fp32, a decode step's kept sync"}
 
 
-def timed_engine(torch, engine):
-    """Wrap the engine's prefill/decode with synchronized host timers."""
-    times = {"prefill": [], "decode": []}
-    for name in ("prefill", "decode"):
+def paged_case(torch, dtype, c, masked_row=None):
+    """q (2, 4, c, 9, 64) and k/v pools as one layer of (2, 32, P+1, 16,
+    3, 64) leaves (a strided view, as the model passes them), a table
+    bucketed to 32 pages of distinct physical pages with -1 tails.  c=1:
+    rows at PAGED_POS; c>1: only row 2 is live, a suffix chunk at
+    PREFIX_LEN (the others all -1, as in a warm admission).  `masked_row`
+    is set all -1 too."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2 + c)
+    perm = torch.randperm(PAGED_PHYS,
+                          generator=torch.Generator().manual_seed(c))
+    tp, b, hq, hkv, d, ps, width = 2, 4, 9, 3, 64, PAGE_SIZE, 32
+    leaf = (tp, 32, PAGED_PHYS + 1, ps, hkv, d)
+    kleaf = torch.randn(leaf, generator=gen, device=dev).to(dtype)
+    vleaf = torch.randn(leaf, generator=gen, device=dev).to(dtype)
+    q = torch.randn(tp, b, c, hq, d, generator=gen, device=dev).to(dtype)
+    pos = list(PAGED_POS) if c == 1 else [0, 0, PREFIX_LEN, 0]
+    table = torch.full((b, width), -1, dtype=torch.long)
+    nxt = 0
+    for r in range(b):
+        if (c > 1 and r != 2) or r == masked_row:
+            continue
+        own = -(-(pos[r] + c) // ps)
+        table[r, :own] = perm[nxt:nxt + own]
+        nxt += own
+    return (q, kleaf[:, 5], vleaf[:, 5], table.to(dev),
+            torch.tensor(pos, device=dev))
+
+
+def paged_work(table, pos, c, q, pool):
+    """Bytes the paged attention must move (visible K/V, q, out) and its
+    flops, from this call's table and positions."""
+    tp, b, _, hq, d = q.shape
+    ps, hkv = pool.shape[-3], pool.shape[-2]
+    table, pos = table.cpu().numpy(), pos.cpu().numpy()
+    keys, flops = 0, 0
+    for r in range(b):
+        live = [j for j in range(table.shape[1]) if table[r, j] >= 0]
+        last = int(pos[r]) + c - 1
+        keys += sum(max(0, min(ps, last + 1 - j * ps)) for j in live)
+        for i in range(c):
+            seen = sum(max(0, min(ps, int(pos[r]) + i + 1 - j * ps))
+                       for j in live)
+            flops += 4 * d * hq * seen
+    es = q.element_size()
+    nbytes = tp * hkv * d * 2 * keys * es + 2 * q.numel() * es
+    return nbytes, tp * flops
+
+
+def paged_phase(torch):
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+
+    def plain(q, kv, vv, table, pos):
+        return torch.stack([FA.paged_flash_attention_plain(
+            q[t], kv[t], vv[t], table, pos) for t in range(q.shape[0])])
+
+    timed = None
+    for dtype in (torch.bfloat16, torch.float32):
+        for c, masked in ((1, None), (1, 1), (32, None)):
+            q, kv, vv, table, pos = paged_case(torch, dtype, c, masked)
+            out = FA.paged_flash_attention(q, kv, vv, table, pos)
+            ref = plain(q, kv, vv, table, pos)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            tol = (FLASH_FP32_ATOL if dtype == torch.float32 else
+                   2.0 ** -7 * max(ref.float().abs().max().item(), 1e-3))
+            zero = (masked is None
+                    or not out[:, masked].float().abs().max().item())
+            print(f"paged {str(dtype)[6:]} C={c} masked_row={masked}: "
+                  f"max_abs_err={err:.3e} tol={tol:.3e} "
+                  f"masked rows zero={zero}")
+            if not (err <= tol and zero):
+                raise AssertionError(f"paged kernel disagrees at {dtype} "
+                                     f"C={c}: {err} > {tol} or zero={zero}")
+            if dtype == torch.bfloat16 and c == 1 and masked is None:
+                timed = (q, kv, vv, table, pos, err)
+    q, kv, vv, table, pos, err = timed
+    ms = cuda_ms(torch, lambda: FA.paged_flash_attention(q, kv, vv, table,
+                                                         pos))
+    plain_ms = cuda_ms(torch, lambda: plain(q, kv, vv, table, pos))
+    tp, b, c, hq, d = q.shape
+    ps, hkv, n = kv.shape[-3], kv.shape[-2], table.shape[1]
+    g = hq // hkv
+
+    def gather_sdpa():
+        pt = torch.where(table < 0, torch.full_like(table, kv.shape[1] - 1),
+                         table).reshape(-1)
+        kg = kv[:, pt].reshape(tp * b, n * ps, hkv, d).transpose(1, 2)
+        vg = vv[:, pt].reshape(tp * b, n * ps, hkv, d).transpose(1, 2)
+        kg, vg = kg.repeat_interleave(g, 1), vg.repeat_interleave(g, 1)
+        kpos = torch.arange(n * ps, device=q.device)
+        qpos = pos[:, None] + torch.arange(c, device=q.device)[None]
+        mask = ((kpos[None, None] <= qpos[:, :, None])
+                & (table.repeat_interleave(ps, 1) >= 0)[:, None])
+        mask = mask[:, None].repeat(tp, 1, 1, 1)
+        return F.scaled_dot_product_attention(
+            q.reshape(tp * b, c, hq, d).transpose(1, 2), kg, vg,
+            attn_mask=mask)
+
+    gather_ms = cuda_ms(torch, gather_sdpa)
+    print(f"paged context: gather + SDPA (masked, GQA repeated) "
+          f"{gather_ms:.4f} ms at the timed shape; not a single call "
+          f"(no PyTorch call reads K/V through a page table)")
+    nbytes, flops = paged_work(table, pos, c, q, kv)
+    b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
+    return {"name": "paged_flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/paged_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:136",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "shape": f"q ({tp},{b},{c},{hq},{d}) pools layer of "
+                     f"({tp},32,{kv.shape[1]},{ps},{hkv},{d}) bf16, "
+                     f"table ({b},{n}), pos {list(PAGED_POS)}"}
+
+
+def timed_engine(torch, engine, names=("prefill", "decode")):
+    """Wrap the engine's steps `names` with synchronized host timers."""
+    times = {name: [] for name in names}
+    for name in names:
         fn = getattr(engine, name)
 
         def wrapped(*a, _fn=fn, _name=name, **kw):
@@ -206,21 +341,22 @@ def main_path(torch, np, card):
     llm.generate([prompts[0][:8]], SamplingParams(max_new=2))   # warm-up
     times = timed_engine(torch, llm.engine)
 
-    FA.flash_attention_bhsd.launches = 0
-    QC.qdq_absmax.launches = 0
+    kernels = (FA.flash_attention_bhsd, FA.paged_flash_attention,
+               QC.qdq_absmax)
+    for k in kernels:
+        k.launches = 0
     t0 = time.perf_counter()
     outs = llm.generate(prompts, SamplingParams(max_new=MAX_NEW))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_attention_bhsd": FA.flash_attention_bhsd.launches,
-                "qdq_absmax": QC.qdq_absmax.launches}
+    launches = {k.__name__: k.launches for k in kernels}
 
     for o, p in zip(outs, prompts):
         if (o.finish_reason != "length" or len(o.token_ids) != MAX_NEW
                 or not all(0 <= t < cfg.vocab_size for t in o.token_ids)):
             raise AssertionError(f"request {o.index} (prompt {len(p)}) "
                                  f"did not finish cleanly: {o}")
-    if min(launches.values()) <= 0:
+    if min(launches["flash_attention_bhsd"], launches["qdq_absmax"]) <= 0:
         raise AssertionError(f"a kernel was not launched on the main path: "
                              f"{launches}")
     n_tok = sum(len(o.token_ids) for o in outs)
@@ -234,11 +370,100 @@ def main_path(torch, np, card):
           f"tokens_per_s={n_tok / wall:.1f} "
           f"({n_tok} tokens in {wall:.2f} s)")
     print("main path tokens[0]:", outs[0].token_ids)
-    return llm, prompts, launches
+    return llm, prompts, launches, [o.token_ids for o in outs]
 
 
-def profile_phase(torch, llm, prompts, card):
-    """Where the main path's time goes: one more generate (4 prompts, 4
+def paged_path(torch, np, llm, prompts, dense_tokens, card):
+    """Paged serving at full width: the dense path's model and settings
+    plus page_size=PAGE_SIZE on a NUM_PAGES pool, then a warm admission
+    through the prefix cache."""
+    from repro_torch.api import LLM, SamplingParams
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import quant_collectives as QC
+
+    cfg = llm.cfg
+    t0 = time.perf_counter()
+    paged = LLM.load(cfg, tp=2, plan=llm.plan, cache_len=512, max_batch=4,
+                     page_size=PAGE_SIZE, num_pages=NUM_PAGES,
+                     params=llm.canonical)
+    torch.cuda.synchronize()
+    print(f"paged path: loaded in {time.perf_counter() - t0:.1f} s; "
+          f"{NUM_PAGES} pages of {PAGE_SIZE}, pools "
+          f"{tuple(paged.serve().pcaches[0]['k'].shape)} per segment leaf")
+    paged.generate([prompts[0][:8]], SamplingParams(max_new=2))   # warm-up
+    sched = paged.serve()
+    times = timed_engine(torch, paged.engine,
+                         ("prefill", "verify_paged", "decode_paged"))
+
+    kernels = (FA.flash_attention_bhsd, FA.paged_flash_attention,
+               QC.qdq_absmax)
+    for k in kernels:
+        k.launches = 0
+    pre0 = sched.n_preemptions
+    t0 = time.perf_counter()
+    outs = paged.generate(prompts, SamplingParams(max_new=MAX_NEW))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    n_pre = sched.n_preemptions - pre0
+    for o, p in zip(outs, prompts):
+        if (o.finish_reason != "length" or len(o.token_ids) != MAX_NEW
+                or not all(0 <= t < cfg.vocab_size for t in o.token_ids)):
+            raise AssertionError(f"paged request {o.index} (prompt {len(p)}) "
+                                 f"did not finish cleanly: {o}")
+    sched.pool.check()
+    if n_pre < 1 or sched.pool.num_free != NUM_PAGES:
+        raise AssertionError(f"paged path: {n_pre} preemptions, "
+                             f"{sched.pool.num_free}/{NUM_PAGES} pages back")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel was not launched on the paged path: "
+                             f"{launches}")
+    n_tok = sum(len(o.token_ids) for o in outs)
+    prefill_ms = 1e3 * (sum(times["prefill"]) + sum(times["verify_paged"]))
+    steps = len(times["decode_paged"])
+    decode_ms = 1e3 * sum(times["decode_paged"]) / max(steps, 1)
+    same = sum(a == b for o, d in zip(outs, dense_tokens)
+               for a, b in zip(o.token_ids, d))
+    print(f"paged path launches: {json.dumps(launches)}")
+    print(f"paged path [{card}]: prefill_ms={prefill_ms:.2f} "
+          f"({len(times['prefill'])} cold prefills, "
+          f"{len(times['verify_paged'])} warm suffix prefills, re-admissions "
+          f"included) decode_ms_per_token={decode_ms:.2f} ({steps} paged "
+          f"decode steps) tokens_per_s={n_tok / wall:.1f} ({n_tok} tokens in "
+          f"{wall:.2f} s) preemptions={n_pre} "
+          f"preempted={[o.n_preempted for o in outs]} "
+          f"pages_returned={sched.pool.num_free}/{NUM_PAGES} "
+          f"pool_high_water={sched.pool.high_water}")
+    print(f"paged path: {same}/{n_tok} tokens equal the dense path's "
+          "(bf16 + quant8: rounding may split the streams)")
+
+    rng = np.random.default_rng(1)
+    prefix = rng.integers(0, cfg.vocab_size, PREFIX_LEN)
+    pair = [np.concatenate([prefix, rng.integers(0, cfg.vocab_size, n)])
+            for n in (20, 30)]
+    hits0 = sched.kv.prefix_hits
+    n_dec, n_suf = steps, len(times["verify_paged"])
+    FA.paged_flash_attention.launches = 0
+    outs2 = paged.generate(pair, SamplingParams(max_new=8))
+    torch.cuda.synchronize()
+    hits = sched.kv.prefix_hits - hits0
+    n_dec = len(times["decode_paged"]) - n_dec
+    n_suf = len(times["verify_paged"]) - n_suf
+    warm = FA.paged_flash_attention.launches
+    print(f"paged prefix pair (prefix {PREFIX_LEN}, suffixes 20/30): "
+          f"prefix_hits={hits} suffix_prefills={n_suf} decode_steps={n_dec} "
+          f"paged launches={warm} tokens={[o.token_ids for o in outs2]}")
+    if (hits < 1 or n_suf < 1 or warm != cfg.n_layers * (n_dec + n_suf)
+            or sched.pool.num_free != NUM_PAGES):
+        raise AssertionError("warm admission did not go through the paged "
+                             f"kernel: hits={hits} suffix={n_suf} "
+                             f"launches={warm}")
+    launches["paged_flash_attention"] += warm
+    return paged, launches
+
+
+def profile_phase(torch, llm, prompts, card, label="profile"):
+    """Where a main path's time goes: one more generate (4 prompts, 4
     tokens each) under torch.profiler; device-busy share of the wall time
     and the kernels that take the most device time."""
     from torch.profiler import ProfilerActivity, profile
@@ -263,20 +488,21 @@ def profile_phase(torch, llm, prompts, card):
             rows.append((dev_us, e.count, e.key))
     busy_us = sum(r[0] for r in rows)
     if busy_us <= 0:
-        print("profile: the profiler saw no device time")
+        print(f"{label}: the profiler saw no device time")
         return
     rows.sort(reverse=True)
-    print(f"profile [{card}]: generate 4x4 tokens wall_ms={wall_us / 1e3:.1f} "
+    print(f"{label} [{card}]: generate 4x4 tokens wall_ms={wall_us / 1e3:.1f} "
           f"device_busy_ms={busy_us / 1e3:.1f} "
           f"device_idle_share={1 - busy_us / wall_us:.3f} "
           f"device_ops={sum(r[1] for r in rows)}")
     for dev_us, count, key in rows[:8]:
-        print(f"  profile top: {dev_us / 1e3:8.2f} ms {count:6d}x {key[:90]}")
-    for name in ("flash_fwd_kernel", "qdq_kernel"):   # the port's own
+        print(f"  {label} top: {dev_us / 1e3:8.2f} ms {count:6d}x {key[:90]}")
+    for name in ("flash_fwd_kernel", "paged_fwd_kernel",  # the port's own
+                 "qdq_kernel"):
         hits = [(us, n) for us, n, key in rows if name in key]
         us, n = sum(h[0] for h in hits), sum(h[1] for h in hits)
         if n:
-            print(f"  profile kernel: {name} {n}x, device "
+            print(f"  {label} kernel: {name} {n}x, device "
                   f"{us / n:.2f} us per launch")
 
 
@@ -316,6 +542,58 @@ def teacher_forced(torch, llm, prompt):
                                  f"({dtype}): {err} > {tol}")
 
 
+def teacher_forced_paged(torch, llm, prompt):
+    """One decode step's logits after the same prefill: paged caches
+    through the paged kernel against dense caches through the plain
+    decode attention, same canonical weights and drop mask, exact syncs
+    (see teacher_forced), in bf16 and in fp32."""
+    import numpy as np
+    from repro_torch.api import LLM
+    from repro_torch.config.base import replace
+    from repro_torch.core import blocks as B
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.runtime.forward import bucketed_prefill
+    from repro_torch.runtime.paging import PagePool
+    from repro_torch.tree import tree_map
+
+    s = len(prompt)
+    for dtype in ("bfloat16", "float32"):
+        cfg = replace(llm.cfg, attn_backend="pallas", dtype=dtype)
+        params = tree_map(lambda w: w.to(B.TORCH_DTYPES[dtype]),
+                          llm.canonical)
+        m = LLM.load(cfg, tp=2, plan=llm.plan.with_comm(None), cache_len=512,
+                     max_batch=1, params=params)
+        eng = m.engine
+        lg, c1 = bucketed_prefill(eng, m.params, prompt, s, 512)
+        cur = np.asarray([[int(lg[0].argmax())]])
+        pos = np.asarray([s])
+        dense = eng.insert_slot(eng.blank_caches(1, 512), c1, 0)
+        _, ld, _ = eng.decode_with_logits(m.params, cur, pos, dense)
+        pool = PagePool(num_pages=NUM_PAGES, page_size=PAGE_SIZE,
+                        max_slots=2, pages_per_slot=512 // PAGE_SIZE)
+        pool.grow(1, 3 * PAGE_SIZE)     # slot 0's pages start past page 2
+        pool.grow(0, s + 1)
+        pc = eng.blank_paged_caches(2, 512, page_size=PAGE_SIZE,
+                                    num_pages=NUM_PAGES)
+        pc = eng.insert_paged(pc, c1, 0, pool.table[0])
+        table = pool.table[:1].astype(np.int64)
+        before = FA.paged_flash_attention.launches
+        _, lp, _ = eng.decode_paged_with_logits(m.params, cur, pos, table,
+                                                pc)
+        ran = FA.paged_flash_attention.launches - before
+        err = (lp.float() - ld.float()).abs().max().item()
+        scale = ld.float().abs().max().item()
+        tol = TF_BF16_REL * scale if dtype == "bfloat16" else TF_FP32_ATOL
+        print(f"teacher-forced paged decode (prompt {s}, {dtype}): "
+              f"max_abs_err={err:.3e} tol={tol:.3e} max|logit|={scale:.3e} "
+              f"same argmax={int(lp.argmax()) == int(ld.argmax())} "
+              f"paged launches={ran}")
+        if not (err <= tol and ran == cfg.n_layers):
+            raise AssertionError(f"paged vs dense decode logits disagree "
+                                 f"({dtype}): {err} > {tol} (launches {ran})")
+        del m
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -342,11 +620,21 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
 
-    kernels = [flash_phase(torch), qdq_phase(torch)]
-    llm, prompts, launches = main_path(torch, np, card)
+    kernels = [flash_phase(torch), paged_phase(torch), qdq_phase(torch)]
+    llm, prompts, launches, dense_tokens = main_path(torch, np, card)
     profile_phase(torch, llm, prompts, card)
+    paged, paged_launches = paged_path(torch, np, llm, prompts, dense_tokens,
+                                       card)
+    profile_phase(torch, paged, prompts, card, label="paged profile")
+    del paged
     teacher_forced(torch, llm, prompts[2])
+    teacher_forced_paged(torch, llm, prompts[2])
 
+    # each kernel's launches on the main path it serves: the paged kernel
+    # on the paged path, the others on the dense path (the paged path's
+    # counts of all three are printed above)
+    launches["paged_flash_attention"] = paged_launches[
+        "paged_flash_attention"]
     for k in kernels:
         k["launches"] = launches[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -1,18 +1,21 @@
 """`LLM` — the public way to load and run a model (port of
-repro/api/llm.py, dense serving).
+repro/api/llm.py: dense and paged serving).
 
     from repro_torch.api import LLM, SamplingParams
     llm = LLM.load("smollm-360m", tp=2, spd=0.25, comm="quant8")
     outs = llm.generate(prompts, SamplingParams(max_new=16))
+    paged = LLM.load("smollm-360m", tp=2, page_size=16, num_pages=40,
+                     cache_len=512)
 
 Runs on the CUDA device by default; with no CUDA device it raises
 unless `device="cpu"` is asked for explicitly (there is no silent CPU
-path).  Arguments that belong to later slices of the port (paged
-caches, chunked prefill, speculation, cluster replicas, other backends,
-observability) raise NotImplementedError when given.
+path).  Arguments that belong to later slices of the port (chunked
+prefill, speculation, cluster replicas, other backends, observability)
+raise NotImplementedError when given.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Optional
 
 import numpy as np
@@ -100,6 +103,10 @@ class LLM:
 
         spd        fraction of blocks to SPD-drop (first-k plan), ignored
                    when an explicit `plan` is given.
+        page_size, num_pages
+                   paged KV cache (set both): a shared pool of num_pages
+                   pages of page_size tokens, with preemption and the
+                   prefix cache; cache_len is then the per-slot cap.
         comm       kept-sync comm policy: a CommPolicy, or a level string
                    ("exact" | "quant8" | "quant4") for every kept sync;
                    `comm_logits` sets the logits all-gather level.
@@ -109,9 +116,7 @@ class LLM:
         device     where the shards live: CUDA by default, "cpu" only on
                    request.
         """
-        for name, value in (("page_size", page_size),
-                            ("num_pages", num_pages),
-                            ("prefill_chunk", prefill_chunk), ("spec", spec),
+        for name, value in (("prefill_chunk", prefill_chunk), ("spec", spec),
                             ("obs", obs)):
             if value is not None:
                 raise NotImplementedError(
@@ -124,6 +129,8 @@ class LLM:
         from repro_torch.configs import get_config
         from repro_torch.core import model as M
 
+        cache = CacheConfig(cache_len=cache_len, max_batch=max_batch,
+                            page_size=page_size, num_pages=num_pages)
         dev = resolve_device(device)
         cfg = arch if isinstance(arch, ModelConfig) else get_config(arch)
         if dtype is not None:
@@ -139,9 +146,8 @@ class LLM:
                                                 comm_logits))
         canonical = (params if params is not None
                      else M.init_model(cfg, seed=seed, device=dev))
-        llm = cls(cfg, plan, engine, canonical,
-                  CacheConfig(cache_len=cache_len, max_batch=max_batch),
-                  tp=tp, dp=dp, q_chunk=q_chunk, device=dev)
+        llm = cls(cfg, plan, engine, canonical, cache, tp=tp, dp=dp,
+                  q_chunk=q_chunk, device=dev)
         llm._build_engine()
         return llm
 
@@ -161,8 +167,17 @@ class LLM:
             self.plan))
         self._sched = None
 
-    def serve(self) -> Scheduler:
-        """The (cached) scheduler `generate` drives."""
+    def serve(self, **overrides) -> Scheduler:
+        """Without overrides, the (cached) scheduler `generate` drives;
+        with overrides (any CacheConfig field), a fresh scheduler on the
+        same engine and params."""
+        for name in ("dp_replicas", "router"):
+            if name in overrides:
+                raise NotImplementedError(
+                    f"serve({name}=...): cluster serving is not ported yet")
+        if overrides:
+            return Scheduler(self.engine, self.params,
+                             dataclasses.replace(self.cache, **overrides))
         if self._sched is None:
             self._sched = Scheduler(self.engine, self.params, self.cache)
         return self._sched
@@ -198,7 +213,8 @@ class LLM:
         return [RequestOutput(index=i,
                               prompt_token_ids=[int(t) for t in r.prompt],
                               token_ids=list(r.out),
-                              finish_reason=r.finish_reason)
+                              finish_reason=r.finish_reason,
+                              n_preempted=r.n_preempted)
                 for i, r in enumerate(reqs)]
 
     def set_comm_policy(self, comm, *, logits: str = "exact"):

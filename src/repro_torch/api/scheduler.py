@@ -1,19 +1,34 @@
-"""The continuous-batching scheduler behind the facade (port of the dense
-half of repro/api/scheduler.py).
+"""The continuous-batching scheduler behind the facade (port of
+repro/api/scheduler.py, dense and paged; chunked prefill, speculative
+decoding and observability come with later slices).
 
-Dense layout: one fixed `cache_len` stripe per slot; a request is
-admitted whenever a slot is free (FIFO), prefilled alone (right-padded
-to a power-of-two bucket), copied into its slot, and then decoded with
-every other active slot, one token per step.  A batch whose requests
-are all greedy takes the fused greedy decode; any sampled request
-switches the step to the sampled decode.
+One `Scheduler` over a `CacheConfig`: dense when page_size / num_pages
+are None, paged otherwise, through a pluggable KV-cache manager.
 
-Divergence from the reference: when no slot is active after admission,
-`_step` returns whether requests are still queued.  The reference
-returns False there (repro/api/scheduler.py:1114-1118), which stops
-`run()` and `LLM.generate` while requests wait — e.g. 4 requests of
-max_new=1 on 3 slots: all three admitted requests finish at admission
-and the fourth stays queued.
+  * dense: one fixed `cache_len` stripe per slot; a request is admitted
+    whenever a slot is free (FIFO), prefilled alone (right-padded to a
+    power-of-two bucket) and copied into its slot;
+  * paged: head-of-line FIFO admission against free PAGES
+    (runtime/paging.py).  Admission matches the prompt's full pages
+    against the prefix cache, shares the hit read-only and prefills only
+    the uncached suffix in place (warm), or prefills the whole prompt and
+    scatters it into fresh pages (cold).  Before each decode step every
+    active slot must own the page it is about to write; pool exhaustion
+    preempts the latest-admitted slot (pages freed, request requeued at
+    the front keeping its generated tokens; on re-admission it prefills
+    over prompt + output).
+
+Active slots then decode together, one token per step.  A batch whose
+requests are all greedy takes the fused greedy decode; any sampled
+request switches the step to the sampled decode.
+
+Divergence from the reference: when no slot is active after admission
+(or after paged growth), `step` returns whether requests are still
+queued.  The reference returns False after admission
+(repro/api/scheduler.py:1114-1118), which stops `run()` and
+`LLM.generate` while requests wait -- e.g. 4 requests of max_new=1 on 3
+slots: all three admitted requests finish at admission and the fourth
+stays queued.
 """
 from __future__ import annotations
 
@@ -25,9 +40,10 @@ import numpy as np
 
 from repro_torch.api.sampling import SamplingParams
 from repro_torch.runtime import sampling as RS
+from repro_torch.runtime.paging import PagePool, page_hashes
 
 __all__ = ["CacheConfig", "Request", "Scheduler", "InvalidRequestError",
-           "DenseKVCacheManager"]
+           "DenseKVCacheManager", "PagedKVCacheManager"]
 
 _GREEDY = SamplingParams()
 
@@ -38,15 +54,44 @@ class InvalidRequestError(ValueError):
 
 @dataclass(frozen=True)
 class CacheConfig:
-    """Dense KV-cache geometry (the paged fields come with paged
-    serving)."""
+    """KV-cache geometry for a `Scheduler`.
+
+    Dense layout when `page_size` / `num_pages` are None; paged
+    otherwise (both must be set together, and `cache_len` must be a
+    multiple of `page_size`).  `prefill_chunk` (chunked prefill) is
+    validated here but not ported yet (ROADMAP A8b).  `prefix_cache`
+    (paged only): None = on when the arch has the fused paged forward,
+    True forces it on, False off.
+    """
 
     cache_len: int
     max_batch: int = 4
+    page_size: Optional[int] = None
+    num_pages: Optional[int] = None
+    prefill_chunk: Optional[int] = None
+    prefix_cache: Optional[bool] = None
 
     def __post_init__(self):
         if self.cache_len <= 0 or self.max_batch <= 0:
             raise ValueError(f"bad cache geometry: {self}")
+        if (self.page_size is None) != (self.num_pages is None):
+            raise ValueError(
+                "page_size and num_pages must be set together "
+                f"(got page_size={self.page_size}, "
+                f"num_pages={self.num_pages})")
+        if self.paged:
+            if self.page_size <= 0 or self.num_pages <= 0:
+                raise ValueError(f"bad paged geometry: {self}")
+            if self.cache_len % self.page_size:
+                raise ValueError(
+                    f"cache_len={self.cache_len} not a multiple of "
+                    f"page_size={self.page_size}")
+        if self.prefill_chunk is not None and self.prefill_chunk <= 0:
+            raise ValueError(f"prefill_chunk must be positive: {self}")
+
+    @property
+    def paged(self) -> bool:
+        return self.page_size is not None
 
 
 @dataclass
@@ -57,13 +102,20 @@ class Request:
     eos: int = -1                   # -1 => never
     out: List[int] = field(default_factory=list)
     done: bool = False
+    n_preempted: int = 0
     sampling: Optional[SamplingParams] = None
     finish_reason: Optional[str] = None
 
 
+# ---------------------------------------------------------------------------
+# KV-cache managers: the layout-specific half of the scheduler
+# ---------------------------------------------------------------------------
+
 class DenseKVCacheManager:
     """One fixed `cache_len` stripe per slot (a freed slot is simply
     overwritten by the next admission's insert)."""
+
+    paged = False
 
     def __init__(self, engine, cc: CacheConfig):
         self.engine = engine
@@ -79,8 +131,18 @@ class DenseKVCacheManager:
                     f"per-slot cache_len={self.cc.cache_len}")
         return None
 
+    def admit_begin(self, slot: int, toks, total: int) -> Optional[int]:
+        """Dense slots never share and never wait: 0 resident tokens."""
+        return 0
+
+    def register_prefix(self, slot: int, toks):
+        pass
+
     def insert(self, caches1, slot: int):
         self.caches = self.engine.insert_slot(self.caches, caches1, slot)
+
+    def release(self, slot: int):
+        pass
 
     def decode(self, params, cur, pos):
         nxt, self.caches = self.engine.decode(params, cur, pos, self.caches)
@@ -92,21 +154,195 @@ class DenseKVCacheManager:
         return nxt
 
 
+class PagedKVCacheManager:
+    """Page-pool allocator + page tables (runtime/paging.py), plus the
+    prefix cache: admission matches a new prompt's full pages against
+    resident registered pages, shares the hit read-only (refcounts), and
+    prefills only the uncached suffix through `verify_paged` with every
+    other batch row masked to the trash page."""
+
+    paged = True
+
+    def __init__(self, engine, cc: CacheConfig):
+        self.engine = engine
+        self.cc = cc
+        self.pool = PagePool(num_pages=cc.num_pages, page_size=cc.page_size,
+                             max_slots=cc.max_batch,
+                             pages_per_slot=cc.cache_len // cc.page_size)
+        self.pcaches = engine.blank_paged_caches(
+            cc.max_batch, cc.cache_len, page_size=cc.page_size,
+            num_pages=cc.num_pages)
+        self.prefix_cache = cc.prefix_cache
+        if self.prefix_cache is None:
+            from repro_torch.core.model import supports_paged_attention
+            self.prefix_cache = supports_paged_attention(engine.cfg)
+        self.prefix_queries = 0
+        self.prefix_hits = 0
+        self.prefix_tokens_reused = 0
+        # per-slot digests computed at admission, reused by register_prefix
+        self._admit_hashes: Dict[int, list] = {}
+
+    def _table(self, rows=None) -> np.ndarray:
+        """Host page table (int64), width-bucketed to the next power of
+        two of the largest row: fewer K/V positions to attend over, and
+        at most log2(pages_per_slot) + 1 widths."""
+        t = self.pool.table if rows is None else rows
+        w = max(1, int(self.pool.owned.max()))
+        b = 1
+        while b < w:
+            b <<= 1
+        return t[:, :min(b, self.pool.pages_per_slot)].astype(np.int64)
+
+    def _cow(self, pos, n_tokens: int):
+        """Copy-on-write barrier before writing n_tokens at pos[b]: every
+        page about to be written must be privately owned (in the steady
+        state writes sit above any shared prefix and nothing copies)."""
+        pairs = []
+        ps = self.cc.page_size
+        for b in range(self.cc.max_batch):
+            own = int(self.pool.owned[b])
+            if own == 0:
+                continue
+            lo = int(pos[b]) // ps
+            hi = min((int(pos[b]) + n_tokens - 1) // ps, own - 1)
+            for pg in range(lo, hi + 1):
+                pr = self.pool.ensure_writable(b, pg)
+                if pr is not None:
+                    pairs.append(pr)
+        if pairs:
+            src, dst = zip(*pairs)
+            self.pcaches = self.engine.copy_paged_pages(
+                self.pcaches, list(src), list(dst))
+
+    def capacity_error(self, prompt_len: int, max_new: int) -> Optional[str]:
+        # admission grows to resume_len + 1, and a preemption after
+        # max_new - 1 tokens resumes with prompt + max_new - 1 tokens, so
+        # the worst case is prompt + max_new positions
+        need = prompt_len + max_new
+        if need > self.cc.cache_len or not self.pool.fits_alone(need):
+            return (f"request needs {need} cache positions, exceeding "
+                    f"pool capacity ({self.pool.num_pages} pages x "
+                    f"{self.pool.page_size} tokens, "
+                    f"cache_len={self.cc.cache_len})")
+        return None
+
+    def admit_begin(self, slot: int, toks, total: int) -> Optional[int]:
+        """Match the prompt against the prefix cache, share the hit, and
+        reserve pages through `total` positions.  Returns the number of
+        resident prefix tokens (0 = cold admission), or None when the pool
+        cannot supply the pages (head-of-line wait).  The match is capped
+        page-aligned BELOW len(toks), so at least one position is always
+        prefilled for the first token's logits."""
+        matched = []
+        self._admit_hashes.pop(slot, None)
+        if self.prefix_cache and len(toks) > 1:
+            ps = self.cc.page_size
+            self.prefix_queries += 1
+            hashes = page_hashes(np.asarray(toks), ps)
+            self._admit_hashes[slot] = hashes
+            cap_pages = (len(toks) - 1) // ps
+            if cap_pages > 0:
+                matched = self.pool.match_prefix(
+                    None, hashes=hashes[:cap_pages])
+        if matched:
+            self.pool.share_prefix(slot, matched)
+        if not self.pool.grow(slot, total):
+            self.pool.release(slot)
+            return None
+        if matched:
+            self.prefix_hits += 1
+            self.prefix_tokens_reused += len(matched) * self.cc.page_size
+        return len(matched) * self.cc.page_size
+
+    def register_prefix(self, slot: int, toks):
+        """Index the slot's full prompt pages for future sharing."""
+        if self.prefix_cache:
+            self.pool.register_prefix(slot, np.asarray(toks),
+                                      hashes=self._admit_hashes.pop(
+                                          slot, None))
+
+    def prefill_suffix(self, params, toks, m: int, slot: int):
+        """Prefill toks[m:] into `slot`'s own pages (positions m..s-1)
+        through the paged multi-token step, every OTHER row's table masked
+        to -1 (their reads are masked and their writes land in the trash
+        page).  The suffix is right-padded to a power-of-two bucket (at
+        least 8); pad positions' K/V land above s in the slot's reserved
+        pages (or the trash page) and are overwritten by decode before they
+        become causally visible.  Returns full-vocab logits (1, V) for
+        position s-1."""
+        toks = np.asarray(toks, np.int64)
+        s = toks.shape[0]
+        ln = s - m
+        assert ln >= 1, (s, m)
+        sb = max(8, 1 << (ln - 1).bit_length())
+        n = self.cc.max_batch
+        tok_arr = np.zeros((n, sb), np.int64)
+        tok_arr[slot, :ln] = toks[m:]
+        pos = np.zeros(n, np.int64)
+        pos[slot] = m
+        rows = np.full_like(self.pool.table, -1)
+        rows[slot] = self.pool.table[slot]
+        lg, self.pcaches = self.engine.verify_paged(
+            params, tok_arr, pos, self._table(rows), self.pcaches)
+        return lg[slot:slot + 1, ln - 1]
+
+    def ensure(self, slot: int, upto: int) -> bool:
+        return self.pool.grow(slot, upto)
+
+    def insert(self, caches1, slot: int):
+        self.pcaches = self.engine.insert_paged(
+            self.pcaches, caches1, slot, self.pool.table[slot])
+
+    def release(self, slot: int):
+        self.pool.release(slot)
+
+    def decode(self, params, cur, pos):
+        self._cow(pos, 1)
+        nxt, self.pcaches = self.engine.decode_paged(
+            params, cur, pos, self._table(), self.pcaches)
+        return nxt
+
+    def decode_sampled(self, params, cur, pos, t, k, p, gens):
+        self._cow(pos, 1)
+        nxt, self.pcaches = self.engine.decode_paged_sampled(
+            params, cur, pos, self._table(), self.pcaches, t, k, p, gens)
+        return nxt
+
+
+# ---------------------------------------------------------------------------
+# The scheduler
+# ---------------------------------------------------------------------------
+
 class Scheduler:
-    """Continuous batching over dense per-slot caches (see module doc)."""
+    """Continuous batching over either cache layout (see module doc)."""
 
     def __init__(self, engine, params, cache: CacheConfig):
+        if cache.prefill_chunk is not None:
+            raise NotImplementedError("chunked prefill (prefill_chunk) is "
+                                      "not ported yet (ROADMAP A8b)")
         self.engine = engine
         self.params = params
         self.cache = cache
-        self.kv = DenseKVCacheManager(engine, cache)
+        self.kv = (PagedKVCacheManager(engine, cache) if cache.paged
+                   else DenseKVCacheManager(engine, cache))
         self.max_batch = cache.max_batch
         self.cache_len = cache.cache_len
         self.queue: deque = deque()
         self.slots: List[Optional[Request]] = [None] * cache.max_batch
         self.pos = np.zeros(cache.max_batch, np.int64)
         self.cur = np.zeros((cache.max_batch, 1), np.int64)
+        self.admit_seq = np.zeros(cache.max_batch, np.int64)
+        self._seq = 0
         self.completed: Dict[int, Request] = {}
+        self.n_preemptions = 0
+
+    @property
+    def pcaches(self):
+        return self.kv.pcaches
+
+    @property
+    def pool(self) -> PagePool:
+        return self.kv.pool
 
     # ---------------- request lifecycle ----------------
 
@@ -136,6 +372,7 @@ class Scheduler:
 
     @staticmethod
     def _resume_tokens(req: Request) -> np.ndarray:
+        """Prompt plus already-generated tokens (recompute after preempt)."""
         if not req.out:
             return np.asarray(req.prompt, np.int64)
         return np.concatenate([np.asarray(req.prompt, np.int64),
@@ -161,20 +398,36 @@ class Scheduler:
                 break
             if self.slots[b] is not None:
                 continue
-            req = self.queue.popleft()
+            req = self.queue[0]
             toks = self._resume_tokens(req)
             s = len(toks)
+            # prefix-cache match + capacity for the prompt and the first
+            # decode write at pos s; m = resident prefix tokens (0 = cold)
+            m = self.kv.admit_begin(b, toks, s + 1)
+            if m is None:
+                break          # head-of-line: wait for pages, stay FIFO
+            self.queue.popleft()
             try:
-                logits, caches1 = self._prefill(toks, s)
+                if m:
+                    # warm: prefill only the uncached suffix, in place
+                    logits = self.kv.prefill_suffix(self.params, toks, m, b)
+                else:
+                    logits, caches1 = self._prefill(toks, s)
                 first = self._first_token(req, logits)
             except BaseException:
+                # free the pages admit_begin reserved and requeue
+                self.kv.release(b)
                 self.queue.appendleft(req)
                 raise
             req.out.append(first)
             self.slots[b] = req
             self.pos[b] = s
             self.cur[b, 0] = first
-            self.kv.insert(caches1, b)
+            self.admit_seq[b] = self._seq
+            self._seq += 1
+            if not m:
+                self.kv.insert(caches1, b)
+            self.kv.register_prefix(b, toks)
             if self._stopping(req, first):
                 self._finish(b)
 
@@ -200,6 +453,7 @@ class Scheduler:
         self.completed[req.uid] = req
         self.slots[b] = None
         self.pos[b] = 0
+        self.kv.release(b)
 
     def cancel(self, reqs):
         """Withdraw requests (queued, active, or completed)."""
@@ -212,9 +466,43 @@ class Scheduler:
             if r is not None and id(r) in targets:
                 self.slots[b] = None
                 self.pos[b] = 0
+                self.kv.release(b)
         for r in reqs:
             if self.completed.get(r.uid) is r:
                 del self.completed[r.uid]
+
+    def _grow_active(self, active: List[int], upto_fn) -> List[int]:
+        """Paged growth with preemption-by-eviction: oldest-admitted
+        slots grow first (never starved), `upto_fn(b)` gives each slot's
+        target cache position, and a slot may evict itself as the last
+        resort.  Returns the surviving active list."""
+        for b in sorted(active, key=lambda b: self.admit_seq[b]):
+            if self.slots[b] is None:   # preempted by an earlier slot
+                continue
+            while not self.kv.ensure(b, upto_fn(b)):
+                v = self._preempt_one(keep=b)
+                if v is None or v == b:
+                    break
+        return self._active()
+
+    def _preempt_one(self, keep: int) -> Optional[int]:
+        """Evict the latest-admitted active slot (other than `keep` when
+        possible); its request requeues at the front with output kept."""
+        cands = [b for b in range(self.max_batch)
+                 if self.slots[b] is not None and b != keep]
+        if not cands:
+            cands = [keep] if self.slots[keep] is not None else []
+        if not cands:
+            return None
+        v = max(cands, key=lambda b: self.admit_seq[b])
+        req = self.slots[v]
+        req.n_preempted += 1
+        self.kv.release(v)
+        self.slots[v] = None
+        self.pos[v] = 0
+        self.queue.appendleft(req)
+        self.n_preemptions += 1
+        return v
 
     # ---------------- main loop ----------------
 
@@ -241,10 +529,15 @@ class Scheduler:
                                       p, gens)
 
     def step(self) -> bool:
-        """Admit, then one decode step for all active slots.  Returns
-        False when there is nothing left to do."""
+        """Admit, (paged) grow, then one decode step for all active
+        slots.  Returns False when there is nothing left to do."""
         self._admit()
         active = self._active()
+        if self.kv.paged and active:
+            # each slot writes position pos[b] this step: make sure its
+            # page exists (preemption rules: _grow_active)
+            active = self._grow_active(active,
+                                       lambda b: int(self.pos[b]) + 1)
         if not active:
             return bool(self.queue)
         nxt = self._decode_active(active).cpu().numpy()

@@ -326,3 +326,51 @@ def block_dec(cfg, kind, lay, p, x, pos, cache, *, drop: bool, comm=None):
     out = _wire_post_mixer(cfg, kind, p, x, part, p["attn"].get("bo"),
                            drop=drop, comm=comm)
     return out, cache
+
+
+# ---------------------------------------------------------------------------
+# Paged-cache mode: the per-layer K/V caches are physical page POOLS
+# (tp, P+1, ps, HkvL, dh) shared across slots, indexed through a page
+# table; no contiguous per-slot view is built.  New tokens scatter straight
+# into their pages (in place); attention reads K/V through the table: the
+# hand-written paged kernel on attn_backend="pallas", else the plain
+# gather-only-the-table path.  GQA full-causal fp-cache layers only
+# (model.supports_paged_attention gates callers).
+# ---------------------------------------------------------------------------
+
+def gqa_mixer_page(cfg, kind, a, h, pos, cache, page_table, lay,
+                   depths=None, anc=None):
+    """Paged attention over a chunk: h (tp,B,C,d); pos (B,) absolute
+    start position of each slot's chunk; cache {"k","v"} page pools,
+    written in place.  Tree mode (`depths` / `anc`) comes with
+    speculative verify, ROADMAP A10."""
+    if depths is not None or anc is not None:
+        raise NotImplementedError("tree verify (depths / anc) is not "
+                                  "ported yet (ROADMAP A10)")
+    from repro_torch.kernels import ops as KOPS
+    _check_ported(cfg)
+    q, k, v = _qkv(cfg, a, h, lay)
+    tp, b, c = h.shape[:3]
+    pos2 = pos[:, None] + torch.arange(c, device=pos.device)[None]
+    q = apply_rope(q, pos2, cfg.rope_theta, cfg.rope_fraction)
+    k = apply_rope(k, pos2, cfg.rope_theta, cfg.rope_fraction)
+    KOPS.scatter_tokens_pages(cache["k"], k, page_table, pos)
+    KOPS.scatter_tokens_pages(cache["v"], v, page_table, pos)
+    if cfg.attn_backend == "pallas":
+        o = KOPS.paged_attention(q, cache["k"], cache["v"], page_table, pos)
+    else:
+        o = A.paged_attend(q, cache["k"], cache["v"], page_table, pos)
+    part = _mm(o.reshape(tp, b, c, -1), a["wo"])
+    return part, cache
+
+
+def block_page(cfg, kind, lay, p, x, pos, cache, page_table, *, drop: bool,
+               comm=None, depths=None, anc=None):
+    """Paged-cache block (decode C=1 or suffix prefill C>1): x
+    (tp,B,C,d), pos (B,) chunk starts.  Returns (out, cache)."""
+    h = column_entry(_norm(x, p["ln1"], cfg))
+    part, cache = gqa_mixer_page(cfg, kind, p["attn"], h, pos, cache,
+                                 page_table, lay, depths=depths, anc=anc)
+    out = _wire_post_mixer(cfg, kind, p, x, part, p["attn"].get("bo"),
+                           drop=drop, comm=comm)
+    return out, cache

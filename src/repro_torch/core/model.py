@@ -206,6 +206,51 @@ def decode_step(cfg, stacked, plan, tokens, pos, caches, *, tp):
     return serve_logits(stacked, cfg, x, plan)[:, :, 0], caches
 
 
+def supports_chunked_prefill(cfg) -> bool:
+    """Full-causal GQA stacks without a modality prefix."""
+    return (not cfg.frontend_dim
+            and all(k.mixer == "gqa" and k.window == 0
+                    for k in layer_kinds(cfg)))
+
+
+def supports_paged_attention(cfg) -> bool:
+    """The fused paged forward (paged_step / blocks.block_page) covers
+    full-causal GQA stacks with fp KV caches, whose every cache leaf is a
+    {"k","v"} page pool.  The reference's gather -> dense -> scatter
+    fallback for other archs is not ported."""
+    return supports_chunked_prefill(cfg) and cfg.kv_dtype != "int8"
+
+
+def paged_step(cfg, stacked, plan, tokens, pos, caches, page_table, *, tp,
+               tree=None):
+    """Fused paged forward: decode (C=1) and suffix prefill (C>1).
+
+    tokens (B, C) at per-row absolute positions pos (B,)..pos+C-1;
+    caches per segment hold paged K/V pools (tp, layers, P+1, ps, HkvL,
+    dh) shared across slots, written in place; page_table (B, n) int
+    (-1 = unallocated).  Returns (logits (tp, B, C, Vl) fp32 shard-local
+    -- entry j scores the token after tokens[:, j] -- and the caches).
+    Both C=1 and C>1 log under phase "decode", as the reference does.
+    Tree verify (`tree`) comes with speculative decoding, ROADMAP A10."""
+    if tree is not None:
+        raise NotImplementedError("tree verify is not ported yet "
+                                  "(ROADMAP A10)")
+    lay = _gqa_layout(cfg, tp)
+    x = embed_tokens(stacked["emb"], tokens)
+    for seg_i, (start, length, kind, dropped) in enumerate(
+            plan_segments(cfg, plan.drop_mask, plan.qmodes)):
+        sp, cs = stacked["segs"][seg_i], caches[seg_i]
+        with ledger_scale(length), comm_context(block=start, phase="decode"):
+            for j in range(length):
+                with ledger_paused(j > 0):
+                    x, _ = B.block_page(cfg, kind, lay, _layer(sp, j), x,
+                                        pos, _layer(cs, j), page_table,
+                                        drop=dropped,
+                                        comm=plan.block_mode(start))
+    x = _final_norm(stacked, cfg, x)
+    return serve_logits(stacked, cfg, x, plan), caches
+
+
 # ---------------------------------------------------------------------------
 # Cache allocation
 # ---------------------------------------------------------------------------
@@ -236,3 +281,29 @@ def cache_specs_tree(cfg, plan: SPDPlanConfig):
     """Split axis of each cache leaf in the cache_struct layout."""
     return [{"k": 3, "v": 3} for _ in plan_segments(cfg, plan.drop_mask,
                                                     plan.qmodes)]
+
+
+def cache_pageable_tree(cfg, plan: SPDPlanConfig):
+    """Which cache leaves get PAGED (bool tree matching cache_struct):
+    the K/V of full-causal GQA layers, which are all this port serves."""
+    return [{"k": kind.window == 0, "v": kind.window == 0}
+            for (_, _, kind, _) in plan_segments(cfg, plan.drop_mask,
+                                                 plan.qmodes)]
+
+
+def paged_cache_struct(cfg, plan: SPDPlanConfig, batch: int, seq_len: int,
+                       tp: int, *, page_size: int, num_pages: int):
+    """cache_struct with pageable leaves' (batch, seq) axes replaced by
+    (num_pages + 1, page_size); the extra page is the trash page (see
+    runtime/paging.py).  The kv-head axis stays axis 3, so
+    `cache_specs_tree` splits paged and dense leaves alike."""
+    structs = cache_struct(cfg, plan, batch, seq_len, tp)
+    flags = cache_pageable_tree(cfg, plan)
+
+    def one(f, s):
+        if not f:
+            return s
+        return CacheStruct((s.shape[0], num_pages + 1, page_size)
+                           + s.shape[3:], s.dtype)
+
+    return [tree_map(one, f, s) for f, s in zip(flags, structs)]

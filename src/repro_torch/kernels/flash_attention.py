@@ -1,12 +1,14 @@
-"""Causal GQA flash attention: the CUDA kernel's wrapper and its plain
-version (port of repro/kernels/flash_attention.py::flash_attention_bhsd,
-the TPU kernel, and repro/kernels/ref.py::flash_attention_ref, its
-oracle).
+"""Causal GQA flash attention, dense and paged: the CUDA kernels'
+wrappers and their plain versions (port of
+repro/kernels/flash_attention.py::flash_attention_bhsd and
+::paged_flash_attention, the TPU kernels, and repro/kernels/ref.py::
+flash_attention_ref and ::paged_attention_ref, their oracles).
 
-`flash_attention_bhsd` launches `csrc/flash_attention.cu` for a CUDA
-tensor and takes `flash_attention_plain` only for a CPU tensor.  The
-kernel source notes what bounds it on the card and how its design
-answers that.  `flash_attention_bhsd.launches` counts kernel launches.
+`flash_attention_bhsd` launches `csrc/flash_attention.cu` and
+`paged_flash_attention` launches `csrc/paged_attention.cu` for CUDA
+tensors; each takes its plain version only for CPU tensors.  The kernel
+sources note what bounds them on the card and how their design answers
+that.  Each wrapper's `.launches` counts its kernel launches.
 """
 from __future__ import annotations
 
@@ -94,3 +96,146 @@ def flash_attention_bhsd(q, k, v, *, sm_scale=None):
 
 
 flash_attention_bhsd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Paged attention: K/V read through a page table from shared page pools
+# ---------------------------------------------------------------------------
+
+def paged_flash_attention_plain(q, k_pool, v_pool, page_table, pos, *,
+                                sm_scale=None):
+    """Transcription of the oracle (ref.paged_attention_ref).
+
+    q (B, C, Hq, D) at absolute positions pos[b]..pos[b]+C-1; k_pool /
+    v_pool (P+1, ps, Hkv, D), page P the trash page; page_table (B, n)
+    int, -1 = unallocated.  Gathers the table's pages into a contiguous
+    (B, n*ps) view and runs masked softmax attention in fp32: causally
+    invisible and unallocated positions contribute exactly 0, and a
+    fully masked row gives 0."""
+    b, c, hq, d = q.shape
+    pn1, ps, hkv, _ = k_pool.shape
+    n = page_table.shape[1]
+    g = hq // hkv
+    scale = sm_scale if sm_scale is not None else d ** -0.5
+    table = page_table.long()
+    pt = torch.where(table < 0, torch.full_like(table, pn1 - 1), table)
+    kg = k_pool[pt.reshape(-1)].reshape(b, n * ps, hkv, d)
+    vg = v_pool[pt.reshape(-1)].reshape(b, n * ps, hkv, d)
+    kg = kg.repeat_interleave(g, dim=2)
+    vg = vg.repeat_interleave(g, dim=2)
+    s = torch.einsum("bchd,bkhd->bhck", q.float(), kg.float()) * scale
+    qpos = pos.long()[:, None] + torch.arange(c, device=q.device)[None]
+    kvpos = torch.arange(n * ps, device=q.device)[None]
+    valid = ((kvpos[:, None, :] <= qpos[:, :, None])
+             & (table.repeat_interleave(ps, dim=1) >= 0)[:, None, :])
+    valid = valid[:, None]                                  # (B,1,C,n*ps)
+    s = torch.where(valid, s, torch.full_like(s, -1e30))
+    m = torch.clamp(torch.amax(s, dim=-1, keepdim=True), min=-5e29)
+    p = torch.exp(s - m)
+    p = torch.where(valid, p, torch.zeros_like(p))
+    p = p / torch.clamp(torch.sum(p, dim=-1, keepdim=True), min=1e-20)
+    o = torch.einsum("bhck,bkhd->bchd", p, vg.float())
+    return o.to(q.dtype)
+
+
+def check_paged_args(q, k_pool, v_pool, page_table, pos) -> None:
+    """Validate what the paged kernel takes (shard-stacked or not)."""
+    if q.dim() not in (4, 5) or k_pool.dim() != q.dim() \
+            or v_pool.shape != k_pool.shape:
+        raise ValueError(
+            f"want q ([tp,] B, C, Hq, D) and pools ([tp,] P+1, ps, Hkv, D); "
+            f"got {tuple(q.shape)}, {tuple(k_pool.shape)}, "
+            f"{tuple(v_pool.shape)}")
+    if q.dtype not in DTYPES or k_pool.dtype != q.dtype \
+            or v_pool.dtype != q.dtype:
+        raise TypeError(f"want float32 or bfloat16 q/pools of one dtype; "
+                        f"got {q.dtype}, {k_pool.dtype}, {v_pool.dtype}")
+    if q.dim() == 5 and q.shape[0] != k_pool.shape[0]:
+        raise ValueError(f"q has {q.shape[0]} shards, pools "
+                         f"{k_pool.shape[0]}")
+    b, c, hq, d = q.shape[-4:]
+    pn1, ps, hkv, dk = k_pool.shape[-4:]
+    if dk != d or d not in HEAD_DIMS:
+        raise ValueError(f"head dims q {d}, pools {dk}; want equal and in "
+                         f"{HEAD_DIMS}")
+    if hkv == 0 or hq % hkv:
+        raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
+    if page_table.dim() != 2 or page_table.shape[0] != b \
+            or page_table.shape[1] == 0 or page_table.is_floating_point():
+        raise ValueError(f"want an integer page table (B={b}, n>0); got "
+                         f"{page_table.dtype} {tuple(page_table.shape)}")
+    if tuple(pos.shape) != (b,) or pos.is_floating_point():
+        raise ValueError(f"want integer pos ({b},); got {pos.dtype} "
+                         f"{tuple(pos.shape)}")
+    if not q.is_contiguous():
+        raise ValueError("q must be contiguous")
+    inner = (ps * hkv * d, hkv * d, d, 1)
+    if tuple(k_pool.stride()[-4:]) != inner \
+            or v_pool.stride() != k_pool.stride():
+        raise ValueError(
+            "each shard's pool block (P+1, ps, Hkv, D) must be contiguous, "
+            "with k and v pools of equal strides; got strides "
+            f"{k_pool.stride()}, {v_pool.stride()}")
+    if not (q.device == k_pool.device == v_pool.device):
+        raise ValueError("q and the pools on different devices")
+    rows = b * (q.shape[0] if q.dim() == 5 else 1)
+    if rows > 65535 or hkv > 65535:
+        raise ValueError(f"grid too large: rows {rows}, kv heads {hkv}")
+    if pn1 < 1 or ps < 1 or c < 1:
+        raise ValueError(f"empty pools or chunk: {tuple(k_pool.shape)}, "
+                         f"C={c}")
+
+
+def _paged_lib():
+    lib = build.load("paged_attention")
+    fn = lib.paged_attention_fwd
+    if not fn.argtypes:
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
+            ctypes.c_longlong, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def paged_flash_attention(q, k_pool, v_pool, page_table, pos, *,
+                          sm_scale=None):
+    """Paged causal flash attention reading K/V through a page table.
+
+    The reference's shapes: q (B, C, Hq, D), pools (P+1, ps, Hkv, D),
+    table (B, n) int (-1 = unallocated), pos (B,).  Or shard-stacked:
+    q (tp, B, C, Hq, D) and pools (tp, P+1, ps, Hkv, D), one table and
+    pos for every shard; the pools may be a strided view (a layer of a
+    segment leaf) as long as each shard's (P+1, ps, Hkv, D) block is
+    contiguous: nothing is copied.  Output in q's dtype."""
+    check_paged_args(q, k_pool, v_pool, page_table, pos)
+    if q.device.type == "cpu":
+        if q.dim() == 4:
+            return paged_flash_attention_plain(
+                q, k_pool, v_pool, page_table, pos, sm_scale=sm_scale)
+        return torch.stack([paged_flash_attention_plain(
+            q[t], k_pool[t], v_pool[t], page_table, pos, sm_scale=sm_scale)
+            for t in range(q.shape[0])])
+    if q.device.type != "cuda":
+        raise ValueError(f"no paged attention kernel for device {q.device}")
+    qf = q if q.dim() == 5 else q[None]
+    kf = k_pool if k_pool.dim() == 5 else k_pool[None]
+    vf = v_pool if v_pool.dim() == 5 else v_pool[None]
+    tp, b, c, hq, d = qf.shape
+    _, pn1, ps, hkv, _ = kf.shape
+    n = page_table.shape[1]
+    scale = float(sm_scale if sm_scale is not None else d ** -0.5)
+    lib = _paged_lib()
+    out = torch.empty_like(qf)
+    table = page_table.to(device=q.device, dtype=torch.int32).contiguous()
+    start = pos.to(device=q.device, dtype=torch.int32).contiguous()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.paged_attention_fwd(
+            qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), table.data_ptr(),
+            start.data_ptr(), out.data_ptr(), tp, b, c, hq, hkv, d, ps, n,
+            kf.stride(0), scale, int(q.dtype == torch.bfloat16), stream)
+    build.check(lib, rc, "paged_attention_fwd")
+    paged_flash_attention.launches += 1
+    return out if q.dim() == 5 else out[0]
+
+
+paged_flash_attention.launches = 0

@@ -2,7 +2,8 @@
 repro/models/attention.py).  Plain torch, as the reference's is plain
 XLA: `attend` is the dense oracle, `attention_any` the prefill path of
 attn_backend="xla", `decode_attend` the dense decode path (the reference
-has no kernel for dense decode, so neither does the port).
+has no kernel for dense decode, so neither does the port), and
+`paged_attend` the paged path of attn_backend="xla".
 """
 from __future__ import annotations
 
@@ -71,6 +72,35 @@ def attention_any(q, k, v, q_pos, kv_pos, *, q_chunk: int = 1024,
         return attend_chunked(q, k, v, q_pos, kv_pos, q_chunk=q_chunk,
                               scale=scale)
     return attend(q, k, v, causal_mask(q_pos, kv_pos), scale)
+
+
+def paged_attend(q, k_pool, v_pool, page_table, pos, *,
+                 scale: float | None = None, anc=None):
+    """Paged-KV attention, plain path: gather ONLY the table's pages.
+
+    q (..., B, C, Hq, Dh) at absolute positions pos[b]..pos[b]+C-1;
+    k_pool / v_pool (..., P+1, ps, Hkv, Dh) are the shared page pools
+    (page P the trash page); page_table (B, n) int, -1 = unallocated
+    (masked).  Reuses `attend`, so masked lanes contribute exactly 0.
+    Tree visibility (`anc`) comes with speculative verify, ROADMAP A10."""
+    if anc is not None:
+        raise NotImplementedError("tree verify (anc) is not ported yet "
+                                  "(ROADMAP A10)")
+    b, c = q.shape[-4:-2]
+    pn1, ps, hkv, dh = k_pool.shape[-4:]
+    n = page_table.shape[1]
+    table = page_table.long()
+    pt = torch.where(table < 0, torch.full_like(table, pn1 - 1), table)
+    lead = tuple(k_pool.shape[:-4])
+    kg = k_pool[..., pt.reshape(-1), :, :, :].reshape(
+        lead + (b, n * ps, hkv, dh))
+    vg = v_pool[..., pt.reshape(-1), :, :, :].reshape(
+        lead + (b, n * ps, hkv, dh))
+    kv_pos = torch.arange(n * ps, device=q.device)[None].expand(b, n * ps)
+    q_pos = pos.long()[:, None] + torch.arange(c, device=q.device)[None]
+    mask = causal_mask(q_pos, kv_pos)
+    mask = mask & (table.repeat_interleave(ps, dim=1) >= 0)[:, None, :]
+    return attend(q, kg, vg, mask, scale)
 
 
 def decode_attend(q, k_cache, v_cache, pos, *, scale: float | None = None):

@@ -1,8 +1,10 @@
-"""The serving engine (port of the dense half of
-repro/runtime/engines.py): one `Engine` over a `ParallelBackend`.
-Steps are built lazily through `backend.wrap`; caches stay in the
-backend's layout between calls and are updated in place."""
+"""The serving engine (port of repro/runtime/engines.py, dense and
+paged): one `Engine` over a `ParallelBackend`.  Steps are built lazily
+through `backend.wrap`; caches and page pools stay in the backend's
+layout between calls and are updated in place."""
 from __future__ import annotations
+
+import numpy as np
 
 from repro_torch.config.base import ModelConfig, SPDPlanConfig
 from repro_torch.core import model as M
@@ -27,6 +29,27 @@ class Engine:
     def blank_caches(self, batch: int, cache_len: int):
         return self.backend.blank_caches(
             M.cache_struct(self.cfg, self.plan, batch, cache_len, self.tp))
+
+    def blank_paged_caches(self, max_slots: int, cache_len: int, *,
+                           page_size: int, num_pages: int):
+        return self.backend.blank_caches(M.paged_cache_struct(
+            self.cfg, self.plan, max_slots, cache_len, self.tp,
+            page_size=page_size, num_pages=num_pages))
+
+    def insert_paged(self, pcaches, caches1, b: int, page_row):
+        """Scatter slot `b`'s prefilled caches1 into its pages
+        (`page_row`, the slot's table row)."""
+        step = self._step(("insert_paged",),
+                          lambda: F.insert_paged_step(self.cfg, self.plan))
+        return step(pcaches, caches1, page_row)[0]
+
+    def copy_paged_pages(self, pcaches, src, dst):
+        """COW page duplication: physical page src[i] -> dst[i] on every
+        pageable leaf (PagePool.ensure_writable decides the pairs)."""
+        step = self._step(("copy_pages",),
+                          lambda: F.copy_pages_step(self.cfg, self.plan))
+        return step(pcaches, np.asarray(src, np.int64),
+                    np.asarray(dst, np.int64))[0]
 
     def insert_slot(self, caches, caches1, b: int):
         return F.insert_slot(caches, caches1, b,
@@ -56,3 +79,35 @@ class Engine:
             self.cfg, self.plan, tp=self.tp, sampled=True))
         return step(params, tokens, pos, caches, temperature, top_k, top_p,
                     generators)
+
+    def verify_paged(self, params, tokens, pos, page_table, pcaches,
+                     tree=None):
+        """Paged multi-token forward (warm-admission suffix prefill):
+        full-vocab logits of every chunk position, (B, C, V)."""
+        step = self._step(("verify_paged", tree), lambda: F.paged_verify_step(
+            self.cfg, self.plan, tp=self.tp, tree=tree))
+        return step(params, tokens, pos, page_table, pcaches)
+
+    def _decode_paged(self, with_logits: bool):
+        return self._step(("decode_paged", with_logits),
+                          lambda: F.paged_decode_step(
+            self.cfg, self.plan, tp=self.tp, with_logits=with_logits))
+
+    def decode_paged(self, params, tokens, pos, page_table, pcaches):
+        return self._decode_paged(False)(params, tokens, pos, page_table,
+                                         pcaches)
+
+    def decode_paged_with_logits(self, params, tokens, pos, page_table,
+                                 pcaches):
+        return self._decode_paged(True)(params, tokens, pos, page_table,
+                                        pcaches)
+
+    def decode_paged_sampled(self, params, tokens, pos, page_table, pcaches,
+                             temperature, top_k, top_p, generators):
+        """Paged decode with per-request sampling (temp <= 0 rows are
+        greedy)."""
+        step = self._step(("decode_paged_sampled",), lambda:
+                          F.paged_decode_step(self.cfg, self.plan, tp=self.tp,
+                                              sampled=True))
+        return step(params, tokens, pos, page_table, pcaches, temperature,
+                    top_k, top_p, generators)

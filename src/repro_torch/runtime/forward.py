@@ -1,5 +1,5 @@
-"""The forward step table (port of the dense half of
-repro/runtime/forward.py).
+"""The forward step table (port of repro/runtime/forward.py: the dense
+steps and the fused paged ones).
 
 Each step maker here returns ``(local_fn, StepSpec)``; a `ParallelBackend`
 wraps it into the runnable step.  Local functions take shard-stacked
@@ -22,6 +22,13 @@ def full_logits(cfg, logits):
     """Vocab-parallel shard logits (tp, B, Vl) -> full (B, V)."""
     tp, b, vl = logits.shape
     return logits.permute(1, 0, 2).reshape(b, tp * vl)[:, : cfg.vocab_size]
+
+
+def full_logits_seq(cfg, logits):
+    """Vocab-parallel shard logits (tp, B, C, Vl) -> full (B, C, V)."""
+    tp, b, c, vl = logits.shape
+    return logits.permute(1, 2, 0, 3).reshape(b, c, tp * vl)[
+        ..., : cfg.vocab_size]
 
 
 def greedy_token(cfg, logits):
@@ -62,6 +69,92 @@ def decode_step(cfg, plan, *, tp, with_logits=False, sampled=False):
 
     out = (("batch", "batch", "cache") if with_logits else ("batch", "cache"))
     return local, StepSpec(("params", "batch", "batch", "cache"), out)
+
+
+def _fused_paged(cfg):
+    if not M.supports_paged_attention(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: the paged gather -> dense -> scatter fallback "
+            "(int8 KV, windowed, MLA, SSM, hybrid) is not ported yet")
+
+
+def paged_decode_step(cfg, plan, *, tp, with_logits=False, sampled=False):
+    """Paged decode, fused: K/V scatter straight into their pages and
+    attention reads through the page table (M.paged_step), so no cache
+    tree is gathered.  Returns (next ids (B, 1)[, full logits], pools)."""
+    _fused_paged(cfg)
+
+    def math(p, toks, pos, pt, pc):
+        lg, pc2 = M.paged_step(cfg, p, plan, toks, pos, pc, pt, tp=tp)
+        return lg[:, :, 0], pc2
+
+    if sampled:
+        def local(p, toks, pos, pt, pc, t, k, pp, gens):
+            lg, pc2 = math(p, toks, pos, pt, pc)
+            nxt = RS.sample_core(full_logits(cfg, lg), t, k, pp, gens)
+            return nxt[:, None], pc2
+
+        return local, StepSpec(
+            ("params", "rep", "rep", "rep", "cache", "rep", "rep", "rep",
+             "rep"), ("rep", "cache"))
+
+    def local(p, toks, pos, pt, pc):
+        lg, pc2 = math(p, toks, pos, pt, pc)
+        nxt = greedy_token(cfg, lg)[:, None]
+        if with_logits:
+            return nxt, full_logits(cfg, lg), pc2
+        return nxt, pc2
+
+    out = ("rep", "rep", "cache") if with_logits else ("rep", "cache")
+    return local, StepSpec(("params", "rep", "rep", "rep", "cache"), out)
+
+
+def paged_verify_step(cfg, plan, *, tp, tree=None):
+    """Paged multi-token forward: the SUFFIX PREFILL of a warm admission
+    (the uncached prompt tail, with other rows' tables masked to -1) and,
+    with speculative decoding (ROADMAP A10), the verify chunk.  Returns
+    (full logits (B, C, V), pools)."""
+    _fused_paged(cfg)
+    if tree is not None:
+        raise NotImplementedError("tree verify is not ported yet "
+                                  "(ROADMAP A10)")
+
+    def local(p, toks, pos, pt, pc):
+        lg, pc2 = M.paged_step(cfg, p, plan, toks, pos, pc, pt, tp=tp)
+        return full_logits_seq(cfg, lg), pc2
+
+    return local, StepSpec(("params", "rep", "rep", "rep", "cache"),
+                           ("rep", "cache"))
+
+
+def copy_pages_step(cfg, plan):
+    """Device-side copy-on-write page duplication: physical page src[i]
+    -> dst[i] on every pageable leaf, in place (the PagePool rewires the
+    slot's table host-side)."""
+    _fused_paged(cfg)
+
+    def local(pc, src, dst):
+        for seg in pc:
+            for leaf in seg.values():
+                leaf[:, :, dst.long()] = leaf[:, :, src.long()]
+        return (pc,)
+
+    return local, StepSpec(("cache", "rep", "rep"), ("cache",))
+
+
+def insert_paged_step(cfg, plan):
+    """Scatter one prefilled request (batch-1 dense caches1) into its
+    pages (`page_row`) of the paged pools, in place."""
+    _fused_paged(cfg)
+    from repro_torch.kernels import ops as KOPS
+
+    def local(pc, c1, row):
+        for seg, seg1 in zip(pc, c1):
+            for name in seg:
+                KOPS.scatter_prefill_pages(seg[name], seg1[name], row)
+        return (pc,)
+
+    return local, StepSpec(("cache", "cache", "rep"), ("cache",))
 
 
 def insert_slot(caches, caches1, b: int, *, batch_axis: int):

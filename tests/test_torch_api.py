@@ -1,7 +1,8 @@
 """PyTorch port: import isolation from JAX and the reference package,
-device selection, the facade's refusal of later-slice arguments, the
-scheduler's queued-request fix (ROADMAP C2), sampling determinism, and
-chip_smoke.py's refusal to run without a card."""
+device selection, the facade's refusal of later-slice arguments and of a
+half-set paged geometry, the scheduler's queued-request fix (ROADMAP
+C2), sampling determinism, and chip_smoke.py's refusal to run without a
+card."""
 import os
 import re
 import subprocess
@@ -30,7 +31,8 @@ def _load(**kw):
 
 def test_port_imports_neither_jax_nor_reference():
     """In a fresh interpreter: import the whole slice, run one CPU
-    generate, and find no jax* or repro/repro.* module loaded."""
+    generate (dense and paged), and find no jax* or repro/repro.* module
+    loaded."""
     code = """
 import importlib, pkgutil, sys
 import repro_torch
@@ -41,6 +43,10 @@ llm = LLM.load("smollm-360m-reduced", tp=2, spd=0.25, dtype="float32",
                cache_len=32, device="cpu", comm="quant8", comm_logits="quant8")
 out = llm.generate([[1, 2, 3], [4, 5, 6, 7, 8]], SamplingParams(max_new=3))
 assert all(len(o.token_ids) == 3 for o in out)
+from repro_torch.api.scheduler import Request
+paged = llm.serve(page_size=8, num_pages=4)
+paged.submit(Request(uid=0, prompt=[1, 2, 3], max_new=3))
+assert len(paged.run()[0].out) == 3
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
@@ -73,11 +79,18 @@ def test_load_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    {"page_size": 8}, {"num_pages": 16}, {"prefill_chunk": 8},
-    {"spec": object()}, {"dp_replicas": 2}, {"engine": "shard"},
-    {"obs": object()}])
+    {"prefill_chunk": 8}, {"spec": object()}, {"dp_replicas": 2},
+    {"engine": "shard"}, {"obs": object()}])
 def test_later_slice_arguments_raise(kw):
     with pytest.raises(NotImplementedError):
+        _load(**kw)
+
+
+@pytest.mark.parametrize("kw", [{"page_size": 8}, {"num_pages": 16}])
+def test_paged_geometry_needs_both_fields(kw):
+    """Paged serving is ported; setting only one of page_size / num_pages
+    is refused as the reference's CacheConfig refuses it."""
+    with pytest.raises(ValueError, match="set together"):
         _load(**kw)
 
 
