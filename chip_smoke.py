@@ -26,7 +26,22 @@
    the plain attention, and one decode step's logits through the paged
    kernel against the dense plain decode, on the same parameters, in
    bf16 and in fp32.
-6. Prints the kernels JSON line, the card line, and last
+6. Kernel phases of the overlap slice: quantize, dequantize and
+   dequant-accumulate against their plain versions bit for bit at the
+   ring's slice shapes, and the fused residual RMSNorm (on no path)
+   against its plain version; each timed (events and profile).
+7. Ring phase: ring_quantized_psum, ring_reduce_scatter and
+   ring_all_gather over the shard axis at tp 2 and 4 on payloads shaped
+   like a kept sync of full-width SmolLM-360M (prefill 4x512 and a
+   batch-4 decode step).  The kernel path must equal the plain path bit
+   for bit and stay within the quantized ring's error bound; each call
+   launches n-1 quantize, n-1 dequant-accumulate and 1 qdq.
+8. Overlap path: the dense path's LLM.load arguments plus
+   engine="overlap" -> generate; tokens must equal the dense path's.
+   One prefill and one decode step are priced with a LatencyModel of the
+   card's NVLink (data sheet) and an assumed launch cost, and
+   decode_pipelined over 3 groups must equal serial decode.
+9. Prints the kernels JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 
 Any failure raises (non-zero exit, no result line).  Without a CUDA
@@ -67,6 +82,25 @@ TF_BF16_REL = 0.05                     # x max |logit|
 TF_FP32_ATOL = 1e-3
 # one decode step, paged kernel vs dense plain decode attention, after
 # the same prefill: the same reasons and limits as the prefill check
+
+# (rows, n) ring slices: a batch-4 decode step's kept sync (4*960 / 2),
+# a 4x512 prefill's (4*512*960 / 2) at tp=2 and (/ 4) at tp=4
+QUANT_SHAPES = ((2, 1920), (2, 983040), (4, 491520))
+QUANT_TIMED = (2, 983040)
+# fused residual RMSNorm: a 4x512 prefill's rows and a decode step's;
+# fp32 differs by summation order only, bf16 by one rounding of y
+NORM_SHAPES = ((2048, 960), (4, 960))
+NORM_ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
+RING_TPS = (2, 4)
+# ring_reduce_scatter adds the n shards in ring order, psum in index
+# order: fp32 reordering of sums of 4 N(0,1) values
+RING_RS_ATOL = 1e-5
+# the priced interconnect: NVLink 4 on the H100 SXM, 900 GB/s total,
+# 450 GB/s each way (NVIDIA data sheet); the launch cost of one
+# collective is ASSUMED (not measured: the port has no NCCL path yet)
+NVLINK_BYTES_PER_S = 450e9
+ASSUMED_LAUNCH_US = 5.0
+PIPE_GROUPS = 3
 
 
 def card_line() -> str:
@@ -324,6 +358,7 @@ def main_path(torch, np, card):
     from repro_torch.config.base import replace
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import fused_norm as FN
     from repro_torch.kernels import quant_collectives as QC
 
     cfg = replace(get_config("smollm-360m"), attn_backend="pallas")
@@ -342,7 +377,8 @@ def main_path(torch, np, card):
     times = timed_engine(torch, llm.engine)
 
     kernels = (FA.flash_attention_bhsd, FA.paged_flash_attention,
-               QC.qdq_absmax)
+               QC.qdq_absmax, QC.quantize_absmax, QC.dequantize_absmax,
+               QC.dequant_accum_absmax, FN.fused_residual_rmsnorm)
     for k in kernels:
         k.launches = 0
     t0 = time.perf_counter()
@@ -594,6 +630,383 @@ def teacher_forced_paged(torch, llm, prompt):
         del m
 
 
+def device_us(torch, fn, names, iters=20) -> dict:
+    """Device microseconds per launch of the kernels `names` over `iters`
+    calls of fn, from torch.profiler (None where it saw no launch)."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    pats = {n: re.compile(r"(^|[\s:])" + n + r"[<(]") for n in names}
+    acc = {n: [0.0, 0] for n in names}
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        for n, pat in pats.items():
+            if pat.search(e.key):
+                acc[n][0] += us
+                acc[n][1] += e.count
+    return {n: (us / k if k else None) for n, (us, k) in acc.items()}
+
+
+def quant_phase(torch):
+    """quantize, dequantize and dequant-accumulate against their plain
+    versions, bit for bit, at the ring's slice shapes, L 127 and 7."""
+    from repro_torch.kernels import quant_collectives as QC
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    timed = None
+    for rows, n in QUANT_SHAPES:
+        x = torch.randn(rows, n, generator=gen, device=dev)
+        x *= torch.logspace(0, 2, rows, device=dev)[:, None]
+        acc = torch.randn(rows, n, generator=gen, device=dev)
+        for levels in (127, 7):
+            q, s = QC.quantize_absmax(x, levels=levels)
+            qp, sp = QC.quantize_absmax_plain(x, levels=levels)
+            y = QC.dequantize_absmax(q, s)
+            yp = QC.dequantize_absmax_plain(q, s)
+            z = QC.dequant_accum_absmax(q, s, acc)
+            zp = QC.dequant_accum_absmax_plain(q, s, acc)
+            torch.cuda.synchronize()
+            same = {"quantize": torch.equal(q, qp) and torch.equal(s, sp),
+                    "dequantize": torch.equal(y, yp),
+                    "dequant_accum": torch.equal(z, zp)}
+            print(f"quant ({rows},{n}) L={levels}: bit-identical {same}")
+            if not all(same.values()):
+                errs = ((q.int() - qp.int()).abs().max().item(),
+                        (s - sp).abs().max().item(),
+                        (y - yp).abs().max().item(),
+                        (z - zp).abs().max().item())
+                raise AssertionError(f"quant kernels not bit-identical at "
+                                     f"({rows},{n}) L={levels}: {errs}")
+            if (rows, n) == QUANT_TIMED and levels == 127:
+                timed = (x, q, s, acc)
+    x, q, s, acc = timed
+    rows, n = x.shape
+    sb = s.numel() * 4
+    # at the timed shape every chunk is whole, so one PyTorch call
+    # computes codes*scale (int8 x fp32 promotes to fp32) and one
+    # acc + codes*scale
+    assert n % QC.CHUNK == 0, n
+    qc, sc, ac = q.view(rows, -1, QC.CHUNK), s[..., None], acc.view(
+        rows, -1, QC.CHUNK)
+
+    def lib_deq():
+        return qc * sc
+
+    def lib_acc():
+        return torch.addcmul(ac, qc, sc)
+
+    lib_err = {"dequantize_absmax": (lib_deq().view(rows, n)
+                                     - QC.dequantize_absmax(q, s)),
+               "dequant_accum_absmax": (lib_acc().view(rows, n)
+                                        - QC.dequant_accum_absmax(q, s,
+                                                                  acc))}
+    lib_err = {k: v.abs().max().item() for k, v in lib_err.items()}
+    prof = device_us(torch, lambda: (QC.quantize_absmax(x, levels=127),
+                                     QC.dequantize_absmax(q, s),
+                                     QC.dequant_accum_absmax(q, s, acc)),
+                     ("quant_kernel", "dequant_kernel",
+                      "dequant_accum_kernel"))
+    cases = (
+        ("quantize_absmax", ":93", "quant_kernel",
+         lambda: QC.quantize_absmax(x, levels=127),
+         lambda: QC.quantize_absmax_plain(x, levels=127), None,
+         4 * x.numel() + q.numel() + sb, 6.0 * x.numel()),
+        ("dequantize_absmax", ":116", "dequant_kernel",
+         lambda: QC.dequantize_absmax(q, s),
+         lambda: QC.dequantize_absmax_plain(q, s), lib_deq,
+         q.numel() + sb + 4 * q.numel(), 1.0 * q.numel()),
+        ("dequant_accum_absmax", ":137", "dequant_accum_kernel",
+         lambda: QC.dequant_accum_absmax(q, s, acc),
+         lambda: QC.dequant_accum_absmax_plain(q, s, acc), lib_acc,
+         q.numel() + sb + 8 * q.numel(), 2.0 * q.numel()),
+    )
+    out = []
+    for name, line, kname, fn, plain, lib, nbytes, flops in cases:
+        ms = cuda_ms(torch, fn, iters=100)
+        plain_ms = cuda_ms(torch, plain, iters=100)
+        library_ms = cuda_ms(torch, lib, iters=100) if lib else None
+        b_ms, b_by = bound_ms(nbytes, flops, "float32")
+        print(f"{name} ({rows},{n}): ms={ms:.5f} plain_ms={plain_ms:.5f} "
+              f"library_ms={library_ms} (library max_abs_err vs kernel "
+              f"{lib_err.get(name)}) device_us_per_launch={prof[kname]} "
+              f"bound_ms={b_ms:.6f}")
+        out.append({"name": name, "route": "cuda",
+                    "source": "src/repro_torch/csrc/quant_collectives.cu",
+                    "replaces": f"src/repro/kernels/quant_collectives.py{line}",
+                    "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": library_ms, "device_us": prof[kname],
+                    "shape": f"({rows},{n}) fp32 L=127, a 4x512 prefill's "
+                             "ring slice at tp=2"})
+    out[1]["shape"] += " (on no path: only the reference's tests call it)"
+    return out
+
+
+def norm_phase(torch):
+    """The fused residual RMSNorm against its plain version, fp32 and
+    bf16, at a prefill's rows and a decode step's."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import fused_norm as FN
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    timed = None
+    for dtype in (torch.float32, torch.bfloat16):
+        for t, d in NORM_SHAPES:
+            x = torch.randn(t, d, generator=gen, device=dev).to(dtype)
+            r = torch.randn(t, d, generator=gen, device=dev).to(dtype)
+            w = (1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
+                 ).to(dtype)
+            y, s = FN.fused_residual_rmsnorm(x, r, w)
+            yp, sp = FN.fused_residual_rmsnorm_plain(x, r, w)
+            torch.cuda.synchronize()
+            err = max((y.float() - yp.float()).abs().max().item(),
+                      (s.float() - sp.float()).abs().max().item())
+            tol = NORM_ATOL[str(dtype)[6:]]
+            print(f"fused_norm {str(dtype)[6:]} ({t},{d}): "
+                  f"max_abs_err={err:.3e} tol={tol:.0e}")
+            if not err <= tol:
+                raise AssertionError(f"fused norm kernel disagrees at "
+                                     f"{dtype} ({t},{d}): {err} > {tol}")
+            if dtype == torch.bfloat16 and t == NORM_SHAPES[0][0]:
+                timed = (x, r, w, err)
+    x, r, w, err = timed
+    t, d = x.shape
+    ms = cuda_ms(torch, lambda: FN.fused_residual_rmsnorm(x, r, w))
+    plain_ms = cuda_ms(torch, lambda: FN.fused_residual_rmsnorm_plain(x, r, w))
+    s = x + r
+    library_ms = (cuda_ms(torch, lambda: F.rms_norm(s, (d,), w, 1e-5))
+                  if hasattr(F, "rms_norm") else None)
+    prof = device_us(torch, lambda: FN.fused_residual_rmsnorm(x, r, w),
+                     ("fused_rmsnorm_kernel",))
+    es = x.element_size()
+    b_ms, b_by = bound_ms(4 * x.numel() * es + d * es, 7.0 * x.numel(),
+                          "float32")
+    print(f"fused_residual_rmsnorm ({t},{d}) bf16: ms={ms:.5f} "
+          f"plain_ms={plain_ms:.5f} library_ms={library_ms} "
+          f"(F.rms_norm on the precomputed sum, context) "
+          f"device_us_per_launch={prof['fused_rmsnorm_kernel']} "
+          f"bound_ms={b_ms:.6f}")
+    return {"name": "fused_residual_rmsnorm", "route": "cuda",
+            "source": "src/repro_torch/csrc/fused_norm.cu",
+            "replaces": "src/repro/kernels/fused_norm.py:30",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+            "device_us": prof["fused_rmsnorm_kernel"],
+            "shape": f"x, r ({t},{d}) bf16, w ({d},) (on no path: the model "
+                     "does not call it, nor does the reference's)"}
+
+
+class plain_ring:
+    """Inside: the ring collectives take the kernels' plain versions on
+    the card (the compression module's kernel names are swapped)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import quant_collectives as QC
+        from repro_torch.parallel import compression as C
+        self.saved = {k: getattr(C, k) for k in (
+            "quantize_absmax", "dequant_accum_absmax", "qdq_absmax")}
+        C.quantize_absmax = QC.quantize_absmax_plain
+        C.dequant_accum_absmax = QC.dequant_accum_absmax_plain
+        C.qdq_absmax = QC.qdq_absmax_plain
+
+    def __exit__(self, *exc):
+        from repro_torch.parallel import compression as C
+        for k, v in self.saved.items():
+            setattr(C, k, v)
+
+
+def ring_phase(torch, card):
+    """The runnable ring collectives over the shard axis at tp 2 and 4,
+    on kept-sync payloads of full-width SmolLM-360M.  Returns the
+    launches of the kernel-path calls."""
+    from repro_torch.kernels import quant_collectives as QC
+    from repro_torch.parallel import compression as C
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    counted = (QC.quantize_absmax, QC.dequant_accum_absmax, QC.qdq_absmax)
+    launches = {k.__name__: 0 for k in counted}
+    cases = []
+    for tp in RING_TPS:
+        for label, shp in (("prefill", (tp, 4, 512, 960)),
+                           ("decode", (tp, 4, 1, 960))):
+            x = torch.randn(shp, generator=gen, device=dev)
+            exact = x.sum(dim=0)
+            for bits in (8, 4):
+                for k in counted:
+                    k.launches = 0
+                out = C.ring_quantized_psum(x, bits=bits)
+                torch.cuda.synchronize()
+                got = {k.__name__: k.launches for k in counted}
+                for k in counted:
+                    k.launches = 0
+                with plain_ring():
+                    ref = C.ring_quantized_psum(x, bits=bits)
+                torch.cuda.synchronize()
+                leaked = {k.__name__: k.launches for k in counted}
+                if any(leaked.values()):
+                    raise AssertionError(f"the plain ring launched kernels: "
+                                         f"{leaked}")
+                levels = 127 if bits == 8 else 7
+                bound = (2 * tp + 1) / levels * x.abs().max().item()
+                err = (out[0] - exact).abs().max().item()
+                same = torch.equal(out, ref)
+                shards = all(torch.equal(out[0], out[d]) for d in range(tp))
+                want = {"quantize_absmax": tp - 1,
+                        "dequant_accum_absmax": tp - 1, "qdq_absmax": 1}
+                print(f"ring_quantized_psum tp={tp} {label} {tuple(shp)} "
+                      f"bits={bits}: kernel==plain {same} shards equal "
+                      f"{shards} err={err:.4e} bound={bound:.4e} "
+                      f"launches {got}")
+                if not (same and shards and err <= bound and got == want):
+                    raise AssertionError(f"ring_quantized_psum tp={tp} "
+                                         f"{label} bits={bits} failed")
+                for k, v in got.items():
+                    launches[k] += v
+            rs = C.ring_reduce_scatter(x)
+            flat = exact.reshape(-1)
+            want_rs = torch.nn.functional.pad(
+                flat, (0, (-flat.numel()) % tp)).reshape(tp, -1)
+            rs_err = (rs - want_rs).abs().max().item()
+            ag = C.ring_all_gather(x)
+            ag_ok = torch.equal(ag, x[None].expand(tp, *x.shape))
+            print(f"ring_reduce_scatter tp={tp} {label}: max_abs_err="
+                  f"{rs_err:.3e} tol={RING_RS_ATOL:.0e}; ring_all_gather "
+                  f"exact {ag_ok}")
+            if not (rs_err <= RING_RS_ATOL and ag_ok):
+                raise AssertionError(f"ring RS/AG tp={tp} {label} failed")
+            cases.append((tp, label, x))
+    for tp, label, x in cases:
+        t_q = cuda_ms(torch, lambda: C.ring_quantized_psum(x, bits=8),
+                      iters=20)
+        t_rs = cuda_ms(torch, lambda: C.ring_reduce_scatter(x), iters=20)
+        t_ag = cuda_ms(torch, lambda: C.ring_all_gather(x), iters=20)
+        print(f"ring [{card}] tp={tp} {label} {tuple(x.shape)}: "
+              f"ring_quantized_psum(q8)={t_q:.4f} ms "
+              f"ring_reduce_scatter={t_rs:.4f} ms "
+              f"ring_all_gather={t_ag:.4f} ms per call")
+    print(f"ring phase launches: {json.dumps(launches)}")
+    return launches
+
+
+def overlap_path(torch, np, prompts, dense_tokens, card):
+    """The dense path's LLM.load arguments plus engine="overlap": the same
+    tokens, the ledger priced, and pipelined decode equal to serial."""
+    from repro_torch.api import LLM, SamplingParams
+    from repro_torch.config.base import replace
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import quant_collectives as QC
+    from repro_torch.parallel.collectives import (LatencyModel,
+                                                  collective_ledger)
+    from repro_torch.runtime.forward import bucketed_prefill
+
+    cfg = replace(get_config("smollm-360m"), attn_backend="pallas")
+    t0 = time.perf_counter()
+    llm = LLM.load(cfg, tp=2, spd=0.25, comm="quant8", comm_logits="quant8",
+                   dtype="bfloat16", cache_len=512, max_batch=4, seed=0,
+                   engine="overlap")
+    torch.cuda.synchronize()
+    print(f"overlap path: loaded in {time.perf_counter() - t0:.1f} s, "
+          f"backend {type(llm.engine.backend).__name__} "
+          f"overlaps_comm={llm.engine.backend.overlaps_comm}")
+    llm.generate([prompts[0][:8]], SamplingParams(max_new=2))   # warm-up
+    times = timed_engine(torch, llm.engine)
+    kernels = (FA.flash_attention_bhsd, FA.paged_flash_attention,
+               QC.qdq_absmax, QC.quantize_absmax, QC.dequant_accum_absmax)
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    outs = llm.generate(prompts, SamplingParams(max_new=MAX_NEW))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    toks = [o.token_ids for o in outs]
+    if toks != dense_tokens:
+        raise AssertionError(f"overlap tokens differ from the dense sim "
+                             f"path's: {toks} vs {dense_tokens}")
+    if min(launches["flash_attention_bhsd"], launches["qdq_absmax"]) <= 0:
+        raise AssertionError(f"a kernel was not launched on the overlap "
+                             f"path: {launches}")
+    n_tok = sum(len(t) for t in toks)
+    prefill_ms = 1e3 * sum(times["prefill"])
+    decode_ms = 1e3 * sum(times["decode"]) / max(len(times["decode"]), 1)
+    print(f"overlap path launches: {json.dumps(launches)}")
+    print(f"overlap path [{card}]: prefill_ms={prefill_ms:.2f} "
+          f"decode_ms_per_token={decode_ms:.2f} "
+          f"({len(times['decode'])} steps) tokens_per_s={n_tok / wall:.1f} "
+          f"({n_tok} tokens in {wall:.2f} s); all {n_tok} tokens equal the "
+          "dense sim path's")
+
+    eng, params = llm.engine, llm.params
+    lat = LatencyModel(link_bytes_per_s=NVLINK_BYTES_PER_S,
+                       launch_us=ASSUMED_LAUNCH_US)
+    p = prompts[3]
+    with collective_ledger(latency=lat, tp=2) as led_pre:
+        _, c1 = bucketed_prefill(eng, params, p, len(p), 512)
+    caches = eng.insert_slot(eng.blank_caches(4, 512), c1, 0)
+    with collective_ledger(latency=lat, tp=2) as led_dec:
+        eng.decode(params, np.full((4, 1), 7), np.asarray([len(p)] * 4),
+                   caches)
+    for label, led in (("prefill", led_pre), ("decode", led_dec)):
+        ov = lat.summarize(led, overlap=eng.backend.overlaps_comm)
+        perms = sum(e.op == "collective-permute" for e in led)
+        print(f"overlap pricing [{card}; NVLink 450 GB/s each way, data "
+              f"sheet; launch {ASSUMED_LAUNCH_US} us, assumed] {label} "
+              f"({len(p) if label == 'prefill' else 4} tokens): "
+              f"entries={len(led)} ring_steps={perms} "
+              f"total_us={ov['total_us']:.3f} hidden_us={ov['hidden_us']:.3f} "
+              f"exposed_us={ov['exposed_us']:.3f} "
+              f"kept_sync_us={ov['kept_sync_us']:.3f} hidden_of_kept="
+              f"{ov['hidden_us'] / max(ov['kept_sync_us'], 1e-12):.3f}")
+        if not (abs(ov["hidden_us"] + ov["exposed_us"] - ov["total_us"])
+                <= 1e-9 * max(1.0, ov["total_us"]) and perms > 0):
+            raise AssertionError(f"overlap pricing of {label} does not add "
+                                 f"up: {ov}, {perms} ring steps")
+
+    rng = np.random.default_rng(2)
+    toks0 = rng.integers(0, cfg.vocab_size, (4, 1))
+    pos = np.zeros((4,), np.int64)
+
+    def groups():
+        return [(toks0 + i, pos, eng.blank_caches(4, 512))
+                for i in range(PIPE_GROUPS)]
+
+    def run(piped):
+        gs = groups()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = (eng.decode_pipelined(params, gs, depth=2) if piped
+               else [eng.decode(params, *g) for g in gs])
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    # in turns (serial, pipelined, pipelined, serial) on the same card
+    (serial, t_s1), (piped, t_p1) = run(False), run(True)
+    (piped2, t_p2), (serial2, t_s2) = run(True), run(False)
+    same = all(torch.equal(a[0], b[0]) for a, b in zip(serial, piped)) and \
+        all(torch.equal(a[0], b[0]) for a, b in zip(serial2, piped2))
+    print(f"decode_pipelined [{card}]: {PIPE_GROUPS} groups of 4, depth 2: "
+          f"equal to serial {same}; host ms serial={1e3 * t_s1:.2f}/"
+          f"{1e3 * t_s2:.2f} pipelined={1e3 * t_p1:.2f}/{1e3 * t_p2:.2f} "
+          "(in turns S P P S)")
+    if not same:
+        raise AssertionError("decode_pipelined differs from serial decode")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -620,7 +1033,8 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
 
-    kernels = [flash_phase(torch), paged_phase(torch), qdq_phase(torch)]
+    kernels = [flash_phase(torch), paged_phase(torch), qdq_phase(torch),
+               *quant_phase(torch), norm_phase(torch)]
     llm, prompts, launches, dense_tokens = main_path(torch, np, card)
     profile_phase(torch, llm, prompts, card)
     paged, paged_launches = paged_path(torch, np, llm, prompts, dense_tokens,
@@ -629,12 +1043,19 @@ def main() -> int:
     del paged
     teacher_forced(torch, llm, prompts[2])
     teacher_forced_paged(torch, llm, prompts[2])
+    del llm
+    ring_launches = ring_phase(torch, card)
+    overlap_path(torch, np, prompts, dense_tokens, card)
 
     # each kernel's launches on the main path it serves: the paged kernel
-    # on the paged path, the others on the dense path (the paged path's
-    # counts of all three are printed above)
+    # on the paged path, quantize and dequant-accumulate on the ring
+    # phase, the rest on the dense path (every path's counts are printed
+    # above); dequantize and the fused norm are on no path, and their 0
+    # is the dense path's count
     launches["paged_flash_attention"] = paged_launches[
         "paged_flash_attention"]
+    launches["quantize_absmax"] = ring_launches["quantize_absmax"]
+    launches["dequant_accum_absmax"] = ring_launches["dequant_accum_absmax"]
     for k in kernels:
         k["launches"] = launches[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

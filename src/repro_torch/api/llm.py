@@ -6,6 +6,7 @@ repro/api/llm.py: dense and paged serving).
     outs = llm.generate(prompts, SamplingParams(max_new=16))
     paged = LLM.load("smollm-360m", tp=2, page_size=16, num_pages=40,
                      cache_len=512)
+    overlap = LLM.load("smollm-360m", tp=2, comm="quant8", engine="overlap")
 
 Runs on the CUDA device by default; with no CUDA device it raises
 unless `device="cpu"` is asked for explicitly (there is no silent CPU
@@ -101,6 +102,9 @@ class LLM:
              dp_replicas: int = 1, obs=None, device=None) -> "LLM":
         """Load `arch` (config name or ModelConfig) onto an engine.
 
+        engine     "sim" (every shard on one device) or "overlap" (sim
+                   plus the ring-step comm ledger and pipelined decode;
+                   the same tokens).
         spd        fraction of blocks to SPD-drop (first-k plan), ignored
                    when an explicit `plan` is given.
         page_size, num_pages
@@ -123,9 +127,10 @@ class LLM:
                     f"LLM.load({name}=...) is not ported yet")
         if dp_replicas != 1:
             raise NotImplementedError("dp_replicas > 1 is not ported yet")
-        if engine != "sim":
+        if engine not in ("sim", "overlap"):
             raise NotImplementedError(
-                f"engine={engine!r} is not ported yet (only 'sim')")
+                f"engine={engine!r} is not ported yet (only 'sim' and "
+                "'overlap'; the multi-process backend is ROADMAP A11)")
         from repro_torch.configs import get_config
         from repro_torch.core import model as M
 

@@ -4,6 +4,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import fused_norm as FN
 
 
 def flash_attention(q, k, v, *, sm_scale=None):
@@ -25,6 +26,16 @@ def flash_attention(q, k, v, *, sm_scale=None):
     vp = v.transpose(1, 2).reshape(b * hkv, v.shape[1], d).contiguous()
     out = FA.flash_attention_bhsd(qp, kp, vp, sm_scale=sm_scale)
     return out.reshape(b, hq, s, d).transpose(1, 2)
+
+
+def fused_residual_rmsnorm(x, r, w, *, eps: float = 1e-5):
+    """x, r (..., d) -> (rmsnorm(x+r)*w, x+r).  The kernel takes any row
+    count, so unlike the reference no padding to `block_rows` is needed."""
+    shape, d = x.shape, x.shape[-1]
+    y, s = FN.fused_residual_rmsnorm(x.reshape(-1, d).contiguous(),
+                                     r.reshape(-1, d).contiguous(),
+                                     w.contiguous(), eps=eps)
+    return y.reshape(shape), s.reshape(shape)
 
 
 # ---------------------------------------------------------------------------

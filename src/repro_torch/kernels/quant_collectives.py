@@ -1,14 +1,19 @@
-"""Per-chunk absmax quantize-dequantize: the CUDA kernel's wrapper and
-its plain version (port of repro/kernels/quant_collectives.py::
-qdq_absmax, the TPU kernel, and repro/kernels/ref.py::qdq_absmax_ref,
-its oracle).
+"""Per-chunk absmax quantization kernels: the CUDA kernels' wrappers and
+their plain versions (port of repro/kernels/quant_collectives.py, the
+TPU kernels, and of their oracles in repro/kernels/ref.py).
 
-The input is a (rows, n) fp32 matrix whose rows are chunked
-independently from element 0: each row is one TP shard's flattened
-payload, which the reference quantizes per shard under `vmap`.
-`qdq_absmax` launches `csrc/quant_collectives.cu` for a CUDA tensor and
-takes `qdq_absmax_plain` only for a CPU tensor; the two agree bit for
-bit.  `qdq_absmax.launches` counts kernel launches.
+    qdq_absmax            fp32 (rows, n) -> fp32 quantize-dequantize
+    quantize_absmax       fp32 (rows, n) -> int8 codes (rows, n),
+                          fp32 scales (rows, ceil(n/128))
+    dequantize_absmax     codes, scales -> fp32 (rows, n)
+    dequant_accum_absmax  codes, scales, fp32 acc -> acc + codes*scales
+
+Rows are chunked independently from element 0: each row is one TP
+shard's flattened payload, which the reference quantizes per shard
+under `vmap`.  Each wrapper launches its kernel in
+`csrc/quant_collectives.cu` for a CUDA tensor and takes its plain
+version only for a CPU tensor; kernel and plain version agree bit for
+bit on the card.  Each wrapper's `.launches` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -37,47 +42,189 @@ def qdq_absmax_plain(x, *, levels: int, chunk: int = CHUNK):
     return (q * s).reshape(rows, -1)[:, :n]
 
 
-def check_args(x, levels: int, chunk: int) -> None:
-    if x.dim() != 2:
-        raise ValueError(f"want x (rows, n); got {tuple(x.shape)}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"want float32 x; got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("x must be contiguous")
-    if levels not in LEVELS:
-        raise ValueError(f"levels {levels} not in {LEVELS}")
+def quantize_absmax_plain(x, *, levels: int, chunk: int = CHUNK):
+    """x (rows, n) -> (int8 codes (rows, n), fp32 scales (rows,
+    ceil(n/chunk))); `levels` divides as a tensor (see qdq_absmax_plain)."""
+    rows, n = x.shape
+    xp = F.pad(x.float(), (0, (-n) % chunk)).reshape(rows, -1, chunk)
+    lv = torch.full((), levels, dtype=torch.float32, device=x.device)
+    s = torch.clamp(xp.abs().amax(dim=-1) / lv, min=1e-12)
+    q = torch.clamp(torch.round(xp / s[..., None]), -levels, levels)
+    return q.to(torch.int8).reshape(rows, -1)[:, :n].contiguous(), s
+
+
+def dequantize_absmax_plain(q, s, *, chunk: int = CHUNK):
+    """(codes (rows, n), scales (rows, ceil(n/chunk))) -> fp32 (rows, n)."""
+    rows, n = q.shape
+    qp = F.pad(q.float(), (0, (-n) % chunk)).reshape(rows, -1, chunk)
+    return (qp * s[..., None]).reshape(rows, -1)[:, :n]
+
+
+def dequant_accum_absmax_plain(q, s, acc, *, chunk: int = CHUNK):
+    """acc + dequantize(q, s): a multiply, then an add (two roundings)."""
+    return acc.float() + dequantize_absmax_plain(q, s, chunk=chunk)
+
+
+def _check_2d(name, t, dtype) -> None:
+    if t.dim() != 2:
+        raise ValueError(f"want {name} (rows, n); got {tuple(t.shape)}")
+    if t.dtype != dtype:
+        raise TypeError(f"want {dtype} {name}; got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.numel() >= 2 ** 31:
+        raise ValueError(f"{name} too large for the kernel's int indexing")
+
+
+def _check_chunk(chunk: int) -> None:
     if chunk != CHUNK:
         raise ValueError(f"the kernel's chunk is {CHUNK}, got {chunk}")
-    if x.numel() >= 2 ** 31:
-        raise ValueError("x too large for the kernel's int indexing")
+
+
+def _check_levels(levels: int) -> None:
+    if levels not in LEVELS:
+        raise ValueError(f"levels {levels} not in {LEVELS}")
+
+
+def check_args(x, levels: int, chunk: int) -> None:
+    _check_2d("x", x, torch.float32)
+    _check_levels(levels)
+    _check_chunk(chunk)
+
+
+def _check_codes(q, s, chunk: int) -> None:
+    _check_2d("q", q, torch.int8)
+    _check_2d("s", s, torch.float32)
+    _check_chunk(chunk)
+    want = (q.shape[0], -(-q.shape[1] // chunk))
+    if tuple(s.shape) != want:
+        raise ValueError(f"want scales {want} for codes {tuple(q.shape)}; "
+                         f"got {tuple(s.shape)}")
+    if s.device != q.device:
+        raise ValueError("codes and scales on different devices")
+
+
+def _on_card(x, what: str) -> bool:
+    """False for a CPU tensor (take the plain version), True for a CUDA
+    one (launch the kernel); raises for any other device."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"no {what} kernel for device {x.device}")
+    return True
+
+
+_ARGTYPES = {
+    "qdq_absmax_fwd": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    "quantize_absmax_fwd": [ctypes.c_void_p, ctypes.c_void_p,
+                            ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                            ctypes.c_int, ctypes.c_void_p],
+    "dequantize_absmax_fwd": [ctypes.c_void_p, ctypes.c_void_p,
+                              ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_void_p],
+    "dequant_accum_absmax_fwd": [ctypes.c_void_p, ctypes.c_void_p,
+                                 ctypes.c_void_p, ctypes.c_void_p,
+                                 ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_void_p],
+}
 
 
 def _lib():
     lib = build.load("quant_collectives")
-    fn = lib.qdq_absmax_fwd
-    if not fn.argtypes:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    for name, argtypes in _ARGTYPES.items():
+        fn = getattr(lib, name)
+        if not fn.argtypes:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib
+
+
+def _stream(t) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def qdq_absmax(x, *, levels: int, chunk: int = CHUNK):
     """x (rows, n) fp32 -> fp32 (rows, n), chunks restarting at each row."""
     check_args(x, levels, chunk)
-    if x.device.type == "cpu":
+    if not _on_card(x, "qdq"):
         return qdq_absmax_plain(x, levels=levels, chunk=chunk)
-    if x.device.type != "cuda":
-        raise ValueError(f"no qdq kernel for device {x.device}")
     lib = _lib()
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.qdq_absmax_fwd(x.data_ptr(), out.data_ptr(), x.shape[0],
-                                x.shape[1], levels, stream)
+                                x.shape[1], levels, _stream(x))
     build.check(lib, rc, "qdq_absmax_fwd")
     qdq_absmax.launches += 1
     return out
 
 
 qdq_absmax.launches = 0
+
+
+def quantize_absmax(x, *, levels: int, chunk: int = CHUNK):
+    """x (rows, n) fp32 -> (int8 codes (rows, n), fp32 scales (rows,
+    ceil(n/128))), chunks restarting at each row."""
+    check_args(x, levels, chunk)
+    if not _on_card(x, "quantize"):
+        return quantize_absmax_plain(x, levels=levels, chunk=chunk)
+    lib = _lib()
+    rows, n = x.shape
+    q = torch.empty((rows, n), dtype=torch.int8, device=x.device)
+    s = torch.empty((rows, -(-n // chunk)), dtype=torch.float32,
+                    device=x.device)
+    with torch.cuda.device(x.device):
+        rc = lib.quantize_absmax_fwd(x.data_ptr(), q.data_ptr(),
+                                     s.data_ptr(), rows, n, levels,
+                                     _stream(x))
+    build.check(lib, rc, "quantize_absmax_fwd")
+    quantize_absmax.launches += 1
+    return q, s
+
+
+quantize_absmax.launches = 0
+
+
+def dequantize_absmax(q, s, *, chunk: int = CHUNK):
+    """int8 codes (rows, n) and fp32 scales (rows, ceil(n/128)) -> fp32
+    (rows, n)."""
+    _check_codes(q, s, chunk)
+    if not _on_card(q, "dequantize"):
+        return dequantize_absmax_plain(q, s, chunk=chunk)
+    lib = _lib()
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        rc = lib.dequantize_absmax_fwd(q.data_ptr(), s.data_ptr(),
+                                       out.data_ptr(), q.shape[0],
+                                       q.shape[1], _stream(q))
+    build.check(lib, rc, "dequantize_absmax_fwd")
+    dequantize_absmax.launches += 1
+    return out
+
+
+dequantize_absmax.launches = 0
+
+
+def dequant_accum_absmax(q, s, acc, *, chunk: int = CHUNK):
+    """acc (rows, n) fp32 + codes * scales in one pass: the receive side
+    of each quantized ring reduce-scatter step."""
+    _check_codes(q, s, chunk)
+    _check_2d("acc", acc, torch.float32)
+    if tuple(acc.shape) != tuple(q.shape) or acc.device != q.device:
+        raise ValueError(f"acc {tuple(acc.shape)} on {acc.device} does not "
+                         f"match codes {tuple(q.shape)} on {q.device}")
+    if not _on_card(q, "dequant-accumulate"):
+        return dequant_accum_absmax_plain(q, s, acc, chunk=chunk)
+    lib = _lib()
+    out = torch.empty_like(acc)
+    with torch.cuda.device(q.device):
+        rc = lib.dequant_accum_absmax_fwd(q.data_ptr(), s.data_ptr(),
+                                          acc.data_ptr(), out.data_ptr(),
+                                          q.shape[0], q.shape[1],
+                                          _stream(q))
+    build.check(lib, rc, "dequant_accum_absmax_fwd")
+    dequant_accum_absmax.launches += 1
+    return out
+
+
+dequant_accum_absmax.launches = 0

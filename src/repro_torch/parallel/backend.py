@@ -6,8 +6,9 @@ The step functions of `runtime/forward.py` are written over
 shard-stacked tensors (dim 0 = TP shard).  A backend owns where those
 live: it places parameters, materializes blank caches, and wraps each
 step so per-request host arrays ("batch"/"rep" arguments) land on its
-device.  `LLM.load(engine=...)` resolves backends through the registry;
-a multi-GPU backend registers beside `sim` in a later slice.
+device.  `LLM.load(engine=...)` resolves backends through the registry:
+`sim` and `overlap` here; a multi-GPU backend registers beside them in a
+later slice.
 """
 from __future__ import annotations
 
@@ -41,6 +42,9 @@ class ParallelBackend:
     device."""
 
     name: str = "?"
+    #: whether LatencyModel.summarize should price overlappable entries
+    #: as hidden behind compute (the overlap backend's reading)
+    overlaps_comm: bool = False
     cfg = plan = None
     tp: int = 1
     dp: int = 1
@@ -143,3 +147,38 @@ class SimBackend(ParallelBackend):
                                device=self.device)
 
         return [tree_map(one, s, a) for s, a in zip(structs, specs)]
+
+
+@register_backend("overlap")
+class OverlapBackend(SimBackend):
+    """`sim` plus the comm schedule that hides the syncs SPD keeps.
+
+    The same math as `sim` (greedy tokens equal bit for bit), three
+    seams:
+
+      * every step runs inside `collectives.overlap_region`, so each
+        kept quantized sync logs its two hops as `ring_chunks` ring-step
+        collective-permute entries instead of one RS/AG pair (the
+        runnable rings are compression.ring_*; the step keeps the
+        two-hop quantized_psum, as the reference's engines do);
+      * `overlaps_comm=True` tells `LatencyModel.summarize` to price
+        overlappable entries as hidden behind compute;
+      * `Engine.decode_pipelined` issues independent decode groups back
+        to back.
+
+    The reference's overlap backend subclasses its shard_map backend.
+    The port has no multi-device backend yet; when it comes (ROADMAP
+    A11), the overlap backend moves onto it."""
+
+    overlaps_comm = True
+    #: ring-pipeline depth of each kept sync (LatencyModel.ring_chunks)
+    ring_chunks: int = 4
+
+    def wrap(self, local_fn, spec: StepSpec):
+        from repro_torch.parallel.collectives import overlap_region
+
+        def overlapped(*args):
+            with overlap_region(self.ring_chunks):
+                return local_fn(*args)
+
+        return super().wrap(overlapped, spec)

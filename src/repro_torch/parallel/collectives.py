@@ -15,20 +15,33 @@ in a Python loop, logs the first layer of each segment under the same
 scale and pauses the ledger for the rest (`ledger_paused`), so the two
 give identical entries.  Forward-only: `column_entry` / `shared_param`
 are identities here (their gradient rules come with training).
+
+`collective_ledger(latency=, tp=)` prices every entry as it is logged
+(`LatencyModel`), and `overlap_region` is the overlap backend's ledger
+seam: inside it a quantized kept sync logs its two hops as ring-step
+collective-permutes (compression._log_two_hop).  `ppermute` is the ring
+permutation i -> i+1 of the shard axis, which runnable ring collectives
+(compression.ring_*) are built from.
 """
 from __future__ import annotations
 
 import threading
 from contextlib import contextmanager
+from dataclasses import dataclass
 from typing import List, NamedTuple, Optional
+
+import torch
 
 MODEL_AXIS = "model"
 
 
 class CommEntry(NamedTuple):
     """One logical collective: kind, axis, per-shard payload bytes,
-    whether it is a kept block sync (overlappable), the modeled times
-    (0.0 in this port: no latency model yet) and its block/phase labels."""
+    whether it is a kept block sync (overlappable), and its block/phase
+    labels.  `est_us` is the modeled wall time (launch + ring wire time)
+    and `fixed_us` its launch share, both scaled like the bytes, when
+    the capture was opened with `collective_ledger(latency=, tp=)`; 0.0
+    in a plain byte-accounting capture."""
 
     op: str
     axis: str
@@ -40,6 +53,82 @@ class CommEntry(NamedTuple):
     phase: str = ""
 
 
+def ring_wire_bytes(op: str, payload_bytes: float, n: int) -> float:
+    """Bytes one shard puts on the wire for one logical collective under
+    the ring algorithms, given the ledger's byte convention."""
+    if n <= 1:
+        return 0.0
+    if op == "all-reduce":
+        return 2.0 * (n - 1) / n * payload_bytes
+    if op == "reduce-scatter":
+        return (n - 1) / n * payload_bytes
+    if op == "all-gather":
+        return (n - 1) * payload_bytes
+    if op == "collective-permute":
+        return payload_bytes
+    raise ValueError(f"unknown collective op {op!r}")
+
+
+@dataclass(frozen=True)
+class LatencyModel:
+    """Analytic per-collective latency: `launch_us` fixed dispatch cost +
+    ring wire bytes / `link_bytes_per_s`.  `ring_chunks` is how many ring
+    steps an overlappable sync is split into when a backend overlaps it
+    with block compute (backend.OverlapBackend):
+
+      * a single overlappable entry (a kept exact all-reduce) keeps its
+        pipeline-fill chunk and its launch on the critical path:
+        exposed = fixed + (T - fixed) / ring_chunks, hidden = the rest
+        (clamped at 0);
+      * a collective-permute entry is one ring step of an overlap-region
+        decomposition (compression._log_two_hop): its transfer hides
+        entirely, its launch stays exposed.
+
+    The link rate and the launch cost have no defaults: the caller
+    states the interconnect it prices (chip_smoke.py passes the H100
+    SXM's NVLink 4 data-sheet rate)."""
+
+    link_bytes_per_s: float
+    launch_us: float
+    ring_chunks: int = 4
+
+    def collective_us(self, op: str, nbytes: float, n: int) -> float:
+        """Serial wall time (us) of one collective of `nbytes` payload."""
+        if n <= 1:
+            return 0.0
+        return (self.launch_us
+                + ring_wire_bytes(op, nbytes, n) / self.link_bytes_per_s
+                * 1e6)
+
+    def split_us(self, e: CommEntry) -> tuple:
+        """(hidden_us, exposed_us) of one entry when the backend overlaps
+        kept syncs; hidden + exposed == e.est_us."""
+        if not e.overlappable or self.ring_chunks <= 1:
+            return 0.0, e.est_us
+        if e.op == "collective-permute":
+            hidden = max(e.est_us - e.fixed_us, 0.0)
+            return hidden, e.est_us - hidden
+        exposed = e.fixed_us + (e.est_us - e.fixed_us) / self.ring_chunks
+        hidden = max(e.est_us - exposed, 0.0)
+        return hidden, e.est_us - hidden
+
+    def summarize(self, ledger, *, overlap: bool = False) -> dict:
+        """Price a latency-annotated capture: {total_us, hidden_us,
+        exposed_us, kept_sync_us}.  `overlap=False` exposes everything;
+        `overlap=True` hides the chunked share of every overlappable
+        entry.  `kept_sync_us` is the serial time of the overlappable
+        entries alone."""
+        total = hidden = kept = 0.0
+        for e in ledger:
+            total += e.est_us
+            if e.overlappable:
+                kept += e.est_us
+            if overlap:
+                hidden += self.split_us(e)[0]
+        return {"total_us": total, "hidden_us": hidden,
+                "exposed_us": total - hidden, "kept_sync_us": kept}
+
+
 class _Ledger(threading.local):
     def __init__(self):
         self.active: Optional[List[CommEntry]] = None
@@ -47,20 +136,30 @@ class _Ledger(threading.local):
         self.paused: bool = False
         self.block: int = -1
         self.phase: str = ""
+        self.latency: Optional[LatencyModel] = None
+        self.tp: int = 1
+        self.overlap_chunks: int = 0      # 0 = not inside an overlap region
 
 
 _LEDGER = _Ledger()
 
 
 @contextmanager
-def collective_ledger():
-    """Capture a CommEntry for every collective issued inside."""
-    prev = _LEDGER.active
-    _LEDGER.active = []
+def collective_ledger(latency: Optional[LatencyModel] = None,
+                      tp: Optional[int] = None):
+    """Capture a CommEntry for every collective issued inside.  With
+    `latency=` (and `tp=`, the shard count of the run) each entry is
+    priced as it is logged: est_us = scale x (launch + ring wire time),
+    fixed_us = scale x launch."""
+    if latency is not None and tp is None:
+        raise ValueError("collective_ledger(latency=...) needs tp=")
+    prev = (_LEDGER.active, _LEDGER.latency, _LEDGER.tp)
+    _LEDGER.active, _LEDGER.latency = [], latency
+    _LEDGER.tp = int(tp) if tp is not None else 1
     try:
         yield _LEDGER.active
     finally:
-        _LEDGER.active = prev
+        _LEDGER.active, _LEDGER.latency, _LEDGER.tp = prev
 
 
 @contextmanager
@@ -108,9 +207,32 @@ def log_collective(op: str, axis, nbytes: int, *,
     """Ledger entry with an explicit byte count."""
     if _LEDGER.active is None or _LEDGER.paused:
         return
+    est = fixed = 0.0
+    if _LEDGER.latency is not None and _LEDGER.tp > 1:
+        est = _LEDGER.scale * _LEDGER.latency.collective_us(
+            op, nbytes, _LEDGER.tp)
+        fixed = _LEDGER.scale * _LEDGER.latency.launch_us
     _LEDGER.active.append(CommEntry(op, axis, int(nbytes) * _LEDGER.scale,
-                                    overlappable, 0.0, 0.0, _LEDGER.block,
+                                    overlappable, est, fixed, _LEDGER.block,
                                     _LEDGER.phase))
+
+
+@contextmanager
+def overlap_region(chunks: int = 4):
+    """The overlap backend wraps every step in this: while active, each
+    kept quantized sync logs its two hops as `chunks` ring-step
+    collective-permute entries (bytes equal in total to the RS/AG pair).
+    Execution is unchanged."""
+    prev, _LEDGER.overlap_chunks = _LEDGER.overlap_chunks, int(chunks)
+    try:
+        yield
+    finally:
+        _LEDGER.overlap_chunks = prev
+
+
+def overlap_chunks() -> int:
+    """Ring-chunk count of the active overlap region (0 outside one)."""
+    return _LEDGER.overlap_chunks
 
 
 def shard_nbytes(x) -> int:
@@ -121,6 +243,13 @@ def shard_nbytes(x) -> int:
 def psum(x):
     """All-reduce over the shard axis: sum over dim 0, on every shard."""
     return x.sum(dim=0, keepdim=True).expand_as(x)
+
+
+def ppermute(x, axis=MODEL_AXIS):
+    """The ring permutation i -> i+1 over the shard axis: row j receives
+    row j-1.  Logged as one collective-permute of one shard's bytes."""
+    log_collective("collective-permute", axis, shard_nbytes(x))
+    return torch.roll(x, 1, dims=0)
 
 
 # accepted spellings of the kept-sync levels

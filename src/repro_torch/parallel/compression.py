@@ -1,5 +1,4 @@
-"""Low-bit sync payloads (port of repro/parallel/compression.py, the
-non-overlap half).
+"""Low-bit sync payloads (port of repro/parallel/compression.py).
 
 `quantized_psum` is the two-hop low-bit all-reduce of every quantized
 kept sync: quantize each shard's partial, reduce-scatter, re-quantize
@@ -13,14 +12,33 @@ qdq_absmax`, which launches the CUDA kernel for a CUDA tensor and takes
 its plain version for a CPU tensor (the reference's kernel="auto").
 Each shard's payload is flattened and chunked from its own element 0,
 as under the reference's per-shard `vmap`.
+
+The runnable ring collectives at the end (`ring_all_gather`,
+`ring_reduce_scatter`, `ring_quantized_psum`) execute the chunked ring
+schedule that the overlap backend's ledger accounts for, one
+`collectives.ppermute` (a roll of the shard axis) per ring step.  The
+quantized ring sends through the quantize kernel and receives through
+the fused dequant-accumulate kernel.  The serving engines keep the
+two-hop `quantized_psum` above, as the reference's engines do.
 """
 from __future__ import annotations
 
-from repro_torch.kernels.quant_collectives import qdq_absmax
-from repro_torch.parallel.collectives import log_collective
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.quant_collectives import (dequant_accum_absmax,
+                                                   qdq_absmax,
+                                                   quantize_absmax)
+from repro_torch.parallel.collectives import (MODEL_AXIS, log_collective,
+                                              overlap_chunks, ppermute,
+                                              ring_wire_bytes)
 
 QUANT_BITS = {"quant8": 8, "int8": 8, "quant4": 4, "int4": 4}
 DEFAULT_CHUNK = 128
+# floor on the ring-step payload an overlap region splits a hop into:
+# each step pays a launch that never hides (LatencyModel), so tiny hops
+# stay 1-2 steps instead of ring_chunks launches
+MIN_RING_CHUNK_BYTES = 16384
 
 
 def _levels(bits: int) -> int:
@@ -44,12 +62,25 @@ def qdq(x, *, bits: int = 8, chunk: int = DEFAULT_CHUNK):
                       chunk=chunk).reshape(x.shape)
 
 
-def _log_two_hop(axis, wire_full: int, wire_slice: int) -> None:
+def _log_two_hop(axis, wire_full: int, wire_slice: int, n: int) -> None:
     """The RS entry carries the full quantized payload each shard sends,
-    the AG entry the reduced per-shard slice (the reference's overlap
-    branch, ring-step entries, waits for the overlap backend)."""
-    log_collective("reduce-scatter", axis, wire_full, overlappable=True)
-    log_collective("all-gather", axis, wire_slice, overlappable=True)
+    the AG entry the reduced per-shard slice.  Inside an overlap region
+    each hop instead logs up to the region's chunk count of ring-step
+    collective-permute entries whose bytes sum to the hop's ring wire
+    traffic (n is the shard count)."""
+    region = overlap_chunks()
+    if region <= 0:
+        log_collective("reduce-scatter", axis, wire_full, overlappable=True)
+        log_collective("all-gather", axis, wire_slice, overlappable=True)
+        return
+    for wire in (ring_wire_bytes("reduce-scatter", wire_full, n),
+                 ring_wire_bytes("all-gather", wire_slice, n)):
+        wire = int(round(wire))
+        chunks = max(1, min(region, wire // MIN_RING_CHUNK_BYTES))
+        step, rem = divmod(wire, chunks)
+        for c in range(chunks):
+            log_collective("collective-permute", axis,
+                           step + (1 if c < rem else 0), overlappable=True)
 
 
 def quantized_psum(x, axis, *, bits: int = 8, chunk: int = DEFAULT_CHUNK):
@@ -57,7 +88,7 @@ def quantized_psum(x, axis, *, bits: int = 8, chunk: int = DEFAULT_CHUNK):
     tp = x.shape[0]
     n = x[0].numel()
     _log_two_hop(axis, wire_bytes(n, bits, chunk),
-                 wire_bytes(-(-n // tp), bits, chunk))
+                 wire_bytes(-(-n // tp), bits, chunk), tp)
     xq = qdq(x, bits=bits, chunk=chunk)                  # hop 1
     s = xq.sum(dim=0, keepdim=True).expand_as(xq)
     return qdq(s, bits=bits, chunk=chunk).to(x.dtype)    # hop 2
@@ -70,3 +101,87 @@ def quantized_gather_payload(x, axis, *, bits: int = 8,
     bytes; the caller does the gather."""
     log_collective("all-gather", axis, wire_bytes(x[0].numel(), bits, chunk))
     return qdq(x, bits=bits, chunk=chunk).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Runnable ring collectives over the shard axis.  The reference runs one
+# copy per device under vmap/shard_map; here every shard is a row of one
+# stacked tensor, `d` is `torch.arange(n)`, and each per-device
+# `jnp.take(xs, i(d), axis=0)` is the gather `xs[ar, i(ar)]` on the
+# stacked (n, n, m) tensor.
+# ---------------------------------------------------------------------------
+
+
+def _pad_to(flat, n: int):
+    """Pad the last axis of (rows, size) to a multiple of n."""
+    pad = (-flat.shape[-1]) % n
+    return (F.pad(flat, (0, pad)), flat.shape[-1]) if pad else \
+        (flat, flat.shape[-1])
+
+
+def ring_all_gather(x, axis=MODEL_AXIS):
+    """Ring all-gather of shard-stacked x (n, ...): returns (n, n, ...),
+    [d, j] = shard j's x on every shard d; n-1 ring steps, each a
+    collective-permute."""
+    n = x.shape[0]
+    if n == 1:
+        return x[:, None]
+    ar = torch.arange(n, device=x.device)
+    parts, cur = [x], x
+    for _ in range(n - 1):
+        cur = ppermute(cur, axis)
+        parts.append(cur)
+    # part t holds shard (d - t) % n; reorder so column j is shard j
+    stacked = torch.stack(parts, dim=1)
+    return stacked[ar[:, None], (ar[:, None] - ar[None, :]) % n]
+
+
+def ring_reduce_scatter(x, axis=MODEL_AXIS):
+    """Ring reduce-scatter of shard-stacked x (n, ...): shard d returns
+    slice d (length ceil(size/n), zero-padded) of the cross-shard sum of
+    its flattened payload, fp32 (n, ceil(size/n)).  n-1 steps, each
+    forwarding one partial slice and adding the local contribution."""
+    n = x.shape[0]
+    flat = x.float().reshape(n, -1)
+    if n == 1:
+        return flat
+    padded, _ = _pad_to(flat, n)
+    xs = padded.reshape(n, n, -1)
+    ar = torch.arange(n, device=x.device)
+    # chunk c starts at shard c+1 with that shard's contribution; after
+    # n-1 forward-and-add steps it is complete at shard c
+    buf = xs[ar, (ar - 1) % n]
+    for t in range(n - 1):
+        buf = ppermute(buf, axis)
+        buf = buf + xs[ar, (ar - 2 - t) % n]
+    return buf
+
+
+def ring_quantized_psum(x, axis=MODEL_AXIS, *, bits: int = 8,
+                        chunk: int = DEFAULT_CHUNK):
+    """The runnable low-bit ring psum of shard-stacked x: a quantized
+    ring reduce-scatter (each step sends int8 codes + fp32 scales from
+    `quantize_absmax` and the receiver adds them into its partial with
+    `dequant_accum_absmax`), then the reduced slice requantized (`qdq`)
+    and ring all-gathered.  Returns x's shape and dtype.  Its error grows
+    with the n-1 per-step requantizations, unlike `quantized_psum`."""
+    shape, dtype = x.shape, x.dtype
+    n = x.shape[0]
+    levels = _levels(bits)
+    if n == 1:
+        return qdq(x, bits=bits, chunk=chunk).to(dtype)
+    padded, size = _pad_to(x.float().reshape(n, -1), n)
+    xs = padded.reshape(n, n, -1)
+    ar = torch.arange(n, device=x.device)
+    # hop 1: quantized ring reduce-scatter (requantize before each send)
+    buf = xs[ar, (ar - 1) % n]
+    for t in range(n - 1):
+        q, s = quantize_absmax(buf.contiguous(), levels=levels, chunk=chunk)
+        q = ppermute(q, axis)
+        s = ppermute(s, axis)
+        buf = dequant_accum_absmax(q, s, xs[ar, (ar - 2 - t) % n],
+                                   chunk=chunk)
+    # hop 2: requantize the reduced slice, ring all-gather, reassemble
+    buf = qdq(buf, bits=bits, chunk=chunk)
+    out = ring_all_gather(buf, axis).reshape(n, -1)[:, :size]
+    return out.reshape(shape).to(dtype)

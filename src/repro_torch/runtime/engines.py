@@ -68,6 +68,15 @@ class Engine:
     def decode(self, params, tokens, pos, caches):
         return self._decode(False)(params, tokens, pos, caches)
 
+    def decode_pipelined(self, params, groups, *, depth: int = 2):
+        """Greedy decode over independent micro-batches, each issued
+        before waiting on the one before (F.drive_pipelined_decode), the
+        host-level overlap seam of the "overlap" backend.  `groups` is a
+        list of ``(tokens, pos, caches)``; returns ``[(ids, caches),
+        ...]`` token-identical to calling `decode` per group."""
+        return F.drive_pipelined_decode(self._decode(False), params,
+                                        groups, depth=depth)
+
     def decode_with_logits(self, params, tokens, pos, caches):
         return self._decode(True)(params, tokens, pos, caches)
 

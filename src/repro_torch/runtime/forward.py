@@ -12,6 +12,7 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
 
 from repro_torch.core import model as M
 from repro_torch.parallel.backend import StepSpec
@@ -165,6 +166,37 @@ def insert_slot(caches, caches1, b: int, *, batch_axis: int):
         for k in seg:
             seg[k][pre + (b,)] = seg1[k][pre + (0,)]
     return caches
+
+
+def drive_pipelined_decode(step, params, groups, *, depth: int = 2):
+    """Issue one decode step across independent micro-batches.
+
+    `groups` is a list of per-group step arguments (``(tokens, pos,
+    caches)``); returns the step results in order.  CUDA launches are
+    asynchronous, so issuing group t+1's step before waiting on group t's
+    outputs overlaps t+1's host work with t's device work.  A CUDA event
+    recorded after each step is synchronized when the group leaves the
+    window, so at most `depth` groups are in flight; on the CPU there is
+    nothing to wait for.  Token-identical to the serial loop: the groups
+    are independent and have their own caches."""
+    def ready(item):
+        res, event = item
+        if event is not None:
+            event.synchronize()
+        return res
+
+    inflight, out = [], []
+    for g in groups:
+        res = step(params, *g)
+        event = None
+        if res[0].is_cuda:            # res = (ids, caches)
+            event = torch.cuda.Event()
+            event.record()
+        inflight.append((res, event))
+        if len(inflight) >= max(int(depth), 1):
+            out.append(ready(inflight.pop(0)))
+    out.extend(ready(item) for item in inflight)
+    return out
 
 
 def bucketed_prefill(engine, params, toks, s: int, cache_len: int,
