@@ -41,7 +41,20 @@
    One prefill and one decode step are priced with a LatencyModel of the
    card's NVLink (data sheet) and an assumed launch cost, and
    decode_pipelined over 3 groups must equal serial decode.
-9. Prints the kernels JSON line, the card line, and last
+9. SSD phase: the Mamba2 chunked-scan kernel against its plain version
+   at the mamba path's shapes (32 streams, P 64, N 128, chunk 256; S 17,
+   300 and 512; bf16 and fp32), y and the final state; timed (events and
+   profile) beside its plain version and its bound.
+10. Mamba path: full-width Mamba2-370M (48 layers) through LLM.load(tp=2,
+   spd=0.25 -> no drops: one sync per block, kept syncs and logits gather
+   at quant8) -> generate on the same 4 prompts, 16 greedy tokens each,
+   with every kernel's count zeroed before and read after: ssd_scan must
+   launch once per layer per prefill (48 x 4), qdq > 0, flash and paged
+   0.  A profiled generate follows.  Then, on the same weights with exact
+   syncs, in bf16 and fp32: prefill logits through the kernel against
+   the plain scan, and the decode logits after teacher-forcing the
+   generated tokens against one exact-length prefill of prompt + tokens.
+11. Prints the kernels JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 
 Any failure raises (non-zero exit, no result line).  Without a CUDA
@@ -50,6 +63,7 @@ device it exits non-zero at once.  Weights are random, from a seed.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -101,6 +115,27 @@ RING_RS_ATOL = 1e-5
 NVLINK_BYTES_PER_S = 450e9
 ASSUMED_LAUNCH_US = 5.0
 PIPE_GROUPS = 3
+# SSD scan: tp 2 x 1 request = 2 batch rows of 16 heads (32 streams) of
+# Mamba2-370M, P 64, N 128, one group, chunk 256; S shorter than a chunk,
+# ragged over two chunks, and two whole chunks
+SSD_SHAPE = dict(bt=2, h=16, p=64, n=128, g=1, chunk=256)
+SSD_SEQS = (17, 300, 512)
+SSD_TIMED_S = 300
+# and one shape off the path, for what the wrapper also takes: 4 groups
+# of 4 heads, a chunk (100) that is no multiple of the 64-row tile, P 32
+SSD_OFF_PATH = dict(bt=2, h=16, p=32, n=64, g=4, chunk=100)
+# fp32 y and state (and the bf16 run's state, fp32 in both): the kernel
+# and the plain chunked form differ by summation order only, measured at
+# 2e-6 to 3e-6 of the largest value on the H100, so 2e-5 (a 7x
+# margin).  bf16 y: both round fp32 sums to
+# bf16 once, so one bf16 step of the largest |y| covers a rounding flip
+SSD_FP32_REL = 2e-5
+SSD_BF16_Y_REL = 2.0 ** -7
+SSD_BF16_STATE_REL = 2e-5
+MAMBA_LAYERS = 48
+# bf16 model-level checks on the mamba path: at most twice the spread of
+# the same comparison made without the kernel (see mamba_checks)
+MAMBA_BF16_FLOOR = 2.0
 
 
 def card_line() -> str:
@@ -360,6 +395,7 @@ def main_path(torch, np, card):
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import fused_norm as FN
     from repro_torch.kernels import quant_collectives as QC
+    from repro_torch.kernels import ssd_scan as SS
 
     cfg = replace(get_config("smollm-360m"), attn_backend="pallas")
     t0 = time.perf_counter()
@@ -378,7 +414,8 @@ def main_path(torch, np, card):
 
     kernels = (FA.flash_attention_bhsd, FA.paged_flash_attention,
                QC.qdq_absmax, QC.quantize_absmax, QC.dequantize_absmax,
-               QC.dequant_accum_absmax, FN.fused_residual_rmsnorm)
+               QC.dequant_accum_absmax, FN.fused_residual_rmsnorm,
+               SS.ssd_scan)
     for k in kernels:
         k.launches = 0
     t0 = time.perf_counter()
@@ -534,7 +571,7 @@ def profile_phase(torch, llm, prompts, card, label="profile"):
     for dev_us, count, key in rows[:8]:
         print(f"  {label} top: {dev_us / 1e3:8.2f} ms {count:6d}x {key[:90]}")
     for name in ("flash_fwd_kernel", "paged_fwd_kernel",  # the port's own
-                 "qdq_kernel"):
+                 "qdq_kernel", "ssd_scan_kernel"):
         hits = [(us, n) for us, n, key in rows if name in key]
         us, n = sum(h[0] for h in hits), sum(h[1] for h in hits)
         if n:
@@ -1007,6 +1044,312 @@ def overlap_path(torch, np, prompts, dense_tokens, card):
     return launches
 
 
+def ssd_work(bt, h, s, p, n, g, chunk, es) -> tuple:
+    """Bytes the SSD scan must move (x, B, C read and y written in the
+    input type; dt, a, D read and the final state written in fp32) and
+    the multiply-adds x 2 it needs on this S: C.B^T once per (row, group)
+    and chunk over the causal half, then per stream the decayed scores
+    times x, C times the carried state and the state update."""
+    nbytes = (es * (2 * bt * s * h * p + 2 * bt * s * g * n)
+              + 4 * (bt * s * h + 2 * bt * h + bt * h * p * n))
+    flops = 0
+    for c0 in range(0, s, chunk):
+        nr = min(chunk, s - c0)
+        tri = nr * (nr + 1) // 2
+        flops += 2 * bt * g * tri * n
+        flops += 2 * bt * h * (tri * p + 2 * nr * n * p)
+    return nbytes, flops
+
+
+def ssd_inputs(torch, s, dtype, sh=SSD_SHAPE):
+    """x, dt, a, B, C, D at shape `sh`: dt log-uniform in [1e-3, 1e-1] and
+    A = -(1..16) over the heads (the model's init), B/C post-SiLU-like."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(10 + s)
+    bt, h, p, n, g = sh["bt"], sh["h"], sh["p"], sh["n"], sh["g"]
+    x = torch.randn(bt, s, h, p, generator=gen, device=dev).to(dtype)
+    lo, hi = math.log(1e-3), math.log(1e-1)
+    dt = torch.exp(lo + (hi - lo) * torch.rand(bt, s, h, generator=gen,
+                                               device=dev))
+    a = -torch.linspace(1.0, 16.0, h, device=dev).expand(bt, h).contiguous()
+    bm = torch.nn.functional.silu(torch.randn(
+        bt, s, g, n, generator=gen, device=dev)).to(dtype)
+    cm = torch.nn.functional.silu(torch.randn(
+        bt, s, g, n, generator=gen, device=dev)).to(dtype)
+    dd = torch.ones(bt, h, device=dev)
+    return x, dt, a, bm, cm, dd
+
+
+def ssd_phase(torch):
+    """The SSD chunked-scan kernel against its plain version at the mamba
+    path's shapes, y and the final state."""
+    from repro_torch.kernels import ssd_scan as SS
+
+    chunk = SSD_SHAPE["chunk"]
+    timed = None
+    cases = [(dtype, s, SSD_SHAPE) for dtype in (torch.bfloat16, torch.float32)
+             for s in SSD_SEQS] + [(torch.float32, 300, SSD_OFF_PATH)]
+    for dtype, s, sh in cases:
+        args = ssd_inputs(torch, s, dtype, sh)
+        y, st = SS.ssd_scan(*args, chunk=sh["chunk"])
+        yp, stp = SS.ssd_scan_plain(*args, chunk=sh["chunk"])
+        torch.cuda.synchronize()
+        ey = (y.float() - yp.float()).abs().max().item()
+        es = (st - stp).abs().max().item()
+        my = yp.float().abs().max().item()
+        ms_ = stp.abs().max().item()
+        if dtype == torch.float32:
+            ty, ts = SSD_FP32_REL * my, SSD_FP32_REL * ms_
+        else:
+            ty, ts = SSD_BF16_Y_REL * my, SSD_BF16_STATE_REL * ms_
+        print(f"ssd_scan {str(dtype)[6:]} S={s} G={sh['g']} P={sh['p']} "
+              f"N={sh['n']} chunk={sh['chunk']}: y max_abs_err={ey:.3e} "
+              f"tol={ty:.3e} (max|y|={my:.3e}); state max_abs_err="
+              f"{es:.3e} tol={ts:.3e} (max|state|={ms_:.3e})")
+        if not (ey <= ty and es <= ts):
+            raise AssertionError(f"ssd_scan kernel disagrees at {dtype} "
+                                 f"S={s}: y {ey} > {ty} or state {es} > "
+                                 f"{ts}")
+        if dtype == torch.bfloat16 and s == SSD_TIMED_S:
+            timed = (args, ey)
+    args, err = timed
+    ms = cuda_ms(torch, lambda: SS.ssd_scan(*args, chunk=chunk), iters=20)
+    plain_ms = cuda_ms(torch, lambda: SS.ssd_scan_plain(*args, chunk=chunk),
+                       iters=20)
+    prof = device_us(torch, lambda: SS.ssd_scan(*args, chunk=chunk),
+                     ("ssd_scan_kernel",), iters=10)
+    sh = SSD_SHAPE
+    nbytes, flops = ssd_work(sh["bt"], sh["h"], SSD_TIMED_S, sh["p"],
+                             sh["n"], sh["g"], chunk, 2)
+    b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
+    print(f"ssd_scan (S={SSD_TIMED_S}, bf16): ms={ms:.5f} plain_ms="
+          f"{plain_ms:.5f} device_us_per_launch={prof['ssd_scan_kernel']} "
+          f"bound_ms={b_ms:.6f} ({b_by}; {nbytes} bytes, {flops} flops) "
+          f"library_ms=None (no single PyTorch call computes the SSD scan: "
+          f"it is a chunked scan with a carried state, not one product)")
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:66",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "device_us": prof["ssd_scan_kernel"],
+            "shape": f"x ({sh['bt']},{SSD_TIMED_S},{sh['h']},{sh['p']}) bf16, "
+                     f"B/C ({sh['bt']},{SSD_TIMED_S},{sh['g']},{sh['n']}), "
+                     f"chunk {chunk}: one layer of the 300-token prefill"}
+
+
+class plain_ssd:
+    """Inside: the model's SSD scan takes the plain version on the card
+    (the kernel module's wrapper name, which kernels/ops calls, is
+    swapped)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ssd_scan as SS
+        self.saved = SS.ssd_scan
+        SS.ssd_scan = SS.ssd_scan_plain
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ssd_scan as SS
+        SS.ssd_scan = self.saved
+
+
+def mamba_path(torch, np, prompts, card):
+    """Full-width Mamba2-370M through the facade at tp=2: every prefill
+    layer through the SSD kernel, every kept sync and the logits gather
+    through qdq."""
+    from repro_torch.api import LLM, SamplingParams
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import fused_norm as FN
+    from repro_torch.kernels import quant_collectives as QC
+    from repro_torch.kernels import ssd_scan as SS
+
+    cfg = get_config("mamba2-370m")
+    t0 = time.perf_counter()
+    llm = LLM.load(cfg, tp=2, spd=0.25, comm="quant8", comm_logits="quant8",
+                   dtype="bfloat16", cache_len=512, max_batch=4, seed=0)
+    torch.cuda.synchronize()
+    print(f"mamba path: loaded {cfg.name} (L={cfg.n_layers} d={cfg.d_model} "
+          f"ssm heads {cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim} of "
+          f"{cfg.ssm.head_dim}, d_state {cfg.ssm.d_state}, chunk "
+          f"{cfg.ssm.chunk_size}, {cfg.param_count() / 1e6:.1f} M params) in "
+          f"{time.perf_counter() - t0:.1f} s; plan drops "
+          f"{llm.plan.n_dropped}/{cfg.n_layers} syncs (SPD applies: "
+          f"{cfg.spd_applicable})")
+    if cfg.n_layers != MAMBA_LAYERS or llm.plan.n_dropped:
+        raise AssertionError("the mamba path must run all 48 layers with "
+                             "no dropped sync")
+    llm.generate([prompts[0][:8]], SamplingParams(max_new=2))   # warm-up
+    times = timed_engine(torch, llm.engine)
+    kernels = (FA.flash_attention_bhsd, FA.paged_flash_attention,
+               QC.qdq_absmax, QC.quantize_absmax, QC.dequantize_absmax,
+               QC.dequant_accum_absmax, FN.fused_residual_rmsnorm,
+               SS.ssd_scan)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    outs = llm.generate(prompts, SamplingParams(max_new=MAX_NEW))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for o, p in zip(outs, prompts):
+        if (o.finish_reason != "length" or len(o.token_ids) != MAX_NEW
+                or not all(0 <= t < cfg.vocab_size for t in o.token_ids)):
+            raise AssertionError(f"mamba request {o.index} (prompt {len(p)}) "
+                                 f"did not finish cleanly: {o}")
+    want = cfg.n_layers * len(prompts)
+    if (launches["ssd_scan"] != want or launches["qdq_absmax"] <= 0
+            or launches["flash_attention_bhsd"]
+            or launches["paged_flash_attention"]):
+        raise AssertionError(f"mamba path launches wrong: {launches} (want "
+                             f"ssd_scan {want}, qdq > 0, flash/paged 0)")
+    n_tok = sum(len(o.token_ids) for o in outs)
+    prefill_ms = 1e3 * sum(times["prefill"])
+    decode_ms = 1e3 * sum(times["decode"]) / max(len(times["decode"]), 1)
+    print(f"mamba path launches: {json.dumps(launches)}")
+    print(f"mamba path [{card}]: prefill_ms={prefill_ms:.2f} (4 requests, "
+          f"prompts {list(PROMPT_LENS)}, each at its own length) "
+          f"decode_ms_per_token={decode_ms:.2f} ({len(times['decode'])} "
+          f"batch-4 steps) tokens_per_s={n_tok / wall:.1f} ({n_tok} tokens "
+          f"in {wall:.2f} s) peak_memory_gib={peak:.2f}")
+    print("mamba path tokens[3]:", outs[3].token_ids)
+    return llm, launches, [o.token_ids for o in outs]
+
+
+def layer_outputs(fn):
+    """fn() with every block's output (shard 0, fp32) captured in order."""
+    from repro_torch.core import blocks as B
+    outs, orig = [], B.block_seq
+
+    def spy(*a, **kw):
+        out, cache = orig(*a, **kw)
+        outs.append(out[0].float())
+        return out, cache
+
+    B.block_seq = spy
+    try:
+        return fn(), outs
+    finally:
+        B.block_seq = orig
+
+
+def mamba_checks(torch, llm, prompt, toks):
+    """On the mamba path's weights with exact syncs (a quantized sync
+    turns a last-ulp difference into a quant step), fp32 then bf16:
+    (a) prefill logits with the SSD kernel against the plain scan; (b)
+    after prefilling `prompt` and teacher-forcing the generated `toks`
+    through decode, the last decode logits against one exact-length
+    prefill of prompt + toks[:-1] (ROADMAP C3 on the card).
+
+    fp32 holds both to TF_FP32_ATOL.  In bf16 a rounding flip grows
+    through the 48 layers (the per-layer divergence is printed), and the
+    plain version differs from itself by as much as from the kernel, at
+    about 5% of the largest logit.  So each bf16 comparison is held to
+    5% of the largest logit (TF_BF16_REL) or, where bf16 arithmetic alone
+    spreads wider, to MAMBA_BF16_FLOOR times the same comparison made
+    without the kernel: (a) the plain scan at chunk 256 against the plain
+    scan at chunk 128 (the same function summed in another order), (b)
+    the plain path's own decode against its own prefill.  A wrong scan
+    or state is off by the size of the logits themselves."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.api import LLM
+    from repro_torch.config.base import replace
+    from repro_torch.core import blocks as B
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.runtime.forward import bucketed_prefill
+    from repro_torch.tree import tree_map
+
+    s = len(prompt)
+    full = np.concatenate([prompt, np.asarray(toks[:-1])])
+
+    def err(a, b):
+        return (a.float() - b.float()).abs().max().item()
+
+    def forced(m, c1):
+        """The last decode logits after teacher-forcing toks[:-1]."""
+        eng = m.engine
+        caches = eng.insert_slot(eng.blank_caches(1, 512), c1, 0)
+        for i, tok in enumerate(toks[:-1]):
+            _, ld, caches = eng.decode_with_logits(
+                m.params, np.asarray([[tok]]), np.asarray([s + i]), caches)
+        return ld
+
+    for dtype in ("float32", "bfloat16"):
+        cfg = replace(llm.cfg, dtype=dtype)
+        params = tree_map(lambda w: w.to(B.TORCH_DTYPES[dtype]),
+                          llm.canonical)
+
+        def load(c):
+            return LLM.load(c, tp=2, plan=llm.plan.with_comm(None),
+                            cache_len=512, max_batch=1, params=params)
+
+        m = load(cfg)
+        SS.ssd_scan.launches = 0
+        (lk, c1), outs_k = layer_outputs(
+            lambda: bucketed_prefill(m.engine, m.params, prompt, s, 512))
+        ran = SS.ssd_scan.launches
+        SS.ssd_scan.launches = 0
+        with plain_ssd():
+            (lp, c1p), outs_p = layer_outputs(
+                lambda: bucketed_prefill(m.engine, m.params, prompt, s, 512))
+            ld_p = forced(m, c1p)
+            lf_p, _ = bucketed_prefill(m.engine, m.params, full, len(full),
+                                       512)
+        leaked = SS.ssd_scan.launches
+        ld = forced(m, c1)
+        lf, _ = bucketed_prefill(m.engine, m.params, full, len(full), 512)
+        div = [err(a, b) / b.abs().max().item()
+               for a, b in zip(outs_k, outs_p)]
+        e_pre, e_tf = err(lk, lp), err(ld, lf)
+        if dtype == "float32":
+            tol_pre = tol_tf = TF_FP32_ATOL
+            floors = ""
+        else:
+            m128 = load(replace(cfg, ssm=dataclasses.replace(
+                cfg.ssm, chunk_size=128)))
+            with plain_ssd():
+                lp128, _ = bucketed_prefill(m128.engine, m128.params, prompt,
+                                            s, 512)
+            del m128
+            f_pre, f_tf = err(lp, lp128), err(ld_p, lf_p)
+            # 5% of the largest logit, or the measured floor if wider
+            tol_pre = max(TF_BF16_REL * lp.float().abs().max().item(),
+                          MAMBA_BF16_FLOOR * f_pre)
+            tol_tf = max(TF_BF16_REL * lf.float().abs().max().item(),
+                         MAMBA_BF16_FLOOR * f_tf)
+            floors = (f" [without the kernel: plain chunk 256 vs 128 "
+                      f"{f_pre:.3e}; plain decode vs plain prefill "
+                      f"{f_tf:.3e}]")
+        scale = lp.float().abs().max().item()
+        print(f"mamba prefill logits, kernel vs plain scan ({s} tokens, "
+              f"{dtype}): max_abs_err={e_pre:.3e} tol={tol_pre:.3e} "
+              f"max|logit|={scale:.3e} (err/max {e_pre / scale:.4f}) same "
+              f"argmax={int(lk.argmax()) == int(lp.argmax())} kernel "
+              f"launches={ran} plain-path launches={leaked}")
+        print(f"mamba hidden divergence kernel vs plain ({dtype}), max|d| / "
+              f"max|x| after layers 1/2/6/12/24/36/48: "
+              + " ".join(f"{div[i]:.2e}" for i in (0, 1, 5, 11, 23, 35, 47)
+                         if i < len(div)))
+        scale = lf.float().abs().max().item()
+        print(f"mamba teacher-forced decode ({s} + {len(toks) - 1} tokens, "
+              f"{dtype}): last decode logits vs one {len(full)}-token prefill "
+              f"max_abs_err={e_tf:.3e} tol={tol_tf:.3e} max|logit|="
+              f"{scale:.3e} (err/max {e_tf / scale:.4f}) same argmax="
+              f"{int(ld.argmax()) == int(lf.argmax())}{floors}")
+        if not (e_pre <= tol_pre and ran == cfg.n_layers and leaked == 0):
+            raise AssertionError(f"mamba kernel vs plain prefill failed "
+                                 f"({dtype}): {e_pre} > {tol_pre}, launches "
+                                 f"{ran}, plain-path launches {leaked}")
+        if not e_tf <= tol_tf:
+            raise AssertionError(f"mamba decode disagrees with an exact-"
+                                 f"length prefill ({dtype}): {e_tf} > "
+                                 f"{tol_tf}")
+        del m
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1034,7 +1377,7 @@ def main() -> int:
                 print(f"  ptxas {name}: {line.strip()}")
 
     kernels = [flash_phase(torch), paged_phase(torch), qdq_phase(torch),
-               *quant_phase(torch), norm_phase(torch)]
+               *quant_phase(torch), norm_phase(torch), ssd_phase(torch)]
     llm, prompts, launches, dense_tokens = main_path(torch, np, card)
     profile_phase(torch, llm, prompts, card)
     paged, paged_launches = paged_path(torch, np, llm, prompts, dense_tokens,
@@ -1046,16 +1389,21 @@ def main() -> int:
     del llm
     ring_launches = ring_phase(torch, card)
     overlap_path(torch, np, prompts, dense_tokens, card)
+    mamba, mamba_launches, mamba_tokens = mamba_path(torch, np, prompts, card)
+    profile_phase(torch, mamba, prompts, card, label="mamba profile")
+    mamba_checks(torch, mamba, prompts[3], mamba_tokens[3])
+    del mamba
 
     # each kernel's launches on the main path it serves: the paged kernel
     # on the paged path, quantize and dequant-accumulate on the ring
-    # phase, the rest on the dense path (every path's counts are printed
-    # above); dequantize and the fused norm are on no path, and their 0
-    # is the dense path's count
+    # phase, the SSD scan on the mamba path, the rest on the dense path
+    # (every path's counts are printed above); dequantize and the fused
+    # norm are on no path, and their 0 is the dense path's count
     launches["paged_flash_attention"] = paged_launches[
         "paged_flash_attention"]
     launches["quantize_absmax"] = ring_launches["quantize_absmax"]
     launches["dequant_accum_absmax"] = ring_launches["dequant_accum_absmax"]
+    launches["ssd_scan"] = mamba_launches["ssd_scan"]
     for k in kernels:
         k["launches"] = launches[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -7,6 +7,7 @@ repro/api/llm.py: dense and paged serving).
     paged = LLM.load("smollm-360m", tp=2, page_size=16, num_pages=40,
                      cache_len=512)
     overlap = LLM.load("smollm-360m", tp=2, comm="quant8", engine="overlap")
+    mamba = LLM.load("mamba2-370m", tp=2, comm="quant8", cache_len=512)
 
 Runs on the CUDA device by default; with no CUDA device it raises
 unless `device="cpu"` is asked for explicitly (there is no silent CPU
@@ -106,11 +107,14 @@ class LLM:
                    plus the ring-step comm ledger and pipelined decode;
                    the same tokens).
         spd        fraction of blocks to SPD-drop (first-k plan), ignored
-                   when an explicit `plan` is given.
+                   when an explicit `plan` is given; no block drops on
+                   an attention-free (SSM) model, which has one sync
+                   point per block.
         page_size, num_pages
                    paged KV cache (set both): a shared pool of num_pages
                    pages of page_size tokens, with preemption and the
                    prefix cache; cache_len is then the per-slot cap.
+                   Attention (GQA) models only: an SSM model raises.
         comm       kept-sync comm policy: a CommPolicy, or a level string
                    ("exact" | "quant8" | "quant4") for every kept sync;
                    `comm_logits` sets the logits all-gather level.
@@ -140,6 +144,8 @@ class LLM:
         cfg = arch if isinstance(arch, ModelConfig) else get_config(arch)
         if dtype is not None:
             cfg = replace(cfg, dtype=dtype)
+        if cache.paged:
+            M.require_paged_attention(cfg)
         if plan is None:
             k = int(round(cfg.n_layers * spd)) if cfg.spd_applicable else 0
             plan = SPDPlanConfig.first_k(cfg.n_layers, k)

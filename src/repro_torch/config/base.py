@@ -2,8 +2,8 @@
 
 `ModelConfig` keeps the reference's fields and defaults one for one, so
 the two packages' configs compare field by field.  The family
-sub-configs (MoE/MLA/SSM) are carried as inert fields: this slice serves
-the dense family only.
+sub-configs are carried field for field; the port serves the dense
+family and the pure-SSM family (Mamba2), and MoE/MLA stay inert.
 """
 from __future__ import annotations
 
@@ -105,8 +105,37 @@ class ModelConfig:
     @property
     def spd_applicable(self) -> bool:
         """SPD needs a second sync point (the MLP combine) to defer the
-        attention partial sum to."""
+        attention partial sum to.  Pure-SSM blocks have one sync point."""
         return not self.attn_free
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Can this arch decode at 500k context without a dense KV cache?"""
+        if self.family == "ssm":
+            return True
+        return self.family == "hybrid" and self.attn_window > 0
+
+    def param_count(self) -> int:
+        """Analytic parameter count (the reference's formula, for the
+        families the port serves: dense GQA and pure SSM)."""
+        if (self.family not in ("dense", "ssm") or self.moe is not None
+                or self.mla is not None):
+            raise NotImplementedError(f"{self.name}: param_count covers "
+                                      "the dense and SSM families only")
+        d, L, V = self.d_model, self.n_layers, self.vocab_size
+        emb = V * d * (1 if self.tie_embeddings else 2)
+        if self.family == "ssm":
+            s = self.ssm
+            d_in = s.expand * d
+            gn = 2 * s.n_groups * s.d_state
+            per_layer = (d * (2 * d_in + gn + d_in // s.head_dim)
+                         + s.d_conv * (d_in + gn) + d_in * d + d_in)
+        else:
+            kvd = self.n_kv_heads * self.d_head
+            qd = self.n_heads * self.d_head
+            per_layer = (d * (qd + 2 * kvd) + qd * d
+                         + (3 if self.gated_mlp else 2) * d * self.d_ff)
+        return emb + L * per_layer
 
 
 # Quantization levels a kept sync point (or the logits all-gather) may run at.

@@ -3,9 +3,9 @@ slice serves are registered."""
 from __future__ import annotations
 
 from repro_torch.config.base import ModelConfig
-from repro_torch.configs import smollm_360m
+from repro_torch.configs import mamba2_370m, smollm_360m
 
-_MODULES = {"smollm-360m": smollm_360m}
+_MODULES = {"smollm-360m": smollm_360m, "mamba2-370m": mamba2_370m}
 
 
 def get_config(name: str, reduced: bool = False) -> ModelConfig:

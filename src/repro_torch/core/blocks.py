@@ -1,5 +1,6 @@
 """Decoder-block math for TP and SPD execution — the paper's §4.1
-(port of repro/core/blocks.py, the dense GQA subset).
+(port of repro/core/blocks.py: the dense GQA blocks and the pure-SSM
+Mamba2 block).
 
 Every activation is SHARD-STACKED: x (tp, B, S, d), dim 0 the TP shard.
 Block inputs and outputs are replicated (all shards equal); inside an
@@ -18,6 +19,9 @@ Block wiring (Fig 3):
   only P_i rides the deferred residual; b is re-added once after the
   sync: out = x + b + s, s = psum(Z_i + P_i).
 
+  SSM block (single sync point, so SPD does not apply; `drop` is ignored):
+  out = x + psum(ssm(norm1(x)))
+
 Parameters are canonical (unpadded); `pad_layer` produces the TP-layout
 tensors whose split axes `layer_specs` gives.
 """
@@ -25,11 +29,13 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.core.layer_kinds import LayerKind
 from repro_torch.models import attention as A
-from repro_torch.models.common import act_fn, apply_rope, norm_apply
+from repro_torch.models import ssm as SSM
+from repro_torch.models.common import act_fn, apply_rope, norm_apply, rmsnorm
 from repro_torch.parallel.collectives import (column_entry, shared_param,
                                               sync_output)
 from repro_torch.parallel.layout import (REPLICATED, kv_head_orig,
@@ -64,6 +70,23 @@ def _bcast(w, x):
 
 def _norm(x, p, cfg):
     return norm_apply(x, {"w": _bcast(p["w"], x)}, cfg)
+
+
+def headwise_rmsnorm(x, w, eps, dh: int):
+    """RMSNorm over each dh-wide head of a head-packed channel axis
+    (TP-invariant, unlike a shard-local norm over d_local): x (tp, ...,
+    H*dh), w (tp, H*dh)."""
+    heads = (x.shape[-1] // dh, dh)
+    wb = _bcast(w, x)
+    xs = x.reshape(tuple(x.shape[:-1]) + heads)
+    ws = wb.reshape(tuple(wb.shape[:-1]) + heads)
+    return rmsnorm(xs, ws, eps).reshape(x.shape)
+
+
+def ssm_heads(cfg: ModelConfig) -> int:
+    """SSM heads of a pure-SSM layer: expand * d_model / head_dim."""
+    s = cfg.ssm
+    return s.expand * cfg.d_model // s.head_dim
 
 
 def _mm(h, w):
@@ -140,6 +163,46 @@ def attn_specs(cfg: ModelConfig) -> dict:
     return p
 
 
+def init_ssm(gen, cfg: ModelConfig, device) -> dict:
+    """The reference's distributions: dt bias log-uniform in [1e-3, 1e-1]
+    through the inverse softplus, A = -(1..16), unit skip and gate norm,
+    conv taps N(0, 1/d_conv), out projection scaled 1/sqrt(d_in)/sqrt(2L)."""
+    s = cfg.ssm
+    d = cfg.d_model
+    h = ssm_heads(cfg)
+    d_in = h * s.head_dim
+    gn = s.n_groups * s.d_state
+    dt = torch_dtype(cfg)
+    f32 = dict(dtype=torch.float32, device=device)
+    u = torch.rand((h,), generator=gen, **f32)
+    dt0 = torch.exp(np.log(1e-3) + u * (np.log(1e-1) - np.log(1e-3)))
+
+    def conv(c):
+        return (torch.randn((s.d_conv, c), generator=gen, **f32)
+                / np.sqrt(s.d_conv)).to(dt)
+
+    return {"wz": _dense(gen, d, d_in, cfg, device),
+            "wx": _dense(gen, d, d_in, cfg, device),
+            "wbc": _dense(gen, d, 2 * gn, cfg, device),
+            "wdt": _dense(gen, d, h, cfg, device),
+            "dtb": torch.log(torch.expm1(dt0)).to(dt),
+            "alog": torch.log(torch.linspace(1.0, 16.0, h, **f32)).to(dt),
+            "dd": torch.ones((h,), dtype=dt, device=device),
+            "convx": conv(d_in),
+            "convbc": conv(2 * gn),
+            "gn": torch.ones((d_in,), dtype=dt, device=device),
+            "wo": _dense(gen, d_in, d, cfg, device,
+                         scale=1.0 / np.sqrt(d_in) / np.sqrt(2 * cfg.n_layers))}
+
+
+def ssm_specs(cfg: ModelConfig) -> dict:
+    """Heads split; the fused B/C projection and its conv are replicated
+    (every shard's heads read the same groups)."""
+    return {"wz": 1, "wx": 1, "wbc": REPLICATED, "wdt": 1, "dtb": 0,
+            "alog": 0, "dd": 0, "convx": 1, "convbc": REPLICATED,
+            "gn": 0, "wo": 0}
+
+
 def init_mlp(gen, cfg: ModelConfig, d_ff: int, device) -> dict:
     d = cfg.d_model
     zeros = lambda n: torch.zeros((n,), dtype=torch_dtype(cfg),  # noqa: E731
@@ -168,6 +231,9 @@ def mlp_specs(cfg: ModelConfig) -> dict:
 
 
 def init_layer(gen, cfg: ModelConfig, kind: LayerKind, device) -> dict:
+    if kind.mixer == "ssm":
+        return {"ln1": _norm_init(cfg, cfg.d_model, device),
+                "ssm": init_ssm(gen, cfg, device)}
     return {"ln1": _norm_init(cfg, cfg.d_model, device),
             "attn": init_attn(gen, cfg, device),
             "ln2": _norm_init(cfg, cfg.d_model, device),
@@ -175,13 +241,35 @@ def init_layer(gen, cfg: ModelConfig, kind: LayerKind, device) -> dict:
 
 
 def layer_specs(cfg: ModelConfig, kind: LayerKind) -> dict:
+    if kind.mixer == "ssm":
+        return {"ln1": {"w": REPLICATED}, "ssm": ssm_specs(cfg)}
     return {"ln1": {"w": REPLICATED}, "attn": attn_specs(cfg),
             "ln2": {"w": REPLICATED}, "mlp": mlp_specs(cfg)}
+
+
+def _pad_ssm(ss: dict, cfg: ModelConfig, tp: int) -> dict:
+    """Pad the SSM heads to a multiple of tp (zero heads: zero in/out
+    projections, so they add nothing)."""
+    h = ssm_heads(cfg)
+    hd = cfg.ssm.head_dim
+    hp = -(-h // tp) * tp
+    hmap = np.concatenate([np.arange(h), -np.ones(hp - h, np.int64)])
+    ss = dict(ss)
+    for nm in ("wz", "wx", "convx"):
+        ss[nm] = pad_heads(ss[nm], 1, hmap, hd, h)
+    ss["wdt"] = pad_heads(ss["wdt"], 1, hmap, 1, h)
+    for nm in ("dtb", "alog", "dd"):
+        ss[nm] = pad_heads(ss[nm], 0, hmap, 1, h)
+    for nm in ("gn", "wo"):
+        ss[nm] = pad_heads(ss[nm], 0, hmap, hd, h)
+    return ss
 
 
 def pad_layer(p: dict, cfg: ModelConfig, kind: LayerKind, tp: int) -> dict:
     """Pad canonical layer params so every split axis divides by tp."""
     _check_ported(cfg)
+    if kind.mixer == "ssm":
+        return dict(p, ssm=_pad_ssm(p["ssm"], cfg, tp))
     dh = cfg.d_head
     lay = make_gqa_layout(cfg.n_heads, cfg.n_kv_heads, tp)
     qmap, kvmap = q_head_orig(lay), kv_head_orig(lay)
@@ -239,6 +327,84 @@ def gqa_mixer_dec(cfg, kind, a, h, pos, cache, lay):
     cache = _update_kv(cfg, cache, k, v, pos)
     o = A.decode_attend(q, cache["k"], cache["v"], pos)
     part = _mm(o.reshape(tuple(h.shape[:3]) + (-1,)), a["wo"])
+    return part, cache
+
+
+def _ssm_in(cfg, ss, h, conv_state=None):
+    """The SSM input path: h (tp,B,S,d) -> z (tp,B,S,d_inL), x
+    (tp,B,S,HL,P), bm/cm (tp,B,S,G,N), dt (tp,B,S,HL) fp32, and the conv
+    tails {"x", "bc"} (the last d_conv-1 inputs).  `conv_state` streams
+    the convs from a decode cache."""
+    s = cfg.ssm
+    z = _mm(h, ss["wz"])
+    x = _mm(h, ss["wx"])
+    bc = _mm(h, shared_param(ss["wbc"]))
+    dt = _mm(h, ss["wdt"]).float()
+    dt = F.softplus(dt + _bcast(ss["dtb"], dt).float())
+    cs = conv_state or {"x": None, "bc": None}
+    # per-shard conv taps (tp, K, C) broadcast over the batch axis
+    x, cs_x = SSM.causal_conv(x, ss["convx"][:, None], cs["x"])
+    bc, cs_bc = SSM.causal_conv(bc, shared_param(ss["convbc"])[:, None],
+                                cs["bc"])
+    x, bc = F.silu(x), F.silu(bc)
+    gn = s.n_groups * s.d_state
+    lead = tuple(bc.shape[:3])
+    bm = bc[..., :gn].reshape(lead + (s.n_groups, s.d_state))
+    cm = bc[..., gn:].reshape(lead + (s.n_groups, s.d_state))
+    x = x.reshape(lead + (x.shape[-1] // s.head_dim, s.head_dim))
+    return z, x, bm, cm, dt, {"x": cs_x, "bc": cs_bc}
+
+
+def _ssm_out(cfg, ss, y, z):
+    """Gated per-head norm + out projection: y, z (tp,B,S,d_inL) -> the
+    shard-local partial (tp,B,S,d)."""
+    y = headwise_rmsnorm(y * F.silu(z), ss["gn"], cfg.norm_eps,
+                         cfg.ssm.head_dim)
+    return _mm(y, ss["wo"])
+
+
+def _fold(t):
+    """(tp, B, ...) -> (tp*B, ...): the shard axis folds into the batch."""
+    return t.reshape((t.shape[0] * t.shape[1],) + tuple(t.shape[2:]))
+
+
+def _per_stream(v, b):
+    """A per-shard head vector (tp, HL) -> one row per (shard, batch row)."""
+    return v.repeat_interleave(b, dim=0)
+
+
+def ssm_mixer_seq(cfg, ss, h, *, want_cache=False):
+    """Prefill SSM mixer: h (tp,B,S,d) at the prompt's own length -> (the
+    partial (tp,B,S,d), cache {"state" (tp,B,HL,P,N), "conv"} in the
+    model dtype, or None).  The chunked scan is the hand-written kernel on
+    the card (kernels/ops.ssd_scan), its plain version on the CPU."""
+    from repro_torch.kernels import ops as KOPS
+    tp, b, s = h.shape[:3]
+    z, x, bm, cm, dt, conv = _ssm_in(cfg, ss, h)
+    a = -torch.exp(ss["alog"].float())
+    y, state = KOPS.ssd_scan(_fold(x), _fold(dt), _per_stream(a, b),
+                             _fold(bm), _fold(cm), _per_stream(ss["dd"], b),
+                             chunk=cfg.ssm.chunk_size)
+    part = _ssm_out(cfg, ss, y.reshape(tp, b, s, -1), z)
+    if not want_cache:
+        return part, None
+    state = state.reshape((tp, b) + tuple(state.shape[1:]))
+    return part, {"state": state.to(torch_dtype(cfg)), "conv": conv}
+
+
+def ssm_mixer_dec(cfg, ss, h, cache):
+    """Decode SSM mixer: h (tp,B,1,d); cache {"state" (tp,B,HL,P,N),
+    "conv" {"x", "bc"}}, updated in place in the model dtype."""
+    tp, b = h.shape[:2]
+    z, x, bm, cm, dt, conv = _ssm_in(cfg, ss, h, conv_state=cache["conv"])
+    a = -torch.exp(ss["alog"].float())
+    y, state = SSM.ssd_decode_step(
+        _fold(x), _fold(dt), _per_stream(a, b), _fold(bm), _fold(cm),
+        _per_stream(ss["dd"], b), _fold(cache["state"]))
+    cache["state"].copy_(state.reshape(cache["state"].shape))
+    for k in ("x", "bc"):
+        cache["conv"][k].copy_(conv[k])
+    part = _ssm_out(cfg, ss, y.reshape(tp, b, 1, -1), z)
     return part, cache
 
 
@@ -313,6 +479,10 @@ def _wire_post_mixer(cfg, kind, p, x, part, bo, *, drop: bool, comm=None):
 def block_seq(cfg, kind, lay, p, x, pos, *, drop: bool, want_cache=False,
               q_chunk=1024, comm=None):
     """Sequence-mode block (prefill): x (tp,B,S,d).  Returns (out, cache)."""
+    if kind.mixer == "ssm":
+        h = column_entry(_norm(x, p["ln1"], cfg))
+        part, cache = ssm_mixer_seq(cfg, p["ssm"], h, want_cache=want_cache)
+        return x + sync_output(part, mode=comm), cache
     part, bo, cache = _mixer_seq(cfg, kind, p, x, pos, lay, want_cache,
                                  q_chunk)
     out = _wire_post_mixer(cfg, kind, p, x, part, bo, drop=drop, comm=comm)
@@ -322,6 +492,9 @@ def block_seq(cfg, kind, lay, p, x, pos, *, drop: bool, want_cache=False,
 def block_dec(cfg, kind, lay, p, x, pos, cache, *, drop: bool, comm=None):
     """Decode-mode block: x (tp,B,1,d), pos (B,).  Returns (out, cache)."""
     h = column_entry(_norm(x, p["ln1"], cfg))
+    if kind.mixer == "ssm":
+        part, cache = ssm_mixer_dec(cfg, p["ssm"], h, cache)
+        return x + sync_output(part, mode=comm), cache
     part, cache = gqa_mixer_dec(cfg, kind, p["attn"], h, pos, cache, lay)
     out = _wire_post_mixer(cfg, kind, p, x, part, p["attn"].get("bo"),
                            drop=drop, comm=comm)

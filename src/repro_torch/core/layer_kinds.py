@@ -12,17 +12,20 @@ from repro_torch.config.base import ModelConfig
 
 @dataclass(frozen=True)
 class LayerKind:
-    mixer: str           # gqa (the only mixer this slice serves)
-    ffn: str             # mlp
+    mixer: str           # gqa | ssm (the mixers the port serves)
+    ffn: str             # mlp | none
     window: int = 0      # always 0 here: sliding windows are not ported
     d_ff: int = 0
 
 
 def layer_kinds(cfg: ModelConfig) -> Tuple[LayerKind, ...]:
+    if cfg.family == "ssm":
+        return tuple(LayerKind(mixer="ssm", ffn="none")
+                     for _ in range(cfg.n_layers))
     if cfg.family != "dense" or cfg.mla is not None or cfg.moe is not None:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet "
-            "(dense GQA only)")
+            "(dense GQA and pure SSM only)")
     if cfg.attn_window:
         raise NotImplementedError(f"{cfg.name}: sliding-window attention "
                                   "is not ported yet")

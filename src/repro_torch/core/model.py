@@ -7,7 +7,9 @@ reference, and its layers run in a Python loop where the reference runs
 `lax.scan`.  Parameters after `simtp.split_stacked` are shard-stacked:
 every leaf has a leading (tp, ...) axis and segment leaves are
 (tp, layers, ...).  The vocab axis of the embedding is split over the
-shards (tied embeddings double as the LM head).
+shards; the LM head is the tied embedding or, untied, a `head` (d, V)
+split on its vocab axis.  Pure-SSM layers carry recurrent state (the
+scan state and the conv tails) instead of K/V caches.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ from repro_torch.models.common import norm_apply
 from repro_torch.parallel.collectives import (column_entry, comm_context,
                                               ledger_paused, ledger_scale,
                                               sync_output)
-from repro_torch.parallel.layout import make_gqa_layout
+from repro_torch.parallel.layout import REPLICATED, make_gqa_layout
 from repro_torch.tree import tree_map
 
 
@@ -36,15 +38,19 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device="cpu") -> dict:
     torch.Generator (not the reference's numbers: parity tests carry the
     reference's parameters across with `core.convert.from_reference`)."""
     B._check_ported(cfg)
-    if not cfg.tie_embeddings:
-        raise NotImplementedError("untied LM heads are not ported yet")
     gen = torch.Generator(device=device).manual_seed(seed)
+    f32 = dict(dtype=torch.float32, device=device)
     emb = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
-                      dtype=torch.float32, device=device) * 0.02
-    return {"emb": emb.to(B.torch_dtype(cfg)),
-            "lnf": B._norm_init(cfg, cfg.d_model, device),
-            "layers": [B.init_layer(gen, cfg, k, device)
-                       for k in layer_kinds(cfg)]}
+                      **f32) * 0.02
+    p = {"emb": emb.to(B.torch_dtype(cfg)),
+         "lnf": B._norm_init(cfg, cfg.d_model, device),
+         "layers": [B.init_layer(gen, cfg, k, device)
+                    for k in layer_kinds(cfg)]}
+    if not cfg.tie_embeddings:
+        head = torch.randn((cfg.d_model, cfg.vocab_size), generator=gen,
+                           **f32) / cfg.d_model ** 0.5
+        p["head"] = head.to(B.torch_dtype(cfg))
+    return p
 
 
 def vocab_pad(cfg: ModelConfig, tp: int) -> int:
@@ -58,14 +64,20 @@ def pad_model(p: dict, cfg: ModelConfig, tp: int) -> dict:
     if pad:
         out["emb"] = torch.cat([p["emb"], p["emb"].new_zeros(
             (pad, cfg.d_model))], 0)
+        if "head" in p:
+            out["head"] = torch.cat([p["head"], p["head"].new_zeros(
+                (cfg.d_model, pad))], 1)
     out["layers"] = [B.pad_layer(lp, cfg, k, tp)
                      for lp, k in zip(p["layers"], layer_kinds(cfg))]
     return out
 
 
 def model_specs(cfg: ModelConfig) -> dict:
-    return {"emb": 0, "lnf": {"w": -1},
-            "layers": [B.layer_specs(cfg, k) for k in layer_kinds(cfg)]}
+    s = {"emb": 0, "lnf": {"w": -1},
+         "layers": [B.layer_specs(cfg, k) for k in layer_kinds(cfg)]}
+    if not cfg.tie_embeddings:
+        s["head"] = 1
+    return s
 
 
 def stack_segments(padded: dict, cfg: ModelConfig,
@@ -105,7 +117,8 @@ def embed_tokens(emb, tokens):
 
 def lm_logits(p, cfg, x):
     """x (tp,B,S,d) replicated -> shard-local logits (tp,B,S,Vl) fp32."""
-    return B._mm(column_entry(x), p["emb"].transpose(1, 2)).float()
+    w = p["emb"].transpose(1, 2) if cfg.tie_embeddings else p["head"]
+    return B._mm(column_entry(x), w).float()
 
 
 def serve_logits(p, cfg, x, plan):
@@ -126,7 +139,17 @@ def _final_norm(stacked, cfg, x):
 
 
 def _gqa_layout(cfg, tp):
+    """The attention head layout, or None for an attention-free model."""
+    if cfg.attn_free:
+        return None
     return make_gqa_layout(cfg.n_heads, cfg.n_kv_heads, tp)
+
+
+def has_recurrent_state(cfg) -> bool:
+    """Whether some layer carries recurrent state (an SSM scan state and
+    conv tails).  Such a model is prefilled at the prompt's own length:
+    a pad token would be scanned into the state (ROADMAP C3)."""
+    return any(k.mixer == "ssm" for k in layer_kinds(cfg))
 
 
 def _layer(seg_params, j):
@@ -137,11 +160,23 @@ def _layer(seg_params, j):
 # Prefill / decode (serving)
 # ---------------------------------------------------------------------------
 
+def _seg_cache_shape(kind, leaf, length: int, cache_len: int):
+    """A segment cache leaf for one layer's prefill cache `leaf` (tp, B,
+    ...): a layer axis after the shard axis; attention K/V padded along
+    the sequence to the decode buffer."""
+    shp = (leaf.shape[0], length) + tuple(leaf.shape[1:])
+    if kind.mixer == "gqa":
+        shp = shp[:3] + (max(leaf.shape[2], cache_len),) + shp[4:]
+    return shp
+
+
 def forward_seq(cfg, stacked, plan: SPDPlanConfig, tokens, *, tp,
                 q_chunk=1024, cache_len: int = 0, want_cache=False):
     """Sequence forward.  tokens (B,S).  Returns (hidden (tp,B,S,d) after
-    the final norm, caches) — caches per segment {"k","v"} of shape
-    (tp, layers, B, max(S, cache_len), HkvL, dh), zero past S."""
+    the final norm, caches) — caches per segment: attention layers'
+    {"k","v"} of shape (tp, layers, B, max(S, cache_len), HkvL, dh), zero
+    past S; SSM layers' {"state" (tp, layers, B, HL, P, N), "conv" {"x",
+    "bc"} (tp, layers, B, d_conv-1, C)}."""
     lay = _gqa_layout(cfg, tp)
     x = embed_tokens(stacked["emb"], tokens)
     b, s = tokens.shape
@@ -160,11 +195,12 @@ def forward_seq(cfg, stacked, plan: SPDPlanConfig, tokens, *, tp,
                                        comm=plan.block_mode(start))
                 if want_cache:
                     if seg_cache is None:
-                        shp = (tp, length, b, max(s, cache_len)) + \
-                            tuple(c["k"].shape[3:])
-                        seg_cache = {kk: c[kk].new_zeros(shp) for kk in c}
-                    for kk in c:
-                        seg_cache[kk][:, j, :, :s] = c[kk]
+                        seg_cache = tree_map(lambda a: a.new_zeros(
+                            _seg_cache_shape(kind, a, length, cache_len)), c)
+                    # K/V fill their first S positions; a recurrent
+                    # leaf's axis 2 is whole, so the same slice covers it
+                    tree_map(lambda dst, src: dst[:, j, :, :src.shape[2]]
+                             .copy_(src), seg_cache, c)
         caches.append(seg_cache)
     return _final_norm(stacked, cfg, x), (caches if want_cache else None)
 
@@ -221,6 +257,15 @@ def supports_paged_attention(cfg) -> bool:
     return supports_chunked_prefill(cfg) and cfg.kv_dtype != "int8"
 
 
+def require_paged_attention(cfg) -> None:
+    """Raise unless the fused paged forward covers `cfg`."""
+    if not supports_paged_attention(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: paged KV caches cover full-causal GQA stacks only; "
+            "the reference's gather -> dense -> scatter fallback (int8 KV, "
+            "windowed, MLA, SSM, hybrid) is not ported yet")
+
+
 def paged_step(cfg, stacked, plan, tokens, pos, caches, page_table, *, tp,
                tree=None):
     """Fused paged forward: decode (C=1) and suffix prefill (C>1).
@@ -266,21 +311,39 @@ class CacheStruct:
 
 def cache_struct(cfg, plan: SPDPlanConfig, batch: int, seq_len: int,
                  tp: int):
-    """Per segment {"k","v"} CacheStructs (layers, batch, S, kv_layout, dh)."""
+    """Per segment CacheStructs (shard-logical: head axes carry the full
+    padded head count).  Attention layers: {"k","v"} (layers, batch, S,
+    kv_layout, dh).  SSM layers: {"state" (layers, batch, H_pad, P, N),
+    "conv" {"x" (layers, batch, d_conv-1, H_pad*P), "bc" (layers, batch,
+    d_conv-1, 2*G*N)}}; no sequence axis, so `seq_len` does not size them."""
     lay = _gqa_layout(cfg, tp)
+    dt = B.torch_dtype(cfg)
     out = []
-    for (_, length, _, _) in plan_segments(cfg, plan.drop_mask,
-                                           plan.qmodes):
+    for (_, length, kind, _) in plan_segments(cfg, plan.drop_mask,
+                                              plan.qmodes):
+        if kind.mixer == "ssm":
+            s = cfg.ssm
+            hp = -(-B.ssm_heads(cfg) // tp) * tp
+            lead = (length, batch)
+            out.append({
+                "state": CacheStruct(lead + (hp, s.head_dim, s.d_state), dt),
+                "conv": {"x": CacheStruct(lead + (s.d_conv - 1,
+                                                  hp * s.head_dim), dt),
+                         "bc": CacheStruct(lead + (s.d_conv - 1, 2 * s.n_groups
+                                                   * s.d_state), dt)}})
+            continue
         st = CacheStruct((length, batch, seq_len, lay.kv_layout, cfg.d_head),
-                         B.torch_dtype(cfg))
+                         dt)
         out.append({"k": st, "v": st})
     return out
 
 
 def cache_specs_tree(cfg, plan: SPDPlanConfig):
     """Split axis of each cache leaf in the cache_struct layout."""
-    return [{"k": 3, "v": 3} for _ in plan_segments(cfg, plan.drop_mask,
-                                                    plan.qmodes)]
+    ssm_c = {"state": 2, "conv": {"x": 3, "bc": REPLICATED}}
+    return [ssm_c if kind.mixer == "ssm" else {"k": 3, "v": 3}
+            for (_, _, kind, _) in plan_segments(cfg, plan.drop_mask,
+                                                 plan.qmodes)]
 
 
 def cache_pageable_tree(cfg, plan: SPDPlanConfig):
@@ -297,6 +360,7 @@ def paged_cache_struct(cfg, plan: SPDPlanConfig, batch: int, seq_len: int,
     (num_pages + 1, page_size); the extra page is the trash page (see
     runtime/paging.py).  The kv-head axis stays axis 3, so
     `cache_specs_tree` splits paged and dense leaves alike."""
+    require_paged_attention(cfg)
     structs = cache_struct(cfg, plan, batch, seq_len, tp)
     flags = cache_pageable_tree(cfg, plan)
 

@@ -18,7 +18,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("flash_attention", "paged_attention", "quant_collectives",
-           "fused_norm")
+           "fused_norm", "ssd_scan")
 # no --use_fast_math: qdq must match the reference bit for bit
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -5,6 +5,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import fused_norm as FN
+from repro_torch.kernels import ssd_scan as SSD
 
 
 def flash_attention(q, k, v, *, sm_scale=None):
@@ -36,6 +37,24 @@ def fused_residual_rmsnorm(x, r, w, *, eps: float = 1e-5):
                                      r.reshape(-1, d).contiguous(),
                                      w.contiguous(), eps=eps)
     return y.reshape(shape), s.reshape(shape)
+
+
+def ssd_scan(x, dt, a, bm, cm, dd, *, chunk: int):
+    """Batched heads: x (B,S,H,P), dt (B,S,H), a and dd (H,) or (B,H),
+    bm/cm (B,S,G,N) with H % G == 0 -> (y (B,S,H,P) in x's dtype, final
+    state (B,H,P,N) fp32).
+
+    The kernel reads the streams in this layout and B/C by group, so
+    unlike the reference nothing is transposed, broadcast or padded: the
+    ragged S edge is masked in the kernel.  Only the per-head vectors
+    become per-stream fp32 (B, H)."""
+    b, s, h, _ = x.shape
+
+    def per_stream(v):
+        return v.float().expand(b, h).contiguous()
+
+    return SSD.ssd_scan(x.contiguous(), dt.float().contiguous(),
+                        per_stream(a), bm, cm, per_stream(dd), chunk=chunk)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,130 @@
+"""Mamba2 SSD chunked scan: the CUDA kernel's wrapper and its plain
+version (port of repro/kernels/ssd_scan.py::ssd_scan, the TPU kernel, and
+repro/kernels/ref.py::ssd_scan_ref, its oracle).
+
+Both take the streams unpacked, as the model holds them: x (Bt, S, H, P);
+dt (Bt, S, H) fp32; a, dd (Bt, H) fp32 (one value per stream: with the
+shard axis folded into Bt each shard has its own heads); bm, cm (Bt, S, G,
+N), read at group h // (H / G).  Both return (y (Bt, S, H, P) in x's
+dtype, final state (Bt, H, P, N) fp32).  Unlike the TPU kernel, S need
+not be a multiple of `chunk`: positions past S act as dt = 0 and x = 0,
+which leaves y at real positions and the state exactly as they are.
+
+`ssd_scan` launches `csrc/ssd_scan.cu` for CUDA tensors and takes
+`ssd_scan_plain` only for CPU tensors; `.launches` counts kernel
+launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.models.ssm import ssd_chunked
+
+DTYPES = (torch.float32, torch.bfloat16)
+P_TILE = 16          # the kernel's columns per block: P must divide by it
+MAX_CHUNK = 256
+MAX_N = 256
+
+
+def ssd_scan_plain(x, dt, a, bm, cm, dd, *, chunk: int):
+    """Pads S up to a multiple of `chunk` with dt = 0, x = 0 and runs the
+    chunked form (models/ssm.ssd_chunked)."""
+    s = x.shape[1]
+    pad = -s % chunk
+
+    def padded(t):
+        if not pad:
+            return t
+        return torch.cat([t, t.new_zeros((t.shape[0], pad)
+                                         + tuple(t.shape[2:]))], dim=1)
+
+    y, state = ssd_chunked(padded(x), padded(dt), a, padded(bm), padded(cm),
+                           dd, chunk=chunk)
+    return y[:, :s], state
+
+
+def check_args(x, dt, a, bm, cm, dd, chunk: int) -> None:
+    """Validate what the kernel takes."""
+    if x.dim() != 4 or bm.dim() != 4:
+        raise ValueError(f"want x (Bt,S,H,P) and bm/cm (Bt,S,G,N); got "
+                         f"{tuple(x.shape)}, {tuple(bm.shape)}")
+    bt, s, h, p = x.shape
+    g, n = bm.shape[2:]
+    if tuple(bm.shape) != (bt, s, g, n) or tuple(cm.shape) != (bt, s, g, n):
+        raise ValueError(f"bm/cm {tuple(bm.shape)}, {tuple(cm.shape)} do not "
+                         f"match x {tuple(x.shape)}")
+    if tuple(dt.shape) != (bt, s, h) or tuple(a.shape) != (bt, h) \
+            or tuple(dd.shape) != (bt, h):
+        raise ValueError(f"want dt ({bt},{s},{h}), a and dd ({bt},{h}); got "
+                         f"{tuple(dt.shape)}, {tuple(a.shape)}, "
+                         f"{tuple(dd.shape)}")
+    if x.dtype not in DTYPES or bm.dtype != x.dtype or cm.dtype != x.dtype:
+        raise TypeError(f"want x, bm, cm all float32 or all bfloat16; got "
+                        f"{x.dtype}, {bm.dtype}, {cm.dtype}")
+    if dt.dtype != torch.float32 or a.dtype != torch.float32 \
+            or dd.dtype != torch.float32:
+        raise TypeError(f"want dt, a, dd float32; got {dt.dtype}, {a.dtype}, "
+                        f"{dd.dtype}")
+    if g < 1 or h % g:
+        raise ValueError(f"H={h} is not a multiple of G={g}")
+    if not 1 <= chunk <= MAX_CHUNK:
+        raise ValueError(f"chunk {chunk} not in [1, {MAX_CHUNK}]")
+    if not 1 <= n <= MAX_N or p % P_TILE:
+        raise ValueError(f"want N <= {MAX_N} and P a multiple of {P_TILE}; "
+                         f"got N={n}, P={p}")
+    if not (x.is_contiguous() and dt.is_contiguous() and a.is_contiguous()
+            and dd.is_contiguous()):
+        raise ValueError("x, dt, a and dd must be contiguous")
+    # the kernel reads both at bm's (batch, token) strides, each token's
+    # (G, N) block contiguous; a stride of a size-1 axis is never used
+    inner = ((g == 1 or bm.stride(2) == n) and (n == 1 or bm.stride(3) == 1))
+    same = all(sz == 1 or sb == sc for sz, sb, sc
+               in zip(bm.shape, bm.stride(), cm.stride()))
+    if not (inner and same):
+        raise ValueError(f"bm/cm need a contiguous (G, N) block and equal "
+                         f"strides; got {bm.stride()}, {cm.stride()}")
+    if len({t.device for t in (x, dt, a, bm, cm, dd)}) != 1:
+        raise ValueError("ssd_scan inputs on different devices")
+    if bt > 65535 or h > 65535:
+        raise ValueError(f"grid too large: Bt={bt}, H={h}")
+
+
+def _lib():
+    lib = build.load("ssd_scan")
+    fn = lib.ssd_scan_fwd
+    if not fn.argtypes:
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def ssd_scan(x, dt, a, bm, cm, dd, *, chunk: int):
+    """The SSD chunked scan over every (batch row, head) stream."""
+    check_args(x, dt, a, bm, cm, dd, chunk)
+    if x.device.type == "cpu":
+        return ssd_scan_plain(x, dt, a, bm, cm, dd, chunk=chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"no ssd_scan kernel for device {x.device}")
+    bt, s, h, p = x.shape
+    g, n = bm.shape[2:]
+    lib = _lib()
+    y = torch.empty_like(x)
+    state = torch.empty((bt, h, p, n), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.ssd_scan_fwd(
+            x.data_ptr(), dt.data_ptr(), a.data_ptr(), bm.data_ptr(),
+            cm.data_ptr(), dd.data_ptr(), y.data_ptr(), state.data_ptr(), bt,
+            s, h, p, g, n, chunk, bm.stride(0), bm.stride(1),
+            int(x.dtype == torch.bfloat16), stream)
+    build.check(lib, rc, "ssd_scan_fwd")
+    ssd_scan.launches += 1
+    return y, state
+
+
+ssd_scan.launches = 0

@@ -137,12 +137,14 @@ class SimBackend(ParallelBackend):
 
     def blank_caches(self, structs):
         from repro_torch.core import model as M
+        from repro_torch.parallel.layout import REPLICATED
         from repro_torch.tree import tree_map
         specs = M.cache_specs_tree(self.cfg, self.plan)
 
         def one(s, a):
             shp = list(s.shape)
-            shp[a] //= self.tp
+            if a != REPLICATED:
+                shp[a] //= self.tp
             return torch.zeros([self.tp] + shp, dtype=s.dtype,
                                device=self.device)
 

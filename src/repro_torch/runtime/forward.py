@@ -17,6 +17,7 @@ import torch
 from repro_torch.core import model as M
 from repro_torch.parallel.backend import StepSpec
 from repro_torch.runtime import sampling as RS
+from repro_torch.tree import tree_map
 
 
 def full_logits(cfg, logits):
@@ -72,18 +73,11 @@ def decode_step(cfg, plan, *, tp, with_logits=False, sampled=False):
     return local, StepSpec(("params", "batch", "batch", "cache"), out)
 
 
-def _fused_paged(cfg):
-    if not M.supports_paged_attention(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: the paged gather -> dense -> scatter fallback "
-            "(int8 KV, windowed, MLA, SSM, hybrid) is not ported yet")
-
-
 def paged_decode_step(cfg, plan, *, tp, with_logits=False, sampled=False):
     """Paged decode, fused: K/V scatter straight into their pages and
     attention reads through the page table (M.paged_step), so no cache
     tree is gathered.  Returns (next ids (B, 1)[, full logits], pools)."""
-    _fused_paged(cfg)
+    M.require_paged_attention(cfg)
 
     def math(p, toks, pos, pt, pc):
         lg, pc2 = M.paged_step(cfg, p, plan, toks, pos, pc, pt, tp=tp)
@@ -115,7 +109,7 @@ def paged_verify_step(cfg, plan, *, tp, tree=None):
     (the uncached prompt tail, with other rows' tables masked to -1) and,
     with speculative decoding (ROADMAP A10), the verify chunk.  Returns
     (full logits (B, C, V), pools)."""
-    _fused_paged(cfg)
+    M.require_paged_attention(cfg)
     if tree is not None:
         raise NotImplementedError("tree verify is not ported yet "
                                   "(ROADMAP A10)")
@@ -132,7 +126,7 @@ def copy_pages_step(cfg, plan):
     """Device-side copy-on-write page duplication: physical page src[i]
     -> dst[i] on every pageable leaf, in place (the PagePool rewires the
     slot's table host-side)."""
-    _fused_paged(cfg)
+    M.require_paged_attention(cfg)
 
     def local(pc, src, dst):
         for seg in pc:
@@ -146,7 +140,7 @@ def copy_pages_step(cfg, plan):
 def insert_paged_step(cfg, plan):
     """Scatter one prefilled request (batch-1 dense caches1) into its
     pages (`page_row`) of the paged pools, in place."""
-    _fused_paged(cfg)
+    M.require_paged_attention(cfg)
     from repro_torch.kernels import ops as KOPS
 
     def local(pc, c1, row):
@@ -160,11 +154,11 @@ def insert_paged_step(cfg, plan):
 
 def insert_slot(caches, caches1, b: int, *, batch_axis: int):
     """Copy a prefilled batch-1 cache tree into slot `b` of the serving
-    caches, in place (`batch_axis` is the backend's cache batch axis)."""
+    caches, in place (`batch_axis` is the backend's cache batch axis; the
+    leaves may nest, as an SSM layer's conv tails do)."""
     pre = (slice(None),) * batch_axis
-    for seg, seg1 in zip(caches, caches1):
-        for k in seg:
-            seg[k][pre + (b,)] = seg1[k][pre + (0,)]
+    tree_map(lambda dst, src: dst[pre + (b,)].copy_(src[pre + (0,)]),
+             caches, caches1)
     return caches
 
 
@@ -201,13 +195,20 @@ def drive_pipelined_decode(step, params, groups, *, depth: int = 2):
 
 def bucketed_prefill(engine, params, toks, s: int, cache_len: int,
                      chunk=None):
-    """One request's prefill, right-padded to the next power-of-two
-    bucket (at least 16) capped at the slot capacity; the pad slots are
-    overwritten by decode before they become causally visible."""
+    """One request's prefill.  Attention-only models are right-padded to
+    the next power-of-two bucket (at least 16) capped at the slot
+    capacity; the pad slots are overwritten by decode before they become
+    causally visible.  A model with recurrent state is prefilled at the
+    prompt's own length: a pad token would be scanned into its state and
+    conv tails, which decode never overwrites (ROADMAP C3; the reference
+    pads them too)."""
     if chunk:
         raise NotImplementedError("chunked prefill is not ported yet")
     toks = np.asarray(toks, np.int64)
-    sb = min(max(16, 1 << math.ceil(math.log2(max(s, 1)))), cache_len)
+    if M.has_recurrent_state(engine.cfg):
+        sb = s
+    else:
+        sb = min(max(16, 1 << math.ceil(math.log2(max(s, 1)))), cache_len)
     padded = np.zeros((1, sb), np.int64)
     padded[0, :s] = toks
     return engine.prefill(params, padded, cache_len=cache_len,

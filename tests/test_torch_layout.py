@@ -43,11 +43,14 @@ def _np(x):
     return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-@pytest.mark.parametrize("name", ["smollm-360m", "smollm-360m-reduced"])
+@pytest.mark.parametrize("name", ["smollm-360m", "smollm-360m-reduced",
+                                  "mamba2-370m", "mamba2-370m-reduced"])
 def test_configs_match_field_for_field(name):
-    ref = dataclasses.asdict(rget(name))
-    port = dataclasses.asdict(get_config(name))
-    assert port == ref
+    rcfg, cfg = rget(name), get_config(name)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(rcfg)
+    assert cfg.param_count() == rcfg.param_count()
+    for prop in ("attn_free", "spd_applicable", "sub_quadratic"):
+        assert getattr(cfg, prop) == getattr(rcfg, prop), prop
 
 
 def test_full_width_layout_pads_heads():
@@ -72,6 +75,22 @@ def test_gqa_layout_matches_reference(h, kv, tp):
     np.testing.assert_array_equal(L.kv_head_orig(port), RL.kv_head_orig(ref))
 
 
+def test_mamba_config_is_attention_free():
+    cfg = get_config("mamba2-370m")
+    assert (cfg.n_layers, cfg.d_model, cfg.vocab_size, cfg.tie_embeddings,
+            cfg.ssm.d_state, cfg.ssm.head_dim, cfg.ssm.chunk_size) == \
+        (48, 1024, 50280, False, 128, 64, 256)
+    assert cfg.attn_free and cfg.sub_quadratic and not cfg.spd_applicable
+    drop = (False,) * 48
+    assert [(s, ln, k.mixer, k.ffn) for s, ln, k, _ in
+            plan_segments(cfg, drop, ("quant8",) * 48)] == \
+        [(0, 48, "ssm", "none")]
+    assert [(s, ln, dataclasses.asdict(k), d) for s, ln, k, d in
+            plan_segments(cfg, drop)] == \
+        [(s, ln, dataclasses.asdict(k), d) for s, ln, k, d in
+         rsegs(rget("mamba2-370m"), drop, None)]
+
+
 def test_plan_segments_match_reference():
     """The golden plan (spd=0.25 on the reduced model = first block
     dropped) and comm-refined plans segment identically."""
@@ -92,6 +111,12 @@ def _cfgs(which):
     if which == "reduced":
         return (rreplace(rget("smollm-360m", reduced=True), dtype="float32"),
                 replace(get_config("smollm-360m-reduced"), dtype="float32"))
+    if which.startswith("ssm"):
+        # "ssm6": d_in 192 / head_dim 32 = 6 SSM heads, padded to 8 at tp=4
+        kw = dict(dtype="float32", **({"d_model": 96} if which == "ssm6"
+                                      else {}))
+        return (rreplace(rget("mamba2-370m-reduced"), **kw),
+                replace(get_config("mamba2-370m-reduced"), **kw))
     # the full config's head counts (15 q / 5 kv) at a small width
     kw = dict(n_layers=2, d_model=120, d_head=8, d_ff=66, vocab_size=509,
               dtype="float32")
@@ -99,12 +124,13 @@ def _cfgs(which):
             replace(get_config("smollm-360m"), **kw))
 
 
-@pytest.mark.parametrize("which", ["reduced", "heads15x5"])
+@pytest.mark.parametrize("which", ["reduced", "heads15x5", "ssm", "ssm6"])
 @pytest.mark.parametrize("tp", [1, 2, 4])
 def test_split_leaves_match_reference(which, tp):
     """Every split leaf of the port's pad -> stack -> split equals the
     reference's simtp.prepare_params bit for bit (head padding, vocab and
-    d_ff padding, replication, segment stacking)."""
+    d_ff padding, replication, segment stacking; for Mamba2 the SSM head
+    padding, the replicated B/C projection and conv, the untied head)."""
     rcfg, cfg = _cfgs(which)
     drop = (True,) + (False,) * (cfg.n_layers - 1)
     rplan = RPlan(drop)
