@@ -8,20 +8,28 @@
 2. Kernel phase: each hand-written kernel against its plain PyTorch
    version on the card, at the serving paths' shapes, with the stated
    tolerance; timed with CUDA events beside its plain version, a
-   library call where one exists, and its bound on the card.
+   library call where one exists, and its bound on the card, and by the
+   profiler (device us per launch; per call for the two-launch paged
+   decode).  Flash: bf16 (tensor cores) at S 1, 16, 63, 65, 100, 300,
+   512 and D 128, fp32 (CUDA cores) at S 16, 100, 512 and D 128; its and
+   SDPA's device time at each prefill bucket.  Paged: decode (C=1, split
+   over keys) at the serving positions, on split edges, with -1 holes,
+   with a masked row and with a full 32-page table; a C=32 chunk.
 3. Dense main path: full-width SmolLM-360M through LLM.load(tp=2,
    spd=0.25, kept syncs and logits gather at quant8, flash prefill) ->
    generate on 4 seeded prompts, 16 greedy tokens each.  Every kernel's
    launch count is zeroed just before and read just after; the dense
    path's kernels must each be > 0.  A profiled generate then shows the
-   device-busy share and the top kernels by device time.
+   device-busy share and the top kernels by device time; its prefill must
+   run on the tensor-core flash kernel, never on the fp32 one.
 4. Paged main path: the same model and settings plus page_size=16 and a
    pool of 40 pages that the 4 requests outgrow at their peak (they need
    41): every request finishes, at least one is preempted, and every page
    comes back.  Then two prompts sharing a 256-token prefix: the second
    admits warm (a prefix hit) and prefills its suffix through the paged
    kernel at C=32.  Launch counts zeroed before and read after; every
-   kernel of the path must be > 0.  A profiled paged generate follows.
+   kernel of the path must be > 0.  A profiled paged generate follows;
+   its decode must run the split and combine kernels.
 5. Teacher-forced checks: prefill logits with the flash kernel against
    the plain attention, and one decode step's logits through the paged
    kernel against the dense plain decode, on the same parameters, in
@@ -76,6 +84,13 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 FLASH_SHAPES = (16, 100, 512)          # S; q (2*1*9, S, 64), kv (2*1*3, S, 64)
+# bf16 only (the tensor-core kernel): one query, both sides of a 64-row
+# tile edge, a ragged 300; and one D = 128 case (fp32 too) at S = 200
+FLASH_BF16_SHAPES = (1, 63, 65, 300)
+FLASH_D128_S = 200
+# the prefill buckets of PROMPT_LENS (17, 64, 200, 300): kernel and SDPA
+# device time at each
+FLASH_BUCKETS = (32, 64, 256, 512)
 FLASH_FP32_ATOL = 2e-5                 # fp32 online vs one-shot softmax
 QDQ_NS = (960, 3840, 16 * 960, 24576)  # (2, N) payloads; bit-identical
 PROMPT_LENS = (17, 64, 200, 300)
@@ -89,6 +104,12 @@ PREFIX_LEN = 256                       # shared prefix of the warm pair
 # (2, 32, P+1, 16, 3, 64) pool leaf, table bucketed to 32 pages
 PAGED_POS = (16, 80, 216, 316)
 PAGED_PHYS = 96
+# more decode (C=1) cases for the split-over-keys kernel (64 keys a
+# split): positions on split edges, -1 holes inside two tables, and a
+# full 32-page table at position 511
+PAGED_EDGE_POS = (63, 64, 127, 128)
+PAGED_HOLES = ((2, 5), (3, 10))        # (row, page) set to -1
+PAGED_FULL_POS = (511, 16, 80, 216)
 # prefill logits, flash kernel vs plain attention through 32 layers
 # (exact syncs): bf16 rounds each layer's attention output differently
 # (2^-8 relative per layer), fp32 only reorders sums
@@ -167,55 +188,90 @@ def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def flash_phase(torch):
+def sdpa_call(torch, q, k, v, bhkv):
+    """One PyTorch call computing the flash kernel's function (causal GQA
+    SDPA) on its inputs, as a yardstick; the port never calls it."""
     import torch.nn.functional as F
-    from repro_torch.kernels import flash_attention as FA
-
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
-    bh, bhkv, d = 2 * 1 * 9, 2 * 1 * 3, 64
-    timed = None
-    for dtype in (torch.bfloat16, torch.float32):
-        for s in FLASH_SHAPES:
-            q = torch.randn(bh, s, d, generator=gen, device=dev).to(dtype)
-            k = torch.randn(bhkv, s, d, generator=gen, device=dev).to(dtype)
-            v = torch.randn(bhkv, s, d, generator=gen, device=dev).to(dtype)
-            out = FA.flash_attention_bhsd(q, k, v)
-            ref = FA.flash_attention_plain(q, k, v)
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            tol = (FLASH_FP32_ATOL if dtype == torch.float32 else
-                   2.0 ** -7 * max(ref.float().abs().max().item(), 1e-3))
-            print(f"flash {str(dtype)[6:]} S={s}: max_abs_err={err:.3e} "
-                  f"tol={tol:.3e}")
-            if not err <= tol:
-                raise AssertionError(f"flash kernel disagrees at {dtype} "
-                                     f"S={s}: {err} > {tol}")
-            if dtype == torch.bfloat16 and s == max(FLASH_SHAPES):
-                timed = (q, k, v, err)
-    q, k, v, err = timed
-    s = q.shape[1]
-    ms = cuda_ms(torch, lambda: FA.flash_attention_bhsd(q, k, v))
-    plain_ms = cuda_ms(torch, lambda: FA.flash_attention_plain(q, k, v))
-    q4 = q.view(2, 9, s, d)
-    k4, v4 = k.view(2, 3, s, d), v.view(2, 3, s, d)
+    bh, s, d = q.shape
+    g = bh // bhkv
+    q4 = q.view(2, bh // 2, s, d)
+    k4, v4 = k.view(2, bhkv // 2, s, d), v.view(2, bhkv // 2, s, d)
     try:
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
             q4, k4, v4, is_causal=True, enable_gqa=True)
         lib()
     except TypeError:                  # torch without enable_gqa
-        k4r, v4r = k4.repeat_interleave(3, 1), v4.repeat_interleave(3, 1)
+        k4r, v4r = k4.repeat_interleave(g, 1), v4.repeat_interleave(g, 1)
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
             q4, k4r, v4r, is_causal=True)
-    library_ms = cuda_ms(torch, lib)
+    return lib
+
+
+def flash_inputs(torch, gen, s, d, dtype, bh=2 * 1 * 9, bhkv=2 * 1 * 3):
+    dev = torch.device("cuda")
+    return [torch.randn(n, s, d, generator=gen, device=dev).to(dtype)
+            for n in (bh, bhkv, bhkv)]
+
+
+def flash_phase(torch):
+    from repro_torch.kernels import flash_attention as FA
+
+    gen = torch.Generator(device=torch.device("cuda")).manual_seed(0)
+    bh, bhkv, d = 2 * 1 * 9, 2 * 1 * 3, 64
+    timed = None
+    cases = ([(torch.bfloat16, s, d) for s in sorted(
+        FLASH_SHAPES + FLASH_BF16_SHAPES)]
+        + [(torch.float32, s, d) for s in FLASH_SHAPES]
+        + [(dt, FLASH_D128_S, 128) for dt in (torch.bfloat16, torch.float32)])
+    for dtype, s, dd in cases:
+        q, k, v = flash_inputs(torch, gen, s, dd, dtype)
+        out = FA.flash_attention_bhsd(q, k, v)
+        ref = FA.flash_attention_plain(q, k, v)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = (FLASH_FP32_ATOL if dtype == torch.float32 else
+               2.0 ** -7 * max(ref.float().abs().max().item(), 1e-3))
+        print(f"flash {str(dtype)[6:]} S={s} D={dd}: max_abs_err={err:.3e} "
+              f"tol={tol:.3e}")
+        if not err <= tol:
+            raise AssertionError(f"flash kernel disagrees at {dtype} "
+                                 f"S={s} D={dd}: {err} > {tol}")
+        if dtype == torch.bfloat16 and s == max(FLASH_SHAPES):
+            timed = (q, k, v, err)
+    q, k, v, err = timed
+    s = q.shape[1]
+    ms = cuda_ms(torch, lambda: FA.flash_attention_bhsd(q, k, v))
+    plain_ms = cuda_ms(torch, lambda: FA.flash_attention_plain(q, k, v))
+    library_ms = cuda_ms(torch, sdpa_call(torch, q, k, v, bhkv))
+    # device time per call at each prefill bucket, the kernel's and SDPA's
+    buckets = {}
+    for sb in FLASH_BUCKETS:
+        qb, kb, vb = (q, k, v) if sb == s else flash_inputs(
+            torch, gen, sb, d, torch.bfloat16)
+        kern = device_us(torch, lambda: FA.flash_attention_bhsd(qb, kb, vb),
+                         ("flash_fwd_tc_kernel", "flash_fwd_kernel"))
+        if kern["flash_fwd_kernel"] is not None:
+            raise AssertionError("a bf16 call reached the fp32 CUDA-core "
+                                 "flash kernel")
+        lib_us, lib_names = device_total_us(
+            torch, sdpa_call(torch, qb, kb, vb, bhkv))
+        buckets[sb] = (kern["flash_fwd_tc_kernel"], lib_us)
+        print(f"flash bf16 q ({bh},{sb},{d}) [device us per call]: "
+              f"flash_fwd_tc_kernel={kern['flash_fwd_tc_kernel']} "
+              f"SDPA={lib_us:.2f} ({', '.join(lib_names)[:120]})")
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     flops = 4.0 * bh * (s * (s + 1) / 2) * d   # QK^T and PV, causal half
     b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
+    dev_us, lib_dev_us = buckets[s]
+    print(f"flash_attention_bhsd (S={s}, bf16): ms={ms:.5f} plain_ms="
+          f"{plain_ms:.5f} library_ms={library_ms:.5f} device_us={dev_us} "
+          f"library_device_us={lib_dev_us:.2f} bound_ms={b_ms:.6f} ({b_by})")
     return {"name": "flash_attention_bhsd", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:187",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+            "device_us": dev_us, "library_device_us": lib_dev_us,
             "shape": f"q ({bh},{s},{d}) kv ({bhkv},{s},{d}) bf16"}
 
 
@@ -244,6 +300,8 @@ def qdq_phase(torch):
     ms = cuda_ms(torch, lambda: QC.qdq_absmax(x, levels=127), iters=200)
     plain_ms = cuda_ms(torch, lambda: QC.qdq_absmax_plain(x, levels=127),
                        iters=200)
+    dev_us = device_us(torch, lambda: QC.qdq_absmax(x, levels=127),
+                       ("qdq_kernel",))["qdq_kernel"]
     nbytes = 2 * x.numel() * 4          # read x, write y
     flops = 7.0 * x.numel()             # abs, max, div, rint, 2 clamps, mul
     b_ms, b_by = bound_ms(nbytes, flops, "float32")
@@ -252,16 +310,18 @@ def qdq_phase(torch):
             "replaces": "src/repro/kernels/quant_collectives.py:73",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "device_us": dev_us,
             "shape": "(2,3840) fp32, a decode step's kept sync"}
 
 
-def paged_case(torch, dtype, c, masked_row=None):
+def paged_case(torch, dtype, c, masked_row=None, pos=None, holes=()):
     """q (2, 4, c, 9, 64) and k/v pools as one layer of (2, 32, P+1, 16,
     3, 64) leaves (a strided view, as the model passes them), a table
     bucketed to 32 pages of distinct physical pages with -1 tails.  c=1:
-    rows at PAGED_POS; c>1: only row 2 is live, a suffix chunk at
-    PREFIX_LEN (the others all -1, as in a warm admission).  `masked_row`
-    is set all -1 too."""
+    rows at `pos` (PAGED_POS by default); c>1: only row 2 is live, a
+    suffix chunk at PREFIX_LEN (the others all -1, as in a warm
+    admission).  `masked_row` is set all -1 too, and each (row, page) of
+    `holes` is set to -1."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2 + c)
     perm = torch.randperm(PAGED_PHYS,
@@ -271,7 +331,9 @@ def paged_case(torch, dtype, c, masked_row=None):
     kleaf = torch.randn(leaf, generator=gen, device=dev).to(dtype)
     vleaf = torch.randn(leaf, generator=gen, device=dev).to(dtype)
     q = torch.randn(tp, b, c, hq, d, generator=gen, device=dev).to(dtype)
-    pos = list(PAGED_POS) if c == 1 else [0, 0, PREFIX_LEN, 0]
+    if c > 1:
+        pos = [0, 0, PREFIX_LEN, 0]
+    pos = list(pos or PAGED_POS)
     table = torch.full((b, width), -1, dtype=torch.long)
     nxt = 0
     for r in range(b):
@@ -280,6 +342,8 @@ def paged_case(torch, dtype, c, masked_row=None):
         own = -(-(pos[r] + c) // ps)
         table[r, :own] = perm[nxt:nxt + own]
         nxt += own
+    for r, j in holes:
+        table[r, j] = -1
     return (q, kleaf[:, 5], vleaf[:, 5], table.to(dev),
             torch.tensor(pos, device=dev))
 
@@ -312,10 +376,14 @@ def paged_phase(torch):
         return torch.stack([FA.paged_flash_attention_plain(
             q[t], kv[t], vv[t], table, pos) for t in range(q.shape[0])])
 
-    timed = None
+    timed = chunk = None
+    cases = ((1, None, None, ()), (1, 1, None, ()),
+             (1, None, PAGED_EDGE_POS, ()), (1, None, None, PAGED_HOLES),
+             (1, None, PAGED_FULL_POS, ()), (32, None, None, ()))
     for dtype in (torch.bfloat16, torch.float32):
-        for c, masked in ((1, None), (1, 1), (32, None)):
-            q, kv, vv, table, pos = paged_case(torch, dtype, c, masked)
+        for c, masked, at, holes in cases:
+            q, kv, vv, table, pos = paged_case(torch, dtype, c, masked, at,
+                                               holes)
             out = FA.paged_flash_attention(q, kv, vv, table, pos)
             ref = plain(q, kv, vv, table, pos)
             torch.cuda.synchronize()
@@ -324,14 +392,20 @@ def paged_phase(torch):
                    2.0 ** -7 * max(ref.float().abs().max().item(), 1e-3))
             zero = (masked is None
                     or not out[:, masked].float().abs().max().item())
-            print(f"paged {str(dtype)[6:]} C={c} masked_row={masked}: "
+            print(f"paged {str(dtype)[6:]} C={c} masked_row={masked} "
+                  f"pos={pos.tolist()} holes={list(holes)}: "
                   f"max_abs_err={err:.3e} tol={tol:.3e} "
                   f"masked rows zero={zero}")
             if not (err <= tol and zero):
                 raise AssertionError(f"paged kernel disagrees at {dtype} "
-                                     f"C={c}: {err} > {tol} or zero={zero}")
-            if dtype == torch.bfloat16 and c == 1 and masked is None:
-                timed = (q, kv, vv, table, pos, err)
+                                     f"C={c} pos={pos.tolist()} holes="
+                                     f"{holes}: {err} > {tol} or zero={zero}")
+            if dtype == torch.bfloat16 and masked is None and not holes \
+                    and at is None:
+                if c == 1:
+                    timed = (q, kv, vv, table, pos, err)
+                else:
+                    chunk = (q, kv, vv, table, pos)
     q, kv, vv, table, pos, err = timed
     ms = cuda_ms(torch, lambda: FA.paged_flash_attention(q, kv, vv, table,
                                                          pos))
@@ -361,11 +435,26 @@ def paged_phase(torch):
           f"(no PyTorch call reads K/V through a page table)")
     nbytes, flops = paged_work(table, pos, c, q, kv)
     b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
+    names = ("paged_decode_split_kernel", "paged_decode_combine_kernel")
+    prof = device_us(torch, lambda: FA.paged_flash_attention(
+        q, kv, vv, table, pos), names)
+    if None in prof.values():
+        raise AssertionError(f"a decode call did not launch both kernels: "
+                             f"{prof}")
+    dev_us = sum(prof.values())        # each launches once per call
+    chunk_us = device_us(torch, lambda: FA.paged_flash_attention(*chunk),
+                         ("paged_fwd_kernel",))["paged_fwd_kernel"]
+    print(f"paged_flash_attention decode (C=1, bf16): ms={ms:.5f} plain_ms="
+          f"{plain_ms:.5f} device_us_per_call={dev_us:.2f} (split "
+          f"{prof[names[0]]:.2f} + combine {prof[names[1]]:.2f}) bound_ms="
+          f"{b_ms:.6f} ({b_by}); chunk (C=32) paged_fwd_kernel device_us="
+          f"{chunk_us}")
     return {"name": "paged_flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/paged_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:136",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "device_us": dev_us,
             "shape": f"q ({tp},{b},{c},{hq},{d}) pools layer of "
                      f"({tp},32,{kv.shape[1]},{ps},{hkv},{d}) bf16, "
                      f"table ({b},{n}), pos {list(PAGED_POS)}"}
@@ -535,10 +624,18 @@ def paged_path(torch, np, llm, prompts, dense_tokens, card):
     return paged, launches
 
 
+# the port's own kernels, by the names the profiler shows (a name here is
+# not a substring of another)
+PORT_KERNELS = ("flash_fwd_tc_kernel", "flash_fwd_kernel",
+                "paged_decode_split_kernel", "paged_decode_combine_kernel",
+                "paged_fwd_kernel", "qdq_kernel", "ssd_scan_kernel")
+
+
 def profile_phase(torch, llm, prompts, card, label="profile"):
     """Where a main path's time goes: one more generate (4 prompts, 4
     tokens each) under torch.profiler; device-busy share of the wall time
-    and the kernels that take the most device time."""
+    and the kernels that take the most device time.  Returns the launches
+    of each of PORT_KERNELS in the window."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.api import SamplingParams
 
@@ -562,7 +659,7 @@ def profile_phase(torch, llm, prompts, card, label="profile"):
     busy_us = sum(r[0] for r in rows)
     if busy_us <= 0:
         print(f"{label}: the profiler saw no device time")
-        return
+        return {}
     rows.sort(reverse=True)
     print(f"{label} [{card}]: generate 4x4 tokens wall_ms={wall_us / 1e3:.1f} "
           f"device_busy_ms={busy_us / 1e3:.1f} "
@@ -570,13 +667,15 @@ def profile_phase(torch, llm, prompts, card, label="profile"):
           f"device_ops={sum(r[1] for r in rows)}")
     for dev_us, count, key in rows[:8]:
         print(f"  {label} top: {dev_us / 1e3:8.2f} ms {count:6d}x {key[:90]}")
-    for name in ("flash_fwd_kernel", "paged_fwd_kernel",  # the port's own
-                 "qdq_kernel", "ssd_scan_kernel"):
+    seen = {}
+    for name in PORT_KERNELS:
         hits = [(us, n) for us, n, key in rows if name in key]
         us, n = sum(h[0] for h in hits), sum(h[1] for h in hits)
+        seen[name] = n
         if n:
             print(f"  {label} kernel: {name} {n}x, device "
                   f"{us / n:.2f} us per launch")
+    return seen
 
 
 def teacher_forced(torch, llm, prompt):
@@ -667,31 +766,55 @@ def teacher_forced_paged(torch, llm, prompt):
         del m
 
 
-def device_us(torch, fn, names, iters=20) -> dict:
-    """Device microseconds per launch of the kernels `names` over `iters`
-    calls of fn, from torch.profiler (None where it saw no launch)."""
-    import re
+def device_rows(torch, fn, iters=20, tries=3) -> list:
+    """(key, device us, count) of every kernel and copy that `iters` calls
+    of fn launched, from torch.profiler.  A profile that saw no device
+    event at all (it happens between back-to-back profiles) is taken
+    again, up to `tries` times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = []
+        for e in prof.key_averages():
+            if not str(e.device_type).endswith("CUDA"):
+                continue
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+            if us > 0:
+                rows.append((e.key, us, e.count))
+        if rows:
+            return rows
+    return []
+
+
+def device_us(torch, fn, names, iters=20) -> dict:
+    """Device microseconds per launch of the kernels `names` over `iters`
+    calls of fn, from torch.profiler (None where it saw no launch)."""
+    import re
+
     pats = {n: re.compile(r"(^|[\s:])" + n + r"[<(]") for n in names}
     acc = {n: [0.0, 0] for n in names}
-    for e in prof.key_averages():
-        if not str(e.device_type).endswith("CUDA"):
-            continue
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
+    for key, us, count in device_rows(torch, fn, iters):
         for n, pat in pats.items():
-            if pat.search(e.key):
+            if pat.search(key):
                 acc[n][0] += us
-                acc[n][1] += e.count
+                acc[n][1] += count
     return {n: (us / k if k else None) for n, (us, k) in acc.items()}
+
+
+def device_total_us(torch, fn, iters=20) -> tuple:
+    """Device microseconds per call of fn summed over every kernel and copy
+    it launched (torch.profiler), and the names of those kernels."""
+    rows = device_rows(torch, fn, iters)
+    return (sum(us for _, us, _ in rows) / iters,
+            [key.split("(")[0][:60] for key, _, _ in rows])
 
 
 def quant_phase(torch):
@@ -1379,10 +1502,19 @@ def main() -> int:
     kernels = [flash_phase(torch), paged_phase(torch), qdq_phase(torch),
                *quant_phase(torch), norm_phase(torch), ssd_phase(torch)]
     llm, prompts, launches, dense_tokens = main_path(torch, np, card)
-    profile_phase(torch, llm, prompts, card)
+    seen = profile_phase(torch, llm, prompts, card)
+    if seen and not (seen["flash_fwd_tc_kernel"]
+                     and not seen["flash_fwd_kernel"]):
+        raise AssertionError(f"the bf16 dense path's prefill did not run "
+                             f"on the tensor-core flash kernel: {seen}")
     paged, paged_launches = paged_path(torch, np, llm, prompts, dense_tokens,
                                        card)
-    profile_phase(torch, paged, prompts, card, label="paged profile")
+    seen = profile_phase(torch, paged, prompts, card, label="paged profile")
+    if seen and not (seen["paged_decode_split_kernel"]
+                     == seen["paged_decode_combine_kernel"] > 0
+                     and not seen["flash_fwd_kernel"]):
+        raise AssertionError(f"the paged path's decode did not run the "
+                             f"split and combine kernels: {seen}")
     del paged
     teacher_forced(torch, llm, prompts[2])
     teacher_forced_paged(torch, llm, prompts[2])
@@ -1407,9 +1539,10 @@ def main() -> int:
     for k in kernels:
         k["launches"] = launches[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "device_us", "library_device_us", "shape")
     print(f"card: {card}")
-    print(json.dumps({"kernels": [{k: kd[k] for k in keys}
+    print(json.dumps({"kernels": [{k: kd.get(k) for k in keys}
                                   for kd in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

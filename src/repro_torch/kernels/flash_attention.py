@@ -4,11 +4,13 @@ repro/kernels/flash_attention.py::flash_attention_bhsd and
 ::paged_flash_attention, the TPU kernels, and repro/kernels/ref.py::
 flash_attention_ref and ::paged_attention_ref, their oracles).
 
-`flash_attention_bhsd` launches `csrc/flash_attention.cu` and
-`paged_flash_attention` launches `csrc/paged_attention.cu` for CUDA
+`flash_attention_bhsd` launches `csrc/flash_attention.cu` (bf16 on the
+tensor cores, fp32 on CUDA cores) and `paged_flash_attention` launches
+`csrc/paged_attention.cu` (a decode step, C = 1, as a split-over-keys
+kernel and a combine kernel; chunks, C > 1, as one kernel) for CUDA
 tensors; each takes its plain version only for CPU tensors.  The kernel
 sources note what bounds them on the card and how their design answers
-that.  Each wrapper's `.launches` counts its kernel launches.
+that.  Each wrapper's `.launches` counts its calls that launched.
 """
 from __future__ import annotations
 
@@ -20,6 +22,8 @@ from repro_torch.kernels import build
 
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
+# logical keys per split of a paged decode call (KS in paged_attention.cu)
+DECODE_KEYS_PER_SPLIT = 64
 
 
 def flash_attention_plain(q, k, v, *, sm_scale=None):
@@ -63,6 +67,19 @@ def check_args(q, k, v) -> int:
     return bh // k.shape[0]
 
 
+def check_aligned(*tensors, strides=()) -> None:
+    """The kernels read 16 bytes a lane: raise unless each tensor's data
+    and each given element stride start on a 16-byte boundary."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"tensor data at {t.data_ptr():#x} is not "
+                             "16-byte aligned")
+    for t, stride in strides:
+        if stride * t.element_size() % 16:
+            raise ValueError(f"stride {stride} x {t.element_size()} bytes "
+                             "is not a multiple of 16 bytes")
+
+
 def _lib():
     lib = build.load("flash_attention")
     fn = lib.flash_attention_fwd
@@ -84,6 +101,8 @@ def flash_attention_bhsd(q, k, v, *, sm_scale=None):
     bh, s, d = q.shape
     scale = float(sm_scale if sm_scale is not None else d ** -0.5)
     lib = _lib()
+    if q.dtype == torch.bfloat16:
+        check_aligned(q, k, v)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -186,6 +205,16 @@ def check_paged_args(q, k_pool, v_pool, page_table, pos) -> None:
                          f"C={c}")
 
 
+def plan_decode_splits(n: int, ps: int, *, rows: int, hkv: int, g: int,
+                       d: int, ks: int = DECODE_KEYS_PER_SPLIT) -> tuple:
+    """How a decode call (C = 1) splits its keys: n_splits blocks of `ks`
+    logical keys over a table of n pages of ps, and the fp32 scratch of
+    partials, (rows, hkv, n_splits, g, d + 2): acc[:d], m at d, l at d + 1.
+    From shapes alone, so planning never waits on the card."""
+    n_splits = -(-n * ps // ks)
+    return n_splits, (rows, hkv, n_splits, g, d + 2)
+
+
 def _paged_lib():
     lib = build.load("paged_attention")
     fn = lib.paged_attention_fwd
@@ -193,6 +222,10 @@ def _paged_lib():
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
             ctypes.c_longlong, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        dec = lib.paged_decode_fwd
+        dec.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
+            ctypes.c_longlong, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        dec.restype = ctypes.c_int
     return lib
 
 
@@ -205,7 +238,12 @@ def paged_flash_attention(q, k_pool, v_pool, page_table, pos, *,
     q (tp, B, C, Hq, D) and pools (tp, P+1, ps, Hkv, D), one table and
     pos for every shard; the pools may be a strided view (a layer of a
     segment leaf) as long as each shard's (P+1, ps, Hkv, D) block is
-    contiguous: nothing is copied.  Output in q's dtype."""
+    contiguous: nothing is copied.  Output in q's dtype.
+
+    On the card a decode step (C = 1) runs as two launches, the keys split
+    over blocks of DECODE_KEYS_PER_SPLIT and their partials combined
+    (`plan_decode_splits`); a chunk (C > 1) as one.  `.launches` counts
+    calls either way."""
     check_paged_args(q, k_pool, v_pool, page_table, pos)
     if q.device.type == "cpu":
         if q.dim() == 4:
@@ -227,13 +265,27 @@ def paged_flash_attention(q, k_pool, v_pool, page_table, pos, *,
     out = torch.empty_like(qf)
     table = page_table.to(device=q.device, dtype=torch.int32).contiguous()
     start = pos.to(device=q.device, dtype=torch.int32).contiguous()
+    is_bf16 = int(q.dtype == torch.bfloat16)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.paged_attention_fwd(
-            qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), table.data_ptr(),
-            start.data_ptr(), out.data_ptr(), tp, b, c, hq, hkv, d, ps, n,
-            kf.stride(0), scale, int(q.dtype == torch.bfloat16), stream)
-    build.check(lib, rc, "paged_attention_fwd")
+        if c == 1:
+            check_aligned(qf, kf, vf, strides=((kf, kf.stride(0)),))
+            n_splits, shape = plan_decode_splits(
+                n, ps, rows=tp * b, hkv=hkv, g=hq // hkv, d=d)
+            part = torch.empty(shape, dtype=torch.float32, device=q.device)
+            what = "paged_decode_fwd"
+            rc = lib.paged_decode_fwd(
+                qf.data_ptr(), kf.data_ptr(), vf.data_ptr(),
+                table.data_ptr(), start.data_ptr(), part.data_ptr(),
+                out.data_ptr(), tp, b, hq, hkv, d, ps, n, n_splits,
+                kf.stride(0), scale, is_bf16, stream)
+        else:
+            what = "paged_attention_fwd"
+            rc = lib.paged_attention_fwd(
+                qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), table.data_ptr(),
+                start.data_ptr(), out.data_ptr(), tp, b, c, hq, hkv, d, ps,
+                n, kf.stride(0), scale, is_bf16, stream)
+    build.check(lib, rc, what)
     paged_flash_attention.launches += 1
     return out if q.dim() == 5 else out[0]
 
