@@ -49,19 +49,25 @@
    One prefill and one decode step are priced with a LatencyModel of the
    card's NVLink (data sheet) and an assumed launch cost, and
    decode_pipelined over 3 groups must equal serial decode.
-9. SSD phase: the Mamba2 chunked-scan kernel against its plain version
-   at the mamba path's shapes (32 streams, P 64, N 128, chunk 256; S 17,
-   300 and 512; bf16 and fp32), y and the final state; timed (events and
-   profile) beside its plain version and its bound.
+9. SSD phase: the Mamba2 chunked-scan kernels against their plain
+   version at the mamba path's shapes (32 streams, P 64, N 128, chunk
+   256; S 17, 300 and 512) and one off the path (G 4, P 32, N 64, chunk
+   100), bf16 and fp32, y and the final state; timed (events and
+   profile) beside its plain version and its bound.  A bf16 call must
+   launch the three tensor-core kernels (scores, chunk states, output)
+   and nothing else; their device time is summed per call and each
+   one's share printed.
 10. Mamba path: full-width Mamba2-370M (48 layers) through LLM.load(tp=2,
    spd=0.25 -> no drops: one sync per block, kept syncs and logits gather
    at quant8) -> generate on the same 4 prompts, 16 greedy tokens each,
    with every kernel's count zeroed before and read after: ssd_scan must
    launch once per layer per prefill (48 x 4), qdq > 0, flash and paged
-   0.  A profiled generate follows.  Then, on the same weights with exact
-   syncs, in bf16 and fp32: prefill logits through the kernel against
-   the plain scan, and the decode logits after teacher-forcing the
-   generated tokens against one exact-length prefill of prompt + tokens.
+   0.  A profiled generate follows; its prefill must run the three
+   tensor-core SSD kernels, never the fp32 one.  Then, on the same
+   weights with exact syncs, in bf16 and fp32: prefill logits through
+   the kernel against the plain scan, and the decode logits after
+   teacher-forcing the generated tokens against one exact-length
+   prefill of prompt + tokens.
 11. Prints the kernels JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 
@@ -628,7 +634,8 @@ def paged_path(torch, np, llm, prompts, dense_tokens, card):
 # not a substring of another)
 PORT_KERNELS = ("flash_fwd_tc_kernel", "flash_fwd_kernel",
                 "paged_decode_split_kernel", "paged_decode_combine_kernel",
-                "paged_fwd_kernel", "qdq_kernel", "ssd_scan_kernel")
+                "paged_fwd_kernel", "qdq_kernel", "ssd_scores_kernel",
+                "ssd_states_kernel", "ssd_output_kernel", "ssd_scan_kernel")
 
 
 def profile_phase(torch, llm, prompts, card, label="profile"):
@@ -896,9 +903,13 @@ def quant_phase(torch):
         ms = cuda_ms(torch, fn, iters=100)
         plain_ms = cuda_ms(torch, plain, iters=100)
         library_ms = cuda_ms(torch, lib, iters=100) if lib else None
+        # the library call's device time, every kernel it launches summed
+        lib_dev, lib_names = device_total_us(torch, lib) if lib else (None,
+                                                                      None)
         b_ms, b_by = bound_ms(nbytes, flops, "float32")
         print(f"{name} ({rows},{n}): ms={ms:.5f} plain_ms={plain_ms:.5f} "
-              f"library_ms={library_ms} (library max_abs_err vs kernel "
+              f"library_ms={library_ms} library_device_us={lib_dev} "
+              f"({lib_names}; max_abs_err vs kernel "
               f"{lib_err.get(name)}) device_us_per_launch={prof[kname]} "
               f"bound_ms={b_ms:.6f}")
         out.append({"name": name, "route": "cuda",
@@ -907,6 +918,7 @@ def quant_phase(torch):
                     "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": b_ms, "bound_by": b_by,
                     "library_ms": library_ms, "device_us": prof[kname],
+                    "library_device_us": lib_dev,
                     "shape": f"({rows},{n}) fp32 L=127, a 4x512 prefill's "
                              "ring slice at tp=2"})
     out[1]["shape"] += " (on no path: only the reference's tests call it)"
@@ -1203,15 +1215,23 @@ def ssd_inputs(torch, s, dtype, sh=SSD_SHAPE):
     return x, dt, a, bm, cm, dd
 
 
+# B8's kernels by the names the profiler shows: bf16 runs the first three
+# (one call launches each once), fp32 the last
+SSD_KERNELS = ("ssd_scores_kernel", "ssd_states_kernel", "ssd_output_kernel",
+               "ssd_scan_kernel")
+
+
 def ssd_phase(torch):
-    """The SSD chunked-scan kernel against its plain version at the mamba
-    path's shapes, y and the final state."""
+    """The SSD chunked-scan kernels against their plain version at the
+    mamba path's shapes and one off the path, y and the final state; the
+    device time of one bf16 call summed over its kernels."""
     from repro_torch.kernels import ssd_scan as SS
 
     chunk = SSD_SHAPE["chunk"]
     timed = None
     cases = [(dtype, s, SSD_SHAPE) for dtype in (torch.bfloat16, torch.float32)
-             for s in SSD_SEQS] + [(torch.float32, 300, SSD_OFF_PATH)]
+             for s in SSD_SEQS] + [(dtype, 300, SSD_OFF_PATH)
+                                   for dtype in (torch.bfloat16, torch.float32)]
     for dtype, s, sh in cases:
         args = ssd_inputs(torch, s, dtype, sh)
         y, st = SS.ssd_scan(*args, chunk=sh["chunk"])
@@ -1233,21 +1253,28 @@ def ssd_phase(torch):
             raise AssertionError(f"ssd_scan kernel disagrees at {dtype} "
                                  f"S={s}: y {ey} > {ty} or state {es} > "
                                  f"{ts}")
-        if dtype == torch.bfloat16 and s == SSD_TIMED_S:
+        if dtype == torch.bfloat16 and s == SSD_TIMED_S and sh is SSD_SHAPE:
             timed = (args, ey)
     args, err = timed
     ms = cuda_ms(torch, lambda: SS.ssd_scan(*args, chunk=chunk), iters=20)
     plain_ms = cuda_ms(torch, lambda: SS.ssd_scan_plain(*args, chunk=chunk),
                        iters=20)
     prof = device_us(torch, lambda: SS.ssd_scan(*args, chunk=chunk),
-                     ("ssd_scan_kernel",), iters=10)
+                     SSD_KERNELS, iters=10)
+    ran = {k: us for k, us in prof.items() if us is not None}
+    if set(ran) != set(SSD_KERNELS[:3]):
+        raise AssertionError(f"a bf16 ssd_scan call must launch the three "
+                             f"tensor-core kernels and nothing else: {prof}")
+    call_us = sum(ran.values())        # each launches once a call
     sh = SSD_SHAPE
     nbytes, flops = ssd_work(sh["bt"], sh["h"], SSD_TIMED_S, sh["p"],
                              sh["n"], sh["g"], chunk, 2)
     b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
     print(f"ssd_scan (S={SSD_TIMED_S}, bf16): ms={ms:.5f} plain_ms="
-          f"{plain_ms:.5f} device_us_per_launch={prof['ssd_scan_kernel']} "
-          f"bound_ms={b_ms:.6f} ({b_by}; {nbytes} bytes, {flops} flops) "
+          f"{plain_ms:.5f} device_us_per_call={call_us:.2f} ("
+          + ", ".join(f"{k} {us:.2f} us = {us / call_us:.0%}"
+                      for k, us in ran.items())
+          + f") bound_ms={b_ms:.6f} ({b_by}; {nbytes} bytes, {flops} flops) "
           f"library_ms=None (no single PyTorch call computes the SSD scan: "
           f"it is a chunked scan with a carried state, not one product)")
     return {"name": "ssd_scan", "route": "cuda",
@@ -1255,10 +1282,11 @@ def ssd_phase(torch):
             "replaces": "src/repro/kernels/ssd_scan.py:66",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "device_us": prof["ssd_scan_kernel"],
+            "device_us": call_us,
             "shape": f"x ({sh['bt']},{SSD_TIMED_S},{sh['h']},{sh['p']}) bf16, "
                      f"B/C ({sh['bt']},{SSD_TIMED_S},{sh['g']},{sh['n']}), "
-                     f"chunk {chunk}: one layer of the 300-token prefill"}
+                     f"chunk {chunk}: one layer of the 300-token prefill; "
+                     f"device_us per call, summed over its 3 kernels"}
 
 
 class plain_ssd:
@@ -1522,7 +1550,12 @@ def main() -> int:
     ring_launches = ring_phase(torch, card)
     overlap_path(torch, np, prompts, dense_tokens, card)
     mamba, mamba_launches, mamba_tokens = mamba_path(torch, np, prompts, card)
-    profile_phase(torch, mamba, prompts, card, label="mamba profile")
+    seen = profile_phase(torch, mamba, prompts, card, label="mamba profile")
+    if seen and not (seen["ssd_scores_kernel"] == seen["ssd_states_kernel"]
+                     == seen["ssd_output_kernel"] > 0
+                     and not seen["ssd_scan_kernel"]):
+        raise AssertionError(f"the bf16 mamba path's prefill did not run the "
+                             f"three tensor-core SSD kernels: {seen}")
     mamba_checks(torch, mamba, prompts[3], mamba_tokens[3])
     del mamba
 

@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc`
 into `build/lib<name>-<digest>.so` at the repository root, then loaded
-with `ctypes`.  The digest covers the source and the flags, so an edited
-source is rebuilt and a stale library is never loaded.  Nothing runs at
+with `ctypes`.  The digest covers the source, the shared headers
+(`csrc/*.cuh`) and the flags, so an edited source or header is rebuilt
+and a stale library is never loaded.  Nothing runs at
 import: the first kernel launch (or `build_all`) compiles.
 """
 from __future__ import annotations
@@ -21,7 +22,8 @@ SOURCES = ("flash_attention", "paged_attention", "quant_collectives",
            "fused_norm", "ssd_scan")
 # no --use_fast_math: qdq must match the reference bit for bit
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-I", str(CSRC))
 
 _LIBS: dict = {}
 
@@ -39,7 +41,8 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 

@@ -11,8 +11,11 @@ not be a multiple of `chunk`: positions past S act as dt = 0 and x = 0,
 which leaves y at real positions and the state exactly as they are.
 
 `ssd_scan` launches `csrc/ssd_scan.cu` for CUDA tensors and takes
-`ssd_scan_plain` only for CPU tensors; `.launches` counts kernel
-launches.
+`ssd_scan_plain` only for CPU tensors; `.launches` counts calls that
+launched.  In bf16 one call launches three tensor-core kernels (scores
+C.B^T once per (row, group, chunk); each chunk's own state; y with the
+state passed between chunks) through fp32 scratch that the wrapper
+allocates (`scratch_shapes`); in fp32 one CUDA-core kernel.
 """
 from __future__ import annotations
 
@@ -21,12 +24,18 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import check_aligned
 from repro_torch.models.ssm import ssd_chunked
 
 DTYPES = (torch.float32, torch.bfloat16)
 P_TILE = 16          # the kernel's columns per block: P must divide by it
 MAX_CHUNK = 256
 MAX_N = 256
+# the bf16 (tensor-core) kernels: P one of these, N a multiple of 16 up
+# to 128, 64-row tiles
+TC_P = (16, 32, 64, 128)
+TC_MAX_N = 128
+TILE = 64
 
 
 def ssd_scan_plain(x, dt, a, bm, cm, dd, *, chunk: int):
@@ -90,6 +99,20 @@ def check_args(x, dt, a, bm, cm, dd, chunk: int) -> None:
         raise ValueError("ssd_scan inputs on different devices")
     if bt > 65535 or h > 65535:
         raise ValueError(f"grid too large: Bt={bt}, H={h}")
+    if x.dtype == torch.bfloat16 and (p not in TC_P or n % 16
+                                      or n > TC_MAX_N):
+        raise ValueError(f"bf16 wants P in {TC_P} and N a multiple of 16 up "
+                         f"to {TC_MAX_N}; got P={p}, N={n}")
+
+
+def scratch_shapes(bt, s, h, p, g, n, chunk) -> tuple:
+    """The bf16 kernels' fp32 scratch: C.B^T per (row, chunk, group) over
+    the chunk rounded up to 64 rows; each chunk's own state; each chunk's
+    cumsum of dt * a and dt, MAX_CHUNK rows each."""
+    nc = -(-s // chunk)
+    qp = -(-chunk // TILE) * TILE
+    return ((bt, nc, g, qp, qp), (bt, h, nc, p, n),
+            (bt, h, nc, 2, MAX_CHUNK))
 
 
 def _lib():
@@ -97,8 +120,8 @@ def _lib():
     fn = lib.ssd_scan_fwd
     if not fn.argtypes:
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
-            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_void_p]
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int] + [
+            ctypes.c_void_p] * 4
         fn.restype = ctypes.c_int
     return lib
 
@@ -112,6 +135,14 @@ def ssd_scan(x, dt, a, bm, cm, dd, *, chunk: int):
         raise ValueError(f"no ssd_scan kernel for device {x.device}")
     bt, s, h, p = x.shape
     g, n = bm.shape[2:]
+    bf16 = x.dtype == torch.bfloat16
+    scratch = []
+    if bf16:
+        # 16-byte copies of B/C rows: every stride used must keep them so
+        check_aligned(x, bm, cm, strides=[(bm, bm.stride(d)) for d in (0, 1)
+                                          if bm.shape[d] > 1])
+        scratch = [torch.empty(sh, dtype=torch.float32, device=x.device)
+                   for sh in scratch_shapes(bt, s, h, p, g, n, chunk)]
     lib = _lib()
     y = torch.empty_like(x)
     state = torch.empty((bt, h, p, n), dtype=torch.float32, device=x.device)
@@ -120,8 +151,8 @@ def ssd_scan(x, dt, a, bm, cm, dd, *, chunk: int):
         rc = lib.ssd_scan_fwd(
             x.data_ptr(), dt.data_ptr(), a.data_ptr(), bm.data_ptr(),
             cm.data_ptr(), dd.data_ptr(), y.data_ptr(), state.data_ptr(), bt,
-            s, h, p, g, n, chunk, bm.stride(0), bm.stride(1),
-            int(x.dtype == torch.bfloat16), stream)
+            s, h, p, g, n, chunk, bm.stride(0), bm.stride(1), int(bf16),
+            *([t.data_ptr() for t in scratch] or [None] * 3), stream)
     build.check(lib, rc, "ssd_scan_fwd")
     ssd_scan.launches += 1
     return y, state

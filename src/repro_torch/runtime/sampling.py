@@ -38,16 +38,17 @@ def sample_core(logits, temperature, top_k, top_p, generators):
             out.append(torch.argmax(lg))
             continue
         v = lg.shape[-1]
+        t_s = max(t, 1e-6)             # as the reference clamps
         desc = torch.sort(lg, descending=True).values
         kth = desc[min(max(k - 1, 0), v - 1)]
         neg = torch.tensor(float("-inf"), device=lg.device)
-        desc_scaled = torch.where((k > 0) & (desc < kth), neg, desc) / t
+        desc_scaled = torch.where((k > 0) & (desc < kth), neg, desc) / t_s
         ps = torch.softmax(desc_scaled, dim=-1)
         # nucleus: keep the smallest descending prefix reaching mass p
         # (the top token always survives); applied as a logit threshold
         keep = (torch.cumsum(ps, dim=-1) - ps) < p
         thr = torch.min(torch.where(keep, desc_scaled, -neg))
-        scaled = torch.where((k > 0) & (lg < kth), neg, lg) / t
+        scaled = torch.where((k > 0) & (lg < kth), neg, lg) / t_s
         scaled = torch.where(scaled < thr, neg, scaled)
         probs = torch.softmax(scaled, dim=-1)
         out.append(torch.multinomial(probs, 1, generator=generators[i])[0])
