@@ -10,11 +10,17 @@
    tolerance; timed with CUDA events beside its plain version, a
    library call where one exists, and its bound on the card, and by the
    profiler (device us per launch; per call for the two-launch paged
-   decode).  Flash: bf16 (tensor cores) at S 1, 16, 63, 65, 100, 300,
-   512 and D 128, fp32 (CUDA cores) at S 16, 100, 512 and D 128; its and
-   SDPA's device time at each prefill bucket.  Paged: decode (C=1, split
-   over keys) at the serving positions, on split edges, with -1 holes,
-   with a masked row and with a full 32-page table; a C=32 chunk.
+   decode).  First the launch floor: the device time of fill_ on a
+   1-element tensor.  Flash: bf16 (tensor cores) at S 1, 16, 63, 65, 100,
+   300, 512 and D 128, fp32 (CUDA cores) at S 16, 100, 512 and D 128; its
+   and SDPA's device time at each prefill bucket.  Paged: decode (C=1,
+   split over keys) at the serving positions, on split edges, with -1
+   holes, with a masked row and with a full 32-page table; chunks (C>1;
+   bf16 on the tensor-core chunk kernel, fp32 on the CUDA-core one) at
+   the warm suffix prefill's shape (C=32, one row at 256), at C 8, 32, 64
+   with every row at positions off the pages, with holes (one a whole
+   64-key tile) and with a masked row; the decode call and the C=32 chunk
+   call are timed and reported apart, gather + SDPA beside each.
 3. Dense main path: full-width SmolLM-360M through LLM.load(tp=2,
    spd=0.25, kept syncs and logits gather at quant8, flash prefill) ->
    generate on 4 seeded prompts, 16 greedy tokens each.  Every kernel's
@@ -27,9 +33,11 @@
    41): every request finishes, at least one is preempted, and every page
    comes back.  Then two prompts sharing a 256-token prefix: the second
    admits warm (a prefix hit) and prefills its suffix through the paged
-   kernel at C=32.  Launch counts zeroed before and read after; every
-   kernel of the path must be > 0.  A profiled paged generate follows;
-   its decode must run the split and combine kernels.
+   kernel at C=32, once per layer.  Launch counts zeroed before and read
+   after; every kernel of the path must be > 0.  The same admission (on
+   another prefix) under the profiler must run the tensor-core chunk
+   kernel once per layer and the fp32 one never.  A profiled paged
+   generate follows; its decode must run the split and combine kernels.
 5. Teacher-forced checks: prefill logits with the flash kernel against
    the plain attention, and one decode step's logits through the paged
    kernel against the dense plain decode, on the same parameters, in
@@ -116,6 +124,26 @@ PAGED_PHYS = 96
 PAGED_EDGE_POS = (63, 64, 127, 128)
 PAGED_HOLES = ((2, 5), (3, 10))        # (row, page) set to -1
 PAGED_FULL_POS = (511, 16, 80, 216)
+# chunk (C > 1) cases beside the warm suffix prefill's shape: every row
+# live at positions off the 16-key pages, C in PAGED_CHUNK_CS (and C = 8
+# at the other head dims of PAGED_CHUNK_DS); C = 32 with holes (pages 4-7
+# of row 0 are a whole 64-key tile of -1) and with a masked row
+PAGED_CHUNK_POS = (250, 3, 117, 250)
+PAGED_CHUNK_CS = (8, 32, 64)
+PAGED_CHUNK_DS = (16, 32, 128)
+PAGED_CHUNK_HOLES = PAGED_HOLES + ((0, 4), (0, 5), (0, 6), (0, 7))
+# chunk cases at other table widths, (C, positions, holes, pages): 128
+# and 64 pages (a split walks 4 and 2 key tiles, its cp.async ring past
+# its first tile; with holes, tile 5 of row 0, the second of split 1, is
+# all -1), and 24, 16 and 8 pages (clusters of 6, 4 and 2 blocks)
+PAGED_CHUNK_WIDTHS = (
+    (32, (1001, 3, 517, 1000), (), 128),
+    (32, (1001, 3, 517, 1000),
+     ((0, 20), (0, 21), (0, 22), (0, 23), (3, 40), (2, 1)), 128),
+    (8, (1001, 250, 3, 700), (), 64),
+    (16, (300, 3, 117, 250), (), 24),
+    (32, (200, 3, 117, 90), (), 16),
+    (8, (100, 3, 50, 117), (), 8))
 # prefill logits, flash kernel vs plain attention through 32 layers
 # (exact syncs): bf16 rounds each layer's attention output differently
 # (2^-8 relative per layer), fp32 only reorders sums
@@ -320,34 +348,39 @@ def qdq_phase(torch):
             "shape": "(2,3840) fp32, a decode step's kept sync"}
 
 
-def paged_case(torch, dtype, c, masked_row=None, pos=None, holes=()):
-    """q (2, 4, c, 9, 64) and k/v pools as one layer of (2, 32, P+1, 16,
-    3, 64) leaves (a strided view, as the model passes them), a table
-    bucketed to 32 pages of distinct physical pages with -1 tails.  c=1:
-    rows at `pos` (PAGED_POS by default); c>1: only row 2 is live, a
-    suffix chunk at PREFIX_LEN (the others all -1, as in a warm
+def paged_case(torch, dtype, c, masked_row=None, pos=None, holes=(), d=64,
+               width=32):
+    """q (2, 4, c, 9, d) and k/v pools as one layer of (2, 32, P+1, 16,
+    3, d) leaves (a strided view, as the model passes them), a table
+    bucketed to `width` pages of distinct physical pages with -1 tails
+    (P = PAGED_PHYS, or more if the rows need more).  Rows at `pos`
+    (PAGED_POS by default for c=1); c>1 without `pos`: only row 2 is
+    live, a suffix chunk at PREFIX_LEN (the others all -1, as in a warm
     admission).  `masked_row` is set all -1 too, and each (row, page) of
     `holes` is set to -1."""
     dev = torch.device("cuda")
+    tp, b, hq, hkv, ps = 2, 4, 9, 3, PAGE_SIZE
+    warm = c > 1 and pos is None
+    if warm:
+        pos = [0, 0, PREFIX_LEN, 0]
+    pos = list(pos or PAGED_POS)
+    live = [r for r in range(b)
+            if not ((warm and r != 2) or r == masked_row)]
+    own = {r: -(-(pos[r] + c) // ps) for r in live}
+    if max(own.values(), default=0) > width:
+        raise ValueError(f"positions {pos} + C={c} pass a {width}-page table")
+    phys = max(PAGED_PHYS, sum(own.values()))
     gen = torch.Generator(device=dev).manual_seed(2 + c)
-    perm = torch.randperm(PAGED_PHYS,
-                          generator=torch.Generator().manual_seed(c))
-    tp, b, hq, hkv, d, ps, width = 2, 4, 9, 3, 64, PAGE_SIZE, 32
-    leaf = (tp, 32, PAGED_PHYS + 1, ps, hkv, d)
+    perm = torch.randperm(phys, generator=torch.Generator().manual_seed(c))
+    leaf = (tp, 32, phys + 1, ps, hkv, d)
     kleaf = torch.randn(leaf, generator=gen, device=dev).to(dtype)
     vleaf = torch.randn(leaf, generator=gen, device=dev).to(dtype)
     q = torch.randn(tp, b, c, hq, d, generator=gen, device=dev).to(dtype)
-    if c > 1:
-        pos = [0, 0, PREFIX_LEN, 0]
-    pos = list(pos or PAGED_POS)
     table = torch.full((b, width), -1, dtype=torch.long)
     nxt = 0
-    for r in range(b):
-        if (c > 1 and r != 2) or r == masked_row:
-            continue
-        own = -(-(pos[r] + c) // ps)
-        table[r, :own] = perm[nxt:nxt + own]
-        nxt += own
+    for r in live:
+        table[r, :own[r]] = perm[nxt:nxt + own[r]]
+        nxt += own[r]
     for r, j in holes:
         table[r, j] = -1
     return (q, kleaf[:, 5], vleaf[:, 5], table.to(dev),
@@ -355,12 +388,14 @@ def paged_case(torch, dtype, c, masked_row=None, pos=None, holes=()):
 
 
 def paged_work(table, pos, c, q, pool):
-    """Bytes the paged attention must move (visible K/V, q, out) and its
-    flops, from this call's table and positions."""
+    """Bytes the paged attention must move and its flops, from this call's
+    table and positions: the visible K/V, the q rows that see a key (a
+    row that sees none comes out 0 whatever its q), and every output row
+    (its zeros included)."""
     tp, b, _, hq, d = q.shape
     ps, hkv = pool.shape[-3], pool.shape[-2]
     table, pos = table.cpu().numpy(), pos.cpu().numpy()
-    keys, flops = 0, 0
+    keys, flops, q_rows = 0, 0, 0
     for r in range(b):
         live = [j for j in range(table.shape[1]) if table[r, j] >= 0]
         last = int(pos[r]) + c - 1
@@ -369,58 +404,23 @@ def paged_work(table, pos, c, q, pool):
             seen = sum(max(0, min(ps, int(pos[r]) + i + 1 - j * ps))
                        for j in live)
             flops += 4 * d * hq * seen
+            q_rows += seen > 0
     es = q.element_size()
-    nbytes = tp * hkv * d * 2 * keys * es + 2 * q.numel() * es
+    nbytes = (tp * hkv * d * 2 * keys * es + tp * q_rows * hq * d * es
+              + q.numel() * es)
     return nbytes, tp * flops
 
 
-def paged_phase(torch):
+def gather_sdpa_call(torch, q, kv, vv, table, pos):
+    """Context for the paged kernel (no single PyTorch call reads K/V
+    through a page table): gather the table's pages, repeat the kv heads,
+    and run masked SDPA; the port never calls it."""
     import torch.nn.functional as F
-    from repro_torch.kernels import flash_attention as FA
-
-    def plain(q, kv, vv, table, pos):
-        return torch.stack([FA.paged_flash_attention_plain(
-            q[t], kv[t], vv[t], table, pos) for t in range(q.shape[0])])
-
-    timed = chunk = None
-    cases = ((1, None, None, ()), (1, 1, None, ()),
-             (1, None, PAGED_EDGE_POS, ()), (1, None, None, PAGED_HOLES),
-             (1, None, PAGED_FULL_POS, ()), (32, None, None, ()))
-    for dtype in (torch.bfloat16, torch.float32):
-        for c, masked, at, holes in cases:
-            q, kv, vv, table, pos = paged_case(torch, dtype, c, masked, at,
-                                               holes)
-            out = FA.paged_flash_attention(q, kv, vv, table, pos)
-            ref = plain(q, kv, vv, table, pos)
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            tol = (FLASH_FP32_ATOL if dtype == torch.float32 else
-                   2.0 ** -7 * max(ref.float().abs().max().item(), 1e-3))
-            zero = (masked is None
-                    or not out[:, masked].float().abs().max().item())
-            print(f"paged {str(dtype)[6:]} C={c} masked_row={masked} "
-                  f"pos={pos.tolist()} holes={list(holes)}: "
-                  f"max_abs_err={err:.3e} tol={tol:.3e} "
-                  f"masked rows zero={zero}")
-            if not (err <= tol and zero):
-                raise AssertionError(f"paged kernel disagrees at {dtype} "
-                                     f"C={c} pos={pos.tolist()} holes="
-                                     f"{holes}: {err} > {tol} or zero={zero}")
-            if dtype == torch.bfloat16 and masked is None and not holes \
-                    and at is None:
-                if c == 1:
-                    timed = (q, kv, vv, table, pos, err)
-                else:
-                    chunk = (q, kv, vv, table, pos)
-    q, kv, vv, table, pos, err = timed
-    ms = cuda_ms(torch, lambda: FA.paged_flash_attention(q, kv, vv, table,
-                                                         pos))
-    plain_ms = cuda_ms(torch, lambda: plain(q, kv, vv, table, pos))
     tp, b, c, hq, d = q.shape
     ps, hkv, n = kv.shape[-3], kv.shape[-2], table.shape[1]
     g = hq // hkv
 
-    def gather_sdpa():
+    def call():
         pt = torch.where(table < 0, torch.full_like(table, kv.shape[1] - 1),
                          table).reshape(-1)
         kg = kv[:, pt].reshape(tp * b, n * ps, hkv, d).transpose(1, 2)
@@ -434,10 +434,81 @@ def paged_phase(torch):
         return F.scaled_dot_product_attention(
             q.reshape(tp * b, c, hq, d).transpose(1, 2), kg, vg,
             attn_mask=mask)
+    return call
 
-    gather_ms = cuda_ms(torch, gather_sdpa)
+
+def paged_phase(torch):
+    """B2 against its plain version: decode (C=1) cases and chunk (C>1)
+    cases, bf16 and fp32.  Returns the kernels-line entries of the decode
+    call and of the chunk call at the warm suffix prefill's shape."""
+    from repro_torch.kernels import flash_attention as FA
+
+    def plain(q, kv, vv, table, pos):
+        return torch.stack([FA.paged_flash_attention_plain(
+            q[t], kv[t], vv[t], table, pos) for t in range(q.shape[0])])
+
+    timed = chunk = None
+    cases = ((1, None, None, (), 64, 32), (1, 1, None, (), 64, 32),
+             (1, None, PAGED_EDGE_POS, (), 64, 32),
+             (1, None, None, PAGED_HOLES, 64, 32),
+             (1, None, PAGED_FULL_POS, (), 64, 32),
+             (32, None, None, (), 64, 32),
+             *((cc, None, PAGED_CHUNK_POS, (), 64, 32)
+               for cc in PAGED_CHUNK_CS),
+             *((8, None, PAGED_CHUNK_POS, (), dd, 32)
+               for dd in PAGED_CHUNK_DS),
+             (32, None, PAGED_CHUNK_POS, PAGED_CHUNK_HOLES, 64, 32),
+             (32, 1, PAGED_CHUNK_POS, (), 64, 32),
+             *((cc, None, at, holes, 64, width)
+               for cc, at, holes, width in PAGED_CHUNK_WIDTHS))
+    for dtype in (torch.bfloat16, torch.float32):
+        for c, masked, at, holes, d, width in cases:
+            q, kv, vv, table, pos = paged_case(torch, dtype, c, masked, at,
+                                               holes, d, width)
+            out = FA.paged_flash_attention(q, kv, vv, table, pos)
+            ref = plain(q, kv, vv, table, pos)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            tol = (FLASH_FP32_ATOL if dtype == torch.float32 else
+                   2.0 ** -7 * max(ref.float().abs().max().item(), 1e-3))
+            zero = (masked is None
+                    or not out[:, masked].float().abs().max().item())
+            print(f"paged {str(dtype)[6:]} C={c} D={d} masked_row={masked} "
+                  f"pos={pos.tolist()} pages={width} holes={list(holes)}: "
+                  f"max_abs_err={err:.3e} tol={tol:.3e} "
+                  f"masked rows zero={zero}")
+            if not (err <= tol and zero):
+                raise AssertionError(f"paged kernel disagrees at {dtype} "
+                                     f"C={c} D={d} pos={pos.tolist()} pages="
+                                     f"{width} holes={holes}: {err} > {tol} "
+                                     f"or zero={zero}")
+            if dtype == torch.bfloat16 and masked is None and not holes \
+                    and at is None and d == 64:
+                if c == 1:
+                    timed = (q, kv, vv, table, pos, err)
+                else:
+                    chunk = (q, kv, vv, table, pos, err)
+            if c > 1 and masked is None and not holes and at is None:
+                # a chunk call launches the tensor-core kernel in bf16 and
+                # the CUDA-core one in fp32, and nothing else of B2
+                names = ("paged_chunk_tc_kernel", "paged_fwd_kernel")
+                ran = device_us(torch, lambda: FA.paged_flash_attention(
+                    q, kv, vv, table, pos), names)
+                want = names[0] if dtype == torch.bfloat16 else names[1]
+                if ran[want] is None or any(
+                        ran[nm] is not None for nm in names if nm != want):
+                    raise AssertionError(f"a {dtype} chunk call did not run "
+                                         f"{want} alone: {ran}")
+
+    q, kv, vv, table, pos, err = timed
+    ms = cuda_ms(torch, lambda: FA.paged_flash_attention(q, kv, vv, table,
+                                                         pos))
+    plain_ms = cuda_ms(torch, lambda: plain(q, kv, vv, table, pos))
+    tp, b, c, hq, d = q.shape
+    ps, hkv, n = kv.shape[-3], kv.shape[-2], table.shape[1]
+    gather_ms = cuda_ms(torch, gather_sdpa_call(torch, q, kv, vv, table, pos))
     print(f"paged context: gather + SDPA (masked, GQA repeated) "
-          f"{gather_ms:.4f} ms at the timed shape; not a single call "
+          f"{gather_ms:.4f} ms at the decode shape; not a single call "
           f"(no PyTorch call reads K/V through a page table)")
     nbytes, flops = paged_work(table, pos, c, q, kv)
     b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
@@ -448,22 +519,57 @@ def paged_phase(torch):
         raise AssertionError(f"a decode call did not launch both kernels: "
                              f"{prof}")
     dev_us = sum(prof.values())        # each launches once per call
-    chunk_us = device_us(torch, lambda: FA.paged_flash_attention(*chunk),
-                         ("paged_fwd_kernel",))["paged_fwd_kernel"]
     print(f"paged_flash_attention decode (C=1, bf16): ms={ms:.5f} plain_ms="
           f"{plain_ms:.5f} device_us_per_call={dev_us:.2f} (split "
           f"{prof[names[0]]:.2f} + combine {prof[names[1]]:.2f}) bound_ms="
-          f"{b_ms:.6f} ({b_by}); chunk (C=32) paged_fwd_kernel device_us="
-          f"{chunk_us}")
-    return {"name": "paged_flash_attention", "route": "cuda",
-            "source": "src/repro_torch/csrc/paged_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:136",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "device_us": dev_us,
-            "shape": f"q ({tp},{b},{c},{hq},{d}) pools layer of "
-                     f"({tp},32,{kv.shape[1]},{ps},{hkv},{d}) bf16, "
-                     f"table ({b},{n}), pos {list(PAGED_POS)}"}
+          f"{b_ms:.6f} ({b_by})")
+    decode = {"name": "paged_flash_attention", "route": "cuda",
+              "source": "src/repro_torch/csrc/paged_attention.cu",
+              "replaces": "src/repro/kernels/flash_attention.py:136",
+              "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+              "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+              "device_us": dev_us, "context_ms": gather_ms,
+              "shape": f"C=1: q ({tp},{b},{c},{hq},{d}) pools layer of "
+                       f"({tp},32,{kv.shape[1]},{ps},{hkv},{d}) bf16, "
+                       f"table ({b},{n}), pos {list(PAGED_POS)}"}
+
+    q, kv, vv, table, pos, err = chunk
+    tp, b, c, hq, d = q.shape
+
+    def call():
+        return FA.paged_flash_attention(q, kv, vv, table, pos)
+
+    ms = cuda_ms(torch, call)
+    plain_ms = cuda_ms(torch, lambda: plain(q, kv, vv, table, pos))
+    gather_ms = cuda_ms(torch, gather_sdpa_call(torch, q, kv, vv, table, pos))
+    nbytes, flops = paged_work(table, pos, c, q, kv)
+    b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
+    dev_us = device_us(torch, call, ("paged_chunk_tc_kernel",))[
+        "paged_chunk_tc_kernel"]
+    print(f"paged_flash_attention chunk (C={c}, bf16, one live row at "
+          f"{PREFIX_LEN}): ms={ms:.5f} plain_ms={plain_ms:.5f} "
+          f"paged_chunk_tc_kernel device_us={dev_us:.2f} bound_ms="
+          f"{b_ms:.6f} ({b_by}; {nbytes} bytes, {flops} flops) "
+          f"gather + SDPA {gather_ms:.4f} ms (context)")
+    chunk = {"name": "paged_flash_attention_chunk", "route": "cuda",
+             "source": "src/repro_torch/csrc/paged_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention.py:136",
+             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+             "device_us": dev_us, "context_ms": gather_ms,
+             "shape": f"C={c}: q ({tp},{b},{c},{hq},{d}) bf16, row 2 live "
+                      f"at {PREFIX_LEN}, table ({b},{table.shape[1]})"}
+    return decode, chunk
+
+
+def launch_floor_us(torch) -> float:
+    """Device time of a minimal launch: fill_ of a 1-element CUDA tensor
+    (profiler), the floor under any kernel's time per launch."""
+    x = torch.zeros(1, device=torch.device("cuda"))
+    us, names = device_total_us(torch, lambda: x.fill_(1.0), iters=50)
+    print(f"launch floor: fill_ of a 1-element tensor takes {us:.3f} us "
+          f"device per launch ({', '.join(names)[:80]})")
+    return us
 
 
 def timed_engine(torch, engine, names=("prefill", "decode")):
@@ -567,6 +673,7 @@ def paged_path(torch, np, llm, prompts, dense_tokens, card):
                QC.qdq_absmax)
     for k in kernels:
         k.launches = 0
+    FA.paged_flash_attention.chunk_launches = 0
     pre0 = sched.n_preemptions
     t0 = time.perf_counter()
     outs = paged.generate(prompts, SamplingParams(max_new=MAX_NEW))
@@ -605,28 +712,64 @@ def paged_path(torch, np, llm, prompts, dense_tokens, card):
     print(f"paged path: {same}/{n_tok} tokens equal the dense path's "
           "(bf16 + quant8: rounding may split the streams)")
 
-    rng = np.random.default_rng(1)
-    prefix = rng.integers(0, cfg.vocab_size, PREFIX_LEN)
-    pair = [np.concatenate([prefix, rng.integers(0, cfg.vocab_size, n)])
-            for n in (20, 30)]
-    hits0 = sched.kv.prefix_hits
-    n_dec, n_suf = steps, len(times["verify_paged"])
-    FA.paged_flash_attention.launches = 0
-    outs2 = paged.generate(pair, SamplingParams(max_new=8))
-    torch.cuda.synchronize()
-    hits = sched.kv.prefix_hits - hits0
-    n_dec = len(times["decode_paged"]) - n_dec
-    n_suf = len(times["verify_paged"]) - n_suf
-    warm = FA.paged_flash_attention.launches
+    def prefix_pair(seed):
+        """Two prompts sharing a PREFIX_LEN prefix, 8 tokens each: the
+        second admits warm.  Returns (prefix hits, suffix prefills, decode
+        steps, paged launches, tokens)."""
+        rng = np.random.default_rng(seed)
+        prefix = rng.integers(0, cfg.vocab_size, PREFIX_LEN)
+        pair = [np.concatenate([prefix, rng.integers(0, cfg.vocab_size, n)])
+                for n in (20, 30)]
+        hits0 = sched.kv.prefix_hits
+        n_dec, n_suf = len(times["decode_paged"]), len(times["verify_paged"])
+        before = FA.paged_flash_attention.launches
+        outs2 = paged.generate(pair, SamplingParams(max_new=8))
+        torch.cuda.synchronize()
+        return (sched.kv.prefix_hits - hits0,
+                len(times["verify_paged"]) - n_suf,
+                len(times["decode_paged"]) - n_dec,
+                FA.paged_flash_attention.launches - before,
+                [o.token_ids for o in outs2])
+
+    chunk0 = FA.paged_flash_attention.chunk_launches
+    hits, n_suf, n_dec, warm, toks = prefix_pair(1)
+    chunks = FA.paged_flash_attention.chunk_launches - chunk0
     print(f"paged prefix pair (prefix {PREFIX_LEN}, suffixes 20/30): "
           f"prefix_hits={hits} suffix_prefills={n_suf} decode_steps={n_dec} "
-          f"paged launches={warm} tokens={[o.token_ids for o in outs2]}")
+          f"paged launches={warm} (chunks {chunks}) tokens={toks}")
     if (hits < 1 or n_suf < 1 or warm != cfg.n_layers * (n_dec + n_suf)
+            or chunks != cfg.n_layers * n_suf
             or sched.pool.num_free != NUM_PAGES):
         raise AssertionError("warm admission did not go through the paged "
                              f"kernel: hits={hits} suffix={n_suf} "
-                             f"launches={warm}")
+                             f"launches={warm} chunks={chunks}")
     launches["paged_flash_attention"] += warm
+    launches["paged_flash_attention_chunk"] = (
+        FA.paged_flash_attention.chunk_launches)
+    print(f"paged path: {launches['paged_flash_attention_chunk']} chunk "
+          f"(C > 1) launches of the paged kernel, warm suffix prefills and "
+          f"re-admissions included")
+
+    # the same admission under the profiler (another prefix): its suffix
+    # prefill must run the tensor-core chunk kernel, once per layer
+    from torch.profiler import ProfilerActivity, profile
+    names = ("paged_chunk_tc_kernel", "paged_fwd_kernel")
+    for seed in (2, 3, 4):             # a profile may see no device event
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            hits, n_suf, n_dec, warm, _ = prefix_pair(seed)
+        found = by_name(profile_rows(prof), names)
+        if any(n for _, n in found.values()):
+            break
+    (us, n_tc), (_, n_f32) = found[names[0]], found[names[1]]
+    print(f"paged warm admission profile: prefix_hits={hits} "
+          f"suffix_prefills={n_suf} paged_chunk_tc_kernel {n_tc}x "
+          f"{us / max(n_tc, 1):.2f} us device per launch, "
+          f"paged_fwd_kernel {n_f32}x")
+    if hits < 1 or n_suf < 1 or n_tc != cfg.n_layers * n_suf or n_f32:
+        raise AssertionError(f"the warm suffix prefill did not run on the "
+                             f"tensor-core chunk kernel: {found}, "
+                             f"suffix={n_suf}")
     return paged, launches
 
 
@@ -634,8 +777,9 @@ def paged_path(torch, np, llm, prompts, dense_tokens, card):
 # not a substring of another)
 PORT_KERNELS = ("flash_fwd_tc_kernel", "flash_fwd_kernel",
                 "paged_decode_split_kernel", "paged_decode_combine_kernel",
-                "paged_fwd_kernel", "qdq_kernel", "ssd_scores_kernel",
-                "ssd_states_kernel", "ssd_output_kernel", "ssd_scan_kernel")
+                "paged_chunk_tc_kernel", "paged_fwd_kernel", "qdq_kernel",
+                "ssd_scores_kernel", "ssd_states_kernel", "ssd_output_kernel",
+                "ssd_scan_kernel")
 
 
 def profile_phase(torch, llm, prompts, card, label="profile"):
@@ -653,16 +797,7 @@ def profile_phase(torch, llm, prompts, card, label="profile"):
         llm.generate(prompts, SamplingParams(max_new=4))
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    rows = []
-    for e in prof.key_averages():
-        # device-side events only (kernels, copies); a CPU op also
-        # reports its kernels' time, which would count them twice
-        if not str(e.device_type).endswith("CUDA"):
-            continue
-        dev_us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0.0))
-        if dev_us > 0:
-            rows.append((dev_us, e.count, e.key))
+    rows = [(us, n, key) for key, us, n in profile_rows(prof)]
     busy_us = sum(r[0] for r in rows)
     if busy_us <= 0:
         print(f"{label}: the profiler saw no device time")
@@ -773,9 +908,38 @@ def teacher_forced_paged(torch, llm, prompt):
         del m
 
 
+def profile_rows(prof) -> list:
+    """(key, device us, count) of every kernel and copy in a profile:
+    device-side events only, since a CPU op also reports its kernels'
+    time, which would count them twice."""
+    rows = []
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if us > 0:
+            rows.append((e.key, us, e.count))
+    return rows
+
+
+def by_name(rows, names) -> dict:
+    """{name: [device us, launches]} over `rows` of the kernels `names`,
+    matched as a whole symbol (never as a part of another name)."""
+    import re
+
+    pats = {n: re.compile(r"(^|[\s:])" + n + r"[<(]") for n in names}
+    acc = {n: [0.0, 0] for n in names}
+    for key, us, count in rows:
+        for n, pat in pats.items():
+            if pat.search(key):
+                acc[n][0] += us
+                acc[n][1] += count
+    return acc
+
+
 def device_rows(torch, fn, iters=20, tries=3) -> list:
-    """(key, device us, count) of every kernel and copy that `iters` calls
-    of fn launched, from torch.profiler.  A profile that saw no device
+    """profile_rows of `iters` calls of fn.  A profile that saw no device
     event at all (it happens between back-to-back profiles) is taken
     again, up to `tries` times."""
     from torch.profiler import ProfilerActivity, profile
@@ -788,14 +952,7 @@ def device_rows(torch, fn, iters=20, tries=3) -> list:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        rows = []
-        for e in prof.key_averages():
-            if not str(e.device_type).endswith("CUDA"):
-                continue
-            us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0.0))
-            if us > 0:
-                rows.append((e.key, us, e.count))
+        rows = profile_rows(prof)
         if rows:
             return rows
     return []
@@ -804,15 +961,7 @@ def device_rows(torch, fn, iters=20, tries=3) -> list:
 def device_us(torch, fn, names, iters=20) -> dict:
     """Device microseconds per launch of the kernels `names` over `iters`
     calls of fn, from torch.profiler (None where it saw no launch)."""
-    import re
-
-    pats = {n: re.compile(r"(^|[\s:])" + n + r"[<(]") for n in names}
-    acc = {n: [0.0, 0] for n in names}
-    for key, us, count in device_rows(torch, fn, iters):
-        for n, pat in pats.items():
-            if pat.search(key):
-                acc[n][0] += us
-                acc[n][1] += count
+    acc = by_name(device_rows(torch, fn, iters), names)
     return {n: (us / k if k else None) for n, (us, k) in acc.items()}
 
 
@@ -1527,7 +1676,8 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
 
-    kernels = [flash_phase(torch), paged_phase(torch), qdq_phase(torch),
+    launch_floor_us(torch)
+    kernels = [flash_phase(torch), *paged_phase(torch), qdq_phase(torch),
                *quant_phase(torch), norm_phase(torch), ssd_phase(torch)]
     llm, prompts, launches, dense_tokens = main_path(torch, np, card)
     seen = profile_phase(torch, llm, prompts, card)
@@ -1564,8 +1714,13 @@ def main() -> int:
     # phase, the SSD scan on the mamba path, the rest on the dense path
     # (every path's counts are printed above); dequantize and the fused
     # norm are on no path, and their 0 is the dense path's count
-    launches["paged_flash_attention"] = paged_launches[
-        "paged_flash_attention"]
+    # the paged kernel's calls split in two entries that sum to them: the
+    # decode (C = 1) and the chunks (C > 1)
+    launches["paged_flash_attention"] = (
+        paged_launches["paged_flash_attention"]
+        - paged_launches["paged_flash_attention_chunk"])
+    launches["paged_flash_attention_chunk"] = paged_launches[
+        "paged_flash_attention_chunk"]
     launches["quantize_absmax"] = ring_launches["quantize_absmax"]
     launches["dequant_accum_absmax"] = ring_launches["dequant_accum_absmax"]
     launches["ssd_scan"] = mamba_launches["ssd_scan"]
@@ -1573,7 +1728,7 @@ def main() -> int:
         k["launches"] = launches[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "device_us", "library_device_us", "shape")
+            "device_us", "library_device_us", "context_ms", "shape")
     print(f"card: {card}")
     print(json.dumps({"kernels": [{k: kd.get(k) for k in keys}
                                   for kd in kernels]}))

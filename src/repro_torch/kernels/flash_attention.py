@@ -7,10 +7,12 @@ flash_attention_ref and ::paged_attention_ref, their oracles).
 `flash_attention_bhsd` launches `csrc/flash_attention.cu` (bf16 on the
 tensor cores, fp32 on CUDA cores) and `paged_flash_attention` launches
 `csrc/paged_attention.cu` (a decode step, C = 1, as a split-over-keys
-kernel and a combine kernel; chunks, C > 1, as one kernel) for CUDA
-tensors; each takes its plain version only for CPU tensors.  The kernel
-sources note what bounds them on the card and how their design answers
-that.  Each wrapper's `.launches` counts its calls that launched.
+kernel and a combine kernel; chunks, C > 1, as one kernel: bf16 on the
+tensor cores, fp32 on CUDA cores) for CUDA tensors; each takes its plain
+version only for CPU tensors.  The kernel sources note what bounds them
+on the card and how their design answers that.  Each wrapper's
+`.launches` counts its calls that launched; `paged_flash_attention.
+chunk_launches` counts those with C > 1 apart.
 """
 from __future__ import annotations
 
@@ -24,6 +26,12 @@ HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 # logical keys per split of a paged decode call (KS in paged_attention.cu)
 DECODE_KEYS_PER_SPLIT = 64
+# a bf16 chunk call's tiles (CQ, CK and CMAX_SPLITS in paged_attention.cu):
+# packed query rows per block (4 warps x 16), logical keys per K/V tile,
+# and the most blocks (a cluster) that split one query tile's key tiles
+CHUNK_QUERY_ROWS = 64
+CHUNK_KEYS_PER_TILE = 64
+CHUNK_MAX_SPLITS = 8
 
 
 def flash_attention_plain(q, k, v, *, sm_scale=None):
@@ -242,8 +250,12 @@ def paged_flash_attention(q, k_pool, v_pool, page_table, pos, *,
 
     On the card a decode step (C = 1) runs as two launches, the keys split
     over blocks of DECODE_KEYS_PER_SPLIT and their partials combined
-    (`plan_decode_splits`); a chunk (C > 1) as one.  `.launches` counts
-    calls either way."""
+    (`plan_decode_splits`); a chunk (C > 1) as one, in bf16 on the tensor
+    cores (blocks of CHUNK_QUERY_ROWS packed query rows, K/V tiles of
+    CHUNK_KEYS_PER_TILE keys gathered through the table, split over a
+    cluster of up to CHUNK_MAX_SPLITS blocks that merge their partials;
+    the kernel plans the split from the table's width).
+    `.launches` counts calls either way, `.chunk_launches` the chunks."""
     check_paged_args(q, k_pool, v_pool, page_table, pos)
     if q.device.type == "cpu":
         if q.dim() == 4:
@@ -266,10 +278,10 @@ def paged_flash_attention(q, k_pool, v_pool, page_table, pos, *,
     table = page_table.to(device=q.device, dtype=torch.int32).contiguous()
     start = pos.to(device=q.device, dtype=torch.int32).contiguous()
     is_bf16 = int(q.dtype == torch.bfloat16)
+    check_aligned(qf, kf, vf, strides=((kf, kf.stride(0)),))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if c == 1:
-            check_aligned(qf, kf, vf, strides=((kf, kf.stride(0)),))
             n_splits, shape = plan_decode_splits(
                 n, ps, rows=tp * b, hkv=hkv, g=hq // hkv, d=d)
             part = torch.empty(shape, dtype=torch.float32, device=q.device)
@@ -287,7 +299,10 @@ def paged_flash_attention(q, k_pool, v_pool, page_table, pos, *,
                 n, kf.stride(0), scale, is_bf16, stream)
     build.check(lib, rc, what)
     paged_flash_attention.launches += 1
+    if c > 1:
+        paged_flash_attention.chunk_launches += 1
     return out if q.dim() == 5 else out[0]
 
 
 paged_flash_attention.launches = 0
+paged_flash_attention.chunk_launches = 0
