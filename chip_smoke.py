@@ -21,17 +21,28 @@
    with every row at positions off the pages, with holes (one a whole
    64-key tile) and with a masked row; the decode call and the C=32 chunk
    call are timed and reported apart, gather + SDPA beside each.
+   Fused kept sync (quantized_psum_absmax, both hops of a quantized
+   all-reduce in one launch): bit-identical to its plain version at tp 1,
+   2, 4, L 127 and 7, bf16 and fp32, on a decode step's, the 512-token
+   prefill bucket's, a mamba decode step's and a ragged payload; timed at
+   the decode and prefill syncs beside the six-kernel chain it replaced
+   (context); and whether sum(dim=0) adds 4 and 8 rows left to right.
 3. Dense main path: full-width SmolLM-360M through LLM.load(tp=2,
    spd=0.25, kept syncs and logits gather at quant8, flash prefill) ->
    generate on 4 seeded prompts, 16 greedy tokens each.  Every kernel's
    launch count is zeroed just before and read just after; the dense
-   path's kernels must each be > 0.  A profiled generate then shows the
+   path's kernels must each be > 0; the fused kept sync must launch once
+   per quantized kept sync of every forward (56 a dense forward) and qdq
+   once per forward (the logits gather).  One more generate with the
+   fused kernel's plain version swapped in must give the same tokens (so
+   on every path below).  A profiled generate then shows the
    device-busy share and the top kernels by device time; its prefill must
    run on the tensor-core flash kernel, never on the fp32 one.
 4. Paged main path: the same model and settings plus page_size=16 and a
    pool of 40 pages that the 4 requests outgrow at their peak (they need
    41): every request finishes, at least one is preempted, and every page
-   comes back.  Then two prompts sharing a 256-token prefix: the second
+   comes back; the sync counts hold per forward, as on the dense path.
+   Then two prompts sharing a 256-token prefix: the second
    admits warm (a prefix hit) and prefills its suffix through the paged
    kernel at C=32, once per layer.  Launch counts zeroed before and read
    after; every kernel of the path must be > 0.  The same admission (on
@@ -44,7 +55,8 @@
    bf16 and in fp32.
 6. Kernel phases of the overlap slice: quantize, dequantize and
    dequant-accumulate against their plain versions bit for bit at the
-   ring's slice shapes, and the fused residual RMSNorm (on no path)
+   ring's slice shapes and two ragged ones (n % 4 != 0, n < 128), and
+   the fused residual RMSNorm (on no path)
    against its plain version; each timed (events and profile).
 7. Ring phase: ring_quantized_psum, ring_reduce_scatter and
    ring_all_gather over the shard axis at tp 2 and 4 on payloads shaped
@@ -53,7 +65,8 @@
    for bit and stay within the quantized ring's error bound; each call
    launches n-1 quantize, n-1 dequant-accumulate and 1 qdq.
 8. Overlap path: the dense path's LLM.load arguments plus
-   engine="overlap" -> generate; tokens must equal the dense path's.
+   engine="overlap" -> generate; tokens must equal the dense path's,
+   the sync counts hold per forward.
    One prefill and one decode step are priced with a LatencyModel of the
    card's NVLink (data sheet) and an assumed launch cost, and
    decode_pipelined over 3 groups must equal serial decode.
@@ -69,9 +82,10 @@
    spd=0.25 -> no drops: one sync per block, kept syncs and logits gather
    at quant8) -> generate on the same 4 prompts, 16 greedy tokens each,
    with every kernel's count zeroed before and read after: ssd_scan must
-   launch once per layer per prefill (48 x 4), qdq > 0, flash and paged
-   0.  A profiled generate follows; its prefill must run the three
-   tensor-core SSD kernels, never the fp32 one.  Then, on the same
+   launch once per layer per prefill (48 x 4), the fused kept sync 48
+   times a forward, qdq once a forward, flash and paged 0.  A profiled
+   generate follows; its prefill must run the three tensor-core SSD
+   kernels, never the fp32 one.  Then, on the same
    weights with exact syncs, in bf16 and fp32: prefill logits through
    the kernel against the plain scan, and the decode logits after
    teacher-forcing the generated tokens against one exact-length
@@ -107,6 +121,13 @@ FLASH_D128_S = 200
 FLASH_BUCKETS = (32, 64, 256, 512)
 FLASH_FP32_ATOL = 2e-5                 # fp32 online vs one-shot softmax
 QDQ_NS = (960, 3840, 16 * 960, 24576)  # (2, N) payloads; bit-identical
+# the fused kept sync (tp, N): a batch-4 decode step's (4 x 960), the
+# 512-token prefill bucket's (512 x 960), a mamba decode step's
+# (4 x 1024) and a ragged N; bit-identical to its plain version
+QPSUM_TPS = (1, 2, 4)
+QPSUM_NS = (3840, 512 * 960, 4 * 1024, 1001)
+QPSUM_TIMED = ((2, 3840), (2, 512 * 960))   # decode, prefill; bf16 L=127
+QPSUM_SUM_TPS = (4, 8)                 # rows where sum(dim=0)'s order is read
 PROMPT_LENS = (17, 64, 200, 300)
 MAX_NEW = 16
 # paged serving: 16-token pages; the 4 requests need 41 pages at their
@@ -154,7 +175,7 @@ TF_FP32_ATOL = 1e-3
 
 # (rows, n) ring slices: a batch-4 decode step's kept sync (4*960 / 2),
 # a 4x512 prefill's (4*512*960 / 2) at tp=2 and (/ 4) at tp=4
-QUANT_SHAPES = ((2, 1920), (2, 983040), (4, 491520))
+QUANT_SHAPES = ((2, 1920), (2, 983040), (4, 491520), (2, 1001), (3, 77))
 QUANT_TIMED = (2, 983040)
 # fused residual RMSNorm: a 4x512 prefill's rows and a decode step's;
 # fp32 differs by summation order only, bf16 by one rounding of y
@@ -346,6 +367,165 @@ def qdq_phase(torch):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "device_us": dev_us,
             "shape": "(2,3840) fp32, a decode step's kept sync"}
+
+
+def unfused_sync(QC, x, levels):
+    """A kept sync as six device kernels, the composition the fused kernel
+    replaced: cast, qdq, sum over shards, the broadcast's copy, qdq, cast
+    (timed as context; no single PyTorch call computes it)."""
+    xq = QC.qdq_absmax(x.float(), levels=levels)
+    s = xq.sum(dim=0, keepdim=True).expand_as(xq).contiguous()
+    return QC.qdq_absmax(s, levels=levels).to(x.dtype)
+
+
+def same_bits(torch, a, b) -> bool:
+    """Equal shape, dtype and bits (a -0 against +0 counts as different)."""
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.view(ints[a.dtype]), b.view(ints[b.dtype])))
+
+
+def qpsum_phase(torch, card):
+    """The fused kept-sync kernel against its plain version, bit for bit,
+    at tp 1, 2, 4, L 127 and 7, bf16 and fp32, on the paths' payloads and
+    a ragged one; timed at the decode and prefill syncs beside the six-
+    kernel chain it replaced.  Also reads whether sum(dim=0) on the card
+    adds the rows left to right (the plain version's order)."""
+    from repro_torch.kernels import quant_collectives as QC
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    for tp in QPSUM_TPS:
+        for n in QPSUM_NS:
+            base = torch.randn(tp, n, generator=gen, device=dev)
+            base *= torch.logspace(0, 1, tp, device=dev)[:, None]
+            base[0, :QC.CHUNK] = 0.0       # an all-zero chunk: the 1e-12 floor
+            for dtype in (torch.bfloat16, torch.float32):
+                x = base.to(dtype)
+                for levels in (127, 7):
+                    out = QC.quantized_psum_absmax(x, levels=levels)
+                    ref = QC.quantized_psum_absmax_plain(x, levels=levels)
+                    torch.cuda.synchronize()
+                    if not same_bits(torch, out, ref):
+                        err = (out.float() - ref.float()).abs().max().item()
+                        raise AssertionError(
+                            f"quantized_psum kernel not bit-identical at "
+                            f"({tp},{n}) {dtype} L={levels}: {err}")
+            print(f"quantized_psum ({tp},{n}): bit-identical in bf16 and "
+                  f"fp32 at L 127 and 7")
+    for tp in QPSUM_SUM_TPS:
+        xq = QC.qdq_absmax_plain(torch.randn(tp, 491520, generator=gen,
+                                             device=dev), levels=127)
+        ltr = torch.zeros_like(xq[0])
+        for r in range(tp):
+            ltr = ltr + xq[r]
+        print(f"sum(dim=0) over {tp} fp32 rows on the card equals the "
+              f"left-to-right sum bit for bit: "
+              f"{same_bits(torch, xq.sum(dim=0), ltr)}")
+
+    rows = {}
+    for tp, n in QPSUM_TIMED:
+        x = torch.randn(tp, n, generator=gen, device=dev).to(torch.bfloat16)
+        fused = lambda: QC.quantized_psum_absmax(x, levels=127)  # noqa: E731
+        chain = lambda: unfused_sync(QC, x, 127)                 # noqa: E731
+        if not same_bits(torch, fused(), chain()):
+            raise AssertionError(f"fused sync differs from the chain at "
+                                 f"({tp},{n})")
+        ms = cuda_ms(torch, fused, iters=200)
+        plain_ms = cuda_ms(torch, lambda: QC.quantized_psum_absmax_plain(
+            x, levels=127), iters=100)
+        chain_ms = cuda_ms(torch, chain, iters=200)
+        dev_us = device_us(torch, fused, ("quantized_psum_kernel",))[
+            "quantized_psum_kernel"]
+        chain_rows = device_rows(torch, chain, iters=20)
+        chain_us = sum(us for _, us, _ in chain_rows) / 20
+        chain_n = sum(n for _, _, n in chain_rows) / 20
+        nbytes = 2 * x.numel() * x.element_size()    # read x, write y
+        flops = (8.0 * tp + 7.0) * n     # hop 1 and the add a row, hop 2
+        b_ms, b_by = bound_ms(nbytes, flops, "float32")
+        print(f"quantized_psum_absmax [{card}] ({tp},{n}) bf16 L=127: "
+              f"ms={ms:.5f} plain_ms={plain_ms:.5f} device_us={dev_us} "
+              f"bound_ms={b_ms:.7f} ({b_by}); the unfused chain (context): "
+              f"ms={chain_ms:.5f} device_us={chain_us:.3f} over "
+              f"{chain_n:g} launches ("
+              + ", ".join(k.split("(")[0][:40] for k, _, _ in chain_rows)
+              + ")")
+        rows[n] = {"name": "quantized_psum_absmax", "route": "cuda",
+                   "source": "src/repro_torch/csrc/quant_collectives.cu",
+                   "replaces": "src/repro/kernels/quant_collectives.py:73",
+                   "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                   "device_us": dev_us, "context_ms": chain_ms,
+                   "context_device_us": chain_us,
+                   "shape": f"({tp},{n}) bf16 L=127, a decode step's kept "
+                            "sync; context: the six-kernel chain"}
+    return rows[QPSUM_TIMED[0][1]]
+
+
+class plain_qpsum:
+    """Inside: every kept sync takes the fused kernel's plain version on
+    the card (the compression module's wrapper name is swapped)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import quant_collectives as QC
+        from repro_torch.parallel import compression as C
+        self.saved = C.quantized_psum_absmax
+        C.quantized_psum_absmax = QC.quantized_psum_absmax_plain
+
+    def __exit__(self, *exc):
+        from repro_torch.parallel import compression as C
+        C.quantized_psum_absmax = self.saved
+
+
+def kept_syncs(llm) -> int:
+    """Quantized kept syncs in one forward of llm: an SSM block or an SPD
+    (dropped) block keeps one, any other block two (attention and MLP)."""
+    from repro_torch.core.layer_kinds import layer_kinds
+    plan = llm.plan
+    return sum(1 if k.mixer == "ssm" or plan.drop_mask[i] else 2
+               for i, k in enumerate(layer_kinds(llm.cfg))
+               if plan.block_mode(i) in ("quant8", "quant4"))
+
+
+def check_sync_launches(label, llm, launches, times):
+    """The fused kernel once per quantized kept sync and B3 alone once per
+    forward (its logits gather): forwards are the engine's timed steps."""
+    fwd = sum(len(v) for v in times.values())
+    want = {"quantized_psum_absmax": kept_syncs(llm) * fwd,
+            "qdq_absmax": fwd if llm.plan.logits_mode != "exact" else 0}
+    got = {k: launches[k] for k in want}
+    print(f"{label}: {fwd} forwards x {kept_syncs(llm)} kept quantized "
+          f"syncs; launches {got}, want {want}")
+    if got != want:
+        raise AssertionError(f"{label}: sync launches {got} != {want}")
+
+
+def same_tokens_plain(torch, label, llm, prompts, tokens, fresh=False):
+    """One more greedy generate with every kept sync on the fused
+    kernel's plain version: the tokens must equal `tokens` bit for bit.
+    `fresh`: on a new scheduler, warmed up as the counted run was (the
+    paged pool's prefix cache would admit the prompts warm), and the old
+    one restored after."""
+    from repro_torch.api import SamplingParams
+    from repro_torch.kernels import quant_collectives as QC
+
+    before = QC.quantized_psum_absmax.launches
+    saved = llm._sched
+    with plain_qpsum():
+        if fresh:
+            llm._sched = None
+            llm.generate([prompts[0][:8]], SamplingParams(max_new=2))
+        outs = llm.generate(prompts, SamplingParams(max_new=MAX_NEW))
+    torch.cuda.synchronize()
+    llm._sched = saved
+    toks = [o.token_ids for o in outs]
+    leaked = QC.quantized_psum_absmax.launches - before
+    print(f"{label}: tokens with the fused kernel's plain version equal "
+          f"the kernel's: {toks == tokens} (kernel launches inside: "
+          f"{leaked})")
+    if toks != tokens or leaked:
+        raise AssertionError(f"{label}: plain-sync tokens {toks} != kernel "
+                             f"tokens {tokens} (leaked {leaked})")
 
 
 def paged_case(torch, dtype, c, masked_row=None, pos=None, holes=(), d=64,
@@ -614,9 +794,9 @@ def main_path(torch, np, card):
     times = timed_engine(torch, llm.engine)
 
     kernels = (FA.flash_attention_bhsd, FA.paged_flash_attention,
-               QC.qdq_absmax, QC.quantize_absmax, QC.dequantize_absmax,
-               QC.dequant_accum_absmax, FN.fused_residual_rmsnorm,
-               SS.ssd_scan)
+               QC.qdq_absmax, QC.quantized_psum_absmax, QC.quantize_absmax,
+               QC.dequantize_absmax, QC.dequant_accum_absmax,
+               FN.fused_residual_rmsnorm, SS.ssd_scan)
     for k in kernels:
         k.launches = 0
     t0 = time.perf_counter()
@@ -624,6 +804,7 @@ def main_path(torch, np, card):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kernels}
+    check_sync_launches("main path", llm, launches, times)
 
     for o, p in zip(outs, prompts):
         if (o.finish_reason != "length" or len(o.token_ids) != MAX_NEW
@@ -644,7 +825,9 @@ def main_path(torch, np, card):
           f"tokens_per_s={n_tok / wall:.1f} "
           f"({n_tok} tokens in {wall:.2f} s)")
     print("main path tokens[0]:", outs[0].token_ids)
-    return llm, prompts, launches, [o.token_ids for o in outs]
+    tokens = [o.token_ids for o in outs]
+    same_tokens_plain(torch, "main path", llm, prompts, tokens)
+    return llm, prompts, launches, tokens
 
 
 def paged_path(torch, np, llm, prompts, dense_tokens, card):
@@ -670,7 +853,7 @@ def paged_path(torch, np, llm, prompts, dense_tokens, card):
                          ("prefill", "verify_paged", "decode_paged"))
 
     kernels = (FA.flash_attention_bhsd, FA.paged_flash_attention,
-               QC.qdq_absmax)
+               QC.qdq_absmax, QC.quantized_psum_absmax)
     for k in kernels:
         k.launches = 0
     FA.paged_flash_attention.chunk_launches = 0
@@ -680,6 +863,7 @@ def paged_path(torch, np, llm, prompts, dense_tokens, card):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kernels}
+    check_sync_launches("paged path", paged, launches, times)
     n_pre = sched.n_preemptions - pre0
     for o, p in zip(outs, prompts):
         if (o.finish_reason != "length" or len(o.token_ids) != MAX_NEW
@@ -770,6 +954,8 @@ def paged_path(torch, np, llm, prompts, dense_tokens, card):
         raise AssertionError(f"the warm suffix prefill did not run on the "
                              f"tensor-core chunk kernel: {found}, "
                              f"suffix={n_suf}")
+    same_tokens_plain(torch, "paged path", paged, prompts,
+                      [o.token_ids for o in outs], fresh=True)
     return paged, launches
 
 
@@ -778,6 +964,7 @@ def paged_path(torch, np, llm, prompts, dense_tokens, card):
 PORT_KERNELS = ("flash_fwd_tc_kernel", "flash_fwd_kernel",
                 "paged_decode_split_kernel", "paged_decode_combine_kernel",
                 "paged_chunk_tc_kernel", "paged_fwd_kernel", "qdq_kernel",
+                "quantized_psum_kernel",
                 "ssd_scores_kernel", "ssd_states_kernel", "ssd_output_kernel",
                 "ssd_scan_kernel")
 
@@ -1246,7 +1433,8 @@ def overlap_path(torch, np, prompts, dense_tokens, card):
     llm.generate([prompts[0][:8]], SamplingParams(max_new=2))   # warm-up
     times = timed_engine(torch, llm.engine)
     kernels = (FA.flash_attention_bhsd, FA.paged_flash_attention,
-               QC.qdq_absmax, QC.quantize_absmax, QC.dequant_accum_absmax)
+               QC.qdq_absmax, QC.quantized_psum_absmax, QC.quantize_absmax,
+               QC.dequant_accum_absmax)
     for k in kernels:
         k.launches = 0
     t0 = time.perf_counter()
@@ -1254,6 +1442,7 @@ def overlap_path(torch, np, prompts, dense_tokens, card):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kernels}
+    check_sync_launches("overlap path", llm, launches, times)
     toks = [o.token_ids for o in outs]
     if toks != dense_tokens:
         raise AssertionError(f"overlap tokens differ from the dense sim "
@@ -1270,6 +1459,7 @@ def overlap_path(torch, np, prompts, dense_tokens, card):
           f"({len(times['decode'])} steps) tokens_per_s={n_tok / wall:.1f} "
           f"({n_tok} tokens in {wall:.2f} s); all {n_tok} tokens equal the "
           "dense sim path's")
+    same_tokens_plain(torch, "overlap path", llm, prompts, toks)
 
     eng, params = llm.engine, llm.params
     lat = LatencyModel(link_bytes_per_s=NVLINK_BYTES_PER_S,
@@ -1455,8 +1645,8 @@ class plain_ssd:
 
 def mamba_path(torch, np, prompts, card):
     """Full-width Mamba2-370M through the facade at tp=2: every prefill
-    layer through the SSD kernel, every kept sync and the logits gather
-    through qdq."""
+    layer through the SSD kernel, every kept sync through the fused
+    kept-sync kernel and the logits gather through qdq."""
     from repro_torch.api import LLM, SamplingParams
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as FA
@@ -1482,9 +1672,9 @@ def mamba_path(torch, np, prompts, card):
     llm.generate([prompts[0][:8]], SamplingParams(max_new=2))   # warm-up
     times = timed_engine(torch, llm.engine)
     kernels = (FA.flash_attention_bhsd, FA.paged_flash_attention,
-               QC.qdq_absmax, QC.quantize_absmax, QC.dequantize_absmax,
-               QC.dequant_accum_absmax, FN.fused_residual_rmsnorm,
-               SS.ssd_scan)
+               QC.qdq_absmax, QC.quantized_psum_absmax, QC.quantize_absmax,
+               QC.dequantize_absmax, QC.dequant_accum_absmax,
+               FN.fused_residual_rmsnorm, SS.ssd_scan)
     for k in kernels:
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -1494,6 +1684,7 @@ def mamba_path(torch, np, prompts, card):
     wall = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kernels}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check_sync_launches("mamba path", llm, launches, times)
     for o, p in zip(outs, prompts):
         if (o.finish_reason != "length" or len(o.token_ids) != MAX_NEW
                 or not all(0 <= t < cfg.vocab_size for t in o.token_ids)):
@@ -1515,7 +1706,9 @@ def mamba_path(torch, np, prompts, card):
           f"batch-4 steps) tokens_per_s={n_tok / wall:.1f} ({n_tok} tokens "
           f"in {wall:.2f} s) peak_memory_gib={peak:.2f}")
     print("mamba path tokens[3]:", outs[3].token_ids)
-    return llm, launches, [o.token_ids for o in outs]
+    tokens = [o.token_ids for o in outs]
+    same_tokens_plain(torch, "mamba path", llm, prompts, tokens)
+    return llm, launches, tokens
 
 
 def layer_outputs(fn):
@@ -1678,7 +1871,8 @@ def main() -> int:
 
     launch_floor_us(torch)
     kernels = [flash_phase(torch), *paged_phase(torch), qdq_phase(torch),
-               *quant_phase(torch), norm_phase(torch), ssd_phase(torch)]
+               qpsum_phase(torch, card), *quant_phase(torch),
+               norm_phase(torch), ssd_phase(torch)]
     llm, prompts, launches, dense_tokens = main_path(torch, np, card)
     seen = profile_phase(torch, llm, prompts, card)
     if seen and not (seen["flash_fwd_tc_kernel"]
@@ -1713,7 +1907,9 @@ def main() -> int:
     # on the paged path, quantize and dequant-accumulate on the ring
     # phase, the SSD scan on the mamba path, the rest on the dense path
     # (every path's counts are printed above); dequantize and the fused
-    # norm are on no path, and their 0 is the dense path's count
+    # norm are on no path, and their 0 is the dense path's count; qdq
+    # alone is the dense path's logits gathers, the fused kept sync its
+    # quantized kept syncs
     # the paged kernel's calls split in two entries that sum to them: the
     # decode (C = 1) and the chunks (C > 1)
     launches["paged_flash_attention"] = (
@@ -1728,7 +1924,8 @@ def main() -> int:
         k["launches"] = launches[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "device_us", "library_device_us", "context_ms", "shape")
+            "device_us", "library_device_us", "context_ms",
+            "context_device_us", "shape")
     print(f"card: {card}")
     print(json.dumps({"kernels": [{k: kd.get(k) for k in keys}
                                   for kd in kernels]}))

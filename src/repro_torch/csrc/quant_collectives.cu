@@ -1,5 +1,6 @@
 // Absmax quantization kernels per 128-element chunk, for Hopper: the
-// quantize-dequantize round trip (qdq), quantize, dequantize and the fused
+// quantize-dequantize round trip (qdq), the two hops of a quantized kept
+// sync fused into one launch, quantize, dequantize and the fused
 // dequantize-accumulate of the quantized ring reduce-scatter.
 //
 // qdq replaces the TPU kernel repro/kernels/quant_collectives.py::qdq_absmax
@@ -20,18 +21,40 @@
 //
 // What bounds it: 8 bytes per element (read + write) against ~4 flops, so
 // it is bound by device-memory bandwidth; one pass, no intermediate in
-// device memory.
+// device memory.  At a decode step's kept sync (2 x 3840) that is 0.02 us
+// of bytes under a ~1 us launch: a lone qdq sits at the launch floor.
+//
+// quantized_psum (the two hops of every quantized kept sync; the TPU runs
+// qdq_absmax twice there, with XLA's psum between): the shard-stacked
+// payload (tp, n), bf16 or fp32, becomes qdq(sum_r qdq(x_r)) in every
+// row.  Both hops chunk each row from its own element 0 with the same n,
+// so chunk c covers the same elements in every row and one warp owns
+// chunk c of ALL tp rows: it loads the tp rows' 4-element slices (one
+// 16- or 8-byte access per row where rows are 4-aligned), runs hop 1 on
+// each row (its own absmax), sums the tp dequantized rows in fp32 from
+// +0 in row order (__fadd_rn(acc, __fmul_rn(q, s)): no FMA contraction,
+// so it equals the plain version's row-by-row adds), runs hop 2 on the
+// sum, rounds once to the payload's type and stores it into all tp rows.
+// Nothing between the hops touches device memory, and the cast, the
+// sum, the broadcast copy and both qdq launches of the unfused chain
+// become one launch.  A warp holds tp x 4 floats a lane (tp <= 8).
+// Bound: bytes (tp*n elements read and written).
 //
 // quantize (replaces quant_collectives.py::quantize_absmax, _quant_kernel)
 // has qdq's layout and arithmetic but stores the int8 code and, from lane
-// 0, the chunk's fp32 scale: ~5 bytes per element, memory-bound.  dequantize
-// (dequantize_absmax, _dequant_kernel) and dequant-accumulate
-// (dequant_accum_absmax, _dequant_accum_kernel) are elementwise, one
-// element per thread, the scale read through the cache; both are bound by
-// device-memory bandwidth (5 and 9 bytes per element).  Dequant-accumulate
-// writes acc + q*s as __fadd_rn(acc, __fmul_rn(q, s)) so nvcc cannot
-// contract it into an FMA: it then equals PyTorch's two-op plain version
-// bit for bit (the TPU kernel contracts it and is 1 ulp off its oracle).
+// 0, the chunk's fp32 scale: ~5 bytes per element, memory-bound.
+// dequantize (dequantize_absmax, _dequant_kernel) walks the chunks in a
+// grid-stride loop, one warp a chunk: row and chunk come from the warp's
+// chunk index, lane 0 loads the scale once and shuffles it to the warp,
+// and each lane makes one 4-byte load of 4 codes and one 16-byte store of
+// 4 floats (a scalar lane path where rows are not 4-aligned); 5 bytes per
+// element, memory-bound.  dequant-accumulate (dequant_accum_absmax,
+// _dequant_accum_kernel) is elementwise, one element per thread, the
+// scale read through the cache: 9 bytes per element.  It writes acc + q*s
+// as __fadd_rn(acc, __fmul_rn(q, s)) so nvcc cannot contract it into an
+// FMA: it then equals PyTorch's two-op plain version bit for bit (the TPU
+// kernel contracts it and is 1 ulp off its oracle).
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -40,6 +63,38 @@ namespace {
 constexpr int CHUNK = 128;
 constexpr int PER_LANE = CHUNK / 32;
 constexpr int THREADS = 256;           // 8 chunks per block
+constexpr unsigned FULL = 0xffffffffu;
+
+__device__ __forceinline__ float warp_absmax(float m) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(FULL, m, off));
+  return m;
+}
+
+// clip(rint(v / s), -L, L) * s: true division, a lone rounded multiply
+__device__ __forceinline__ float qdq_one(float v, float s, float levels) {
+  return __fmul_rn(fminf(fmaxf(rintf(v / s), -levels), levels), s);
+}
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) {
+  return v;
+}
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
+    float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// 4 consecutive elements: one 16-byte (fp32) or 8-byte (bf16) access
+template <typename T>
+struct alignas(4 * sizeof(T)) Pack4 {
+  T v[PER_LANE];
+};
 
 __global__ void __launch_bounds__(THREADS)
 qdq_kernel(const float* __restrict__ x, float* __restrict__ y, int n,
@@ -59,15 +114,79 @@ qdq_kernel(const float* __restrict__ x, float* __restrict__ y, int n,
     vals[j] = idx < n ? x[base + idx] : 0.f;
     mx = fmaxf(mx, fabsf(vals[j]));
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-  const float s = fmaxf(mx / levels, 1e-12f);
+  const float s = fmaxf(warp_absmax(mx) / levels, 1e-12f);
 #pragma unroll
   for (int j = 0; j < PER_LANE; ++j) {
     const int idx = c0 + lane + 32 * j;
     if (idx < n)
       y[base + idx] = fminf(fmaxf(rintf(vals[j] / s), -levels), levels) * s;
+  }
+}
+
+// One warp per chunk index c of all TP rows; lane l owns elements
+// c*128 + 4l .. 4l+3 of every row.  `vec`: rows 4-aligned (n % 4 == 0,
+// aligned bases), so each row's 4 elements are one access.
+template <typename T, int TP>
+__global__ void __launch_bounds__(THREADS)
+quantized_psum_kernel(const T* __restrict__ x, T* __restrict__ y, int n,
+                      int chunks, float levels, int vec) {
+  const int c = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (c >= chunks) return;             // uniform across the warp
+  const int i0 = c * CHUNK + lane * PER_LANE;
+
+  float v[TP][PER_LANE];
+#pragma unroll
+  for (int r = 0; r < TP; ++r) {
+    const T* row = x + (size_t)r * n;
+    if (vec) {
+      if (i0 < n) {
+        const Pack4<T> p = *reinterpret_cast<const Pack4<T>*>(row + i0);
+#pragma unroll
+        for (int j = 0; j < PER_LANE; ++j) v[r][j] = to_f(p.v[j]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < PER_LANE; ++j) v[r][j] = 0.f;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < PER_LANE; ++j)
+        v[r][j] = i0 + j < n ? to_f(row[i0 + j]) : 0.f;
+    }
+  }
+  // hop 1 on each row, summed over rows in row order from +0
+  float acc[PER_LANE];
+#pragma unroll
+  for (int j = 0; j < PER_LANE; ++j) acc[j] = 0.f;
+#pragma unroll
+  for (int r = 0; r < TP; ++r) {
+    float mx = 0.f;
+#pragma unroll
+    for (int j = 0; j < PER_LANE; ++j) mx = fmaxf(mx, fabsf(v[r][j]));
+    const float s = fmaxf(warp_absmax(mx) / levels, 1e-12f);
+#pragma unroll
+    for (int j = 0; j < PER_LANE; ++j)
+      acc[j] = __fadd_rn(acc[j], qdq_one(v[r][j], s, levels));
+  }
+  // hop 2 on the sum, one rounding to T, stored into every row
+  float mx = 0.f;
+#pragma unroll
+  for (int j = 0; j < PER_LANE; ++j) mx = fmaxf(mx, fabsf(acc[j]));
+  const float s = fmaxf(warp_absmax(mx) / levels, 1e-12f);
+  Pack4<T> out;
+#pragma unroll
+  for (int j = 0; j < PER_LANE; ++j)
+    out.v[j] = from_f<T>(qdq_one(acc[j], s, levels));
+#pragma unroll
+  for (int r = 0; r < TP; ++r) {
+    T* row = y + (size_t)r * n;
+    if (vec) {
+      if (i0 < n) *reinterpret_cast<Pack4<T>*>(row + i0) = out;
+    } else {
+#pragma unroll
+      for (int j = 0; j < PER_LANE; ++j)
+        if (i0 + j < n) row[i0 + j] = out.v[j];
+    }
   }
 }
 
@@ -91,10 +210,7 @@ quant_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
     vals[j] = idx < n ? x[base + idx] : 0.f;
     mx = fmaxf(mx, fabsf(vals[j]));
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-  const float s = fmaxf(mx / levels, 1e-12f);
+  const float s = fmaxf(warp_absmax(mx) / levels, 1e-12f);
   if (lane == 0) s_out[warp] = s;      // warp == row * cpr + chunk
 #pragma unroll
   for (int j = 0; j < PER_LANE; ++j) {
@@ -105,16 +221,38 @@ quant_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
   }
 }
 
+// Grid-stride over the (rows x chunks) chunk indices, one warp a chunk;
+// lane l owns elements 4l .. 4l+3 of it.  `vec`: rows 4-aligned, so each
+// lane reads its 4 codes in one 4-byte load and writes one float4.
 __global__ void __launch_bounds__(THREADS)
 dequant_kernel(const int8_t* __restrict__ q, const float* __restrict__ s,
                float* __restrict__ y, int n, int chunks_per_row,
-               int total) {
-  const int i = blockIdx.x * THREADS + threadIdx.x;
-  if (i >= total) return;
-  const int row = i / n;
-  const int col = i - row * n;
-  y[i] = __fmul_rn(static_cast<float>(q[i]),
-                   __ldg(s + row * chunks_per_row + col / CHUNK));
+               int total_chunks, int vec) {
+  const int lane = threadIdx.x & 31;
+  const int stride = gridDim.x * (THREADS / 32);
+  for (int w = blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5);
+       w < total_chunks; w += stride) {   // uniform across the warp
+    const int row = w / chunks_per_row;   // once a chunk, not an element
+    const int i0 = (w - row * chunks_per_row) * CHUNK + lane * PER_LANE;
+    const float sc = __shfl_sync(FULL, lane == 0 ? __ldg(s + w) : 0.f, 0);
+    const size_t base = (size_t)row * n;
+    if (vec) {
+      if (i0 < n) {
+        const char4 c = *reinterpret_cast<const char4*>(q + base + i0);
+        *reinterpret_cast<float4*>(y + base + i0) = make_float4(
+            __fmul_rn(static_cast<float>(c.x), sc),
+            __fmul_rn(static_cast<float>(c.y), sc),
+            __fmul_rn(static_cast<float>(c.z), sc),
+            __fmul_rn(static_cast<float>(c.w), sc));
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < PER_LANE; ++j)
+        if (i0 + j < n)
+          y[base + i0 + j] =
+              __fmul_rn(static_cast<float>(q[base + i0 + j]), sc);
+    }
+  }
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -159,14 +297,49 @@ int quantize_absmax_fwd(const float* x, int8_t* q, float* s, int rows,
   return cudaGetLastError();
 }
 
+// x, y: (tp, n), fp32 (bf16 == 0) or bf16, contiguous; 1 <= tp <= 8.
+// `blocks` blocks of `warps` warps cover the ceil(n/128) chunk indices;
+// `vec`: n % 4 == 0 and both bases aligned to 4 elements.
+int quantized_psum_absmax_fwd(const void* x, void* y, int tp, int n,
+                              int levels, int bf16, int blocks, int warps,
+                              int vec, void* stream) {
+  if (tp <= 0 || n <= 0) return 0;
+  if (tp > 8 || warps <= 0 || warps > THREADS / 32 || blocks <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int chunks = (n + CHUNK - 1) / CHUNK;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float lv = static_cast<float>(levels);
+#define QPSUM_CASE(T, R)                                                 \
+  case R:                                                                \
+    quantized_psum_kernel<T, R><<<blocks, warps * 32, 0, st>>>(          \
+        static_cast<const T*>(x), static_cast<T*>(y), n, chunks, lv, vec); \
+    break;
+#define QPSUM_SWITCH(T)                                                  \
+  switch (tp) {                                                          \
+    QPSUM_CASE(T, 1) QPSUM_CASE(T, 2) QPSUM_CASE(T, 3) QPSUM_CASE(T, 4)  \
+    QPSUM_CASE(T, 5) QPSUM_CASE(T, 6) QPSUM_CASE(T, 7) QPSUM_CASE(T, 8)  \
+  }
+  if (bf16) {
+    QPSUM_SWITCH(__nv_bfloat16)
+  } else {
+    QPSUM_SWITCH(float)
+  }
+#undef QPSUM_SWITCH
+#undef QPSUM_CASE
+  return cudaGetLastError();
+}
+
 // q: (rows, n) int8; s: (rows, ceil(n/128)) fp32; y: (rows, n) fp32.
+// `blocks` blocks of 8 warps stride over the rows * ceil(n/128) chunks;
+// `vec`: n % 4 == 0, q 4-byte and y 16-byte aligned.
 int dequantize_absmax_fwd(const int8_t* q, const float* s, float* y,
-                          int rows, int n, void* stream) {
+                          int rows, int n, int blocks, int vec,
+                          void* stream) {
   if (rows <= 0 || n <= 0) return 0;
-  const int total = rows * n;
-  const int blocks = (total + THREADS - 1) / THREADS;
+  if (blocks <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int cpr = (n + CHUNK - 1) / CHUNK;
   dequant_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      q, s, y, n, (n + CHUNK - 1) / CHUNK, total);
+      q, s, y, n, cpr, rows * cpr, vec);
   return cudaGetLastError();
 }
 

@@ -3,6 +3,9 @@ their plain versions (port of repro/kernels/quant_collectives.py, the
 TPU kernels, and of their oracles in repro/kernels/ref.py).
 
     qdq_absmax            fp32 (rows, n) -> fp32 quantize-dequantize
+    quantized_psum_absmax bf16 / fp32 (tp, n) -> every row
+                          qdq(sum_r qdq(x_r)): both hops of a quantized
+                          kept sync in one launch
     quantize_absmax       fp32 (rows, n) -> int8 codes (rows, n),
                           fp32 scales (rows, ceil(n/128))
     dequantize_absmax     codes, scales -> fp32 (rows, n)
@@ -14,6 +17,8 @@ under `vmap`.  Each wrapper launches its kernel in
 `csrc/quant_collectives.cu` for a CUDA tensor and takes its plain
 version only for a CPU tensor; kernel and plain version agree bit for
 bit on the card.  Each wrapper's `.launches` counts kernel launches.
+The launch geometry (`qpsum_grid`, `dequant_grid`, `vector_rows`) is
+planned here, in Python, so that the CPU tests reach it.
 """
 from __future__ import annotations
 
@@ -26,6 +31,9 @@ from repro_torch.kernels import build
 
 CHUNK = 128          # the kernel's fixed chunk (one warp, 4 per lane)
 LEVELS = (7, 127)    # quant4, quant8
+PSUM_DTYPES = (torch.float32, torch.bfloat16)
+MAX_TP = 8           # the fused kernel keeps tp x 4 floats a lane
+WARPS = 8            # warps of a full block (256 threads)
 
 
 def qdq_absmax_plain(x, *, levels: int, chunk: int = CHUNK):
@@ -40,6 +48,19 @@ def qdq_absmax_plain(x, *, levels: int, chunk: int = CHUNK):
     s = torch.clamp(xp.abs().amax(dim=-1, keepdim=True) / lv, min=1e-12)
     q = torch.clamp(torch.round(xp / s), -levels, levels)
     return (q * s).reshape(rows, -1)[:, :n]
+
+
+def quantized_psum_absmax_plain(x, *, levels: int, chunk: int = CHUNK):
+    """x (tp, n) -> x's dtype (tp, n), every row qdq(sum_r qdq(x_r)):
+    hop 1 on each shard's row, the fp32 rows added one after another from
+    +0 in row order (the fused kernel's order, which `sum(dim=0)` does not
+    promise on the card for every tp), hop 2 on the sum, one cast."""
+    xq = qdq_absmax_plain(x, levels=levels, chunk=chunk)
+    acc = torch.zeros_like(xq[:1])
+    for r in range(xq.shape[0]):
+        acc = acc + xq[r:r + 1]
+    y = qdq_absmax_plain(acc, levels=levels, chunk=chunk).to(x.dtype)
+    return y.expand(xq.shape).contiguous()
 
 
 def quantize_absmax_plain(x, *, levels: int, chunk: int = CHUNK):
@@ -104,6 +125,43 @@ def _check_codes(q, s, chunk: int) -> None:
         raise ValueError("codes and scales on different devices")
 
 
+def qpsum_grid(n: int, sms: int) -> tuple:
+    """(blocks, warps a block) of the fused kept-sync kernel: one warp a
+    chunk index, and as many warps a block (up to WARPS) as keep at least
+    one block a streaming multiprocessor where the payload has that many
+    chunks (a decode step's 30 chunks run as 30 one-warp blocks)."""
+    chunks = -(-n // CHUNK)
+    warps = max(1, min(WARPS, chunks // sms))
+    return -(-chunks // warps), warps
+
+
+def dequant_grid(rows: int, n: int, sms: int) -> int:
+    """Blocks of WARPS warps for the dequantize kernel's grid-stride loop
+    over rows * ceil(n/128) chunks: one chunk a warp, at most a full
+    card's worth of resident blocks (8 a streaming multiprocessor)."""
+    total = rows * -(-n // CHUNK)
+    return max(1, min(-(-total // WARPS), 8 * sms))
+
+
+def vector_rows(n: int, *tensors) -> bool:
+    """True where every row of every (rows, n) tensor starts on a 4-element
+    boundary: n % 4 == 0 and each base 4-element aligned, so a lane's 4
+    elements are one access."""
+    return n % 4 == 0 and all(
+        t.data_ptr() % (4 * t.element_size()) == 0 for t in tensors)
+
+
+_SMS: dict = {}
+
+
+def _sm_count(device) -> int:
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
 def _on_card(x, what: str) -> bool:
     """False for a CPU tensor (take the plain version), True for a CUDA
     one (launch the kernel); raises for any other device."""
@@ -120,9 +178,13 @@ _ARGTYPES = {
     "quantize_absmax_fwd": [ctypes.c_void_p, ctypes.c_void_p,
                             ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                             ctypes.c_int, ctypes.c_void_p],
+    "quantized_psum_absmax_fwd": [ctypes.c_void_p, ctypes.c_void_p,
+                                  ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_int, ctypes.c_void_p],
     "dequantize_absmax_fwd": [ctypes.c_void_p, ctypes.c_void_p,
                               ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                              ctypes.c_void_p],
+                              ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     "dequant_accum_absmax_fwd": [ctypes.c_void_p, ctypes.c_void_p,
                                  ctypes.c_void_p, ctypes.c_void_p,
                                  ctypes.c_int, ctypes.c_int,
@@ -162,6 +224,37 @@ def qdq_absmax(x, *, levels: int, chunk: int = CHUNK):
 qdq_absmax.launches = 0
 
 
+def quantized_psum_absmax(x, *, levels: int, chunk: int = CHUNK):
+    """x (tp, n) bf16 or fp32, row r shard r's flattened payload -> x's
+    dtype (tp, n), every row qdq(sum_r qdq(x_r)): the two hops of a
+    quantized kept sync, one launch."""
+    if x.dtype not in PSUM_DTYPES:
+        raise TypeError(f"want float32 or bfloat16 x; got {x.dtype}")
+    _check_2d("x", x, x.dtype)
+    _check_levels(levels)
+    _check_chunk(chunk)
+    if not 1 <= x.shape[0] <= MAX_TP:
+        raise ValueError(f"the kernel takes 1 to {MAX_TP} shards; got "
+                         f"{x.shape[0]}")
+    if not _on_card(x, "quantized-psum"):
+        return quantized_psum_absmax_plain(x, levels=levels, chunk=chunk)
+    lib = _lib()
+    tp, n = x.shape
+    out = torch.empty_like(x)
+    blocks, warps = qpsum_grid(n, _sm_count(x.device))
+    with torch.cuda.device(x.device):
+        rc = lib.quantized_psum_absmax_fwd(
+            x.data_ptr(), out.data_ptr(), tp, n, levels,
+            int(x.dtype == torch.bfloat16), blocks, warps,
+            int(vector_rows(n, x, out)), _stream(x))
+    build.check(lib, rc, "quantized_psum_absmax_fwd")
+    quantized_psum_absmax.launches += 1
+    return out
+
+
+quantized_psum_absmax.launches = 0
+
+
 def quantize_absmax(x, *, levels: int, chunk: int = CHUNK):
     """x (rows, n) fp32 -> (int8 codes (rows, n), fp32 scales (rows,
     ceil(n/128))), chunks restarting at each row."""
@@ -192,11 +285,13 @@ def dequantize_absmax(q, s, *, chunk: int = CHUNK):
     if not _on_card(q, "dequantize"):
         return dequantize_absmax_plain(q, s, chunk=chunk)
     lib = _lib()
-    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    rows, n = q.shape
+    out = torch.empty((rows, n), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        rc = lib.dequantize_absmax_fwd(q.data_ptr(), s.data_ptr(),
-                                       out.data_ptr(), q.shape[0],
-                                       q.shape[1], _stream(q))
+        rc = lib.dequantize_absmax_fwd(
+            q.data_ptr(), s.data_ptr(), out.data_ptr(), rows, n,
+            dequant_grid(rows, n, _sm_count(q.device)),
+            int(vector_rows(n, q, out)), _stream(q))
     build.check(lib, rc, "dequantize_absmax_fwd")
     dequantize_absmax.launches += 1
     return out

@@ -7,11 +7,12 @@ reproduces the scheme's error (quantize before the reduction and after
 it) while the reduction itself is one sum over the shard axis; the
 ledger carries the true wire bytes (int codes + bf16 scales).
 
-The quantize-dequantize goes through `kernels.quant_collectives.
-qdq_absmax`, which launches the CUDA kernel for a CUDA tensor and takes
-its plain version for a CPU tensor (the reference's kernel="auto").
-Each shard's payload is flattened and chunked from its own element 0,
-as under the reference's per-shard `vmap`.
+Both hops of a kept sync go through `kernels.quant_collectives.
+quantized_psum_absmax`, one launch for the whole sync on a CUDA tensor;
+the logits gather and the ring's hop 2 go through `qdq_absmax`.  Each
+wrapper takes its plain version for a CPU tensor (the reference's
+kernel="auto").  Each shard's payload is flattened and chunked from its
+own element 0, as under the reference's per-shard `vmap`.
 
 The runnable ring collectives at the end (`ring_all_gather`,
 `ring_reduce_scatter`, `ring_quantized_psum`) execute the chunked ring
@@ -28,7 +29,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.quant_collectives import (dequant_accum_absmax,
                                                    qdq_absmax,
-                                                   quantize_absmax)
+                                                   quantize_absmax,
+                                                   quantized_psum_absmax)
 from repro_torch.parallel.collectives import (MODEL_AXIS, log_collective,
                                               overlap_chunks, ppermute,
                                               ring_wire_bytes)
@@ -84,14 +86,16 @@ def _log_two_hop(axis, wire_full: int, wire_slice: int, n: int) -> None:
 
 
 def quantized_psum(x, axis, *, bits: int = 8, chunk: int = DEFAULT_CHUNK):
-    """Low-bit psum over the shard axis (dim 0); returns x's dtype."""
+    """Low-bit psum over the shard axis (dim 0); returns x's dtype:
+    qdq of each shard's payload (hop 1), their sum, qdq of the sum
+    (hop 2), on every shard."""
     tp = x.shape[0]
     n = x[0].numel()
     _log_two_hop(axis, wire_bytes(n, bits, chunk),
                  wire_bytes(-(-n // tp), bits, chunk), tp)
-    xq = qdq(x, bits=bits, chunk=chunk)                  # hop 1
-    s = xq.sum(dim=0, keepdim=True).expand_as(xq)
-    return qdq(s, bits=bits, chunk=chunk).to(x.dtype)    # hop 2
+    flat = x.reshape(tp, -1).contiguous()
+    return quantized_psum_absmax(flat, levels=_levels(bits),
+                                 chunk=chunk).reshape(x.shape)
 
 
 def quantized_gather_payload(x, axis, *, bits: int = 8,
