@@ -90,8 +90,35 @@
    the kernel against the plain scan, and the decode logits after
    teacher-forcing the generated tokens against one exact-length
    prefill of prompt + tokens.
-11. Prints the kernels JSON line, the card line, and last
-   {"ok": true, "device": {...}}.
+11. The paper's kernel shapes: B1 at head dim 128 and group 1 (16 q
+   and 16 kv heads a shard, llama2-7b and opt-6.7b at tp=2) at S 1, 63,
+   300, 512 and at groups 2 and 8 (qwen3-1.7b, qwen2-72b) at S 300, bf16
+   and fp32, each timed beside its plain version and SDPA; B2's decode
+   and chunk calls at D 128, groups 1 and 8 (serving positions, a full
+   table, holes); the fused kept sync at (2, 4096) and (2, 4096 x 512);
+   B3 alone on the logits gathers (2, 16000) and (2, 25136).
+12. llama2-7b at full width (32 layers, d 4096, 6.74 B parameters, bf16,
+   random weights from seed 0) through LLM.load(tp=2, spd=0.25, quant8
+   kept syncs and logits gather, flash prefill): the dense path as in 3
+   (counts zeroed before and read after, sync counts, plain-sync tokens,
+   a profile), the paged path as in 4 (a preemption and a warm
+   admission through the chunk kernel), and the teacher-forced checks of
+   5 in bf16 at full width and in fp32 on layers 6-9.
+13. Algorithm 1 on llama2-7b: the sensitivity sweep over
+   calibration_batches(32000, 4 samples of 128 tokens, 2 batches), 33
+   evaluations x 2 batches x 32 layers through B1, and again with the
+   plain attention (perplexities within SWEEP_PPL_RTOL); then
+   LLM.apply_comm_policy(n_spd=8, tau1, tau2 at the 25th and 75th
+   percentiles of the sensitivities) must give a plan with dropped,
+   quant8 and exact syncs, and a counted generate under it.
+14. opt-6.7b at full width (LayerNorm, learned positions, biases, ReLU)
+   through the same LLM.load: the dense path as in 3, a profile, the
+   teacher-forced prefill check, and decode logits after teacher-forcing
+   its tokens against one exact-length prefill (learned positions read
+   at decode positions).  Each 7B model is freed before the next loads;
+   each path prints its peak device memory.
+15. Prints the kernels JSON line (the rows above beside the earlier
+   ones), the card line, and last {"ok": true, "device": {...}}.
 
 Any failure raises (non-zero exit, no result line).  Without a CUDA
 device it exits non-zero at once.  Weights are random, from a seed.
@@ -209,9 +236,55 @@ SSD_FP32_REL = 2e-5
 SSD_BF16_Y_REL = 2.0 ** -7
 SSD_BF16_STATE_REL = 2e-5
 MAMBA_LAYERS = 48
+# the paper's models (llama2-7b, opt-6.7b) at tp=2: head dim 128, 16 q
+# and 16 kv heads a shard (group 1); B1 also at the group of qwen3-1.7b
+# (8 q / 4 kv a shard) and qwen2-72b (32 q / 4 kv), whose full widths
+# are not served here (qwen2-72b is 145 GB in bf16)
+PAPER_FLASH_SEQS = (1, 63, 300, 512)
+PAPER_FLASH_GROUPS = (("llama2-7b/opt-6.7b", 16, 16), ("qwen3-1.7b", 8, 4),
+                      ("qwen2-72b", 32, 4))
+PAPER_GROUPS_S = 300
+# B2 at D 128, groups 1 and 8: (C, positions, holes) -- decode at the
+# serving positions (timed), on a full table, with holes; the warm
+# suffix prefill's chunk (timed), every row live, with holes
+PAPER_PAGED_HEADS = ((16, 16), (32, 4))
+PAPER_PAGED_CASES = ((1, None, ()), (1, PAGED_FULL_POS, ()),
+                     (1, None, PAGED_HOLES), (32, None, ()),
+                     (32, PAGED_CHUNK_POS, ()),
+                     (32, PAGED_CHUNK_POS, PAGED_CHUNK_HOLES))
+# (tp, n) of llama2-7b's kept syncs at d 4096: one decode token's and
+# the 512-token prefill bucket's
+PAPER_QPSUM = ((2, 4096), (2, 4096 * 512))
+# the logits gathers: llama's 32000 and OPT's 50272 vocab at tp=2
+PAPER_QDQ = ((2, 16000), (2, 25136))
+# Algorithm 1 on llama2-7b: 4 calibration samples of 128 tokens in 2
+# batches; a budget of 8 dropped syncs (spd=0.25)
+SWEEP_CALIB = dict(n_samples=4, seq=128, batch=2)
+N_SPD = 8
+# the sweep's perplexities with the flash kernel against the plain
+# attention, bf16: the two round the attention output differently (P in
+# bf16 on the tensor cores against an fp32 softmax) and the difference
+# grows through 32 layers.  The teacher-forced gate lets one logit move
+# by 5% of the largest (~0.2 nats here, 20% of a one-token perplexity);
+# a perplexity is exp of the mean CE over 256 tokens whose errors take
+# either sign, so 1% relative (2.1e-3 measured on an H100 at 700 W)
+SWEEP_PPL_RTOL = 1e-2
+# the fp32 teacher-forced checks of the 7B models keep layers 6-9 (two
+# dropped and two kept blocks of the spd=0.25 plan): a full-width fp32
+# copy is 27 GB
+TF_FP32_LAYERS = (6, 10)
 # bf16 model-level checks on the mamba path: at most twice the spread of
 # the same comparison made without the kernel (see mamba_checks)
 MAMBA_BF16_FLOOR = 2.0
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict/list parameter tree."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for t in tree for leaf in tree_leaves(t)]
+    return [tree]
 
 
 def card_line() -> str:
@@ -352,6 +425,14 @@ def qdq_phase(torch):
             if n == 3840 and levels == 127:
                 timed = (x, err)
     x, err = timed
+    return qdq_row(torch, x, err, "a decode step's kept sync")
+
+
+def qdq_row(torch, x, err, what):
+    """B3 alone on x (rows, n) fp32 at L=127, timed (events and profile)
+    beside its plain version: a kernels-line row."""
+    from repro_torch.kernels import quant_collectives as QC
+
     ms = cuda_ms(torch, lambda: QC.qdq_absmax(x, levels=127), iters=200)
     plain_ms = cuda_ms(torch, lambda: QC.qdq_absmax_plain(x, levels=127),
                        iters=200)
@@ -360,13 +441,16 @@ def qdq_phase(torch):
     nbytes = 2 * x.numel() * 4          # read x, write y
     flops = 7.0 * x.numel()             # abs, max, div, rint, 2 clamps, mul
     b_ms, b_by = bound_ms(nbytes, flops, "float32")
+    print(f"qdq_absmax ({x.shape[0]},{x.shape[1]}) fp32 L=127, {what}: "
+          f"ms={ms:.5f} plain_ms={plain_ms:.5f} device_us={dev_us} "
+          f"bound_ms={b_ms:.7f} ({b_by})")
     return {"name": "qdq_absmax", "route": "cuda",
             "source": "src/repro_torch/csrc/quant_collectives.cu",
             "replaces": "src/repro/kernels/quant_collectives.py:73",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "device_us": dev_us,
-            "shape": "(2,3840) fp32, a decode step's kept sync"}
+            "shape": f"({x.shape[0]},{x.shape[1]}) fp32, {what}"}
 
 
 def unfused_sync(QC, x, levels):
@@ -426,40 +510,51 @@ def qpsum_phase(torch, card):
     rows = {}
     for tp, n in QPSUM_TIMED:
         x = torch.randn(tp, n, generator=gen, device=dev).to(torch.bfloat16)
-        fused = lambda: QC.quantized_psum_absmax(x, levels=127)  # noqa: E731
-        chain = lambda: unfused_sync(QC, x, 127)                 # noqa: E731
-        if not same_bits(torch, fused(), chain()):
-            raise AssertionError(f"fused sync differs from the chain at "
-                                 f"({tp},{n})")
-        ms = cuda_ms(torch, fused, iters=200)
-        plain_ms = cuda_ms(torch, lambda: QC.quantized_psum_absmax_plain(
-            x, levels=127), iters=100)
-        chain_ms = cuda_ms(torch, chain, iters=200)
-        dev_us = device_us(torch, fused, ("quantized_psum_kernel",))[
-            "quantized_psum_kernel"]
-        chain_rows = device_rows(torch, chain, iters=20)
-        chain_us = sum(us for _, us, _ in chain_rows) / 20
-        chain_n = sum(n for _, _, n in chain_rows) / 20
-        nbytes = 2 * x.numel() * x.element_size()    # read x, write y
-        flops = (8.0 * tp + 7.0) * n     # hop 1 and the add a row, hop 2
-        b_ms, b_by = bound_ms(nbytes, flops, "float32")
-        print(f"quantized_psum_absmax [{card}] ({tp},{n}) bf16 L=127: "
-              f"ms={ms:.5f} plain_ms={plain_ms:.5f} device_us={dev_us} "
-              f"bound_ms={b_ms:.7f} ({b_by}); the unfused chain (context): "
-              f"ms={chain_ms:.5f} device_us={chain_us:.3f} over "
-              f"{chain_n:g} launches ("
-              + ", ".join(k.split("(")[0][:40] for k, _, _ in chain_rows)
-              + ")")
-        rows[n] = {"name": "quantized_psum_absmax", "route": "cuda",
-                   "source": "src/repro_torch/csrc/quant_collectives.cu",
-                   "replaces": "src/repro/kernels/quant_collectives.py:73",
-                   "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                   "device_us": dev_us, "context_ms": chain_ms,
-                   "context_device_us": chain_us,
-                   "shape": f"({tp},{n}) bf16 L=127, a decode step's kept "
-                            "sync; context: the six-kernel chain"}
+        rows[n] = qpsum_row(torch, x, card, "a decode step's kept sync")
     return rows[QPSUM_TIMED[0][1]]
+
+
+def qpsum_row(torch, x, card, what):
+    """The fused kept sync on x (tp, n) bf16 at L=127, timed (events and
+    profile) beside its plain version and the six-kernel chain it
+    replaced (context), and bit-identical to the chain: a kernels-line
+    row."""
+    from repro_torch.kernels import quant_collectives as QC
+
+    tp, n = x.shape
+    fused = lambda: QC.quantized_psum_absmax(x, levels=127)  # noqa: E731
+    chain = lambda: unfused_sync(QC, x, 127)                 # noqa: E731
+    if not same_bits(torch, fused(), chain()):
+        raise AssertionError(f"fused sync differs from the chain at "
+                             f"({tp},{n})")
+    ms = cuda_ms(torch, fused, iters=200)
+    plain_ms = cuda_ms(torch, lambda: QC.quantized_psum_absmax_plain(
+        x, levels=127), iters=100)
+    chain_ms = cuda_ms(torch, chain, iters=200)
+    dev_us = device_us(torch, fused, ("quantized_psum_kernel",))[
+        "quantized_psum_kernel"]
+    chain_rows = device_rows(torch, chain, iters=20)
+    chain_us = sum(us for _, us, _ in chain_rows) / 20
+    chain_n = sum(k for _, _, k in chain_rows) / 20
+    nbytes = 2 * x.numel() * x.element_size()    # read x, write y
+    flops = (8.0 * tp + 7.0) * n     # hop 1 and the add a row, hop 2
+    b_ms, b_by = bound_ms(nbytes, flops, "float32")
+    print(f"quantized_psum_absmax [{card}] ({tp},{n}) bf16 L=127: "
+          f"ms={ms:.5f} plain_ms={plain_ms:.5f} device_us={dev_us} "
+          f"bound_ms={b_ms:.7f} ({b_by}); the unfused chain (context): "
+          f"ms={chain_ms:.5f} device_us={chain_us:.3f} over "
+          f"{chain_n:g} launches ("
+          + ", ".join(k.split("(")[0][:40] for k, _, _ in chain_rows)
+          + ")")
+    return {"name": "quantized_psum_absmax", "route": "cuda",
+            "source": "src/repro_torch/csrc/quant_collectives.cu",
+            "replaces": "src/repro/kernels/quant_collectives.py:73",
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "device_us": dev_us, "context_ms": chain_ms,
+            "context_device_us": chain_us,
+            "shape": f"({tp},{n}) bf16 L=127, {what}; context: the "
+                     "six-kernel chain"}
 
 
 class plain_qpsum:
@@ -529,9 +624,9 @@ def same_tokens_plain(torch, label, llm, prompts, tokens, fresh=False):
 
 
 def paged_case(torch, dtype, c, masked_row=None, pos=None, holes=(), d=64,
-               width=32):
-    """q (2, 4, c, 9, d) and k/v pools as one layer of (2, 32, P+1, 16,
-    3, d) leaves (a strided view, as the model passes them), a table
+               width=32, hq=9, hkv=3, layers=32):
+    """q (2, 4, c, hq, d) and k/v pools as one layer of (2, layers, P+1,
+    16, hkv, d) leaves (a strided view, as the model passes them), a table
     bucketed to `width` pages of distinct physical pages with -1 tails
     (P = PAGED_PHYS, or more if the rows need more).  Rows at `pos`
     (PAGED_POS by default for c=1); c>1 without `pos`: only row 2 is
@@ -539,7 +634,7 @@ def paged_case(torch, dtype, c, masked_row=None, pos=None, holes=(), d=64,
     admission).  `masked_row` is set all -1 too, and each (row, page) of
     `holes` is set to -1."""
     dev = torch.device("cuda")
-    tp, b, hq, hkv, ps = 2, 4, 9, 3, PAGE_SIZE
+    tp, b, ps = 2, 4, PAGE_SIZE
     warm = c > 1 and pos is None
     if warm:
         pos = [0, 0, PREFIX_LEN, 0]
@@ -552,7 +647,7 @@ def paged_case(torch, dtype, c, masked_row=None, pos=None, holes=(), d=64,
     phys = max(PAGED_PHYS, sum(own.values()))
     gen = torch.Generator(device=dev).manual_seed(2 + c)
     perm = torch.randperm(phys, generator=torch.Generator().manual_seed(c))
-    leaf = (tp, 32, phys + 1, ps, hkv, d)
+    leaf = (tp, layers, phys + 1, ps, hkv, d)
     kleaf = torch.randn(leaf, generator=gen, device=dev).to(dtype)
     vleaf = torch.randn(leaf, generator=gen, device=dev).to(dtype)
     q = torch.randn(tp, b, c, hq, d, generator=gen, device=dev).to(dtype)
@@ -563,7 +658,8 @@ def paged_case(torch, dtype, c, masked_row=None, pos=None, holes=(), d=64,
         nxt += own[r]
     for r, j in holes:
         table[r, j] = -1
-    return (q, kleaf[:, 5], vleaf[:, 5], table.to(dev),
+    li = min(5, layers - 1)
+    return (q, kleaf[:, li], vleaf[:, li], table.to(dev),
             torch.tensor(pos, device=dev))
 
 
@@ -617,16 +713,21 @@ def gather_sdpa_call(torch, q, kv, vv, table, pos):
     return call
 
 
+def paged_plain(q, kv, vv, table, pos):
+    """The paged kernel's plain version over the shard axis."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    return torch.stack([FA.paged_flash_attention_plain(
+        q[t], kv[t], vv[t], table, pos) for t in range(q.shape[0])])
+
+
 def paged_phase(torch):
     """B2 against its plain version: decode (C=1) cases and chunk (C>1)
     cases, bf16 and fp32.  Returns the kernels-line entries of the decode
     call and of the chunk call at the warm suffix prefill's shape."""
     from repro_torch.kernels import flash_attention as FA
 
-    def plain(q, kv, vv, table, pos):
-        return torch.stack([FA.paged_flash_attention_plain(
-            q[t], kv[t], vv[t], table, pos) for t in range(q.shape[0])])
-
+    plain = paged_plain
     timed = chunk = None
     cases = ((1, None, None, (), 64, 32), (1, 1, None, (), 64, 32),
              (1, None, PAGED_EDGE_POS, (), 64, 32),
@@ -769,7 +870,11 @@ def timed_engine(torch, engine, names=("prefill", "decode")):
     return times
 
 
-def main_path(torch, np, card):
+def main_path(torch, np, card, arch="smollm-360m", label="main path"):
+    """`arch` at full width through the facade (tp=2, spd=0.25, quant8
+    kept syncs and logits gather, flash prefill, random weights from seed
+    0): a counted dense generate of the four prompts, its sync counts,
+    and the same tokens with the fused sync's plain version."""
     from repro_torch.api import LLM, SamplingParams
     from repro_torch.config.base import replace
     from repro_torch.configs import get_config
@@ -778,16 +883,21 @@ def main_path(torch, np, card):
     from repro_torch.kernels import quant_collectives as QC
     from repro_torch.kernels import ssd_scan as SS
 
-    cfg = replace(get_config("smollm-360m"), attn_backend="pallas")
+    cfg = replace(get_config(arch), attn_backend="pallas")
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     llm = LLM.load(cfg, tp=2, spd=0.25, comm="quant8", comm_logits="quant8",
                    dtype="bfloat16", cache_len=512, max_batch=4, seed=0)
     torch.cuda.synchronize()
-    print(f"main path: loaded {cfg.name} (L={cfg.n_layers} d={cfg.d_model} "
-          f"heads {cfg.n_heads}/{cfg.n_kv_heads} -> "
+    n_params = sum(w.numel() for w in tree_leaves(llm.canonical))
+    print(f"{label}: loaded {cfg.name} (L={cfg.n_layers} d={cfg.d_model} "
+          f"heads {cfg.n_heads}/{cfg.n_kv_heads} of {cfg.d_head}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, {n_params / 1e9:.3f} B "
+          f"parameters, {n_params * 2 / 1e9:.2f} GB in bf16 -> "
           f"{llm.engine.tp}x{len(llm.params['segs'])} segments) in "
           f"{time.perf_counter() - t0:.1f} s; plan drops "
-          f"{llm.plan.n_dropped}/{cfg.n_layers} syncs")
+          f"{llm.plan.n_dropped}/{cfg.n_layers} syncs; "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n) for n in PROMPT_LENS]
     llm.generate([prompts[0][:8]], SamplingParams(max_new=2))   # warm-up
@@ -804,33 +914,37 @@ def main_path(torch, np, card):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kernels}
-    check_sync_launches("main path", llm, launches, times)
+    check_sync_launches(label, llm, launches, times)
 
     for o, p in zip(outs, prompts):
         if (o.finish_reason != "length" or len(o.token_ids) != MAX_NEW
                 or not all(0 <= t < cfg.vocab_size for t in o.token_ids)):
             raise AssertionError(f"request {o.index} (prompt {len(p)}) "
                                  f"did not finish cleanly: {o}")
-    if min(launches["flash_attention_bhsd"], launches["qdq_absmax"]) <= 0:
-        raise AssertionError(f"a kernel was not launched on the main path: "
+    if min(launches["flash_attention_bhsd"], launches["qdq_absmax"],
+           launches["quantized_psum_absmax"]) <= 0:
+        raise AssertionError(f"a kernel was not launched on the {label}: "
                              f"{launches}")
     n_tok = sum(len(o.token_ids) for o in outs)
     prefill_ms = 1e3 * sum(times["prefill"])
     decode_ms = 1e3 * sum(times["decode"]) / max(len(times["decode"]), 1)
-    print(f"main path launches: {json.dumps(launches)}")
-    print(f"main path [{card}]: prefill_ms={prefill_ms:.2f} "
+    print(f"{label} launches: {json.dumps(launches)}")
+    print(f"{label} [{card}]: prefill_ms={prefill_ms:.2f} "
           f"(4 requests, prompts {list(PROMPT_LENS)}) "
           f"decode_ms_per_token={decode_ms:.2f} (one batch-4 decode step "
           f"per token of each request, {len(times['decode'])} steps) "
           f"tokens_per_s={n_tok / wall:.1f} "
-          f"({n_tok} tokens in {wall:.2f} s)")
-    print("main path tokens[0]:", outs[0].token_ids)
+          f"({n_tok} tokens in {wall:.2f} s) peak_memory_gib="
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} (load "
+          f"included)")
+    print(f"{label} tokens[0]:", outs[0].token_ids)
     tokens = [o.token_ids for o in outs]
-    same_tokens_plain(torch, "main path", llm, prompts, tokens)
+    same_tokens_plain(torch, label, llm, prompts, tokens)
     return llm, prompts, launches, tokens
 
 
-def paged_path(torch, np, llm, prompts, dense_tokens, card):
+def paged_path(torch, np, llm, prompts, dense_tokens, card,
+               label="paged path"):
     """Paged serving at full width: the dense path's model and settings
     plus page_size=PAGE_SIZE on a NUM_PAGES pool, then a warm admission
     through the prefix cache."""
@@ -839,12 +953,13 @@ def paged_path(torch, np, llm, prompts, dense_tokens, card):
     from repro_torch.kernels import quant_collectives as QC
 
     cfg = llm.cfg
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     paged = LLM.load(cfg, tp=2, plan=llm.plan, cache_len=512, max_batch=4,
                      page_size=PAGE_SIZE, num_pages=NUM_PAGES,
                      params=llm.canonical)
     torch.cuda.synchronize()
-    print(f"paged path: loaded in {time.perf_counter() - t0:.1f} s; "
+    print(f"{label}: loaded in {time.perf_counter() - t0:.1f} s; "
           f"{NUM_PAGES} pages of {PAGE_SIZE}, pools "
           f"{tuple(paged.serve().pcaches[0]['k'].shape)} per segment leaf")
     paged.generate([prompts[0][:8]], SamplingParams(max_new=2))   # warm-up
@@ -863,7 +978,7 @@ def paged_path(torch, np, llm, prompts, dense_tokens, card):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kernels}
-    check_sync_launches("paged path", paged, launches, times)
+    check_sync_launches(label, paged, launches, times)
     n_pre = sched.n_preemptions - pre0
     for o, p in zip(outs, prompts):
         if (o.finish_reason != "length" or len(o.token_ids) != MAX_NEW
@@ -872,10 +987,10 @@ def paged_path(torch, np, llm, prompts, dense_tokens, card):
                                  f"did not finish cleanly: {o}")
     sched.pool.check()
     if n_pre < 1 or sched.pool.num_free != NUM_PAGES:
-        raise AssertionError(f"paged path: {n_pre} preemptions, "
+        raise AssertionError(f"{label}: {n_pre} preemptions, "
                              f"{sched.pool.num_free}/{NUM_PAGES} pages back")
     if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel was not launched on the paged path: "
+        raise AssertionError(f"a kernel was not launched on the {label}: "
                              f"{launches}")
     n_tok = sum(len(o.token_ids) for o in outs)
     prefill_ms = 1e3 * (sum(times["prefill"]) + sum(times["verify_paged"]))
@@ -883,8 +998,8 @@ def paged_path(torch, np, llm, prompts, dense_tokens, card):
     decode_ms = 1e3 * sum(times["decode_paged"]) / max(steps, 1)
     same = sum(a == b for o, d in zip(outs, dense_tokens)
                for a, b in zip(o.token_ids, d))
-    print(f"paged path launches: {json.dumps(launches)}")
-    print(f"paged path [{card}]: prefill_ms={prefill_ms:.2f} "
+    print(f"{label} launches: {json.dumps(launches)}")
+    print(f"{label} [{card}]: prefill_ms={prefill_ms:.2f} "
           f"({len(times['prefill'])} cold prefills, "
           f"{len(times['verify_paged'])} warm suffix prefills, re-admissions "
           f"included) decode_ms_per_token={decode_ms:.2f} ({steps} paged "
@@ -893,8 +1008,10 @@ def paged_path(torch, np, llm, prompts, dense_tokens, card):
           f"preempted={[o.n_preempted for o in outs]} "
           f"pages_returned={sched.pool.num_free}/{NUM_PAGES} "
           f"pool_high_water={sched.pool.high_water}")
-    print(f"paged path: {same}/{n_tok} tokens equal the dense path's "
-          "(bf16 + quant8: rounding may split the streams)")
+    print(f"{label}: {same}/{n_tok} tokens equal the dense path's "
+          "(bf16 + quant8: rounding may split the streams); peak_memory_gib="
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} (the dense "
+          "model's placement beside this one's, load included)")
 
     def prefix_pair(seed):
         """Two prompts sharing a PREFIX_LEN prefix, 8 tokens each: the
@@ -930,7 +1047,7 @@ def paged_path(torch, np, llm, prompts, dense_tokens, card):
     launches["paged_flash_attention"] += warm
     launches["paged_flash_attention_chunk"] = (
         FA.paged_flash_attention.chunk_launches)
-    print(f"paged path: {launches['paged_flash_attention_chunk']} chunk "
+    print(f"{label}: {launches['paged_flash_attention_chunk']} chunk "
           f"(C > 1) launches of the paged kernel, warm suffix prefills and "
           f"re-admissions included")
 
@@ -954,7 +1071,7 @@ def paged_path(torch, np, llm, prompts, dense_tokens, card):
         raise AssertionError(f"the warm suffix prefill did not run on the "
                              f"tensor-core chunk kernel: {found}, "
                              f"suffix={n_suf}")
-    same_tokens_plain(torch, "paged path", paged, prompts,
+    same_tokens_plain(torch, label, paged, prompts,
                       [o.token_ids for o in outs], fresh=True)
     return paged, launches
 
@@ -1007,35 +1124,54 @@ def profile_phase(torch, llm, prompts, card, label="profile"):
     return seen
 
 
-def teacher_forced(torch, llm, prompt):
+def tf_model(llm, dtype, fp32_layers=None):
+    """(cfg, params, plan) of a teacher-forced check in `dtype`, with
+    the plan's drop mask and exact syncs.  `fp32_layers` (start, stop)
+    keeps only those layers for the fp32 check (a full-width fp32 copy of
+    a 7B model is 27 GB)."""
+    from repro_torch.config.base import SPDPlanConfig, replace
+    from repro_torch.core import blocks as B
+    from repro_torch.tree import tree_map
+
+    cfg, canonical, drop = llm.cfg, llm.canonical, llm.plan.drop_mask
+    if dtype == "float32" and fp32_layers:
+        lo, hi = fp32_layers
+        cfg = replace(cfg, n_layers=hi - lo)
+        canonical = dict(canonical, layers=canonical["layers"][lo:hi])
+        drop = drop[lo:hi]
+    params = tree_map(lambda w: w.to(B.TORCH_DTYPES[dtype]), canonical)
+    return replace(cfg, dtype=dtype), params, SPDPlanConfig(drop)
+
+
+def teacher_forced(torch, llm, prompt, fp32_layers=None, label=""):
     """Prefill logits with the flash kernel vs the plain attention, same
     canonical weights and drop mask, in the serving dtype (bf16) and in
-    fp32.  The syncs run exact here: a quantized sync turns a last-ulp
-    difference into a whole quant step (a flipped code), which would
-    measure the quantizer, not the attention kernel."""
+    fp32 (`fp32_layers`: see tf_model).  The syncs run exact here: a
+    quantized sync turns a last-ulp difference into a whole quant step (a
+    flipped code), which would measure the quantizer, not the attention
+    kernel."""
     from repro_torch.api import LLM
     from repro_torch.config.base import replace
-    from repro_torch.core import blocks as B
     from repro_torch.runtime.forward import bucketed_prefill
-    from repro_torch.tree import tree_map
 
     for dtype in ("bfloat16", "float32"):
         logits = {}
+        cfg0, params, plan = tf_model(llm, dtype, fp32_layers)
         for backend in ("pallas", "xla"):
-            cfg = replace(llm.cfg, attn_backend=backend, dtype=dtype)
-            params = tree_map(lambda w: w.to(B.TORCH_DTYPES[dtype]),
-                              llm.canonical)
-            other = LLM.load(cfg, tp=2, plan=llm.plan.with_comm(None),
-                             cache_len=512, max_batch=1, params=params)
+            cfg = replace(cfg0, attn_backend=backend)
+            other = LLM.load(cfg, tp=2, plan=plan, cache_len=512,
+                             max_batch=1, params=params)
             lg, _ = bucketed_prefill(other.engine, other.params, prompt,
                                      len(prompt), 512)
             logits[backend] = lg.float()
             del other
+        del params
         err = (logits["pallas"] - logits["xla"]).abs().max().item()
         scale = logits["xla"].abs().max().item()
         tol = TF_BF16_REL * scale if dtype == "bfloat16" else TF_FP32_ATOL
         same_top = int(logits["pallas"].argmax()) == int(logits["xla"].argmax())
-        print(f"teacher-forced prefill ({len(prompt)} tokens, {dtype}): "
+        print(f"{label}teacher-forced prefill ({len(prompt)} tokens, {dtype}, "
+              f"{cfg0.n_layers} layers): "
               f"max_abs_err={err:.3e} tol={tol:.3e} max|logit|={scale:.3e} "
               f"same argmax={same_top}")
         if not err <= tol:
@@ -1043,27 +1179,26 @@ def teacher_forced(torch, llm, prompt):
                                  f"({dtype}): {err} > {tol}")
 
 
-def teacher_forced_paged(torch, llm, prompt):
+def teacher_forced_paged(torch, llm, prompt, fp32_layers=None, label=""):
     """One decode step's logits after the same prefill: paged caches
     through the paged kernel against dense caches through the plain
     decode attention, same canonical weights and drop mask, exact syncs
-    (see teacher_forced), in bf16 and in fp32."""
+    (see teacher_forced), in bf16 and in fp32 (`fp32_layers`: see
+    tf_model)."""
     import numpy as np
     from repro_torch.api import LLM
     from repro_torch.config.base import replace
-    from repro_torch.core import blocks as B
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.runtime.forward import bucketed_prefill
     from repro_torch.runtime.paging import PagePool
-    from repro_torch.tree import tree_map
 
     s = len(prompt)
     for dtype in ("bfloat16", "float32"):
-        cfg = replace(llm.cfg, attn_backend="pallas", dtype=dtype)
-        params = tree_map(lambda w: w.to(B.TORCH_DTYPES[dtype]),
-                          llm.canonical)
-        m = LLM.load(cfg, tp=2, plan=llm.plan.with_comm(None), cache_len=512,
-                     max_batch=1, params=params)
+        cfg, params, plan = tf_model(llm, dtype, fp32_layers)
+        cfg = replace(cfg, attn_backend="pallas")
+        m = LLM.load(cfg, tp=2, plan=plan, cache_len=512, max_batch=1,
+                     params=params)
+        del params
         eng = m.engine
         lg, c1 = bucketed_prefill(eng, m.params, prompt, s, 512)
         cur = np.asarray([[int(lg[0].argmax())]])
@@ -1085,7 +1220,8 @@ def teacher_forced_paged(torch, llm, prompt):
         err = (lp.float() - ld.float()).abs().max().item()
         scale = ld.float().abs().max().item()
         tol = TF_BF16_REL * scale if dtype == "bfloat16" else TF_FP32_ATOL
-        print(f"teacher-forced paged decode (prompt {s}, {dtype}): "
+        print(f"{label}teacher-forced paged decode (prompt {s}, {dtype}, "
+              f"{cfg.n_layers} layers): "
               f"max_abs_err={err:.3e} tol={tol:.3e} max|logit|={scale:.3e} "
               f"same argmax={int(lp.argmax()) == int(ld.argmax())} "
               f"paged launches={ran}")
@@ -1843,6 +1979,357 @@ def mamba_checks(torch, llm, prompt, toks):
         del m
 
 
+def flash_row(torch, q, k, v, err, what):
+    """B1 on (q, k, v), timed (events and profile) beside its plain
+    version and SDPA (the library call), with its bound: a kernels-line
+    row.  A bf16 call must run the tensor-core kernel alone, an fp32 call
+    the CUDA-core one."""
+    from repro_torch.kernels import flash_attention as FA
+
+    bh, s, d = q.shape
+    bhkv = k.shape[0]
+    dt = "bfloat16" if q.dtype == torch.bfloat16 else "float32"
+    names = ("flash_fwd_tc_kernel", "flash_fwd_kernel")
+    want = names[0] if dt == "bfloat16" else names[1]
+
+    def call():
+        return FA.flash_attention_bhsd(q, k, v)
+
+    lib = sdpa_call(torch, q, k, v, bhkv)
+    ms = cuda_ms(torch, call)
+    plain_ms = cuda_ms(torch, lambda: FA.flash_attention_plain(q, k, v),
+                       iters=10)
+    library_ms = cuda_ms(torch, lib)
+    ran = device_us(torch, call, names)
+    if ran[want] is None or any(ran[n] is not None for n in names
+                                if n != want):
+        raise AssertionError(f"a {dt} flash call did not run {want} alone: "
+                             f"{ran}")
+    lib_us, _ = device_total_us(torch, lib)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    flops = 4.0 * bh * (s * (s + 1) / 2) * d   # QK^T and PV, causal half
+    b_ms, b_by = bound_ms(nbytes, flops, dt)
+    shape = f"q ({bh},{s},{d}) kv ({bhkv},{s},{d}) {dt}, {what}"
+    print(f"flash_attention_bhsd {shape}: ms={ms:.5f} plain_ms="
+          f"{plain_ms:.5f} library_ms={library_ms:.5f} device_us="
+          f"{ran[want]:.2f} library_device_us={lib_us:.2f} bound_ms="
+          f"{b_ms:.6f} ({b_by})")
+    return {"name": "flash_attention_bhsd", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:187",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+            "device_us": ran[want], "library_device_us": lib_us,
+            "shape": shape}
+
+
+def paged_row(torch, case, what):
+    """B2 on a paged_case (bf16), timed beside its plain version with
+    its bound; gather + SDPA is context (no PyTorch call reads K/V
+    through a page table).  A decode call (C = 1) must launch the split
+    and combine kernels, a chunk call the tensor-core chunk kernel: a
+    kernels-line row."""
+    from repro_torch.kernels import flash_attention as FA
+
+    q, kv, vv, table, pos, err = case
+    tp, b, c, hq, d = q.shape
+    hkv = kv.shape[-2]
+
+    def call():
+        return FA.paged_flash_attention(q, kv, vv, table, pos)
+
+    ms = cuda_ms(torch, call)
+    plain_ms = cuda_ms(torch, lambda: paged_plain(q, kv, vv, table, pos),
+                       iters=10)
+    gather_ms = cuda_ms(torch, gather_sdpa_call(torch, q, kv, vv, table,
+                                                pos))
+    nbytes, flops = paged_work(table, pos, c, q, kv)
+    b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
+    names = (("paged_chunk_tc_kernel",) if c > 1 else
+             ("paged_decode_split_kernel", "paged_decode_combine_kernel"))
+    prof = device_us(torch, call, names)
+    if None in prof.values():
+        raise AssertionError(f"a C={c} paged call did not launch {names}: "
+                             f"{prof}")
+    dev_us = sum(prof.values())
+    shape = (f"C={c}: q ({tp},{b},{c},{hq},{d}) bf16, group {hq // hkv}, "
+             f"table ({b},{table.shape[1]}), pos {pos.tolist()}, {what}")
+    print(f"paged_flash_attention {shape}: ms={ms:.5f} plain_ms="
+          f"{plain_ms:.5f} device_us_per_call={dev_us:.2f} ("
+          + " + ".join(f"{n} {u:.2f}" for n, u in prof.items())
+          + f") bound_ms={b_ms:.6f} ({b_by}) gather + SDPA {gather_ms:.4f} "
+          f"ms (context)")
+    return {"name": ("paged_flash_attention_chunk" if c > 1
+                     else "paged_flash_attention"),
+            "route": "cuda", "source": "src/repro_torch/csrc/paged_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:136",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "device_us": dev_us, "context_ms": gather_ms, "shape": shape}
+
+
+def paper_kernel_phase(torch, card):
+    """B1, B2 and B3 at the shapes of the paper's models, each against
+    its plain version with the earlier tolerances and timed: B1 at head
+    dim 128 and group 1 (llama2-7b and opt-6.7b at tp=2: 16 q and 16 kv
+    heads a shard) at S 1, 63, 300, 512, and at groups 2 (qwen3-1.7b) and
+    8 (qwen2-72b) at S 300, bf16 and fp32; B2's decode and chunk calls at
+    D 128, groups 1 and 8; the fused kept sync at llama's decode and
+    512-token prefill syncs; B3 alone on the logits gathers of llama
+    (16000 columns a shard) and OPT (25136: 196 chunks and a ragged 48).
+    Returns kernels-line rows, each tagged with the path whose launches
+    it reports (`_path`)."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import quant_collectives as QC
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rows = []
+    for label, hq, hkv in PAPER_FLASH_GROUPS:
+        seqs = PAPER_FLASH_SEQS if hq == hkv else (PAPER_GROUPS_S,)
+        for dtype in (torch.bfloat16, torch.float32):
+            for s in seqs:
+                q, k, v = flash_inputs(torch, gen, s, 128, dtype,
+                                       bh=2 * hq, bhkv=2 * hkv)
+                out = FA.flash_attention_bhsd(q, k, v)
+                ref = FA.flash_attention_plain(q, k, v)
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs().max().item()
+                tol = (FLASH_FP32_ATOL if dtype == torch.float32 else
+                       2.0 ** -7 * max(ref.float().abs().max().item(), 1e-3))
+                print(f"flash {str(dtype)[6:]} S={s} D=128 group "
+                      f"{hq // hkv} ({label}): max_abs_err={err:.3e} "
+                      f"tol={tol:.3e}")
+                if not err <= tol:
+                    raise AssertionError(f"flash kernel disagrees at {dtype} "
+                                         f"S={s} D=128 group {hq // hkv}: "
+                                         f"{err} > {tol}")
+                row = flash_row(torch, q, k, v, err,
+                                f"group {hq // hkv} ({label})")
+                row["_path"] = "llama2-7b" if hq == hkv else None
+                rows.append(row)
+    for hq, hkv in PAPER_PAGED_HEADS:
+        for dtype in (torch.bfloat16, torch.float32):
+            for c, at, holes in PAPER_PAGED_CASES:
+                case = paged_case(torch, dtype, c, None, at, holes, d=128,
+                                  hq=hq, hkv=hkv, layers=4)
+                q, kv, vv, table, pos = case
+                out = FA.paged_flash_attention(q, kv, vv, table, pos)
+                ref = paged_plain(q, kv, vv, table, pos)
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs().max().item()
+                tol = (FLASH_FP32_ATOL if dtype == torch.float32 else
+                       2.0 ** -7 * max(ref.float().abs().max().item(), 1e-3))
+                print(f"paged {str(dtype)[6:]} C={c} D=128 group "
+                      f"{hq // hkv} pos={pos.tolist()} holes={list(holes)}: "
+                      f"max_abs_err={err:.3e} tol={tol:.3e}")
+                if not err <= tol:
+                    raise AssertionError(f"paged kernel disagrees at {dtype} "
+                                         f"C={c} D=128 group {hq // hkv} "
+                                         f"pos={pos.tolist()}: {err} > {tol}")
+                if dtype == torch.bfloat16 and at is None and not holes:
+                    row = paged_row(torch, case + (err,),
+                                    "llama2-7b's heads" if hq == hkv
+                                    else "qwen2-72b's heads")
+                    row["_path"] = "llama2-7b paged" if hq == hkv else None
+                    rows.append(row)
+    for tp, n in PAPER_QPSUM:
+        base = torch.randn(tp, n, generator=gen, device=dev)
+        base[1] *= 10.0
+        for dtype in (torch.bfloat16, torch.float32):
+            x = base.to(dtype)
+            for levels in (127, 7):
+                out = QC.quantized_psum_absmax(x, levels=levels)
+                ref = QC.quantized_psum_absmax_plain(x, levels=levels)
+                torch.cuda.synchronize()
+                if not same_bits(torch, out, ref):
+                    raise AssertionError(f"quantized_psum kernel not bit-"
+                                         f"identical at ({tp},{n}) {dtype} "
+                                         f"L={levels}")
+        print(f"quantized_psum ({tp},{n}): bit-identical in bf16 and fp32 "
+              f"at L 127 and 7")
+        row = qpsum_row(torch, base.to(torch.bfloat16), card,
+                        "a llama2-7b kept sync at d 4096")
+        row["_path"] = "llama2-7b"
+        rows.append(row)
+    for (r, n), path in zip(PAPER_QDQ, ("llama2-7b", "opt-6.7b")):
+        x = torch.randn(r, n, generator=gen, device=dev)
+        x[1] *= 10.0
+        for levels in (127, 7):
+            out = QC.qdq_absmax(x, levels=levels)
+            ref = QC.qdq_absmax_plain(x, levels=levels)
+            torch.cuda.synchronize()
+            if not same_bits(torch, out, ref):
+                raise AssertionError(f"qdq kernel not bit-identical at "
+                                     f"({r},{n}) L={levels}")
+        print(f"qdq ({r},{n}): bit-identical at L 127 and 7")
+        row = qdq_row(torch, x, 0.0, f"the {path} logits gather")
+        row["_path"] = path
+        rows.append(row)
+    return rows
+
+
+def sweep_phase(torch, np, llm, prompts, card):
+    """Algorithm 1 on the full-width model `llm` (bf16, random weights):
+    the sensitivity sweep (L+1 suffix plans x the calibration batches,
+    every forward through B1) with the flash kernel and with the plain
+    attention; then `apply_comm_policy` with n_spd = N_SPD and (tau1,
+    tau2) at the 25th and 75th percentiles of the measured
+    sensitivities, so that dropped, quant8 and exact syncs run in one
+    plan; then a counted generate under that plan.  Returns the
+    generate's launches."""
+    from repro_torch.api import SamplingParams
+    from repro_torch.config.base import replace
+    from repro_torch.core import sensitivity as S
+    from repro_torch.core import spd as SPD
+    from repro_torch.data import calibration_batches
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import quant_collectives as QC
+
+    cfg, n = llm.cfg, llm.cfg.n_layers
+    calib = calibration_batches(cfg.vocab_size, **SWEEP_CALIB)
+    res = {}
+    for backend in ("pallas", "xla"):
+        FA.flash_attention_bhsd.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res[backend], _ = SPD.sweep_sensitivity(
+            replace(cfg, attn_backend=backend), llm.canonical, calib,
+            llm.tp, q_chunk=llm.q_chunk)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ran = FA.flash_attention_bhsd.launches
+        want = (n + 1) * len(calib) * n if backend == "pallas" else 0
+        print(f"sweep [{card}] ({backend} attention): {n + 1} evaluations x "
+              f"{len(calib)} batches of {tuple(calib[0]['tokens'].shape)} "
+              f"x {n} layers in {wall:.2f} s; flash launches {ran} (want "
+              f"{want}); peak_memory_gib="
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f}")
+        if ran != want:
+            raise AssertionError(f"the sweep's flash launches {ran} != "
+                                 f"{want}")
+    r, rx = res["pallas"], res["xla"]
+    print("sweep ppl_suffix (flash):", json.dumps(
+        [round(float(v), 4) for v in r.ppl_suffix]))
+    rel = np.abs(r.ppl_suffix / rx.ppl_suffix - 1.0)
+    print(f"sweep: perplexities with the flash kernel vs the plain "
+          f"attention, max relative difference {rel.max():.3e} (tol "
+          f"{SWEEP_PPL_RTOL:.0e}); rankings agree at "
+          f"{int((r.ranking == rx.ranking).sum())}/{n} places")
+    if not (np.isfinite(r.ppl_suffix).all() and rel.max() <= SWEEP_PPL_RTOL):
+        raise AssertionError("sweep perplexities are not finite or the "
+                             f"kernel's differ from the plain ones: {rel}")
+    tau1, tau2 = (float(np.percentile(r.sensitivity, 25)),
+                  float(np.percentile(r.sensitivity, 75)))
+    FA.flash_attention_bhsd.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    got = llm.apply_comm_policy(calib, n_spd=N_SPD, tau1=tau1, tau2=tau2,
+                                logits="quant8")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tiers = S.classify(got.sensitivity, tau1, tau2)
+    modes = llm.plan.modes()
+    print(f"apply_comm_policy [{card}]: n_spd={N_SPD} tau1={tau1:.4f} "
+          f"tau2={tau2:.4f} in {wall:.2f} s (sweep and re-placement; flash "
+          f"launches {FA.flash_attention_bhsd.launches}); peak_memory_gib="
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f}")
+    print("apply_comm_policy sensitivity:", json.dumps(
+        [round(float(v), 4) for v in got.sensitivity]))
+    print("apply_comm_policy ranking:", got.ranking.tolist())
+    print("apply_comm_policy tiers:", " ".join(
+        f"{i}:{t}" for i, t in enumerate(tiers)))
+    print("apply_comm_policy plan:", " ".join(
+        f"{i}:{m}" for i, m in enumerate(modes)))
+    print(f"apply_comm_policy: perplexities equal the first sweep's: "
+          f"{bool(np.array_equal(got.ppl_suffix, r.ppl_suffix))}")
+    if not (np.isfinite(got.ppl_suffix).all()
+            and sorted(got.ranking.tolist()) == list(range(n))
+            and 0 < llm.plan.n_dropped <= N_SPD
+            and {"drop", "quant8", "exact"} <= set(modes)):
+        raise AssertionError(f"the tiered plan is not what Algorithm 1 "
+                             f"gives: {modes}")
+
+    llm.generate([prompts[0][:8]], SamplingParams(max_new=2))   # warm-up
+    times = timed_engine(torch, llm.engine)
+    kernels = (FA.flash_attention_bhsd, QC.qdq_absmax,
+               QC.quantized_psum_absmax)
+    for k in kernels:
+        k.launches = 0
+    outs = llm.generate(prompts, SamplingParams(max_new=MAX_NEW))
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels}
+    check_sync_launches("tiered plan", llm, launches, times)
+    if min(launches.values()) <= 0 or any(
+            len(o.token_ids) != MAX_NEW for o in outs):
+        raise AssertionError(f"the tiered plan's generate failed: {launches}")
+    decode_ms = 1e3 * sum(times["decode"]) / max(len(times["decode"]), 1)
+    print(f"tiered plan [{card}]: launches {json.dumps(launches)} "
+          f"prefill_ms={1e3 * sum(times['prefill']):.2f} "
+          f"decode_ms_per_token={decode_ms:.2f}; tokens[0] "
+          f"{outs[0].token_ids}")
+    return launches
+
+
+def decode_vs_prefill(torch, llm, prompt, toks, fp32_layers=None,
+                      label=""):
+    """After prefilling `prompt` and teacher-forcing `toks[:-1]` through
+    dense decode, the last decode logits against one exact-length
+    prefill of prompt + toks[:-1], exact syncs: on OPT, the learned
+    positions added at decode positions.  fp32 (at `fp32_layers`) is
+    held to TF_FP32_ATOL; bf16 at full width to 5% of the largest logit
+    or, where bf16 alone spreads wider, MAMBA_BF16_FLOOR times the same
+    comparison made with the plain attention."""
+    import numpy as np
+    from repro_torch.api import LLM
+    from repro_torch.config.base import replace
+    from repro_torch.runtime.forward import bucketed_prefill
+
+    s = len(prompt)
+    full = np.concatenate([prompt, np.asarray(toks[:-1])])
+
+    def err_of(backend, cfg, params, plan):
+        m = LLM.load(replace(cfg, attn_backend=backend), tp=2, plan=plan,
+                     cache_len=512, max_batch=1, params=params)
+        eng = m.engine
+        _, c1 = bucketed_prefill(eng, m.params, prompt, s, 512)
+        caches = eng.insert_slot(eng.blank_caches(1, 512), c1, 0)
+        for i, tok in enumerate(toks[:-1]):
+            _, ld, caches = eng.decode_with_logits(
+                m.params, np.asarray([[tok]]), np.asarray([s + i]), caches)
+        lf, _ = bucketed_prefill(eng, m.params, full, len(full), 512)
+        return ((ld.float() - lf.float()).abs().max().item(),
+                lf.float().abs().max().item())
+
+    for dtype in ("float32", "bfloat16"):
+        cfg, params, plan = tf_model(llm, dtype, fp32_layers)
+        e, scale = err_of("pallas", cfg, params, plan)
+        if dtype == "float32":
+            tol, floor = TF_FP32_ATOL, ""
+        else:
+            e_plain, _ = err_of("xla", cfg, params, plan)
+            tol = max(TF_BF16_REL * scale, MAMBA_BF16_FLOOR * e_plain)
+            floor = f" [plain attention: {e_plain:.3e}]"
+        del params
+        print(f"{label}decode vs prefill ({s} + {len(toks) - 1} tokens, "
+              f"{dtype}, {cfg.n_layers} layers): max_abs_err={e:.3e} "
+              f"tol={tol:.3e} max|logit|={scale:.3e}{floor}")
+        if not e <= tol:
+            raise AssertionError(f"{label}decode disagrees with an exact-"
+                                 f"length prefill ({dtype}): {e} > {tol}")
+
+
+def release(torch):
+    """Free the models before the next loads: the caller drops its names,
+    this collects them and empties the allocator's cache."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"released: {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+          f"still allocated")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1869,6 +2356,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
 
+    t_start = time.perf_counter()
     launch_floor_us(torch)
     kernels = [flash_phase(torch), *paged_phase(torch), qdq_phase(torch),
                qpsum_phase(torch, card), *quant_phase(torch),
@@ -1902,6 +2390,42 @@ def main() -> int:
                              f"three tensor-core SSD kernels: {seen}")
     mamba_checks(torch, mamba, prompts[3], mamba_tokens[3])
     del mamba
+    release(torch)
+
+    # the paper's models at full width, one at a time
+    paper_rows = paper_kernel_phase(torch, card)
+    llama, lprompts, llama_launches, llama_tokens = main_path(
+        torch, np, card, arch="llama2-7b", label="llama2-7b path")
+    seen = profile_phase(torch, llama, lprompts, card,
+                         label="llama2-7b profile")
+    if seen and not (seen["flash_fwd_tc_kernel"]
+                     and not seen["flash_fwd_kernel"]):
+        raise AssertionError(f"llama2-7b's prefill did not run on the "
+                             f"tensor-core flash kernel: {seen}")
+    paged, llama_paged = paged_path(torch, np, llama, lprompts, llama_tokens,
+                                    card, label="llama2-7b paged path")
+    seen = profile_phase(torch, paged, lprompts, card,
+                         label="llama2-7b paged profile")
+    if seen and not (seen["paged_decode_split_kernel"]
+                     == seen["paged_decode_combine_kernel"] > 0):
+        raise AssertionError(f"llama2-7b's paged decode did not run the "
+                             f"split and combine kernels: {seen}")
+    del paged
+    release(torch)
+    teacher_forced(torch, llama, lprompts[2], TF_FP32_LAYERS, "llama2-7b ")
+    teacher_forced_paged(torch, llama, lprompts[2], TF_FP32_LAYERS,
+                         "llama2-7b ")
+    sweep_phase(torch, np, llama, lprompts, card)
+    del llama
+    release(torch)
+    opt, oprompts, opt_launches, opt_tokens = main_path(
+        torch, np, card, arch="opt-6.7b", label="opt-6.7b path")
+    profile_phase(torch, opt, oprompts, card, label="opt-6.7b profile")
+    teacher_forced(torch, opt, oprompts[2], TF_FP32_LAYERS, "opt-6.7b ")
+    decode_vs_prefill(torch, opt, oprompts[1], opt_tokens[1],
+                      TF_FP32_LAYERS, "opt-6.7b ")
+    del opt
+    release(torch)
 
     # each kernel's launches on the main path it serves: the paged kernel
     # on the paged path, quantize and dequant-accumulate on the ring
@@ -1922,6 +2446,18 @@ def main() -> int:
     launches["ssd_scan"] = mamba_launches["ssd_scan"]
     for k in kernels:
         k["launches"] = launches[k["name"]]
+    # the new shapes' rows: launches on the path that runs each shape
+    by_path = {"llama2-7b": llama_launches, "opt-6.7b": opt_launches,
+               "llama2-7b paged": dict(
+                   llama_paged, paged_flash_attention=(
+                       llama_paged["paged_flash_attention"]
+                       - llama_paged["paged_flash_attention_chunk"]))}
+    for k in paper_rows:
+        path = k.pop("_path")
+        k["launches"] = by_path[path][k["name"]] if path else 0
+    kernels += paper_rows
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
+          f"build")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "device_us", "library_device_us", "context_ms",

@@ -8,6 +8,9 @@ repro/api/llm.py: dense and paged serving).
                      cache_len=512)
     overlap = LLM.load("smollm-360m", tp=2, comm="quant8", engine="overlap")
     mamba = LLM.load("mamba2-370m", tp=2, comm="quant8", cache_len=512)
+    llama = LLM.load("llama2-7b", tp=2, comm="quant8")
+    llama.apply_comm_policy(calibration_batches(32000, 4, 128, batch=2),
+                            n_spd=8, tau1=t1, tau2=t2)  # Algorithm 1
 
 Runs on the CUDA device by default; with no CUDA device it raises
 unless `device="cpu"` is asked for explicitly (there is no silent CPU
@@ -162,21 +165,27 @@ class LLM:
         llm._build_engine()
         return llm
 
-    def _build_engine(self):
-        """(Re)build the engine for `self.plan` and place the canonical
-        params into its layout."""
+    def _build_engine(self, padded=None):
+        """(Re)build the engine for `self.plan` and place `padded` params
+        (default: the canonical params, padded) into its layout."""
         from repro_torch.core import model as M
         from repro_torch.parallel.backend import make_backend
         from repro_torch.runtime.engines import Engine
 
+        self._release_engine()
         backend = make_backend(self.engine_kind, self.cfg, self.plan,
                                tp=self.tp, dp=self.dp, device=self.device)
         self.engine = Engine(self.cfg, self.plan, backend,
                              q_chunk=self.q_chunk)
-        self.params = backend.place_params(M.stack_segments(
-            M.pad_model(self.canonical, self.cfg, self.tp), self.cfg,
-            self.plan))
-        self._sched = None
+        if padded is None:
+            padded = M.pad_model(self.canonical, self.cfg, self.tp)
+        self.params = backend.place_params(padded)
+
+    def _release_engine(self):
+        """Drop the placed params, the engine and the cached scheduler
+        (its caches belong to the old plan), so that a new placement or
+        a sensitivity sweep's does not sit beside them."""
+        self.engine = self.params = self._sched = None
 
     def serve(self, **overrides) -> Scheduler:
         """Without overrides, the (cached) scheduler `generate` drives;
@@ -227,6 +236,58 @@ class LLM:
                               finish_reason=r.finish_reason,
                               n_preempted=r.n_preempted)
                 for i, r in enumerate(reqs)]
+
+    # ---------------- the paper's SPD pipeline ----------------
+
+    def apply_spd(self, calib_batches, *, n_spd: int, tau1: float,
+                  tau2: float, lr: float = 5e-5, epochs: int = 10,
+                  strategies=("ZS", "B2B", "HG"),
+                  q_chunk: Optional[int] = None):
+        """Algorithm 1 on this model's canonical params (sensitivity
+        sweep -> ISB/SB/ESB tiers -> zero-shot drop), then redeploy the
+        result onto the engine in place.  Returns the `SPDReport`; the
+        plan, engine and placed params are replaced and the cached
+        scheduler dropped.  Where the reference would distil (an SB or
+        ESB block chosen and "B2B" in `strategies`) it raises
+        NotImplementedError: training is a later slice."""
+        from repro_torch.core import spd as SPD
+
+        self._release_engine()
+        padded = None
+        try:
+            padded, plan, report = SPD.apply_spd(
+                self.cfg, self.canonical, calib_batches, self.tp,
+                n_spd=n_spd, tau1=tau1, tau2=tau2, lr=lr, epochs=epochs,
+                strategies=strategies, q_chunk=q_chunk or self.q_chunk)
+            self.plan = plan
+        finally:
+            self._build_engine(padded)
+        return report
+
+    def apply_comm_policy(self, calib_batches, *, n_spd: int, tau1: float,
+                          tau2: float, sb_level: str = "quant8",
+                          esb_level: str = "exact", logits: str = "exact",
+                          q_chunk: Optional[int] = None):
+        """Sensitivity-aware per-block comm policy: run the sensitivity
+        sweep, then give each block the cheapest sync it can afford --
+        ISB blocks within the `n_spd` budget DROP the attention sync, SB
+        blocks keep it at `sb_level`, ESB blocks at `esb_level` -- and run
+        the logits all-gather at `logits`.  Zero-shot: the canonical
+        weights are re-placed under the new plan and policy.  Returns the
+        SensitivityResult; `self.plan.comm` holds the policy after."""
+        from repro_torch.core import spd as SPD
+
+        self._release_engine()
+        try:
+            plan, res = SPD.assign_comm_policy(
+                self.cfg, self.canonical, calib_batches, self.tp,
+                n_spd=n_spd, tau1=tau1, tau2=tau2, sb_level=sb_level,
+                esb_level=esb_level, logits=logits,
+                q_chunk=q_chunk or self.q_chunk)
+            self.plan = plan
+        finally:
+            self._build_engine()
+        return res
 
     def set_comm_policy(self, comm, *, logits: str = "exact"):
         """Attach a CommPolicy (or uniform level string) to the current

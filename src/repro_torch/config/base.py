@@ -141,6 +141,11 @@ class ModelConfig:
 # Quantization levels a kept sync point (or the logits all-gather) may run at.
 SYNC_LEVELS = ("exact", "quant8", "quant4")
 
+# user-facing per-block modes (SPDPlanConfig.from_modes): the cross product
+# of {keep, drop} x SYNC_LEVELS
+BLOCK_MODES = ("exact", "quant8", "quant4",
+               "drop", "drop+quant8", "drop+quant4")
+
 
 @dataclass(frozen=True)
 class CommPolicy:
@@ -151,10 +156,18 @@ class CommPolicy:
     logits_mode: str = "exact"
 
     def __post_init__(self):
-        for m in self.block_modes + (self.logits_mode,):
+        for m in tuple(self.block_modes) + (self.logits_mode,):
             if m not in SYNC_LEVELS:
                 raise ValueError(f"bad sync level {m!r} "
                                  f"(expected one of {SYNC_LEVELS})")
+
+    @property
+    def n_quantized(self) -> int:
+        return sum(m != "exact" for m in self.block_modes)
+
+    @staticmethod
+    def exact(n_layers: int) -> "CommPolicy":
+        return CommPolicy(tuple(["exact"] * n_layers))
 
     @staticmethod
     def uniform(n_layers: int, mode: str,
@@ -182,6 +195,10 @@ class SPDPlanConfig:
         return sum(self.drop_mask)
 
     @property
+    def fraction(self) -> float:
+        return self.n_dropped / max(len(self.drop_mask), 1)
+
+    @property
     def qmodes(self) -> Optional[Tuple[str, ...]]:
         """Per-layer kept-sync levels, or None for all-exact."""
         return None if self.comm is None else self.comm.block_modes
@@ -197,8 +214,52 @@ class SPDPlanConfig:
         return SPDPlanConfig(self.drop_mask, comm)
 
     @staticmethod
+    def from_modes(modes, logits: str = "exact") -> "SPDPlanConfig":
+        """A plan and policy from per-block BLOCK_MODES: "drop[+quantN]"
+        drops the attention sync and runs the MLP sync at that level; a
+        plain level keeps both syncs at it."""
+        drop, levels = [], []
+        for m in modes:
+            if m not in BLOCK_MODES:
+                raise ValueError(f"bad block mode {m!r} "
+                                 f"(expected one of {BLOCK_MODES})")
+            drop.append(m.startswith("drop"))
+            levels.append(m.split("+", 1)[1] if "+" in m
+                          else "exact" if drop[-1] else m)
+        return SPDPlanConfig(tuple(drop),
+                             CommPolicy(tuple(levels), logits_mode=logits))
+
+    def modes(self):
+        """Inverse of from_modes: the per-block mode list."""
+        out = []
+        for d, m in zip(self.drop_mask,
+                        self.qmodes or ("exact",) * len(self.drop_mask)):
+            if d:
+                out.append("drop" if m == "exact" else f"drop+{m}")
+            else:
+                out.append(m)
+        return out
+
+    @staticmethod
+    def none(n_layers: int) -> "SPDPlanConfig":
+        return SPDPlanConfig(tuple([False] * n_layers))
+
+    @staticmethod
+    def full(n_layers: int) -> "SPDPlanConfig":
+        return SPDPlanConfig(tuple([True] * n_layers))
+
+    @staticmethod
     def first_k(n_layers: int, k: int) -> "SPDPlanConfig":
         return SPDPlanConfig(tuple([i < k for i in range(n_layers)]))
+
+    @staticmethod
+    def from_ranking(ranking, n_spd: int, n_layers: int) -> "SPDPlanConfig":
+        """Drop the first n_spd blocks of `ranking` (ascending
+        sensitivity)."""
+        drop = [False] * n_layers
+        for idx in list(ranking)[:n_spd]:
+            drop[int(idx)] = True
+        return SPDPlanConfig(tuple(drop))
 
 
 def replace(cfg, **kw):

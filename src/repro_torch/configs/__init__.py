@@ -1,11 +1,15 @@
-"""Architecture registry of the port: only the configurations this
-slice serves are registered."""
+"""Architecture registry of the port: the configurations it serves."""
 from __future__ import annotations
 
 from repro_torch.config.base import ModelConfig
-from repro_torch.configs import mamba2_370m, smollm_360m
+from repro_torch.configs import (llama2_7b, mamba2_370m, opt_6p7b, qwen2_72b,
+                                 qwen3_1p7b, smollm_360m, stablelm_1p6b)
 
-_MODULES = {"smollm-360m": smollm_360m, "mamba2-370m": mamba2_370m}
+_MODULES = {"smollm-360m": smollm_360m, "qwen3-1.7b": qwen3_1p7b,
+            "qwen2-72b": qwen2_72b, "stablelm-1.6b": stablelm_1p6b,
+            "mamba2-370m": mamba2_370m,
+            # the paper's own models
+            "llama2-7b": llama2_7b, "opt-6.7b": opt_6p7b}
 
 
 def get_config(name: str, reduced: bool = False) -> ModelConfig:

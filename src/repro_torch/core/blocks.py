@@ -54,9 +54,6 @@ def _check_ported(cfg: ModelConfig) -> None:
         raise NotImplementedError("int8 KV caches and int8 weights are not "
                                   "ported yet (kv_dtype/weight_dtype must be "
                                   "'model')")
-    if cfg.qk_norm or cfg.norm != "rmsnorm" or cfg.pos_emb != "rope":
-        raise NotImplementedError(f"{cfg.name}: qk_norm / layernorm / "
-                                  "learned positions are not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -69,7 +66,9 @@ def _bcast(w, x):
 
 
 def _norm(x, p, cfg):
-    return norm_apply(x, {"w": _bcast(p["w"], x)}, cfg)
+    """norm1/norm2/lnf on a shard-stacked x with per-shard (tp, d) leaves
+    (LayerNorm's bias `b` beside the weight)."""
+    return norm_apply(x, {k: _bcast(v, x) for k, v in p.items()}, cfg)
 
 
 def headwise_rmsnorm(x, w, eps, dh: int):
@@ -105,9 +104,13 @@ def _qkv(cfg, a, h, lay):
         k = k + _bcast(a["bk"], k)
         v = v + _bcast(a["bv"], v)
     lead = tuple(h.shape[:3])
-    return (q.reshape(lead + (lay.q_local, dh)),
-            k.reshape(lead + (lay.kv_local, dh)),
-            v.reshape(lead + (lay.kv_local, dh)))
+    q = q.reshape(lead + (lay.q_local, dh))
+    k = k.reshape(lead + (lay.kv_local, dh))
+    v = v.reshape(lead + (lay.kv_local, dh))
+    if cfg.qk_norm:               # per head, before RoPE
+        q = rmsnorm(q, _bcast(shared_param(a["qn"]), q), cfg.norm_eps)
+        k = rmsnorm(k, _bcast(shared_param(a["kn"]), k), cfg.norm_eps)
+    return q, k, v
 
 
 def _pack_kv(cfg, kc, vc):
@@ -134,7 +137,15 @@ def _dense(gen, d_in, d_out, cfg, device, scale=None):
 
 
 def _norm_init(cfg, d, device):
-    return {"w": torch.ones((d,), dtype=torch_dtype(cfg), device=device)}
+    p = {"w": torch.ones((d,), dtype=torch_dtype(cfg), device=device)}
+    if cfg.norm == "layernorm":
+        p["b"] = torch.zeros((d,), dtype=torch_dtype(cfg), device=device)
+    return p
+
+
+def _norm_spec(cfg):
+    return dict.fromkeys(("w", "b") if cfg.norm == "layernorm" else ("w",),
+                         REPLICATED)
 
 
 def init_attn(gen, cfg: ModelConfig, device) -> dict:
@@ -151,6 +162,9 @@ def init_attn(gen, cfg: ModelConfig, device) -> dict:
         p.update(bq=zeros(hq * dh), bk=zeros(hkv * dh), bv=zeros(hkv * dh))
     if cfg.o_bias:
         p["bo"] = zeros(d)
+    if cfg.qk_norm:
+        p["qn"] = torch.ones((dh,), dtype=torch_dtype(cfg), device=device)
+        p["kn"] = torch.ones((dh,), dtype=torch_dtype(cfg), device=device)
     return p
 
 
@@ -160,6 +174,8 @@ def attn_specs(cfg: ModelConfig) -> dict:
         p.update({"bq": 0, "bk": 0, "bv": 0})
     if cfg.o_bias:
         p["bo"] = REPLICATED
+    if cfg.qk_norm:
+        p.update({"qn": REPLICATED, "kn": REPLICATED})
     return p
 
 
@@ -242,9 +258,9 @@ def init_layer(gen, cfg: ModelConfig, kind: LayerKind, device) -> dict:
 
 def layer_specs(cfg: ModelConfig, kind: LayerKind) -> dict:
     if kind.mixer == "ssm":
-        return {"ln1": {"w": REPLICATED}, "ssm": ssm_specs(cfg)}
-    return {"ln1": {"w": REPLICATED}, "attn": attn_specs(cfg),
-            "ln2": {"w": REPLICATED}, "mlp": mlp_specs(cfg)}
+        return {"ln1": _norm_spec(cfg), "ssm": ssm_specs(cfg)}
+    return {"ln1": _norm_spec(cfg), "attn": attn_specs(cfg),
+            "ln2": _norm_spec(cfg), "mlp": mlp_specs(cfg)}
 
 
 def _pad_ssm(ss: dict, cfg: ModelConfig, tp: int) -> dict:
@@ -441,7 +457,8 @@ def _mixer_seq(cfg, kind, p, x, pos, lay, want_cache, q_chunk):
 
 def _ffn_partial(cfg, kind, p, u, *, divergent):
     """norm2 -> (column entry) -> ffn partial: (z_partial, bias_d)."""
-    ln2 = {"w": shared_param(p["ln2"]["w"])} if divergent else p["ln2"]
+    ln2 = ({k: shared_param(v) for k, v in p["ln2"].items()} if divergent
+           else p["ln2"])
     h2 = _norm(u, ln2, cfg)
     h2 = h2 if divergent else column_entry(h2)
     return mlp_partial(cfg, p["mlp"], h2, divergent=divergent), \

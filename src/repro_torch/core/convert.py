@@ -4,7 +4,7 @@
 (`repro.core.model.init_model(...)` after `jax.tree.map(np.asarray, .)`,
 done by the caller) and returns the port's canonical tree of tensors.
 Padding, stacking and splitting then go through the port's own
-`pad_model` / `stack_segments` / `prepare_params`.  Imports neither JAX
+`pad_model` / `simtp.prepare_params`.  Imports neither JAX
 nor the reference package.
 """
 from __future__ import annotations

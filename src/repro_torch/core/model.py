@@ -1,15 +1,17 @@
-"""Full-model serving forward (port of repro/core/model.py, the dense
-serving subset).
+"""Full-model serving forward (port of repro/core/model.py: the serving
+forwards and the forward-only loss).
 
 Layers are grouped into SEGMENTS of equal (kind, drop flag, sync level);
 each segment's parameters are stacked on a layer axis, as in the
 reference, and its layers run in a Python loop where the reference runs
-`lax.scan`.  Parameters after `simtp.split_stacked` are shard-stacked:
+`lax.scan`.  Parameters after `simtp.split_padded` are shard-stacked:
 every leaf has a leading (tp, ...) axis and segment leaves are
 (tp, layers, ...).  The vocab axis of the embedding is split over the
 shards; the LM head is the tied embedding or, untied, a `head` (d, V)
-split on its vocab axis.  Pure-SSM layers carry recurrent state (the
-scan state and the conv tails) instead of K/V caches.
+split on its vocab axis.  A learned position table (`pos`, OPT) is
+replicated and added at absolute positions.  Pure-SSM layers carry
+recurrent state (the scan state and the conv tails) instead of K/V
+caches.
 """
 from __future__ import annotations
 
@@ -21,10 +23,9 @@ import torch
 from repro_torch.config.base import ModelConfig, SPDPlanConfig
 from repro_torch.core import blocks as B
 from repro_torch.core.layer_kinds import layer_kinds, plan_segments
-from repro_torch.models.common import norm_apply
 from repro_torch.parallel.collectives import (column_entry, comm_context,
                                               ledger_paused, ledger_scale,
-                                              sync_output)
+                                              pmax, sync_output)
 from repro_torch.parallel.layout import REPLICATED, make_gqa_layout
 from repro_torch.tree import tree_map
 
@@ -50,6 +51,10 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device="cpu") -> dict:
         head = torch.randn((cfg.d_model, cfg.vocab_size), generator=gen,
                            **f32) / cfg.d_model ** 0.5
         p["head"] = head.to(B.torch_dtype(cfg))
+    if cfg.pos_emb == "learned":
+        pos = torch.randn((cfg.max_seq_len, cfg.d_model), generator=gen,
+                          **f32) * 0.02
+        p["pos"] = pos.to(B.torch_dtype(cfg))
     return p
 
 
@@ -73,23 +78,13 @@ def pad_model(p: dict, cfg: ModelConfig, tp: int) -> dict:
 
 
 def model_specs(cfg: ModelConfig) -> dict:
-    s = {"emb": 0, "lnf": {"w": -1},
+    s = {"emb": 0, "lnf": B._norm_spec(cfg),
          "layers": [B.layer_specs(cfg, k) for k in layer_kinds(cfg)]}
     if not cfg.tie_embeddings:
         s["head"] = 1
+    if cfg.pos_emb == "learned":
+        s["pos"] = REPLICATED
     return s
-
-
-def stack_segments(padded: dict, cfg: ModelConfig,
-                   plan: SPDPlanConfig) -> dict:
-    """Padded per-layer list -> per-segment stacked trees."""
-    out = {k: v for k, v in padded.items() if k != "layers"}
-    out["segs"] = []
-    for (start, length, _, _) in plan_segments(cfg, plan.drop_mask,
-                                               plan.qmodes):
-        ls = padded["layers"][start:start + length]
-        out["segs"].append(tree_map(lambda *xs: torch.stack(xs, 0), *ls))
-    return out
 
 
 def stacked_specs(cfg: ModelConfig, plan: SPDPlanConfig) -> dict:
@@ -135,7 +130,18 @@ def serve_logits(p, cfg, x, plan):
 
 
 def _final_norm(stacked, cfg, x):
-    return norm_apply(x, {"w": B._bcast(stacked["lnf"]["w"], x)}, cfg)
+    return B._norm(x, stacked["lnf"], cfg)
+
+
+def _add_positions(stacked, cfg, x, pos):
+    """Learned absolute positions (OPT): x (tp,B,C,d) + pos_table[pos],
+    pos (B,C).  RoPE models rotate q/k in the blocks instead.  A position
+    past the table (only an idle slot's pad can be one) reads its last
+    row: an out-of-range index would be a device-side assert."""
+    if cfg.pos_emb != "learned":
+        return x
+    table = stacked["pos"]
+    return x + table[:, pos.clamp(0, table.shape[1] - 1)]
 
 
 def _gqa_layout(cfg, tp):
@@ -171,16 +177,25 @@ def _seg_cache_shape(kind, leaf, length: int, cache_len: int):
 
 
 def forward_seq(cfg, stacked, plan: SPDPlanConfig, tokens, *, tp,
-                q_chunk=1024, cache_len: int = 0, want_cache=False):
+                q_chunk=1024, cache_len: int = 0, want_cache=False,
+                drop_flags=None):
     """Sequence forward.  tokens (B,S).  Returns (hidden (tp,B,S,d) after
     the final norm, caches) — caches per segment: attention layers'
     {"k","v"} of shape (tp, layers, B, max(S, cache_len), HkvL, dh), zero
     past S; SSM layers' {"state" (tp, layers, B, HL, P, N), "conv" {"x",
-    "bc"} (tp, layers, B, d_conv-1, C)}."""
+    "bc"} (tp, layers, B, d_conv-1, C)}.
+
+    `drop_flags` (L,) overrides the plan's drop mask layer by layer (the
+    sensitivity sweep: one placement under the no-SPD plan serves every
+    suffix plan).  The reference's dual mode computes both wirings and
+    selects one; here only the selected wiring runs, with the same
+    values.  The ledger still scales a segment's first layer over it,
+    whatever the flags: the sweep reads no ledger."""
     lay = _gqa_layout(cfg, tp)
     x = embed_tokens(stacked["emb"], tokens)
     b, s = tokens.shape
     pos = torch.arange(s, device=tokens.device).expand(b, s)
+    x = _add_positions(stacked, cfg, x, pos)
     caches = []
     for seg_i, (start, length, kind, dropped) in enumerate(
             plan_segments(cfg, plan.drop_mask, plan.qmodes)):
@@ -188,9 +203,11 @@ def forward_seq(cfg, stacked, plan: SPDPlanConfig, tokens, *, tp,
         seg_cache = None
         with ledger_scale(length), comm_context(block=start, phase="prefill"):
             for j in range(length):
+                drop = (dropped if drop_flags is None
+                        else bool(drop_flags[start + j]))
                 with ledger_paused(j > 0):
                     x, c = B.block_seq(cfg, kind, lay, _layer(sp, j), x, pos,
-                                       drop=dropped, want_cache=want_cache,
+                                       drop=drop, want_cache=want_cache,
                                        q_chunk=q_chunk,
                                        comm=plan.block_mode(start))
                 if want_cache:
@@ -203,6 +220,43 @@ def forward_seq(cfg, stacked, plan: SPDPlanConfig, tokens, *, tp,
                              .copy_(src), seg_cache, c)
         caches.append(seg_cache)
     return _final_norm(stacked, cfg, x), (caches if want_cache else None)
+
+
+def vocab_parallel_ce(logits, labels, mask, cfg):
+    """Per-token cross entropy with the vocab split over the shards.
+
+    logits (tp,B,S,Vl) fp32 shard-local; labels (B,S) int; mask (B,S)
+    float.  The padded vocab columns are masked, the row max is taken
+    across shards (pmax), and the exp-sum and the label logit travel
+    through exact syncs.  Returns (sum_ce, sum_mask) as 0-d tensors."""
+    tp, vl = logits.shape[0], logits.shape[-1]
+    shard = torch.arange(tp, device=logits.device)
+    gcol = shard[:, None] * vl + torch.arange(vl, device=logits.device)
+    logits = torch.where((gcol < cfg.vocab_size)[:, None, None], logits,
+                         torch.full_like(logits, -1e30))
+    m = pmax(logits.amax(-1))                                 # (tp,B,S)
+    se = sync_output(torch.exp(logits - m[..., None]).sum(-1),
+                     compressible=False)
+    local = labels[None].long() - shard[:, None, None] * vl
+    ok = (local >= 0) & (local < vl)
+    lbl = torch.gather(logits, -1, local.clamp(0, vl - 1)[..., None])[..., 0]
+    lbl = sync_output(torch.where(ok, lbl, torch.zeros_like(lbl)),
+                      compressible=False)
+    ce = torch.log(se) + m - lbl                              # (tp,B,S)
+    return (ce[0] * mask).sum(), mask.sum()
+
+
+def loss_fn(cfg, stacked, plan, batch, *, tp, q_chunk=1024,
+            drop_flags=None):
+    """Forward-only loss.  batch {"tokens", "labels", "mask"} (B,S)
+    tensors.  Returns (mean CE over the mask, {"sum_ce", "n_tok"}); the
+    dense families carry no auxiliary loss."""
+    x, _ = forward_seq(cfg, stacked, plan, batch["tokens"], tp=tp,
+                       q_chunk=q_chunk, drop_flags=drop_flags)
+    sum_ce, n_tok = vocab_parallel_ce(lm_logits(stacked, cfg, x),
+                                      batch["labels"],
+                                      batch["mask"].float(), cfg)
+    return sum_ce / n_tok.clamp_min(1.0), {"sum_ce": sum_ce, "n_tok": n_tok}
 
 
 def prefill(cfg, stacked, plan, tokens, *, tp, q_chunk=1024,
@@ -229,6 +283,7 @@ def decode_step(cfg, stacked, plan, tokens, pos, caches, *, tp):
     (updated in place).  Returns (logits (tp,B,Vl) fp32, caches)."""
     lay = _gqa_layout(cfg, tp)
     x = embed_tokens(stacked["emb"], tokens)
+    x = _add_positions(stacked, cfg, x, pos[:, None])
     for seg_i, (start, length, kind, dropped) in enumerate(
             plan_segments(cfg, plan.drop_mask, plan.qmodes)):
         sp, cs = stacked["segs"][seg_i], caches[seg_i]
@@ -282,6 +337,9 @@ def paged_step(cfg, stacked, plan, tokens, pos, caches, page_table, *, tp,
                                   "(ROADMAP A10)")
     lay = _gqa_layout(cfg, tp)
     x = embed_tokens(stacked["emb"], tokens)
+    c = tokens.shape[1]
+    x = _add_positions(stacked, cfg, x, pos[:, None]
+                       + torch.arange(c, device=pos.device)[None])
     for seg_i, (start, length, kind, dropped) in enumerate(
             plan_segments(cfg, plan.drop_mask, plan.qmodes)):
         sp, cs = stacked["segs"][seg_i], caches[seg_i]

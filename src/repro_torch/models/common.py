@@ -14,10 +14,18 @@ def rmsnorm(x, w, eps: float):
     return (xf * torch.rsqrt(var + eps)).to(dt) * w
 
 
+def layernorm(x, w, b, eps: float):
+    dt = x.dtype
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(dt) * w + b
+
+
 def norm_apply(x, p, cfg):
-    """Dispatch on cfg.norm; p is {"w": ...}.  Only rmsnorm is ported."""
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(f"norm {cfg.norm!r} is not ported yet")
+    """Dispatch on cfg.norm; p is {"w": ...} or {"w": ..., "b": ...}."""
+    if cfg.norm == "layernorm":
+        return layernorm(x, p["w"], p["b"], cfg.norm_eps)
     return rmsnorm(x, p["w"], cfg.norm_eps)
 
 

@@ -37,7 +37,7 @@ class StepSpec:
 
 
 class ParallelBackend:
-    """Protocol base: wrap(local_fn, spec) -> step, place_params(stacked),
+    """Protocol base: wrap(local_fn, spec) -> step, place_params(padded),
     blank_caches(structs), and the facts tp / dp / cache_batch_axis /
     device."""
 
@@ -59,7 +59,8 @@ class ParallelBackend:
     def wrap(self, local_fn, spec: StepSpec):
         raise NotImplementedError
 
-    def place_params(self, stacked: dict):
+    def place_params(self, padded: dict):
+        """`model.pad_model` output -> the backend's parameter layout."""
         raise NotImplementedError
 
     def blank_caches(self, structs):
@@ -129,11 +130,11 @@ class SimBackend(ParallelBackend):
                               for a, m in zip(args, moves)))
         return step
 
-    def place_params(self, stacked: dict):
+    def place_params(self, padded: dict):
         from repro_torch.core import simtp
         from repro_torch.tree import tree_map
-        stacked = tree_map(lambda w: w.to(self.device), stacked)
-        return simtp.split_stacked(stacked, self.cfg, self.plan, self.tp)
+        padded = tree_map(lambda w: w.to(self.device), padded)
+        return simtp.split_padded(padded, self.cfg, self.plan, self.tp)
 
     def blank_caches(self, structs):
         from repro_torch.core import model as M

@@ -245,6 +245,13 @@ def psum(x):
     return x.sum(dim=0, keepdim=True).expand_as(x)
 
 
+def pmax(x, axis=MODEL_AXIS):
+    """Max all-reduce over the shard axis (the vocab-parallel CE's row
+    max); logged as an all-reduce of the same payload."""
+    log_collective("all-reduce", axis, shard_nbytes(x))
+    return x.amax(dim=0, keepdim=True).expand_as(x)
+
+
 def ppermute(x, axis=MODEL_AXIS):
     """The ring permutation i -> i+1 over the shard axis: row j receives
     row j-1.  Logged as one collective-permute of one shard's bytes."""

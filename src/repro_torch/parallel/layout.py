@@ -83,6 +83,8 @@ def pad_heads(w, axis: int, src_map, head_dim: int, n_src: int):
     if w.shape[axis] != n_src * head_dim:
         raise ValueError(f"{tuple(w.shape)} axis {axis} is not "
                          f"{n_src} x {head_dim}")
+    if np.array_equal(src_map, np.arange(n_src)):
+        return w                  # nothing to pad: no copy
     w = w.movedim(axis, 0)
     rest = w.shape[1:]
     w = w.reshape((n_src, head_dim) + tuple(rest))
