@@ -111,6 +111,23 @@
    LLM.apply_comm_policy(n_spd=8, tau1, tau2 at the 25th and 75th
    percentiles of the sensitivities) must give a plan with dropped,
    quant8 and exact syncs, and a counted generate under it.
+13b. Algorithm 1 with recovery on the same llama2-7b: LLM.apply_spd(
+   calib, n_spd=8, tau1, tau2 halfway between the sorted sensitivities of
+   the 8 cheapest blocks (2 ISB, 4 SB, 2 ESB), strategies ("ZS", "B2B",
+   "HG"), lr 5e-6, 10 epochs): the sweep again, the block inputs
+   captured through B1, head grouping for the ESB blocks and
+   block-to-block distillation (student and teacher forwards through
+   B1, the student's backward through B1's autograd Function) for SB
+   and ESB.  B1's launches
+   counted part by part against what the code implies; every distilled
+   block's loss must fall from its first epoch to its last; each
+   grouping a partition of the 32 heads; on full-width layers the
+   student's gradients through B1 against the plain attention's (fp32
+   and bf16) and the grouped layer's TP output against the ungrouped
+   one's (fp32); a counted greedy generate under the distilled plan.
+   Prints each part's wall seconds, ms per distill step, the peak
+   memory and every block's losses.  B1 at the distill step's shape is
+   then checked and timed for the kernels line.
 14. opt-6.7b at full width (LayerNorm, learned positions, biases, ReLU)
    through the same LLM.load: the dense path as in 3, a profile, the
    teacher-forced prefill check, and decode logits after teacher-forcing
@@ -269,6 +286,27 @@ N_SPD = 8
 # a perplexity is exp of the mean CE over 256 tokens whose errors take
 # either sign, so 1% relative (2.1e-3 measured on an H100 at 700 W)
 SWEEP_PPL_RTOL = 1e-2
+# Algorithm 1 with recovery on llama2-7b: the paper's 10 epochs over the
+# sweep's 2 calibration batches, 20 distill steps a recovered block, at
+# lr 5e-6.  On these random weights a block's SPD-vs-TP MSE starts at
+# 3e-4 to 1e-3, and Adam's first steps at the default 5e-5 (about lr per
+# element whatever the gradient's scale) throw it up 60-330x; it had not
+# come back below its first epoch after 10 (scripts/
+# torch_distill_probe.py on an H100: last / first epoch 1.06-7.0 at
+# 5e-5, 0.36-2.1 at 2e-5, 0.13-0.64 at 1e-5, 0.13-0.18 at 5e-6)
+RECOVERY_EPOCHS = 10
+RECOVERY_LR = 5e-6
+# the student's gradients through B1's autograd Function against those
+# through the plain attention, one full-width layer, relative global
+# norm: fp32 differs only in summation order.  bf16 differs in the
+# forward (B1 rounds P to bf16 on the tensor cores, the plain version
+# takes an fp32 softmax), and the MSE's gradient is 2 (out_s - out_t), a
+# difference of two outputs that agree to a few bf16 ulps of the
+# residual stream: so the bound is 5% of the gradient's norm
+RECOVERY_GRAD_RTOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# the grouping permutation's TP-mode block output (the reference's bound
+# in tests/test_spd_pipeline.py: the head sum reassociates)
+GROUPING_TP_RTOL = 1e-3
 # the fp32 teacher-forced checks of the 7B models keep layers 6-9 (two
 # dropped and two kept blocks of the spd=0.25 plan): a full-width fp32
 # copy is 27 GB
@@ -276,15 +314,6 @@ TF_FP32_LAYERS = (6, 10)
 # bf16 model-level checks on the mamba path: at most twice the spread of
 # the same comparison made without the kernel (see mamba_checks)
 MAMBA_BF16_FLOOR = 2.0
-
-
-def tree_leaves(tree) -> list:
-    """The leaves of a nested dict/list parameter tree."""
-    if isinstance(tree, dict):
-        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [leaf for t in tree for leaf in tree_leaves(t)]
-    return [tree]
 
 
 def card_line() -> str:
@@ -882,6 +911,7 @@ def main_path(torch, np, card, arch="smollm-360m", label="main path"):
     from repro_torch.kernels import fused_norm as FN
     from repro_torch.kernels import quant_collectives as QC
     from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.tree import tree_leaves
 
     cfg = replace(get_config(arch), attn_backend="pallas")
     torch.cuda.reset_peak_memory_stats()
@@ -2269,7 +2299,303 @@ def sweep_phase(torch, np, llm, prompts, card):
           f"prefill_ms={1e3 * sum(times['prefill']):.2f} "
           f"decode_ms_per_token={decode_ms:.2f}; tokens[0] "
           f"{outs[0].token_ids}")
-    return launches
+    return r
+
+
+def recovery_taus(np, res, n_spd):
+    """(tau1, tau2) halfway between sorted sensitivities of the n_spd
+    cheapest blocks: the cheapest quarter are ISB, the dearest quarter
+    ESB (at least one each), the rest SB, and no chosen block sits on a
+    threshold."""
+    s = np.sort(res.sensitivity[res.ranking[:n_spd]])
+    k = max(n_spd // 4, 1)
+    return float((s[k - 1] + s[k]) / 2), float((s[-k - 1] + s[-k]) / 2)
+
+
+def student_grads(torch, cfg, kind, tp, split, x, out_t):
+    """The distillation loss's gradients (the shard-summed fp32 MSE of
+    the SPD block against `out_t`) with respect to `split`."""
+    from repro_torch.core import blocks as B
+    from repro_torch.core import model as M
+    from repro_torch.core import simtp
+    from repro_torch.tree import tree_leaves
+
+    xs = x[None].expand((tp,) + tuple(x.shape))
+    pos = torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
+    p, leaves = simtp.grad_leaves(split)
+    out, _ = B.block_seq(cfg, kind, M._gqa_layout(cfg, tp), p, xs, pos,
+                         drop=True)
+    d = (out - out_t).float()
+    return tree_leaves(simtp.grads_of((d * d).flatten(1).mean(1).sum(),
+                                      split, leaves))
+
+
+def recovery_checks(torch, llm, report, layer_x, card):
+    """On full-width layers, in fp32 and bf16: (a) the student's
+    gradients with B1 under autograd against the plain attention's, on
+    the first SB block; (b) on the first ESB block in fp32, the TP-mode
+    block output of the grouped (permuted) layer against the unpermuted
+    one, and the SPD-mode output moving."""
+    from repro_torch.config.base import replace
+    from repro_torch.core import blocks as B
+    from repro_torch.core import grouping as G
+    from repro_torch.core import simtp
+    from repro_torch.core.layer_kinds import layer_kinds
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.tree import tree_map
+
+    kinds, tp = layer_kinds(llm.cfg), llm.tp
+    sb = next(b for b, c in zip(report.chosen, report.categories)
+              if c == "SB")
+    esb = next(b for b, c in zip(report.chosen, report.categories)
+               if c == "ESB")
+    for dtype in ("float32", "bfloat16"):
+        dt = B.TORCH_DTYPES[dtype]
+        layer = tree_map(lambda w: w.to(dt), llm.canonical["layers"][sb])
+        split = simtp.split_layer(layer, replace(llm.cfg, dtype=dtype),
+                                  kinds[sb], tp)
+        x = layer_x[sb].to(dt)
+        cfgs = {b: replace(llm.cfg, dtype=dtype, attn_backend=b)
+                for b in ("pallas", "xla")}
+        pos = torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
+        out_t = simtp.make_block_fn(cfgs["xla"], kinds[sb], tp,
+                                    drop=False)(split, x, pos)
+        before = FA.flash_attention_bhsd.launches
+        g_k = student_grads(torch, cfgs["pallas"], kinds[sb], tp, split, x,
+                            out_t)
+        ran = FA.flash_attention_bhsd.launches - before
+        g_p = student_grads(torch, cfgs["xla"], kinds[sb], tp, split, x,
+                            out_t)
+        num = math.sqrt(sum(float((a.float() - b.float()).square().sum())
+                            for a, b in zip(g_k, g_p)))
+        den = math.sqrt(sum(float(b.float().square().sum()) for b in g_p))
+        worst = max(float((a.float() - b.float()).norm()
+                          / max(float(b.float().norm()), 1e-30))
+                    for a, b in zip(g_k, g_p))
+        tol = RECOVERY_GRAD_RTOL[dtype]
+        print(f"recovery grads [{card}] ({dtype}, layer {sb}, {len(g_k)} "
+              f"leaves): |g_B1 - g_plain| / |g_plain| = {num / den:.3e} "
+              f"(tol {tol:.0e}; worst leaf {worst:.3e}); B1 launches {ran}")
+        if ran != 1 or not num / den <= tol:
+            raise AssertionError(f"the student's gradients through B1 "
+                                 f"({dtype}) differ from the plain "
+                                 f"attention's: {num / den} > {tol}, or "
+                                 f"B1 ran {ran} times (want 1)")
+        del split, g_k, g_p, layer
+    gres = report.grouping[esb]
+    cfg32 = replace(llm.cfg, dtype="float32")
+    layer = tree_map(lambda w: w.float(), llm.canonical["layers"][esb])
+    permuted = G.apply_grouping(layer, cfg32, gres, tp)
+    x = layer_x[esb].float()
+    pos = torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
+    outs = {}
+    for drop in (False, True):
+        fn = simtp.make_block_fn(cfg32, kinds[esb], tp, drop=drop)
+        a, b = (fn(simtp.split_layer(lp, cfg32, kinds[esb], tp), x, pos)
+                for lp in (layer, permuted))
+        outs[drop] = float((a - b).norm() / a.norm())
+    print(f"grouping [{card}] (fp32, layer {esb}, groups of "
+          f"{[len(g) for g in gres.groups]} heads, assignment "
+          f"{gres.assignment}): TP output moved by {outs[False]:.3e} "
+          f"(tol {GROUPING_TP_RTOL:.0e}), SPD output by {outs[True]:.3e}")
+    if not outs[False] < GROUPING_TP_RTOL:
+        raise AssertionError(f"the grouping permutation changed the TP "
+                             f"block output: {outs[False]}")
+
+
+def recovery_phase(torch, np, llm, prompts, sweep_res, card):
+    """Algorithm 1 with recovery on the full-width model `llm` (bf16,
+    random weights, B1 prefill): `LLM.apply_spd(calib, n_spd=N_SPD, tau1,
+    tau2, lr=RECOVERY_LR, epochs=RECOVERY_EPOCHS, strategies=("ZS",
+    "B2B", "HG"))` over
+    the sweep's calibration batches.  (tau1, tau2) sit halfway between the
+    sorted sensitivities of the N_SPD cheapest blocks of `sweep_res` (the
+    same sweep apply_spd repeats), so that two blocks are ISB, two ESB
+    and the rest SB.  B1's launches are counted part by part (the sweep;
+    the capture, 2 batches x 32 layers; 2 per distill step, teacher and
+    student) and must be what the code implies.  Every distilled block's
+    mean loss over its last epoch must be below its first epoch's, every
+    ESB block's grouping supported and a partition of the heads; then
+    `recovery_checks` and a counted greedy generate under the distilled
+    plan.  Returns the B1 launches of the apply_spd call."""
+    from repro_torch.api import SamplingParams
+    from repro_torch.core import distill as D
+    from repro_torch.core import spd as SPD
+    from repro_torch.data import calibration_batches
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import quant_collectives as QC
+
+    cfg, n = llm.cfg, llm.cfg.n_layers
+    calib = calibration_batches(cfg.vocab_size, **SWEEP_CALIB)
+    tau1, tau2 = recovery_taus(np, sweep_res, N_SPD)
+    counts = {"capture": [], "distill": []}
+    layer_x, step_s = {}, []
+    capture, distill = SPD.capture_block_inputs, D.b2b_distill
+    make_step = D.make_distill_step
+
+    def timed_make_step(*a, **kw):
+        fn = make_step(*a, **kw)
+        step_s.append([])
+
+        def step(*sa):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*sa)
+            step_s[-1].append(time.perf_counter() - t)   # loss read: synced
+            return out
+        return step
+
+    def counted_capture(*a, **kw):
+        counts["sweep"] = FA.flash_attention_bhsd.launches
+        hid = capture(*a, **kw)
+        counts["capture"].append(FA.flash_attention_bhsd.launches
+                                 - counts["sweep"])
+        for i in range(n):
+            layer_x[i] = hid[0][i]
+        return hid
+
+    def counted_distill(*a, **kw):
+        before = FA.flash_attention_bhsd.launches
+        out = distill(*a, **kw)
+        counts["distill"].append((FA.flash_attention_bhsd.launches - before,
+                                  len(out[1])))
+        return out
+
+    FA.flash_attention_bhsd.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    SPD.capture_block_inputs, D.b2b_distill = counted_capture, counted_distill
+    D.make_distill_step = timed_make_step
+    t0 = time.perf_counter()
+    try:
+        report = llm.apply_spd(calib, n_spd=N_SPD, tau1=tau1, tau2=tau2,
+                               lr=RECOVERY_LR, epochs=RECOVERY_EPOCHS,
+                               strategies=("ZS", "B2B", "HG"))
+    finally:
+        SPD.capture_block_inputs, D.b2b_distill = capture, distill
+        D.make_distill_step = make_step
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    total = FA.flash_attention_bhsd.launches
+    cats = dict(zip(report.chosen, report.categories))
+    steps = sum(k for _, k in counts["distill"])
+    sec = report.seconds
+    print(f"apply_spd [{card}]: n_spd={N_SPD} tau1={tau1:.4f} "
+          f"tau2={tau2:.4f} lr={RECOVERY_LR:g} epochs={RECOVERY_EPOCHS}: "
+          f"tiers "
+          + " ".join(f"{b}:{c}" for b, c in cats.items()))
+    print(f"apply_spd [{card}]: {wall:.2f} s wall (sweep {sec['sweep']:.2f}"
+          f" s, capture {sec['capture']:.3f} s, grouping "
+          f"{sec['grouping']:.2f} s, distillation {sec['distill']:.2f} s = "
+          f"{1e3 * sec['distill'] / max(steps, 1):.2f} ms per distill step "
+          f"over {steps} steps, re-placement the rest); peak_memory_gib="
+          f"{peak:.2f}")
+    firsts = [1e3 * t[0] for t in step_s]
+    rest = [1e3 * v for t in step_s for v in t[1:]]
+    print(f"apply_spd distill steps [{card}]: each block's first step "
+          f"{json.dumps([round(v, 2) for v in firsts])} ms, the other "
+          f"{len(rest)} {np.mean(rest):.2f} ms on average (min "
+          f"{min(rest):.2f}, max {max(rest):.2f}); outside the steps "
+          f"{sec['distill'] - sum(sum(t) for t in step_s):.2f} s")
+    want = {"sweep": (n + 1) * len(calib) * n,
+            "capture": [len(calib) * n],
+            "distill": [(2 * k, k) for _, k in counts["distill"]]}
+    got = {"sweep": counts.get("sweep"), "capture": counts["capture"],
+           "distill": counts["distill"]}
+    print(f"apply_spd B1 launches: sweep {got['sweep']} (want "
+          f"{want['sweep']}), capture {got['capture']} (want "
+          f"{want['capture']}), distill {[a for a, _ in got['distill']]} "
+          f"over {[k for _, k in got['distill']]} steps (2 a step); total "
+          f"{total}")
+    n_rec = sum(c != "ISB" for c in report.categories)
+    if (got != want or total != got["sweep"] + sum(got["capture"])
+            + 2 * steps or len(counts["distill"]) != n_rec
+            or steps != n_rec * RECOVERY_EPOCHS * len(calib)):
+        raise AssertionError(f"apply_spd's B1 launches are not what the "
+                             f"code implies: {got} vs {want}, total {total}")
+    if set(report.categories) != {"ISB", "SB", "ESB"}:
+        raise AssertionError(f"the chosen blocks do not span the three "
+                             f"tiers: {cats}")
+    per_epoch, rose = len(calib), {}
+    for b, losses in sorted(report.distill_losses.items()):
+        first = float(np.mean(losses[:per_epoch]))
+        last = float(np.mean(losses[-per_epoch:]))
+        print(f"distill block {b} ({cats[b]}): loss first epoch {first:.4e} "
+              f"last epoch {last:.4e} ({last / first:.3f}x); steps "
+              f"{json.dumps([round(v, 7) for v in losses])}")
+        if not (np.isfinite(losses).all() and last < first):
+            rose[b] = (first, last)
+    if rose:
+        raise AssertionError(f"distillation losses did not fall from the "
+                             f"first epoch to the last: {rose}")
+    for b, c in cats.items():
+        if c != "ESB":
+            continue
+        g = report.grouping[b]
+        print(f"grouping block {b}: supported={g.supported} score="
+              f"{g.score:.4f} assignment={g.assignment} groups={g.groups}")
+        if not (g.supported and sorted(h for grp in g.groups for h in grp)
+                == list(range(cfg.n_heads))
+                and len(g.groups) == llm.tp
+                and sorted(g.assignment) == list(range(llm.tp))):
+            raise AssertionError(f"block {b}'s grouping is not a partition "
+                                 f"of the heads: {g}")
+    if llm.plan.n_dropped != N_SPD:
+        raise AssertionError(f"the distilled plan drops "
+                             f"{llm.plan.n_dropped} syncs, not {N_SPD}")
+
+    recovery_checks(torch, llm, report, layer_x, card)
+    layer_x.clear()
+
+    llm.generate([prompts[0][:8]], SamplingParams(max_new=2))   # warm-up
+    times = timed_engine(torch, llm.engine)
+    kernels = (FA.flash_attention_bhsd, QC.qdq_absmax,
+               QC.quantized_psum_absmax)
+    for k in kernels:
+        k.launches = 0
+    outs = llm.generate(prompts, SamplingParams(max_new=MAX_NEW))
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels}
+    check_sync_launches("distilled plan", llm, launches, times)
+    if launches["flash_attention_bhsd"] <= 0 or any(
+            o.finish_reason != "length" or len(o.token_ids) != MAX_NEW
+            for o in outs):
+        raise AssertionError(f"the distilled plan's generate failed: "
+                             f"{launches}")
+    decode_ms = 1e3 * sum(times["decode"]) / max(len(times["decode"]), 1)
+    print(f"distilled plan [{card}]: launches {json.dumps(launches)} "
+          f"prefill_ms={1e3 * sum(times['prefill']):.2f} "
+          f"decode_ms_per_token={decode_ms:.2f}; tokens[0] "
+          f"{outs[0].token_ids}")
+    return total
+
+
+def recovery_row(torch, launches):
+    """B1 at the shape of llama2-7b's distill step and capture (bf16, tp=2
+    x batch 2 x 16 heads a shard, S 128, D 128), checked against its
+    plain version and timed: a kernels-line row carrying `launches`, the
+    apply_spd call's count."""
+    from repro_torch.kernels import flash_attention as FA
+
+    gen = torch.Generator(device=torch.device("cuda")).manual_seed(11)
+    q, k, v = flash_inputs(torch, gen, 128, 128, torch.bfloat16, bh=64,
+                           bhkv=64)
+    out = FA.flash_attention_bhsd(q, k, v)
+    ref = FA.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = 2.0 ** -7 * max(ref.float().abs().max().item(), 1e-3)
+    print(f"flash bfloat16 S=128 D=128 group 1 (apply_spd): max_abs_err="
+          f"{err:.3e} tol={tol:.3e}")
+    if not err <= tol:
+        raise AssertionError(f"flash kernel disagrees at the distill "
+                             f"step's shape: {err} > {tol}")
+    row = flash_row(torch, q, k, v, err, "llama2-7b apply_spd: capture and "
+                    "distill steps")
+    row["_path"] = "apply_spd"
+    row["launches"] = launches
+    return row
 
 
 def decode_vs_prefill(torch, llm, prompt, toks, fp32_layers=None,
@@ -2415,9 +2741,12 @@ def main() -> int:
     teacher_forced(torch, llama, lprompts[2], TF_FP32_LAYERS, "llama2-7b ")
     teacher_forced_paged(torch, llama, lprompts[2], TF_FP32_LAYERS,
                          "llama2-7b ")
-    sweep_phase(torch, np, llama, lprompts, card)
+    sweep_res = sweep_phase(torch, np, llama, lprompts, card)
+    recovery_launches = recovery_phase(torch, np, llama, lprompts, sweep_res,
+                                       card)
     del llama
     release(torch)
+    paper_rows.append(recovery_row(torch, recovery_launches))
     opt, oprompts, opt_launches, opt_tokens = main_path(
         torch, np, card, arch="opt-6.7b", label="opt-6.7b path")
     profile_phase(torch, opt, oprompts, card, label="opt-6.7b profile")
@@ -2454,7 +2783,8 @@ def main() -> int:
                        - llama_paged["paged_flash_attention_chunk"]))}
     for k in paper_rows:
         path = k.pop("_path")
-        k["launches"] = by_path[path][k["name"]] if path else 0
+        if path != "apply_spd":       # that row carries its own count
+            k["launches"] = by_path[path][k["name"]] if path else 0
     kernels += paper_rows
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
           f"build")

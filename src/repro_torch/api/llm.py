@@ -9,8 +9,9 @@ repro/api/llm.py: dense and paged serving).
     overlap = LLM.load("smollm-360m", tp=2, comm="quant8", engine="overlap")
     mamba = LLM.load("mamba2-370m", tp=2, comm="quant8", cache_len=512)
     llama = LLM.load("llama2-7b", tp=2, comm="quant8")
-    llama.apply_comm_policy(calibration_batches(32000, 4, 128, batch=2),
-                            n_spd=8, tau1=t1, tau2=t2)  # Algorithm 1
+    calib = calibration_batches(32000, 4, 128, batch=2)
+    llama.apply_comm_policy(calib, n_spd=8, tau1=t1, tau2=t2)  # tiers
+    llama.apply_spd(calib, n_spd=8, tau1=t1, tau2=t2)   # Algorithm 1
 
 Runs on the CUDA device by default; with no CUDA device it raises
 unless `device="cpu"` is asked for explicitly (there is no silent CPU
@@ -244,12 +245,13 @@ class LLM:
                   strategies=("ZS", "B2B", "HG"),
                   q_chunk: Optional[int] = None):
         """Algorithm 1 on this model's canonical params (sensitivity
-        sweep -> ISB/SB/ESB tiers -> zero-shot drop), then redeploy the
-        result onto the engine in place.  Returns the `SPDReport`; the
-        plan, engine and placed params are replaced and the cached
-        scheduler dropped.  Where the reference would distil (an SB or
-        ESB block chosen and "B2B" in `strategies`) it raises
-        NotImplementedError: training is a later slice."""
+        sweep -> ISB/SB/ESB tiers -> zero-shot drop for ISB, block-to-
+        block distillation for SB, head grouping then distillation for
+        ESB), then redeploy the result onto the engine in place: the
+        padded params it returns are placed as they are (distilled SPD
+        weights belong to this tp).  Returns the `SPDReport`; the plan,
+        engine and placed params are replaced and the cached scheduler
+        dropped."""
         from repro_torch.core import spd as SPD
 
         self._release_engine()

@@ -27,7 +27,7 @@ from repro_torch.parallel.collectives import (column_entry, comm_context,
                                               ledger_paused, ledger_scale,
                                               pmax, sync_output)
 from repro_torch.parallel.layout import REPLICATED, make_gqa_layout
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
 # ---------------------------------------------------------------------------
@@ -92,6 +92,21 @@ def stacked_specs(cfg: ModelConfig, plan: SPDPlanConfig) -> dict:
     out = {k: v for k, v in s.items() if k != "layers"}
     out["segs"] = [s["layers"][start] for (start, _, _, _)
                    in plan_segments(cfg, plan.drop_mask, plan.qmodes)]
+    return out
+
+
+def unstack_segments(stacked: dict, cfg: ModelConfig,
+                     plan: SPDPlanConfig) -> dict:
+    """Per-segment stacked trees (layer axis 0) -> padded per-layer list
+    (views of the stacked leaves)."""
+    layers = [None] * cfg.n_layers
+    for seg_i, (start, length, _, _) in enumerate(
+            plan_segments(cfg, plan.drop_mask, plan.qmodes)):
+        for j in range(length):
+            layers[start + j] = tree_map(lambda w, j=j: w[j],
+                                         stacked["segs"][seg_i])
+    out = {k: v for k, v in stacked.items() if k != "segs"}
+    out["layers"] = layers
     return out
 
 
@@ -178,7 +193,7 @@ def _seg_cache_shape(kind, leaf, length: int, cache_len: int):
 
 def forward_seq(cfg, stacked, plan: SPDPlanConfig, tokens, *, tp,
                 q_chunk=1024, cache_len: int = 0, want_cache=False,
-                drop_flags=None):
+                drop_flags=None, remat=False):
     """Sequence forward.  tokens (B,S).  Returns (hidden (tp,B,S,d) after
     the final norm, caches) — caches per segment: attention layers'
     {"k","v"} of shape (tp, layers, B, max(S, cache_len), HkvL, dh), zero
@@ -190,7 +205,11 @@ def forward_seq(cfg, stacked, plan: SPDPlanConfig, tokens, *, tp,
     suffix plan).  The reference's dual mode computes both wirings and
     selects one; here only the selected wiring runs, with the same
     values.  The ledger still scales a segment's first layer over it,
-    whatever the flags: the sweep reads no ledger."""
+    whatever the flags: the sweep reads no ledger.
+
+    `remat=True` (training, no caches) recomputes each block in the
+    backward (`torch.utils.checkpoint`, the reference's jax.checkpoint of
+    the scan body); the values do not change."""
     lay = _gqa_layout(cfg, tp)
     x = embed_tokens(stacked["emb"], tokens)
     b, s = tokens.shape
@@ -206,6 +225,11 @@ def forward_seq(cfg, stacked, plan: SPDPlanConfig, tokens, *, tp,
                 drop = (dropped if drop_flags is None
                         else bool(drop_flags[start + j]))
                 with ledger_paused(j > 0):
+                    if remat and not want_cache:
+                        x = _remat_block(cfg, kind, lay, _layer(sp, j), x,
+                                         pos, drop, q_chunk,
+                                         plan.block_mode(start))
+                        continue
                     x, c = B.block_seq(cfg, kind, lay, _layer(sp, j), x, pos,
                                        drop=drop, want_cache=want_cache,
                                        q_chunk=q_chunk,
@@ -222,19 +246,38 @@ def forward_seq(cfg, stacked, plan: SPDPlanConfig, tokens, *, tp,
     return _final_norm(stacked, cfg, x), (caches if want_cache else None)
 
 
+def _remat_block(cfg, kind, lay, layer_p, x, pos, drop, q_chunk, comm):
+    """One block whose activations the backward recomputes.  The
+    recomputation logs nothing: the ledger counts the forward."""
+    from torch.utils.checkpoint import checkpoint
+    calls = []
+
+    def run(xc, *leaves):
+        calls.append(1)
+        with ledger_paused(len(calls) > 1):
+            out, _ = B.block_seq(cfg, kind, lay,
+                                 tree_unflatten(layer_p, leaves), xc, pos,
+                                 drop=drop, q_chunk=q_chunk, comm=comm)
+        return out
+
+    return checkpoint(run, x, *tree_leaves(layer_p), use_reentrant=False)
+
+
 def vocab_parallel_ce(logits, labels, mask, cfg):
     """Per-token cross entropy with the vocab split over the shards.
 
     logits (tp,B,S,Vl) fp32 shard-local; labels (B,S) int; mask (B,S)
     float.  The padded vocab columns are masked, the row max is taken
     across shards (pmax), and the exp-sum and the label logit travel
-    through exact syncs.  Returns (sum_ce, sum_mask) as 0-d tensors."""
+    through exact syncs; the row max carries no gradient, as the
+    reference's stop_gradient.  Returns (sum_ce per shard (tp,), sum_mask
+    0-d): every shard holds the same value, each through its own graph."""
     tp, vl = logits.shape[0], logits.shape[-1]
     shard = torch.arange(tp, device=logits.device)
     gcol = shard[:, None] * vl + torch.arange(vl, device=logits.device)
     logits = torch.where((gcol < cfg.vocab_size)[:, None, None], logits,
                          torch.full_like(logits, -1e30))
-    m = pmax(logits.amax(-1))                                 # (tp,B,S)
+    m = pmax(logits.amax(-1).detach())                        # (tp,B,S)
     se = sync_output(torch.exp(logits - m[..., None]).sum(-1),
                      compressible=False)
     local = labels[None].long() - shard[:, None, None] * vl
@@ -243,20 +286,24 @@ def vocab_parallel_ce(logits, labels, mask, cfg):
     lbl = sync_output(torch.where(ok, lbl, torch.zeros_like(lbl)),
                       compressible=False)
     ce = torch.log(se) + m - lbl                              # (tp,B,S)
-    return (ce[0] * mask).sum(), mask.sum()
+    return torch.stack([(c * mask).sum() for c in ce]), mask.sum()
 
 
 def loss_fn(cfg, stacked, plan, batch, *, tp, q_chunk=1024,
-            drop_flags=None):
-    """Forward-only loss.  batch {"tokens", "labels", "mask"} (B,S)
-    tensors.  Returns (mean CE over the mask, {"sum_ce", "n_tok"}); the
-    dense families carry no auxiliary loss."""
+            drop_flags=None, remat=False):
+    """The LM loss.  batch {"tokens", "labels", "mask"} (B,S) tensors.
+    Returns (shard 0's mean CE over the mask, {"sum_ce", "n_tok",
+    "shard_loss" (tp,)}): a gradient is taken of shard_loss.sum(), the
+    reference's grad inside the shard map.  The dense families carry no
+    auxiliary loss."""
     x, _ = forward_seq(cfg, stacked, plan, batch["tokens"], tp=tp,
-                       q_chunk=q_chunk, drop_flags=drop_flags)
-    sum_ce, n_tok = vocab_parallel_ce(lm_logits(stacked, cfg, x),
-                                      batch["labels"],
-                                      batch["mask"].float(), cfg)
-    return sum_ce / n_tok.clamp_min(1.0), {"sum_ce": sum_ce, "n_tok": n_tok}
+                       q_chunk=q_chunk, drop_flags=drop_flags, remat=remat)
+    shard_ce, n_tok = vocab_parallel_ce(lm_logits(stacked, cfg, x),
+                                        batch["labels"],
+                                        batch["mask"].float(), cfg)
+    shard_loss = shard_ce / n_tok.clamp_min(1.0)
+    return shard_loss[0], {"sum_ce": shard_ce[0], "n_tok": n_tok,
+                           "shard_loss": shard_loss}
 
 
 def prefill(cfg, stacked, plan, tokens, *, tp, q_chunk=1024,

@@ -1,11 +1,18 @@
 """Simulated tensor parallelism on one device (port of
-repro/core/simtp.py: parameter splitting and the forward-only engine
-functions the sensitivity sweep and the quality evals run on).
+repro/core/simtp.py: parameter splitting, the engine functions the
+sensitivity sweep, the quality evals and Algorithm 1's recovery run
+on, and the gradient function).
 
 The reference vmaps each function over the shard axis and jits it; the
 port's functions are already written over shard-stacked tensors (dim 0
-the TP shard) and run eagerly under `torch.inference_mode()`.  The
-gradient functions (`make_grad_fn`) come with the training slice.
+the TP shard) and run eagerly: the evals under `torch.inference_mode()`,
+the block-input capture and the block function under `torch.no_grad()`
+(their outputs feed a backward, which an inference tensor may not).
+
+Gradients: `make_grad_fn` differentiates the SUM over the shard axis of
+each shard's own loss through the collectives' f/g rules
+(parallel/collectives.py), the reference's grad-inside-vmap.  Every
+copy of a replicated leaf receives the full shard-summed gradient.
 """
 from __future__ import annotations
 
@@ -13,10 +20,11 @@ import numpy as np
 import torch
 
 from repro_torch.config.base import ModelConfig, SPDPlanConfig
+from repro_torch.core import blocks as B
 from repro_torch.core import model as M
 from repro_torch.core.layer_kinds import plan_segments
-from repro_torch.parallel.layout import REPLICATED, split_leaf
-from repro_torch.tree import tree_map
+from repro_torch.parallel.layout import REPLICATED, merge_leaf, split_leaf
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
 def _split_with_offset(tree, specs, tp, offset):
@@ -51,12 +59,60 @@ def prepare_params(canonical: dict, cfg: ModelConfig, plan: SPDPlanConfig,
     return split_padded(M.pad_model(canonical, cfg, tp), cfg, plan, tp)
 
 
+def merge_stacked(split: dict, cfg: ModelConfig, plan: SPDPlanConfig,
+                  tp: int) -> dict:
+    """Inverse of split_padded up to the per-layer list: per-segment
+    stacked trees (layer axis 0); replicated leaves take shard 0."""
+    specs = M.stacked_specs(cfg, plan)
+    out = {k: tree_map(lambda w, a: merge_leaf(w, a, tp), v, specs[k])
+           for k, v in split.items() if k != "segs"}
+    out["segs"] = [tree_map(lambda w, a: merge_leaf(
+        w, a if a == REPLICATED else a + 1, tp), sv, ss)
+        for sv, ss in zip(split["segs"], specs["segs"])]
+    return out
+
+
+def split_layer(layer_params: dict, cfg, kind, tp: int) -> dict:
+    """Canonical layer params -> padded, every leaf (tp, ...)."""
+    return _split_with_offset(B.pad_layer(layer_params, cfg, kind, tp),
+                              B.layer_specs(cfg, kind), tp, offset=0)
+
+
+def merge_layer(split: dict, cfg, kind, tp: int) -> dict:
+    """Inverse of split_layer up to head padding (padded canonical)."""
+    return tree_map(lambda w, a: merge_leaf(w, a, tp), split,
+                    B.layer_specs(cfg, kind))
+
+
 # ---------------------------------------------------------------------------
 # Engine functions (forward only)
 # ---------------------------------------------------------------------------
 
 def _device(split_params):
     return split_params["emb"].device
+
+
+def _batch(batch, dev):
+    return {k: torch.as_tensor(np.asarray(v)).to(dev)
+            for k, v in batch.items() if not k.startswith("_")}
+
+
+def _positions(b: int, s: int, dev):
+    return torch.arange(s, device=dev).expand(b, s)
+
+
+def grad_leaves(tree):
+    """Fresh leaves that require grad, sharing the tree's storage: the
+    tree rebuilt on them, and the list autograd differentiates."""
+    leaves = [w.detach().requires_grad_() for w in tree_leaves(tree)]
+    return tree_unflatten(tree, leaves), leaves
+
+
+def grads_of(total, tree, leaves):
+    """d total / d leaves, as a tree like `tree` (zeros where unused)."""
+    gs = torch.autograd.grad(total, leaves, allow_unused=True)
+    return tree_unflatten(tree, [torch.zeros_like(w) if g is None else g
+                          for g, w in zip(gs, leaves)])
 
 
 def make_loss_fn(cfg, plan, tp, *, q_chunk=1024, dual=False):
@@ -70,13 +126,29 @@ def make_loss_fn(cfg, plan, tp, *, q_chunk=1024, dual=False):
     def fn(split_params, batch, drop_flags=None):
         if (drop_flags is not None) != dual:
             raise TypeError("drop_flags are given exactly when dual=True")
-        dev = _device(split_params)
-        b = {k: torch.as_tensor(np.asarray(v)).to(dev)
-             for k, v in batch.items() if not k.startswith("_")}
+        b = _batch(batch, _device(split_params))
         flags = (None if drop_flags is None
                  else [bool(f > 0.5) for f in np.asarray(drop_flags)])
         return M.loss_fn(cfg, split_params, plan, b, tp=tp, q_chunk=q_chunk,
                          drop_flags=flags)
+
+    return fn
+
+
+def make_grad_fn(cfg, plan, tp, *, q_chunk=1024, remat=False):
+    """fn(split_params, batch) -> (loss, grads): shard 0's loss (a 0-d
+    tensor) and the gradient tree of the shard-summed loss, shaped like
+    `split_params`.  `remat=True` recomputes each block in the backward;
+    the values do not change."""
+
+    def fn(split_params, batch):
+        p, leaves = grad_leaves(split_params)
+        b = _batch(batch, _device(split_params))
+        with torch.enable_grad():
+            loss, met = M.loss_fn(cfg, p, plan, b, tp=tp, q_chunk=q_chunk,
+                                  remat=remat)
+            grads = grads_of(met["shard_loss"].sum(), split_params, leaves)
+        return loss.detach(), grads
 
     return fn
 
@@ -95,6 +167,58 @@ def make_logits_fn(cfg, plan, tp, *, q_chunk=1024):
         tp_, b, s, vl = lg.shape
         full = lg.permute(1, 2, 0, 3).reshape(b, s, tp_ * vl)
         return full[..., : cfg.vocab_size]
+
+    return fn
+
+
+def make_collect_fn(cfg, plan, tp, *, q_chunk=1024):
+    """fn(split_params, tokens) -> every block's INPUT (L+1, B, S, d):
+    entry L is the last block's output (before the final norm).  The
+    stream is replicated, so shard 0's copy is returned.
+
+    Unlike the reference's, the stream includes OPT's learned positions
+    (added after the embedding, as every forward adds them): the
+    reference's collect function leaves them out."""
+    segs = plan_segments(cfg, plan.drop_mask, plan.qmodes)
+    lay = M._gqa_layout(cfg, tp)
+
+    @torch.no_grad()
+    def fn(split_params, tokens):
+        tokens = torch.as_tensor(np.asarray(tokens)).to(
+            _device(split_params))
+        b, s = tokens.shape
+        pos = _positions(b, s, tokens.device)
+        x = M._add_positions(split_params, cfg,
+                             M.embed_tokens(split_params["emb"], tokens),
+                             pos)
+        outs = [x[0]]
+        for seg_i, (start, length, kind, dropped) in enumerate(segs):
+            sp = split_params["segs"][seg_i]
+            for j in range(length):
+                x, _ = B.block_seq(cfg, kind, lay, M._layer(sp, j), x, pos,
+                                   drop=dropped, q_chunk=q_chunk,
+                                   comm=plan.block_mode(start))
+                outs.append(x[0])
+        return torch.stack(outs)
+
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# Single-block apply (distillation, grouping checks)
+# ---------------------------------------------------------------------------
+
+def make_block_fn(cfg, kind, tp, *, drop: bool, q_chunk=1024):
+    """fn(split_layer_params, x (B,S,d), pos (B,S)) -> block output
+    (B,S,d), shard 0's copy."""
+    lay = M._gqa_layout(cfg, tp)
+
+    @torch.no_grad()
+    def fn(split_p, x, pos):
+        xs = x[None].expand((tp,) + tuple(x.shape))
+        out, _ = B.block_seq(cfg, kind, lay, split_p, xs, pos, drop=drop,
+                             q_chunk=q_chunk)
+        return out[0]
 
     return fn
 

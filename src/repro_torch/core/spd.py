@@ -1,8 +1,8 @@
 """Algorithm 1: sensitivity-ranked, multi-tier SPD application (port of
-repro/core/spd.py, its zero-shot half).
+repro/core/spd.py).
 
 Given canonical params, a calibration set, a TP degree and a budget
-N_spd, the reference:
+N_spd, `apply_spd`:
 
   1. measures block-wise sync sensitivity (core/sensitivity.py),
   2. ranks blocks ascending, takes the first N_spd,
@@ -10,25 +10,28 @@ N_spd, the reference:
   4. ISB  -> zero-shot drop,
      SB   -> SPD-aware block-to-block distillation (core/distill.py),
      ESB  -> head-grouping init (core/grouping.py) + distillation,
-  5. returns deployment-ready PADDED per-layer params + the plan.
+  5. returns deployment-ready PADDED per-layer params (distilled SPD
+     weights are TP-degree-specific, hence padded space) + the plan.
 
-Steps 1-3, the zero-shot drop and the sensitivity-tiered comm policy
-(drop / quant8 / exact per block) run here, forward only.  Distillation
-and head grouping need gradients and come with the training slice
-(ROADMAP A2): `apply_spd` raises NotImplementedError exactly where the
-reference would start them.
+The sensitivity-tiered comm policy (drop / quant8 / exact per block)
+reuses steps 1-3 zero-shot.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Dict, List
 
 import numpy as np
+import torch
 
 from repro_torch.config.base import CommPolicy, ModelConfig, SPDPlanConfig
+from repro_torch.core import distill as D
+from repro_torch.core import grouping as G
 from repro_torch.core import model as M
 from repro_torch.core import sensitivity as S
 from repro_torch.core import simtp
+from repro_torch.core.layer_kinds import layer_kinds
 
 
 @dataclass
@@ -39,31 +42,50 @@ class SPDReport:
     categories: List[str]              # per chosen block (ranking order)
     chosen: List[int]
     distill_losses: Dict[int, List[float]] = field(default_factory=dict)
-    grouping: Dict[int, object] = field(default_factory=dict)
+    grouping: Dict[int, "G.GroupingResult"] = field(default_factory=dict)
+    # wall seconds of each part of apply_spd that ran: "sweep",
+    # "capture", "grouping", "distill" (the device drained at each end)
+    seconds: Dict[str, float] = field(default_factory=dict)
+
+
+def capture_block_inputs(cfg, padded, tp, calib_batches, *, q_chunk=1024,
+                         split0=None):
+    """Hidden states at every block's input, all-TP mode, per calib
+    batch: a list over batches of (L+1,B,S,d) tensors on the params'
+    device.  `split0` is the no-SPD placement of `padded` when the
+    caller holds one (the sweep's); else it is placed here and freed."""
+    plan = SPDPlanConfig.none(cfg.n_layers)
+    if split0 is None:
+        split0 = simtp.split_padded(padded, cfg, plan, tp)
+    collect = simtp.make_collect_fn(cfg, plan, tp, q_chunk=q_chunk)
+    return [collect(split0, b["tokens"]) for b in calib_batches]
 
 
 def sweep_sensitivity(cfg: ModelConfig, canonical: dict, calib_batches,
-                      tp: int, *, q_chunk: int = 1024):
+                      tp: int, *, q_chunk: int = 1024, keep_split=False):
     """Place the canonical params once under the no-SPD plan and run
     Algorithm 1's block sweep.  Returns (SensitivityResult, padded
-    params); the placement is freed on return."""
+    params), and the placement too when `keep_split`; else it is freed
+    on return."""
     plan0 = SPDPlanConfig.none(cfg.n_layers)
     padded = M.pad_model(canonical, cfg, tp)
     split0 = simtp.split_padded(padded, cfg, plan0, tp)
     res = S.measure_sensitivity(cfg, split0, calib_batches, tp,
                                 q_chunk=q_chunk)
-    return res, padded
+    return (res, padded, split0) if keep_split else (res, padded)
+
+
+def _clock(device) -> float:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter()
 
 
 def apply_spd(cfg: ModelConfig, canonical: dict, calib_batches, tp: int, *,
               n_spd: int, tau1: float, tau2: float, lr: float = 5e-5,
               epochs: int = 10, strategies=("ZS", "B2B", "HG"),
               q_chunk: int = 1024):
-    """Returns (padded_params, plan, report) wherever the reference
-    returns without training: every chosen block is ISB, or "B2B" is not
-    among `strategies`.  Elsewhere it raises NotImplementedError (B2B
-    distillation and head grouping come with the training slice).  `lr`
-    and `epochs` are the distillation's, kept for the signature."""
+    """Returns (padded_params_final, plan, report)."""
     if not cfg.spd_applicable:
         padded = M.pad_model(canonical, cfg, tp)
         plan = SPDPlanConfig.none(cfg.n_layers)
@@ -71,21 +93,59 @@ def apply_spd(cfg: ModelConfig, canonical: dict, calib_batches, tp: int, *,
                         np.arange(cfg.n_layers), [], [])
         return padded, plan, rep
 
-    res, padded = sweep_sensitivity(cfg, canonical, calib_batches, tp,
-                                    q_chunk=q_chunk)
+    # ---- 1-2: sensitivity + ranking ----
+    dev = canonical["emb"].device
+    t0 = _clock(dev)
+    res, padded, split0 = sweep_sensitivity(cfg, canonical, calib_batches,
+                                            tp, q_chunk=q_chunk,
+                                            keep_split=True)
     chosen = [int(i) for i in res.ranking[:n_spd]]
     cats = S.classify(res.sensitivity[chosen], tau1, tau2)
     plan = SPDPlanConfig.from_ranking(res.ranking, n_spd, cfg.n_layers)
     report = SPDReport(res.sensitivity, res.ppl_suffix, res.ranking,
                        cats, chosen)
+    t1 = _clock(dev)
+    report.seconds["sweep"] = t1 - t0
+
     need_recovery = [i for i, c in zip(chosen, cats) if c != S.ISB]
     if not need_recovery or "B2B" not in strategies:
         return padded, plan, report
-    raise NotImplementedError(
-        f"blocks {need_recovery} are SB/ESB and strategies {strategies} "
-        "ask for block-to-block distillation (and head grouping for ESB): "
-        "training is not ported yet (ROADMAP A2, the training slice); "
-        "pass strategies=('ZS',) for the zero-shot plan")
+
+    # ---- hidden states at block inputs (TP mode, App C.1) ----
+    hiddens = capture_block_inputs(cfg, padded, tp, calib_batches,
+                                   q_chunk=q_chunk, split0=split0)
+    del split0
+    t2 = _clock(dev)
+    report.seconds["capture"] = t2 - t1
+    report.seconds["grouping"] = report.seconds["distill"] = 0.0
+
+    kinds = layer_kinds(cfg)
+    new_layers = list(padded["layers"])
+    for bi, cat in zip(chosen, cats):
+        if cat == S.ISB:
+            continue
+        kind = kinds[bi]
+        layer_canonical = canonical["layers"][bi]
+        if cat == S.ESB and "HG" in strategies:
+            t = _clock(dev)
+            gres = G.group_heads(cfg, kind, layer_canonical, hiddens[0][bi],
+                                 tp)
+            report.grouping[bi] = gres
+            layer_canonical = G.apply_grouping(layer_canonical, cfg, gres, tp)
+            report.seconds["grouping"] += _clock(dev) - t
+        t = _clock(dev)
+        # teacher = the (possibly permuted) TP weights
+        teacher_split = simtp.split_layer(layer_canonical, cfg, kind, tp)
+        student_split, losses = D.b2b_distill(
+            cfg, kind, tp, teacher_split, [h[bi] for h in hiddens], lr=lr,
+            epochs=epochs, q_chunk=q_chunk)
+        report.distill_losses[bi] = losses
+        new_layers[bi] = simtp.merge_layer(student_split, cfg, kind, tp)
+        report.seconds["distill"] += _clock(dev) - t
+
+    out = dict(padded)
+    out["layers"] = new_layers
+    return out, plan, report
 
 
 def prepare_deployment(cfg, padded, plan, tp):

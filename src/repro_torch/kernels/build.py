@@ -85,6 +85,19 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def refuse_grad(what: str, *tensors) -> None:
+    """A kernel launched through ctypes writes a tensor autograd cannot
+    see.  Raise where autograd records and an input requires grad,
+    rather than hand back a result with no gradient.  Every wrapper's
+    CUDA branch calls this; its CPU branch keeps the differentiable
+    plain version."""
+    import torch
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: the CUDA kernel has no backward; call it under "
+            "torch.no_grad() or on tensors that do not require grad")
+
+
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     """Raise if a kernel's C entry reported a CUDA error."""
     if rc != 0:

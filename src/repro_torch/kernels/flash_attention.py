@@ -100,14 +100,43 @@ def _lib():
 
 def flash_attention_bhsd(q, k, v, *, sm_scale=None):
     """Causal flash attention; q row b reads kv row b // group.  Output in
-    q's dtype."""
+    q's dtype.
+
+    Where autograd records and q, k or v requires grad, the launch goes
+    through `_FlashAttention`: the forward is still the kernel (and
+    counts), the backward the VJP of the plain version recomputed from
+    the saved inputs (the reference differentiates XLA's attention: it
+    has no backward kernel either)."""
     group = check_args(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, sm_scale=sm_scale)
     if q.device.type != "cuda":
         raise ValueError(f"no flash kernel for device {q.device}")
+    scale = float(sm_scale if sm_scale is not None else q.shape[2] ** -0.5)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, scale)
+    return _flash_launch(q, k, v, group, scale)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return _flash_launch(q, k, v, q.shape[0] // k.shape[0], scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            out = flash_attention_plain(*qkv, sm_scale=ctx.scale)
+            dq, dk, dv = torch.autograd.grad(out, qkv, do)
+        return dq, dk, dv, None
+
+
+def _flash_launch(q, k, v, group: int, scale: float):
     bh, s, d = q.shape
-    scale = float(sm_scale if sm_scale is not None else d ** -0.5)
     lib = _lib()
     if q.dtype == torch.bfloat16:
         check_aligned(q, k, v)
@@ -266,6 +295,7 @@ def paged_flash_attention(q, k_pool, v_pool, page_table, pos, *,
             for t in range(q.shape[0])])
     if q.device.type != "cuda":
         raise ValueError(f"no paged attention kernel for device {q.device}")
+    build.refuse_grad("paged_flash_attention", q, k_pool, v_pool)
     qf = q if q.dim() == 5 else q[None]
     kf = k_pool if k_pool.dim() == 5 else k_pool[None]
     vf = v_pool if v_pool.dim() == 5 else v_pool[None]

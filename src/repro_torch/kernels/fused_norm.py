@@ -67,6 +67,7 @@ def fused_residual_rmsnorm(x, r, w, *, eps: float = 1e-5):
         return fused_residual_rmsnorm_plain(x, r, w, eps=eps)
     if x.device.type != "cuda":
         raise ValueError(f"no fused-norm kernel for device {x.device}")
+    build.refuse_grad("fused_residual_rmsnorm", x, r, w)
     lib = _lib()
     y, s = torch.empty_like(x), torch.empty_like(x)
     with torch.cuda.device(x.device):

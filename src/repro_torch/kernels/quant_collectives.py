@@ -211,6 +211,7 @@ def qdq_absmax(x, *, levels: int, chunk: int = CHUNK):
     check_args(x, levels, chunk)
     if not _on_card(x, "qdq"):
         return qdq_absmax_plain(x, levels=levels, chunk=chunk)
+    build.refuse_grad("qdq", x)
     lib = _lib()
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
@@ -238,6 +239,7 @@ def quantized_psum_absmax(x, *, levels: int, chunk: int = CHUNK):
                          f"{x.shape[0]}")
     if not _on_card(x, "quantized-psum"):
         return quantized_psum_absmax_plain(x, levels=levels, chunk=chunk)
+    build.refuse_grad("quantized-psum", x)
     lib = _lib()
     tp, n = x.shape
     out = torch.empty_like(x)
@@ -261,6 +263,7 @@ def quantize_absmax(x, *, levels: int, chunk: int = CHUNK):
     check_args(x, levels, chunk)
     if not _on_card(x, "quantize"):
         return quantize_absmax_plain(x, levels=levels, chunk=chunk)
+    build.refuse_grad("quantize", x)
     lib = _lib()
     rows, n = x.shape
     q = torch.empty((rows, n), dtype=torch.int8, device=x.device)
@@ -284,6 +287,7 @@ def dequantize_absmax(q, s, *, chunk: int = CHUNK):
     _check_codes(q, s, chunk)
     if not _on_card(q, "dequantize"):
         return dequantize_absmax_plain(q, s, chunk=chunk)
+    build.refuse_grad("dequantize", q, s)
     lib = _lib()
     rows, n = q.shape
     out = torch.empty((rows, n), dtype=torch.float32, device=q.device)
@@ -310,6 +314,7 @@ def dequant_accum_absmax(q, s, acc, *, chunk: int = CHUNK):
                          f"match codes {tuple(q.shape)} on {q.device}")
     if not _on_card(q, "dequant-accumulate"):
         return dequant_accum_absmax_plain(q, s, acc, chunk=chunk)
+    build.refuse_grad("dequant-accumulate", q, s, acc)
     lib = _lib()
     out = torch.empty_like(acc)
     with torch.cuda.device(q.device):

@@ -133,6 +133,7 @@ def ssd_scan(x, dt, a, bm, cm, dd, *, chunk: int):
         return ssd_scan_plain(x, dt, a, bm, cm, dd, chunk=chunk)
     if x.device.type != "cuda":
         raise ValueError(f"no ssd_scan kernel for device {x.device}")
+    build.refuse_grad("ssd_scan", x, dt, a, bm, cm, dd)
     bt, s, h, p = x.shape
     g, n = bm.shape[2:]
     bf16 = x.dtype == torch.bfloat16

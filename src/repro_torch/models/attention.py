@@ -47,7 +47,7 @@ def attend(q, k, v, mask, scale: float | None = None):
     mask = mask.unsqueeze(-3)
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     m = torch.amax(s, dim=-1, keepdim=True)
-    p = torch.exp(s - torch.clamp(m, min=NEG_INF / 2))
+    p = torch.exp(s - torch.clamp(m, min=NEG_INF / 2).detach())
     p = torch.where(mask, p, torch.zeros_like(p))
     denom = torch.sum(p, dim=-1, keepdim=True)
     p = p / torch.clamp(denom, min=1e-20)

@@ -13,8 +13,18 @@ traces a segment's layers once inside `lax.scan` and multiplies the
 bytes by the segment length (`ledger_scale`); the port runs the layers
 in a Python loop, logs the first layer of each segment under the same
 scale and pauses the ledger for the rest (`ledger_paused`), so the two
-give identical entries.  Forward-only: `column_entry` / `shared_param`
-are identities here (their gradient rules come with training).
+give identical entries.
+
+Gradients follow the reference's custom VJPs (Megatron's f/g pair):
+`g_psum` (the sync) passes each shard its own cotangent, `f_ident` (a
+column-parallel entry) and `shard_sum_grad` (a replicated parameter in
+a shard-divergent region) sum the cotangent over the shards.  They are
+`torch.autograd.Function`s over dim 0, applied only when autograd
+records; the forward values are those of the plain ops either way.  A
+loss is the SUM over dim 0 of each shard's own loss: that is what the
+reference's grad-inside-vmap computes once the shard axis is a tensor
+dimension, and it leaves the full shard-summed gradient on every copy
+of a replicated leaf.  Backwards log nothing in the ledger.
 
 `collective_ledger(latency=, tp=)` prices every entry as it is logged
 (`LatencyModel`), and `overlap_region` is the overlap backend's ledger
@@ -245,6 +255,50 @@ def psum(x):
     return x.sum(dim=0, keepdim=True).expand_as(x)
 
 
+def _records(x) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _GPsum(torch.autograd.Function):
+    """Row-parallel output sync: forward psum, backward identity (the
+    replicated cotangent is what every shard's partial receives)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return psum(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct
+
+
+class _SumGrad(torch.autograd.Function):
+    """Identity forward, shard-summed cotangent backward: `f_ident` (a
+    column-parallel entry on a replicated activation accumulates the
+    per-shard cotangents) and `shard_sum_grad` (a replicated parameter in
+    a shard-divergent region: its gradient is the sum of the partials)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return psum(ct)
+
+
+def g_psum(x):
+    return _GPsum.apply(x) if _records(x) else psum(x)
+
+
+def f_ident(x):
+    return _SumGrad.apply(x) if _records(x) else x
+
+
+def shard_sum_grad(p):
+    return _SumGrad.apply(p) if _records(p) else p
+
+
 def pmax(x, axis=MODEL_AXIS):
     """Max all-reduce over the shard axis (the vocab-parallel CE's row
     max); logged as an all-reduce of the same payload."""
@@ -273,15 +327,16 @@ def sync_output(x, axis=MODEL_AXIS, compressible: bool = True, mode=None):
         return quantized_psum(x, axis, bits=_MODE_BITS[mode])
     log_collective("all-reduce", axis, shard_nbytes(x),
                    overlappable=compressible)
-    return psum(x)
+    return g_psum(x)
 
 
 def column_entry(x, axis=MODEL_AXIS):
-    """Column-parallel region entry: identity forward."""
-    return x
+    """Column-parallel region entry: identity forward, shard-summed
+    gradient."""
+    return f_ident(x)
 
 
 def shared_param(p, axis=MODEL_AXIS):
     """Replicated parameter used in a shard-divergent region: identity
-    forward."""
-    return p
+    forward, shard-summed gradient."""
+    return shard_sum_grad(p)

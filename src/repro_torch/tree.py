@@ -13,3 +13,15 @@ def tree_map(fn, tree, *rest):
                           for i, t in enumerate(tree))
     return fn(tree, *rest)
 
+
+def tree_leaves(tree) -> list:
+    """The leaves in tree_map's visiting order."""
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def tree_unflatten(like, leaves):
+    """A tree shaped like `like` holding `leaves` in tree_map's order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)

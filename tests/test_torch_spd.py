@@ -294,34 +294,6 @@ def test_apply_spd_zero_shot_matches_reference():
                                        ref_seg["mlp"]["wd"], rtol=0, atol=0)
 
 
-def test_apply_spd_raises_only_where_the_reference_would_train():
-    """A chosen block that is SB or ESB, with "B2B" among the strategies,
-    is where the reference starts distillation: the port raises there,
-    names the training slice, and leaves the facade serving its old
-    plan."""
-    rcfg, cfg, canon, calib, ref_res = _setup("llama2-7b")
-    taus = _taus(ref_res.sensitivity)
-    # the reference's own report says it would distil: its chosen blocks
-    # (the two cheapest) are not all ISB under these thresholds
-    _, _, rrep = RSPD.apply_spd(rcfg, jax.tree.map(jnp.asarray, canon),
-                                calib, TP, n_spd=2, tau1=taus[0],
-                                tau2=taus[1], strategies=("ZS",), q_chunk=64)
-    assert any(c != RSe.ISB for c in rrep.categories)
-    for strategies in (("ZS", "B2B", "HG"), ("ZS", "B2B")):
-        with pytest.raises(NotImplementedError, match="training"):
-            SPD.apply_spd(cfg, from_reference(canon, cfg), calib, TP,
-                          n_spd=2, tau1=taus[0], tau2=taus[1],
-                          strategies=strategies, q_chunk=64)
-    port = LLM.load(cfg, tp=TP, spd=0.25, device="cpu", cache_len=64,
-                    params=from_reference(canon, cfg))
-    before = port.plan
-    with pytest.raises(NotImplementedError):
-        port.apply_spd(calib, n_spd=2, tau1=taus[0], tau2=taus[1])
-    assert port.plan == before and port.params is not None
-    assert len(port.generate([[1, 2, 3]], SamplingParams(max_new=3))[0]
-               .token_ids) == 3
-
-
 def test_facade_apply_spd_matches_reference():
     """LLM.apply_spd (zero-shot) rewires the plan as the reference's
     facade does; the greedy tokens after it are equal."""
