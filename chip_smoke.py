@@ -134,7 +134,32 @@
    its tokens against one exact-length prefill (learned positions read
    at decode positions).  Each 7B model is freed before the next loads;
    each path prints its peak device memory.
-15. Prints the kernels JSON line (the rows above beside the earlier
+15. Self-speculative decoding and chunked prefill on the same llama2-7b
+   weights (after 13b; its placements freed, the canonical weights
+   kept): the fused kept sync and B3 under autograd (kernel forward,
+   identity backward); B2's chunk kernel against its plain version at
+   the verify's C 2, 5, 6, 9 (D 128, groups 1 and 8, bf16 and fp32,
+   chunks on a page boundary and one before it) and its chain-verify
+   call (C 5) timed; then LLM.load(tp=2, spd=0.25, quant8, bf16) serves
+   the four prompts plainly and through (a) SpecConfig(k=4, "all-drop")
+   dense, (b) the same paged on the 40-page pool (a preemption), (c)
+   the tiered draft from 13's sensitivities, (d) adaptive k 1..6 with
+   tree width 2, paged: launch counts as the code implies (B1 per
+   prefill of the target and the drafter; the fused sync per kept sync
+   per forward of each engine; B2 chunks per chain verify and warm
+   suffix prefill; no B2 decode), every page back, each committed
+   token the argmax of a teacher-forced plain forward or within 5% of
+   its row's largest logit; (e) calibrate_draft over the candidates
+   with the sensitivities, on 2 held-out prompts (8 tokens); (f)
+   chunked prefill (64) against whole: first-token logits within 5%,
+   served tokens under the teacher-forced bound.  In fp32 on
+   layers 6-9 at full width: (a), (b) and (d) give plain greedy's tokens
+   bit for bit, generate_stream equals generate, an abandoned stream
+   holds nothing, chunked prefill gives whole prefill's tokens and
+   logits within 1e-3.  Prints acceptance, tokens per round, decode ms
+   per token against plain, prefill ms chunked against whole, the
+   calibrated winner and its trials, and peak memory.
+16. Prints the kernels JSON line (the rows above beside the earlier
    ones), the card line, and last {"ok": true, "device": {...}}.
 
 Any failure raises (non-zero exit, no result line).  Without a CUDA
@@ -314,6 +339,16 @@ TF_FP32_LAYERS = (6, 10)
 # bf16 model-level checks on the mamba path: at most twice the spread of
 # the same comparison made without the kernel (see mamba_checks)
 MAMBA_BF16_FLOOR = 2.0
+# self-speculative decoding on llama2-7b: drafts a round; chunked
+# prefill's chunk; calibration's held-out prompts and their decode budget
+SPEC_K = 4
+SPEC_CHUNK = 64
+SPEC_CALIB_LENS = (40, 24)
+SPEC_CALIB_NEW = 8
+# B2's chunk kernel at the verify chunk's small C (k + 1 for k 1..8),
+# chunks starting on a page boundary and one position before it
+VERIFY_CS = (2, 5, 6, 9)
+VERIFY_POS = ((64, 16, 320, 128), (63, 15, 319, 127))
 
 
 def card_line() -> str:
@@ -1125,13 +1160,21 @@ def profile_phase(torch, llm, prompts, card, label="profile"):
     from repro_torch.api import SamplingParams
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        llm.generate(prompts, SamplingParams(max_new=4))
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    rows = [(us, n, key) for key, us, n in profile_rows(prof)]
+    tries = 3
+    for t in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            llm.generate(prompts, SamplingParams(max_new=4))
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        rows = [(us, n, key) for key, us, n in profile_rows(prof)]
+        # every generate launches some of the port's kernels: a window
+        # that shows none of them lost its kernel events
+        if any(name in key for name in PORT_KERNELS for _, _, key in rows):
+            break
+        print(f"{label}: profile {t + 1} of {tries} saw none of the port's "
+              f"kernels among {len(rows)} device rows: taken again")
     busy_us = sum(r[0] for r in rows)
     if busy_us <= 0:
         print(f"{label}: the profiler saw no device time")
@@ -1291,30 +1334,38 @@ def by_name(rows, names) -> dict:
     return acc
 
 
-def device_rows(torch, fn, iters=20, tries=3) -> list:
+def device_rows(torch, fn, iters=20, tries=5, names=()) -> list:
     """profile_rows of `iters` calls of fn.  A profile that saw no device
-    event at all (it happens between back-to-back profiles) is taken
-    again, up to `tries` times."""
+    event at all, or none of the kernels `names` where they are given, is
+    taken again, up to `tries` times: the profiler now and then loses a
+    window's kernel events (between back-to-back profiles, and after a
+    large one), while the kernels did run."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(tries):
+    rows = []
+    for t in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
         rows = profile_rows(prof)
-        if rows:
+        if rows and (not names or any(
+                k for _, k in by_name(rows, names).values())):
             return rows
-    return []
+        print(f"profile {t + 1} of {tries} saw "
+              + (f"none of {list(names)} among {len(rows)} device rows "
+                 f"({', '.join(k.split('(')[0][:40] for k, _, _ in rows[:4])})"
+                 if rows else "no device event") + ": taken again")
+    return rows
 
 
 def device_us(torch, fn, names, iters=20) -> dict:
     """Device microseconds per launch of the kernels `names` over `iters`
     calls of fn, from torch.profiler (None where it saw no launch)."""
-    acc = by_name(device_rows(torch, fn, iters), names)
+    acc = by_name(device_rows(torch, fn, iters, names=names), names)
     return {n: (us / k if k else None) for n, (us, k) in acc.items()}
 
 
@@ -2646,6 +2697,500 @@ def decode_vs_prefill(torch, llm, prompt, toks, fp32_layers=None,
                                  f"length prefill ({dtype}): {e} > {tol}")
 
 
+# ---------------------------------------------------------------------------
+# Speculative decoding and chunked prefill on llama2-7b (the eleventh slice)
+# ---------------------------------------------------------------------------
+
+def qpsum_grad_check(torch):
+    """The fused kept sync and B3 under autograd on the card: the forward
+    is the kernel (its launch counts, no refusal), bit for bit the plain
+    version, and the backward passes the cotangent through unchanged."""
+    from repro_torch.kernels import quant_collectives as QC
+    from repro_torch.parallel import compression as C
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn(2, 4096, generator=gen, device=dev).to(torch.bfloat16)
+    x.requires_grad_()
+    ct = torch.randn(2, 4096, generator=gen, device=dev).to(torch.bfloat16)
+    n0, q0 = QC.quantized_psum_absmax.launches, QC.qdq_absmax.launches
+    y = C.quantized_psum(x, "model", bits=8)
+    y.backward(ct)
+    torch.cuda.synchronize()
+    same = same_bits(torch, y.detach(), QC.quantized_psum_absmax_plain(
+        x.detach(), levels=127))
+    grad_ok = torch.equal(x.grad, ct)
+    x.grad = None
+    C.qdq(x, bits=8).backward(ct.float())
+    torch.cuda.synchronize()
+    ste_ok = torch.equal(x.grad, ct)
+    runs = (QC.quantized_psum_absmax.launches - n0,
+            QC.qdq_absmax.launches - q0)
+    print(f"kept sync under autograd (2,4096) bf16: kernel launches "
+          f"{runs[0]}, forward bit-identical to the plain version: {same}, "
+          f"backward identity: {grad_ok}; qdq (straight through) launches "
+          f"{runs[1]}, backward identity: {ste_ok}")
+    if not (same and grad_ok and ste_ok and runs == (1, 1)):
+        raise AssertionError("the kept sync under autograd did not run the "
+                             "kernel forward with an identity backward")
+
+
+def verify_kernel_phase(torch):
+    """B2's chunk kernel at the speculative verify's small C: C in
+    VERIFY_CS at D 128, groups 1 (llama2-7b) and 8, bf16 (the tensor-core
+    chunk kernel) and fp32 (the CUDA-core one), every row live, with the
+    chunks starting on a page boundary and one position before it; then
+    the chain verify's call (C = SPEC_K + 1 at the serving positions)
+    timed for the kernels line."""
+    from repro_torch.kernels import flash_attention as FA
+
+    for hq, hkv in PAPER_PAGED_HEADS:
+        for dtype in (torch.bfloat16, torch.float32):
+            worst = {}
+            for c in VERIFY_CS:
+                for at in VERIFY_POS:
+                    case = paged_case(torch, dtype, c, None, at, (), d=128,
+                                      hq=hq, hkv=hkv, layers=4)
+                    q, kv, vv, table, pos = case
+                    out = FA.paged_flash_attention(q, kv, vv, table, pos)
+                    ref = paged_plain(q, kv, vv, table, pos)
+                    torch.cuda.synchronize()
+                    err = (out.float() - ref.float()).abs().max().item()
+                    tol = (FLASH_FP32_ATOL if dtype == torch.float32 else
+                           2.0 ** -7 * max(ref.float().abs().max().item(),
+                                           1e-3))
+                    if not err <= tol:
+                        raise AssertionError(
+                            f"paged kernel disagrees at {dtype} C={c} D=128 "
+                            f"group {hq // hkv} pos={list(at)}: {err} > "
+                            f"{tol}")
+                    worst[c] = max(worst.get(c, 0.0), err / tol)
+            print(f"paged {str(dtype)[6:]} verify chunks D=128 group "
+                  f"{hq // hkv} at {[list(p) for p in VERIFY_POS]}: "
+                  + ", ".join(f"C={c} max err/tol {w:.3f}"
+                              for c, w in worst.items()))
+    c = SPEC_K + 1
+    case = paged_case(torch, torch.bfloat16, c, None, PAGED_POS, (), d=128,
+                      hq=16, hkv=16, layers=4)
+    q, kv, vv, table, pos = case
+    out = FA.paged_flash_attention(q, kv, vv, table, pos)
+    err = (out.float() - paged_plain(q, kv, vv, table, pos).float()
+           ).abs().max().item()
+    row = paged_row(torch, case + (err,), "llama2-7b's chain verify "
+                    f"(k={SPEC_K})")
+    row["shape"] = "chain verify, " + row["shape"]
+    return row
+
+
+def spec_counter(torch, engine, names):
+    """Wrap `names` of `engine` with synchronized host timers; each call
+    records (seconds, forwards): a draft call runs k forwards (the
+    catch-up and k-1 one-token steps), any other step one; a paged verify
+    also records whether it was a tree chunk."""
+    calls = {name: [] for name in names}
+    for name in names:
+        fn = getattr(engine, name)
+
+        def wrapped(*a, _fn=fn, _name=name, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*a, **kw)
+            torch.cuda.synchronize()
+            calls[_name].append((time.perf_counter() - t0,
+                                 int(kw.get("k", 1)),
+                                 kw.get("tree") is not None))
+            return out
+        setattr(engine, name, wrapped)
+    return calls
+
+
+def plan_kept_syncs(cfg, plan) -> int:
+    """kept_syncs for a plan: the quantized kept syncs of one forward."""
+    from types import SimpleNamespace
+    return kept_syncs(SimpleNamespace(cfg=cfg, plan=plan))
+
+
+SPEC_TARGET_STEPS = ("prefill", "verify", "verify_paged", "decode",
+                     "decode_paged")
+SPEC_DRAFT_STEPS = ("prefill", "draft", "draft_tree")
+
+
+def spec_counts(label, llm, sched, tcalls, dcalls, launches, paged):
+    """The launch counts the speculative path implies, against the
+    counted ones: B1 once a layer per prefill of the target and of the
+    drafter; the fused kept sync kept_syncs(plan) per forward of each
+    engine and B3 alone once per forward of an engine whose plan
+    quantizes the logits gather; on a paged path B2's chunk kernel once a
+    layer per chain verify or warm suffix prefill (a tree chunk takes the
+    plain attention), and no B2 decode."""
+    cfg, n = llm.cfg, llm.cfg.n_layers
+    t_fwd = sum(len(v) for v in tcalls.values())
+    d_fwd = sum(f for v in dcalls.values() for _, f, _ in v)
+    chain_verify = sum(1 for _, _, tree in tcalls["verify_paged"]
+                       if not tree)
+    dplan = llm.draft_plan
+    want = {
+        "flash_attention_bhsd": n * (len(tcalls["prefill"])
+                                     + len(dcalls["prefill"])),
+        "quantized_psum_absmax": (plan_kept_syncs(cfg, llm.plan) * t_fwd
+                                  + plan_kept_syncs(cfg, dplan) * d_fwd),
+        "qdq_absmax": (t_fwd * (llm.plan.logits_mode != "exact")
+                       + d_fwd * (dplan.logits_mode != "exact")),
+    }
+    # paged: every B2 call is a chunk (no plain decode step runs); dense:
+    # none
+    want["paged_flash_attention"] = n * chain_verify if paged else 0
+    want["paged_flash_attention_chunk"] = want["paged_flash_attention"]
+    got = {k: launches[k] for k in want}
+    print(f"{label}: target forwards {t_fwd} (prefill "
+          f"{len(tcalls['prefill'])}, verify "
+          f"{len(tcalls['verify']) + len(tcalls['verify_paged'])}, chain "
+          f"paged {chain_verify}), draft forwards {d_fwd} (prefill "
+          f"{len(dcalls['prefill'])}, {sched.spec.drafter.adoptions} "
+          f"adoptions); launches {got}, want {want}")
+    if got != want:
+        raise AssertionError(f"{label}: launches {got} != {want}")
+
+
+def spec_generate(torch, llm, prompts, label, card, overrides,
+                  max_new=MAX_NEW):
+    """Greedy speculative serving of `prompts` on a fresh scheduler
+    (`overrides` of the LLM's cache config) with every kernel's count
+    zeroed before and read after, the launch counts checked
+    (spec_counts), every request finished and (paged) every page back.
+    Returns (tokens, preemptions, launches, decode ms per token, wall
+    s); the scheduler and its drafter (the draft placement) are dropped
+    with it."""
+    from repro_torch.api import SamplingParams
+    from repro_torch.api.scheduler import Request
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import quant_collectives as QC
+
+    sched = llm.serve(**overrides)
+    paged = sched.kv.paged
+    tcalls = spec_counter(torch, llm.engine, SPEC_TARGET_STEPS)
+    dcalls = spec_counter(torch, sched.spec.drafter.engine,
+                          SPEC_DRAFT_STEPS)
+    round_s = []                 # the draft and verify calls of each round
+    for obj, name in ((sched.kv, "verify"), (sched.spec.drafter, "draft")):
+        def timed(*a, _fn=getattr(obj, name), **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = _fn(*a, **kw)
+            torch.cuda.synchronize()
+            round_s.append(time.perf_counter() - t0)
+            return res
+        setattr(obj, name, timed)
+    kernels = (FA.flash_attention_bhsd, FA.paged_flash_attention,
+               QC.qdq_absmax, QC.quantized_psum_absmax)
+    for k in kernels:
+        k.launches = 0
+    FA.paged_flash_attention.chunk_launches = 0
+    t0 = time.perf_counter()
+    base = -1000 * (1 + len(sched.completed))
+    for i, p in enumerate(prompts):
+        sched.submit(Request(uid=base - i, prompt=p, max_new=max_new,
+                             sampling=SamplingParams(max_new=max_new)))
+    done = sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for name in SPEC_TARGET_STEPS:
+        delattr(llm.engine, name)
+    for name in SPEC_DRAFT_STEPS:
+        delattr(sched.spec.drafter.engine, name)
+    del sched.kv.verify, sched.spec.drafter.draft
+    outs = [done[base - i] for i in range(len(prompts))]
+    launches = {k.__name__: k.launches for k in kernels}
+    launches["paged_flash_attention_chunk"] = (
+        FA.paged_flash_attention.chunk_launches)
+    spec_counts(label, llm, sched, tcalls, dcalls, launches, paged)
+    if any(len(r.out) != max_new or r.finish_reason != "length"
+           for r in outs):
+        raise AssertionError(f"{label}: a request did not finish cleanly")
+    if paged:
+        sched.pool.check()
+        if sched.pool.num_free != sched.pool.num_pages:
+            raise AssertionError(f"{label}: {sched.pool.num_free}/"
+                                 f"{sched.pool.num_pages} pages back")
+    rounds = sum(round_s)
+    decode_ms = 1e3 * rounds * len(prompts) / max(sched.spec_committed, 1)
+    print(f"{label} [{card}]: acceptance={sched.spec_acceptance:.4f} "
+          f"tokens_per_round={sched.spec_tokens_per_step:.4f} "
+          f"rounds={sched.spec_rounds} alt_commits="
+          f"{sched.spec_alt_commits} preemptions={sched.n_preemptions} "
+          f"decode_ms_per_token={decode_ms:.2f} (draft + verify seconds x "
+          f"{len(prompts)} rows / {sched.spec_committed} tokens committed "
+          f"by rounds) tokens_per_s="
+          f"{sum(len(r.out) for r in outs) / wall:.1f} wall={wall:.2f} s")
+    return [r.out for r in outs], sched.n_preemptions, launches, decode_ms, \
+        wall
+
+
+def plain_generate(torch, llm, prompts, card, label):
+    """Plain greedy serving (no speculation) on the same model: the
+    tokens and the decode ms per token, reckoned as the speculative
+    path's (step seconds x rows / tokens committed after admission)."""
+    from repro_torch.api import SamplingParams
+
+    times = timed_engine(torch, llm.engine)
+    t0 = time.perf_counter()
+    outs = llm.generate(prompts, SamplingParams(max_new=MAX_NEW))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for name in ("prefill", "decode"):
+        delattr(llm.engine, name)
+    toks = [o.token_ids for o in outs]
+    decode_ms = (1e3 * sum(times["decode"]) * len(prompts)
+                 / sum(len(t) - 1 for t in toks))
+    print(f"{label} [{card}]: plain decode_ms_per_token={decode_ms:.2f} "
+          f"({len(times['decode'])} batch-{len(prompts)} steps) "
+          f"prefill_ms={1e3 * sum(times['prefill']):.2f} tokens_per_s="
+          f"{sum(len(t) for t in toks) / wall:.1f} wall={wall:.2f} s")
+    return toks, decode_ms
+
+
+def teacher_forced_tokens(torch, llm, prompts, toks, label):
+    """Each committed token against the logits of one teacher-forced
+    plain forward over prompt + output (the extension forward from
+    position 0 on a blank cache, the plain attention): the argmax, or
+    within TF_BF16_REL of the row's largest |logit| below its max.
+    Returns how many are the argmax."""
+    import numpy as np
+    eng = llm.engine
+    n_arg = n_all = 0
+    worst = 0.0
+    for p, t in zip(prompts, toks):
+        full = np.concatenate([p, np.asarray(t[:-1])])[None]
+        lg, _ = eng.verify(llm.params, full, np.zeros(1, np.int64),
+                           eng.blank_caches(1, 512))
+        rows = lg[0, len(p) - 1:].float()
+        ids = torch.tensor(t, device=rows.device)
+        gap = rows.max(-1).values - rows.gather(1, ids[:, None])[:, 0]
+        rel = gap / rows.abs().max(-1).values
+        n_arg += int((gap == 0).sum())
+        n_all += len(t)
+        worst = max(worst, rel.max().item())
+    print(f"{label}: {n_arg}/{n_all} committed tokens are the argmax of a "
+          f"teacher-forced plain forward; worst gap {worst:.4f} of the "
+          f"row's largest |logit| (tol {TF_BF16_REL})")
+    if worst > TF_BF16_REL:
+        raise AssertionError(f"{label}: a committed token is {worst:.4f} "
+                             "below its row's argmax")
+    return n_arg
+
+
+def spec_exact_fp32(torch, llm, prompts, card):
+    """fp32 at full width on TF_FP32_LAYERS, exact syncs: the greedy
+    speculative tokens of (a) the dense chain, (b) the paged chain on a
+    pool the requests outgrow and (d) the adaptive tree, paged, equal
+    plain greedy decoding's bit for bit; chunked prefill gives whole
+    prefill's tokens, and its first-token logits agree within
+    TF_FP32_ATOL; generate_stream equals generate, and a stream
+    abandoned after 3 events leaves no request, slot or page held."""
+    import numpy as np
+    from repro_torch.api import LLM, SamplingParams
+    from repro_torch.api.scheduler import Request
+    from repro_torch.config.base import replace
+    from repro_torch.runtime.forward import bucketed_prefill
+    from repro_torch.spec import SpecConfig
+
+    cfg, params, plan = tf_model(llm, "float32", TF_FP32_LAYERS)
+    m = LLM.load(replace(cfg, attn_backend="pallas"), tp=2, plan=plan,
+                 cache_len=512, max_batch=4, params=params,
+                 page_size=PAGE_SIZE, num_pages=NUM_PAGES)
+    del params
+    sp = SamplingParams(max_new=MAX_NEW)
+    dense = dict(page_size=None, num_pages=None)
+    plain = [o.token_ids for o in m.generate(prompts, sp)]
+    res = {}
+    for key, spec, over in (
+            ("a", SpecConfig(k=SPEC_K), dense),
+            ("b", SpecConfig(k=SPEC_K), {}),
+            ("d", SpecConfig(k=SPEC_K, adaptive=True, k_min=1, k_max=6,
+                             tree_width=2), {})):
+        m.enable_spec(spec)
+        s = m.serve(**over)
+        for i, p in enumerate(prompts):
+            s.submit(Request(uid=i, prompt=p, max_new=MAX_NEW, sampling=sp))
+        done = s.run()
+        toks = [done[i].out for i in range(len(prompts))]
+        res[key] = (toks == plain, s.spec_acceptance, s.spec_tokens_per_step,
+                    s.n_preemptions)
+        if s.kv.paged and s.pool.num_free != NUM_PAGES:
+            raise AssertionError(f"fp32 spec ({key}): pages not returned")
+    # generate_stream on the paged chain, then an abandoned stream
+    m.enable_spec(SpecConfig(k=SPEC_K))
+    got = [[] for _ in prompts]
+    for ev in m.generate_stream(prompts, sp):
+        got[ev.index].append(ev.token_id)
+    stream = m.generate_stream(prompts, sp)
+    for _ in range(3):
+        next(stream)
+    stream.close()
+    sched = m.serve()
+    left = (len(sched.queue), sum(x is not None for x in sched.slots),
+            NUM_PAGES - sched.pool.num_free)
+    # chunked prefill against whole prefill
+    m.disable_spec()
+    chunked = m.serve(prefill_chunk=SPEC_CHUNK, **dense)
+    for i, p in enumerate(prompts):
+        chunked.submit(Request(uid=i, prompt=p, max_new=MAX_NEW,
+                               sampling=sp))
+    done = chunked.run()
+    ctoks = [done[i].out for i in range(len(prompts))]
+    p = prompts[3]
+    lw, _ = bucketed_prefill(m.engine, m.params, p, len(p), 512)
+    lc, _ = bucketed_prefill(m.engine, m.params, p, len(p), 512,
+                             chunk=SPEC_CHUNK)
+    err = (lw - lc).abs().max().item()
+    print(f"spec fp32 ({cfg.n_layers} layers) [{card}]: tokens equal plain "
+          "greedy's: " + ", ".join(
+              f"({k}) {v[0]} (acceptance {v[1]:.4f}, tokens/round "
+              f"{v[2]:.4f}, preemptions {v[3]})" for k, v in res.items())
+          + f"; generate_stream == generate: {got == plain}; abandoned "
+          f"stream leaves (queued, slots, pages) {left}; chunked prefill "
+          f"tokens == whole: {ctoks == plain}, first-token logits "
+          f"max_abs_err {err:.3e} (tol {TF_FP32_ATOL})")
+    if not (all(v[0] for v in res.values()) and got == plain
+            and left == (0, 0, 0) and ctoks == plain
+            and err <= TF_FP32_ATOL and res["b"][3] > 0):
+        raise AssertionError("fp32 speculative / chunked / stream checks "
+                             f"failed: {res}, left {left}, err {err}")
+
+
+def spec_phase(torch, np, llama, sweep_res, card):
+    """Self-speculative decoding and chunked prefill on llama2-7b at full
+    width (bf16, tp=2, spd=0.25, quant8 kept syncs and logits gather, B1
+    and B2, cache_len 512, max batch 4, the four prompts, 16 greedy
+    tokens), the canonical weights of the llama2-7b phases: (a) chain
+    k=SPEC_K all-drop, dense; (b) the same, paged, on a pool the requests
+    outgrow; (c) the tiered draft from the sweep's sensitivities; (d)
+    adaptive k in [1, 6] with tree width 2, paged; (e) calibrate_draft
+    over candidate_policies(sensitivity=...) on 2 held-out prompts; (f)
+    chunked prefill (SPEC_CHUNK) against whole.  Returns the kernels-line
+    row of B2's chain verify call."""
+    from repro_torch.api import LLM, SamplingParams
+    from repro_torch.api.scheduler import Request
+    from repro_torch.config.base import replace
+    from repro_torch.runtime.forward import bucketed_prefill
+    from repro_torch.spec import (SpecConfig, calibrate_draft,
+                                  candidate_policies)
+
+    qpsum_grad_check(torch)
+    row = verify_kernel_phase(torch)
+    cfg = replace(llama.cfg, attn_backend="pallas")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in PROMPT_LENS]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    llm = LLM.load(cfg, tp=2, spd=0.25, comm="quant8", comm_logits="quant8",
+                   dtype="bfloat16", cache_len=512, max_batch=4,
+                   params=llama.canonical)
+    torch.cuda.synchronize()
+    print(f"spec phase: llama2-7b placed in {time.perf_counter() - t0:.1f} s "
+          f"(plan drops {llm.plan.n_dropped}/{cfg.n_layers})")
+    llm.generate([prompts[0][:8]], SamplingParams(max_new=2))  # warm-up
+    plain, plain_ms = plain_generate(torch, llm, prompts, card,
+                                     "spec phase plain")
+    out = {}
+    llm.enable_spec(SpecConfig(k=SPEC_K, draft="all-drop"))
+    print(f"spec phase: all-drop draft placed; "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    llm.generate([prompts[0][:8]], SamplingParams(max_new=2))  # warm-up
+    paged = dict(page_size=PAGE_SIZE, num_pages=NUM_PAGES)
+    dense = dict(max_batch=4)          # a fresh scheduler for each run
+    out["a"] = spec_generate(torch, llm, prompts, "spec (a) all-drop dense",
+                             card, dense)
+    out["b"] = spec_generate(torch, llm, prompts, "spec (b) all-drop paged",
+                             card, paged)
+    if out["b"][1] < 1:
+        raise AssertionError("spec (b): the pool did not preempt")
+    llm.enable_spec(SpecConfig(k=SPEC_K, draft="tiered", n_spd=N_SPD,
+                               tau1=float(np.percentile(
+                                   sweep_res.sensitivity, 25)),
+                               tau2=float(np.percentile(
+                                   sweep_res.sensitivity, 75))),
+                    sensitivity=sweep_res.sensitivity,
+                    ranking=sweep_res.ranking)
+    print("spec (c) tiered draft plan:", " ".join(
+        f"{i}:{md}" for i, md in enumerate(llm.draft_plan.modes())))
+    out["c"] = spec_generate(torch, llm, prompts, "spec (c) tiered dense",
+                             card, dense)
+    llm.enable_spec(SpecConfig(k=SPEC_K, adaptive=True, k_min=1, k_max=6,
+                               tree_width=2))
+    out["d"] = spec_generate(torch, llm, prompts,
+                             "spec (d) adaptive tree paged", card, paged)
+    for key, (toks, _, _, _, _) in out.items():
+        same = sum(a == b for t, q in zip(toks, plain) for a, b in zip(t, q))
+        print(f"spec ({key}): {same}/{sum(map(len, plain))} tokens equal "
+              "plain greedy's (bf16 + quant8: verify chunks and one-token "
+              "steps round differently)")
+        teacher_forced_tokens(torch, llm, prompts, toks,
+                              f"spec ({key}) teacher-forced")
+    # (e) the calibrated draft: each candidate placed, measured, freed
+    held = [np.random.default_rng(5).integers(0, cfg.vocab_size, n)
+            for n in SPEC_CALIB_LENS]
+    llm.disable_spec()
+    release(torch)                    # the draft placements are freed
+    t0 = time.perf_counter()
+    cal = calibrate_draft(llm, held, k=SPEC_K, max_new=SPEC_CALIB_NEW,
+                          sensitivity=sweep_res.sensitivity, force=True,
+                          candidates=candidate_policies(
+                              cfg, sensitivity=sweep_res.sensitivity))
+    torch.cuda.synchronize()
+    print(f"spec (e) calibrate_draft [{card}]: winner {cal.name} "
+          f"acceptance={cal.acceptance:.4f} tokens_per_round="
+          f"{cal.tokens_per_step:.4f} in {time.perf_counter() - t0:.1f} s; "
+          "trials " + json.dumps([(nm, round(a, 4), round(t, 4))
+                                  for nm, a, t in cal.trials])
+          + f"; peak_memory_gib="
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f}")
+    if not cal.trials or cal.name not in [t[0] for t in cal.trials]:
+        raise AssertionError(f"calibrate_draft gave no winner: {cal}")
+    # (f) chunked prefill against whole prefill, bf16 at full depth
+    eng = llm.engine
+    times = {}
+    logits = {}
+    for chunk in (None, SPEC_CHUNK, None, SPEC_CHUNK):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for p in prompts:
+            lg, _ = bucketed_prefill(eng, llm.params, p, len(p), 512,
+                                     chunk=chunk)
+            logits.setdefault(chunk, []).append(lg.float())
+        torch.cuda.synchronize()
+        times[chunk] = 1e3 * (time.perf_counter() - t0)
+    worst = max(((a - b).abs().max() / b.abs().max()).item()
+                for a, b in zip(logits[SPEC_CHUNK][:4], logits[None][:4]))
+    print(f"spec (f) [{card}]: prefill_ms chunked ({SPEC_CHUNK}) "
+          f"{times[SPEC_CHUNK]:.2f} vs whole {times[None]:.2f} (second of "
+          f"two turns each; 4 prompts {list(PROMPT_LENS)} one at a time); "
+          f"first-token logits max_abs_err / max|logit| {worst:.4f} (tol "
+          f"{TF_BF16_REL})")
+    if worst > TF_BF16_REL:
+        raise AssertionError(f"chunked prefill's logits are {worst} off")
+    sched = llm.serve(prefill_chunk=SPEC_CHUNK)
+    for i, p in enumerate(prompts):
+        sched.submit(Request(uid=i, prompt=p, max_new=MAX_NEW,
+                             sampling=SamplingParams(max_new=MAX_NEW)))
+    done = sched.run()
+    ctoks = [done[i].out for i in range(len(prompts))]
+    same = sum(a == b for t, q in zip(ctoks, plain) for a, b in zip(t, q))
+    print(f"spec (f): served with prefill_chunk={SPEC_CHUNK}, "
+          f"{same}/{sum(map(len, plain))} tokens equal whole prefill's")
+    teacher_forced_tokens(torch, llm, prompts, ctoks,
+                          "spec (f) chunked prefill teacher-forced")
+    del sched
+    print(f"spec phase [{card}]: decode_ms_per_token plain {plain_ms:.2f} "
+          + " ".join(f"({k}) {v[3]:.2f}" for k, v in out.items())
+          + f"; peak_memory_gib="
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} (target, "
+          "draft and candidate placements beside the canonical weights)")
+    spec_exact_fp32(torch, llm, prompts, card)
+    row["launches"] = out["b"][2]["paged_flash_attention_chunk"]
+    return row, {k: v[2] for k, v in out.items()}
+
+
 def release(torch):
     """Free the models before the next loads: the caller drops its names,
     this collects them and empties the allocator's cache."""
@@ -2744,6 +3289,10 @@ def main() -> int:
     sweep_res = sweep_phase(torch, np, llama, lprompts, card)
     recovery_launches = recovery_phase(torch, np, llama, lprompts, sweep_res,
                                        card)
+    llama._release_engine()           # the canonical weights stay
+    release(torch)
+    verify_row, spec_launches = spec_phase(torch, np, llama, sweep_res, card)
+    print(f"spec path launches: {json.dumps(spec_launches)}")
     del llama
     release(torch)
     paper_rows.append(recovery_row(torch, recovery_launches))
@@ -2785,7 +3334,9 @@ def main() -> int:
         path = k.pop("_path")
         if path != "apply_spd":       # that row carries its own count
             k["launches"] = by_path[path][k["name"]] if path else 0
-    kernels += paper_rows
+    # B2 at the chain verify's C = k + 1: its chunk launches on the paged
+    # speculative path (b)
+    kernels += paper_rows + [verify_row]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
           f"build")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

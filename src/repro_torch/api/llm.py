@@ -1,5 +1,6 @@
 """`LLM` — the public way to load and run a model (port of
-repro/api/llm.py: dense and paged serving).
+repro/api/llm.py: dense and paged serving, chunked prefill, speculative
+decoding and streaming).
 
     from repro_torch.api import LLM, SamplingParams
     llm = LLM.load("smollm-360m", tp=2, spd=0.25, comm="quant8")
@@ -12,22 +13,26 @@ repro/api/llm.py: dense and paged serving).
     calib = calibration_batches(32000, 4, 128, batch=2)
     llama.apply_comm_policy(calib, n_spd=8, tau1=t1, tau2=t2)  # tiers
     llama.apply_spd(calib, n_spd=8, tau1=t1, tau2=t2)   # Algorithm 1
+    spec = LLM.load("llama2-7b", tp=2, comm="quant8", prefill_chunk=64,
+                    spec=SpecConfig(k=4, draft="all-drop"))
+    for ev in spec.generate_stream(prompts):   # StreamEvent per token
+        ...
 
 Runs on the CUDA device by default; with no CUDA device it raises
 unless `device="cpu"` is asked for explicitly (there is no silent CPU
-path).  Arguments that belong to later slices of the port (chunked
-prefill, speculation, cluster replicas, other backends, observability)
-raise NotImplementedError when given.
+path).  Arguments that belong to later slices of the port (cluster
+replicas, other backends, observability) raise NotImplementedError when
+given.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Iterator, List, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.api.outputs import RequestOutput
+from repro_torch.api.outputs import RequestOutput, StreamEvent
 from repro_torch.api.sampling import SamplingParams
 from repro_torch.api.scheduler import CacheConfig, Request, Scheduler
 from repro_torch.config.base import (SYNC_LEVELS, CommPolicy, ModelConfig,
@@ -94,6 +99,12 @@ class LLM:
         self.tp, self.dp, self.q_chunk = tp, dp, q_chunk
         self.device = device
         self.engine = self.params = None
+        # self-speculative decoding: the draft is these same canonical
+        # weights placed under a cheaper plan
+        self.spec = None              # SpecConfig or None
+        self.draft_plan = None
+        self.draft_engine = self.draft_params = None
+        self.spec_calibration = None  # CalibrationResult ("calibrated")
         self._sched: Optional[Scheduler] = None
         self._next_uid = -1
 
@@ -127,23 +138,34 @@ class LLM:
                    seeded `init_model` when omitted.
         device     where the shards live: CUDA by default, "cpu" only on
                    request.
+        prefill_chunk
+                   prefill prompts in chunks of this many tokens (either
+                   cache layout); full-causal GQA models only, others
+                   prefill whole.
+        spec       a `repro_torch.spec.SpecConfig` turns on
+                   self-speculative decoding: the draft shares these
+                   weights under the preset's cheaper plan, the exact
+                   model verifies k drafts a step (greedy stays token-
+                   identical; sampling keeps its distribution).  The
+                   "tiered" and "calibrated" presets need calibration
+                   data: use `enable_spec`.
         """
-        for name, value in (("prefill_chunk", prefill_chunk), ("spec", spec),
-                            ("obs", obs)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"LLM.load({name}=...) is not ported yet")
+        if obs is not None:
+            raise NotImplementedError("LLM.load(obs=...) is not ported yet "
+                                      "(ROADMAP A6)")
         if dp_replicas != 1:
-            raise NotImplementedError("dp_replicas > 1 is not ported yet")
+            raise NotImplementedError("dp_replicas > 1 is not ported yet "
+                                      "(ROADMAP A6)")
         if engine not in ("sim", "overlap"):
             raise NotImplementedError(
                 f"engine={engine!r} is not ported yet (only 'sim' and "
-                "'overlap'; the multi-process backend is ROADMAP A11)")
+                "'overlap'; the multi-process backend is ROADMAP A5)")
         from repro_torch.configs import get_config
         from repro_torch.core import model as M
 
         cache = CacheConfig(cache_len=cache_len, max_batch=max_batch,
-                            page_size=page_size, num_pages=num_pages)
+                            page_size=page_size, num_pages=num_pages,
+                            prefill_chunk=prefill_chunk)
         dev = resolve_device(device)
         cfg = arch if isinstance(arch, ModelConfig) else get_config(arch)
         if dtype is not None:
@@ -164,29 +186,137 @@ class LLM:
         llm = cls(cfg, plan, engine, canonical, cache, tp=tp, dp=dp,
                   q_chunk=q_chunk, device=dev)
         llm._build_engine()
+        if spec is not None:
+            llm.enable_spec(spec)
         return llm
 
-    def _build_engine(self, padded=None):
-        """(Re)build the engine for `self.plan` and place `padded` params
-        (default: the canonical params, padded) into its layout."""
-        from repro_torch.core import model as M
+    def _make_engine(self, plan):
+        """A fresh engine for `plan` on this LLM's backend kind."""
         from repro_torch.parallel.backend import make_backend
         from repro_torch.runtime.engines import Engine
 
-        self._release_engine()
-        backend = make_backend(self.engine_kind, self.cfg, self.plan,
-                               tp=self.tp, dp=self.dp, device=self.device)
-        self.engine = Engine(self.cfg, self.plan, backend,
-                             q_chunk=self.q_chunk)
+        backend = make_backend(self.engine_kind, self.cfg, plan, tp=self.tp,
+                               dp=self.dp, device=self.device)
+        return Engine(self.cfg, plan, backend, q_chunk=self.q_chunk)
+
+    def _place(self, engine, padded=None):
+        """`padded` params (default: the canonical params, padded) in
+        `engine`'s layout; the draft engine places the same canonical
+        tensors under its own plan."""
+        from repro_torch.core import model as M
+
         if padded is None:
             padded = M.pad_model(self.canonical, self.cfg, self.tp)
-        self.params = backend.place_params(padded)
+        return engine.backend.place_params(padded)
+
+    def _build_engine(self, padded=None):
+        """(Re)build the engine for `self.plan` and place `padded` params
+        (default: the canonical params, padded) into its layout; with
+        speculation on, the draft's placement too."""
+        self._release_engine()
+        self.engine = self._make_engine(self.plan)
+        self.params = self._place(self.engine, padded)
+        if self.spec is not None:
+            self._build_spec()
 
     def _release_engine(self):
-        """Drop the placed params, the engine and the cached scheduler
-        (its caches belong to the old plan), so that a new placement or
-        a sensitivity sweep's does not sit beside them."""
+        """Drop the placed params (the draft's too), the engines and the
+        cached scheduler (its caches belong to the old plan), so that a
+        new placement or a sensitivity sweep's does not sit beside
+        them."""
         self.engine = self.params = self._sched = None
+        self.draft_engine = self.draft_params = None
+
+    # ---------------- speculative decoding ----------------
+
+    def enable_spec(self, spec, calib_batches=None, *, sensitivity=None,
+                    ranking=None, calib_prompts=None,
+                    calib_target: float = 0.45,
+                    force_calibration: bool = False):
+        """Turn on self-speculative decoding (or change its config).
+
+        "tiered" reuses Algorithm 1's ISB/SB/ESB tiers: pass
+        `calib_batches` to run the sweep here, or a measured
+        `sensitivity` / `ranking`.  "calibrated" searches draft policies
+        (spec.calibrate) for the cheapest whose measured acceptance on
+        held-out prompts (`calib_prompts`, or sliced from
+        `calib_batches`) clears `calib_target`; cached per (arch, engine,
+        tp) unless `force_calibration`; the result lands on
+        `self.spec_calibration`.  Drops the cached scheduler.  Returns
+        self."""
+        from repro_torch.spec import SpecConfig, SpecError, derive_draft_plan
+
+        if not isinstance(spec, SpecConfig):
+            raise TypeError(f"spec must be a repro_torch.spec.SpecConfig, "
+                            f"got {spec!r}")
+        needs_tiers = spec.draft in ("tiered", "calibrated")
+        if (needs_tiers and sensitivity is None
+                and calib_batches is not None):
+            from repro_torch.core.spd import sweep_sensitivity
+            res, _ = sweep_sensitivity(self.cfg, self.canonical,
+                                       calib_batches, self.tp,
+                                       q_chunk=self.q_chunk)
+            sensitivity, ranking = res.sensitivity, res.ranking
+        policy = None
+        if spec.draft == "calibrated":
+            from repro_torch.spec import calibrate_draft
+            prompts = calib_prompts
+            if prompts is None and calib_batches is not None:
+                prompts = self._calib_prompts(calib_batches)
+            if prompts is None or not len(prompts):
+                raise SpecError(
+                    'draft="calibrated" needs held-out prompts: pass '
+                    "calib_prompts=[token seqs] or calib_batches to "
+                    "enable_spec")
+            cal = calibrate_draft(self, prompts, k=spec.k,
+                                  target=calib_target,
+                                  sensitivity=sensitivity,
+                                  force=force_calibration)
+            self.spec_calibration = cal
+            policy = cal.policy
+        self.draft_plan = derive_draft_plan(self.cfg, spec,
+                                            sensitivity=sensitivity,
+                                            ranking=ranking, policy=policy)
+        self.spec = spec
+        self._build_spec()
+        return self
+
+    def _calib_prompts(self, calib_batches, *, n: int = 3) -> list:
+        """Held-out prompts for draft calibration: the first row of the
+        tokens of each of the first `n` `data.calibration_batches`,
+        trimmed so that prompt + the measured decode fit the cache."""
+        lim = max(4, min(16, self.cache.cache_len // 4))
+        return [np.asarray(b["tokens"], np.int64)[0, :lim]
+                for b in calib_batches[:n]]
+
+    def disable_spec(self):
+        """Back to plain decoding (drops the cached scheduler)."""
+        self.spec = None
+        self.draft_plan = self.draft_engine = self.draft_params = None
+        self._sched = None
+
+    def _build_spec(self):
+        """(Re)build the draft engine and place the canonical weights
+        under the draft plan.  The old draft placement and the cached
+        scheduler (whose drafter holds it) are dropped first, so that the
+        two placements never sit side by side."""
+        self.draft_engine = self.draft_params = self._sched = None
+        self.draft_engine = self._make_engine(self.draft_plan)
+        self.draft_params = self._place(self.draft_engine)
+
+    def _spec_state(self, cache: CacheConfig):
+        """A fresh SpecState for a scheduler (each owns its draft cache),
+        or None when speculation is off."""
+        if self.spec is None:
+            return None
+        from repro_torch.spec import Drafter, SpecState
+        drafter = Drafter(self.draft_engine, self.draft_params,
+                          cache.max_batch, cache.cache_len,
+                          prefill_chunk=cache.prefill_chunk)
+        return SpecState(k=self.spec.k, drafter=drafter,
+                         adaptive=self.spec.adaptive,
+                         k_min=self.spec.k_min, k_max=self.spec.k_max,
+                         tree_width=self.spec.tree_width)
 
     def serve(self, **overrides) -> Scheduler:
         """Without overrides, the (cached) scheduler `generate` drives;
@@ -195,19 +325,20 @@ class LLM:
         for name in ("dp_replicas", "router"):
             if name in overrides:
                 raise NotImplementedError(
-                    f"serve({name}=...): cluster serving is not ported yet")
+                    f"serve({name}=...): cluster serving is not ported yet "
+                    "(ROADMAP A6)")
         if overrides:
-            return Scheduler(self.engine, self.params,
-                             dataclasses.replace(self.cache, **overrides))
+            cc = dataclasses.replace(self.cache, **overrides)
+            return Scheduler(self.engine, self.params, cc,
+                             spec=self._spec_state(cc))
         if self._sched is None:
-            self._sched = Scheduler(self.engine, self.params, self.cache)
+            self._sched = Scheduler(self.engine, self.params, self.cache,
+                                    spec=self._spec_state(self.cache))
         return self._sched
 
-    def generate(self, prompts, sampling: Optional[SamplingParams] = None,
-                 max_steps: int = 100_000) -> List[RequestOutput]:
-        """Run `prompts` to completion; results in submission order.
-        `sampling` is one SamplingParams or one per prompt (default
-        greedy)."""
+    def _submit(self, prompts, sampling) -> List[Request]:
+        """Validate the whole batch (all or nothing), then enqueue it on
+        the cached scheduler."""
         prompts = _as_prompts(prompts)
         sps = _per_request(sampling, len(prompts))
         sched = self.serve()
@@ -216,9 +347,18 @@ class LLM:
             reqs.append(Request(uid=self._next_uid, prompt=p,
                                 max_new=sp.max_new, sampling=sp))
             self._next_uid -= 1
-        for req in reqs:              # all-or-nothing validation
+        for req in reqs:
             sched.validate(req)
         sched.queue.extend(reqs)
+        return reqs
+
+    def generate(self, prompts, sampling: Optional[SamplingParams] = None,
+                 max_steps: int = 100_000) -> List[RequestOutput]:
+        """Run `prompts` to completion; results in submission order.
+        `sampling` is one SamplingParams or one per prompt (default
+        greedy)."""
+        reqs = self._submit(prompts, sampling)
+        sched = self.serve()
         steps = 0
         try:
             while any(not r.done for r in reqs) and steps < max_steps:
@@ -237,6 +377,43 @@ class LLM:
                               finish_reason=r.finish_reason,
                               n_preempted=r.n_preempted)
                 for i, r in enumerate(reqs)]
+
+    def generate_stream(self, prompts,
+                        sampling: Optional[SamplingParams] = None,
+                        max_steps: int = 100_000) -> Iterator[StreamEvent]:
+        """Like `generate`, but yields each token as it is committed (the
+        admission token included; tokens recomputed after a preemption
+        are not emitted again).  Abandoning the generator withdraws its
+        requests from the scheduler."""
+        reqs = self._submit(prompts, sampling)
+        sched = self.serve()
+        emitted = [0] * len(reqs)
+
+        def drain():
+            for i, r in enumerate(reqs):
+                while emitted[i] < len(r.out):
+                    tok = r.out[emitted[i]]
+                    emitted[i] += 1
+                    last = r.done and emitted[i] == len(r.out)
+                    yield StreamEvent(
+                        index=i, token_id=int(tok), done=last,
+                        finish_reason=r.finish_reason if last else None)
+
+        steps = 0
+        try:
+            while any(not r.done for r in reqs) and steps < max_steps:
+                if not sched.step():
+                    break
+                steps += 1
+                yield from drain()
+            yield from drain()
+            if any(not r.done for r in reqs):
+                raise RuntimeError(
+                    f"stream did not converge in {steps} steps")
+        finally:
+            # on completion AND when the caller abandons the generator:
+            # unfinished requests must not keep the queue or slots
+            sched.cancel(reqs)
 
     # ---------------- the paper's SPD pipeline ----------------
 

@@ -5,7 +5,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import List, Optional
 
-__all__ = ["RequestOutput"]
+__all__ = ["RequestOutput", "StreamEvent"]
 
 
 @dataclass
@@ -24,3 +24,15 @@ class RequestOutput:
     @property
     def finished(self) -> bool:
         return self.finish_reason is not None
+
+
+@dataclass(frozen=True)
+class StreamEvent:
+    """One token from `LLM.generate_stream`: `index` is the request's
+    submission index; `done` marks its last token, which carries the
+    finish_reason."""
+
+    index: int
+    token_id: int
+    done: bool
+    finish_reason: Optional[str] = None

@@ -1,6 +1,6 @@
 """The continuous-batching scheduler behind the facade (port of
-repro/api/scheduler.py, dense and paged; chunked prefill, speculative
-decoding and observability come with later slices).
+repro/api/scheduler.py: dense and paged, chunked prefill and
+speculative decoding; observability comes with a later slice).
 
 One `Scheduler` over a `CacheConfig`: dense when page_size / num_pages
 are None, paged otherwise, through a pluggable KV-cache manager.
@@ -20,7 +20,17 @@ are None, paged otherwise, through a pluggable KV-cache manager.
 
 Active slots then decode together, one token per step.  A batch whose
 requests are all greedy takes the fused greedy decode; any sampled
-request switches the step to the sampled decode.
+request switches the step to the sampled decode.  `CacheConfig.
+prefill_chunk` prefills prompts in fixed-size chunks on either layout.
+
+Speculative decoding: built with a `repro_torch.spec.SpecState`, every
+decode step becomes a draft-k / verify-once round -- the Drafter
+proposes k tokens with the target's own weights under a cheap comm
+plan, one multi-token verify forward scores them, and acceptance
+(greedy or rejection-sampled, spec/verify.py) commits 1..k+1 tokens.
+The rejected suffix rolls back: dense caches rewind the position,
+paged slots return their suffix pages (`PagePool.shrink`).  Greedy
+streams equal plain decoding's token for token.
 
 Divergence from the reference: when no slot is active after admission
 (or after paged growth), `step` returns whether requests are still
@@ -41,6 +51,9 @@ import numpy as np
 from repro_torch.api.sampling import SamplingParams
 from repro_torch.runtime import sampling as RS
 from repro_torch.runtime.paging import PagePool, page_hashes
+from repro_torch.spec.verify import (accept_greedy_tree,
+                                     accept_speculative_tree, filtered_probs,
+                                     spec_rng, tree_layout)
 
 __all__ = ["CacheConfig", "Request", "Scheduler", "InvalidRequestError",
            "DenseKVCacheManager", "PagedKVCacheManager"]
@@ -58,8 +71,9 @@ class CacheConfig:
 
     Dense layout when `page_size` / `num_pages` are None; paged
     otherwise (both must be set together, and `cache_len` must be a
-    multiple of `page_size`).  `prefill_chunk` (chunked prefill) is
-    validated here but not ported yet (ROADMAP A8b).  `prefix_cache`
+    multiple of `page_size`).  `prefill_chunk` switches prompt prefill
+    from power-of-two buckets to fixed-size chunks on either layout.
+    `prefix_cache`
     (paged only): None = on when the arch has the fused paged forward,
     True forces it on, False off.
     """
@@ -105,6 +119,10 @@ class Request:
     n_preempted: int = 0
     sampling: Optional[SamplingParams] = None
     finish_reason: Optional[str] = None
+    # speculative decoding: tokens drafted for this request and how many
+    # the verify forward accepted
+    n_drafted: int = 0
+    n_draft_accepted: int = 0
 
 
 # ---------------------------------------------------------------------------
@@ -152,6 +170,27 @@ class DenseKVCacheManager:
         nxt, self.caches = self.engine.decode_sampled(
             params, cur, pos, self.caches, t, k, p, gens)
         return nxt
+
+    def ensure(self, slot: int, upto: int) -> bool:
+        return upto <= self.cc.cache_len
+
+    def verify(self, params, toks, pos, tree=None):
+        """Multi-token speculative verify -> full logits (B, C, V) on the
+        device (all-greedy rounds bring only the argmax ids to the
+        host).  Chunk slots past a row's buffer are dropped."""
+        lg, self.caches = self.engine.verify(params, toks, pos, self.caches,
+                                             tree=tree)
+        return lg
+
+    def copy_pos(self, src, dst):
+        """Per-row position copy src[b] -> dst[b]: a tree round moves a
+        committed alternative's K/V from its chunk slot to the stream."""
+        self.caches = self.engine.copy_pos(self.caches, src, dst)
+
+    def truncate(self, slot: int, n_tokens: int):
+        # dense rollback is free: the K/V past the committed position is
+        # causally masked and overwritten as the position passes it again
+        pass
 
 
 class PagedKVCacheManager:
@@ -308,6 +347,26 @@ class PagedKVCacheManager:
             params, cur, pos, self._table(), self.pcaches, t, k, p, gens)
         return nxt
 
+    def verify(self, params, toks, pos, tree=None):
+        self._cow(pos, int(toks.shape[1]))
+        lg, self.pcaches = self.engine.verify_paged(
+            params, toks, pos, self._table(), self.pcaches, tree=tree)
+        return lg
+
+    def copy_pos(self, src, dst):
+        """A tree alternative's K/V relocation through the page table; it
+        must run before `truncate` frees the pages of the chunk slots.
+        The destination page lies in the verify chunk's write region, so
+        this round's COW barrier already made it private."""
+        self.pcaches = self.engine.copy_pos_paged(
+            self.pcaches, self._table(), src, dst,
+            page_size=self.cc.page_size)
+
+    def truncate(self, slot: int, n_tokens: int):
+        # paged rollback: pages past the committed length drop their
+        # reference (the table keeps its valid-prefix / -1-suffix form)
+        self.pool.shrink(slot, n_tokens)
+
 
 # ---------------------------------------------------------------------------
 # The scheduler
@@ -316,10 +375,7 @@ class PagedKVCacheManager:
 class Scheduler:
     """Continuous batching over either cache layout (see module doc)."""
 
-    def __init__(self, engine, params, cache: CacheConfig):
-        if cache.prefill_chunk is not None:
-            raise NotImplementedError("chunked prefill (prefill_chunk) is "
-                                      "not ported yet (ROADMAP A8b)")
+    def __init__(self, engine, params, cache: CacheConfig, spec=None):
         self.engine = engine
         self.params = params
         self.cache = cache
@@ -327,6 +383,7 @@ class Scheduler:
                    else DenseKVCacheManager(engine, cache))
         self.max_batch = cache.max_batch
         self.cache_len = cache.cache_len
+        self.prefill_chunk = cache.prefill_chunk
         self.queue: deque = deque()
         self.slots: List[Optional[Request]] = [None] * cache.max_batch
         self.pos = np.zeros(cache.max_batch, np.int64)
@@ -335,6 +392,17 @@ class Scheduler:
         self._seq = 0
         self.completed: Dict[int, Request] = {}
         self.n_preemptions = 0
+        # speculative decoding (a spec.SpecState, or None)
+        self.spec = spec
+        self.spec_rounds = 0          # verify forwards
+        self.spec_row_rounds = 0      # active rows summed over rounds
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        self.spec_committed = 0       # tokens committed by rounds
+        self.spec_alt_commits = 0     # tree rounds committed via an alt
+        # per-slot adaptive budget and zero-acceptance streak
+        self._spec_kb = np.zeros(cache.max_batch, np.int64)
+        self._spec_rej = np.zeros(cache.max_batch, np.int64)
 
     @property
     def pcaches(self):
@@ -381,7 +449,7 @@ class Scheduler:
     def _prefill(self, toks: np.ndarray, s: int):
         from repro_torch.runtime.forward import bucketed_prefill
         return bucketed_prefill(self.engine, self.params, toks, s,
-                                self.cache_len)
+                                self.cache_len, self.prefill_chunk)
 
     def _first_token(self, req: Request, logits) -> int:
         """The admission token from the prefill logits (1, V)."""
@@ -428,6 +496,14 @@ class Scheduler:
             if not m:
                 self.kv.insert(caches1, b)
             self.kv.register_prefix(b, toks)
+            if self.spec is not None:
+                # a cold admission just prefilled this prompt: the
+                # drafter restacks that KV onto its own plan instead of
+                # prefilling again (a warm one has no dense caches1)
+                self._spec_kb[b] = self.spec.k
+                self._spec_rej[b] = 0
+                self.spec.drafter.insert(b, toks,
+                                         caches1=None if m else caches1)
             if self._stopping(req, first):
                 self._finish(b)
 
@@ -528,11 +604,217 @@ class Scheduler:
         return self.kv.decode_sampled(self.params, self.cur, self.pos, t, k,
                                       p, gens)
 
+    # ---------------- speculative decoding ----------------
+
+    @property
+    def spec_acceptance(self) -> float:
+        """Fraction of drafted tokens the exact model accepted."""
+        return self.spec_accepted / max(self.spec_drafted, 1)
+
+    @property
+    def spec_tokens_per_step(self) -> float:
+        """Committed tokens per request per verify round."""
+        return self.spec_committed / max(self.spec_row_rounds, 1)
+
+    def _spec_cap(self, b: int) -> int:
+        """Cache positions request b may ever need: the bound its
+        admission was validated against."""
+        req = self.slots[b]
+        return len(np.asarray(req.prompt)) + self._max_new(req)
+
+    def _spec_round_k(self, active: List[int]) -> Dict[int, int]:
+        """Each row's draft budget this round: spec.k, or the slot's
+        walked budget when adaptive."""
+        if self.spec.adaptive:
+            return {b: int(self._spec_kb[b]) for b in active}
+        return {b: self.spec.k for b in active}
+
+    def _spec_adapt(self, b: int, k_b: int, n_acc: int, used_alt: int):
+        """Walk slot b's budget from this round's outcome."""
+        if n_acc >= k_b:
+            self._spec_kb[b] = min(k_b + 1, self.spec.k_cap)
+            self._spec_rej[b] = 0
+        elif n_acc == 0 and not used_alt:
+            self._spec_rej[b] += 1
+            if self._spec_rej[b] >= 2:
+                self._spec_kb[b] = max(self.spec.k_min, k_b - 1)
+                self._spec_rej[b] = 0
+        else:
+            self._spec_rej[b] = 0
+
+    def _spec_inputs(self, active: List[int], k: int, chunk: int):
+        """The draft's catch-up context, starts, per-row acceptance RNGs,
+        tree-alternative eligibility and (any sampled row) the sampled
+        draft's arguments."""
+        dr = self.spec.drafter
+        n = self.max_batch
+        width = 1
+        for b in active:
+            width = max(width, int(self.pos[b]) - int(dr.pos[b]) + 1)
+        ctx = np.zeros((n, width), np.int64)
+        start = np.zeros(n, np.int64)
+        rngs, alt_ok = {}, {}
+        w = self.spec.tree_width
+        for b in active:
+            req = self.slots[b]
+            stream = self._resume_tokens(req)
+            p = int(self.pos[b])
+            start[b] = p - width + 1
+            ctx[b] = stream[start[b]: p + 1]
+            rngs[b] = spec_rng((req.sampling or _GREEDY).seed, len(req.out))
+            # an alternative is usable only when its chunk slot
+            # (pos+k+1..pos+C-1) really holds its K/V -- inside the dense
+            # slot or the grown pages -- and the row may still commit two
+            # tokens; otherwise the row takes chain acceptance (fewer
+            # commits never change the greedy stream)
+            cap = (self._spec_cap(b) - 1 if self.kv.paged
+                   else self.cache_len)
+            alt_ok[b] = (w > 1 and p + chunk <= cap
+                         and self._max_new(req) - len(req.out) >= 2)
+        if all((self.slots[b].sampling or _GREEDY).greedy for b in active):
+            return ctx, start, rngs, alt_ok, None
+        t = np.zeros(n, np.float32)
+        tk = np.zeros(n, np.int64)
+        tp_ = np.ones(n, np.float32)
+        seeds = np.zeros(n, np.int64)
+        counts = np.zeros(n, np.int64)
+        for b in active:
+            sp = self.slots[b].sampling or _GREEDY
+            t[b], tk[b], tp_[b] = sp.temperature, sp.top_k, sp.top_p
+            seeds[b] = sp.seed
+            counts[b] = len(self.slots[b].out)
+        gens = RS.draft_generators(seeds, counts, k, self.engine.device)
+        return ctx, start, rngs, alt_ok, (t, tk, tp_, gens)
+
+    def _spec_step(self, active: List[int]) -> bool:
+        """One draft / verify-once round for every active slot.
+
+        The round's k is the largest row budget, so the verify width is
+        k + tree_width; a row with a smaller budget k_b clamps acceptance
+        to its own first k_b drafts.  Its surplus verify positions can
+        never be committed: dense writes past the slot are dropped
+        (`models.attention.write_chunk`), paged ones land in the trash
+        page, and their logits are never read.  Rows whose remaining
+        budget is tighter than k_b clamp their commits the same way.
+
+        With tree_width w > 1 the chunk is [cur, d_1..d_k, a_1..a_{w-1}]:
+        the draft's first-position runners-up verify as depth-1 branches
+        in the same forward, and a row whose first draft is rejected
+        still commits two tokens when the target's correction is one of
+        them -- after moving that alternative's K/V from its chunk slot
+        to the stream position (copy_pos, BEFORE the rollback frees the
+        chunk's pages).
+
+        Paged slots must own pages through pos + chunk first (the same
+        preemption rule as decode growth), capped at the request's
+        validated capacity; after acceptance the rejected suffix rolls
+        back (position rewind on dense, `PagePool.shrink` on paged)."""
+        w = self.spec.tree_width
+        kb = self._spec_round_k(active)
+        k = max(kb.values())
+        chunk = k + w                 # verify width: cur + chain + alts
+        if self.kv.paged:
+            active = self._grow_active(
+                active, lambda b: min(int(self.pos[b]) + chunk,
+                                      self._spec_cap(b) - 1))
+            if not active:
+                return bool(self.queue)
+        dr = self.spec.drafter
+        n = self.max_batch
+        ctx, start, rngs, alt_ok, sampling = self._spec_inputs(active, k,
+                                                               chunk)
+        draft_toks, draft_logits, alts = dr.draft(
+            ctx, start, k, greedy=sampling is None, tree_width=w,
+            sampling=sampling)
+        ver = np.concatenate([self.cur, draft_toks], axis=1)   # (n, k+1)
+        tree = None
+        if w > 1:
+            ver = np.concatenate([ver, np.asarray(alts, np.int64)], axis=1)
+            tree = tree_layout(k, w)
+        lg = self.kv.verify(self.params, ver, self.pos, tree=tree)
+        if sampling is None:
+            # only the (n, C) argmax ids come to the host
+            argmax, logits = lg.argmax(dim=-1).cpu().numpy(), None
+        else:
+            argmax, logits = None, lg.float().cpu().numpy()
+        self.spec_rounds += 1
+        relocs, post = [], []
+        for b in active:
+            req = self.slots[b]
+            sp = req.sampling or _GREEDY
+            k_b = kb[b]
+            row_alts = alts[b] if alt_ok[b] else None
+            if logits is None:
+                committed, n_acc, used_alt = accept_greedy_tree(
+                    draft_toks[b][:k_b], row_alts, argmax[b][:k_b + 1],
+                    argmax[b][k + 1:])
+            else:
+                # each draft draw's exact distribution, rebuilt from the
+                # returned logits (filtered_probs mirrors sample_core)
+                dp = None if sp.greedy else np.stack([
+                    filtered_probs(draft_logits[b, i], sp.temperature,
+                                   sp.top_k, sp.top_p)
+                    for i in range(k_b)])
+                committed, n_acc, used_alt = accept_speculative_tree(
+                    draft_toks[b][:k_b], dp, logits[b][:k_b + 1],
+                    row_alts, logits[b][k + 1:],
+                    temperature=sp.temperature, top_k=sp.top_k,
+                    top_p=sp.top_p, rng=rngs[b])
+            old_pos = int(self.pos[b])
+            req.n_drafted += k_b
+            req.n_draft_accepted += n_acc
+            self.spec_drafted += k_b
+            self.spec_accepted += n_acc
+            self.spec_row_rounds += 1
+            if used_alt:
+                self.spec_alt_commits += 1
+            if self.spec.adaptive:
+                self._spec_adapt(b, k_b, n_acc, used_alt)
+            budget = self._max_new(req) - len(req.out)
+            done_b = False
+            for tok in committed[:budget]:
+                req.out.append(tok)
+                self.spec_committed += 1
+                self.pos[b] += 1
+                self.cur[b, 0] = tok
+                if self._stopping(req, tok):
+                    done_b = True
+                    break
+            # a finishing row's slot is released whole: nothing to move
+            if used_alt and not done_b:
+                relocs.append((b, old_pos + k + used_alt, old_pos + 1))
+            post.append((b, done_b, used_alt, old_pos))
+        if relocs:
+            src = np.zeros(n, np.int64)
+            dst = np.zeros(n, np.int64)
+            for b, s_, d_ in relocs:
+                src[b], dst[b] = s_, d_
+            self.kv.copy_pos(src, dst)
+        for b, done_b, used_alt, old_pos in post:
+            if done_b:
+                self._finish(b)
+                continue
+            self.kv.truncate(b, int(self.pos[b]))
+            if used_alt:
+                # the draft cache's old_pos+1 holds the chain draft's
+                # K/V, not the alternative's: next round's catch-up
+                # context rewrites it
+                dr.pos[b] = old_pos + 1
+            else:
+                # the draft wrote old_pos..old_pos+k-1 for [cur, d_1..
+                # d_{k-1}]; the accepted prefix keeps it valid up to the
+                # committed end or old_pos + k
+                dr.pos[b] = min(int(self.pos[b]), old_pos + k)
+        return True
+
     def step(self) -> bool:
-        """Admit, (paged) grow, then one decode step for all active
-        slots.  Returns False when there is nothing left to do."""
+        """Admit, (paged) grow, then one decode step (or, with
+        speculation, one draft / verify round) for all active slots.
+        Returns False when there is nothing left to do."""
         self._admit()
         active = self._active()
+        if self.spec is not None and active:
+            return self._spec_step(active)
         if self.kv.paged and active:
             # each slot writes position pos[b] this step: make sure its
             # page exists (preemption rules: _grow_active)

@@ -519,6 +519,58 @@ def block_dec(cfg, kind, lay, p, x, pos, cache, *, drop: bool, comm=None):
 
 
 # ---------------------------------------------------------------------------
+# Cache-extension mode (chunked prefill, speculative verify and the
+# drafter's steps): a chunk of C tokens runs seq-mode against an existing
+# dense decode cache, writing its K/V at absolute positions and attending
+# over the whole buffer with position masking.  Full-causal GQA layers
+# only (model.supports_chunked_prefill gates callers).  The attention is
+# the plain one in every backend, as in the reference (its `attention_any`
+# / `attend` here, `core/blocks.py:978-982`): these chunks have no TPU
+# kernel.
+# ---------------------------------------------------------------------------
+
+def gqa_mixer_ext(cfg, kind, a, h, pos, cache, lay, *, q_chunk=1024,
+                  spos=None, anc=None):
+    """Extension attention: h (tp,B,C,d); pos (B,C) absolute positions of
+    the chunk; cache {"k","v"} (tp,B,S,HkvL,dh) spans the slot's whole
+    buffer, written in place (slots past S dropped: `A.write_chunk`).
+
+    Tree mode: `spos` (B,C) gives the WRITE slots (pos+chunk index) while
+    `pos` keeps the tree positions (RoPE), and `anc` (C,C) switches the
+    chunk's visibility to the ancestor matrix (`A.tree_mask`)."""
+    _check_ported(cfg)
+    q, k, v = _qkv(cfg, a, h, lay)
+    q = apply_rope(q, pos, cfg.rope_theta, cfg.rope_fraction)
+    k = apply_rope(k, pos, cfg.rope_theta, cfg.rope_fraction)
+    tp, b, c = h.shape[:3]
+    wpos = pos if spos is None else spos
+    A.write_chunk(cache["k"], k, wpos)
+    A.write_chunk(cache["v"], v, wpos)
+    s_kv = cache["k"].shape[-3]
+    kv_pos = torch.arange(s_kv, device=h.device)[None].expand(b, s_kv)
+    if anc is None:
+        o = A.attention_any(q, cache["k"], cache["v"], pos, kv_pos,
+                            q_chunk=q_chunk)
+    else:
+        o = A.attend(q, cache["k"], cache["v"],
+                     A.tree_mask(wpos[:, 0], anc, kv_pos))
+    part = _mm(o.reshape(tp, b, c, -1), a["wo"])
+    return part, cache
+
+
+def block_ext(cfg, kind, lay, p, x, pos, cache, *, drop: bool, q_chunk=1024,
+              comm=None, spos=None, anc=None):
+    """Cache-extension block: x (tp,B,C,d), pos (B,C).  Returns (out,
+    cache)."""
+    h = column_entry(_norm(x, p["ln1"], cfg))
+    part, cache = gqa_mixer_ext(cfg, kind, p["attn"], h, pos, cache, lay,
+                                q_chunk=q_chunk, spos=spos, anc=anc)
+    out = _wire_post_mixer(cfg, kind, p, x, part, p["attn"].get("bo"),
+                           drop=drop, comm=comm)
+    return out, cache
+
+
+# ---------------------------------------------------------------------------
 # Paged-cache mode: the per-layer K/V caches are physical page POOLS
 # (tp, P+1, ps, HkvL, dh) shared across slots, indexed through a page
 # table; no contiguous per-slot view is built.  New tokens scatter straight
@@ -532,31 +584,38 @@ def gqa_mixer_page(cfg, kind, a, h, pos, cache, page_table, lay,
                    depths=None, anc=None):
     """Paged attention over a chunk: h (tp,B,C,d); pos (B,) absolute
     start position of each slot's chunk; cache {"k","v"} page pools,
-    written in place.  Tree mode (`depths` / `anc`) comes with
-    speculative verify, ROADMAP A10."""
-    if depths is not None or anc is not None:
-        raise NotImplementedError("tree verify (depths / anc) is not "
-                                  "ported yet (ROADMAP A10)")
+    written in place.
+
+    Tree mode: `depths` (C,) replaces the contiguous chunk offsets for
+    RoPE (token j sits at tree position pos+depths[j]) and `anc` (C,C)
+    switches the chunk's visibility to the ancestor matrix; the scatter
+    stays chunk-contiguous (slot pos+j).  A tree chunk takes the plain
+    `paged_attend` under every backend, as the reference's does
+    (`core/blocks.py:1025-1036`): there is no TPU kernel for it."""
     from repro_torch.kernels import ops as KOPS
     _check_ported(cfg)
     q, k, v = _qkv(cfg, a, h, lay)
     tp, b, c = h.shape[:3]
-    pos2 = pos[:, None] + torch.arange(c, device=pos.device)[None]
+    if depths is None:
+        pos2 = pos[:, None] + torch.arange(c, device=pos.device)[None]
+    else:
+        pos2 = pos[:, None] + depths[None]
     q = apply_rope(q, pos2, cfg.rope_theta, cfg.rope_fraction)
     k = apply_rope(k, pos2, cfg.rope_theta, cfg.rope_fraction)
     KOPS.scatter_tokens_pages(cache["k"], k, page_table, pos)
     KOPS.scatter_tokens_pages(cache["v"], v, page_table, pos)
-    if cfg.attn_backend == "pallas":
+    if cfg.attn_backend == "pallas" and anc is None:
         o = KOPS.paged_attention(q, cache["k"], cache["v"], page_table, pos)
     else:
-        o = A.paged_attend(q, cache["k"], cache["v"], page_table, pos)
+        o = A.paged_attend(q, cache["k"], cache["v"], page_table, pos,
+                           anc=anc)
     part = _mm(o.reshape(tp, b, c, -1), a["wo"])
     return part, cache
 
 
 def block_page(cfg, kind, lay, p, x, pos, cache, page_table, *, drop: bool,
                comm=None, depths=None, anc=None):
-    """Paged-cache block (decode C=1 or suffix prefill C>1): x
+    """Paged-cache block (decode C=1, suffix prefill or verify C>1): x
     (tp,B,C,d), pos (B,) chunk starts.  Returns (out, cache)."""
     h = column_entry(_norm(x, p["ln1"], cfg))
     part, cache = gqa_mixer_page(cfg, kind, p["attn"], h, pos, cache,

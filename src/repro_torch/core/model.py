@@ -351,6 +351,97 @@ def supports_chunked_prefill(cfg) -> bool:
                     for k in layer_kinds(cfg)))
 
 
+def _ext_forward(cfg, stacked, plan, tokens, pos2, caches, *, tp, q_chunk,
+                 phase, spos=None, anc=None):
+    """The cache-extension forward shared by `prefill_chunk` and
+    `verify_step`: tokens (B,C) at positions pos2 (B,C) through every
+    block's `block_ext`.  Returns the final-normed hidden (tp,B,C,d)."""
+    lay = _gqa_layout(cfg, tp)
+    x = embed_tokens(stacked["emb"], tokens)
+    x = _add_positions(stacked, cfg, x, pos2)
+    for seg_i, (start, length, kind, dropped) in enumerate(
+            plan_segments(cfg, plan.drop_mask, plan.qmodes)):
+        sp, cs = stacked["segs"][seg_i], caches[seg_i]
+        with ledger_scale(length), comm_context(block=start, phase=phase):
+            for j in range(length):
+                with ledger_paused(j > 0):
+                    x, _ = B.block_ext(cfg, kind, lay, _layer(sp, j), x,
+                                       pos2, _layer(cs, j), drop=dropped,
+                                       q_chunk=q_chunk,
+                                       comm=plan.block_mode(start),
+                                       spos=spos, anc=anc)
+    return _final_norm(stacked, cfg, x)
+
+
+def prefill_chunk(cfg, stacked, plan, tokens, start, caches, *, tp,
+                  lengths=None, q_chunk=1024):
+    """One chunk of incremental prefill (see supports_chunked_prefill).
+
+    tokens (B,C) at absolute positions [start, start+C); caches in
+    decode_step layout, sequence axes sized to the decode buffer
+    (updated in place; positions past it are dropped).  Returns (logits
+    (tp,B,Vl) fp32 shard-local taken at position clip(lengths-1-start, 0,
+    C-1) within the chunk -- meaningful only for the chunk holding
+    lengths-1 -- and the caches)."""
+    b, c = tokens.shape
+    pos = (int(start) + torch.arange(c, device=tokens.device))[None]
+    pos = pos.expand(b, c)
+    x = _ext_forward(cfg, stacked, plan, tokens, pos, caches, tp=tp,
+                     q_chunk=q_chunk, phase="prefill")
+    if lengths is None:
+        idx = torch.full((b,), c - 1, dtype=torch.long, device=x.device)
+    else:
+        idx = (lengths.long() - 1 - int(start)).clamp(0, c - 1)
+    xq = x[:, torch.arange(b, device=x.device), idx][:, :, None]
+    return serve_logits(stacked, cfg, xq, plan)[:, :, 0], caches
+
+
+def supports_spec_decode(cfg) -> bool:
+    """Self-speculative decoding needs a second sync point per block to
+    drop (spd_applicable) and the cache-extension forward that scores
+    several drafted tokens in one step (chunked prefill's coverage)."""
+    return cfg.spd_applicable and supports_chunked_prefill(cfg)
+
+
+def _tree_tensors(tree, device):
+    """The static (depths, anc) tuples of spec.verify.tree_layout as
+    tensors: depths (C,) int64, anc (C,C) bool."""
+    depths, anc = tree
+    return (torch.tensor(depths, dtype=torch.long, device=device),
+            torch.tensor(anc, dtype=torch.bool, device=device))
+
+
+def verify_step(cfg, stacked, plan, tokens, pos, caches, *, tp,
+                q_chunk=1024, tree=None):
+    """Multi-token verify forward for speculative decoding on dense
+    caches.
+
+    tokens (B,C): the last accepted token and C-1 drafts; pos (B,): each
+    row's absolute position of tokens[:, 0] (rows may sit at different
+    positions).  Writes token j's K/V at pos+j (in place; slots past the
+    buffer dropped) and returns (logits (tp,B,C,Vl) fp32 shard-local --
+    entry j scores the token after tokens[:, j] -- and the caches).
+
+    `tree=(depths, anc)` verifies a draft TREE: token j keeps slot pos+j
+    but sits at tree position pos+depths[j] (RoPE, learned positions) and
+    attends committed history plus its in-chunk ancestors.
+
+    Rollback: rejected-suffix K/V stays in the cache but is never
+    causally visible and is overwritten when the position counter passes
+    it again, so dense rollback is the scheduler rewinding pos."""
+    c = tokens.shape[1]
+    spos2 = pos.long()[:, None] + torch.arange(c, device=pos.device)[None]
+    if tree is None:
+        pos2, spos, anc = spos2, None, None
+    else:
+        depths, anc = _tree_tensors(tree, pos.device)
+        pos2 = pos.long()[:, None] + depths[None]
+        spos = spos2
+    x = _ext_forward(cfg, stacked, plan, tokens, pos2, caches, tp=tp,
+                     q_chunk=q_chunk, phase="verify", spos=spos, anc=anc)
+    return serve_logits(stacked, cfg, x, plan), caches
+
+
 def supports_paged_attention(cfg) -> bool:
     """The fused paged forward (paged_step / blocks.block_page) covers
     full-causal GQA stacks with fp KV caches, whose every cache leaf is a
@@ -370,23 +461,28 @@ def require_paged_attention(cfg) -> None:
 
 def paged_step(cfg, stacked, plan, tokens, pos, caches, page_table, *, tp,
                tree=None):
-    """Fused paged forward: decode (C=1) and suffix prefill (C>1).
+    """Fused paged forward: decode (C=1), suffix prefill and speculative
+    verify (C>1).
 
     tokens (B, C) at per-row absolute positions pos (B,)..pos+C-1;
     caches per segment hold paged K/V pools (tp, layers, P+1, ps, HkvL,
     dh) shared across slots, written in place; page_table (B, n) int
     (-1 = unallocated).  Returns (logits (tp, B, C, Vl) fp32 shard-local
     -- entry j scores the token after tokens[:, j] -- and the caches).
-    Both C=1 and C>1 log under phase "decode", as the reference does.
-    Tree verify (`tree`) comes with speculative decoding, ROADMAP A10."""
-    if tree is not None:
-        raise NotImplementedError("tree verify is not ported yet "
-                                  "(ROADMAP A10)")
+    Every C logs under phase "decode", as the reference does.
+    `tree=(depths, anc)` switches the chunk to tree verification as in
+    `verify_step` (the scatter stays chunk-contiguous, so a tree chunk
+    rolls back as a chain does)."""
     lay = _gqa_layout(cfg, tp)
     x = embed_tokens(stacked["emb"], tokens)
     c = tokens.shape[1]
-    x = _add_positions(stacked, cfg, x, pos[:, None]
-                       + torch.arange(c, device=pos.device)[None])
+    if tree is None:
+        depths = anc = None
+        pos2 = pos[:, None] + torch.arange(c, device=pos.device)[None]
+    else:
+        depths, anc = _tree_tensors(tree, pos.device)
+        pos2 = pos.long()[:, None] + depths[None]
+    x = _add_positions(stacked, cfg, x, pos2)
     for seg_i, (start, length, kind, dropped) in enumerate(
             plan_segments(cfg, plan.drop_mask, plan.qmodes)):
         sp, cs = stacked["segs"][seg_i], caches[seg_i]
@@ -396,7 +492,8 @@ def paged_step(cfg, stacked, plan, tokens, pos, caches, page_table, *, tp,
                     x, _ = B.block_page(cfg, kind, lay, _layer(sp, j), x,
                                         pos, _layer(cs, j), page_table,
                                         drop=dropped,
-                                        comm=plan.block_mode(start))
+                                        comm=plan.block_mode(start),
+                                        depths=depths, anc=anc)
     x = _final_norm(stacked, cfg, x)
     return serve_logits(stacked, cfg, x, plan), caches
 

@@ -3,7 +3,10 @@ repro/models/attention.py).  Plain torch, as the reference's is plain
 XLA: `attend` is the dense oracle, `attention_any` the prefill path of
 attn_backend="xla", `decode_attend` the dense decode path (the reference
 has no kernel for dense decode, so neither does the port), and
-`paged_attend` the paged path of attn_backend="xla".
+`paged_attend` the paged path of attn_backend="xla" and of every tree
+chunk, `tree_mask` the visibility of a speculative tree chunk, and
+`write_chunk` the dense cache write of a chunk (positions past the
+buffer dropped, as JAX's scatter drops them).
 """
 from __future__ import annotations
 
@@ -35,6 +38,20 @@ def causal_mask(q_pos, kv_pos):
     """(..., Sq) x (..., Sk) -> bool (..., Sq, Sk); True = attend.  (The
     reference's sliding-window option waits for a windowed config.)"""
     return kv_pos[..., None, :] <= q_pos[..., :, None]
+
+
+def tree_mask(pos, anc, kv_pos):
+    """Visibility of a speculative TREE chunk.  Its C tokens sit in the
+    distinct cache slots pos..pos+C-1 but attend by the tree: kv slot m
+    is visible to chunk token i iff it holds committed history (m < pos)
+    or an in-chunk ancestor of i (anc[i, m - pos], diagonal True).
+    pos (B,) chunk starts; anc (C, C) bool; kv_pos (B, Sk) slot indices.
+    Returns bool (B, C, Sk); True = attend."""
+    c = anc.shape[0]
+    rel = kv_pos - pos.long()[:, None]                       # (B, Sk)
+    in_chunk = (rel >= 0) & (rel < c)
+    within = anc[:, rel.clamp(0, c - 1)].permute(1, 0, 2)    # (B, C, Sk)
+    return (rel < 0)[:, None, :] | (in_chunk[:, None, :] & within)
 
 
 def attend(q, k, v, mask, scale: float | None = None):
@@ -82,10 +99,8 @@ def paged_attend(q, k_pool, v_pool, page_table, pos, *,
     k_pool / v_pool (..., P+1, ps, Hkv, Dh) are the shared page pools
     (page P the trash page); page_table (B, n) int, -1 = unallocated
     (masked).  Reuses `attend`, so masked lanes contribute exactly 0.
-    Tree visibility (`anc`) comes with speculative verify, ROADMAP A10."""
-    if anc is not None:
-        raise NotImplementedError("tree verify (anc) is not ported yet "
-                                  "(ROADMAP A10)")
+    `anc` (C, C) bool switches the chunk to tree visibility
+    (`tree_mask`): speculative tree verification."""
     b, c = q.shape[-4:-2]
     pn1, ps, hkv, dh = k_pool.shape[-4:]
     n = page_table.shape[1]
@@ -97,8 +112,11 @@ def paged_attend(q, k_pool, v_pool, page_table, pos, *,
     vg = v_pool[..., pt.reshape(-1), :, :, :].reshape(
         lead + (b, n * ps, hkv, dh))
     kv_pos = torch.arange(n * ps, device=q.device)[None].expand(b, n * ps)
-    q_pos = pos.long()[:, None] + torch.arange(c, device=q.device)[None]
-    mask = causal_mask(q_pos, kv_pos)
+    if anc is None:
+        q_pos = pos.long()[:, None] + torch.arange(c, device=q.device)[None]
+        mask = causal_mask(q_pos, kv_pos)
+    else:
+        mask = tree_mask(pos, anc, kv_pos)
     mask = mask & (table.repeat_interleave(ps, dim=1) >= 0)[:, None, :]
     return attend(q, kg, vg, mask, scale)
 
@@ -121,3 +139,30 @@ def cache_update(k_cache, v_cache, k_new, v_new, pos):
     k_cache[..., bi, pos, :, :] = k_new.select(-3, 0)
     v_cache[..., bi, pos, :, :] = v_new.select(-3, 0)
     return k_cache, v_cache
+
+
+def write_chunk(cache, vals, wpos):
+    """Write a chunk of C tokens per row into a dense cache, in place.
+
+    cache (..., B, S, H, D); vals (..., B, C, H, D) for slots wpos (B, C),
+    contiguous in each row (wpos[b, j] = wpos[b, 0] + j).  The reference
+    writes with `.at[].set`, whose scatter DROPS slots past S (a
+    speculative row near the end of its slot verifies positions it can
+    never commit); an index past S is an error here, so those writes
+    are masked without a host sync: each row's out-of-range entries
+    repeat its last in-range entry (same slot, same value, so the
+    duplicate writes agree), and a row wholly past S rewrites slot S-1
+    with what it holds."""
+    s = cache.shape[-3]
+    b, c = vals.shape[-4:-2]
+    start = wpos[:, 0].long()
+    lim = s - 1 - start                          # last in-range chunk index
+    j = torch.arange(c, device=cache.device)
+    j_eff = torch.minimum(j[None], lim.clamp(min=0)[:, None])     # (B, C)
+    tgt = (start[:, None] + j_eff).clamp(max=s - 1)
+    bi = torch.arange(b, device=cache.device)[:, None].expand(b, c)
+    src = vals[..., bi, j_eff, :, :].to(cache.dtype)
+    gone = (lim < 0)[:, None, None, None]
+    src = torch.where(gone, cache[..., bi, tgt, :, :], src)
+    cache[..., bi, tgt, :, :] = src
+    return cache

@@ -171,7 +171,7 @@ class OverlapBackend(SimBackend):
 
     The reference's overlap backend subclasses its shard_map backend.
     The port has no multi-device backend yet; when it comes (ROADMAP
-    A11), the overlap backend moves onto it."""
+    A5), the overlap backend moves onto it."""
 
     overlaps_comm = True
     #: ring-pipeline depth of each kept sync (LatencyModel.ring_chunks)

@@ -12,7 +12,10 @@ quantized_psum_absmax`, one launch for the whole sync on a CUDA tensor;
 the logits gather and the ring's hop 2 go through `qdq_absmax`.  Each
 wrapper takes its plain version for a CPU tensor (the reference's
 kernel="auto").  Each shard's payload is flattened and chunked from its
-own element 0, as under the reference's per-shard `vmap`.
+own element 0, as under the reference's per-shard `vmap`.  Under
+autograd both are Functions whose forward is that same call and whose
+backward is the identity: the reference's straight-through estimator
+for `qdq`, and `g_psum`'s backward for the kept sync.
 
 The runnable ring collectives at the end (`ring_all_gather`,
 `ring_reduce_scatter`, `ring_quantized_psum`) execute the chunked ring
@@ -56,12 +59,53 @@ def wire_bytes(n_elems: int, bits: int, chunk: int = DEFAULT_CHUNK) -> int:
     return codes + -(-n_elems // chunk) * 2
 
 
+class _StraightThrough(torch.autograd.Function):
+    """The wire qdq with the reference's straight-through gradient
+    (`y = flat + stop_gradient(y - flat)`): forward the round trip (the
+    kernel on the card; autograd records nothing inside a Function's
+    forward, so the kernel runs), backward the identity.  The forward
+    value is the round trip itself: flat + (y - flat) equals y exactly
+    (Sterbenz) but for a zero's sign."""
+
+    @staticmethod
+    def forward(ctx, flat, levels, chunk):
+        return qdq_absmax(flat, levels=levels, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct, None, None
+
+
+class _QuantizedPsum(torch.autograd.Function):
+    """Both hops of a quantized kept sync in one call (the fused kernel on
+    the card), with `g_psum`'s backward: the identity.  The reference's
+    `quantized_psum` reduces with a plain psum, whose transpose re-sums
+    the cotangent over the shards at tp > 1 (ROADMAP C5); the port does
+    not copy that."""
+
+    @staticmethod
+    def forward(ctx, flat, levels, chunk):
+        return quantized_psum_absmax(flat, levels=levels, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct, None, None
+
+
+def _records(x) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
 def qdq(x, *, bits: int = 8, chunk: int = DEFAULT_CHUNK):
     """Absmax quantize-dequantize round trip of a shard-stacked tensor,
-    each shard flattened on its own.  Returns fp32 of x's shape."""
+    each shard flattened on its own.  Returns fp32 of x's shape; the
+    gradient passes straight through."""
     flat = x.float().reshape(x.shape[0], -1).contiguous()
-    return qdq_absmax(flat, levels=_levels(bits),
-                      chunk=chunk).reshape(x.shape)
+    if _records(flat):
+        y = _StraightThrough.apply(flat, _levels(bits), chunk)
+    else:
+        y = qdq_absmax(flat, levels=_levels(bits), chunk=chunk)
+    return y.reshape(x.shape)
 
 
 def _log_two_hop(axis, wire_full: int, wire_slice: int, n: int) -> None:
@@ -88,14 +132,18 @@ def _log_two_hop(axis, wire_full: int, wire_slice: int, n: int) -> None:
 def quantized_psum(x, axis, *, bits: int = 8, chunk: int = DEFAULT_CHUNK):
     """Low-bit psum over the shard axis (dim 0); returns x's dtype:
     qdq of each shard's payload (hop 1), their sum, qdq of the sum
-    (hop 2), on every shard."""
+    (hop 2), on every shard.  Differentiable: the backward is the
+    identity, as the exact sync's (`collectives.g_psum`)."""
     tp = x.shape[0]
     n = x[0].numel()
     _log_two_hop(axis, wire_bytes(n, bits, chunk),
                  wire_bytes(-(-n // tp), bits, chunk), tp)
     flat = x.reshape(tp, -1).contiguous()
-    return quantized_psum_absmax(flat, levels=_levels(bits),
-                                 chunk=chunk).reshape(x.shape)
+    if _records(flat):
+        y = _QuantizedPsum.apply(flat, _levels(bits), chunk)
+    else:
+        y = quantized_psum_absmax(flat, levels=_levels(bits), chunk=chunk)
+    return y.reshape(x.shape)
 
 
 def quantized_gather_payload(x, axis, *, bits: int = 8,

@@ -1,5 +1,6 @@
-"""The serving engine (port of repro/runtime/engines.py, dense and
-paged): one `Engine` over a `ParallelBackend`.  Steps are built lazily
+"""The serving engine (port of repro/runtime/engines.py: dense, paged,
+chunked prefill and the speculative steps): one `Engine` over a
+`ParallelBackend`.  Steps are built lazily
 through `backend.wrap`; caches and page pools stay in the backend's
 layout between calls and are updated in place."""
 from __future__ import annotations
@@ -61,6 +62,22 @@ class Engine:
             cache_len=cache_len))
         return step(params, tokens, lengths)
 
+    def prefill_chunked(self, params, tokens, *, cache_len: int, lengths,
+                        chunk: int):
+        """Incremental prefill in fixed-size chunks: tokens (B, S)
+        right-padded, lengths (B,) the real lengths.  Archs the extension
+        forward does not cover prefill whole, at the tokens' own length."""
+        if not M.supports_chunked_prefill(self.cfg):
+            return self.prefill(params, tokens, cache_len=cache_len,
+                                lengths=np.asarray(lengths, np.int64))
+        step = self._step(("prefill_chunk", cache_len),
+                          lambda: F.prefill_chunk_step(
+            self.cfg, self.plan, tp=self.tp, q_chunk=self.q_chunk))
+        return F.drive_chunked_prefill(
+            lambda t, st, ln, cs: step(params, t, st, ln, cs),
+            self.blank_caches(tokens.shape[0], cache_len), tokens, lengths,
+            int(chunk))
+
     def _decode(self, with_logits: bool):
         return self._step(("decode", with_logits), lambda: F.decode_step(
             self.cfg, self.plan, tp=self.tp, with_logits=with_logits))
@@ -89,13 +106,73 @@ class Engine:
         return step(params, tokens, pos, caches, temperature, top_k, top_p,
                     generators)
 
+    def verify(self, params, tokens, pos, caches, tree=None):
+        """Speculative verify on dense caches: tokens (B, C) -- the last
+        accepted token and C-1 drafts -- in one forward; returns (full
+        logits (B, C, V), caches).  `tree=(depths, anc)` (static tuples
+        from spec.verify.tree_layout) verifies a tree chunk."""
+        step = self._step(("verify", tree), lambda: F.verify_step(
+            self.cfg, self.plan, tp=self.tp, q_chunk=self.q_chunk,
+            tree=tree))
+        return step(params, tokens, pos, caches)
+
     def verify_paged(self, params, tokens, pos, page_table, pcaches,
                      tree=None):
-        """Paged multi-token forward (warm-admission suffix prefill):
-        full-vocab logits of every chunk position, (B, C, V)."""
+        """Paged multi-token forward (speculative verify, warm-admission
+        suffix prefill): full-vocab logits of every chunk position,
+        (B, C, V).  `tree` as in `verify`."""
         step = self._step(("verify_paged", tree), lambda: F.paged_verify_step(
             self.cfg, self.plan, tp=self.tp, tree=tree))
         return step(params, tokens, pos, page_table, pcaches)
+
+    # ---- the self-draft steps (spec.draft.Drafter) ----
+
+    def draft(self, params, ctx, start, caches, *, k: int):
+        """Greedy k-token self-draft (F.draft_step): the catch-up verify
+        and k-1 one-token steps.  Returns (toks (B, k), caches)."""
+        step = self._step(("draft", int(k)), lambda: F.draft_step(
+            self.cfg, self.plan, tp=self.tp, q_chunk=self.q_chunk, k=k))
+        return step(params, ctx, start, caches)
+
+    def draft_tree(self, params, ctx, start, caches, *, k: int,
+                   width: int):
+        """Greedy draft that also returns the first position's top-2..
+        top-`width` candidates: (toks (B, k), alts (B, width-1),
+        caches)."""
+        step = self._step(("draft_tree", int(k), int(width)),
+                          lambda: F.draft_step(
+            self.cfg, self.plan, tp=self.tp, q_chunk=self.q_chunk, k=k,
+            tree_width=width))
+        return step(params, ctx, start, caches)
+
+    def draft_sampled(self, params, ctx, start, caches, temperature, top_k,
+                      top_p, generators, *, k: int):
+        """Sampled draft: per-request temperature / top-k / top-p, and
+        `generators[i]` (one per row) for draft draw i.  Returns (toks
+        (B, k), full logits (B, k, V), caches)."""
+        step = self._step(("draft_sampled", int(k)), lambda: F.draft_step(
+            self.cfg, self.plan, tp=self.tp, q_chunk=self.q_chunk, k=k,
+            sampled=True))
+        return step(params, ctx, start, caches, temperature, top_k, top_p,
+                    generators)
+
+    def copy_pos(self, caches, src, dst):
+        """Per-row cache position copy src[b] -> dst[b] on dense caches
+        (src == dst rows are no-ops)."""
+        step = self._step(("copy_pos",),
+                          lambda: F.copy_pos_step(self.cfg, self.plan))
+        return step(caches, np.asarray(src, np.int64),
+                    np.asarray(dst, np.int64))[0]
+
+    def copy_pos_paged(self, pcaches, page_table, src, dst, *,
+                       page_size: int):
+        """copy_pos through the page table (unallocated pages resolve to
+        the trash page)."""
+        step = self._step(("copy_pos_paged", int(page_size)),
+                          lambda: F.copy_pos_paged_step(
+            self.cfg, self.plan, page_size=page_size))
+        return step(pcaches, page_table, np.asarray(src, np.int64),
+                    np.asarray(dst, np.int64))[0]
 
     def _decode_paged(self, with_logits: bool):
         return self._step(("decode_paged", with_logits),

@@ -1,5 +1,6 @@
 """The forward step table (port of repro/runtime/forward.py: the dense
-steps and the fused paged ones).
+steps, the fused paged ones, chunked prefill and the speculative verify,
+draft and copy steps).
 
 Each step maker here returns ``(local_fn, StepSpec)``; a `ParallelBackend`
 wraps it into the runnable step.  Local functions take shard-stacked
@@ -104,22 +105,161 @@ def paged_decode_step(cfg, plan, *, tp, with_logits=False, sampled=False):
     return local, StepSpec(("params", "rep", "rep", "rep", "cache"), out)
 
 
+def prefill_chunk_step(cfg, plan, *, tp, q_chunk):
+    """One chunked-prefill step (M.prefill_chunk), batch replicated;
+    `drive_chunked_prefill` feeds it.  Returns (full logits (B, V),
+    caches)."""
+    def local(p, toks, start, ln, cs):
+        lg, cs = M.prefill_chunk(cfg, p, plan, toks, start, cs, tp=tp,
+                                 lengths=ln, q_chunk=q_chunk)
+        return full_logits(cfg, lg), cs
+
+    return local, StepSpec(("params", "rep", "rep", "rep", "cache"),
+                           ("rep", "cache"))
+
+
+def verify_step(cfg, plan, *, tp, q_chunk, tree=None):
+    """Speculative verify on dense caches: tokens (B, C) -- the last
+    accepted token and C-1 drafts -- scored in one forward; the full
+    logits of every chunk position come out (acceptance reads them).
+    `tree=(depths, anc)` (spec.verify.tree_layout) verifies a draft tree
+    chunk instead of a chain."""
+    def local(p, toks, pos, cs):
+        lg, cs = M.verify_step(cfg, p, plan, toks, pos, cs, tp=tp,
+                               q_chunk=q_chunk, tree=tree)
+        return full_logits_seq(cfg, lg), cs
+
+    return local, StepSpec(("params", "batch", "batch", "cache"),
+                           ("batch", "cache"))
+
+
 def paged_verify_step(cfg, plan, *, tp, tree=None):
-    """Paged multi-token forward: the SUFFIX PREFILL of a warm admission
-    (the uncached prompt tail, with other rows' tables masked to -1) and,
-    with speculative decoding (ROADMAP A10), the verify chunk.  Returns
+    """Paged multi-token forward: the speculative verify chunk, and the
+    SUFFIX PREFILL of a warm admission (the uncached prompt tail, with
+    other rows' tables masked to -1).  `tree` as in `verify_step`; the
+    chunk scatters contiguously at pos..pos+C-1 either way.  Returns
     (full logits (B, C, V), pools)."""
     M.require_paged_attention(cfg)
-    if tree is not None:
-        raise NotImplementedError("tree verify is not ported yet "
-                                  "(ROADMAP A10)")
 
     def local(p, toks, pos, pt, pc):
-        lg, pc2 = M.paged_step(cfg, p, plan, toks, pos, pc, pt, tp=tp)
+        lg, pc2 = M.paged_step(cfg, p, plan, toks, pos, pc, pt, tp=tp,
+                               tree=tree)
         return full_logits_seq(cfg, lg), pc2
 
     return local, StepSpec(("params", "rep", "rep", "rep", "cache"),
                            ("rep", "cache"))
+
+
+def draft_step(cfg, plan, *, tp, q_chunk, k, sampled=False, tree_width=1):
+    """The k-token self-draft.  The reference fuses it into one jitted
+    dispatch (a catch-up verify, then a `lax.scan` of k-1 decodes); here
+    it is a Python loop over the port's own steps: the catch-up context
+    ctx (B, C) through M.verify_step (K/V at start..start+C-1), then k-1
+    one-token M.verify_step calls.  A one-token extension step is the
+    dense decode's arithmetic (same mask, RoPE and positions); it is used
+    instead of M.decode_step because its cache write drops slots past the
+    buffer, which a row near the end of its slot drafts into.
+
+    Greedy returns (toks (B, k), caches); tree_width > 1 also returns the
+    first position's top-2..top-w candidates (toks, alts (B, w-1),
+    caches).  Sampled draws draft i with `gens[i]` (one generator a row)
+    and returns (toks, full logits (B, k, V), caches): the scheduler
+    rebuilds each draw's distribution from them."""
+    def chain(p, ctx, start, cs, first, draw):
+        lg, cs = M.verify_step(cfg, p, plan, ctx, start, cs, tp=tp,
+                               q_chunk=q_chunk)
+        base = start.long() + ctx.shape[1] - 1   # each row's position
+        tok, *rec = first(full_logits(cfg, lg[:, :, -1]))
+        toks, recs = [tok], [rec]
+        for i in range(1, k):
+            lg, cs = M.verify_step(cfg, p, plan, tok[:, None], base + i,
+                                   cs, tp=tp, q_chunk=q_chunk)
+            tok, *rec = draw(full_logits(cfg, lg[:, :, 0]), i)
+            toks.append(tok)
+            recs.append(rec)
+        return torch.stack(toks, 1), recs, cs
+
+    if sampled:
+        def local(p, ctx, start, cs, t, kk, pp, gens):
+            def draw(full, i):
+                return RS.sample_core(full, t, kk, pp, gens[i]), full
+
+            toks, recs, cs = chain(p, ctx, start, cs,
+                                   lambda full: draw(full, 0), draw)
+            return toks, torch.stack([r[0] for r in recs], 1), cs
+
+        return local, StepSpec(
+            ("params", "batch", "batch", "cache", "batch", "batch", "batch",
+             "rep"), ("batch", "batch", "cache"))
+
+    def greedy(full, i=0):
+        return (RS.greedy_tokens(full),)
+
+    if tree_width > 1:
+        def local(p, ctx, start, cs):
+            def first(full):
+                # top-w at the FIRST draft position: the chain continues
+                # from top-1, the runners-up become depth-1 alternatives
+                # (verified, never drafted past, never in the draft cache)
+                top = torch.topk(full, tree_width, dim=-1).indices
+                return top[:, 0], top[:, 1:]
+
+            toks, recs, cs = chain(p, ctx, start, cs, first, greedy)
+            return toks, recs[0][0], cs
+
+        return local, StepSpec(("params", "batch", "batch", "cache"),
+                               ("batch", "batch", "cache"))
+
+    def local(p, ctx, start, cs):
+        toks, _, cs = chain(p, ctx, start, cs, greedy, greedy)
+        return toks, cs
+
+    return local, StepSpec(("params", "batch", "batch", "cache"),
+                           ("batch", "cache"))
+
+
+def copy_pos_step(cfg, plan):
+    """Per-row single-position copy on dense caches, in place: slot
+    src[b] -> dst[b] on every leaf.  Tree speculation moves a committed
+    alternative's K/V from its chunk slot to its stream position before
+    the rollback; src == dst rows (padding 0 -> 0) are no-ops."""
+    def local(cs, src, dst):
+        for seg in cs:
+            for leaf in seg.values():          # (tp, layers, B, S, H, D)
+                bi = torch.arange(leaf.shape[2], device=leaf.device)
+                leaf[:, :, bi, dst.long()] = leaf[:, :, bi, src.long()]
+        return (cs,)
+
+    return local, StepSpec(("cache", "batch", "batch"), ("cache",))
+
+
+def copy_pos_paged_step(cfg, plan, *, page_size):
+    """copy_pos_step through the page table: each row's src / dst slot
+    resolves to (page, offset); an unallocated page (or one past the
+    table) resolves to the trash page, so padded rows copy trash ->
+    trash."""
+    M.require_paged_attention(cfg)
+
+    def local(pc, pt, src, dst):
+        bi = torch.arange(pt.shape[0], device=pt.device)
+        table = pt.long()
+
+        def phys(slot):
+            pidx = torch.div(slot.long(), page_size, rounding_mode="floor")
+            pg = table[bi, pidx.clamp(max=table.shape[1] - 1)]
+            return pg, pidx >= table.shape[1]
+
+        (sp, s_out), (dp, d_out) = phys(src), phys(dst)
+        for seg in pc:
+            for leaf in seg.values():          # (tp, layers, P+1, ps, H, D)
+                trash = leaf.shape[2] - 1
+                s_pg = torch.where((sp < 0) | s_out, trash, sp)
+                d_pg = torch.where((dp < 0) | d_out, trash, dp)
+                leaf[:, :, d_pg, dst.long() % page_size] = leaf[
+                    :, :, s_pg, src.long() % page_size]
+        return (pc,)
+
+    return local, StepSpec(("cache", "rep", "rep", "rep"), ("cache",))
 
 
 def copy_pages_step(cfg, plan):
@@ -193,18 +333,46 @@ def drive_pipelined_decode(step, params, groups, *, depth: int = 2):
     return out
 
 
+def drive_chunked_prefill(step, caches, tokens, lengths, chunk):
+    """Host loop of chunked prefill: right-pad the batch to a chunk
+    multiple, feed the chunks through `step(toks, start, lengths,
+    caches)`, and keep each row's last-token logits from the chunk that
+    holds its lengths-1 (ragged rows finish in different chunks)."""
+    lengths = np.asarray(lengths, np.int64)
+    tokens = np.asarray(tokens, np.int64)
+    n = max(1, -(-int(lengths.max()) // chunk))
+    toks = np.zeros((tokens.shape[0], n * chunk), np.int64)
+    m = min(tokens.shape[1], n * chunk)
+    toks[:, :m] = tokens[:, :m]
+    final_chunk = (lengths - 1) // chunk
+    logits = None
+    for i in range(n):
+        lg, caches = step(toks[:, i * chunk:(i + 1) * chunk], i * chunk,
+                          lengths, caches)
+        if logits is None:
+            logits = lg.clone()
+        else:
+            sel = torch.from_numpy(final_chunk == i).to(lg.device)
+            logits[sel] = lg[sel]
+    return logits, caches
+
+
 def bucketed_prefill(engine, params, toks, s: int, cache_len: int,
                      chunk=None):
-    """One request's prefill.  Attention-only models are right-padded to
-    the next power-of-two bucket (at least 16) capped at the slot
-    capacity; the pad slots are overwritten by decode before they become
-    causally visible.  A model with recurrent state is prefilled at the
-    prompt's own length: a pad token would be scanned into its state and
-    conv tails, which decode never overwrites (ROADMAP C3; the reference
-    pads them too)."""
-    if chunk:
-        raise NotImplementedError("chunked prefill is not ported yet")
+    """One request's prefill, shared by the scheduler's admission and the
+    speculative Drafter.  With `chunk`, chunked (`Engine.prefill_chunked`,
+    which prefills whole on archs the extension forward does not cover).
+    Otherwise attention-only models are right-padded to the next
+    power-of-two bucket (at least 16) capped at the slot capacity; the pad
+    slots are overwritten by decode before they become causally visible.
+    A model with recurrent state is prefilled at the prompt's own length:
+    a pad token would be scanned into its state and conv tails, which
+    decode never overwrites (ROADMAP C3; the reference pads them too)."""
     toks = np.asarray(toks, np.int64)
+    if chunk:
+        return engine.prefill_chunked(params, toks[None], cache_len=cache_len,
+                                      lengths=np.asarray([s], np.int64),
+                                      chunk=chunk)
     if M.has_recurrent_state(engine.cfg):
         sb = s
     else:

@@ -22,7 +22,7 @@ prefills only the suffix; a write to a shared page copies it first
 (`ensure_writable` returns the (src, dst) pair for the device copy).
 
 The reference's observability hooks (recorder counters and gauges) come
-with the obs layer, ROADMAP A12.
+with the obs layer, ROADMAP A6.
 """
 from __future__ import annotations
 

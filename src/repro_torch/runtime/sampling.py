@@ -9,6 +9,7 @@ JAX's PRNG; the contract is the same).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -22,6 +23,17 @@ def make_generators(seeds, counts, device):
     return [torch.Generator(device=device).manual_seed(
         (int(s) & 0xFFFFFFFF) * 1_000_003 + int(c))
         for s, c in zip(seeds, counts)]
+
+
+def draft_generators(seeds, counts, k: int, device):
+    """Generators for a speculative round's k draft draws: draw i of a
+    row seeds from the count counts * 131 + 17 + i, disjoint from the
+    committed-token stream's count (the reference folds the same counts
+    into its keys, api/scheduler.py).  Returns k lists of one generator a
+    row."""
+    counts = np.asarray(counts, np.int64)
+    return [make_generators(seeds, counts * 131 + 17 + i, device)
+            for i in range(k)]
 
 
 def sample_core(logits, temperature, top_k, top_p, generators):

@@ -79,9 +79,12 @@ def test_load_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    {"prefill_chunk": 8}, {"spec": object()}, {"dp_replicas": 2},
+    {"dp_replicas": 3}, {"engine": "tp_nccl"}, {"dp_replicas": 2},
     {"engine": "shard"}, {"obs": object()}])
 def test_later_slice_arguments_raise(kw):
+    """Cluster replicas, the multi-process engines and observability are
+    refused (chunked prefill and speculation are ported: their cases
+    went to the tests of those modules)."""
     with pytest.raises(NotImplementedError):
         _load(**kw)
 

@@ -402,6 +402,6 @@ def test_overlap_engine_needs_cuda_unless_cpu_is_asked(monkeypatch):
 
 @pytest.mark.parametrize("engine", ["shard", "tp_nccl"])
 def test_other_engines_name_roadmap_a11(engine):
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(NotImplementedError, match="A5"):
         LLM.load(REDUCED, tp=2, engine=engine, dtype="float32",
                  device="cpu")

@@ -354,23 +354,32 @@ def test_facade_paged_surface_and_later_slice_refusals():
     leaf = fresh.pcaches[0]["k"]
     assert tuple(leaf.shape[2:]) == (17, 8, lay.kv_local, cfg.d_head)
     assert leaf.shape[0] == TP
-    with pytest.raises(NotImplementedError, match="A8b"):
-        paged.serve(prefill_chunk=8)
+    # chunked prefill is ported: a paged scheduler takes prefill_chunk
+    assert paged.serve(prefill_chunk=8).prefill_chunk == 8
     for name in ("dp_replicas", "router"):
         with pytest.raises(NotImplementedError):
             paged.serve(**{name: 2})
     with pytest.raises(ValueError, match="multiple"):
         paged.serve(cache_len=44)
-    with pytest.raises(NotImplementedError, match="A10"):
-        F.paged_verify_step(cfg, paged.plan, tp=TP,
-                            tree=((0, 1), ((True, False), (True, True))))
-    with pytest.raises(NotImplementedError, match="A10"):
-        M.paged_step(cfg, paged.params, paged.plan, torch.zeros(1, 1).long(),
-                     torch.zeros(1).long(), paged.serve().pcaches,
-                     torch.zeros(1, 1).long(), tp=TP, tree=((0,), ((1,),)))
-    with pytest.raises(NotImplementedError, match="A10"):
-        A.paged_attend(torch.zeros(1, 1, 2, 16), torch.zeros(2, 4, 2, 16),
-                       torch.zeros(2, 4, 2, 16), torch.zeros(1, 1).long(),
-                       torch.zeros(1).long(), anc=np.ones((1, 1), bool))
+    # tree verify is ported: a chain-shaped ancestor matrix (lower
+    # triangular) is causal visibility, so the tree paged attention equals
+    # the chain's on the same pages; a diagonal one sees only history and
+    # the token itself
+    F.paged_verify_step(cfg, paged.plan, tp=TP,
+                        tree=((0, 1), ((True, False), (True, True))))
+    gen = torch.Generator().manual_seed(0)
+    q = torch.randn(1, 3, 2, 16, generator=gen)
+    kp = torch.randn(3, 4, 2, 16, generator=gen)
+    vp = torch.randn(3, 4, 2, 16, generator=gen)
+    table, start = torch.tensor([[1, 0]]), torch.tensor([2])
+    chain = A.paged_attend(q, kp, vp, table, start)
+    tri = torch.tensor(np.tril(np.ones((3, 3), bool)))
+    torch.testing.assert_close(
+        A.paged_attend(q, kp, vp, table, start, anc=tri), chain,
+        rtol=0, atol=0)
+    diag = A.paged_attend(q, kp, vp, table, start,
+                          anc=torch.eye(3, dtype=torch.bool))
+    torch.testing.assert_close(diag[:, :1], chain[:, :1], rtol=0, atol=0)
+    assert not torch.equal(diag[:, 2], chain[:, 2])
     with pytest.raises(NotImplementedError, match="fallback"):
         F.paged_decode_step(replace(cfg, kv_dtype="int8"), paged.plan, tp=TP)
