@@ -159,7 +159,34 @@
    logits within 1e-3.  Prints acceptance, tokens per round, decode ms
    per token against plain, prefill ms chunked against whole, the
    calibrated winner and its trials, and peak memory.
-16. Prints the kernels JSON line (the rows above beside the earlier
+16. Training: full-width SmolLM-360M (32 layers, 362 M parameters,
+   bf16, random weights from seed 0) through the train CLI's
+   make_trainer on the simulated (data 2, model 2) mesh, plan
+   first_k(32, 8), sequence 4096, batch 8 in 4 microbatches of 2, remat,
+   q_chunk 2048, lr 1e-3 (cosine, 2 warm-up steps), clip 1.0, weight
+   decay 0.1, the batches of make_batch_iterator(49152, 8, 4096, seed=0):
+   (a) ZeRO-1 for 12 steps with every kernel's count zeroed before and
+   read after (B1 must launch 2 x 32 layers x 4 microbatches a step,
+   forward and remat recompute under autograd; nothing else), the loss
+   must fall (mean of the last 4 below the first 4); step ms, tokens/s,
+   MFU (formula printed), peak memory; one more step under the profiler
+   (device-busy ms, idle share, top operations); (b) checkpoints every 4
+   steps and a fault at step 6 of 8: resumed from step 4, the replayed
+   steps' losses equal to 1e-6 relative, each save's and the
+   restore's seconds and bytes; (c) FSDP's first 4 losses equal (a)'s
+   to 2e-4; (d) every kept sync at quant8 for 3 steps: the fused kept
+   sync under autograd launches once per kept sync of the forward and
+   once per kept block's attention sync of the remat recompute (it
+   stops before the MLP sync) a microbatch, losses within 1e-3 of (a)'s,
+   one step's ledger names the quantized hops, and the fused kept sync
+   at the path's payload (2, 2 x 4096 x 960) bf16 equals its plain
+   version bit for bit; (e) fp32 at full depth (batch 2 x 1024): 2
+   steps with B1 and 2 with the plain attention, loss and grad norm
+   within 1e-4, parameters within the sign-aware bound.  Then B1 at the
+   train shape q (36, 4096, 64) in fp32 and bf16 against its plain
+   version, every output row within a relative L2 bound, and the bf16
+   call timed beside SDPA.
+17. Prints the kernels JSON line (the rows above beside the earlier
    ones), the card line, and last {"ok": true, "device": {...}}.
 
 Any failure raises (non-zero exit, no result line).  Without a CUDA
@@ -934,6 +961,18 @@ def timed_engine(torch, engine, names=("prefill", "decode")):
     return times
 
 
+def all_kernels():
+    """Every kernel wrapper, each with its `.launches` count."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import fused_norm as FN
+    from repro_torch.kernels import quant_collectives as QC
+    from repro_torch.kernels import ssd_scan as SS
+    return (FA.flash_attention_bhsd, FA.paged_flash_attention, QC.qdq_absmax,
+            QC.quantized_psum_absmax, QC.quantize_absmax,
+            QC.dequantize_absmax, QC.dequant_accum_absmax,
+            FN.fused_residual_rmsnorm, SS.ssd_scan)
+
+
 def main_path(torch, np, card, arch="smollm-360m", label="main path"):
     """`arch` at full width through the facade (tp=2, spd=0.25, quant8
     kept syncs and logits gather, flash prefill, random weights from seed
@@ -942,10 +981,6 @@ def main_path(torch, np, card, arch="smollm-360m", label="main path"):
     from repro_torch.api import LLM, SamplingParams
     from repro_torch.config.base import replace
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import fused_norm as FN
-    from repro_torch.kernels import quant_collectives as QC
-    from repro_torch.kernels import ssd_scan as SS
     from repro_torch.tree import tree_leaves
 
     cfg = replace(get_config(arch), attn_backend="pallas")
@@ -968,10 +1003,7 @@ def main_path(torch, np, card, arch="smollm-360m", label="main path"):
     llm.generate([prompts[0][:8]], SamplingParams(max_new=2))   # warm-up
     times = timed_engine(torch, llm.engine)
 
-    kernels = (FA.flash_attention_bhsd, FA.paged_flash_attention,
-               QC.qdq_absmax, QC.quantized_psum_absmax, QC.quantize_absmax,
-               QC.dequantize_absmax, QC.dequant_accum_absmax,
-               FN.fused_residual_rmsnorm, SS.ssd_scan)
+    kernels = all_kernels()
     for k in kernels:
         k.launches = 0
     t0 = time.perf_counter()
@@ -1866,10 +1898,6 @@ def mamba_path(torch, np, prompts, card):
     kept-sync kernel and the logits gather through qdq."""
     from repro_torch.api import LLM, SamplingParams
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import fused_norm as FN
-    from repro_torch.kernels import quant_collectives as QC
-    from repro_torch.kernels import ssd_scan as SS
 
     cfg = get_config("mamba2-370m")
     t0 = time.perf_counter()
@@ -1888,10 +1916,7 @@ def mamba_path(torch, np, prompts, card):
                              "no dropped sync")
     llm.generate([prompts[0][:8]], SamplingParams(max_new=2))   # warm-up
     times = timed_engine(torch, llm.engine)
-    kernels = (FA.flash_attention_bhsd, FA.paged_flash_attention,
-               QC.qdq_absmax, QC.quantized_psum_absmax, QC.quantize_absmax,
-               QC.dequantize_absmax, QC.dequant_accum_absmax,
-               FN.fused_residual_rmsnorm, SS.ssd_scan)
+    kernels = all_kernels()
     for k in kernels:
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -3191,6 +3216,389 @@ def spec_phase(torch, np, llama, sweep_res, card):
     return row, {k: v[2] for k, v in out.items()}
 
 
+# ---------------------------------------------------------------------------
+# The training phase: full-width SmolLM-360M through the train CLI's
+# make_trainer on the simulated (data 2, model 2) mesh
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "smollm-360m"
+TRAIN_KW = dict(tp=2, dp=2, batch=8, seq=4096, microbatches=4, q_chunk=2048,
+                lr=1e-3, spd=0.25, dtype="bfloat16", attn_backend="pallas",
+                warmup=2, seed=0)
+TRAIN_STEPS = 12                       # (a) ZeRO-1
+FAULT_STEPS, FAULT_AT, FAULT_EVERY = 8, 6, 4     # (b)
+FSDP_STEPS = 4                         # (c)
+QUANT_STEPS = 3                        # (d)
+EXACT_KW = dict(batch=2, seq=1024, microbatches=1, q_chunk=1024,
+                dtype="float32")       # (e), fp32 at full depth
+EXACT_STEPS = 2
+REPLAY_RTOL = 1e-6                     # a replayed step's loss
+TRAJ_RTOL = 2e-4                       # FSDP against ZeRO-1 (the reference's)
+EXACT_RTOL = 1e-4                      # fp32 B1 against the plain attention
+# (d)'s losses against (a)'s first ones: int8 absmax moves a synced
+# element by at most 1/254 of its 128-chunk's largest value, and the
+# loss averages those errors; the bound is a quarter of the loss's fall
+# over the first 3 steps of (a) (11.024 -> 10.980)
+QUANT_LOSS_RTOL = 1e-3
+# B1 at the train shape: each output row's relative L2 error
+# ||out_r - ref_r|| / ||ref_r||.  bf16: its output and the probabilities
+# of its P V product are rounded to 8 bits (2^-8 relative each), so
+# 2^-5 is 8x that; a wrong 64-key block at S 4096 moves a late row by
+# about sqrt(64 / 4096) = 0.125.  fp32: the summation order alone
+FLASH_ROW_RTOL = {"bfloat16": 2.0 ** -5, "float32": 1e-5}
+# params after fp32 steps: PARAM_REL of each leaf's largest |value|, but
+# at most PARAM_FLIP_FRAC of the elements up to 2 lr a step (AdamW's first
+# steps are sign functions of the gradient)
+PARAM_REL, PARAM_FLIP_FRAC = 1e-5, 1e-3
+H100_BF16_DENSE_FLOPS = 989e12
+
+
+def flash_row_errors(torch, out, ref) -> tuple:
+    """(max abs error, the worst row's relative L2 error, that row's
+    sequence position, relative RMS error over all elements)."""
+    d = out.float() - ref.float()
+    r = ref.float()
+    rel = d.norm(dim=-1) / r.norm(dim=-1).clamp_min(1e-30)
+    worst = rel.max()
+    at = int(rel.amax(dim=0).argmax().item())
+    return (d.abs().max().item(), worst.item(), at,
+            (d.norm() / r.norm()).item())
+
+
+def train_flops(cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of one step: 6 N T (N the unpadded parameter count, T
+    = batch x seq tokens) plus the causal attention's 4 B H D S^2 / 2 a
+    layer forward, three times for forward and backward.  The remat
+    recompute and the padded heads are not counted (model FLOPs)."""
+    return (6.0 * cfg.param_count() * batch * seq
+            + 6.0 * batch * cfg.n_heads * cfg.d_head * seq ** 2
+            * cfg.n_layers)
+
+
+def loss_fell(np, losses) -> bool:
+    """Finite, and the mean of the last 4 below the mean of the first 4."""
+    return bool(np.isfinite(losses).all()
+                and np.mean(losses[-4:]) < np.mean(losses[:4]))
+
+
+def counted(torch, fn):
+    """fn() with every kernel's launch count zeroed just before and read
+    just after."""
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k.__name__: k.launches for k in kernels}
+
+
+def trainer_for(root, label, params, **kw):
+    """make_trainer (the train CLI's own) with the phase's settings."""
+    import os
+    from repro_torch.launch.train import make_trainer
+    return make_trainer(TRAIN_ARCH, ckpt_dir=os.path.join(root, label),
+                        params=params, device="cuda",
+                        **dict(TRAIN_KW, **kw))
+
+
+def losses_of(tr):
+    return [m["loss"] for m in tr.metrics_log]
+
+
+def step_ms(np, tr):
+    """Mean synchronised wall ms of a trainer's steps after its first."""
+    return 1e3 * float(np.mean([m["wall"] for m in tr.metrics_log][1:]))
+
+
+def params_close(torch, a, b, lr, steps, what):
+    """The sign-aware bound over two lists of tensors; raises."""
+    flips = total = 0
+    worst = 0.0
+    for x, y in zip(a, b):
+        d = (x.float() - y.float()).abs()
+        top = max(x.float().abs().max().item(), 1e-30)
+        flips += int((d > PARAM_REL * top).sum().item())
+        total += x.numel()
+        worst = max(worst, d.max().item())
+    print(f"{what}: params max_abs_diff {worst:.3e} (bound "
+          f"{2 * lr * steps + 1e-6:.1e}), {flips} of {total} elements past "
+          f"{PARAM_REL:.0e} of their leaf's max (bound {PARAM_FLIP_FRAC:.0e})")
+    if not (worst <= 2 * lr * steps + 1e-6
+            and flips <= PARAM_FLIP_FRAC * total):
+        raise AssertionError(f"{what}: parameters disagree")
+
+
+def profile_step(torch, tr, st, card):
+    """One more step under torch.profiler: device-busy ms, idle share
+    (1 - busy / the step's synchronised wall time) and the top device
+    operations by time."""
+    from torch.profiler import ProfilerActivity, profile
+    batch = next(tr.data_iter(st["step"]))
+    for attempt in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _, _, met = tr.step_fn(st["params"], st["opt"], batch)
+            float(met["loss"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rows = profile_rows(prof)
+        if rows:
+            break
+        print(f"train profile {attempt + 1}: no device event, taken again")
+    busy = sum(us for _, us, _ in rows) / 1e3
+    top = sorted(rows, key=lambda r: -r[1])[:10]
+    print(f"train profile [{card}]: step wall_ms={wall * 1e3:.1f} (under "
+          f"the profiler) device_busy_ms={busy:.1f} idle_share="
+          + (f"{1 - busy / (wall * 1e3):.3f}" if rows else "not measured"))
+    for key, us, n in top:
+        print(f"  {us / 1e3:9.2f} ms {n:6d}x  {key[:90]}")
+
+
+def train_phase(torch, np, card):
+    """(a) ZeRO-1 for TRAIN_STEPS steps at full width (bf16, tp 2 x dp 2,
+    B1 forward and remat recompute under autograd, sequence 4096, batch
+    8 in 4 microbatches), timed, counted and profiled; (b) a fault at
+    step FAULT_AT of FAULT_STEPS and the resume from the step-4
+    checkpoint, replays equal; (c) FSDP's first steps equal ZeRO-1's;
+    (d) every kept sync at quant8: the fused kept sync under autograd,
+    counted; (e) fp32 at full depth: B1 against the plain attention.
+    Returns B1's kernels-line row at the train shape and the main path's
+    launches."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.config.base import replace
+    from repro_torch.configs import get_config
+    from repro_torch.core import model as M
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import quant_collectives as QC
+    from repro_torch.parallel.collectives import collective_ledger
+    from repro_torch.runtime.trainer import SimulatedFault
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = replace(get_config(TRAIN_ARCH), dtype="bfloat16",
+                  attn_backend="pallas")
+    kw = TRAIN_KW
+    nmb, batch, seq = kw["microbatches"], kw["batch"], kw["seq"]
+    tokens = batch * seq
+    flops = train_flops(cfg, batch, seq)
+    root = tempfile.mkdtemp(prefix="train_phase_")
+    canon = M.init_model(cfg, seed=0, device=torch.device("cuda"))
+    print(f"train phase: {cfg.name} L={cfg.n_layers} d={cfg.d_model} heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.d_head} d_ff {cfg.d_ff} "
+          f"vocab {cfg.vocab_size} ({cfg.param_count() / 1e6:.1f} M "
+          f"parameters), bf16, tp {kw['tp']} x dp {kw['dp']}, spd "
+          f"{kw['spd']}, batch {batch} x seq {seq} in {nmb} microbatches, "
+          f"remat, q_chunk {kw['q_chunk']}; checkpoints under {root}")
+
+    # ---- (a) ZeRO-1 ----
+    torch.cuda.reset_peak_memory_stats()
+    tr, st = trainer_for(root, "a", canon, steps=TRAIN_STEPS, ckpt_every=0)
+    st, launches = counted(torch, lambda: tr.run(st))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = 2 * cfg.n_layers * nmb * TRAIN_STEPS
+    print(f"train (a) launches: {json.dumps(launches)}; B1 want 2 x "
+          f"{cfg.n_layers} layers x {nmb} microbatches x {TRAIN_STEPS} "
+          f"steps = {want}")
+    others = {k: v for k, v in launches.items()
+              if k != "flash_attention_bhsd"}
+    if launches["flash_attention_bhsd"] != want or any(others.values()):
+        raise AssertionError(f"train (a): launches {launches}, want B1 "
+                             f"{want} and no other kernel")
+    la = losses_of(tr)
+    walls = [m["wall"] for m in tr.metrics_log]
+    step_s = step_ms(np, tr) / 1e3
+    print(f"train (a) losses: {[round(x, 4) for x in la]}; grad_norms "
+          f"{[round(m['grad_norm'], 3) for m in tr.metrics_log]}")
+    print(f"train (a) [{card}]: step_ms={step_s * 1e3:.1f} (mean of steps "
+          f"2-{TRAIN_STEPS}, synchronised; step 1 {walls[0] * 1e3:.1f}) "
+          f"tokens_per_s={tokens / step_s:.1f} mfu={flops / step_s / H100_BF16_DENSE_FLOPS:.4f} "
+          f"(MFU = (6 N T + 6 B H D S^2 L) / step time / 989 TFLOPS, N "
+          f"{cfg.param_count()}, T {tokens}: {flops:.4e} FLOPs a step) "
+          f"peak_memory_gib={peak:.2f}")
+    if not loss_fell(np, la):
+        raise AssertionError(f"train (a): the loss did not fall: {la}")
+    profile_step(torch, tr, st, card)
+    del tr, st
+    release(torch)
+
+    # ---- (b) a fault and the resume ----
+    boom = {"armed": True}
+
+    def hook(step):
+        if step == FAULT_AT and boom["armed"]:
+            boom["armed"] = False
+            raise SimulatedFault(f"fault injected at step {step}")
+
+    tr, st = trainer_for(root, "b", canon, steps=FAULT_STEPS,
+                         ckpt_every=FAULT_EVERY, ckpt_keep=2, fault_hook=hook)
+    st = tr.run(st)
+    first, worst = {}, 0.0
+    replayed = []
+    for m in tr.metrics_log:
+        if m["step"] in first:
+            rel = abs(m["loss"] - first[m["step"]]) / abs(first[m["step"]])
+            worst = max(worst, rel)
+            replayed.append(m["step"])
+        else:
+            first[m["step"]] = m["loss"]
+    for step, sec, nb in tr.save_log:
+        print(f"train (b) [{card}]: save at step {step}: {sec:.2f} s, "
+              f"{nb / 1e9:.3f} GB")
+    for step, sec, nb in tr.restore_log:
+        print(f"train (b) [{card}]: restore of step {step}: {sec:.2f} s, "
+              f"{nb / 1e9:.3f} GB")
+    print(f"train (b): steps replayed {replayed}, worst relative loss "
+          f"difference {worst:.3e} (tol {REPLAY_RTOL:.0e}); final step "
+          f"{st['step']}")
+    if st["step"] != FAULT_STEPS or replayed != [5, 6]:
+        raise AssertionError(f"train (b): resume went wrong: {replayed}")
+    if not worst <= REPLAY_RTOL:
+        raise AssertionError(f"train (b): replay differs by {worst}")
+    del tr, st
+    shutil.rmtree(root, ignore_errors=True)
+    release(torch)
+
+    # ---- (c) FSDP ----
+    tr, st = trainer_for(root, "c", canon, steps=TRAIN_STEPS, fsdp=True,
+                         ckpt_every=0)
+    tr.run(st, steps=FSDP_STEPS)
+    lc = losses_of(tr)
+    rel = np.abs(np.array(lc) - np.array(la[:FSDP_STEPS])) / np.abs(
+        la[:FSDP_STEPS])
+    print(f"train (c) FSDP losses {[round(x, 4) for x in lc]} vs ZeRO-1 "
+          f"{[round(x, 4) for x in la[:FSDP_STEPS]]}: max rel {rel.max():.3e}"
+          f" (tol {TRAJ_RTOL:.0e}); [{card}] step_ms={step_ms(np, tr):.1f}"
+          f" (ZeRO-1 {step_s * 1e3:.1f})")
+    if not rel.max() <= TRAJ_RTOL:
+        raise AssertionError("train (c): FSDP and ZeRO-1 disagree")
+    del tr, st
+    release(torch)
+
+    # ---- (d) every kept sync at quant8 ----
+    tr, st = trainer_for(root, "d", canon, steps=TRAIN_STEPS, comm="quant8",
+                         ckpt_every=0)
+    kept = plan_kept_syncs(cfg, tr.plan)
+    # the remat recompute (torch.utils.checkpoint, non-reentrant) stops
+    # at a block's last op whose saved tensors the backward needs: the
+    # MLP's down projection, before the MLP sync.  So it re-runs each kept
+    # block's attention sync and no MLP sync
+    recomputed = sum(not tr.plan.drop_mask[i] and tr.plan.block_mode(i)
+                     in ("quant8", "quant4") for i in range(cfg.n_layers))
+
+    def quant_run():
+        with collective_ledger() as led:
+            s = tr.run(st, steps=1)
+        tr.run(s, steps=QUANT_STEPS - 1)
+        return led
+
+    led, qlaunches = counted(torch, quant_run)
+    want_q = (kept + recomputed) * nmb * QUANT_STEPS
+    want_b1 = 2 * cfg.n_layers * nmb * QUANT_STEPS
+    ops = {}
+    for e in led:
+        ops[(e.op, e.axis)] = ops.get((e.op, e.axis), 0) + 1
+    ld = losses_of(tr)
+    qrel = float(np.max(np.abs(np.array(ld) - np.array(la[:QUANT_STEPS]))
+                        / np.abs(la[:QUANT_STEPS])))
+    print(f"train (d) quant8: losses {[round(x, 4) for x in ld]}, max rel "
+          f"{qrel:.3e} from (a)'s (tol {QUANT_LOSS_RTOL:.0e}); launches "
+          f"{json.dumps(qlaunches)}; fused kept sync want ({kept} kept "
+          f"quantized syncs + {recomputed} recomputed attention syncs) x "
+          f"{nmb} microbatches x {QUANT_STEPS} steps = {want_q}; one "
+          f"step's ledger {ops}; [{card}] step_ms={step_ms(np, tr):.1f} "
+          f"(exact {step_s * 1e3:.1f})")
+    if not (np.isfinite(ld).all() and qrel <= QUANT_LOSS_RTOL
+            and qlaunches["quantized_psum_absmax"] == want_q
+            and qlaunches["flash_attention_bhsd"] == want_b1
+            and ops.get(("reduce-scatter", "model"), 0) > 0
+            and ops.get(("all-gather", "model"), 0) > 0):
+        raise AssertionError("train (d): the quantized run went wrong")
+    del tr, st
+    # the fused kept sync at the payload this path gives it, (tp, B_mb x S
+    # x d) bf16 at L 127, bit for bit against its plain version
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    n = batch // nmb * seq * cfg.d_model
+    x = torch.randn(kw["tp"], n, generator=gen, device="cuda")
+    x *= torch.logspace(0, 1, kw["tp"], device="cuda")[:, None]
+    x = x.to(torch.bfloat16)
+    out = QC.quantized_psum_absmax(x, levels=127)
+    ref = QC.quantized_psum_absmax_plain(x, levels=127)
+    torch.cuda.synchronize()
+    same = same_bits(torch, out, ref)
+    print(f"quantized_psum at the train payload ({kw['tp']},{n}) bf16 "
+          f"L=127: bit-identical to its plain version: {same}")
+    if not same:
+        raise AssertionError("train (d): the fused kept sync differs from "
+                             "its plain version at the train payload")
+    del x, out, ref
+    release(torch)
+
+    # ---- (e) fp32, full depth: B1 against the plain attention ----
+    canon32 = tree_map(lambda w: w.float(), canon)
+    res = {}
+    for backend in ("pallas", "xla"):
+        tr, st = trainer_for(root, f"e-{backend}", canon32,
+                             steps=EXACT_STEPS, ckpt_every=0,
+                             attn_backend=backend, **EXACT_KW)
+        st, el = counted(torch, lambda: tr.run(st))
+        res[backend] = (losses_of(tr),
+                        [m["grad_norm"] for m in tr.metrics_log],
+                        [w.detach().clone() for w in
+                         tree_leaves(st["params"])], el)
+        del tr, st
+        release(torch)
+    (lk, gk, pk, ek), (lp, gp, pp, ep) = res["pallas"], res["xla"]
+    rl = max(abs(a - b) / abs(b) for a, b in zip(lk + gk, lp + gp))
+    want_e = 2 * cfg.n_layers * EXACT_KW["microbatches"] * EXACT_STEPS
+    print(f"train (e) fp32 full depth, batch {EXACT_KW['batch']} x seq "
+          f"{EXACT_KW['seq']}: B1 losses {lk} grad_norms {gk}; plain "
+          f"{lp} {gp}; max rel {rl:.3e} (tol {EXACT_RTOL:.0e}); B1 "
+          f"launches {ek['flash_attention_bhsd']} (want {want_e}), plain "
+          f"{ep['flash_attention_bhsd']}")
+    if not (rl <= EXACT_RTOL and ek["flash_attention_bhsd"] == want_e
+            and ep["flash_attention_bhsd"] == 0):
+        raise AssertionError("train (e): B1 and the plain attention "
+                             "disagree in fp32")
+    params_close(torch, pk, pp, kw["lr"], EXACT_STEPS, "train (e)")
+    del res, pk, pp, canon32
+    shutil.rmtree(root, ignore_errors=True)
+    release(torch)
+
+    # ---- B1 at the train shape: q (tp x B_mb x 9, S, 64) ----
+    lay_q = 2 * (batch // (kw["dp"] * nmb)) * kw["dp"] * 9
+    lay_kv = lay_q // 3
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = flash_inputs(torch, gen, seq, cfg.d_head, dtype,
+                               bh=lay_q, bhkv=lay_kv)
+        out = FA.flash_attention_bhsd(q, k, v)
+        ref = FA.flash_attention_plain(q, k, v)
+        torch.cuda.synchronize()
+        err, worst, at, rms = flash_row_errors(torch, out, ref)
+        tol = FLASH_ROW_RTOL[str(dtype)[6:]]
+        print(f"flash {str(dtype)[6:]} at the train shape q ({lay_q},{seq},"
+              f"{cfg.d_head}): max_abs_err={err:.3e} worst row relative L2 "
+              f"error {worst:.3e} at position {at} (tol {tol:.3e}), "
+              f"relative RMS error {rms:.3e}")
+        if not worst <= tol:
+            raise AssertionError(f"flash kernel disagrees at the train shape "
+                                 f"in {dtype}: row error {worst} > {tol}")
+        if dtype == torch.float32:
+            del q, k, v, out, ref
+            release(torch)
+    del out, ref
+    row = flash_row(torch, q, k, v, err, "train step (tp 2 x B_mb 2 x 9 "
+                    "heads)")
+    row["launches"] = launches["flash_attention_bhsd"]
+    del q, k, v
+    release(torch)
+    return row, launches
+
+
 def release(torch):
     """Free the models before the next loads: the caller drops its names,
     this collects them and empties the allocator's cache."""
@@ -3304,6 +3712,8 @@ def main() -> int:
                       TF_FP32_LAYERS, "opt-6.7b ")
     del opt
     release(torch)
+    train_row, train_launches = train_phase(torch, np, card)
+    print(f"train path launches: {json.dumps(train_launches)}")
 
     # each kernel's launches on the main path it serves: the paged kernel
     # on the paged path, quantize and dequant-accumulate on the ring
@@ -3336,7 +3746,8 @@ def main() -> int:
             k["launches"] = by_path[path][k["name"]] if path else 0
     # B2 at the chain verify's C = k + 1: its chunk launches on the paged
     # speculative path (b)
-    kernels += paper_rows + [verify_row]
+    # B1 at the train step's shape: its launches on the train path (a)
+    kernels += paper_rows + [verify_row, train_row]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
           f"build")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

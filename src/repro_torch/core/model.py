@@ -193,7 +193,7 @@ def _seg_cache_shape(kind, leaf, length: int, cache_len: int):
 
 def forward_seq(cfg, stacked, plan: SPDPlanConfig, tokens, *, tp,
                 q_chunk=1024, cache_len: int = 0, want_cache=False,
-                drop_flags=None, remat=False):
+                drop_flags=None, remat=False, fsdp=None):
     """Sequence forward.  tokens (B,S).  Returns (hidden (tp,B,S,d) after
     the final norm, caches) — caches per segment: attention layers'
     {"k","v"} of shape (tp, layers, B, max(S, cache_len), HkvL, dh), zero
@@ -209,12 +209,20 @@ def forward_seq(cfg, stacked, plan: SPDPlanConfig, tokens, *, tp,
 
     `remat=True` (training, no caches) recomputes each block in the
     backward (`torch.utils.checkpoint`, the reference's jax.checkpoint of
-    the scan body); the values do not change."""
+    the scan body); the values do not change.
+
+    `fsdp` (parallel/fsdp.FSDPSpecs, training) logs the all-gathers of
+    the data-sharded weights where the reference gathers them: the
+    embedding, each layer (one layer's, scaled over its segment) and the
+    final norm.  On one device the weights are whole: nothing moves."""
     lay = _gqa_layout(cfg, tp)
-    x = embed_tokens(stacked["emb"], tokens)
+    view = stacked if fsdp is None else fsdp.gather_top(stacked, ("emb",))
+    x = embed_tokens(view["emb"], tokens)
     b, s = tokens.shape
     pos = torch.arange(s, device=tokens.device).expand(b, s)
-    x = _add_positions(stacked, cfg, x, pos)
+    if fsdp is not None:
+        view = fsdp.gather_top(view, ("pos",))
+    x = _add_positions(view, cfg, x, pos)
     caches = []
     for seg_i, (start, length, kind, dropped) in enumerate(
             plan_segments(cfg, plan.drop_mask, plan.qmodes)):
@@ -225,12 +233,14 @@ def forward_seq(cfg, stacked, plan: SPDPlanConfig, tokens, *, tp,
                 drop = (dropped if drop_flags is None
                         else bool(drop_flags[start + j]))
                 with ledger_paused(j > 0):
+                    lp = _layer(sp, j)
+                    if fsdp is not None:
+                        lp = fsdp.gather_layer(lp, seg_i)
                     if remat and not want_cache:
-                        x = _remat_block(cfg, kind, lay, _layer(sp, j), x,
-                                         pos, drop, q_chunk,
-                                         plan.block_mode(start))
+                        x = _remat_block(cfg, kind, lay, lp, x, pos, drop,
+                                         q_chunk, plan.block_mode(start))
                         continue
-                    x, c = B.block_seq(cfg, kind, lay, _layer(sp, j), x, pos,
+                    x, c = B.block_seq(cfg, kind, lay, lp, x, pos,
                                        drop=drop, want_cache=want_cache,
                                        q_chunk=q_chunk,
                                        comm=plan.block_mode(start))
@@ -243,7 +253,9 @@ def forward_seq(cfg, stacked, plan: SPDPlanConfig, tokens, *, tp,
                     tree_map(lambda dst, src: dst[:, j, :, :src.shape[2]]
                              .copy_(src), seg_cache, c)
         caches.append(seg_cache)
-    return _final_norm(stacked, cfg, x), (caches if want_cache else None)
+    if fsdp is not None:
+        view = fsdp.gather_top(stacked, ("lnf",))
+    return _final_norm(view, cfg, x), (caches if want_cache else None)
 
 
 def _remat_block(cfg, kind, lay, layer_p, x, pos, drop, q_chunk, comm):
@@ -263,15 +275,15 @@ def _remat_block(cfg, kind, lay, layer_p, x, pos, drop, q_chunk, comm):
     return checkpoint(run, x, *tree_leaves(layer_p), use_reentrant=False)
 
 
-def vocab_parallel_ce(logits, labels, mask, cfg):
+def token_ce(logits, labels, cfg):
     """Per-token cross entropy with the vocab split over the shards.
 
-    logits (tp,B,S,Vl) fp32 shard-local; labels (B,S) int; mask (B,S)
-    float.  The padded vocab columns are masked, the row max is taken
-    across shards (pmax), and the exp-sum and the label logit travel
-    through exact syncs; the row max carries no gradient, as the
-    reference's stop_gradient.  Returns (sum_ce per shard (tp,), sum_mask
-    0-d): every shard holds the same value, each through its own graph."""
+    logits (tp,B,S,Vl) fp32 shard-local; labels (B,S) int.  The padded
+    vocab columns are masked, the row max is taken across shards (pmax),
+    and the exp-sum and the label logit travel through exact syncs; the
+    row max carries no gradient, as the reference's stop_gradient.
+    Returns ce (tp,B,S): every shard holds the same values, each through
+    its own graph."""
     tp, vl = logits.shape[0], logits.shape[-1]
     shard = torch.arange(tp, device=logits.device)
     gcol = shard[:, None] * vl + torch.arange(vl, device=logits.device)
@@ -285,25 +297,35 @@ def vocab_parallel_ce(logits, labels, mask, cfg):
     lbl = torch.gather(logits, -1, local.clamp(0, vl - 1)[..., None])[..., 0]
     lbl = sync_output(torch.where(ok, lbl, torch.zeros_like(lbl)),
                       compressible=False)
-    ce = torch.log(se) + m - lbl                              # (tp,B,S)
-    return torch.stack([(c * mask).sum() for c in ce]), mask.sum()
+    return torch.log(se) + m - lbl
 
 
 def loss_fn(cfg, stacked, plan, batch, *, tp, q_chunk=1024,
-            drop_flags=None, remat=False):
+            drop_flags=None, remat=False, fsdp=None):
     """The LM loss.  batch {"tokens", "labels", "mask"} (B,S) tensors.
     Returns (shard 0's mean CE over the mask, {"sum_ce", "n_tok",
-    "shard_loss" (tp,)}): a gradient is taken of shard_loss.sum(), the
-    reference's grad inside the shard map.  The dense families carry no
-    auxiliary loss."""
+    "shard_loss" (tp,), "shard_ce" (tp,), "row_ce" (B,)}): a gradient
+    is taken of shard_loss.sum(), the reference's grad inside the shard
+    map; the train step takes it of
+    shard_ce.sum() over the GLOBAL token count instead (parallel/tp.py).
+    `row_ce` is shard 0's masked CE sum of each row, without a graph.
+    The dense and SSM families carry no auxiliary loss.
+    `fsdp` logs the head's all-gather as the reference does (see
+    forward_seq)."""
     x, _ = forward_seq(cfg, stacked, plan, batch["tokens"], tp=tp,
-                       q_chunk=q_chunk, drop_flags=drop_flags, remat=remat)
-    shard_ce, n_tok = vocab_parallel_ce(lm_logits(stacked, cfg, x),
-                                        batch["labels"],
-                                        batch["mask"].float(), cfg)
+                       q_chunk=q_chunk, drop_flags=drop_flags, remat=remat,
+                       fsdp=fsdp)
+    head = stacked if fsdp is None else fsdp.gather_top(
+        stacked, ("emb",) if cfg.tie_embeddings else ("head",))
+    mask = batch["mask"].float()
+    ce = token_ce(lm_logits(head, cfg, x), batch["labels"], cfg)
+    shard_ce = torch.stack([(c * mask).sum() for c in ce])
+    n_tok = mask.sum()
     shard_loss = shard_ce / n_tok.clamp_min(1.0)
     return shard_loss[0], {"sum_ce": shard_ce[0], "n_tok": n_tok,
-                           "shard_loss": shard_loss}
+                           "shard_loss": shard_loss,
+                           "shard_ce": shard_ce,
+                           "row_ce": (ce[0].detach() * mask).sum(-1)}
 
 
 def prefill(cfg, stacked, plan, tokens, *, tp, q_chunk=1024,

@@ -31,7 +31,17 @@ of a replicated leaf.  Backwards log nothing in the ledger.
 seam: inside it a quantized kept sync logs its two hops as ring-step
 collective-permutes (compression._log_two_hop).  `ppermute` is the ring
 permutation i -> i+1 of the shard axis, which runnable ring collectives
-(compression.ring_*) are built from.
+(compression.ring_*) are built from, or any permutation of another
+simulated axis (the pipeline's stage shift).
+
+The train step's data-axis collectives (`psum_plain`, `psum_scatter`,
+`all_gather`) run over SIMULATED mesh axes ("pod", "data"; the mesh is
+launch/mesh.py's descriptor): one device computes the whole global
+batch, so they move no bytes.  Their values are sums, slices and
+concatenations over the axis, and each logs the entry the reference's
+shard_map logs, with the bytes one device of the mesh holds.  Inside
+`ledger_share(n)` a forward over the rows of n data slots at once logs
+one slot's bytes.
 """
 from __future__ import annotations
 
@@ -149,6 +159,7 @@ class _Ledger(threading.local):
         self.latency: Optional[LatencyModel] = None
         self.tp: int = 1
         self.overlap_chunks: int = 0      # 0 = not inside an overlap region
+        self.share: int = 1               # data slots whose rows run at once
 
 
 _LEDGER = _Ledger()
@@ -180,6 +191,29 @@ def ledger_scale(k: int):
         yield
     finally:
         _LEDGER.scale = prev
+
+
+@contextmanager
+def ledger_share(n: int):
+    """Divide logged bytes by n: the forward inside runs the rows of n
+    data slots at once, and the ledger counts one slot's (one device's)
+    payload, as the reference's shard_map does."""
+    prev, _LEDGER.share = _LEDGER.share, _LEDGER.share * int(n)
+    try:
+        yield
+    finally:
+        _LEDGER.share = prev
+
+
+@contextmanager
+def ledger_unshared():
+    """Undo `ledger_share` inside: payloads that are not the batch's rows
+    (the FSDP weight gathers) log their bytes whole."""
+    prev, _LEDGER.share = _LEDGER.share, 1
+    try:
+        yield
+    finally:
+        _LEDGER.share = prev
 
 
 @contextmanager
@@ -217,12 +251,14 @@ def log_collective(op: str, axis, nbytes: int, *,
     """Ledger entry with an explicit byte count."""
     if _LEDGER.active is None or _LEDGER.paused:
         return
+    nbytes = int(nbytes) // _LEDGER.share
     est = fixed = 0.0
     if _LEDGER.latency is not None and _LEDGER.tp > 1:
         est = _LEDGER.scale * _LEDGER.latency.collective_us(
             op, nbytes, _LEDGER.tp)
         fixed = _LEDGER.scale * _LEDGER.latency.launch_us
-    _LEDGER.active.append(CommEntry(op, axis, int(nbytes) * _LEDGER.scale,
+    name = axis if isinstance(axis, str) else "+".join(axis)
+    _LEDGER.active.append(CommEntry(op, name, nbytes * _LEDGER.scale,
                                     overlappable, est, fixed, _LEDGER.block,
                                     _LEDGER.phase))
 
@@ -306,11 +342,51 @@ def pmax(x, axis=MODEL_AXIS):
     return x.amax(dim=0, keepdim=True).expand_as(x)
 
 
-def ppermute(x, axis=MODEL_AXIS):
-    """The ring permutation i -> i+1 over the shard axis: row j receives
-    row j-1.  Logged as one collective-permute of one shard's bytes."""
+def ppermute(x, axis=MODEL_AXIS, perm=None):
+    """A permutation of the rows of a simulated axis (dim 0): with `perm`
+    None the ring i -> i+1 (row j receives row j-1); else `perm` pairs
+    (src, dst) and a row no pair reaches is zero, as jax.lax.ppermute's.
+    Logged as one collective-permute of one row's bytes."""
     log_collective("collective-permute", axis, shard_nbytes(x))
-    return torch.roll(x, 1, dims=0)
+    if perm is None:
+        return torch.roll(x, 1, dims=0)
+    rows = [torch.zeros_like(x[0])] * x.shape[0]
+    for src, dst in perm:
+        rows[dst] = x[src]
+    return torch.stack(rows)
+
+
+def psum_plain(x, axis):
+    """All-reduce over simulated mesh axes, not differentiated (the train
+    step's token count, loss and gradient-norm partials).  `axis` is a
+    name or a tuple of names; x holds one partial per slot on its
+    leading dims, one dim per name, and their sum is returned.  Logged
+    once with one slot's bytes."""
+    k = 1 if isinstance(axis, str) else len(axis)
+    log_collective("all-reduce", axis,
+                   x[(0,) * k].numel() * x.element_size())
+    return x.sum(dim=tuple(range(k)))
+
+
+def psum_scatter(x, axis, n: int):
+    """Reduce-scatter over a simulated axis of n slots (tiled, on the last
+    dim), of a shard-stacked x (tp, ..., L) that is already the sum over
+    the slots -- the port differentiates the whole global batch at once,
+    so its gradients arrive reduced over the data axes: returns (n, tp,
+    ..., L/n), slot i owning slice i.  Logged with one model shard's
+    bytes of x."""
+    log_collective("reduce-scatter", axis, shard_nbytes(x))
+    if x.shape[-1] % n:
+        raise ValueError(f"last dim {x.shape[-1]} does not split {n} ways")
+    return x.unflatten(-1, (n, x.shape[-1] // n)).movedim(-2, 0)
+
+
+def all_gather(x, axis):
+    """All-gather over a simulated axis (tiled, on the last dim): x (n,
+    tp, ..., m), slot i's slice of each model shard, -> (tp, ..., n*m),
+    their concatenation.  Logged with one slot's bytes of one shard."""
+    log_collective("all-gather", axis, x[0, 0].numel() * x.element_size())
+    return x.movedim(0, -2).flatten(-2)
 
 
 # accepted spellings of the kept-sync levels

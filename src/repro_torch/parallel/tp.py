@@ -1,0 +1,191 @@
+"""The train step (port of repro/parallel/tp.py: `TrainStepConfig`,
+`build_train_step`, `_grad_sq_groups`, `dp_axes`, `pod_axis`).
+
+The reference runs the step as a shard_map over a (pod, data, model)
+mesh: each device differentiates its rows' share of the global-mean
+loss, and ZeRO-1 (parallel/zero1.py) or FSDP (parallel/fsdp.py) reduces,
+clips and applies AdamW.  The port holds every model shard on the
+leading shard axis of one card and computes the gradient of the whole
+global batch at once: the sum over data slots of the reference's
+per-slot partials, up to summation order.  The data axes are a layout
+of the optimizer state and of the comm ledger (parallel/collectives.py:
+psum_plain, psum_scatter, all_gather), logged with the bytes one device
+of the mesh holds.
+
+Microbatch m gathers the m-th microbatch of every data slot's rows (the
+reference's reshape of each slot's local batch), and its loss is each
+shard's CE sum over the GLOBAL token count, so the gradients accumulate
+(in fp32, each microbatch's gradient rounded to the parameter dtype
+first, as jax.value_and_grad + tree.map(add)) to that of the
+global-mean loss.  Parameters and optimizer state are updated in place:
+the reference donates them.  No PartitionSpec helpers: on one card
+they have no counterpart.  Training uses exact comm plans, as in the
+reference; a quantized kept sync trains through its identity backward
+(P3), which the reference's does not give at tp > 1 (ROADMAP C5).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.api.llm import resolve_device
+from repro_torch.config.base import ModelConfig, SPDPlanConfig
+from repro_torch.core import model as M
+from repro_torch.core.layer_kinds import layer_kinds
+from repro_torch.core.simtp import grad_leaves
+from repro_torch.parallel import fsdp as F
+from repro_torch.parallel import zero1 as Z
+from repro_torch.parallel.collectives import (MODEL_AXIS, ledger_paused,
+                                              ledger_share, psum_plain)
+from repro_torch.parallel.layout import REPLICATED
+from repro_torch.tree import tree_leaves, tree_unflatten
+
+
+def dp_axes(mesh):
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def pod_axis(mesh) -> Optional[str]:
+    return "pod" if "pod" in mesh.axis_names else None
+
+
+def _grad_sq_groups(grads, cfg, plan):
+    """(sum of squares of the model-sharded leaves, of the replicated
+    ones) of a shard-stacked gradient tree: each shard's sharded slice
+    counts, a replicated leaf once (its shard 0 copy)."""
+    sh = rp = torch.zeros((), dtype=torch.float32,
+                          device=tree_leaves(grads)[0].device)
+    for g, a in zip(tree_leaves(grads),
+                    tree_leaves(M.stacked_specs(cfg, plan))):
+        g = g.float()
+        if a == REPLICATED:
+            rp = rp + torch.sum(g[0] ** 2)
+        else:
+            sh = sh + torch.sum(g ** 2)
+    return sh, rp
+
+
+@dataclass
+class TrainStepConfig:
+    microbatches: int = 1
+    remat: bool = True
+    q_chunk: int = 2048
+    lr: float = 3e-4
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    b1: float = 0.9
+    b2: float = 0.95
+    fsdp: bool = False     # ZeRO-3 param sharding over "data" (see fsdp.py)
+
+
+def check_trainable(cfg: ModelConfig, device) -> None:
+    """Refuse what the port cannot train: the families it does not port
+    (layer_kinds raises for MoE, hybrid and MLA), a modality frontend,
+    and an SSM stack on the card, whose SSD scan kernel (B8) has no
+    backward yet: ROADMAP lists its autograd Function.  The plain scan
+    is not a stand-in on the card."""
+    kinds = layer_kinds(cfg)
+    if cfg.frontend_dim:
+        raise NotImplementedError(f"{cfg.name}: modality frontends are not "
+                                  "ported (ROADMAP A4)")
+    if torch.device(device).type == "cuda" and any(
+            k.mixer == "ssm" for k in kinds):
+        raise NotImplementedError(
+            f"{cfg.name}: training an SSM stack on the card needs the SSD "
+            "scan kernel under autograd, which is not ported yet")
+
+
+def build_train_step(cfg: ModelConfig, plan: SPDPlanConfig, mesh,
+                     ts: TrainStepConfig, lr_schedule=None, *,
+                     device=None):
+    """Returns (step, init, specs).
+
+    step(params, opt_state, batch) -> (params, opt_state, metrics
+    {"loss", "grad_norm", "lr", "tokens"} 0-d tensors); params are
+    shard-stacked (simtp.split_padded), batch {"tokens", "labels",
+    "mask"} (B, S) tensors on their device, rows laid out over the data
+    slots as the reference shards them.  init(params) -> opt_state.
+    specs {"params": the TP split axes, "fsdp": FSDPSpecs or None, set
+    at the first call}.  `device` is where the step will run (the
+    refusals of check_trainable): None is the card, an error without
+    one."""
+    check_trainable(cfg, resolve_device(device))
+    tp = mesh.shape[MODEL_AXIS]
+    dp = mesh.shape["data"]
+    pod = pod_axis(mesh)
+    dpx = dp_axes(mesh)
+    slots = tuple(mesh.shape[a] for a in dpx)        # (pod, data) | (data,)
+    n_slots = int(np.prod(slots))
+    red = dpx if pod else "data"
+    specs = {"params": M.stacked_specs(cfg, plan), "fsdp": None}
+
+    def fsdp_specs(params):
+        if specs["fsdp"] is None:
+            specs["fsdp"] = F.make_specs(params, cfg, plan, dp)
+        return specs["fsdp"]
+
+    def step(params, opt_state, batch):
+        nmb = ts.microbatches
+        b = batch["tokens"].shape[0]
+        if b % (n_slots * nmb):
+            raise ValueError(f"batch {b} does not split into {n_slots} data "
+                             f"slots x {nmb} microbatches")
+        rows = b // (n_slots * nmb)
+
+        def micro(x, m):
+            rest = tuple(x.shape[1:])
+            return x.reshape((n_slots, nmb, rows) + rest)[:, m].reshape(
+                (n_slots * rows,) + rest)
+
+        f_specs = fsdp_specs(params) if ts.fsdp else None
+        mask = batch["mask"].float()
+        total_tok = psum_plain(mask.reshape(slots + (-1,)).sum(-1), red)
+        p, leaves = grad_leaves(params)
+        gacc = [torch.zeros_like(w, dtype=torch.float32) for w in leaves]
+        loss = torch.zeros(slots, dtype=torch.float32, device=mask.device)
+        with ledger_share(n_slots):
+            for m in range(nmb):
+                mb = {k: micro(v, m) for k, v in batch.items()}
+                with ledger_paused(m > 0), torch.enable_grad():
+                    _, met = M.loss_fn(cfg, p, plan, mb, tp=tp,
+                                       q_chunk=ts.q_chunk, remat=ts.remat,
+                                       fsdp=f_specs)
+                    # the ported families carry no auxiliary loss: the
+                    # reference's aux_coef * aux / nmb term is 0
+                    obj = (met["shard_ce"] / total_tok).sum()
+                    gs = torch.autograd.grad(obj, leaves, allow_unused=True)
+                with torch.no_grad():
+                    for acc, g in zip(gacc, gs):
+                        if g is not None:
+                            acc.add_(g)
+                    loss += (met["row_ce"].reshape(slots + (-1,)).sum(-1)
+                             / total_tok)
+                del met, obj, gs
+        del p, leaves
+        grads = tree_unflatten(params, gacc)
+        lr = (lr_schedule(opt_state["step"]) if lr_schedule is not None
+              else ts.lr)
+        kw = dict(lr=lr, b1=ts.b1, b2=ts.b2, weight_decay=ts.weight_decay,
+                  clip_norm=ts.clip_norm, pod_axis=pod)
+        if ts.fsdp:
+            params, opt_state, gnorm = F.fsdp_update(
+                grads, opt_state, params, cfg=cfg, plan=plan, specs=f_specs,
+                **kw)
+        else:
+            params, opt_state, gnorm = Z.zero1_update_clipped(
+                grads, opt_state, params, specs=specs["params"], dp=dp, **kw)
+        del grads, gacc
+        metrics = {"loss": psum_plain(loss, red), "grad_norm": gnorm,
+                   "lr": torch.as_tensor(lr, dtype=torch.float32),
+                   "tokens": total_tok}
+        return params, opt_state, metrics
+
+    def init(params):
+        if ts.fsdp:
+            return F.fsdp_opt_init(params)
+        return Z.zero1_init_structured(params, dp)
+
+    return step, init, specs

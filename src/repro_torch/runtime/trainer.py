@@ -1,0 +1,280 @@
+"""Fault-tolerant trainer (port of repro/runtime/trainer.py).
+
+Wraps the train step (parallel/tp.py) with:
+  * cadenced atomic checkpoints of params + optimizer state + data
+    cursor; params are written as the GLOBAL stacked tree (the split
+    leaves merged, simtp.merge_stacked) and the optimizer state in the
+    reference's global shapes, so a reference checkpoint and a port
+    checkpoint hold the same arrays;
+  * restart from the newest valid checkpoint after a fault
+    (SimulatedFault hooks kill the step loop at chosen points);
+  * straggler detection: a per-step wall-time EWMA; steps slower than
+    `straggler_factor` x EWMA are logged;
+  * deterministic data resume: the synthetic pipeline's batch k is a pure
+    function of (seed, k), so the saved cursor reproduces the stream.
+
+Each step's wall time includes its device work: the metrics are read
+back (a synchronising copy) inside the timed region, as the reference's
+`float(v)`.
+"""
+from __future__ import annotations
+
+import tempfile
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.api.llm import resolve_device
+from repro_torch.checkpoint.ckpt import (CheckpointManager,
+                                         CheckpointShapeError, _key_paths,
+                                         _rebuild, load_checkpoint)
+from repro_torch.config.base import ModelConfig, SPDPlanConfig
+from repro_torch.core import model as M
+from repro_torch.core import simtp
+from repro_torch.data.synthetic import make_batch_iterator
+from repro_torch.parallel import tp as TP
+from repro_torch.parallel.layout import REPLICATED, split_leaf
+from repro_torch.parallel.zero1 import zero1_reshard
+from repro_torch.tree import tree_leaves, tree_map
+
+
+class SimulatedFault(RuntimeError):
+    """Raised by fault-injection hooks to exercise the recovery path."""
+
+
+@dataclass
+class TrainerConfig:
+    total_steps: int = 100
+    # a new temporary directory unless one is given (resuming needs one)
+    ckpt_dir: str = field(
+        default_factory=lambda: tempfile.mkdtemp(prefix="repro_torch_ckpt_"))
+    ckpt_every: int = 50
+    ckpt_keep: int = 3
+    seed: int = 0
+    batch: int = 8
+    seq: int = 64
+    log_every: int = 10
+    straggler_factor: float = 3.0
+    ewma_alpha: float = 0.2
+
+
+def split_stacked(stacked: dict, cfg, plan, tp: int) -> dict:
+    """Inverse of simtp.merge_stacked: global stacked trees -> every leaf
+    with a leading (tp, ...) shard axis."""
+    specs = M.stacked_specs(cfg, plan)
+
+    def split(w, a, off):
+        return split_leaf(w, a if a == REPLICATED else a + off, tp)
+
+    out = {k: tree_map(lambda w, a: split(w, a, 0), v, specs[k])
+           for k, v in stacked.items() if k != "segs"}
+    out["segs"] = [tree_map(lambda w, a: split(w, a, 1), sv, ss)
+                   for sv, ss in zip(stacked["segs"], specs["segs"])]
+    return out
+
+
+class Trainer:
+    def __init__(self, cfg: ModelConfig, plan: SPDPlanConfig, mesh,
+                 ts: TP.TrainStepConfig, tc: TrainerConfig,
+                 lr_schedule=None,
+                 fault_hook: Optional[Callable[[int], None]] = None, *,
+                 device=None):
+        """`device` None is the card (an error without one); the CPU only
+        when asked for."""
+        self.cfg, self.plan, self.mesh = cfg, plan, mesh
+        self.ts, self.tc = ts, tc
+        self.device = resolve_device(device)
+        self.tp = mesh.shape["model"]
+        self.step_fn, self.init_fn, self.specs = TP.build_train_step(
+            cfg, plan, mesh, ts, lr_schedule, device=self.device)
+        self.ckpt = CheckpointManager(tc.ckpt_dir, every=tc.ckpt_every,
+                                      keep=tc.ckpt_keep)
+        self.fault_hook = fault_hook
+        self.metrics_log = []
+        self.straggler_events = []
+        self.save_log = []            # (step, seconds, bytes) per save
+        self.restore_log = []         # (step, seconds, bytes) per restore
+        self._ewma = None
+
+    # ---------------- state management ----------------
+
+    def init_state(self, canonical_params):
+        """Placed params and fresh optimizer state.  The step updates the
+        params in place, so every leaf gets storage of its own: a split
+        leaf can be a view of the caller's canonical tensor."""
+        padded = tree_map(lambda w: w.to(self.device),
+                          M.pad_model(canonical_params, self.cfg, self.tp))
+        params = tree_map(torch.clone, simtp.split_padded(
+            padded, self.cfg, self.plan, self.tp))
+        return {"params": params, "opt": self.init_fn(params), "step": 0}
+
+    def _global_opt(self, opt):
+        """The optimizer state in the reference's global shapes: ZeRO-1's
+        is already (dp, tp, n); FSDP's trees merge as the params do."""
+        if "master" not in opt:
+            return opt
+        return {k: (v if k == "step" else self._merge(v))
+                for k, v in opt.items()}
+
+    def _merge(self, tree):
+        return simtp.merge_stacked(tree, self.cfg, self.plan, self.tp)
+
+    def _split(self, tree):
+        return split_stacked(tree, self.cfg, self.plan, self.tp)
+
+    def _local_opt(self, opt):
+        if "master" not in opt:
+            return opt
+        return {k: (v if k == "step" else self._split(v))
+                for k, v in opt.items()}
+
+    def save(self, state, force=False):
+        t0 = time.perf_counter()
+        tree = {"params": self._merge(state["params"]),
+                "opt": self._global_opt(state["opt"])}
+        path = self.ckpt.maybe_save(
+            state["step"], tree,
+            meta={"data_step": state["step"], "arch": self.cfg.name,
+                  "plan": list(map(bool, self.plan.drop_mask))},
+            force=force)
+        if path is not None:
+            nbytes = sum(t.numel() * t.element_size()
+                         for t in tree_leaves(tree))
+            self.save_log.append((state["step"], time.perf_counter() - t0,
+                                  nbytes))
+        return path
+
+    def _like(self, state_like):
+        return {"params": self._merge(state_like["params"]),
+                "opt": self._global_opt(state_like["opt"])}
+
+    def restore(self, state_like):
+        t0 = time.perf_counter()
+        like = self._like(state_like)
+        try:
+            res = self.ckpt.restore(like)
+        except CheckpointShapeError:       # elastic re-mesh
+            res = None
+        if res is None:
+            res = self._restore_resharded(like)
+        if res is None:
+            return None
+        step, tree, _ = res
+        state = {"params": self._split(tree["params"]),
+                 "opt": self._local_opt(tree["opt"]), "step": step}
+        self.restore_log.append((step, time.perf_counter() - t0, sum(
+            t.numel() * t.element_size() for t in tree_leaves(tree))))
+        return state
+
+    def _restore_resharded(self, like):
+        """Elastic path: the checkpoint was written under another data
+        degree -> params load as they are; ZeRO-1 slices are re-sharded
+        (zero1_reshard) and fitted to this degree's padded length (the
+        tail past a leaf's elements is zero padding)."""
+        raw = load_checkpoint(self.tc.ckpt_dir)
+        if raw is None or "master" in like["opt"]:
+            return None               # FSDP state does not depend on dp
+        step, flat, meta = raw
+        try:
+            params_res = self.ckpt.restore({"params": like["params"]})
+        except CheckpointShapeError:
+            return None
+        if params_res is None:
+            return None
+        opt_flat = {k[len("['opt']"):]: v for k, v in flat.items()
+                    if k.startswith("['opt']")}
+        dp_new = self.mesh.shape["data"]
+        vals = {}
+        for key, proto in _key_paths(like["opt"]):
+            arr = opt_flat[key]
+            if arr.dim() == 3 and tuple(arr.shape) != tuple(proto.shape):
+                arr = zero1_reshard({"leaves": arr, "step": None},
+                                    dp_new)["leaves"]
+                arr = _fit(arr, proto.shape[2])
+            vals[key] = arr.to(device=proto.device, dtype=proto.dtype)
+        return step, {"params": params_res[1]["params"],
+                      "opt": _rebuild(like["opt"], vals)}, meta
+
+    # ---------------- data ----------------
+
+    def data_iter(self, start_step: int):
+        if self.cfg.frontend_dim:
+            raise NotImplementedError(f"{self.cfg.name}: modality frontends "
+                                      "are not ported (ROADMAP A4)")
+        it = make_batch_iterator(self.cfg.vocab_size, self.tc.batch,
+                                 self.tc.seq, seed=self.tc.seed,
+                                 start_step=start_step)
+        for b in it:
+            yield {k: torch.from_numpy(v).to(self.device)
+                   for k, v in b.items() if not k.startswith("_")}
+
+    # ---------------- loop ----------------
+
+    def run(self, state, *, steps: Optional[int] = None,
+            max_recoveries: int = 3):
+        """Run with automatic fault recovery; returns the final state,
+        checkpointed unless ckpt_every <= 0 (no checkpoints at all) or the
+        cadence has just written this step (the reference writes the
+        final one regardless, again).  The step updates params and
+        optimizer state in place, so a fault with no checkpoint to go
+        back to raises: there is no earlier state to replay from."""
+        target = state["step"] + (steps or self.tc.total_steps)
+        recoveries = 0
+        while state["step"] < target:
+            try:
+                state = self._run_segment(state, target)
+            except SimulatedFault as fault:
+                recoveries += 1
+                if recoveries > max_recoveries:
+                    raise
+                restored = self.restore(state_like=state)
+                if restored is None:
+                    raise RuntimeError(
+                        "a fault before the first checkpoint: the state was "
+                        "updated in place and there is nothing to restore"
+                    ) from fault
+                state = restored
+        if self.tc.ckpt_every > 0 and not (
+                self.save_log and self.save_log[-1][0] == state["step"]):
+            self.save(state, force=True)
+        return state
+
+    def _run_segment(self, state, target):
+        for batch in self.data_iter(start_step=state["step"]):
+            if state["step"] >= target:
+                break
+            if self.fault_hook is not None:
+                self.fault_hook(state["step"])
+            t0 = time.perf_counter()
+            p, o, met = self.step_fn(state["params"], state["opt"], batch)
+            met = {k: float(v) for k, v in met.items()}
+            dt = time.perf_counter() - t0
+            state = {"params": p, "opt": o, "step": state["step"] + 1}
+            self._track_time(state["step"], dt)
+            met["step"] = state["step"]
+            met["wall"] = dt
+            self.metrics_log.append(met)
+            self.save(state)
+        return state
+
+    def _track_time(self, step, dt):
+        if self._ewma is None:
+            self._ewma = dt
+            return
+        if dt > self.tc.straggler_factor * self._ewma and step > 3:
+            self.straggler_events.append({"step": step, "wall": dt,
+                                          "ewma": self._ewma})
+        a = self.tc.ewma_alpha
+        self._ewma = (1 - a) * self._ewma + a * dt
+
+
+def _fit(x, n: int):
+    """(dp, tp, n_old) -> (dp, tp, n): cut or zero-pad each shard's flat
+    padded leaf to this degree's padded length, slices re-laid."""
+    dp, tp, n_old = x.shape
+    flat = x.transpose(0, 1).reshape(tp, dp * n_old)
+    if dp * n > flat.shape[1]:
+        flat = torch.nn.functional.pad(flat, (0, dp * n - flat.shape[1]))
+    return flat[:, : dp * n].reshape(tp, dp, n).transpose(0, 1).contiguous()

@@ -17,6 +17,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.api import (LLM, InvalidRequestError,  # noqa: E402
                              SamplingParams)
 from repro_torch.api.scheduler import Request, Scheduler  # noqa: E402
+from torch_parity import one_torch_thread  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -30,14 +31,22 @@ def _load(**kw):
 
 
 def test_port_imports_neither_jax_nor_reference():
-    """In a fresh interpreter: import the whole slice, run one CPU
-    generate (dense and paged), and find no jax* or repro/repro.* module
-    loaded."""
+    """In a fresh interpreter: import the whole slice (the training
+    modules by name too), run one CPU generate (dense and paged) and one
+    train step through the train CLI, and find no jax* or repro/repro.*
+    module loaded."""
     code = """
-import importlib, pkgutil, sys
+import importlib, pkgutil, sys, tempfile
 import repro_torch
 for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
+from repro_torch import checkpoint
+from repro_torch.runtime import elastic, trainer
+from repro_torch.parallel import fsdp, pipeline, tp, zero1
+from repro_torch.launch import mesh, train
+assert train.main(["--arch", "smollm-360m-reduced", "--device", "cpu",
+                   "--steps", "1", "--batch", "2", "--seq", "8",
+                   "--ckpt-dir", tempfile.mkdtemp()]) == 0
 from repro_torch.api import LLM, SamplingParams
 llm = LLM.load("smollm-360m-reduced", tp=2, spd=0.25, dtype="float32",
                cache_len=32, device="cpu", comm="quant8", comm_logits="quant8")

@@ -28,6 +28,7 @@ from repro.kernels import ops as ROPS, ref as REF  # noqa: E402
 
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
+from torch_parity import one_torch_thread  # noqa: E402,F401
 
 KS = FA.DECODE_KEYS_PER_SPLIT
 # the emulation and the plain version differ only in the order of fp32

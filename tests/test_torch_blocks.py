@@ -22,6 +22,7 @@ from repro_torch.core import blocks as B  # noqa: E402
 from repro_torch.core.layer_kinds import layer_kinds  # noqa: E402
 from repro_torch.parallel.layout import make_gqa_layout  # noqa: E402
 from repro_torch.tree import tree_map  # noqa: E402
+from torch_parity import one_torch_thread  # noqa: E402,F401
 
 # exact / SPD wiring: fp32, the only differences are summation orders
 # (XLA vs torch matmuls): ~1e-6 on O(1) activations

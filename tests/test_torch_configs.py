@@ -37,6 +37,7 @@ from repro_torch.models import common as C  # noqa: E402
 from repro_torch.parallel.layout import make_gqa_layout  # noqa: E402
 from repro_torch.runtime.forward import bucketed_prefill  # noqa: E402
 from torch_parity import perturb, perturbed_canonical  # noqa: E402
+from torch_parity import one_torch_thread  # noqa: E402,F401
 
 NAMES = ("llama2-7b", "opt-6.7b", "qwen2-72b", "qwen3-1.7b",
          "stablelm-1.6b")

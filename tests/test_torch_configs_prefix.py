@@ -23,6 +23,7 @@ from repro_torch.config.base import replace  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.convert import from_reference  # noqa: E402
 from torch_parity import perturbed_canonical  # noqa: E402
+from torch_parity import one_torch_thread  # noqa: E402,F401
 
 NAMES = ("llama2-7b", "opt-6.7b", "qwen2-72b", "qwen3-1.7b",
          "stablelm-1.6b")

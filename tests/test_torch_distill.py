@@ -35,6 +35,7 @@ from repro_torch.core.layer_kinds import layer_kinds  # noqa: E402
 from repro_torch.optim import adamw as A, make_schedule  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 from torch_parity import perturbed_canonical  # noqa: E402
+from torch_parity import one_torch_thread  # noqa: E402,F401
 
 TP = 2
 # fp32 block forwards: XLA and torch sum in other orders

@@ -35,6 +35,7 @@ from repro_torch.parallel import collectives as C  # noqa: E402
 from repro_torch.parallel.layout import REPLICATED  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 from torch_parity import perturbed_canonical  # noqa: E402
+from torch_parity import one_torch_thread  # noqa: E402,F401
 
 # gradients of fp32 block / model forwards: XLA and torch sum and fuse in
 # other orders, so elements agree to ~1e-6 of the tree's largest value

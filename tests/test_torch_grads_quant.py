@@ -45,18 +45,7 @@ from repro_torch.core.convert import from_reference  # noqa: E402
 from repro_torch.parallel import compression as C  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 from torch_parity import perturbed_canonical  # noqa: E402
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread while this file runs.  The suite runs several
-    pytest workers at once, each with a torch thread per core, and the
-    many small ops of a speculative round then wait on one another's
-    threads: ~50x slower than alone.  The values do not change."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_parity import one_torch_thread  # noqa: E402,F401
 
 
 GRAD_RTOL = 1e-4

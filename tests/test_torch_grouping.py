@@ -30,6 +30,7 @@ from repro_torch.core.convert import from_reference  # noqa: E402
 from repro_torch.core.layer_kinds import layer_kinds  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 from torch_parity import perturbed_canonical  # noqa: E402
+from torch_parity import one_torch_thread  # noqa: E402,F401
 
 # softmax probabilities and MLP output norms from fp32 forwards
 FEAT_ATOL = 1e-6

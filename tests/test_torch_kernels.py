@@ -16,6 +16,7 @@ from repro.kernels.quant_collectives import qdq_absmax as ref_qdq  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import quant_collectives as QC  # noqa: E402
+from torch_parity import one_torch_thread  # noqa: E402,F401
 
 # fp32 online softmax (Pallas, blockwise) vs one-shot softmax (plain):
 # the two orders of summation agree to ~1e-6 on N(0,1) inputs

@@ -22,6 +22,7 @@ from repro_torch.core import simtp  # noqa: E402
 from repro_torch.core.convert import from_reference  # noqa: E402
 from repro_torch.core.layer_kinds import plan_segments  # noqa: E402
 from repro_torch.parallel import layout as L  # noqa: E402
+from torch_parity import one_torch_thread  # noqa: E402,F401
 
 
 def _flat(tree, prefix=""):

@@ -24,6 +24,7 @@ from repro_torch.core import simtp  # noqa: E402
 from repro_torch.core.convert import from_reference  # noqa: E402
 from repro_torch.parallel.collectives import collective_ledger  # noqa: E402
 from repro_torch.runtime import forward as F  # noqa: E402
+from torch_parity import one_torch_thread  # noqa: E402,F401
 
 
 def _cfgs():

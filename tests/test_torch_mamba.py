@@ -40,6 +40,7 @@ from repro_torch.runtime import forward as F  # noqa: E402
 from repro_torch.runtime.forward import (bucketed_prefill,  # noqa: E402
                                          full_logits_seq)
 from repro_torch.tree import tree_map  # noqa: E402
+from torch_parity import one_torch_thread  # noqa: E402,F401
 
 ARCH = "mamba2-370m-reduced"
 TP, CACHE_LEN, MAX_NEW = 2, 64, 6

@@ -27,6 +27,7 @@ from repro_torch.config.base import replace  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.convert import from_reference  # noqa: E402
 from repro_torch.runtime.forward import bucketed_prefill  # noqa: E402
+from torch_parity import one_torch_thread  # noqa: E402,F401
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "..", "results", "golden",
                       "smollm-360m-reduced_greedy.json")

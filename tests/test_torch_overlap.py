@@ -34,6 +34,7 @@ from repro_torch.parallel import collectives as COL  # noqa: E402
 from repro_torch.parallel import compression as C  # noqa: E402
 from repro_torch.parallel.backend import OverlapBackend  # noqa: E402
 from repro_torch.runtime import forward as F  # noqa: E402
+from torch_parity import one_torch_thread  # noqa: E402,F401
 
 MODEL_AXIS = COL.MODEL_AXIS
 # the reference's LatencyModel defaults, passed explicitly to both

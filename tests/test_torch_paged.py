@@ -35,6 +35,7 @@ from repro_torch.core.convert import from_reference  # noqa: E402
 from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.parallel.collectives import collective_ledger  # noqa: E402
 from repro_torch.runtime import forward as F  # noqa: E402
+from torch_parity import one_torch_thread  # noqa: E402,F401
 
 TP, CACHE, PS, NPG = 2, 64, 8, 16
 # fp32 end to end through 4 blocks + the tied head; summation orders of

@@ -32,6 +32,7 @@ from repro.kernels import ops as ROPS, ref as REF  # noqa: E402
 
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
+from torch_parity import one_torch_thread  # noqa: E402,F401
 
 CQ, CK = FA.CHUNK_QUERY_ROWS, FA.CHUNK_KEYS_PER_TILE
 WARP_ROWS = 16                         # packed rows per warp (mma rows)

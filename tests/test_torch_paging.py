@@ -21,6 +21,7 @@ from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.runtime import paging as P  # noqa: E402
+from torch_parity import one_torch_thread  # noqa: E402,F401
 
 # fp32 online softmax (Pallas, page by page) vs one-shot softmax (plain):
 # the two orders of summation agree to ~1e-6 on N(0,1) inputs

@@ -23,6 +23,7 @@ from repro_torch.kernels import fused_norm as FN, ops  # noqa: E402
 from repro_torch.kernels import quant_collectives as QC  # noqa: E402
 from repro_torch.parallel import compression as C  # noqa: E402
 from repro_torch.parallel.collectives import collective_ledger  # noqa: E402
+from torch_parity import one_torch_thread  # noqa: E402,F401
 
 
 def _t(a):

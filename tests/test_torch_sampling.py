@@ -17,6 +17,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.runtime import sampling as RS  # noqa: E402
 
 from repro_torch.runtime import sampling as S  # noqa: E402
+from torch_parity import one_torch_thread  # noqa: E402,F401
 
 
 @pytest.mark.parametrize("temp", [1e-7, 1e-40])

@@ -33,6 +33,7 @@ from repro_torch.core import sensitivity as Se, simtp, spd as SPD  # noqa: E402
 from repro_torch.core.convert import from_reference  # noqa: E402
 from repro_torch.data import synthetic as D  # noqa: E402
 from torch_parity import perturbed_canonical  # noqa: E402
+from torch_parity import one_torch_thread  # noqa: E402,F401
 
 TP = 2
 # perplexities: fp32 forwards of 4 blocks and a CE over 2 x 32 tokens;

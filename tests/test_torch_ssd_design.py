@@ -30,6 +30,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import ref as REF  # noqa: E402
 
 from repro_torch.kernels import ssd_scan as SS  # noqa: E402
+from torch_parity import one_torch_thread  # noqa: E402,F401
 
 Y_REL = 2.0 ** -7
 STATE_REL = 2e-5

@@ -20,6 +20,7 @@ from repro.models import ssm as RSSM  # noqa: E402
 from repro_torch.kernels import build, ops as KOPS  # noqa: E402
 from repro_torch.kernels import ssd_scan as SS  # noqa: E402
 from repro_torch.models import ssm as SSM  # noqa: E402
+from torch_parity import one_torch_thread  # noqa: E402,F401
 
 ATOL = 1e-5
 INTERPRET = dict(atol=2e-4, rtol=2e-3)
