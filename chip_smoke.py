@@ -159,14 +159,14 @@
    logits within 1e-3.  Prints acceptance, tokens per round, decode ms
    per token against plain, prefill ms chunked against whole, the
    calibrated winner and its trials, and peak memory.
-16. Training: full-width SmolLM-360M (32 layers, 362 M parameters,
-   bf16, random weights from seed 0) through the train CLI's
+16. Training: SmolLM-360M at full width and 16 of its 32 layers (bf16,
+   random weights from seed 0) through the train CLI's
    make_trainer on the simulated (data 2, model 2) mesh, plan
-   first_k(32, 8), sequence 4096, batch 8 in 4 microbatches of 2, remat,
+   first_k(16, 4), sequence 4096, batch 8 in 4 microbatches of 2, remat,
    q_chunk 2048, lr 1e-3 (cosine, 2 warm-up steps), clip 1.0, weight
    decay 0.1, the batches of make_batch_iterator(49152, 8, 4096, seed=0):
    (a) ZeRO-1 for 12 steps with every kernel's count zeroed before and
-   read after (B1 must launch 2 x 32 layers x 4 microbatches a step,
+   read after (B1 must launch 2 x 16 layers x 4 microbatches a step,
    forward and remat recompute under autograd; nothing else), the loss
    must fall (mean of the last 4 below the first 4); step ms, tokens/s,
    MFU (formula printed), peak memory; one more step under the profiler
@@ -180,20 +180,41 @@
    stops before the MLP sync) a microbatch, losses within 1e-3 of (a)'s,
    one step's ledger names the quantized hops, and the fused kept sync
    at the path's payload (2, 2 x 4096 x 960) bf16 equals its plain
-   version bit for bit; (e) fp32 at full depth (batch 2 x 1024): 2
+   version bit for bit; (e) fp32 (batch 2 x 1024): 2
    steps with B1 and 2 with the plain attention, loss and grad norm
    within 1e-4, parameters within the sign-aware bound.  Then B1 at the
    train shape q (36, 4096, 64) in fp32 and bf16 against its plain
    version, every output row within a relative L2 bound, and the bf16
    call timed beside SDPA.
-17. Prints the kernels JSON line (the rows above beside the earlier
-   ones), the card line, and last {"ok": true, "device": {...}}.
+17. The MoE and hybrid families' kernel shapes: B8 at hymba-1.5b's
+   prefill (x (2, S, 15, 64), N 16, one group, chunk 256; S 300 and
+   1100) in bf16 and fp32, B1 at qwen2-moe-a2.7b's (q (16, 512, 128)),
+   the fused kept sync at (2, 2048) and (2, 1600), B3 on (2, 75968) and
+   (2, 16001); each against its plain version and timed.
+18. qwen2-moe-a2.7b at full width (24 layers, d 2048, 60 routed + 4
+   shared experts, top-4, 14.3 B parameters, bf16, random weights from
+   seed 0) through the same LLM.load: the dense path as in 3 (B1 24 x 4,
+   the fused sync 42 a forward, qdq 1), a profile; the dense placement
+   freed, the paged path as in 4; the teacher-forced checks of 5 in
+   bf16 at full width and fp32 on layers 4-7, the MoE routing of the
+   kernel's forward replayed in the plain one (RoutePin).
+19. hymba-1.5b at full width (32 layers, d 1600, 25 attention and 25
+   SSM heads, a 1024-token window but on layers 0, 15, 31) on dense
+   caches (cache_len 2048): prompts of 17, 64, 200 and 1100 tokens at
+   their own length, 16 greedy tokens each; B8 32 x 4, the fused sync
+   56 a forward, qdq 1, B1 and B2 0; plain-sync tokens; a profile; then
+   as in 10 in bf16 and fp32 on the 1100-token prompt (its decode runs
+   on the windowed layers' rolling buffers).
+20. Prints the seconds since the build at the end of each part, the
+   kernels JSON line (the rows above beside the earlier ones), the card
+   line, and last {"ok": true, "device": {...}}.
 
 Any failure raises (non-zero exit, no result line).  Without a CUDA
 device it exits non-zero at once.  Weights are random, from a seed.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -273,6 +294,8 @@ TF_FP32_ATOL = 1e-3
 # a 4x512 prefill's (4*512*960 / 2) at tp=2 and (/ 4) at tp=4
 QUANT_SHAPES = ((2, 1920), (2, 983040), (4, 491520), (2, 1001), (3, 77))
 QUANT_TIMED = (2, 983040)
+# the ring's kernels by the names the profiler shows
+QUANT_KERNELS = ("quant_kernel", "dequant_kernel", "dequant_accum_kernel")
 # fused residual RMSNorm: a 4x512 prefill's rows and a decode step's;
 # fp32 differs by summation order only, bf16 by one rounding of y
 NORM_SHAPES = ((2048, 960), (4, 960))
@@ -304,7 +327,6 @@ SSD_OFF_PATH = dict(bt=2, h=16, p=32, n=64, g=4, chunk=100)
 SSD_FP32_REL = 2e-5
 SSD_BF16_Y_REL = 2.0 ** -7
 SSD_BF16_STATE_REL = 2e-5
-MAMBA_LAYERS = 48
 # the paper's models (llama2-7b, opt-6.7b) at tp=2: head dim 128, 16 q
 # and 16 kv heads a shard (group 1); B1 also at the group of qwen3-1.7b
 # (8 q / 4 kv a shard) and qwen2-72b (32 q / 4 kv), whose full widths
@@ -468,7 +490,8 @@ def flash_phase(torch):
         qb, kb, vb = (q, k, v) if sb == s else flash_inputs(
             torch, gen, sb, d, torch.bfloat16)
         kern = device_us(torch, lambda: FA.flash_attention_bhsd(qb, kb, vb),
-                         ("flash_fwd_tc_kernel", "flash_fwd_kernel"))
+                         ("flash_fwd_tc_kernel", "flash_fwd_kernel"),
+                         need=("flash_fwd_tc_kernel",))
         if kern["flash_fwd_kernel"] is not None:
             raise AssertionError("a bf16 call reached the fp32 CUDA-core "
                                  "flash kernel")
@@ -864,9 +887,9 @@ def paged_phase(torch):
                 # a chunk call launches the tensor-core kernel in bf16 and
                 # the CUDA-core one in fp32, and nothing else of B2
                 names = ("paged_chunk_tc_kernel", "paged_fwd_kernel")
-                ran = device_us(torch, lambda: FA.paged_flash_attention(
-                    q, kv, vv, table, pos), names)
                 want = names[0] if dtype == torch.bfloat16 else names[1]
+                ran = device_us(torch, lambda: FA.paged_flash_attention(
+                    q, kv, vv, table, pos), names, need=(want,))
                 if ran[want] is None or any(
                         ran[nm] is not None for nm in names if nm != want):
                     raise AssertionError(f"a {dtype} chunk call did not run "
@@ -886,7 +909,7 @@ def paged_phase(torch):
     b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
     names = ("paged_decode_split_kernel", "paged_decode_combine_kernel")
     prof = device_us(torch, lambda: FA.paged_flash_attention(
-        q, kv, vv, table, pos), names)
+        q, kv, vv, table, pos), names, need=names)
     if None in prof.values():
         raise AssertionError(f"a decode call did not launch both kernels: "
                              f"{prof}")
@@ -1248,6 +1271,54 @@ def tf_model(llm, dtype, fp32_layers=None):
     return replace(cfg, dtype=dtype), params, SPDPlanConfig(drop)
 
 
+class RoutePin:
+    """MoE routing pinned across the two forwards of a teacher-forced
+    check: `record()` keeps every `models.moe.route` result of the first
+    forward, `replay()` hands them to the second in order and counts the
+    top-k choices the second would have made otherwise.  A last-ulp
+    difference in a router's input (bf16 rounding in the attention
+    kernel) flips a near-tied top-k choice, and a token sent to another
+    expert moves its logits by far more than the rounding did: pinned,
+    the check measures the attention kernel, not the router's
+    discontinuity (as the syncs run exact so as not to measure the
+    quantizer).  A model without MoE layers never routes."""
+
+    def __init__(self):
+        self.kept, self.flips, self.choices = [], 0, 0
+
+    @contextlib.contextmanager
+    def _patched(self, fn):
+        from repro_torch.models import moe as MOE
+        orig = MOE.route
+        MOE.route = lambda *a, **kw: fn(orig, *a, **kw)
+        try:
+            yield self
+        finally:
+            MOE.route = orig
+
+    def record(self):
+        def rec(orig, *a, **kw):
+            out = orig(*a, **kw)
+            self.kept.append(out)
+            return out
+        return self._patched(rec)
+
+    def replay(self):
+        it = iter(self.kept)
+
+        def rep(orig, *a, **kw):
+            own, kept = orig(*a, **kw)[1], next(it)
+            same = own.sort(-1).values == kept[1].sort(-1).values
+            self.flips += int((~same).sum())
+            self.choices += same.numel()
+            return kept
+        return self._patched(rep)
+
+    def note(self) -> str:
+        return (f" routing pinned: {self.flips} of {self.choices} top-k "
+                "choices would differ" if self.choices else "")
+
+
 def teacher_forced(torch, llm, prompt, fp32_layers=None, label=""):
     """Prefill logits with the flash kernel vs the plain attention, same
     canonical weights and drop mask, in the serving dtype (bf16) and in
@@ -1262,12 +1333,15 @@ def teacher_forced(torch, llm, prompt, fp32_layers=None, label=""):
     for dtype in ("bfloat16", "float32"):
         logits = {}
         cfg0, params, plan = tf_model(llm, dtype, fp32_layers)
-        for backend in ("pallas", "xla"):
+        pin = RoutePin()
+        for backend, pinned in (("pallas", pin.record),
+                                ("xla", pin.replay)):
             cfg = replace(cfg0, attn_backend=backend)
             other = LLM.load(cfg, tp=2, plan=plan, cache_len=512,
                              max_batch=1, params=params)
-            lg, _ = bucketed_prefill(other.engine, other.params, prompt,
-                                     len(prompt), 512)
+            with pinned():
+                lg, _ = bucketed_prefill(other.engine, other.params, prompt,
+                                         len(prompt), 512)
             logits[backend] = lg.float()
             del other
         del params
@@ -1278,7 +1352,7 @@ def teacher_forced(torch, llm, prompt, fp32_layers=None, label=""):
         print(f"{label}teacher-forced prefill ({len(prompt)} tokens, {dtype}, "
               f"{cfg0.n_layers} layers): "
               f"max_abs_err={err:.3e} tol={tol:.3e} max|logit|={scale:.3e} "
-              f"same argmax={same_top}")
+              f"same argmax={same_top}{pin.note()}")
         if not err <= tol:
             raise AssertionError(f"pallas vs xla prefill logits disagree "
                                  f"({dtype}): {err} > {tol}")
@@ -1309,7 +1383,9 @@ def teacher_forced_paged(torch, llm, prompt, fp32_layers=None, label=""):
         cur = np.asarray([[int(lg[0].argmax())]])
         pos = np.asarray([s])
         dense = eng.insert_slot(eng.blank_caches(1, 512), c1, 0)
-        _, ld, _ = eng.decode_with_logits(m.params, cur, pos, dense)
+        pin = RoutePin()
+        with pin.record():
+            _, ld, _ = eng.decode_with_logits(m.params, cur, pos, dense)
         pool = PagePool(num_pages=NUM_PAGES, page_size=PAGE_SIZE,
                         max_slots=2, pages_per_slot=512 // PAGE_SIZE)
         pool.grow(1, 3 * PAGE_SIZE)     # slot 0's pages start past page 2
@@ -1319,8 +1395,9 @@ def teacher_forced_paged(torch, llm, prompt, fp32_layers=None, label=""):
         pc = eng.insert_paged(pc, c1, 0, pool.table[0])
         table = pool.table[:1].astype(np.int64)
         before = FA.paged_flash_attention.launches
-        _, lp, _ = eng.decode_paged_with_logits(m.params, cur, pos, table,
-                                                pc)
+        with pin.replay():
+            _, lp, _ = eng.decode_paged_with_logits(m.params, cur, pos,
+                                                    table, pc)
         ran = FA.paged_flash_attention.launches - before
         err = (lp.float() - ld.float()).abs().max().item()
         scale = ld.float().abs().max().item()
@@ -1329,7 +1406,7 @@ def teacher_forced_paged(torch, llm, prompt, fp32_layers=None, label=""):
               f"{cfg.n_layers} layers): "
               f"max_abs_err={err:.3e} tol={tol:.3e} max|logit|={scale:.3e} "
               f"same argmax={int(lp.argmax()) == int(ld.argmax())} "
-              f"paged launches={ran}")
+              f"paged launches={ran}{pin.note()}")
         if not (err <= tol and ran == cfg.n_layers):
             raise AssertionError(f"paged vs dense decode logits disagree "
                                  f"({dtype}): {err} > {tol} (launches {ran})")
@@ -1366,12 +1443,14 @@ def by_name(rows, names) -> dict:
     return acc
 
 
-def device_rows(torch, fn, iters=20, tries=5, names=()) -> list:
+def device_rows(torch, fn, iters=20, tries=5, names=(), need=()) -> list:
     """profile_rows of `iters` calls of fn.  A profile that saw no device
-    event at all, or none of the kernels `names` where they are given, is
-    taken again, up to `tries` times: the profiler now and then loses a
-    window's kernel events (between back-to-back profiles, and after a
-    large one), while the kernels did run."""
+    event at all, none of the kernels `names` where they are given, or
+    not every one of the kernels `need`, is taken again, up to `tries`
+    times: the profiler now and then loses a window's kernel events
+    (between back-to-back profiles, after a large one, and at times those
+    of one kernel of a call that launches several), while the kernels
+    did run."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1384,20 +1463,23 @@ def device_rows(torch, fn, iters=20, tries=5, names=()) -> list:
                 fn()
             torch.cuda.synchronize()
         rows = profile_rows(prof)
-        if rows and (not names or any(
-                k for _, k in by_name(rows, names).values())):
+        want = tuple(names) + tuple(n for n in need if n not in names)
+        seen = {n for n, (_, k) in by_name(rows, want).items() if k}
+        if rows and (not names or seen) and set(need) <= seen:
             return rows
         print(f"profile {t + 1} of {tries} saw "
-              + (f"none of {list(names)} among {len(rows)} device rows "
-                 f"({', '.join(k.split('(')[0][:40] for k, _, _ in rows[:4])})"
+              + (f"{sorted(seen)} of {list(want)} among {len(rows)} device "
+                 f"rows ({', '.join(k.split('(')[0][:40] for k, _, _ in rows[:4])})"
                  if rows else "no device event") + ": taken again")
     return rows
 
 
-def device_us(torch, fn, names, iters=20) -> dict:
+def device_us(torch, fn, names, iters=20, need=()) -> dict:
     """Device microseconds per launch of the kernels `names` over `iters`
-    calls of fn, from torch.profiler (None where it saw no launch)."""
-    acc = by_name(device_rows(torch, fn, iters, names=names), names)
+    calls of fn, from torch.profiler (None where it saw no launch); the
+    profile is taken again while it misses one of the kernels `need`."""
+    acc = by_name(device_rows(torch, fn, iters, names=names, need=need),
+                  names)
     return {n: (us / k if k else None) for n, (us, k) in acc.items()}
 
 
@@ -1467,8 +1549,7 @@ def quant_phase(torch):
     prof = device_us(torch, lambda: (QC.quantize_absmax(x, levels=127),
                                      QC.dequantize_absmax(q, s),
                                      QC.dequant_accum_absmax(q, s, acc)),
-                     ("quant_kernel", "dequant_kernel",
-                      "dequant_accum_kernel"))
+                     QUANT_KERNELS, need=QUANT_KERNELS)
     cases = (
         ("quantize_absmax", ":93", "quant_kernel",
          lambda: QC.quantize_absmax(x, levels=127),
@@ -1809,17 +1890,21 @@ SSD_KERNELS = ("ssd_scores_kernel", "ssd_states_kernel", "ssd_output_kernel",
                "ssd_scan_kernel")
 
 
-def ssd_phase(torch):
-    """The SSD chunked-scan kernels against their plain version at the
-    mamba path's shapes and one off the path, y and the final state; the
-    device time of one bf16 call summed over its kernels."""
+def ssd_phase(torch, shape=SSD_SHAPE, seqs=SSD_SEQS, timed_s=SSD_TIMED_S,
+              off_path=SSD_OFF_PATH,
+              what="one layer of the 300-token prefill"):
+    """The SSD chunked-scan kernels against their plain version at a
+    path's `shape` (the mamba path's by default) over `seqs`, and one
+    shape off the path, y and the final state; the device time of one
+    bf16 call at S `timed_s` summed over its kernels."""
     from repro_torch.kernels import ssd_scan as SS
 
-    chunk = SSD_SHAPE["chunk"]
+    chunk = shape["chunk"]
     timed = None
-    cases = [(dtype, s, SSD_SHAPE) for dtype in (torch.bfloat16, torch.float32)
-             for s in SSD_SEQS] + [(dtype, 300, SSD_OFF_PATH)
-                                   for dtype in (torch.bfloat16, torch.float32)]
+    dtypes = (torch.bfloat16, torch.float32)
+    cases = [(dtype, s, shape) for dtype in dtypes for s in seqs]
+    if off_path:
+        cases += [(dtype, 300, off_path) for dtype in dtypes]
     for dtype, s, sh in cases:
         args = ssd_inputs(torch, s, dtype, sh)
         y, st = SS.ssd_scan(*args, chunk=sh["chunk"])
@@ -1841,24 +1926,25 @@ def ssd_phase(torch):
             raise AssertionError(f"ssd_scan kernel disagrees at {dtype} "
                                  f"S={s}: y {ey} > {ty} or state {es} > "
                                  f"{ts}")
-        if dtype == torch.bfloat16 and s == SSD_TIMED_S and sh is SSD_SHAPE:
+        if dtype == torch.bfloat16 and s == timed_s and sh is shape:
             timed = (args, ey)
     args, err = timed
     ms = cuda_ms(torch, lambda: SS.ssd_scan(*args, chunk=chunk), iters=20)
     plain_ms = cuda_ms(torch, lambda: SS.ssd_scan_plain(*args, chunk=chunk),
                        iters=20)
     prof = device_us(torch, lambda: SS.ssd_scan(*args, chunk=chunk),
-                     SSD_KERNELS, iters=10)
+                     SSD_KERNELS, iters=10, need=SSD_KERNELS[:3])
     ran = {k: us for k, us in prof.items() if us is not None}
     if set(ran) != set(SSD_KERNELS[:3]):
         raise AssertionError(f"a bf16 ssd_scan call must launch the three "
                              f"tensor-core kernels and nothing else: {prof}")
     call_us = sum(ran.values())        # each launches once a call
-    sh = SSD_SHAPE
-    nbytes, flops = ssd_work(sh["bt"], sh["h"], SSD_TIMED_S, sh["p"],
+    sh = shape
+    nbytes, flops = ssd_work(sh["bt"], sh["h"], timed_s, sh["p"],
                              sh["n"], sh["g"], chunk, 2)
     b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
-    print(f"ssd_scan (S={SSD_TIMED_S}, bf16): ms={ms:.5f} plain_ms="
+    print(f"ssd_scan (S={timed_s}, H={sh['h']}, N={sh['n']}, bf16): "
+          f"ms={ms:.5f} plain_ms="
           f"{plain_ms:.5f} device_us_per_call={call_us:.2f} ("
           + ", ".join(f"{k} {us:.2f} us = {us / call_us:.0%}"
                       for k, us in ran.items())
@@ -1871,9 +1957,9 @@ def ssd_phase(torch):
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "device_us": call_us,
-            "shape": f"x ({sh['bt']},{SSD_TIMED_S},{sh['h']},{sh['p']}) bf16, "
-                     f"B/C ({sh['bt']},{SSD_TIMED_S},{sh['g']},{sh['n']}), "
-                     f"chunk {chunk}: one layer of the 300-token prefill; "
+            "shape": f"x ({sh['bt']},{timed_s},{sh['h']},{sh['p']}) bf16, "
+                     f"B/C ({sh['bt']},{timed_s},{sh['g']},{sh['n']}), "
+                     f"chunk {chunk}: {what}; "
                      f"device_us per call, summed over its 3 kernels"}
 
 
@@ -1892,64 +1978,70 @@ class plain_ssd:
         SS.ssd_scan = self.saved
 
 
-def mamba_path(torch, np, prompts, card):
-    """Full-width Mamba2-370M through the facade at tp=2: every prefill
-    layer through the SSD kernel, every kept sync through the fused
-    kept-sync kernel and the logits gather through qdq."""
+def recurrent_path(torch, np, prompts, card, arch="mamba2-370m",
+                   cache_len=512, label="mamba path"):
+    """A full-width model with recurrent state (Mamba2-370M; hymba-1.5b)
+    through the facade at tp=2, spd=0.25: every prefill layer through the
+    SSD kernel at the prompt's own length, every kept sync through the
+    fused kept-sync kernel and the logits gather through qdq; no flash
+    or paged launch (a hybrid layer's attention is the plain one, as the
+    reference's)."""
     from repro_torch.api import LLM, SamplingParams
+    from repro_torch.core.blocks import ssm_heads
     from repro_torch.configs import get_config
 
-    cfg = get_config("mamba2-370m")
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     llm = LLM.load(cfg, tp=2, spd=0.25, comm="quant8", comm_logits="quant8",
-                   dtype="bfloat16", cache_len=512, max_batch=4, seed=0)
+                   dtype="bfloat16", cache_len=cache_len, max_batch=4, seed=0)
     torch.cuda.synchronize()
-    print(f"mamba path: loaded {cfg.name} (L={cfg.n_layers} d={cfg.d_model} "
-          f"ssm heads {cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim} of "
-          f"{cfg.ssm.head_dim}, d_state {cfg.ssm.d_state}, chunk "
-          f"{cfg.ssm.chunk_size}, {cfg.param_count() / 1e6:.1f} M params) in "
+    print(f"{label}: loaded {cfg.name} (L={cfg.n_layers} d={cfg.d_model} "
+          f"ssm heads {ssm_heads(cfg)} of {cfg.ssm.head_dim}, d_state "
+          f"{cfg.ssm.d_state}, chunk {cfg.ssm.chunk_size}, attention window "
+          f"{cfg.attn_window}, {cfg.param_count() / 1e6:.1f} M params) in "
           f"{time.perf_counter() - t0:.1f} s; plan drops "
           f"{llm.plan.n_dropped}/{cfg.n_layers} syncs (SPD applies: "
           f"{cfg.spd_applicable})")
-    if cfg.n_layers != MAMBA_LAYERS or llm.plan.n_dropped:
-        raise AssertionError("the mamba path must run all 48 layers with "
-                             "no dropped sync")
+    want_drop = round(cfg.n_layers * 0.25) if cfg.spd_applicable else 0
+    if llm.plan.n_dropped != want_drop:
+        raise AssertionError(f"{label}: the plan drops {llm.plan.n_dropped} "
+                             f"syncs, want {want_drop}")
     llm.generate([prompts[0][:8]], SamplingParams(max_new=2))   # warm-up
     times = timed_engine(torch, llm.engine)
     kernels = all_kernels()
     for k in kernels:
         k.launches = 0
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     outs = llm.generate(prompts, SamplingParams(max_new=MAX_NEW))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kernels}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    check_sync_launches("mamba path", llm, launches, times)
+    check_sync_launches(label, llm, launches, times)
     for o, p in zip(outs, prompts):
         if (o.finish_reason != "length" or len(o.token_ids) != MAX_NEW
                 or not all(0 <= t < cfg.vocab_size for t in o.token_ids)):
-            raise AssertionError(f"mamba request {o.index} (prompt {len(p)}) "
-                                 f"did not finish cleanly: {o}")
+            raise AssertionError(f"{label} request {o.index} (prompt "
+                                 f"{len(p)}) did not finish cleanly: {o}")
     want = cfg.n_layers * len(prompts)
     if (launches["ssd_scan"] != want or launches["qdq_absmax"] <= 0
             or launches["flash_attention_bhsd"]
             or launches["paged_flash_attention"]):
-        raise AssertionError(f"mamba path launches wrong: {launches} (want "
+        raise AssertionError(f"{label} launches wrong: {launches} (want "
                              f"ssd_scan {want}, qdq > 0, flash/paged 0)")
     n_tok = sum(len(o.token_ids) for o in outs)
     prefill_ms = 1e3 * sum(times["prefill"])
     decode_ms = 1e3 * sum(times["decode"]) / max(len(times["decode"]), 1)
-    print(f"mamba path launches: {json.dumps(launches)}")
-    print(f"mamba path [{card}]: prefill_ms={prefill_ms:.2f} (4 requests, "
-          f"prompts {list(PROMPT_LENS)}, each at its own length) "
+    print(f"{label} launches: {json.dumps(launches)}")
+    print(f"{label} [{card}]: prefill_ms={prefill_ms:.2f} (4 requests, "
+          f"prompts {[len(p) for p in prompts]}, each at its own length) "
           f"decode_ms_per_token={decode_ms:.2f} ({len(times['decode'])} "
           f"batch-4 steps) tokens_per_s={n_tok / wall:.1f} ({n_tok} tokens "
-          f"in {wall:.2f} s) peak_memory_gib={peak:.2f}")
-    print("mamba path tokens[3]:", outs[3].token_ids)
+          f"in {wall:.2f} s) peak_memory_gib={peak:.2f} (load included)")
+    print(f"{label} tokens[3]:", outs[3].token_ids)
     tokens = [o.token_ids for o in outs]
-    same_tokens_plain(torch, "mamba path", llm, prompts, tokens)
+    same_tokens_plain(torch, label, llm, prompts, tokens)
     return llm, launches, tokens
 
 
@@ -1970,16 +2062,18 @@ def layer_outputs(fn):
         B.block_seq = orig
 
 
-def mamba_checks(torch, llm, prompt, toks):
-    """On the mamba path's weights with exact syncs (a quantized sync
+def recurrent_checks(torch, llm, prompt, toks, cache_len=512,
+                     label="mamba"):
+    """On a recurrent path's weights with exact syncs (a quantized sync
     turns a last-ulp difference into a quant step), fp32 then bf16:
     (a) prefill logits with the SSD kernel against the plain scan; (b)
     after prefilling `prompt` and teacher-forcing the generated `toks`
     through decode, the last decode logits against one exact-length
-    prefill of prompt + toks[:-1] (ROADMAP C3 on the card).
+    prefill of prompt + toks[:-1] (ROADMAP C3 on the card; on hymba a
+    prompt past the attention window checks the rolling buffer too).
 
     fp32 holds both to TF_FP32_ATOL.  In bf16 a rounding flip grows
-    through the 48 layers (the per-layer divergence is printed), and the
+    through the layers (the per-layer divergence is printed), and the
     plain version differs from itself by as much as from the kernel, at
     about 5% of the largest logit.  So each bf16 comparison is held to
     5% of the largest logit (TF_BF16_REL) or, where bf16 arithmetic alone
@@ -2006,7 +2100,7 @@ def mamba_checks(torch, llm, prompt, toks):
     def forced(m, c1):
         """The last decode logits after teacher-forcing toks[:-1]."""
         eng = m.engine
-        caches = eng.insert_slot(eng.blank_caches(1, 512), c1, 0)
+        caches = eng.insert_slot(eng.blank_caches(1, cache_len), c1, 0)
         for i, tok in enumerate(toks[:-1]):
             _, ld, caches = eng.decode_with_logits(
                 m.params, np.asarray([[tok]]), np.asarray([s + i]), caches)
@@ -2019,23 +2113,24 @@ def mamba_checks(torch, llm, prompt, toks):
 
         def load(c):
             return LLM.load(c, tp=2, plan=llm.plan.with_comm(None),
-                            cache_len=512, max_batch=1, params=params)
+                            cache_len=cache_len, max_batch=1, params=params)
 
         m = load(cfg)
         SS.ssd_scan.launches = 0
-        (lk, c1), outs_k = layer_outputs(
-            lambda: bucketed_prefill(m.engine, m.params, prompt, s, 512))
+        (lk, c1), outs_k = layer_outputs(lambda: bucketed_prefill(
+            m.engine, m.params, prompt, s, cache_len))
         ran = SS.ssd_scan.launches
         SS.ssd_scan.launches = 0
         with plain_ssd():
-            (lp, c1p), outs_p = layer_outputs(
-                lambda: bucketed_prefill(m.engine, m.params, prompt, s, 512))
+            (lp, c1p), outs_p = layer_outputs(lambda: bucketed_prefill(
+                m.engine, m.params, prompt, s, cache_len))
             ld_p = forced(m, c1p)
             lf_p, _ = bucketed_prefill(m.engine, m.params, full, len(full),
-                                       512)
+                                       cache_len)
         leaked = SS.ssd_scan.launches
         ld = forced(m, c1)
-        lf, _ = bucketed_prefill(m.engine, m.params, full, len(full), 512)
+        lf, _ = bucketed_prefill(m.engine, m.params, full, len(full),
+                                 cache_len)
         div = [err(a, b) / b.abs().max().item()
                for a, b in zip(outs_k, outs_p)]
         e_pre, e_tf = err(lk, lp), err(ld, lf)
@@ -2047,7 +2142,7 @@ def mamba_checks(torch, llm, prompt, toks):
                 cfg.ssm, chunk_size=128)))
             with plain_ssd():
                 lp128, _ = bucketed_prefill(m128.engine, m128.params, prompt,
-                                            s, 512)
+                                            s, cache_len)
             del m128
             f_pre, f_tf = err(lp, lp128), err(ld_p, lf_p)
             # 5% of the largest logit, or the measured floor if wider
@@ -2059,27 +2154,27 @@ def mamba_checks(torch, llm, prompt, toks):
                       f"{f_pre:.3e}; plain decode vs plain prefill "
                       f"{f_tf:.3e}]")
         scale = lp.float().abs().max().item()
-        print(f"mamba prefill logits, kernel vs plain scan ({s} tokens, "
+        print(f"{label} prefill logits, kernel vs plain scan ({s} tokens, "
               f"{dtype}): max_abs_err={e_pre:.3e} tol={tol_pre:.3e} "
               f"max|logit|={scale:.3e} (err/max {e_pre / scale:.4f}) same "
               f"argmax={int(lk.argmax()) == int(lp.argmax())} kernel "
               f"launches={ran} plain-path launches={leaked}")
-        print(f"mamba hidden divergence kernel vs plain ({dtype}), max|d| / "
+        print(f"{label} hidden divergence kernel vs plain ({dtype}), max|d| / "
               f"max|x| after layers 1/2/6/12/24/36/48: "
               + " ".join(f"{div[i]:.2e}" for i in (0, 1, 5, 11, 23, 35, 47)
                          if i < len(div)))
         scale = lf.float().abs().max().item()
-        print(f"mamba teacher-forced decode ({s} + {len(toks) - 1} tokens, "
+        print(f"{label} teacher-forced decode ({s} + {len(toks) - 1} tokens, "
               f"{dtype}): last decode logits vs one {len(full)}-token prefill "
               f"max_abs_err={e_tf:.3e} tol={tol_tf:.3e} max|logit|="
               f"{scale:.3e} (err/max {e_tf / scale:.4f}) same argmax="
               f"{int(ld.argmax()) == int(lf.argmax())}{floors}")
         if not (e_pre <= tol_pre and ran == cfg.n_layers and leaked == 0):
-            raise AssertionError(f"mamba kernel vs plain prefill failed "
+            raise AssertionError(f"{label} kernel vs plain prefill failed "
                                  f"({dtype}): {e_pre} > {tol_pre}, launches "
                                  f"{ran}, plain-path launches {leaked}")
         if not e_tf <= tol_tf:
-            raise AssertionError(f"mamba decode disagrees with an exact-"
+            raise AssertionError(f"{label} decode disagrees with an exact-"
                                  f"length prefill ({dtype}): {e_tf} > "
                                  f"{tol_tf}")
         del m
@@ -2106,7 +2201,7 @@ def flash_row(torch, q, k, v, err, what):
     plain_ms = cuda_ms(torch, lambda: FA.flash_attention_plain(q, k, v),
                        iters=10)
     library_ms = cuda_ms(torch, lib)
-    ran = device_us(torch, call, names)
+    ran = device_us(torch, call, names, need=(want,))
     if ran[want] is None or any(ran[n] is not None for n in names
                                 if n != want):
         raise AssertionError(f"a {dt} flash call did not run {want} alone: "
@@ -2153,7 +2248,7 @@ def paged_row(torch, case, what):
     b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
     names = (("paged_chunk_tc_kernel",) if c > 1 else
              ("paged_decode_split_kernel", "paged_decode_combine_kernel"))
-    prof = device_us(torch, call, names)
+    prof = device_us(torch, call, names, need=names)
     if None in prof.values():
         raise AssertionError(f"a C={c} paged call did not launch {names}: "
                              f"{prof}")
@@ -2240,39 +2335,57 @@ def paper_kernel_phase(torch, card):
                     row["_path"] = "llama2-7b paged" if hq == hkv else None
                     rows.append(row)
     for tp, n in PAPER_QPSUM:
-        base = torch.randn(tp, n, generator=gen, device=dev)
-        base[1] *= 10.0
-        for dtype in (torch.bfloat16, torch.float32):
-            x = base.to(dtype)
-            for levels in (127, 7):
-                out = QC.quantized_psum_absmax(x, levels=levels)
-                ref = QC.quantized_psum_absmax_plain(x, levels=levels)
-                torch.cuda.synchronize()
-                if not same_bits(torch, out, ref):
-                    raise AssertionError(f"quantized_psum kernel not bit-"
-                                         f"identical at ({tp},{n}) {dtype} "
-                                         f"L={levels}")
-        print(f"quantized_psum ({tp},{n}): bit-identical in bf16 and fp32 "
-              f"at L 127 and 7")
-        row = qpsum_row(torch, base.to(torch.bfloat16), card,
-                        "a llama2-7b kept sync at d 4096")
-        row["_path"] = "llama2-7b"
-        rows.append(row)
+        rows.append(checked_qpsum_row(torch, gen, card, tp, n, "llama2-7b",
+                                      "a llama2-7b kept sync at d 4096"))
     for (r, n), path in zip(PAPER_QDQ, ("llama2-7b", "opt-6.7b")):
-        x = torch.randn(r, n, generator=gen, device=dev)
-        x[1] *= 10.0
+        rows.append(checked_qdq_row(torch, gen, r, n, path))
+    return rows
+
+
+def checked_qpsum_row(torch, gen, card, tp, n, path, what):
+    """The fused kept sync on a (tp, n) payload (row 1 ten times row 0)
+    bit for bit against its plain version in bf16 and fp32 at L 127 and
+    7, then its kernels-line row (bf16), tagged with `path`."""
+    from repro_torch.kernels import quant_collectives as QC
+
+    base = torch.randn(tp, n, generator=gen, device=torch.device("cuda"))
+    base[1] *= 10.0
+    for dtype in (torch.bfloat16, torch.float32):
+        x = base.to(dtype)
         for levels in (127, 7):
-            out = QC.qdq_absmax(x, levels=levels)
-            ref = QC.qdq_absmax_plain(x, levels=levels)
+            out = QC.quantized_psum_absmax(x, levels=levels)
+            ref = QC.quantized_psum_absmax_plain(x, levels=levels)
             torch.cuda.synchronize()
             if not same_bits(torch, out, ref):
-                raise AssertionError(f"qdq kernel not bit-identical at "
-                                     f"({r},{n}) L={levels}")
-        print(f"qdq ({r},{n}): bit-identical at L 127 and 7")
-        row = qdq_row(torch, x, 0.0, f"the {path} logits gather")
-        row["_path"] = path
-        rows.append(row)
-    return rows
+                raise AssertionError(f"quantized_psum kernel not bit-"
+                                     f"identical at ({tp},{n}) {dtype} "
+                                     f"L={levels}")
+    print(f"quantized_psum ({tp},{n}): bit-identical in bf16 and fp32 at L "
+          f"127 and 7")
+    row = qpsum_row(torch, base.to(torch.bfloat16), card, what)
+    row["_path"] = path
+    return row
+
+
+def checked_qdq_row(torch, gen, r, n, path):
+    """B3 alone on an (r, n) fp32 logits slice, bit for bit against its
+    plain version at L 127 and 7, then its kernels-line row, tagged with
+    `path`."""
+    from repro_torch.kernels import quant_collectives as QC
+
+    x = torch.randn(r, n, generator=gen, device=torch.device("cuda"))
+    x[1] *= 10.0
+    for levels in (127, 7):
+        out = QC.qdq_absmax(x, levels=levels)
+        ref = QC.qdq_absmax_plain(x, levels=levels)
+        torch.cuda.synchronize()
+        if not same_bits(torch, out, ref):
+            raise AssertionError(f"qdq kernel not bit-identical at "
+                                 f"({r},{n}) L={levels}")
+    print(f"qdq ({r},{n}): bit-identical at L 127 and 7")
+    row = qdq_row(torch, x, 0.0, f"the {path} logits gather")
+    row["_path"] = path
+    return row
 
 
 def sweep_phase(torch, np, llm, prompts, card):
@@ -3222,6 +3335,9 @@ def spec_phase(torch, np, llama, sweep_res, card):
 # ---------------------------------------------------------------------------
 
 TRAIN_ARCH = "smollm-360m"
+# full width, cut from 32 layers to 16 since the MoE and hybrid paths
+# came (the run stays inside its time: the phase took ~240 s at 32)
+TRAIN_LAYERS = 16
 TRAIN_KW = dict(tp=2, dp=2, batch=8, seq=4096, microbatches=4, q_chunk=2048,
                 lr=1e-3, spd=0.25, dtype="bfloat16", attn_backend="pallas",
                 warmup=2, seed=0)
@@ -3230,7 +3346,7 @@ FAULT_STEPS, FAULT_AT, FAULT_EVERY = 8, 6, 4     # (b)
 FSDP_STEPS = 4                         # (c)
 QUANT_STEPS = 3                        # (d)
 EXACT_KW = dict(batch=2, seq=1024, microbatches=1, q_chunk=1024,
-                dtype="float32")       # (e), fp32 at full depth
+                dtype="float32")       # (e), fp32 at the phase's depth
 EXACT_STEPS = 2
 REPLAY_RTOL = 1e-6                     # a replayed step's loss
 TRAJ_RTOL = 2e-4                       # FSDP against ZeRO-1 (the reference's)
@@ -3292,11 +3408,19 @@ def counted(torch, fn):
     return out, {k.__name__: k.launches for k in kernels}
 
 
+def train_cfg():
+    """The training phase's model: TRAIN_ARCH at full width, TRAIN_LAYERS
+    deep."""
+    from repro_torch.config.base import replace
+    from repro_torch.configs import get_config
+    return replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+
+
 def trainer_for(root, label, params, **kw):
     """make_trainer (the train CLI's own) with the phase's settings."""
     import os
     from repro_torch.launch.train import make_trainer
-    return make_trainer(TRAIN_ARCH, ckpt_dir=os.path.join(root, label),
+    return make_trainer(train_cfg(), ckpt_dir=os.path.join(root, label),
                         params=params, device="cuda",
                         **dict(TRAIN_KW, **kw))
 
@@ -3363,7 +3487,8 @@ def train_phase(torch, np, card):
     step FAULT_AT of FAULT_STEPS and the resume from the step-4
     checkpoint, replays equal; (c) FSDP's first steps equal ZeRO-1's;
     (d) every kept sync at quant8: the fused kept sync under autograd,
-    counted; (e) fp32 at full depth: B1 against the plain attention.
+    counted; (e) fp32 at the phase's depth: B1 against the plain
+    attention.
     Returns B1's kernels-line row at the train shape and the main path's
     launches."""
     import os
@@ -3371,7 +3496,6 @@ def train_phase(torch, np, card):
     import tempfile
 
     from repro_torch.config.base import replace
-    from repro_torch.configs import get_config
     from repro_torch.core import model as M
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import quant_collectives as QC
@@ -3379,7 +3503,7 @@ def train_phase(torch, np, card):
     from repro_torch.runtime.trainer import SimulatedFault
     from repro_torch.tree import tree_leaves, tree_map
 
-    cfg = replace(get_config(TRAIN_ARCH), dtype="bfloat16",
+    cfg = replace(train_cfg(), dtype="bfloat16",
                   attn_backend="pallas")
     kw = TRAIN_KW
     nmb, batch, seq = kw["microbatches"], kw["batch"], kw["seq"]
@@ -3537,7 +3661,7 @@ def train_phase(torch, np, card):
     del x, out, ref
     release(torch)
 
-    # ---- (e) fp32, full depth: B1 against the plain attention ----
+    # ---- (e) fp32: B1 against the plain attention ----
     canon32 = tree_map(lambda w: w.float(), canon)
     res = {}
     for backend in ("pallas", "xla"):
@@ -3554,8 +3678,8 @@ def train_phase(torch, np, card):
     (lk, gk, pk, ek), (lp, gp, pp, ep) = res["pallas"], res["xla"]
     rl = max(abs(a - b) / abs(b) for a, b in zip(lk + gk, lp + gp))
     want_e = 2 * cfg.n_layers * EXACT_KW["microbatches"] * EXACT_STEPS
-    print(f"train (e) fp32 full depth, batch {EXACT_KW['batch']} x seq "
-          f"{EXACT_KW['seq']}: B1 losses {lk} grad_norms {gk}; plain "
+    print(f"train (e) fp32 {cfg.n_layers} layers, batch "
+          f"{EXACT_KW['batch']} x seq {EXACT_KW['seq']}: B1 losses {lk} grad_norms {gk}; plain "
           f"{lp} {gp}; max rel {rl:.3e} (tol {EXACT_RTOL:.0e}); B1 "
           f"launches {ek['flash_attention_bhsd']} (want {want_e}), plain "
           f"{ep['flash_attention_bhsd']}")
@@ -3597,6 +3721,165 @@ def train_phase(torch, np, card):
     del q, k, v
     release(torch)
     return row, launches
+
+
+# ---------------------------------------------------------------------------
+# The MoE and hybrid families: qwen2-moe-a2.7b and hymba-1.5b at full
+# width through the facade (tp=2, spd=0.25, quant8, attn_backend="pallas")
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "qwen2-moe-a2.7b"
+HYMBA_ARCH = "hymba-1.5b"
+# the fp32 teacher-forced checks of qwen2-moe keep layers 4-7 (two
+# dropped and two kept blocks of the spd=0.25 plan): a full-width fp32
+# copy is ~57 GB
+MOE_FP32_LAYERS = (4, 8)
+# hymba's prompts: the last is longer than its 1024-token window, so its
+# windowed layers decode on a rolling buffer from the first step
+HYMBA_PROMPT_LENS = (17, 64, 200, 1100)
+HYMBA_CACHE_LEN = 2048
+# B8 at hymba's prefill: one stream a shard (tp 2, batch 1), 15 heads of
+# 64 a shard (25 heads laid out as the attention's q heads: 30, five of
+# them zero), N 16, one group, chunk 256
+HYMBA_SSD_SHAPE = dict(bt=2, h=15, p=64, n=16, g=1, chunk=256)
+HYMBA_SSD_SEQS = (300, 1100)
+HYMBA_SSD_TIMED_S = 1100
+# B1 at qwen2-moe's prefill: 8 q / 8 kv heads a shard at D 128 (tp 2,
+# batch 1 -> 16 rows), the 512-token bucket
+MOE_FLASH = dict(bh=16, bhkv=16, s=512, d=128)
+# the fused kept sync at one decode token of each model (d 2048, d 1600)
+# and B3 on each model's logits gather (151936 / 2 and 32002 / 2 columns)
+FAMILY_QPSUM = (((2, 2048), MOE_ARCH), ((2, 1600), HYMBA_ARCH))
+FAMILY_QDQ = (((2, 75968), MOE_ARCH), ((2, 16001), HYMBA_ARCH))
+
+
+def family_kernel_phase(torch, card):
+    """The kernels at the new paths' shapes, each against its plain
+    version with the earlier tolerances, timed beside it, its library
+    call where one exists, and its bound: B8 at hymba's shape (N 16, H
+    15; S 300 and 1100, bf16 and fp32); B1 at qwen2-moe's prefill; the
+    fused kept sync at d 2048 and 1600; B3 on 75968 and 16001 columns.
+    Returns kernels-line rows tagged with the path whose launches each
+    reports (`_path`)."""
+    from repro_torch.kernels import flash_attention as FA
+
+    rows = [ssd_phase(torch, HYMBA_SSD_SHAPE, HYMBA_SSD_SEQS,
+                      HYMBA_SSD_TIMED_S, None,
+                      "one hymba-1.5b layer of the 1100-token prefill")]
+    rows[0]["_path"] = HYMBA_ARCH
+    gen = torch.Generator(device=torch.device("cuda")).manual_seed(23)
+    sh = MOE_FLASH
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = flash_inputs(torch, gen, sh["s"], sh["d"], dtype,
+                               bh=sh["bh"], bhkv=sh["bhkv"])
+        out = FA.flash_attention_bhsd(q, k, v)
+        ref = FA.flash_attention_plain(q, k, v)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = (FLASH_FP32_ATOL if dtype == torch.float32 else
+               2.0 ** -7 * max(ref.float().abs().max().item(), 1e-3))
+        print(f"flash {str(dtype)[6:]} q ({sh['bh']},{sh['s']},{sh['d']}) "
+              f"({MOE_ARCH}'s prefill): max_abs_err={err:.3e} tol={tol:.3e}")
+        if not err <= tol:
+            raise AssertionError(f"flash kernel disagrees at {MOE_ARCH}'s "
+                                 f"prefill in {dtype}: {err} > {tol}")
+    row = flash_row(torch, q, k, v, err, f"{MOE_ARCH}'s prefill (8 q / 8 "
+                    "kv heads a shard)")
+    row["_path"] = MOE_ARCH
+    rows.append(row)
+    for (tp, n), path in FAMILY_QPSUM:
+        rows.append(checked_qpsum_row(torch, gen, card, tp, n, path,
+                                      f"a {path} kept sync at d {n}"))
+    for (r, n), path in FAMILY_QDQ:
+        rows.append(checked_qdq_row(torch, gen, r, n, path))
+    return rows
+
+
+def moe_phase(torch, np, card):
+    """qwen2-moe-a2.7b at full width (24 layers, d 2048, 60 routed + 4
+    shared experts, top-4; ~14.3 B parameters, ~28.6 GB in bf16; random
+    weights from seed 0): the dense path (B1 once per layer and prefill,
+    the fused kept sync per kept sync and forward, qdq per forward, no B2
+    or B8), plain-sync tokens, a profile; with the dense placement freed,
+    the paged path (a preemption, every page back, a warm admission
+    through B2's chunk kernel, B2's decode); then the teacher-forced
+    checks in bf16 at full width and in fp32 on MOE_FP32_LAYERS.  One
+    placement at a time beside the canonical weights (two would not fit
+    beside them).  Returns (dense launches, paged launches)."""
+    llm, prompts, launches, tokens = main_path(torch, np, card, MOE_ARCH,
+                                               "qwen2-moe path")
+    cfg = llm.cfg
+    want = cfg.n_layers * len(prompts)
+    if (launches["flash_attention_bhsd"] != want or launches["ssd_scan"]
+            or launches["paged_flash_attention"]):
+        raise AssertionError(f"qwen2-moe path launches {launches}: want B1 "
+                             f"{want} (layers x prefills), no B2 or B8")
+    seen = profile_phase(torch, llm, prompts, card, label="qwen2-moe profile")
+    if seen and not (seen["flash_fwd_tc_kernel"]
+                     and not seen["flash_fwd_kernel"]):
+        raise AssertionError(f"qwen2-moe's prefill did not run on the "
+                             f"tensor-core flash kernel: {seen}")
+    llm._release_engine()             # the canonical weights stay
+    release(torch)
+    paged, paged_launches = paged_path(torch, np, llm, prompts, tokens, card,
+                                       label="qwen2-moe paged path")
+    decode = (paged_launches["paged_flash_attention"]
+              - paged_launches["paged_flash_attention_chunk"])
+    if decode <= 0 or paged_launches["paged_flash_attention_chunk"] <= 0:
+        raise AssertionError(f"qwen2-moe paged path: B2 decode {decode}, "
+                             f"chunks {paged_launches}")
+    del paged
+    release(torch)
+    teacher_forced(torch, llm, prompts[2], MOE_FP32_LAYERS, "qwen2-moe ")
+    teacher_forced_paged(torch, llm, prompts[2], MOE_FP32_LAYERS,
+                         "qwen2-moe ")
+    print(f"qwen2-moe phase: peak_memory_gib="
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} since the "
+          "paged path's load")
+    del llm
+    release(torch)
+    return launches, paged_launches
+
+
+def hymba_phase(torch, np, card):
+    """hymba-1.5b at full width (32 layers, d 1600, 25 attention heads
+    beside 25 SSM heads of 64, N 16, a 1024-token window but on layers
+    0, 15 and 31; random weights from seed 0) on dense caches
+    (cache_len 2048): prompts of 17, 64, 200 and 1100 tokens, each
+    prefilled at its own length, 16 greedy tokens each; B8 once per layer
+    and prefill, the fused kept sync per kept sync and forward, qdq per
+    forward, no B1 or B2 (the reference's hybrid mixer takes the plain
+    attention); plain-sync tokens; a profile (the idle share); then on
+    the same weights with exact syncs, bf16 and fp32: prefill logits
+    through B8 against the plain scan, and the 1100-token prompt's decode
+    logits after teacher-forcing its tokens against one exact-length
+    prefill (the rolling window).  Returns the path's launches."""
+    from repro_torch.configs import get_config
+
+    vocab = get_config(HYMBA_ARCH).vocab_size
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, vocab, n) for n in HYMBA_PROMPT_LENS]
+    llm, launches, tokens = recurrent_path(
+        torch, np, prompts, card, HYMBA_ARCH, HYMBA_CACHE_LEN, "hymba path")
+    seen = profile_phase(torch, llm, prompts, card, label="hymba profile")
+    if seen and not (seen["ssd_scores_kernel"] == seen["ssd_states_kernel"]
+                     == seen["ssd_output_kernel"] > 0
+                     and not seen["ssd_scan_kernel"]
+                     and not seen["flash_fwd_tc_kernel"]):
+        raise AssertionError(f"hymba's prefill did not run the three "
+                             f"tensor-core SSD kernels alone: {seen}")
+    recurrent_checks(torch, llm, prompts[3], tokens[3], HYMBA_CACHE_LEN,
+                     "hymba")
+    del llm
+    release(torch)
+    return launches
+
+
+def clock(t_start, what):
+    """Where the run's time goes: seconds since the build at the end of
+    each part."""
+    print(f"chip_smoke: {what} done {time.perf_counter() - t_start:.1f} s "
+          "after the build")
 
 
 def release(torch):
@@ -3660,16 +3943,18 @@ def main() -> int:
     del llm
     ring_launches = ring_phase(torch, card)
     overlap_path(torch, np, prompts, dense_tokens, card)
-    mamba, mamba_launches, mamba_tokens = mamba_path(torch, np, prompts, card)
+    mamba, mamba_launches, mamba_tokens = recurrent_path(torch, np, prompts,
+                                                         card)
     seen = profile_phase(torch, mamba, prompts, card, label="mamba profile")
     if seen and not (seen["ssd_scores_kernel"] == seen["ssd_states_kernel"]
                      == seen["ssd_output_kernel"] > 0
                      and not seen["ssd_scan_kernel"]):
         raise AssertionError(f"the bf16 mamba path's prefill did not run the "
                              f"three tensor-core SSD kernels: {seen}")
-    mamba_checks(torch, mamba, prompts[3], mamba_tokens[3])
+    recurrent_checks(torch, mamba, prompts[3], mamba_tokens[3])
     del mamba
     release(torch)
+    clock(t_start, "the kernel phases and the SmolLM and mamba paths")
 
     # the paper's models at full width, one at a time
     paper_rows = paper_kernel_phase(torch, card)
@@ -3703,6 +3988,7 @@ def main() -> int:
     print(f"spec path launches: {json.dumps(spec_launches)}")
     del llama
     release(torch)
+    clock(t_start, "the llama2-7b paths")
     paper_rows.append(recovery_row(torch, recovery_launches))
     opt, oprompts, opt_launches, opt_tokens = main_path(
         torch, np, card, arch="opt-6.7b", label="opt-6.7b path")
@@ -3712,8 +3998,17 @@ def main() -> int:
                       TF_FP32_LAYERS, "opt-6.7b ")
     del opt
     release(torch)
+    clock(t_start, "the OPT path")
     train_row, train_launches = train_phase(torch, np, card)
     print(f"train path launches: {json.dumps(train_launches)}")
+    clock(t_start, "the training phase")
+
+    # the MoE and hybrid families at full width, one model at a time
+    family_rows = family_kernel_phase(torch, card)
+    moe_launches, moe_paged = moe_phase(torch, np, card)
+    clock(t_start, "the qwen2-moe paths")
+    hymba_launches = hymba_phase(torch, np, card)
+    clock(t_start, "the hymba path")
 
     # each kernel's launches on the main path it serves: the paged kernel
     # on the paged path, quantize and dequant-accumulate on the ring
@@ -3748,6 +4043,12 @@ def main() -> int:
     # speculative path (b)
     # B1 at the train step's shape: its launches on the train path (a)
     kernels += paper_rows + [verify_row, train_row]
+    # the MoE and hybrid rows: launches on the dense path that runs each
+    # shape (qwen2-moe's for B1 at its prefill, hymba's for B8 at N 16)
+    fam_paths = {MOE_ARCH: moe_launches, HYMBA_ARCH: hymba_launches}
+    for k in family_rows:
+        k["launches"] = fam_paths[k.pop("_path")][k["name"]]
+    kernels += family_rows
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
           f"build")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

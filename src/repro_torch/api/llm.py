@@ -431,6 +431,7 @@ class LLM:
         dropped."""
         from repro_torch.core import spd as SPD
 
+        SPD.require_algorithm1(self.cfg)
         self._release_engine()
         padded = None
         try:
@@ -456,6 +457,7 @@ class LLM:
         SensitivityResult; `self.plan.comm` holds the policy after."""
         from repro_torch.core import spd as SPD
 
+        SPD.require_algorithm1(self.cfg)
         self._release_engine()
         try:
             plan, res = SPD.assign_comm_policy(

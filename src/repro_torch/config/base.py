@@ -2,8 +2,9 @@
 
 `ModelConfig` keeps the reference's fields and defaults one for one, so
 the two packages' configs compare field by field.  The family
-sub-configs are carried field for field; the port serves the dense
-family and the pure-SSM family (Mamba2), and MoE/MLA stay inert.
+sub-configs are carried field for field; the port serves the dense, the
+pure-SSM (Mamba2), the hybrid (Hymba) and the MoE families; MLA stays
+inert (ROADMAP A4).
 """
 from __future__ import annotations
 
@@ -104,8 +105,9 @@ class ModelConfig:
 
     @property
     def spd_applicable(self) -> bool:
-        """SPD needs a second sync point (the MLP combine) to defer the
-        attention partial sum to.  Pure-SSM blocks have one sync point."""
+        """SPD needs a second sync point (the MLP or MoE combine) to defer
+        the attention partial sum to.  Pure-SSM blocks have one sync
+        point."""
         return not self.attn_free
 
     @property
@@ -116,26 +118,49 @@ class ModelConfig:
         return self.family == "hybrid" and self.attn_window > 0
 
     def param_count(self) -> int:
-        """Analytic parameter count (the reference's formula, for the
-        families the port serves: dense GQA and pure SSM)."""
-        if (self.family not in ("dense", "ssm") or self.moe is not None
-                or self.mla is not None):
-            raise NotImplementedError(f"{self.name}: param_count covers "
-                                      "the dense and SSM families only")
+        """Analytic parameter count (the reference's formula) for the
+        families the port serves: dense GQA, pure SSM, hybrid and MoE.
+        MLA is not ported yet (ROADMAP A4)."""
+        if self.mla is not None:
+            raise NotImplementedError(f"{self.name}: param_count does not "
+                                      "cover MLA yet (ROADMAP A4)")
         d, L, V = self.d_model, self.n_layers, self.vocab_size
         emb = V * d * (1 if self.tie_embeddings else 2)
+        mlp_mats = 3 if self.gated_mlp else 2
         if self.family == "ssm":
             s = self.ssm
             d_in = s.expand * d
             gn = 2 * s.n_groups * s.d_state
             per_layer = (d * (2 * d_in + gn + d_in // s.head_dim)
                          + s.d_conv * (d_in + gn) + d_in * d + d_in)
-        else:
-            kvd = self.n_kv_heads * self.d_head
-            qd = self.n_heads * self.d_head
-            per_layer = (d * (qd + 2 * kvd) + qd * d
-                         + (3 if self.gated_mlp else 2) * d * self.d_ff)
-        return emb + L * per_layer
+            return emb + L * per_layer
+        kvd = self.n_kv_heads * self.d_head
+        qd = self.n_heads * self.d_head
+        per_layer = d * (qd + 2 * kvd) + qd * d
+        if self.family == "hybrid" and self.ssm is not None:
+            s = self.ssm
+            gn = 2 * s.n_groups * s.d_state
+            per_layer += d * (qd + gn + qd // s.head_dim) + s.d_conv * (qd + gn)
+        if self.moe is None:
+            return emb + L * (per_layer + mlp_mats * d * self.d_ff)
+        mo = self.moe
+        moe_layers = L - mo.n_dense_layers
+        per_moe = ((mo.n_routed + mo.n_shared) * mlp_mats * d * mo.d_ff_expert
+                   + d * mo.n_routed)
+        per_dense = mlp_mats * d * (mo.d_ff_dense or self.d_ff)
+        return (emb + L * per_layer + moe_layers * per_moe
+                + mo.n_dense_layers * per_dense)
+
+    def active_param_count(self) -> int:
+        """Parameters a token runs through (MoE: the top-k routed and the
+        shared experts only)."""
+        if self.moe is None:
+            return self.param_count()
+        mo = self.moe
+        expert = (3 if self.gated_mlp else 2) * self.d_model * mo.d_ff_expert
+        inactive = ((self.n_layers - mo.n_dense_layers)
+                    * (mo.n_routed - mo.top_k) * expert)
+        return self.param_count() - inactive
 
 
 # Quantization levels a kept sync point (or the logits all-gather) may run at.

@@ -1,6 +1,8 @@
 """Decoder-block math for TP and SPD execution — the paper's §4.1
-(port of repro/core/blocks.py: the dense GQA blocks and the pure-SSM
-Mamba2 block).
+(port of repro/core/blocks.py: GQA blocks with an MLP or a routed MoE
+FFN, full-causal or sliding-window, the pure-SSM Mamba2 block, and the
+hybrid (Hymba) block whose mixer runs attention and SSM heads side by
+side; MLA is not ported yet).
 
 Every activation is SHARD-STACKED: x (tp, B, S, d), dim 0 the TP shard.
 Block inputs and outputs are replicated (all shards equal); inside an
@@ -22,6 +24,11 @@ Block wiring (Fig 3):
   SSM block (single sync point, so SPD does not apply; `drop` is ignored):
   out = x + psum(ssm(norm1(x)))
 
+  MoE FFN: every shard routes all its tokens and runs its own experts
+  (the expert axis is split over the shards); the routed and shared
+  experts' partials ride the FFN's sync, so the combine adds no sync.
+  In a dropped block each shard routes its own divergent input.
+
 Parameters are canonical (unpadded); `pad_layer` produces the TP-layout
 tensors whose split axes `layer_specs` gives.
 """
@@ -34,6 +41,7 @@ import torch.nn.functional as F
 from repro_torch.config.base import ModelConfig
 from repro_torch.core.layer_kinds import LayerKind
 from repro_torch.models import attention as A
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.common import act_fn, apply_rope, norm_apply, rmsnorm
 from repro_torch.parallel.collectives import (column_entry, shared_param,
@@ -83,7 +91,10 @@ def headwise_rmsnorm(x, w, eps, dh: int):
 
 
 def ssm_heads(cfg: ModelConfig) -> int:
-    """SSM heads of a pure-SSM layer: expand * d_model / head_dim."""
+    """SSM heads: a hybrid layer's mirror its attention heads; a pure-SSM
+    layer has expand * d_model / head_dim."""
+    if cfg.family == "hybrid":
+        return cfg.n_heads
     s = cfg.ssm
     return s.expand * cfg.d_model // s.head_dim
 
@@ -118,11 +129,25 @@ def _pack_kv(cfg, kc, vc):
     return {"k": kc, "v": vc}
 
 
-def _update_kv(cfg, cache, k_new, v_new, pos):
-    """Write one decode token into the cache, in place."""
+def _update_kv(cfg, cache, k_new, v_new, pos, window: int = 0):
+    """Write one decode token into the cache (slot pos % window on a
+    windowed layer), in place."""
     _check_ported(cfg)
-    kc, vc = A.cache_update(cache["k"], cache["v"], k_new, v_new, pos)
-    return {"k": kc, "v": vc}
+    A.cache_update(cache["k"], cache["v"], k_new, v_new, pos, window=window)
+    return cache
+
+
+def _rolling(kv, window: int):
+    """A prefill's K or V (tp,B,S,H,D) as a windowed layer's decode
+    cache: with S >= window, slot p % window holds position p of the
+    last `window`; a shorter prompt keeps its S slots."""
+    s = kv.shape[2]
+    if not window or s < window:
+        return kv
+    slots = torch.arange(s - window, s, device=kv.device) % window
+    out = torch.zeros_like(kv[:, :, :window])
+    out[:, :, slots] = kv[:, :, -window:]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -246,30 +271,90 @@ def mlp_specs(cfg: ModelConfig) -> dict:
     return p
 
 
+def init_moe(gen, cfg: ModelConfig, device) -> dict:
+    """The reference's distributions: router N(0, 0.02^2), experts
+    N(0, 1/d_in) (the down projections also / sqrt(2L)), the shared
+    experts one MLP of n_shared * d_ff_expert."""
+    mo, d = cfg.moe, cfg.d_model
+    ff, e = mo.d_ff_expert, mo.n_routed
+    down = 1.0 / np.sqrt(2 * cfg.n_layers)
+
+    def experts(din, dout, scale):
+        w = torch.randn((e, din, dout), generator=gen, dtype=torch.float32,
+                        device=device)
+        return (w * scale).to(torch_dtype(cfg))
+
+    p = {"router": _dense(gen, d, e, cfg, device, scale=0.02),
+         "wu": experts(d, ff, 1.0 / np.sqrt(d)),
+         "wd": experts(ff, d, down / np.sqrt(ff))}
+    if cfg.gated_mlp:
+        p["wg"] = experts(d, ff, 1.0 / np.sqrt(d))
+    if mo.n_shared:
+        sff = mo.n_shared * ff
+        p["su"] = _dense(gen, d, sff, cfg, device)
+        p["sd"] = _dense(gen, sff, d, cfg, device,
+                         scale=down / np.sqrt(sff))
+        if cfg.gated_mlp:
+            p["sg"] = _dense(gen, d, sff, cfg, device)
+    return p
+
+
+def moe_specs(cfg: ModelConfig) -> dict:
+    """Experts split on their own axis (expert parallelism over the TP
+    shards); the router replicated; the shared experts split as an MLP."""
+    p = {"router": REPLICATED, "wu": 0, "wd": 0}
+    if cfg.gated_mlp:
+        p["wg"] = 0
+    if cfg.moe.n_shared:
+        p.update({"su": 1, "sd": 0})
+        if cfg.gated_mlp:
+            p["sg"] = 1
+    return p
+
+
 def init_layer(gen, cfg: ModelConfig, kind: LayerKind, device) -> dict:
-    if kind.mixer == "ssm":
-        return {"ln1": _norm_init(cfg, cfg.d_model, device),
-                "ssm": init_ssm(gen, cfg, device)}
-    return {"ln1": _norm_init(cfg, cfg.d_model, device),
-            "attn": init_attn(gen, cfg, device),
-            "ln2": _norm_init(cfg, cfg.d_model, device),
-            "mlp": init_mlp(gen, cfg, kind.d_ff or cfg.d_ff, device)}
+    p = {"ln1": _norm_init(cfg, cfg.d_model, device)}
+    if kind.mixer in ("gqa", "hybrid"):
+        p["attn"] = init_attn(gen, cfg, device)
+    if kind.mixer in ("ssm", "hybrid"):
+        p["ssm"] = init_ssm(gen, cfg, device)
+    if kind.mixer == "hybrid":
+        hd = cfg.n_heads * cfg.d_head
+        p["na"] = torch.ones((hd,), dtype=torch_dtype(cfg), device=device)
+        p["ns"] = torch.ones((hd,), dtype=torch_dtype(cfg), device=device)
+    if kind.ffn != "none":
+        p["ln2"] = _norm_init(cfg, cfg.d_model, device)
+        if kind.ffn == "moe":
+            p["moe"] = init_moe(gen, cfg, device)
+        else:
+            p["mlp"] = init_mlp(gen, cfg, kind.d_ff or cfg.d_ff, device)
+    return p
 
 
 def layer_specs(cfg: ModelConfig, kind: LayerKind) -> dict:
-    if kind.mixer == "ssm":
-        return {"ln1": _norm_spec(cfg), "ssm": ssm_specs(cfg)}
-    return {"ln1": _norm_spec(cfg), "attn": attn_specs(cfg),
-            "ln2": _norm_spec(cfg), "mlp": mlp_specs(cfg)}
+    p = {"ln1": _norm_spec(cfg)}
+    if kind.mixer in ("gqa", "hybrid"):
+        p["attn"] = attn_specs(cfg)
+    if kind.mixer in ("ssm", "hybrid"):
+        p["ssm"] = ssm_specs(cfg)
+    if kind.mixer == "hybrid":
+        p.update(na=0, ns=0)
+    if kind.ffn != "none":
+        p["ln2"] = _norm_spec(cfg)
+        if kind.ffn == "moe":
+            p["moe"] = moe_specs(cfg)
+        else:
+            p["mlp"] = mlp_specs(cfg)
+    return p
 
 
-def _pad_ssm(ss: dict, cfg: ModelConfig, tp: int) -> dict:
-    """Pad the SSM heads to a multiple of tp (zero heads: zero in/out
-    projections, so they add nothing)."""
+def _pad_ssm(ss: dict, cfg: ModelConfig, hmap) -> dict:
+    """Pad the SSM heads to the layout `hmap` (padded head -> source
+    head, or -1).  A zero head reads zero inputs (zero `wx`, `wz`, `wdt`
+    columns) and its output meets zero rows (`wo`; a hybrid layer's
+    `ns` and the attention's `wo`), so it adds nothing."""
     h = ssm_heads(cfg)
     hd = cfg.ssm.head_dim
-    hp = -(-h // tp) * tp
-    hmap = np.concatenate([np.arange(h), -np.ones(hp - h, np.int64)])
     ss = dict(ss)
     for nm in ("wz", "wx", "convx"):
         ss[nm] = pad_heads(ss[nm], 1, hmap, hd, h)
@@ -282,14 +367,38 @@ def _pad_ssm(ss: dict, cfg: ModelConfig, tp: int) -> dict:
 
 
 def pad_layer(p: dict, cfg: ModelConfig, kind: LayerKind, tp: int) -> dict:
-    """Pad canonical layer params so every split axis divides by tp."""
+    """Pad canonical layer params so every split axis divides by tp: GQA
+    heads by the head layout, a hybrid layer's SSM heads (and its `na` /
+    `ns`) by the attention's q-head layout, a pure-SSM layer's SSM heads
+    and the MLP width to a multiple of tp, the experts to a multiple of
+    tp (their router columns zero; `MOE.route` masks them to -inf)."""
     _check_ported(cfg)
+    out = dict(p)
     if kind.mixer == "ssm":
-        return dict(p, ssm=_pad_ssm(p["ssm"], cfg, tp))
+        h = ssm_heads(cfg)
+        hp = -(-h // tp) * tp
+        hmap = np.concatenate([np.arange(h), -np.ones(hp - h, np.int64)])
+        out["ssm"] = _pad_ssm(p["ssm"], cfg, hmap)
+    if kind.mixer in ("gqa", "hybrid"):
+        out["attn"] = _pad_attn(p["attn"], cfg, tp)
+    if kind.mixer == "hybrid":
+        hmap = q_head_orig(make_gqa_layout(cfg.n_heads, cfg.n_kv_heads, tp))
+        out["ssm"] = _pad_ssm(p["ssm"], cfg, hmap)
+        for nm in ("na", "ns"):
+            out[nm] = pad_heads(p[nm], 0, hmap, cfg.ssm.head_dim,
+                                cfg.n_heads)
+    if kind.ffn == "mlp":
+        out["mlp"] = _pad_mlp(p["mlp"], tp)
+    if kind.ffn == "moe":
+        out["moe"] = _pad_moe(p["moe"], cfg, tp)
+    return out
+
+
+def _pad_attn(a: dict, cfg: ModelConfig, tp: int) -> dict:
     dh = cfg.d_head
     lay = make_gqa_layout(cfg.n_heads, cfg.n_kv_heads, tp)
     qmap, kvmap = q_head_orig(lay), kv_head_orig(lay)
-    a = dict(p["attn"])
+    a = dict(a)
     a["wq"] = pad_heads(a["wq"], 1, qmap, dh, cfg.n_heads)
     a["wo"] = pad_heads(a["wo"], 0, qmap, dh, cfg.n_heads)
     for nm in ("wk", "wv"):
@@ -298,7 +407,11 @@ def pad_layer(p: dict, cfg: ModelConfig, kind: LayerKind, tp: int) -> dict:
         a["bq"] = pad_heads(a["bq"], 0, qmap, dh, cfg.n_heads)
         a["bk"] = pad_heads(a["bk"], 0, kvmap, dh, cfg.n_kv_heads)
         a["bv"] = pad_heads(a["bv"], 0, kvmap, dh, cfg.n_kv_heads)
-    m = dict(p["mlp"])
+    return a
+
+
+def _pad_mlp(m: dict, tp: int) -> dict:
+    m = dict(m)
     ff = m["wu"].shape[1]
     ffp = -(-ff // tp) * tp
     if ffp != ff:
@@ -307,7 +420,20 @@ def pad_layer(p: dict, cfg: ModelConfig, kind: LayerKind, tp: int) -> dict:
             if nm in m:
                 m[nm] = pad_heads(m[nm], 1 if nm[0] == "w" else 0, padm, 1, ff)
         m["wd"] = pad_heads(m["wd"], 0, padm, 1, ff)
-    return dict(p, attn=a, mlp=m)
+    return m
+
+
+def _pad_moe(m: dict, cfg: ModelConfig, tp: int) -> dict:
+    m = dict(m)
+    e = cfg.moe.n_routed
+    ep = -(-e // tp) * tp
+    if ep != e:
+        emap = np.concatenate([np.arange(e), -np.ones(ep - e, np.int64)])
+        for nm in ("wu", "wg", "wd"):
+            if nm in m:
+                m[nm] = pad_heads(m[nm], 0, emap, 1, e)
+        m["router"] = pad_heads(m["router"], 1, emap, 1, e)
+    return m
 
 
 # ---------------------------------------------------------------------------
@@ -317,33 +443,45 @@ def pad_layer(p: dict, cfg: ModelConfig, kind: LayerKind, tp: int) -> dict:
 def gqa_mixer_seq(cfg, kind, a, h, pos, lay, *, want_cache=False,
                   q_chunk=1024):
     """Sequence (prefill) attention: h (tp,B,S,d), pos (B,S) -> (partial
-    (tp,B,S,d), cache {"k","v"} (tp,B,S,HkvL,dh) or None)."""
+    (tp,B,S,d), cache {"k","v"} (tp,B,S,HkvL,dh) or None; a windowed
+    layer's cache is its rolling buffer of min(S, window) slots)."""
     q, k, v = _qkv(cfg, a, h, lay)
     q = apply_rope(q, pos, cfg.rope_theta, cfg.rope_fraction)
     k = apply_rope(k, pos, cfg.rope_theta, cfg.rope_fraction)
     tp, b, s = h.shape[:3]
-    if cfg.attn_backend == "pallas":
+    if cfg.attn_backend == "pallas" and kind.window == 0:
         # the hand-written flash kernel; the shard axis folds into batch
         from repro_torch.kernels import ops as KOPS
         o = KOPS.flash_attention(q.reshape((tp * b,) + q.shape[2:]),
                                  k.reshape((tp * b,) + k.shape[2:]),
                                  v.reshape((tp * b,) + v.shape[2:]))
     else:
-        o = A.attention_any(q, k, v, pos, pos, q_chunk=q_chunk)
+        o = A.attention_any(q, k, v, pos, pos, window=kind.window,
+                            q_chunk=q_chunk)
     part = _mm(o.reshape(tp, b, s, -1), a["wo"])
-    return part, (_pack_kv(cfg, k, v) if want_cache else None)
+    if not want_cache:
+        return part, None
+    return part, _pack_kv(cfg, _rolling(k, kind.window),
+                          _rolling(v, kind.window))
 
 
 def gqa_mixer_dec(cfg, kind, a, h, pos, cache, lay):
     """Decode attention: h (tp,B,1,d), pos (B,); cache {"k","v"}
     (tp,B,S,HkvL,dh), updated in place."""
+    o = _attn_dec(cfg, kind, a, h, pos, cache, lay)
+    return _mm(o, a["wo"]), cache
+
+
+def _attn_dec(cfg, kind, a, h, pos, cache, lay):
+    """One decode token's attention output (tp,B,1,HqL*dh) before `wo`;
+    its K/V written into `cache` in place (slot pos % window on a
+    windowed layer)."""
     q, k, v = _qkv(cfg, a, h, lay)
     q = apply_rope(q, pos[:, None], cfg.rope_theta, cfg.rope_fraction)
     k = apply_rope(k, pos[:, None], cfg.rope_theta, cfg.rope_fraction)
-    cache = _update_kv(cfg, cache, k, v, pos)
-    o = A.decode_attend(q, cache["k"], cache["v"], pos)
-    part = _mm(o.reshape(tuple(h.shape[:3]) + (-1,)), a["wo"])
-    return part, cache
+    _update_kv(cfg, cache, k, v, pos, kind.window)
+    o = A.decode_attend(q, cache["k"], cache["v"], pos, window=kind.window)
+    return o.reshape(tuple(h.shape[:3]) + (-1,))
 
 
 def _ssm_in(cfg, ss, h, conv_state=None):
@@ -389,28 +527,24 @@ def _per_stream(v, b):
     return v.repeat_interleave(b, dim=0)
 
 
-def ssm_mixer_seq(cfg, ss, h, *, want_cache=False):
-    """Prefill SSM mixer: h (tp,B,S,d) at the prompt's own length -> (the
-    partial (tp,B,S,d), cache {"state" (tp,B,HL,P,N), "conv"} in the
-    model dtype, or None).  The chunked scan is the hand-written kernel on
-    the card (kernels/ops.ssd_scan), its plain version on the CPU."""
+def _ssd_prefill(cfg, ss, x, dt, bm, cm):
+    """The chunked scan of a prefill: the hand-written kernel on the card
+    (kernels/ops.ssd_scan), its plain version on the CPU.  Returns (y
+    (tp,B,S,HL*P), the final state (tp,B,HL,P,N) fp32)."""
     from repro_torch.kernels import ops as KOPS
-    tp, b, s = h.shape[:3]
-    z, x, bm, cm, dt, conv = _ssm_in(cfg, ss, h)
+    tp, b, s = x.shape[:3]
     a = -torch.exp(ss["alog"].float())
     y, state = KOPS.ssd_scan(_fold(x), _fold(dt), _per_stream(a, b),
                              _fold(bm), _fold(cm), _per_stream(ss["dd"], b),
                              chunk=cfg.ssm.chunk_size)
-    part = _ssm_out(cfg, ss, y.reshape(tp, b, s, -1), z)
-    if not want_cache:
-        return part, None
-    state = state.reshape((tp, b) + tuple(state.shape[1:]))
-    return part, {"state": state.to(torch_dtype(cfg)), "conv": conv}
+    return (y.reshape(tp, b, s, -1),
+            state.reshape((tp, b) + tuple(state.shape[1:])))
 
 
-def ssm_mixer_dec(cfg, ss, h, cache):
-    """Decode SSM mixer: h (tp,B,1,d); cache {"state" (tp,B,HL,P,N),
-    "conv" {"x", "bc"}}, updated in place in the model dtype."""
+def _ssd_dec(cfg, ss, h, cache):
+    """One decode token through the SSM heads: h (tp,B,1,d) -> (y
+    (tp,B,1,HL*P), z); the cache's "state" and "conv" tails updated in
+    place in the model dtype."""
     tp, b = h.shape[:2]
     z, x, bm, cm, dt, conv = _ssm_in(cfg, ss, h, conv_state=cache["conv"])
     a = -torch.exp(ss["alog"].float())
@@ -420,8 +554,70 @@ def ssm_mixer_dec(cfg, ss, h, cache):
     cache["state"].copy_(state.reshape(cache["state"].shape))
     for k in ("x", "bc"):
         cache["conv"][k].copy_(conv[k])
-    part = _ssm_out(cfg, ss, y.reshape(tp, b, 1, -1), z)
-    return part, cache
+    return y.reshape(tp, b, 1, -1), z
+
+
+def ssm_mixer_seq(cfg, ss, h, *, want_cache=False):
+    """Prefill SSM mixer: h (tp,B,S,d) at the prompt's own length -> (the
+    partial (tp,B,S,d), cache {"state" (tp,B,HL,P,N), "conv"} in the
+    model dtype, or None)."""
+    z, x, bm, cm, dt, conv = _ssm_in(cfg, ss, h)
+    y, state = _ssd_prefill(cfg, ss, x, dt, bm, cm)
+    part = _ssm_out(cfg, ss, y, z)
+    if not want_cache:
+        return part, None
+    return part, {"state": state.to(torch_dtype(cfg)), "conv": conv}
+
+
+def ssm_mixer_dec(cfg, ss, h, cache):
+    """Decode SSM mixer: h (tp,B,1,d); cache {"state" (tp,B,HL,P,N),
+    "conv" {"x", "bc"}}, updated in place in the model dtype."""
+    y, z = _ssd_dec(cfg, ss, h, cache)
+    return _ssm_out(cfg, ss, y, z), cache
+
+
+def _hybrid_fuse(cfg, p, o_attn, y_ssm, z):
+    """Hymba's mean fusion of the two head sets, each normed per head,
+    through the attention's out projection: the shard-local partial."""
+    y_ssm = y_ssm * F.silu(z)
+    fused = 0.5 * (headwise_rmsnorm(o_attn, p["na"], cfg.norm_eps,
+                                    cfg.d_head)
+                   + headwise_rmsnorm(y_ssm, p["ns"], cfg.norm_eps,
+                                      cfg.d_head))
+    return _mm(fused, p["attn"]["wo"])
+
+
+def hybrid_mixer_seq(cfg, kind, p, h, pos, lay, *, want_cache=False,
+                     q_chunk=1024):
+    """Hymba-style prefill mixer: attention (the plain one on every
+    layer, global layers too: the reference's hybrid mixer ignores
+    attn_backend) and SSM heads (the scan kernel on the card) side by
+    side.  h
+    (tp,B,S,d) at the prompt's own length -> (partial, cache {"k","v"
+    (the rolling buffer on a windowed layer), "state", "conv"} or None)."""
+    a = p["attn"]
+    q, k, v = _qkv(cfg, a, h, lay)
+    q = apply_rope(q, pos, cfg.rope_theta, cfg.rope_fraction)
+    k = apply_rope(k, pos, cfg.rope_theta, cfg.rope_fraction)
+    tp, b, s = h.shape[:3]
+    o_attn = A.attention_any(q, k, v, pos, pos, window=kind.window,
+                             q_chunk=q_chunk).reshape(tp, b, s, -1)
+    ss = p["ssm"]
+    z, x, bm, cm, dt, conv = _ssm_in(cfg, ss, h)
+    y, state = _ssd_prefill(cfg, ss, x, dt, bm, cm)
+    part = _hybrid_fuse(cfg, p, o_attn, y, z)
+    if not want_cache:
+        return part, None
+    cache = _pack_kv(cfg, _rolling(k, kind.window), _rolling(v, kind.window))
+    return part, dict(cache, state=state.to(torch_dtype(cfg)), conv=conv)
+
+
+def hybrid_mixer_dec(cfg, kind, p, h, pos, cache, lay):
+    """Hymba-style decode mixer: h (tp,B,1,d); cache {"k","v","state",
+    "conv"}, updated in place."""
+    o_attn = _attn_dec(cfg, kind, p["attn"], h, pos, cache, lay)
+    y, z = _ssd_dec(cfg, p["ssm"], h, cache)
+    return _hybrid_fuse(cfg, p, o_attn, y, z), cache
 
 
 # ---------------------------------------------------------------------------
@@ -443,6 +639,38 @@ def mlp_partial(cfg, m, h, *, divergent: bool):
     return _mm(hid, m["wd"])      # the wd bias (bd) is added at the sync
 
 
+def moe_partial(cfg, mo_p, h):
+    """h (tp,B,S,d) -> (the partial combine (tp,B,S,d), aux (tp,)).
+
+    Each shard routes its own rows (in a dropped block they differ) over
+    T = B*S tokens, pad and idle rows included, as the reference does:
+    the capacity int(capacity_factor * T * k / n_routed) (at least k)
+    and the queue order depend on T.  Shard i runs experts [i*E_l,
+    (i+1)*E_l).  The shared experts are an MLP split over the shards.
+    `aux` is the load-balance loss each shard computes (serving ignores
+    it)."""
+    mo = cfg.moe
+    tp, b, s, d = h.shape
+    t = b * s
+    hf = h.reshape(tp, t, d)
+    gates, idx, aux = MOE.route(hf, shared_param(mo_p["router"]), mo.top_k,
+                                mo.n_routed)
+    e_l = mo_p["wu"].shape[1]
+    cap = max(int(mo.capacity_factor * t * mo.top_k / max(mo.n_routed, 1)),
+              mo.top_k)
+    slot_token, tok_slot = MOE.dispatch_local(
+        idx, torch.arange(tp, device=h.device) * e_l, e_l, cap)
+    part = MOE.moe_local(hf, gates, tok_slot, slot_token, mo_p.get("wg"),
+                         mo_p["wu"], mo_p["wd"], cfg.act, cfg.gated_mlp)
+    part = part.to(h.dtype)
+    if mo.n_shared:
+        act = act_fn(cfg.act)
+        up = _mm(hf, mo_p["su"])
+        hid = act(_mm(hf, mo_p["sg"])) * up if cfg.gated_mlp else act(up)
+        part = part + _mm(hid, mo_p["sd"])
+    return part.reshape(tp, b, s, d), aux
+
+
 # ---------------------------------------------------------------------------
 # Full blocks: TP vs SPD wiring
 # ---------------------------------------------------------------------------
@@ -450,17 +678,25 @@ def mlp_partial(cfg, m, h, *, divergent: bool):
 def _mixer_seq(cfg, kind, p, x, pos, lay, want_cache, q_chunk):
     """norm1 -> column entry -> mixer partial: (partial, bias_o, cache)."""
     h = column_entry(_norm(x, p["ln1"], cfg))
-    part, cache = gqa_mixer_seq(cfg, kind, p["attn"], h, pos, lay,
-                                want_cache=want_cache, q_chunk=q_chunk)
+    if kind.mixer == "hybrid":
+        part, cache = hybrid_mixer_seq(cfg, kind, p, h, pos, lay,
+                                       want_cache=want_cache,
+                                       q_chunk=q_chunk)
+    else:
+        part, cache = gqa_mixer_seq(cfg, kind, p["attn"], h, pos, lay,
+                                    want_cache=want_cache, q_chunk=q_chunk)
     return part, p["attn"].get("bo"), cache
 
 
 def _ffn_partial(cfg, kind, p, u, *, divergent):
-    """norm2 -> (column entry) -> ffn partial: (z_partial, bias_d)."""
+    """norm2 -> (column entry) -> ffn partial: (z_partial, bias_d).  A MoE
+    FFN's aux loss is dropped: serving ignores it."""
     ln2 = ({k: shared_param(v) for k, v in p["ln2"].items()} if divergent
            else p["ln2"])
     h2 = _norm(u, ln2, cfg)
     h2 = h2 if divergent else column_entry(h2)
+    if kind.ffn == "moe":
+        return moe_partial(cfg, p["moe"], h2)[0], None
     return mlp_partial(cfg, p["mlp"], h2, divergent=divergent), \
         p["mlp"].get("bd")
 
@@ -512,7 +748,11 @@ def block_dec(cfg, kind, lay, p, x, pos, cache, *, drop: bool, comm=None):
     if kind.mixer == "ssm":
         part, cache = ssm_mixer_dec(cfg, p["ssm"], h, cache)
         return x + sync_output(part, mode=comm), cache
-    part, cache = gqa_mixer_dec(cfg, kind, p["attn"], h, pos, cache, lay)
+    if kind.mixer == "hybrid":
+        part, cache = hybrid_mixer_dec(cfg, kind, p, h, pos, cache, lay)
+    else:
+        part, cache = gqa_mixer_dec(cfg, kind, p["attn"], h, pos, cache,
+                                    lay)
     out = _wire_post_mixer(cfg, kind, p, x, part, p["attn"].get("bo"),
                            drop=drop, comm=comm)
     return out, cache
@@ -523,7 +763,8 @@ def block_dec(cfg, kind, lay, p, x, pos, cache, *, drop: bool, comm=None):
 # drafter's steps): a chunk of C tokens runs seq-mode against an existing
 # dense decode cache, writing its K/V at absolute positions and attending
 # over the whole buffer with position masking.  Full-causal GQA layers
-# only (model.supports_chunked_prefill gates callers).  The attention is
+# only, with an MLP or a MoE FFN (model.supports_chunked_prefill gates
+# callers).  The attention is
 # the plain one in every backend, as in the reference (its `attention_any`
 # / `attend` here, `core/blocks.py:978-982`): these chunks have no TPU
 # kernel.
@@ -576,8 +817,8 @@ def block_ext(cfg, kind, lay, p, x, pos, cache, *, drop: bool, q_chunk=1024,
 # table; no contiguous per-slot view is built.  New tokens scatter straight
 # into their pages (in place); attention reads K/V through the table: the
 # hand-written paged kernel on attn_backend="pallas", else the plain
-# gather-only-the-table path.  GQA full-causal fp-cache layers only
-# (model.supports_paged_attention gates callers).
+# gather-only-the-table path.  GQA full-causal fp-cache layers only, with
+# an MLP or a MoE FFN (model.supports_paged_attention gates callers).
 # ---------------------------------------------------------------------------
 
 def gqa_mixer_page(cfg, kind, a, h, pos, cache, page_table, lay,

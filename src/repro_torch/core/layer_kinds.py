@@ -12,25 +12,38 @@ from repro_torch.config.base import ModelConfig
 
 @dataclass(frozen=True)
 class LayerKind:
-    mixer: str           # gqa | ssm (the mixers the port serves)
-    ffn: str             # mlp | none
-    window: int = 0      # always 0 here: sliding windows are not ported
-    d_ff: int = 0
+    mixer: str           # gqa | ssm | hybrid (mla is refused: ROADMAP A4)
+    ffn: str             # mlp | moe | none
+    window: int = 0      # sliding attention window; 0 = full causal
+    d_ff: int = 0        # per-layer MLP width
 
 
 def layer_kinds(cfg: ModelConfig) -> Tuple[LayerKind, ...]:
-    if cfg.family == "ssm":
-        return tuple(LayerKind(mixer="ssm", ffn="none")
-                     for _ in range(cfg.n_layers))
-    if cfg.family != "dense" or cfg.mla is not None or cfg.moe is not None:
+    """The reference's layer kinds: MoE FFNs after `n_dense_layers`,
+    hybrid mixers on the hybrid family, `attn_window` on every layer but
+    `global_attn_layers`."""
+    if cfg.mla is not None:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet "
-            "(dense GQA and pure SSM only)")
-    if cfg.attn_window:
-        raise NotImplementedError(f"{cfg.name}: sliding-window attention "
-                                  "is not ported yet")
-    return tuple(LayerKind(mixer="gqa", ffn="mlp", d_ff=cfg.d_ff)
-                 for _ in range(cfg.n_layers))
+            f"{cfg.name}: MLA attention is not ported yet (ROADMAP A4: MLA "
+            "with deepseek-v2-lite-16b is the next family)")
+    kinds = []
+    for i in range(cfg.n_layers):
+        if cfg.family == "ssm":
+            kinds.append(LayerKind(mixer="ssm", ffn="none"))
+            continue
+        mixer = "hybrid" if cfg.family == "hybrid" else "gqa"
+        window = cfg.attn_window
+        if window and i in cfg.global_attn_layers:
+            window = 0
+        if cfg.moe is not None and i >= cfg.moe.n_dense_layers:
+            kinds.append(LayerKind(mixer=mixer, ffn="moe", window=window))
+            continue
+        d_ff = cfg.d_ff
+        if cfg.moe is not None and cfg.moe.d_ff_dense:
+            d_ff = cfg.moe.d_ff_dense
+        kinds.append(LayerKind(mixer=mixer, ffn="mlp", window=window,
+                               d_ff=d_ff))
+    return tuple(kinds)
 
 
 def plan_segments(cfg: ModelConfig, drop_mask: Tuple[bool, ...],

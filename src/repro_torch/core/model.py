@@ -11,7 +11,8 @@ shards; the LM head is the tied embedding or, untied, a `head` (d, V)
 split on its vocab axis.  A learned position table (`pos`, OPT) is
 replicated and added at absolute positions.  Pure-SSM layers carry
 recurrent state (the scan state and the conv tails) instead of K/V
-caches.
+caches; hybrid layers carry both.  A sliding-window layer's K/V is a
+rolling buffer of min(window, cache_len) slots.
 """
 from __future__ import annotations
 
@@ -168,9 +169,10 @@ def _gqa_layout(cfg, tp):
 
 def has_recurrent_state(cfg) -> bool:
     """Whether some layer carries recurrent state (an SSM scan state and
-    conv tails).  Such a model is prefilled at the prompt's own length:
-    a pad token would be scanned into the state (ROADMAP C3)."""
-    return any(k.mixer == "ssm" for k in layer_kinds(cfg))
+    conv tails: pure-SSM and hybrid layers).  Such a model is prefilled
+    at the prompt's own length: a pad token would be scanned into the
+    state (ROADMAP C3)."""
+    return any(k.mixer in ("ssm", "hybrid") for k in layer_kinds(cfg))
 
 
 def _layer(seg_params, j):
@@ -181,14 +183,22 @@ def _layer(seg_params, j):
 # Prefill / decode (serving)
 # ---------------------------------------------------------------------------
 
-def _seg_cache_shape(kind, leaf, length: int, cache_len: int):
-    """A segment cache leaf for one layer's prefill cache `leaf` (tp, B,
-    ...): a layer axis after the shard axis; attention K/V padded along
-    the sequence to the decode buffer."""
-    shp = (leaf.shape[0], length) + tuple(leaf.shape[1:])
-    if kind.mixer == "gqa":
-        shp = shp[:3] + (max(leaf.shape[2], cache_len),) + shp[4:]
-    return shp
+def _seg_cache(kind, cache: dict, length: int, cache_len: int) -> dict:
+    """Zero segment caches shaped after one layer's prefill cache (leaves
+    (tp, B, ...)): a layer axis after the shard axis; attention K/V
+    padded along the sequence to the decode buffer, min(window,
+    cache_len) slots on a windowed layer (the reference pads to the
+    window, which is the same whenever the window fits the buffer)."""
+    target = min(kind.window, cache_len) if kind.window else cache_len
+
+    def one(name, leaf):
+        shp = (leaf.shape[0], length) + tuple(leaf.shape[1:])
+        if name in ("k", "v"):
+            shp = shp[:3] + (max(leaf.shape[2], target),) + shp[4:]
+        return leaf.new_zeros(shp)
+
+    return {name: tree_map(lambda a, name=name: one(name, a), sub)
+            for name, sub in cache.items()}
 
 
 def forward_seq(cfg, stacked, plan: SPDPlanConfig, tokens, *, tp,
@@ -197,8 +207,10 @@ def forward_seq(cfg, stacked, plan: SPDPlanConfig, tokens, *, tp,
     """Sequence forward.  tokens (B,S).  Returns (hidden (tp,B,S,d) after
     the final norm, caches) — caches per segment: attention layers'
     {"k","v"} of shape (tp, layers, B, max(S, cache_len), HkvL, dh), zero
-    past S; SSM layers' {"state" (tp, layers, B, HL, P, N), "conv" {"x",
-    "bc"} (tp, layers, B, d_conv-1, C)}.
+    past S (a windowed layer's rolling buffer: max(min(S, window),
+    min(window, cache_len)) slots); SSM layers' {"state" (tp, layers, B,
+    HL, P, N), "conv" {"x", "bc"} (tp, layers, B, d_conv-1, C)}; hybrid
+    layers' both.
 
     `drop_flags` (L,) overrides the plan's drop mask layer by layer (the
     sensitivity sweep: one placement under the no-SPD plan serves every
@@ -246,8 +258,7 @@ def forward_seq(cfg, stacked, plan: SPDPlanConfig, tokens, *, tp,
                                        comm=plan.block_mode(start))
                 if want_cache:
                     if seg_cache is None:
-                        seg_cache = tree_map(lambda a: a.new_zeros(
-                            _seg_cache_shape(kind, a, length, cache_len)), c)
+                        seg_cache = _seg_cache(kind, c, length, cache_len)
                     # K/V fill their first S positions; a recurrent
                     # leaf's axis 2 is whole, so the same slice covers it
                     tree_map(lambda dst, src: dst[:, j, :, :src.shape[2]]
@@ -309,7 +320,8 @@ def loss_fn(cfg, stacked, plan, batch, *, tp, q_chunk=1024,
     map; the train step takes it of
     shard_ce.sum() over the GLOBAL token count instead (parallel/tp.py).
     `row_ce` is shard 0's masked CE sum of each row, without a graph.
-    The dense and SSM families carry no auxiliary loss.
+    The MoE family's auxiliary loss is not carried (its training is
+    refused: parallel/tp.check_trainable).
     `fsdp` logs the head's all-gather as the reference does (see
     forward_seq)."""
     x, _ = forward_seq(cfg, stacked, plan, batch["tokens"], tp=tp,
@@ -367,7 +379,8 @@ def decode_step(cfg, stacked, plan, tokens, pos, caches, *, tp):
 
 
 def supports_chunked_prefill(cfg) -> bool:
-    """Full-causal GQA stacks without a modality prefix."""
+    """Full-causal GQA stacks (MLP or MoE FFNs) without a modality
+    prefix; windowed, SSM and hybrid layers prefill whole."""
     return (not cfg.frontend_dim
             and all(k.mixer == "gqa" and k.window == 0
                     for k in layer_kinds(cfg)))
@@ -466,9 +479,9 @@ def verify_step(cfg, stacked, plan, tokens, pos, caches, *, tp,
 
 def supports_paged_attention(cfg) -> bool:
     """The fused paged forward (paged_step / blocks.block_page) covers
-    full-causal GQA stacks with fp KV caches, whose every cache leaf is a
-    {"k","v"} page pool.  The reference's gather -> dense -> scatter
-    fallback for other archs is not ported."""
+    full-causal GQA stacks (MLP or MoE FFNs) with fp KV caches, whose
+    every cache leaf is a {"k","v"} page pool.  The reference's gather
+    -> dense -> scatter fallback for other archs is not ported."""
     return supports_chunked_prefill(cfg) and cfg.kv_dtype != "int8"
 
 
@@ -476,9 +489,10 @@ def require_paged_attention(cfg) -> None:
     """Raise unless the fused paged forward covers `cfg`."""
     if not supports_paged_attention(cfg):
         raise NotImplementedError(
-            f"{cfg.name}: paged KV caches cover full-causal GQA stacks only; "
-            "the reference's gather -> dense -> scatter fallback (int8 KV, "
-            "windowed, MLA, SSM, hybrid) is not ported yet")
+            f"{cfg.name}: paged KV caches cover full-causal GQA stacks "
+            "(dense and MoE) only; the reference's gather -> dense -> "
+            "scatter fallback (int8 KV, windowed and hybrid (Hymba), SSM, "
+            "MLA) is not ported yet (ROADMAP A4)")
 
 
 def paged_step(cfg, stacked, plan, tokens, pos, caches, page_table, *, tp,
@@ -536,46 +550,63 @@ class CacheStruct:
 def cache_struct(cfg, plan: SPDPlanConfig, batch: int, seq_len: int,
                  tp: int):
     """Per segment CacheStructs (shard-logical: head axes carry the full
-    padded head count).  Attention layers: {"k","v"} (layers, batch, S,
-    kv_layout, dh).  SSM layers: {"state" (layers, batch, H_pad, P, N),
-    "conv" {"x" (layers, batch, d_conv-1, H_pad*P), "bc" (layers, batch,
-    d_conv-1, 2*G*N)}}; no sequence axis, so `seq_len` does not size them."""
+    padded head count).  Attention layers: {"k","v"} (layers, batch,
+    S_kv, kv_layout, dh), S_kv = seq_len, or min(window, seq_len) on a
+    windowed layer (its rolling buffer).  SSM layers: {"state" (layers,
+    batch, H_pad, P, N), "conv" {"x" (layers, batch, d_conv-1, H_pad*P),
+    "bc" (layers, batch, d_conv-1, 2*G*N)}}, no sequence axis; H_pad the
+    q-head layout's h_pad on a hybrid layer, which holds both trees."""
     lay = _gqa_layout(cfg, tp)
     dt = B.torch_dtype(cfg)
     out = []
     for (_, length, kind, _) in plan_segments(cfg, plan.drop_mask,
                                               plan.qmodes):
-        if kind.mixer == "ssm":
+        lead = (length, batch)
+        seg = {}
+        if kind.mixer in ("ssm", "hybrid"):
             s = cfg.ssm
-            hp = -(-B.ssm_heads(cfg) // tp) * tp
-            lead = (length, batch)
-            out.append({
-                "state": CacheStruct(lead + (hp, s.head_dim, s.d_state), dt),
-                "conv": {"x": CacheStruct(lead + (s.d_conv - 1,
-                                                  hp * s.head_dim), dt),
-                         "bc": CacheStruct(lead + (s.d_conv - 1, 2 * s.n_groups
-                                                   * s.d_state), dt)}})
-            continue
-        st = CacheStruct((length, batch, seq_len, lay.kv_layout, cfg.d_head),
-                         dt)
-        out.append({"k": st, "v": st})
+            hp = (lay.h_pad if kind.mixer == "hybrid"
+                  else -(-B.ssm_heads(cfg) // tp) * tp)
+            seg["state"] = CacheStruct(lead + (hp, s.head_dim, s.d_state), dt)
+            seg["conv"] = {
+                "x": CacheStruct(lead + (s.d_conv - 1, hp * s.head_dim), dt),
+                "bc": CacheStruct(lead + (s.d_conv - 1,
+                                          2 * s.n_groups * s.d_state), dt)}
+        if kind.mixer in ("gqa", "hybrid"):
+            s_kv = min(kind.window, seq_len) if kind.window else seq_len
+            st = CacheStruct(lead + (s_kv, lay.kv_layout, cfg.d_head), dt)
+            seg.update(k=st, v=st)
+        out.append(seg)
     return out
 
 
 def cache_specs_tree(cfg, plan: SPDPlanConfig):
     """Split axis of each cache leaf in the cache_struct layout."""
-    ssm_c = {"state": 2, "conv": {"x": 3, "bc": REPLICATED}}
-    return [ssm_c if kind.mixer == "ssm" else {"k": 3, "v": 3}
-            for (_, _, kind, _) in plan_segments(cfg, plan.drop_mask,
-                                                 plan.qmodes)]
+    out = []
+    for (_, _, kind, _) in plan_segments(cfg, plan.drop_mask, plan.qmodes):
+        seg = {}
+        if kind.mixer in ("ssm", "hybrid"):
+            seg.update(state=2, conv={"x": 3, "bc": REPLICATED})
+        if kind.mixer in ("gqa", "hybrid"):
+            seg.update(k=3, v=3)
+        out.append(seg)
+    return out
 
 
 def cache_pageable_tree(cfg, plan: SPDPlanConfig):
     """Which cache leaves get PAGED (bool tree matching cache_struct):
-    the K/V of full-causal GQA layers, which are all this port serves."""
-    return [{"k": kind.window == 0, "v": kind.window == 0}
-            for (_, _, kind, _) in plan_segments(cfg, plan.drop_mask,
-                                                 plan.qmodes)]
+    the K/V of full-causal layers.  Rolling-window K/V (already bounded
+    to the window), SSM state and conv tails (no sequence axis) stay
+    dense per slot."""
+    out = []
+    for (_, _, kind, _) in plan_segments(cfg, plan.drop_mask, plan.qmodes):
+        seg = {}
+        if kind.mixer in ("ssm", "hybrid"):
+            seg.update(state=False, conv={"x": False, "bc": False})
+        if kind.mixer in ("gqa", "hybrid"):
+            seg.update(k=kind.window == 0, v=kind.window == 0)
+        out.append(seg)
+    return out
 
 
 def paged_cache_struct(cfg, plan: SPDPlanConfig, batch: int, seq_len: int,

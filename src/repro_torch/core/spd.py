@@ -61,12 +61,23 @@ def capture_block_inputs(cfg, padded, tp, calib_batches, *, q_chunk=1024,
     return [collect(split0, b["tokens"]) for b in calib_batches]
 
 
+def require_algorithm1(cfg: ModelConfig) -> None:
+    """Algorithm 1 (the sweep, the comm policy, recovery) is held to the
+    reference on the dense and SSM families only: the MoE and hybrid
+    families are refused until a test holds them (ROADMAP A3)."""
+    if cfg.moe is not None or cfg.family == "hybrid":
+        raise NotImplementedError(
+            f"{cfg.name}: Algorithm 1 on the {cfg.family} family is not "
+            "ported yet (ROADMAP A3)")
+
+
 def sweep_sensitivity(cfg: ModelConfig, canonical: dict, calib_batches,
                       tp: int, *, q_chunk: int = 1024, keep_split=False):
     """Place the canonical params once under the no-SPD plan and run
     Algorithm 1's block sweep.  Returns (SensitivityResult, padded
     params), and the placement too when `keep_split`; else it is freed
     on return."""
+    require_algorithm1(cfg)
     plan0 = SPDPlanConfig.none(cfg.n_layers)
     padded = M.pad_model(canonical, cfg, tp)
     split0 = simtp.split_padded(padded, cfg, plan0, tp)
@@ -86,6 +97,7 @@ def apply_spd(cfg: ModelConfig, canonical: dict, calib_batches, tp: int, *,
               epochs: int = 10, strategies=("ZS", "B2B", "HG"),
               q_chunk: int = 1024):
     """Returns (padded_params_final, plan, report)."""
+    require_algorithm1(cfg)
     if not cfg.spd_applicable:
         padded = M.pad_model(canonical, cfg, tp)
         plan = SPDPlanConfig.none(cfg.n_layers)

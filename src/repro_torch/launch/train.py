@@ -18,7 +18,7 @@ import sys
 from typing import Optional
 
 
-def make_trainer(arch: str, *, steps: int = 100, tp: int = 2, dp: int = 1,
+def make_trainer(arch, *, steps: int = 100, tp: int = 2, dp: int = 1,
                  batch: int = 8, seq: int = 64, lr: float = 3e-4,
                  microbatches: int = 1, fsdp: bool = False,
                  spd: float = 0.0, ckpt_dir: Optional[str] = None,
@@ -29,13 +29,15 @@ def make_trainer(arch: str, *, steps: int = 100, tp: int = 2, dp: int = 1,
                  params=None):
     """The CLI's trainer: (Trainer, initial state), the state restored
     from `ckpt_dir` when it holds a checkpoint (None: a new temporary
-    directory).  `params` (canonical, on any device) replaces the seeded
-    init; `comm` sets every kept sync's level (CommPolicy.uniform);
-    `q_chunk` 0 takes min(1024, seq)."""
+    directory).  `arch` is a config name or a ModelConfig.  `params`
+    (canonical, on any device) replaces the seeded init; `comm` sets
+    every kept sync's level (CommPolicy.uniform); `q_chunk` 0 takes
+    min(1024, seq)."""
     import torch
 
     from repro_torch.api.llm import resolve_device
-    from repro_torch.config.base import CommPolicy, SPDPlanConfig, replace
+    from repro_torch.config.base import (CommPolicy, ModelConfig,
+                                         SPDPlanConfig, replace)
     from repro_torch.configs import get_config
     from repro_torch.core import model as M
     from repro_torch.launch.mesh import make_test_mesh
@@ -48,7 +50,8 @@ def make_trainer(arch: str, *, steps: int = 100, tp: int = 2, dp: int = 1,
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device!r}: no CUDA device; pass "
                            "--device cpu to train on the CPU")
-    cfg = replace(get_config(arch), dtype=dtype, attn_backend=attn_backend)
+    cfg = arch if isinstance(arch, ModelConfig) else get_config(arch)
+    cfg = replace(cfg, dtype=dtype, attn_backend=attn_backend)
     mesh = make_test_mesh(dp, tp)
     k = int(round(cfg.n_layers * spd)) if cfg.spd_applicable else 0
     plan = SPDPlanConfig.first_k(cfg.n_layers, k)

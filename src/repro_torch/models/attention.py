@@ -1,8 +1,10 @@
 """Attention math on the heads one shard owns (port of
 repro/models/attention.py).  Plain torch, as the reference's is plain
 XLA: `attend` is the dense oracle, `attention_any` the prefill path of
-attn_backend="xla", `decode_attend` the dense decode path (the reference
-has no kernel for dense decode, so neither does the port), and
+attn_backend="xla" and of every sliding-window or hybrid layer,
+`decode_attend` the dense decode path over a full buffer or a rolling
+window (the reference has no kernel for dense decode, so neither does
+the port), and
 `paged_attend` the paged path of attn_backend="xla" and of every tree
 chunk, `tree_mask` the visibility of a speculative tree chunk, and
 `write_chunk` the dense cache write of a chunk (positions past the
@@ -34,10 +36,13 @@ def _gqa_combine(p, v):
     return o.reshape(*lead, sq, hq, v.shape[-1])
 
 
-def causal_mask(q_pos, kv_pos):
-    """(..., Sq) x (..., Sk) -> bool (..., Sq, Sk); True = attend.  (The
-    reference's sliding-window option waits for a windowed config.)"""
-    return kv_pos[..., None, :] <= q_pos[..., :, None]
+def causal_mask(q_pos, kv_pos, window: int = 0):
+    """(..., Sq) x (..., Sk) -> bool (..., Sq, Sk); True = attend.  A
+    `window` > 0 keeps the last `window` positions (sliding window)."""
+    m = kv_pos[..., None, :] <= q_pos[..., :, None]
+    if window > 0:
+        m &= kv_pos[..., None, :] > q_pos[..., :, None] - window
+    return m
 
 
 def tree_mask(pos, anc, kv_pos):
@@ -71,24 +76,25 @@ def attend(q, k, v, mask, scale: float | None = None):
     return _gqa_combine(p, v).to(q.dtype)
 
 
-def attend_chunked(q, k, v, q_pos, kv_pos, *, q_chunk: int = 1024,
-                   scale: float | None = None):
-    """Query-chunked causal attention: O(q_chunk * Sk) score memory."""
+def attend_chunked(q, k, v, q_pos, kv_pos, *, window: int = 0,
+                   q_chunk: int = 1024, scale: float | None = None):
+    """Query-chunked causal (+ sliding window) attention: O(q_chunk * Sk)
+    score memory."""
     outs = []
     for i in range(0, q.shape[-3], q_chunk):
-        mask = causal_mask(q_pos[..., i:i + q_chunk], kv_pos)
+        mask = causal_mask(q_pos[..., i:i + q_chunk], kv_pos, window)
         outs.append(attend(q[..., i:i + q_chunk, :, :], k, v, mask, scale))
     return torch.cat(outs, dim=-3)
 
 
-def attention_any(q, k, v, q_pos, kv_pos, *, q_chunk: int = 1024,
-                  scale: float | None = None):
+def attention_any(q, k, v, q_pos, kv_pos, *, window: int = 0,
+                  q_chunk: int = 1024, scale: float | None = None):
     """Dense for short q, query-chunked for long.  q (...,Sq,Hq,Dh),
     positions (B,Sq)/(B,Sk) broadcasting against q's leading dims."""
     if q.shape[-3] > q_chunk:
-        return attend_chunked(q, k, v, q_pos, kv_pos, q_chunk=q_chunk,
-                              scale=scale)
-    return attend(q, k, v, causal_mask(q_pos, kv_pos), scale)
+        return attend_chunked(q, k, v, q_pos, kv_pos, window=window,
+                              q_chunk=q_chunk, scale=scale)
+    return attend(q, k, v, causal_mask(q_pos, kv_pos, window), scale)
 
 
 def paged_attend(q, k_pool, v_pool, page_table, pos, *,
@@ -121,23 +127,32 @@ def paged_attend(q, k_pool, v_pool, page_table, pos, *,
     return attend(q, kg, vg, mask, scale)
 
 
-def decode_attend(q, k_cache, v_cache, pos, *, scale: float | None = None):
+def decode_attend(q, k_cache, v_cache, pos, *, window: int = 0,
+                  scale: float | None = None):
     """Single-token decode: q (...,B,1,Hq,Dh); caches (...,B,S,Hkv,Dh);
-    pos (B,) current absolute position."""
-    slots = torch.arange(k_cache.shape[-3], device=q.device)[None, :]
-    valid = slots <= pos[:, None]
+    pos (B,) current absolute position.  A windowed layer's cache is a
+    rolling buffer (slot = p % S, S = min(window, buffer)): RoPE was
+    applied before the write, so only the filled slots are masked."""
+    s = k_cache.shape[-3]
+    slots = torch.arange(s, device=q.device)[None, :]
+    if window > 0:
+        valid = slots < torch.clamp(pos[:, None] + 1, max=s)
+    else:
+        valid = slots <= pos[:, None]
     return attend(q, k_cache, v_cache, valid[:, None, :], scale)
 
 
-def cache_update(k_cache, v_cache, k_new, v_new, pos):
-    """Write one token's k/v at pos: caches (...,B,S,Hkv,Dh), new
-    (...,B,1,Hkv,Dh), pos (B,).
+def cache_update(k_cache, v_cache, k_new, v_new, pos, *, window: int = 0):
+    """Write one token's k/v at pos (slot pos % window on a windowed
+    layer's rolling buffer): caches (...,B,S,Hkv,Dh), new (...,B,1,Hkv,Dh),
+    pos (B,).
 
     Unlike the reference's functional `.at[].set`, this writes the
     caches IN PLACE (they are the serving buffers) and returns them."""
+    slot = pos % window if window > 0 else pos
     bi = torch.arange(pos.shape[0], device=k_cache.device)
-    k_cache[..., bi, pos, :, :] = k_new.select(-3, 0)
-    v_cache[..., bi, pos, :, :] = v_new.select(-3, 0)
+    k_cache[..., bi, slot, :, :] = k_new.select(-3, 0)
+    v_cache[..., bi, slot, :, :] = v_new.select(-3, 0)
     return k_cache, v_cache
 
 

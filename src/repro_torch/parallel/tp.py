@@ -82,20 +82,30 @@ class TrainStepConfig:
 
 
 def check_trainable(cfg: ModelConfig, device) -> None:
-    """Refuse what the port cannot train: the families it does not port
-    (layer_kinds raises for MoE, hybrid and MLA), a modality frontend,
-    and an SSM stack on the card, whose SSD scan kernel (B8) has no
-    backward yet: ROADMAP lists its autograd Function.  The plain scan
-    is not a stand-in on the card."""
+    """Refuse what the port cannot train yet: MLA (layer_kinds raises), a
+    modality frontend, the MoE family (the port's loss_fn does not carry
+    the reference's aux_coef * aux load-balance term), the hybrid family
+    on any device and an SSM stack on the card (the SSD scan kernel, B8,
+    has no backward; a hybrid layer's scan runs it).  ROADMAP A3 lists
+    them.  The plain scan is not a stand-in on the card."""
     kinds = layer_kinds(cfg)
     if cfg.frontend_dim:
         raise NotImplementedError(f"{cfg.name}: modality frontends are not "
                                   "ported (ROADMAP A4)")
+    if any(k.ffn == "moe" for k in kinds):
+        raise NotImplementedError(
+            f"{cfg.name}: training a MoE stack needs the load-balance aux "
+            "term in loss_fn, which is not ported yet (ROADMAP A3)")
+    if any(k.mixer == "hybrid" for k in kinds):
+        raise NotImplementedError(
+            f"{cfg.name}: training a hybrid stack needs the SSD scan kernel "
+            "under autograd, which is not ported yet (ROADMAP A3)")
     if torch.device(device).type == "cuda" and any(
             k.mixer == "ssm" for k in kinds):
         raise NotImplementedError(
             f"{cfg.name}: training an SSM stack on the card needs the SSD "
-            "scan kernel under autograd, which is not ported yet")
+            "scan kernel under autograd, which is not ported yet "
+            "(ROADMAP A3)")
 
 
 def build_train_step(cfg: ModelConfig, plan: SPDPlanConfig, mesh,

@@ -22,18 +22,9 @@ from repro_torch.core import blocks as B  # noqa: E402
 from repro_torch.core.layer_kinds import layer_kinds  # noqa: E402
 from repro_torch.parallel.layout import make_gqa_layout  # noqa: E402
 from repro_torch.tree import tree_map  # noqa: E402
+from torch_parity import BLOCK_ATOL as ATOL  # noqa: E402
+from torch_parity import assert_block_close as _assert_close  # noqa: E402
 from torch_parity import one_torch_thread  # noqa: E402,F401
-
-# exact / SPD wiring: fp32, the only differences are summation orders
-# (XLA vs torch matmuls): ~1e-6 on O(1) activations
-ATOL = 2e-5
-# a quantized sync rounds x/s to an integer code; a last-ulp difference
-# in x before `round` can flip one code, i.e. move an element by one
-# quant step s = absmax/L.  Allowed: at most 1% of the elements, each by
-# at most two steps (a flip before the reduction and after it) of the
-# block's largest update |out - x|.
-FLIP_FRACTION = 0.01
-LEVELS = {"quant8": 127, "quant4": 7}
 
 
 def _cfgs():
@@ -52,17 +43,6 @@ def _layer(tp, seed=0):
     psplit = tree_map(lambda a: torch.from_numpy(np.array(a)),
                       jax.tree.map(np.asarray, rsplit))
     return rcfg, cfg, rkind, layer_kinds(cfg)[1], rsplit, psplit
-
-
-def _assert_close(port, ref, x, comm):
-    diff = np.abs(port - ref)
-    if comm in LEVELS:
-        step = np.abs(ref - x).max() / LEVELS[comm]
-        bad = diff > ATOL
-        assert bad.mean() <= FLIP_FRACTION, (bad.sum(), diff.size)
-        assert diff.max() <= 2 * step + ATOL, (diff.max(), step)
-    else:
-        assert diff.max() <= ATOL, diff.max()
 
 
 @pytest.mark.parametrize("comm", ["exact", "quant8", "quant4"])

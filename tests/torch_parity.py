@@ -8,11 +8,12 @@ wired wrongly shows in the outputs.  Numpy leaves, for
 `jax.tree.map(jnp.asarray, .)` on the reference's side and
 `core.convert.from_reference` on the port's."""
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from repro.core import model as RM
+from repro.core import blocks as RB, model as RM, simtp as RS
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -84,6 +85,58 @@ def assert_params_close(ref_leaves, port_leaves, lr, what=""):
         flips += int(far.sum())
         total += a.size
     assert flips <= PARAM_FLIP_FRAC * total, (what, flips, total)
+
+
+# ---------------------------------------------------------------------------
+# Block parity (tests/test_torch_blocks.py and the MoE / hybrid files)
+# ---------------------------------------------------------------------------
+
+# exact / SPD wiring: fp32, the only differences are summation orders
+# (XLA vs torch matmuls): ~1e-6 on O(1) activations
+BLOCK_ATOL = 2e-5
+# a quantized sync rounds x/s to an integer code; a last-ulp difference
+# in x before `round` can flip one code, i.e. move an element by one
+# quant step s = absmax/L.  Allowed: at most 1% of the elements, each by
+# at most two steps (a flip before the reduction and after it) of the
+# block's largest update |out - x|.
+FLIP_FRACTION = 0.01
+LEVELS = {"quant8": 127, "quant4": 7}
+
+
+def assert_block_close(port, ref, x, comm, atol=BLOCK_ATOL,
+                       one_token=False):
+    """A block's output (tp, B, S, d) against the reference's under the
+    bound above.  `one_token`: the elements past `atol` may instead all
+    sit on one token (b, s): one flipped code in a TP block's attention
+    sync moves that token's row, and the MLP spreads it over the row,
+    which at d 128 and 80 tokens is 1.25% of the elements."""
+    diff = np.abs(port - ref)
+    if comm in LEVELS:
+        step = np.abs(ref - x).max() / LEVELS[comm]
+        bad = diff > atol
+        tokens = int(bad.any(-1).any(0).sum())
+        assert bad.mean() <= FLIP_FRACTION or (one_token and tokens <= 1), (
+            bad.sum(), diff.size, tokens)
+        assert diff.max() <= 2 * step + atol, (diff.max(), step)
+    else:
+        assert diff.max() <= atol, diff.max()
+
+
+def ref_layer(rcfg, rkind, seed=0):
+    """The reference's init of one layer with every leaf moved by 0.05
+    N(0, 1) (norm weights, biases and skips off their constants), built
+    under jit: eager JAX compiles each op on its first use."""
+    def make(key):
+        lp = RB.init_layer(key, rcfg, rkind)
+        return jax.tree.map(lambda x: x + 0.05 * jax.random.normal(
+            jax.random.PRNGKey(7), x.shape, jnp.float32), lp)
+
+    return jax.jit(make)(jax.random.PRNGKey(seed))
+
+
+def ref_split_layer(lp, rcfg, rkind, tp):
+    """The reference's split_layer, under jit."""
+    return jax.jit(lambda p: RS.split_layer(p, rcfg, rkind, tp))(lp)
 
 
 def ledger_tuples(ledger):
