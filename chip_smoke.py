@@ -204,8 +204,31 @@
    their own length, 16 greedy tokens each; B8 32 x 4, the fused sync
    56 a forward, qdq 1, B1 and B2 0; plain-sync tokens; a profile; then
    as in 10 in bf16 and fp32 on the 1100-token prompt (its decode runs
-   on the windowed layers' rolling buffers).
-20. Prints the seconds since the build at the end of each part, the
+   on the windowed layers' rolling buffers); then paged through the
+   gather -> dense -> scatter fallback (16-token pages, a pool of 512
+   pages: the global layers' K/V paged, the windowed K/V, SSM state and
+   conv tails dense per slot): the dense tokens, B8 128.
+20. llama2-7b's int8 variants on its canonical weights (after 15, the
+   llama placements freed): kv_dtype="int8", then int8 KV and
+   weight_dtype="int8": the dense path as in 3 (B1 128, the syncs as
+   held, no B2 or B8), plain-sync tokens, a profile (device-busy ms),
+   the teacher-forced logits (prefill and 15 decode steps) against the
+   bf16 path of the same weights within TF_INT8_REL, and the paged path
+   through the fallback: on a 128-page pool the dense tokens, on the
+   40-page pool a preemption and every page back.
+21. deepseek-v2-lite-16b at full width (27 layers, d 2048, MLA with 16
+   heads (8 a shard) and a 512-wide latent, 64 routed + 2 shared
+   experts, top-6, a dense first layer; 15.71 B parameters, bf16,
+   random weights from seed 0) through the same LLM.load: the dense
+   path as in 3 (the fused sync per kept sync and forward, qdq 19, B1,
+   B2 and B8 0: MLA's prefill takes the plain attention, as the
+   reference's), a profile; the dense placement freed, paged through
+   the fallback as in 20 (the latent and rope key paged); then the
+   absorbed decode against one exact-length prefill with routing pinned
+   token by token (a capacity that holds every assignment), fp32 on
+   layers 5-8 and bf16 at full width.  Before it, B3 alone on
+   deepseek's logits gather (2, 51200).
+22. Prints the seconds since the build at the end of each part, the
    kernels JSON line (the rows above beside the earlier ones), the card
    line, and last {"ok": true, "device": {...}}.
 
@@ -996,21 +1019,29 @@ def all_kernels():
             FN.fused_residual_rmsnorm, SS.ssd_scan)
 
 
-def main_path(torch, np, card, arch="smollm-360m", label="main path"):
+MAIN_PATH_KERNELS = ("flash_attention_bhsd", "qdq_absmax",
+                     "quantized_psum_absmax")
+
+
+def main_path(torch, np, card, arch="smollm-360m", label="main path",
+              cfg_kw=None, params=None, need=MAIN_PATH_KERNELS):
     """`arch` at full width through the facade (tp=2, spd=0.25, quant8
     kept syncs and logits gather, flash prefill, random weights from seed
-    0): a counted dense generate of the four prompts, its sync counts,
-    and the same tokens with the fused sync's plain version."""
+    0, or `params`; `cfg_kw` replaced in the config): a counted dense
+    generate of the four prompts, its sync counts, each kernel of `need`
+    launched, and the same tokens with the fused sync's plain
+    version."""
     from repro_torch.api import LLM, SamplingParams
     from repro_torch.config.base import replace
     from repro_torch.configs import get_config
     from repro_torch.tree import tree_leaves
 
-    cfg = replace(get_config(arch), attn_backend="pallas")
+    cfg = replace(get_config(arch), attn_backend="pallas", **(cfg_kw or {}))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     llm = LLM.load(cfg, tp=2, spd=0.25, comm="quant8", comm_logits="quant8",
-                   dtype="bfloat16", cache_len=512, max_batch=4, seed=0)
+                   dtype="bfloat16", cache_len=512, max_batch=4, seed=0,
+                   params=params)
     torch.cuda.synchronize()
     n_params = sum(w.numel() for w in tree_leaves(llm.canonical))
     print(f"{label}: loaded {cfg.name} (L={cfg.n_layers} d={cfg.d_model} "
@@ -1041,8 +1072,7 @@ def main_path(torch, np, card, arch="smollm-360m", label="main path"):
                 or not all(0 <= t < cfg.vocab_size for t in o.token_ids)):
             raise AssertionError(f"request {o.index} (prompt {len(p)}) "
                                  f"did not finish cleanly: {o}")
-    if min(launches["flash_attention_bhsd"], launches["qdq_absmax"],
-           launches["quantized_psum_absmax"]) <= 0:
+    if min(launches[name] for name in need) <= 0:
         raise AssertionError(f"a kernel was not launched on the {label}: "
                              f"{launches}")
     n_tok = sum(len(o.token_ids) for o in outs)
@@ -1257,6 +1287,7 @@ def tf_model(llm, dtype, fp32_layers=None):
     the plan's drop mask and exact syncs.  `fp32_layers` (start, stop)
     keeps only those layers for the fp32 check (a full-width fp32 copy of
     a 7B model is 27 GB)."""
+    import dataclasses
     from repro_torch.config.base import SPDPlanConfig, replace
     from repro_torch.core import blocks as B
     from repro_torch.tree import tree_map
@@ -1265,6 +1296,10 @@ def tf_model(llm, dtype, fp32_layers=None):
     if dtype == "float32" and fp32_layers:
         lo, hi = fp32_layers
         cfg = replace(cfg, n_layers=hi - lo)
+        if cfg.moe is not None:       # the kept slice's dense layers
+            dense = max(0, min(hi, cfg.moe.n_dense_layers) - lo)
+            cfg = replace(cfg, moe=dataclasses.replace(
+                cfg.moe, n_dense_layers=dense))
         canonical = dict(canonical, layers=canonical["layers"][lo:hi])
         drop = drop[lo:hi]
     params = tree_map(lambda w: w.to(B.TORCH_DTYPES[dtype]), canonical)
@@ -3870,9 +3905,350 @@ def hymba_phase(torch, np, card):
                              f"tensor-core SSD kernels alone: {seen}")
     recurrent_checks(torch, llm, prompts[3], tokens[3], HYMBA_CACHE_LEN,
                      "hymba")
+    llm._release_engine()
+    release(torch)
+    # paged through the fallback: the global layers' K/V paged, the
+    # windowed K/V, SSM state and conv tails dense per slot
+    paged, _ = fallback_path(
+        torch, np, llm, prompts, tokens, card, "hymba paged path",
+        cache_len=HYMBA_CACHE_LEN, preempt=False,
+        want={"ssd_scan": llm.cfg.n_layers * len(prompts),
+              "flash_attention_bhsd": 0, "paged_flash_attention": 0})
+    del paged, llm
+    release(torch)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# MLA, int8 KV caches and weights, and the paged gather -> dense ->
+# scatter fallback: deepseek-v2-lite-16b at full width, llama2-7b with
+# int8 KV and weights, hymba-1.5b paged
+# ---------------------------------------------------------------------------
+
+DEEPSEEK_ARCH = "deepseek-v2-lite-16b"
+# the fp32 teacher-forced check of deepseek keeps layers 5-8 (two of the
+# spd=0.25 plan's 7 dropped blocks, two kept): a full-width fp32 copy is
+# ~63 GB
+DEEPSEEK_FP32_LAYERS = (5, 9)
+# B3 on deepseek's logits gather: 102400 / 2 columns a shard
+DEEPSEEK_QDQ = (2, 51200)
+# the int8 variants of llama2-7b, on its canonical weights
+INT8_VARIANTS = (("int8 KV", dict(kv_dtype="int8")),
+                 ("int8 KV + weights", dict(kv_dtype="int8",
+                                            weight_dtype="int8")))
+# teacher-forced logits of an int8 variant against the bf16 path on the
+# same weights (exact syncs), as a share of the largest bf16 logit: the
+# int8 KV codes round each K/V entry to 1/254 of its row's absmax, the
+# int8 weights each weight to 1/254 of its column's
+TF_INT8_REL = {"int8 KV": 0.05, "int8 KV + weights": 0.10}
+
+
+def check_launches(label, launches, want):
+    """Exact launch counts of the kernels in `want`."""
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, want {want}")
+
+
+def fallback_path(torch, np, llm, prompts, dense_tokens, card, label, *,
+                  want, cache_len=512, preempt=True):
+    """Paged serving through the gather -> dense -> scatter fallback on
+    `llm`'s model, plan and weights (its placement released first by the
+    caller): on a pool large enough for every request at its peak
+    (max_batch x cache_len / PAGE_SIZE pages; the tables' bucketed width
+    is then the dense cache's, so the dense step sees the same shapes)
+    the tokens must equal `dense_tokens`, the syncs count as on the dense
+    path, `want` holds the other kernels' launches and the prefix cache
+    is off; a profile shows where the step's time goes.  `preempt`: then
+    on a NUM_PAGES pool the four requests outgrow, at least one
+    preemption and every page back.  Returns (paged LLM, launches)."""
+    import dataclasses
+    from repro_torch.api import LLM, SamplingParams
+    from repro_torch.core import model as M
+
+    cfg = llm.cfg
+    if M.supports_paged_attention(cfg):
+        raise AssertionError(f"{label}: {cfg.name} has the fused paged path")
+    pages = 4 * cache_len // PAGE_SIZE
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    paged = LLM.load(cfg, tp=2, plan=llm.plan, cache_len=cache_len,
+                     max_batch=4, page_size=PAGE_SIZE, num_pages=pages,
+                     params=llm.canonical)
+    torch.cuda.synchronize()
+    flags = M.cache_pageable_tree(cfg, paged.plan)
+    print(f"{label}: loaded in {time.perf_counter() - t0:.1f} s; {pages} "
+          f"pages of {PAGE_SIZE}; pageable leaves "
+          f"{[sorted(k for k, f in seg.items() if f is True) for seg in flags]}")
+    paged.generate([prompts[0][:8]], SamplingParams(max_new=2))  # warm-up
+    times = timed_engine(torch, paged.engine, ("prefill", "decode_paged"))
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    outs = paged.generate(prompts, SamplingParams(max_new=MAX_NEW))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    check_sync_launches(label, paged, launches, times)
+    check_launches(label, launches, want)
+    sched = paged.serve()
+    tokens = [o.token_ids for o in outs]
+    n_tok = sum(len(t) for t in tokens)
+    steps = len(times["decode_paged"])
+    print(f"{label} launches: {json.dumps(launches)}")
+    print(f"{label} [{card}]: prefill_ms={1e3 * sum(times['prefill']):.2f} "
+          f"decode_ms_per_token="
+          f"{1e3 * sum(times['decode_paged']) / max(steps, 1):.2f} ({steps} "
+          f"paged decode steps, each gathering the pageable leaves) "
+          f"tokens_per_s={n_tok / wall:.1f} peak_memory_gib="
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} (load "
+          f"included) prefix_cache={sched.kv.prefix_cache} "
+          f"tokens equal the dense path's: {tokens == dense_tokens}")
+    if (tokens != dense_tokens or sched.kv.prefix_cache
+            or sched.pool.num_free != pages):
+        raise AssertionError(f"{label}: tokens {tokens} != dense "
+                             f"{dense_tokens} or pages not back "
+                             f"({sched.pool.num_free}/{pages})")
+    profile_phase(torch, paged, prompts, card, label=f"{label} profile")
+    if preempt:
+        paged.cache = dataclasses.replace(paged.cache, num_pages=NUM_PAGES)
+        paged._sched = None            # a fresh scheduler on the small pool
+        outs = paged.generate(prompts, SamplingParams(max_new=MAX_NEW))
+        sched = paged.serve()
+        sched.pool.check()
+        same = sum(a == b for o, d in zip(outs, dense_tokens)
+                   for a, b in zip(o.token_ids, d))
+        print(f"{label}, {NUM_PAGES}-page pool: preemptions="
+              f"{sched.n_preemptions} preempted="
+              f"{[o.n_preempted for o in outs]} pages_returned="
+              f"{sched.pool.num_free}/{NUM_PAGES} pool_high_water="
+              f"{sched.pool.high_water}; {same}/{n_tok} tokens equal the "
+              "dense path's (a preempted request re-prefills prompt + "
+              "tokens in another bucket; on MoE, routing counts every row "
+              "of a step, ROADMAP C7)")
+        if (sched.n_preemptions < 1 or sched.pool.num_free != NUM_PAGES
+                or any(len(o.token_ids) != MAX_NEW for o in outs)):
+            raise AssertionError(f"{label}: {sched.n_preemptions} "
+                                 f"preemptions, {sched.pool.num_free}/"
+                                 f"{NUM_PAGES} pages back")
+    return paged, launches
+
+
+class TokenRoutePin:
+    """MoE routing pinned token by token from one prefill into other
+    forwards over the same tokens: `record()` keeps every route of the
+    reference forward (a prefill over all the tokens), `replay(start)`
+    hands each route call of a later forward the recorded rows of its
+    tokens (start .. start+T-1) and counts the top-k choices it would
+    have made otherwise.  With a capacity that holds every assignment,
+    routing is then per token in both forwards, so a decode-vs-prefill
+    check measures the attention forms, not a near-tied top-k choice."""
+
+    def __init__(self):
+        self.kept, self.flips, self.choices = [], 0, 0
+
+    @contextlib.contextmanager
+    def _patched(self, fn):
+        from repro_torch.models import moe as MOE
+        orig = MOE.route
+        MOE.route = lambda *a, **kw: fn(orig, *a, **kw)
+        try:
+            yield self
+        finally:
+            MOE.route = orig
+
+    def record(self):
+        def rec(orig, *a, **kw):
+            out = orig(*a, **kw)
+            self.kept.append(out)
+            return out
+        return self._patched(rec)
+
+    def replay(self, start, valid=None):
+        """`valid`: how many of the call's rows are real tokens (a
+        bucketed prefill's pads route as they like); all by default."""
+        it = iter(self.kept)
+
+        def rep(orig, hf, *a, **kw):
+            own = orig(hf, *a, **kw)
+            gates, idx, aux = next(it)
+            t = hf.shape[1]
+            gates, idx = gates[:, start:start + t], idx[:, start:start + t]
+            n = t if valid is None else valid
+            same = (own[1][:, :n].sort(-1).values
+                    == idx[:, :n].sort(-1).values)
+            self.flips += int((~same).sum())
+            self.choices += same.numel()
+            return gates, idx, aux
+        return self._patched(rep)
+
+    def note(self) -> str:
+        return (f" routing pinned: {self.flips} of {self.choices} top-k "
+                "choices would differ")
+
+
+def mla_decode_vs_prefill(torch, llm, prompt, toks, fp32_layers, label=""):
+    """The absorbed MLA decode against the sequence form: after
+    prefilling `prompt` and teacher-forcing `toks[:-1]` through dense
+    decode, the last decode logits against one exact-length prefill of
+    prompt + toks[:-1], exact syncs, a capacity that holds every
+    assignment and the routing pinned to the full prefill's
+    (TokenRoutePin); fp32 on `fp32_layers` within TF_FP32_ATOL, bf16 at
+    full width within TF_BF16_REL of the largest logit."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.api import LLM
+    from repro_torch.config.base import replace
+    from repro_torch.runtime.forward import bucketed_prefill
+
+    s = len(prompt)
+    full = np.concatenate([prompt, np.asarray(toks[:-1])])
+    for dtype in ("float32", "bfloat16"):
+        cfg, params, plan = tf_model(llm, dtype, fp32_layers)
+        cfg = replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=float(cfg.moe.n_routed)))
+        m = LLM.load(cfg, tp=2, plan=plan, cache_len=512, max_batch=1,
+                     params=params)
+        del params
+        eng = m.engine
+        pin = TokenRoutePin()
+        with pin.record():
+            lf, _ = bucketed_prefill(eng, m.params, full, len(full), 512)
+        with pin.replay(0, valid=s):
+            _, c1 = bucketed_prefill(eng, m.params, prompt, s, 512)
+        caches = eng.insert_slot(eng.blank_caches(1, 512), c1, 0)
+        for i, tok in enumerate(toks[:-1]):
+            with pin.replay(s + i):
+                _, ld, caches = eng.decode_with_logits(
+                    m.params, np.asarray([[tok]]), np.asarray([s + i]),
+                    caches)
+        err = (ld.float() - lf.float()).abs().max().item()
+        scale = lf.float().abs().max().item()
+        tol = TF_FP32_ATOL if dtype == "float32" else TF_BF16_REL * scale
+        print(f"{label}absorbed decode vs prefill ({s} + {len(toks) - 1} "
+              f"tokens, {dtype}, {cfg.n_layers} layers): max_abs_err="
+              f"{err:.3e} tol={tol:.3e} max|logit|={scale:.3e} same argmax="
+              f"{int(ld.argmax()) == int(lf.argmax())}{pin.note()}")
+        if not err <= tol:
+            raise AssertionError(f"{label}absorbed decode disagrees with "
+                                 f"the sequence form ({dtype}): {err} > "
+                                 f"{tol}")
+        del m, eng, caches, c1
+        release(torch)
+
+
+def deepseek_phase(torch, np, card):
+    """deepseek-v2-lite-16b at full width (27 layers, d 2048, MLA with 16
+    heads of nope 128 + rope 64, v 128, a 512-wide latent; 64 routed + 2
+    shared experts, top-6, a dense first layer of 10944; 15.71 B
+    parameters, 31.4 GB in bf16; random weights from seed 0) through the
+    facade: the dense path (no B1: MLA's prefill takes the plain
+    attention, as the reference's; the fused kept sync per kept sync and
+    forward, qdq per forward, no B2 or B8), plain-sync tokens, a profile;
+    with the dense placement freed, the paged path through the fallback
+    (dense tokens on a pool large enough, a preemption and every page
+    back on one the requests outgrow); then the absorbed decode against
+    the sequence form.  Returns the dense path's launches."""
+    from repro_torch.configs import get_config
+
+    n = get_config(DEEPSEEK_ARCH).param_count()
+    print(f"deepseek path: {DEEPSEEK_ARCH} param_count={n} "
+          f"({n / 1e9:.2f} B, {2 * n / 1e9:.1f} GB in bf16)")
+    llm, prompts, launches, tokens = main_path(
+        torch, np, card, DEEPSEEK_ARCH, "deepseek path",
+        need=("qdq_absmax", "quantized_psum_absmax"))
+    fwd = len(PROMPT_LENS) + MAX_NEW - 1
+    check_launches("deepseek path", launches, {
+        "qdq_absmax": fwd, "flash_attention_bhsd": 0,
+        "paged_flash_attention": 0, "ssd_scan": 0})
+    profile_phase(torch, llm, prompts, card, label="deepseek profile")
+    llm._release_engine()             # the canonical weights stay
+    release(torch)
+    paged, _ = fallback_path(
+        torch, np, llm, prompts, tokens, card, "deepseek paged path",
+        want={"qdq_absmax": fwd, "flash_attention_bhsd": 0,
+              "paged_flash_attention": 0, "ssd_scan": 0})
+    del paged
+    release(torch)
+    mla_decode_vs_prefill(torch, llm, prompts[2], tokens[2],
+                          DEEPSEEK_FP32_LAYERS, "deepseek ")
+    print(f"deepseek phase: peak_memory_gib="
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} since the "
+          "paged path's load")
     del llm
     release(torch)
     return launches
+
+
+def int8_vs_model(torch, llm, base_cfg, prompt, toks, label):
+    """Teacher-forced logits (the prefill and each decode step along
+    `toks`) of the int8 variant `llm` against the bf16 path of the same
+    canonical weights, exact syncs, both through B1's prefill; held to
+    TF_INT8_REL[label] of the largest bf16 logit."""
+    import numpy as np
+    from repro_torch.api import LLM
+    from repro_torch.runtime.forward import bucketed_prefill
+
+    def forced(cfg):
+        m = LLM.load(cfg, tp=2, plan=llm.plan.with_comm(None), cache_len=512,
+                     max_batch=1, params=llm.canonical)
+        eng, s = m.engine, len(prompt)
+        lg, c1 = bucketed_prefill(eng, m.params, prompt, s, 512)
+        caches = eng.insert_slot(eng.blank_caches(1, 512), c1, 0)
+        out = [lg.float()]
+        for i, tok in enumerate(toks[:-1]):
+            _, lg, caches = eng.decode_with_logits(
+                m.params, np.asarray([[tok]]), np.asarray([s + i]), caches)
+            out.append(lg.float())
+        return torch.cat(out)
+
+    got, want = forced(llm.cfg), forced(base_cfg)
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    same = int((got.argmax(-1) == want.argmax(-1)).sum())
+    tol = TF_INT8_REL[label] * scale
+    print(f"{label} vs bf16 teacher-forced ({len(prompt)} + "
+          f"{len(toks) - 1} tokens): max_abs_err={err:.3e} tol={tol:.3e} "
+          f"max|logit|={scale:.3e} (err/max {err / scale:.4f}) same argmax "
+          f"{same}/{len(toks)}")
+    if not err <= tol:
+        raise AssertionError(f"{label} logits off the bf16 path: {err} > "
+                             f"{tol}")
+
+
+def int8_phase(torch, np, llama, card):
+    """llama2-7b at full width on its canonical weights (the llama
+    paths' placements freed) with kv_dtype="int8", then with int8 KV and
+    weight-only int8: the dense path as in 3 (B1 once per layer and
+    prefill, the syncs as held, no B2 or B8), plain-sync tokens, a
+    profile (device-busy ms), the teacher-forced logits against the bf16
+    path, and the paged path through the fallback (the dense tokens; a
+    preemption, every page back).  Returns {variant: dense launches}."""
+    from repro_torch.config.base import replace
+
+    base = replace(llama.cfg, attn_backend="pallas")
+    fwd = len(PROMPT_LENS) + MAX_NEW - 1
+    want = {"flash_attention_bhsd": base.n_layers * len(PROMPT_LENS),
+            "qdq_absmax": fwd, "paged_flash_attention": 0, "ssd_scan": 0}
+    out = {}
+    for label, kw in INT8_VARIANTS:
+        m, prompts, launches, tokens = main_path(
+            torch, np, card, "llama2-7b", f"llama2-7b {label} path",
+            cfg_kw=kw, params=llama.canonical)
+        check_launches(f"llama2-7b {label} path", launches, want)
+        profile_phase(torch, m, prompts, card,
+                      label=f"llama2-7b {label} profile")
+        m._release_engine()
+        release(torch)
+        int8_vs_model(torch, m, base, prompts[2], tokens[2], label)
+        release(torch)
+        paged, _ = fallback_path(torch, np, m, prompts, tokens, card,
+                                 f"llama2-7b {label} paged path", want=want)
+        del paged, m
+        release(torch)
+        out[label] = launches
+    return out
 
 
 def clock(t_start, what):
@@ -3986,6 +4362,9 @@ def main() -> int:
     release(torch)
     verify_row, spec_launches = spec_phase(torch, np, llama, sweep_res, card)
     print(f"spec path launches: {json.dumps(spec_launches)}")
+    release(torch)
+    int8_launches = int8_phase(torch, np, llama, card)
+    print(f"int8 path launches: {json.dumps(int8_launches)}")
     del llama
     release(torch)
     clock(t_start, "the llama2-7b paths")
@@ -4008,7 +4387,13 @@ def main() -> int:
     moe_launches, moe_paged = moe_phase(torch, np, card)
     clock(t_start, "the qwen2-moe paths")
     hymba_launches = hymba_phase(torch, np, card)
-    clock(t_start, "the hymba path")
+    clock(t_start, "the hymba paths")
+
+    # MLA at full width, and B3 on its logits gather
+    gen = torch.Generator(device=torch.device("cuda")).manual_seed(24)
+    deepseek_row = checked_qdq_row(torch, gen, *DEEPSEEK_QDQ, DEEPSEEK_ARCH)
+    deepseek_launches = deepseek_phase(torch, np, card)
+    clock(t_start, "the deepseek paths")
 
     # each kernel's launches on the main path it serves: the paged kernel
     # on the paged path, quantize and dequant-accumulate on the ring
@@ -4049,6 +4434,10 @@ def main() -> int:
     for k in family_rows:
         k["launches"] = fam_paths[k.pop("_path")][k["name"]]
     kernels += family_rows
+    # B3 at deepseek's logits gather: its launches on the deepseek path
+    deepseek_row.pop("_path")
+    deepseek_row["launches"] = deepseek_launches["qdq_absmax"]
+    kernels.append(deepseek_row)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
           f"build")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -9,6 +9,10 @@ decoding and streaming).
                      cache_len=512)
     overlap = LLM.load("smollm-360m", tp=2, comm="quant8", engine="overlap")
     mamba = LLM.load("mamba2-370m", tp=2, comm="quant8", cache_len=512)
+    deepseek = LLM.load("deepseek-v2-lite-16b", tp=2, spd=0.25,
+                        comm="quant8", page_size=16, num_pages=64)
+    int8 = LLM.load(replace(get_config("llama2-7b"), kv_dtype="int8",
+                            weight_dtype="int8"), tp=2, comm="quant8")
     llama = LLM.load("llama2-7b", tp=2, comm="quant8")
     calib = calibration_batches(32000, 4, 128, batch=2)
     llama.apply_comm_policy(calib, n_spd=8, tau1=t1, tau2=t2)  # tiers
@@ -127,9 +131,12 @@ class LLM:
                    point per block.
         page_size, num_pages
                    paged KV cache (set both): a shared pool of num_pages
-                   pages of page_size tokens, with preemption and the
-                   prefix cache; cache_len is then the per-slot cap.
-                   Attention (GQA) models only: an SSM model raises.
+                   pages of page_size tokens, with preemption; cache_len
+                   is then the per-slot cap.  Full-causal GQA stacks with
+                   fp caches run the fused paged forward and the prefix
+                   cache; the others (int8 KV, MLA, windowed, hybrid,
+                   SSM) page their sequence leaves through the gather ->
+                   dense -> scatter fallback, without a prefix cache.
         comm       kept-sync comm policy: a CommPolicy, or a level string
                    ("exact" | "quant8" | "quant4") for every kept sync;
                    `comm_logits` sets the logits all-gather level.
@@ -170,8 +177,6 @@ class LLM:
         cfg = arch if isinstance(arch, ModelConfig) else get_config(arch)
         if dtype is not None:
             cfg = replace(cfg, dtype=dtype)
-        if cache.paged:
-            M.require_paged_attention(cfg)
         if plan is None:
             k = int(round(cfg.n_layers * spd)) if cfg.spd_applicable else 0
             plan = SPDPlanConfig.first_k(cfg.n_layers, k)

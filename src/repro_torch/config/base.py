@@ -3,8 +3,8 @@
 `ModelConfig` keeps the reference's fields and defaults one for one, so
 the two packages' configs compare field by field.  The family
 sub-configs are carried field for field; the port serves the dense, the
-pure-SSM (Mamba2), the hybrid (Hymba) and the MoE families; MLA stays
-inert (ROADMAP A4).
+pure-SSM (Mamba2), the hybrid (Hymba) and the MoE families, with GQA or
+MLA attention.
 """
 from __future__ import annotations
 
@@ -118,12 +118,8 @@ class ModelConfig:
         return self.family == "hybrid" and self.attn_window > 0
 
     def param_count(self) -> int:
-        """Analytic parameter count (the reference's formula) for the
-        families the port serves: dense GQA, pure SSM, hybrid and MoE.
-        MLA is not ported yet (ROADMAP A4)."""
-        if self.mla is not None:
-            raise NotImplementedError(f"{self.name}: param_count does not "
-                                      "cover MLA yet (ROADMAP A4)")
+        """Analytic parameter count (the reference's formula): dense GQA
+        or MLA, pure SSM, hybrid and MoE."""
         d, L, V = self.d_model, self.n_layers, self.vocab_size
         emb = V * d * (1 if self.tie_embeddings else 2)
         mlp_mats = 3 if self.gated_mlp else 2
@@ -137,6 +133,15 @@ class ModelConfig:
         kvd = self.n_kv_heads * self.d_head
         qd = self.n_heads * self.d_head
         per_layer = d * (qd + 2 * kvd) + qd * d
+        if self.mla is not None:
+            m, h = self.mla, self.n_heads
+            q_dim = h * (m.qk_nope_head_dim + m.qk_rope_head_dim)
+            per_layer = (d * q_dim if m.q_lora_rank == 0 else
+                         d * m.q_lora_rank + m.q_lora_rank * q_dim)
+            per_layer += (d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                          + m.kv_lora_rank * h * (m.qk_nope_head_dim
+                                                  + m.v_head_dim)
+                          + h * m.v_head_dim * d)
         if self.family == "hybrid" and self.ssm is not None:
             s = self.ssm
             gn = 2 * s.n_groups * s.d_state

@@ -1,8 +1,9 @@
 """Decoder-block math for TP and SPD execution — the paper's §4.1
 (port of repro/core/blocks.py: GQA blocks with an MLP or a routed MoE
-FFN, full-causal or sliding-window, the pure-SSM Mamba2 block, and the
-hybrid (Hymba) block whose mixer runs attention and SSM heads side by
-side; MLA is not ported yet).
+FFN, full-causal or sliding-window, the MLA block (DeepSeek-V2's latent
+attention), the pure-SSM Mamba2 block, and the hybrid (Hymba) block
+whose mixer runs attention and SSM heads side by side; int8 KV caches
+and weight-only int8 leaves).
 
 Every activation is SHARD-STACKED: x (tp, B, S, d), dim 0 the TP shard.
 Block inputs and outputs are replicated (all shards equal); inside an
@@ -28,6 +29,11 @@ Block wiring (Fig 3):
   (the expert axis is split over the shards); the routed and shared
   experts' partials ride the FFN's sync, so the combine adds no sync.
   In a dropped block each shard routes its own divergent input.
+
+  MLA: the heads are split over the shards, but the latent `c` and the
+  rope key `kr` come from replicated weights (`wdkv`, `lnorm`) and are
+  cached replicated; in a dropped block every shard attends over the same
+  latent with its own divergent residual.
 
 Parameters are canonical (unpadded); `pad_layer` produces the TP-layout
 tensors whose split axes `layer_specs` gives.
@@ -55,13 +61,6 @@ TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def torch_dtype(cfg) -> torch.dtype:
     return TORCH_DTYPES[cfg.dtype]
-
-
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.kv_dtype != "model" or cfg.weight_dtype != "model":
-        raise NotImplementedError("int8 KV caches and int8 weights are not "
-                                  "ported yet (kv_dtype/weight_dtype must be "
-                                  "'model')")
 
 
 # ---------------------------------------------------------------------------
@@ -100,10 +99,62 @@ def ssm_heads(cfg: ModelConfig) -> int:
 
 
 def _mm(h, w):
-    """Per-shard matmul: h (tp, ..., din) @ w (tp, din, dout)."""
+    """Per-shard matmul: h (tp, ..., din) @ w (tp, din, dout).  A
+    weight-only int8 leaf {"q" (tp, din, dout) int8, "s" (tp, dout)} is
+    (h @ q) * s in h's dtype, as the reference's: the per-output-column
+    scales commute with the contraction."""
     tp, din = h.shape[0], h.shape[-1]
-    out = torch.bmm(h.reshape(tp, -1, din), w)
-    return out.reshape(tuple(h.shape[:-1]) + (w.shape[-1],))
+    if isinstance(w, dict):
+        out = torch.bmm(h.reshape(tp, -1, din), w["q"].to(h.dtype))
+        out = out * w["s"].to(h.dtype)[:, None, :]
+    else:
+        out = torch.bmm(h.reshape(tp, -1, din), w)
+    return out.reshape(tuple(h.shape[:-1]) + (out.shape[-1],))
+
+
+# weight-only int8: the leaves quantized after padding, by group
+QUANT_LEAVES = {"attn": ("wq", "wk", "wv", "wo"), "mlp": ("wu", "wg", "wd")}
+
+
+def quantize_leaf(w):
+    """(in, out) -> {"q" int8 (in, out), "s" (out,) bf16}: per-column
+    absmax, 127 dividing as a tensor (see models.attention.kv_quantize)."""
+    w32 = w.float()
+    lv = torch.full((), 127.0, dtype=torch.float32, device=w.device)
+    s = torch.clamp(w32.abs().amax(0), min=1e-12) / lv
+    q = torch.clamp(torch.round(w32 / s[None]), -127, 127).to(torch.int8)
+    return {"q": q, "s": s.to(torch.bfloat16)}
+
+
+def check_weight_dtype(cfg: ModelConfig, kind: LayerKind) -> None:
+    """Weight-only int8 covers GQA and SSM layers.  The reference cannot
+    place an MLA layer's (`mla_specs` has no int8 leaves) nor run a
+    hybrid one's (its mixer multiplies `wo` directly): ROADMAP C8."""
+    if cfg.weight_dtype == "int8" and kind.mixer in ("mla", "hybrid"):
+        raise NotImplementedError(
+            f"{cfg.name}: weight_dtype='int8' on a {kind.mixer} layer fails "
+            "in the reference itself (ROADMAP C8)")
+
+
+def quantize_layer_weights(padded_layer: dict, cfg: ModelConfig,
+                           kind: LayerKind) -> dict:
+    """Post-padding weight-only int8 for the serve path (a no-op unless
+    cfg.weight_dtype == "int8"): the QUANT_LEAVES become {"q", "s"}."""
+    if cfg.weight_dtype != "int8":
+        return padded_layer
+    check_weight_dtype(cfg, kind)
+    out = dict(padded_layer)
+    for grp, names in QUANT_LEAVES.items():
+        if grp in out:
+            out[grp] = {k: quantize_leaf(v) if k in names else v
+                        for k, v in out[grp].items()}
+    return out
+
+
+def _qleaf_spec(axis):
+    """Split axes of a quantized (in, out) leaf split on `axis`: the
+    scales follow the out axis."""
+    return {"q": axis, "s": 0 if axis == 1 else REPLICATED}
 
 
 def _qkv(cfg, a, h, lay):
@@ -125,15 +176,36 @@ def _qkv(cfg, a, h, lay):
 
 
 def _pack_kv(cfg, kc, vc):
-    _check_ported(cfg)
-    return {"k": kc, "v": vc}
+    """A prefill's K/V as cache leaves: {"k","v"}, or on an int8 KV cache
+    the codes and their per-(position, head) scales {"k","k_s","v","v_s"}."""
+    if cfg.kv_dtype != "int8":
+        return {"k": kc, "v": vc}
+    kq, ks = A.kv_quantize(kc)
+    vq, vs = A.kv_quantize(vc)
+    return {"k": kq, "k_s": ks, "v": vq, "v_s": vs}
+
+
+def _unpack_kv(cfg, cache, dtype):
+    """The cache's K/V in `dtype` (an int8 cache dequantized in fp32)."""
+    if cfg.kv_dtype != "int8":
+        return cache["k"], cache["v"]
+    return (A.kv_dequantize(cache["k"], cache["k_s"], dtype),
+            A.kv_dequantize(cache["v"], cache["v_s"], dtype))
 
 
 def _update_kv(cfg, cache, k_new, v_new, pos, window: int = 0):
     """Write one decode token into the cache (slot pos % window on a
-    windowed layer), in place."""
-    _check_ported(cfg)
-    A.cache_update(cache["k"], cache["v"], k_new, v_new, pos, window=window)
+    windowed layer), in place; quantized on an int8 cache."""
+    if cfg.kv_dtype != "int8":
+        A.cache_update(cache["k"], cache["v"], k_new, v_new, pos,
+                       window=window)
+        return cache
+    slot = pos % window if window > 0 else pos
+    bi = torch.arange(pos.shape[0], device=pos.device)
+    for name, new in (("k", k_new), ("v", v_new)):
+        q, sc = A.kv_quantize(new.select(-3, 0))
+        cache[name][..., bi, slot, :, :] = q
+        cache[name + "_s"][..., bi, slot, :] = sc
     return cache
 
 
@@ -194,7 +266,11 @@ def init_attn(gen, cfg: ModelConfig, device) -> dict:
 
 
 def attn_specs(cfg: ModelConfig) -> dict:
-    p = {"wq": 1, "wk": 1, "wv": 1, "wo": 0}
+    if cfg.weight_dtype == "int8":
+        p = {"wq": _qleaf_spec(1), "wk": _qleaf_spec(1),
+             "wv": _qleaf_spec(1), "wo": _qleaf_spec(0)}
+    else:
+        p = {"wq": 1, "wk": 1, "wv": 1, "wo": 0}
     if cfg.qkv_bias:
         p.update({"bq": 0, "bk": 0, "bv": 0})
     if cfg.o_bias:
@@ -202,6 +278,31 @@ def attn_specs(cfg: ModelConfig) -> dict:
     if cfg.qk_norm:
         p.update({"qn": REPLICATED, "kn": REPLICATED})
     return p
+
+
+def init_mla(gen, cfg: ModelConfig, device) -> dict:
+    """MLA without a q low-rank (q_lora_rank 0, as the reference's): q
+    from `wq`, the latent and the rope key from `wdkv`, the latent's
+    RMSNorm `lnorm`, its up projections `wuk` / `wuv`, and `wo`."""
+    m, d, h = cfg.mla, cfg.d_model, cfg.n_heads
+    qd = h * (m.qk_nope_head_dim + m.qk_rope_head_dim)
+    return {"wq": _dense(gen, d, qd, cfg, device),
+            "wdkv": _dense(gen, d, m.kv_lora_rank + m.qk_rope_head_dim, cfg,
+                           device),
+            "lnorm": torch.ones((m.kv_lora_rank,), dtype=torch_dtype(cfg),
+                                device=device),
+            "wuk": _dense(gen, m.kv_lora_rank, h * m.qk_nope_head_dim, cfg,
+                          device),
+            "wuv": _dense(gen, m.kv_lora_rank, h * m.v_head_dim, cfg, device),
+            "wo": _dense(gen, h * m.v_head_dim, d, cfg, device,
+                         scale=1.0 / np.sqrt(h * m.v_head_dim)
+                         / np.sqrt(2 * cfg.n_layers))}
+
+
+def mla_specs(cfg: ModelConfig) -> dict:
+    """Heads split; the latent projection and its norm replicated."""
+    return {"wq": 1, "wdkv": REPLICATED, "lnorm": REPLICATED,
+            "wuk": 1, "wuv": 1, "wo": 0}
 
 
 def init_ssm(gen, cfg: ModelConfig, device) -> dict:
@@ -261,9 +362,14 @@ def init_mlp(gen, cfg: ModelConfig, d_ff: int, device) -> dict:
 
 
 def mlp_specs(cfg: ModelConfig) -> dict:
-    p = {"wu": 1, "wd": 0}
-    if cfg.gated_mlp:
-        p["wg"] = 1
+    if cfg.weight_dtype == "int8":
+        p = {"wu": _qleaf_spec(1), "wd": _qleaf_spec(0)}
+        if cfg.gated_mlp:
+            p["wg"] = _qleaf_spec(1)
+    else:
+        p = {"wu": 1, "wd": 0}
+        if cfg.gated_mlp:
+            p["wg"] = 1
     if cfg.mlp_bias:
         p.update({"bu": 0, "bd": REPLICATED})
         if cfg.gated_mlp:
@@ -316,6 +422,8 @@ def init_layer(gen, cfg: ModelConfig, kind: LayerKind, device) -> dict:
     p = {"ln1": _norm_init(cfg, cfg.d_model, device)}
     if kind.mixer in ("gqa", "hybrid"):
         p["attn"] = init_attn(gen, cfg, device)
+    if kind.mixer == "mla":
+        p["attn"] = init_mla(gen, cfg, device)
     if kind.mixer in ("ssm", "hybrid"):
         p["ssm"] = init_ssm(gen, cfg, device)
     if kind.mixer == "hybrid":
@@ -335,6 +443,8 @@ def layer_specs(cfg: ModelConfig, kind: LayerKind) -> dict:
     p = {"ln1": _norm_spec(cfg)}
     if kind.mixer in ("gqa", "hybrid"):
         p["attn"] = attn_specs(cfg)
+    if kind.mixer == "mla":
+        p["attn"] = mla_specs(cfg)
     if kind.mixer in ("ssm", "hybrid"):
         p["ssm"] = ssm_specs(cfg)
     if kind.mixer == "hybrid":
@@ -371,9 +481,13 @@ def pad_layer(p: dict, cfg: ModelConfig, kind: LayerKind, tp: int) -> dict:
     heads by the head layout, a hybrid layer's SSM heads (and its `na` /
     `ns`) by the attention's q-head layout, a pure-SSM layer's SSM heads
     and the MLP width to a multiple of tp, the experts to a multiple of
-    tp (their router columns zero; `MOE.route` masks them to -inf)."""
-    _check_ported(cfg)
+    tp (their router columns zero; `MOE.route` masks them to -inf).  MLA
+    heads are not padded, as in the reference: they must divide by tp."""
     out = dict(p)
+    if kind.mixer == "mla" and cfg.n_heads % tp:
+        raise ValueError(f"{cfg.name}: MLA's {cfg.n_heads} heads do not "
+                         f"divide by tp={tp} (the reference pads no MLA "
+                         "head)")
     if kind.mixer == "ssm":
         h = ssm_heads(cfg)
         hp = -(-h // tp) * tp
@@ -475,13 +589,82 @@ def gqa_mixer_dec(cfg, kind, a, h, pos, cache, lay):
 def _attn_dec(cfg, kind, a, h, pos, cache, lay):
     """One decode token's attention output (tp,B,1,HqL*dh) before `wo`;
     its K/V written into `cache` in place (slot pos % window on a
-    windowed layer)."""
+    windowed layer; quantized on an int8 cache, which the attention reads
+    dequantized)."""
     q, k, v = _qkv(cfg, a, h, lay)
     q = apply_rope(q, pos[:, None], cfg.rope_theta, cfg.rope_fraction)
     k = apply_rope(k, pos[:, None], cfg.rope_theta, cfg.rope_fraction)
     _update_kv(cfg, cache, k, v, pos, kind.window)
-    o = A.decode_attend(q, cache["k"], cache["v"], pos, window=kind.window)
+    kc, vc = _unpack_kv(cfg, cache, h.dtype)
+    o = A.decode_attend(q, kc, vc, pos, window=kind.window)
     return o.reshape(tuple(h.shape[:3]) + (-1,))
+
+
+def _mla_qkr(cfg, a, h, pos):
+    """h (tp,B,S,d) -> q_nope (tp,B,S,HL,nope), q_rope (tp,B,S,HL,rope)
+    rotated, the latent c (tp,B,S,lora) normed, the rope key kr
+    (tp,B,S,rope) rotated (one for all heads), and HL.  c and kr come
+    from the replicated `wdkv` / `lnorm` (shared_param: their gradients
+    sum over the shards)."""
+    m = cfg.mla
+    tp, b, s = h.shape[:3]
+    dq = m.qk_nope_head_dim + m.qk_rope_head_dim
+    hl = a["wq"].shape[-1] // dq
+    q = _mm(h, a["wq"]).reshape(tp, b, s, hl, dq)
+    q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    q_rope = apply_rope(q_rope, pos, cfg.rope_theta)
+    ckr = _mm(h, shared_param(a["wdkv"]))
+    c, kr = ckr[..., :m.kv_lora_rank], ckr[..., m.kv_lora_rank:]
+    c = rmsnorm(c, _bcast(shared_param(a["lnorm"]), c), cfg.norm_eps)
+    kr = apply_rope(kr[..., None, :], pos, cfg.rope_theta)[..., 0, :]
+    return q_nope, q_rope, c, kr, hl
+
+
+def mla_mixer_seq(cfg, kind, a, h, pos, *, want_cache=False, q_chunk=1024):
+    """Sequence (prefill) MLA: keys and values expanded from the latent,
+    the rope key shared by every head, the plain attention over q / k of
+    nope + rope and v of v_head_dim at scale (nope + rope)^-1/2 (the
+    reference's takes no kernel here).  h (tp,B,S,d) -> (partial
+    (tp,B,S,d), cache {"c" (tp,B,S,lora), "kr" (tp,B,S,rope)} or None)."""
+    m = cfg.mla
+    tp, b, s = h.shape[:3]
+    q_nope, q_rope, c, kr, hl = _mla_qkr(cfg, a, h, pos)
+    k_nope = _mm(c, a["wuk"]).reshape(tp, b, s, hl, m.qk_nope_head_dim)
+    v = _mm(c, a["wuv"]).reshape(tp, b, s, hl, m.v_head_dim)
+    q_full = torch.cat([q_nope, q_rope], -1)
+    k_full = torch.cat([k_nope, kr[..., None, :].expand(
+        tp, b, s, hl, m.qk_rope_head_dim)], -1)
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    o = A.attention_any(q_full, k_full, v, pos, pos, q_chunk=q_chunk,
+                        scale=scale)
+    part = _mm(o.reshape(tp, b, s, -1), a["wo"])
+    return part, ({"c": c, "kr": kr} if want_cache else None)
+
+
+def mla_mixer_dec(cfg, kind, a, h, pos, cache):
+    """Absorbed-form MLA decode in fp32: q_nope folds through `wuk` into
+    the latent space, so the scores read the cached latent and rope key
+    directly and the output unfolds through `wuv` after the softmax.  h
+    (tp,B,1,d), pos (B,); cache {"c","kr"} written at pos in place."""
+    m = cfg.mla
+    tp, b = h.shape[:2]
+    q_nope, q_rope, c_new, kr_new, hl = _mla_qkr(cfg, a, h, pos[:, None])
+    bi = torch.arange(b, device=h.device)
+    cache["c"][:, bi, pos] = c_new[:, :, 0]
+    cache["kr"][:, bi, pos] = kr_new[:, :, 0]
+    c, kr = cache["c"].float(), cache["kr"].float()
+    wuk = a["wuk"].reshape(tp, m.kv_lora_rank, hl, m.qk_nope_head_dim)
+    q_lat = torch.einsum("tbshn,tlhn->tbshl", q_nope.float(), wuk.float())
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    scores = (torch.einsum("tbshl,tbkl->tbhsk", q_lat, c)
+              + torch.einsum("tbshr,tbkr->tbhsk", q_rope.float(), kr)) * scale
+    valid = (torch.arange(c.shape[2], device=h.device)[None]
+             <= pos[:, None])[:, None, None]
+    scores = torch.where(valid, scores, torch.full_like(scores, A.NEG_INF))
+    o_lat = torch.einsum("tbhsk,tbkl->tbshl", torch.softmax(scores, -1), c)
+    wuv = a["wuv"].reshape(tp, m.kv_lora_rank, hl, m.v_head_dim)
+    o = torch.einsum("tbshl,tlhv->tbshv", o_lat, wuv.float())
+    return _mm(o.reshape(tp, b, 1, -1).to(h.dtype), a["wo"]), cache
 
 
 def _ssm_in(cfg, ss, h, conv_state=None):
@@ -682,6 +865,9 @@ def _mixer_seq(cfg, kind, p, x, pos, lay, want_cache, q_chunk):
         part, cache = hybrid_mixer_seq(cfg, kind, p, h, pos, lay,
                                        want_cache=want_cache,
                                        q_chunk=q_chunk)
+    elif kind.mixer == "mla":
+        part, cache = mla_mixer_seq(cfg, kind, p["attn"], h, pos,
+                                    want_cache=want_cache, q_chunk=q_chunk)
     else:
         part, cache = gqa_mixer_seq(cfg, kind, p["attn"], h, pos, lay,
                                     want_cache=want_cache, q_chunk=q_chunk)
@@ -750,6 +936,8 @@ def block_dec(cfg, kind, lay, p, x, pos, cache, *, drop: bool, comm=None):
         return x + sync_output(part, mode=comm), cache
     if kind.mixer == "hybrid":
         part, cache = hybrid_mixer_dec(cfg, kind, p, h, pos, cache, lay)
+    elif kind.mixer == "mla":
+        part, cache = mla_mixer_dec(cfg, kind, p["attn"], h, pos, cache)
     else:
         part, cache = gqa_mixer_dec(cfg, kind, p["attn"], h, pos, cache,
                                     lay)
@@ -778,23 +966,26 @@ def gqa_mixer_ext(cfg, kind, a, h, pos, cache, lay, *, q_chunk=1024,
 
     Tree mode: `spos` (B,C) gives the WRITE slots (pos+chunk index) while
     `pos` keeps the tree positions (RoPE), and `anc` (C,C) switches the
-    chunk's visibility to the ancestor matrix (`A.tree_mask`)."""
-    _check_ported(cfg)
+    chunk's visibility to the ancestor matrix (`A.tree_mask`).  An int8
+    cache takes the chunk's codes and scales, and the attention reads it
+    dequantized."""
     q, k, v = _qkv(cfg, a, h, lay)
     q = apply_rope(q, pos, cfg.rope_theta, cfg.rope_fraction)
     k = apply_rope(k, pos, cfg.rope_theta, cfg.rope_fraction)
     tp, b, c = h.shape[:3]
     wpos = pos if spos is None else spos
-    A.write_chunk(cache["k"], k, wpos)
-    A.write_chunk(cache["v"], v, wpos)
-    s_kv = cache["k"].shape[-3]
+    for name, val in _pack_kv(cfg, k, v).items():
+        if name.endswith("_s"):          # scales: no head-dim axis
+            A.write_chunk(cache[name][..., None], val[..., None], wpos)
+        else:
+            A.write_chunk(cache[name], val, wpos)
+    kc, vc = _unpack_kv(cfg, cache, h.dtype)
+    s_kv = kc.shape[-3]
     kv_pos = torch.arange(s_kv, device=h.device)[None].expand(b, s_kv)
     if anc is None:
-        o = A.attention_any(q, cache["k"], cache["v"], pos, kv_pos,
-                            q_chunk=q_chunk)
+        o = A.attention_any(q, kc, vc, pos, kv_pos, q_chunk=q_chunk)
     else:
-        o = A.attend(q, cache["k"], cache["v"],
-                     A.tree_mask(wpos[:, 0], anc, kv_pos))
+        o = A.attend(q, kc, vc, A.tree_mask(wpos[:, 0], anc, kv_pos))
     part = _mm(o.reshape(tp, b, c, -1), a["wo"])
     return part, cache
 
@@ -834,7 +1025,6 @@ def gqa_mixer_page(cfg, kind, a, h, pos, cache, page_table, lay,
     `paged_attend` under every backend, as the reference's does
     (`core/blocks.py:1025-1036`): there is no TPU kernel for it."""
     from repro_torch.kernels import ops as KOPS
-    _check_ported(cfg)
     q, k, v = _qkv(cfg, a, h, lay)
     tp, b, c = h.shape[:3]
     if depths is None:

@@ -18,7 +18,7 @@ combinatorial parts (the greedy anti-clustering with its pairwise-swap
 search, the bitmask DP) are the reference's numpy.  Families without a
 supported grouping (kv < tp replication, SSM) return the identity
 grouping with `supported=False`; MLA (the reference's per-head unit
-over a shared latent) is not ported (ROADMAP A5).
+over a shared latent) is not ported (ROADMAP A3).
 """
 from __future__ import annotations
 
@@ -45,7 +45,7 @@ class GroupingResult:
 def _no_mla(cfg: ModelConfig) -> None:
     if cfg.mla is not None:
         raise NotImplementedError("head grouping for MLA attention is not "
-                                  "ported yet (ROADMAP A5)")
+                                  "ported yet (ROADMAP A3)")
 
 
 def _positions(b: int, s: int, dev):

@@ -12,26 +12,25 @@ from repro_torch.config.base import ModelConfig
 
 @dataclass(frozen=True)
 class LayerKind:
-    mixer: str           # gqa | ssm | hybrid (mla is refused: ROADMAP A4)
+    mixer: str           # gqa | mla | ssm | hybrid
     ffn: str             # mlp | moe | none
     window: int = 0      # sliding attention window; 0 = full causal
     d_ff: int = 0        # per-layer MLP width
 
 
 def layer_kinds(cfg: ModelConfig) -> Tuple[LayerKind, ...]:
-    """The reference's layer kinds: MoE FFNs after `n_dense_layers`,
-    hybrid mixers on the hybrid family, `attn_window` on every layer but
+    """The reference's layer kinds: MoE FFNs after `n_dense_layers`, MLA
+    mixers where the config has an MLA block, hybrid mixers on the
+    hybrid family, `attn_window` on every layer but
     `global_attn_layers`."""
-    if cfg.mla is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA attention is not ported yet (ROADMAP A4: MLA "
-            "with deepseek-v2-lite-16b is the next family)")
     kinds = []
     for i in range(cfg.n_layers):
         if cfg.family == "ssm":
             kinds.append(LayerKind(mixer="ssm", ffn="none"))
             continue
-        mixer = "hybrid" if cfg.family == "hybrid" else "gqa"
+        mixer = "gqa" if cfg.mla is None else "mla"
+        if cfg.family == "hybrid":
+            mixer = "hybrid"
         window = cfg.attn_window
         if window and i in cfg.global_attn_layers:
             window = 0

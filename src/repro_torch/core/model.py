@@ -12,7 +12,10 @@ split on its vocab axis.  A learned position table (`pos`, OPT) is
 replicated and added at absolute positions.  Pure-SSM layers carry
 recurrent state (the scan state and the conv tails) instead of K/V
 caches; hybrid layers carry both.  A sliding-window layer's K/V is a
-rolling buffer of min(window, cache_len) slots.
+rolling buffer of min(window, cache_len) slots.  An MLA layer caches its
+latent and rope key, replicated over the shards; an int8 KV cache holds
+codes beside bf16 scales.  Weight-only int8 quantizes the attention and
+MLP leaves after padding (blocks.quantize_layer_weights).
 """
 from __future__ import annotations
 
@@ -39,7 +42,6 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device="cpu") -> dict:
     """Canonical (unpadded, unstacked) parameters from a seeded
     torch.Generator (not the reference's numbers: parity tests carry the
     reference's parameters across with `core.convert.from_reference`)."""
-    B._check_ported(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     f32 = dict(dtype=torch.float32, device=device)
     emb = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
@@ -64,7 +66,9 @@ def vocab_pad(cfg: ModelConfig, tp: int) -> int:
 
 
 def pad_model(p: dict, cfg: ModelConfig, tp: int) -> dict:
-    """Canonical -> TP-layout (padded) params; layers stay a list."""
+    """Canonical -> TP-layout (padded) params; layers stay a list.  With
+    weight_dtype="int8" the attention and MLP leaves are quantized after
+    padding, as the reference's are."""
     out = {k: v for k, v in p.items() if k != "layers"}
     pad = vocab_pad(cfg, tp) - cfg.vocab_size
     if pad:
@@ -73,7 +77,8 @@ def pad_model(p: dict, cfg: ModelConfig, tp: int) -> dict:
         if "head" in p:
             out["head"] = torch.cat([p["head"], p["head"].new_zeros(
                 (cfg.d_model, pad))], 1)
-    out["layers"] = [B.pad_layer(lp, cfg, k, tp)
+    out["layers"] = [B.quantize_layer_weights(B.pad_layer(lp, cfg, k, tp),
+                                              cfg, k)
                      for lp, k in zip(p["layers"], layer_kinds(cfg))]
     return out
 
@@ -161,8 +166,9 @@ def _add_positions(stacked, cfg, x, pos):
 
 
 def _gqa_layout(cfg, tp):
-    """The attention head layout, or None for an attention-free model."""
-    if cfg.attn_free:
+    """The attention head layout, or None for an attention-free or an MLA
+    model (MLA's heads are not padded)."""
+    if cfg.attn_free or cfg.mla is not None:
         return None
     return make_gqa_layout(cfg.n_heads, cfg.n_kv_heads, tp)
 
@@ -183,9 +189,14 @@ def _layer(seg_params, j):
 # Prefill / decode (serving)
 # ---------------------------------------------------------------------------
 
+# cache leaves with a sequence axis (tp, B, S, ...): attention K/V, their
+# int8 scales, MLA's latent and rope key
+SEQ_LEAVES = ("k", "v", "k_s", "v_s", "c", "kr")
+
+
 def _seg_cache(kind, cache: dict, length: int, cache_len: int) -> dict:
     """Zero segment caches shaped after one layer's prefill cache (leaves
-    (tp, B, ...)): a layer axis after the shard axis; attention K/V
+    (tp, B, ...)): a layer axis after the shard axis; the SEQ_LEAVES
     padded along the sequence to the decode buffer, min(window,
     cache_len) slots on a windowed layer (the reference pads to the
     window, which is the same whenever the window fits the buffer)."""
@@ -193,7 +204,7 @@ def _seg_cache(kind, cache: dict, length: int, cache_len: int) -> dict:
 
     def one(name, leaf):
         shp = (leaf.shape[0], length) + tuple(leaf.shape[1:])
-        if name in ("k", "v"):
+        if name in SEQ_LEAVES:
             shp = shp[:3] + (max(leaf.shape[2], target),) + shp[4:]
         return leaf.new_zeros(shp)
 
@@ -208,7 +219,9 @@ def forward_seq(cfg, stacked, plan: SPDPlanConfig, tokens, *, tp,
     the final norm, caches) — caches per segment: attention layers'
     {"k","v"} of shape (tp, layers, B, max(S, cache_len), HkvL, dh), zero
     past S (a windowed layer's rolling buffer: max(min(S, window),
-    min(window, cache_len)) slots); SSM layers' {"state" (tp, layers, B,
+    min(window, cache_len)) slots; an int8 cache's codes and "k_s"/"v_s"
+    scales (tp, layers, B, S', HkvL)); MLA layers' {"c" (tp, layers, B,
+    S', lora), "kr" (..., rope)}; SSM layers' {"state" (tp, layers, B,
     HL, P, N), "conv" {"x", "bc"} (tp, layers, B, d_conv-1, C)}; hybrid
     layers' both.
 
@@ -478,21 +491,13 @@ def verify_step(cfg, stacked, plan, tokens, pos, caches, *, tp,
 
 
 def supports_paged_attention(cfg) -> bool:
-    """The fused paged forward (paged_step / blocks.block_page) covers
-    full-causal GQA stacks (MLP or MoE FFNs) with fp KV caches, whose
-    every cache leaf is a {"k","v"} page pool.  The reference's gather
-    -> dense -> scatter fallback for other archs is not ported."""
+    """Whether the fused paged forward (paged_step / blocks.block_page)
+    covers `cfg`: full-causal GQA stacks (MLP or MoE FFNs) with fp KV
+    caches, whose every cache leaf is a {"k","v"} page pool.  Other stacks
+    (int8 KV, MLA, windowed, hybrid, SSM) page through the gather ->
+    dense step -> scatter fallback of runtime/forward.py, as in the
+    reference."""
     return supports_chunked_prefill(cfg) and cfg.kv_dtype != "int8"
-
-
-def require_paged_attention(cfg) -> None:
-    """Raise unless the fused paged forward covers `cfg`."""
-    if not supports_paged_attention(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: paged KV caches cover full-causal GQA stacks "
-            "(dense and MoE) only; the reference's gather -> dense -> "
-            "scatter fallback (int8 KV, windowed and hybrid (Hymba), SSM, "
-            "MLA) is not ported yet (ROADMAP A4)")
 
 
 def paged_step(cfg, stacked, plan, tokens, pos, caches, page_table, *, tp,
@@ -552,10 +557,14 @@ def cache_struct(cfg, plan: SPDPlanConfig, batch: int, seq_len: int,
     """Per segment CacheStructs (shard-logical: head axes carry the full
     padded head count).  Attention layers: {"k","v"} (layers, batch,
     S_kv, kv_layout, dh), S_kv = seq_len, or min(window, seq_len) on a
-    windowed layer (its rolling buffer).  SSM layers: {"state" (layers,
-    batch, H_pad, P, N), "conv" {"x" (layers, batch, d_conv-1, H_pad*P),
-    "bc" (layers, batch, d_conv-1, 2*G*N)}}, no sequence axis; H_pad the
-    q-head layout's h_pad on a hybrid layer, which holds both trees."""
+    windowed layer (its rolling buffer); an int8 KV cache holds int8
+    codes and bf16 scales {"k_s","v_s"} (layers, batch, S_kv, kv_layout).
+    MLA layers: {"c" (layers, batch, seq_len, kv_lora_rank), "kr" (...,
+    qk_rope_head_dim)} in the model dtype (kv_dtype does not apply, as in
+    the reference).  SSM layers: {"state" (layers, batch, H_pad, P, N),
+    "conv" {"x" (layers, batch, d_conv-1, H_pad*P), "bc" (layers, batch,
+    d_conv-1, 2*G*N)}}, no sequence axis; H_pad the q-head layout's h_pad
+    on a hybrid layer, which holds both trees."""
     lay = _gqa_layout(cfg, tp)
     dt = B.torch_dtype(cfg)
     out = []
@@ -572,39 +581,61 @@ def cache_struct(cfg, plan: SPDPlanConfig, batch: int, seq_len: int,
                 "x": CacheStruct(lead + (s.d_conv - 1, hp * s.head_dim), dt),
                 "bc": CacheStruct(lead + (s.d_conv - 1,
                                           2 * s.n_groups * s.d_state), dt)}
+        if kind.mixer == "mla":
+            m = cfg.mla
+            seg.update(c=CacheStruct(lead + (seq_len, m.kv_lora_rank), dt),
+                       kr=CacheStruct(lead + (seq_len, m.qk_rope_head_dim),
+                                      dt))
         if kind.mixer in ("gqa", "hybrid"):
             s_kv = min(kind.window, seq_len) if kind.window else seq_len
-            st = CacheStruct(lead + (s_kv, lay.kv_layout, cfg.d_head), dt)
-            seg.update(k=st, v=st)
+            kv = lead + (s_kv, lay.kv_layout)
+            if cfg.kv_dtype == "int8":
+                seg.update(k=CacheStruct(kv + (cfg.d_head,), torch.int8),
+                           v=CacheStruct(kv + (cfg.d_head,), torch.int8),
+                           k_s=CacheStruct(kv, torch.bfloat16),
+                           v_s=CacheStruct(kv, torch.bfloat16))
+            else:
+                seg.update(k=CacheStruct(kv + (cfg.d_head,), dt),
+                           v=CacheStruct(kv + (cfg.d_head,), dt))
         out.append(seg)
     return out
 
 
 def cache_specs_tree(cfg, plan: SPDPlanConfig):
-    """Split axis of each cache leaf in the cache_struct layout."""
+    """Split axis of each cache leaf in the cache_struct layout: the kv
+    heads (axis 3), MLA's latent and rope key replicated."""
     out = []
     for (_, _, kind, _) in plan_segments(cfg, plan.drop_mask, plan.qmodes):
         seg = {}
         if kind.mixer in ("ssm", "hybrid"):
             seg.update(state=2, conv={"x": 3, "bc": REPLICATED})
+        if kind.mixer == "mla":
+            seg.update(c=REPLICATED, kr=REPLICATED)
         if kind.mixer in ("gqa", "hybrid"):
             seg.update(k=3, v=3)
+            if cfg.kv_dtype == "int8":
+                seg.update(k_s=3, v_s=3)
         out.append(seg)
     return out
 
 
 def cache_pageable_tree(cfg, plan: SPDPlanConfig):
-    """Which cache leaves get PAGED (bool tree matching cache_struct):
-    the K/V of full-causal layers.  Rolling-window K/V (already bounded
-    to the window), SSM state and conv tails (no sequence axis) stay
-    dense per slot."""
+    """Which cache leaves get PAGED (bool tree matching cache_struct): the
+    leaves with a full-length sequence axis -- full-causal layers' K/V
+    (and their int8 scales) and MLA's latent and rope key.  Rolling-window
+    K/V (already bounded to the window), SSM state and conv tails (no
+    sequence axis) stay dense per slot."""
     out = []
     for (_, _, kind, _) in plan_segments(cfg, plan.drop_mask, plan.qmodes):
         seg = {}
         if kind.mixer in ("ssm", "hybrid"):
             seg.update(state=False, conv={"x": False, "bc": False})
+        if kind.mixer == "mla":
+            seg.update(c=True, kr=True)
         if kind.mixer in ("gqa", "hybrid"):
-            seg.update(k=kind.window == 0, v=kind.window == 0)
+            names = (("k", "v", "k_s", "v_s") if cfg.kv_dtype == "int8"
+                     else ("k", "v"))
+            seg.update(dict.fromkeys(names, kind.window == 0))
         out.append(seg)
     return out
 
@@ -613,9 +644,9 @@ def paged_cache_struct(cfg, plan: SPDPlanConfig, batch: int, seq_len: int,
                        tp: int, *, page_size: int, num_pages: int):
     """cache_struct with pageable leaves' (batch, seq) axes replaced by
     (num_pages + 1, page_size); the extra page is the trash page (see
-    runtime/paging.py).  The kv-head axis stays axis 3, so
-    `cache_specs_tree` splits paged and dense leaves alike."""
-    require_paged_attention(cfg)
+    runtime/paging.py).  Dense leaves keep (batch, ...); the kv-head
+    axis stays axis 3, so `cache_specs_tree` splits paged and dense
+    leaves alike."""
     structs = cache_struct(cfg, plan, batch, seq_len, tp)
     flags = cache_pageable_tree(cfg, plan)
 

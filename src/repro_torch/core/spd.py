@@ -63,8 +63,12 @@ def capture_block_inputs(cfg, padded, tp, calib_batches, *, q_chunk=1024,
 
 def require_algorithm1(cfg: ModelConfig) -> None:
     """Algorithm 1 (the sweep, the comm policy, recovery) is held to the
-    reference on the dense and SSM families only: the MoE and hybrid
-    families are refused until a test holds them (ROADMAP A3)."""
+    reference on the dense and SSM families only: MLA, the MoE and the
+    hybrid families are refused until a test holds them (ROADMAP A3)."""
+    if cfg.mla is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: Algorithm 1 on MLA attention is not ported yet "
+            "(ROADMAP A3)")
     if cfg.moe is not None or cfg.family == "hybrid":
         raise NotImplementedError(
             f"{cfg.name}: Algorithm 1 on the {cfg.family} family is not "

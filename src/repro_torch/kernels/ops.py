@@ -100,19 +100,85 @@ def scatter_tokens_pages(pool, vals, page_table, pos):
     return pool
 
 
-def scatter_prefill_pages(pool, dense1, page_row):
+def scatter_prefill_pages(pool, dense1, page_row, *, tail: int = 2):
     """Insert one request's prefill cache into its allocated pages.
 
-    pool (..., P+1, ps, Hkv, D); dense1 (..., 1, S, Hkv, D) with S a
-    multiple of ps (the per-slot maximum); page_row (pages_per_slot,)
-    int.  Pages the slot did not allocate (-1) scatter into the trash
-    page, so the right-padded tail never touches live pages."""
-    pn = pool.shape[-4] - 1
-    ps = pool.shape[-3]
-    d = dense1.select(-4, 0)                             # (..., S, Hkv, D)
-    n = d.shape[-3] // ps
-    d = d.reshape(tuple(d.shape[:-3]) + (n, ps) + tuple(d.shape[-2:]))
+    pool (..., P+1, ps, *t); dense1 (..., 1, S, *t) with S a multiple of
+    ps (the per-slot maximum); `tail` the number of feature axes *t (2
+    for K/V's (Hkv, D), 1 for an int8 scale's or an MLA latent's);
+    page_row (pages_per_slot,) int.  Pages the slot did not allocate
+    (-1) scatter into the trash page, so the right-padded tail never
+    touches live pages."""
+    pa = pool.dim() - tail - 2                           # the page axis
+    pn = pool.shape[pa] - 1
+    ps = pool.shape[pa + 1]
+    d = dense1.select(pa, 0)                             # (..., S, *t)
+    n = d.shape[pa] // ps
+    d = d.reshape(tuple(d.shape[:pa]) + (n, ps) + tuple(d.shape[pa + 1:]))
     row = page_row[:n].long()
     phys = torch.where(row < 0, torch.full_like(row, pn), row)
-    pool[..., phys, :, :, :] = d.to(pool.dtype)
+    pool[(slice(None),) * pa + (phys,)] = d.to(pool.dtype)
     return pool
+
+
+# ---------------------------------------------------------------------------
+# The gather -> dense -> scatter fallback (runtime/forward.py): stacks the
+# fused paged forward does not cover (int8 KV, MLA, windowed, hybrid, SSM)
+# gather each slot's pages into a contiguous view, run the dense step on
+# it, and write back the positions the step wrote.  Plain torch, as the
+# reference's are XLA code (no TPU kernel).  Pools are whole segment
+# leaves (tp, layers, P+1, ps, *t), views (tp, layers, B, n*ps, *t); the
+# pools are written in place.
+# ---------------------------------------------------------------------------
+
+def _phys(page_table, pidx, trash: int):
+    """Physical pages of logical pages pidx (B, m) through the table: -1
+    entries, and pages before 0 or past the table width, map to the
+    trash page."""
+    n = page_table.shape[1]
+    phys = torch.gather(page_table.long(), 1, pidx.clamp(0, n - 1))
+    return torch.where((phys < 0) | (pidx >= n) | (pidx < 0),
+                       torch.full_like(phys, trash), phys)
+
+
+def gather_pages(pool, page_table):
+    """pool (tp, L, P+1, ps, *t); page_table (B, n) int, -1 =
+    unallocated.  Returns the contiguous per-slot view (tp, L, B, n*ps,
+    *t), a copy.  Entries read through -1 come from the trash page; the
+    dense step's position masking hides them."""
+    pn = pool.shape[2] - 1
+    ps = pool.shape[3]
+    b, n = page_table.shape
+    table = page_table.long()
+    pt = torch.where(table < 0, torch.full_like(table, pn), table)
+    g = pool[:, :, pt.reshape(-1)]                 # (tp, L, B*n, ps, *t)
+    return g.reshape(tuple(pool.shape[:2]) + (b, n * ps)
+                     + tuple(pool.shape[4:]))
+
+
+def scatter_chunk_pages(pool, dense, page_table, pos, n: int):
+    """Write back the `n` tokens a dense step just wrote per slot: the
+    entries of the view dense (tp, L, B, S, *t) at sequence indices
+    pos[b]..pos[b]+n-1 land in their pages of pool (tp, L, P+1, ps,
+    *t), in place.  Positions whose page is unallocated (-1) or past the
+    table land in the trash page (only trash writes can collide)."""
+    pn = pool.shape[2] - 1
+    ps = pool.shape[3]
+    b, s = dense.shape[2:4]
+    pos2 = pos.long()[:, None] + torch.arange(n, device=pos.device)[None]
+    pidx = torch.div(pos2, ps, rounding_mode="floor")
+    phys = _phys(page_table, pidx, pn)
+    bi = torch.arange(b, device=pos.device)[:, None].expand(b, n)
+    toks = dense[:, :, bi, pos2.clamp(0, s - 1)]      # (tp, L, B, n, *t)
+    pool[:, :, phys.reshape(-1), (pos2 - pidx * ps).reshape(-1)] = \
+        toks.reshape(tuple(dense.shape[:2]) + (b * n,)
+                     + tuple(dense.shape[4:])).to(pool.dtype)
+    return pool
+
+
+def scatter_token_page(pool, dense, page_table, pos):
+    """Write back the ONE token a decode step just wrote per slot: the
+    view's entry at sequence index pos[b] lands in physical page
+    page_table[b, pos[b] // ps] at offset pos[b] % ps (the trash page
+    when unallocated)."""
+    return scatter_chunk_pages(pool, dense, page_table, pos, 1)

@@ -8,7 +8,8 @@ the port), and
 `paged_attend` the paged path of attn_backend="xla" and of every tree
 chunk, `tree_mask` the visibility of a speculative tree chunk, and
 `write_chunk` the dense cache write of a chunk (positions past the
-buffer dropped, as JAX's scatter drops them).
+buffer dropped, as JAX's scatter drops them), and `kv_quantize` /
+`kv_dequantize` the int8 KV cache's per-(position, head) absmax codes.
 """
 from __future__ import annotations
 
@@ -181,3 +182,26 @@ def write_chunk(cache, vals, wpos):
     src = torch.where(gone, cache[..., bi, tgt, :, :], src)
     cache[..., bi, tgt, :, :] = src
     return cache
+
+
+# ---------------------------------------------------------------------------
+# Int8 KV cache: per-(position, head) absmax scales halve the cache bytes
+# ---------------------------------------------------------------------------
+
+def kv_quantize(x):
+    """x (..., Dh) -> (int8 codes (..., Dh), scale (...,) bf16): the codes
+    round x / s with the fp32 scale, half to even, then clip; the bf16
+    scale is what dequantization reads.  127 divides as a tensor: on the
+    card, PyTorch divides by a Python scalar through its reciprocal,
+    which is not the reference's true division (ROADMAP P1)."""
+    x32 = x.float()
+    lv = torch.full((), 127.0, dtype=torch.float32, device=x.device)
+    s = torch.clamp(x32.abs().amax(-1), min=1e-12) / lv
+    q = torch.clamp(torch.round(x32 / s[..., None]), -127, 127)
+    return q.to(torch.int8), s.to(torch.bfloat16)
+
+
+def kv_dequantize(q, scale, dtype):
+    """int8 codes (..., Dh) and scales (...,) -> (..., Dh) in `dtype`,
+    through fp32."""
+    return (q.float() * scale.float()[..., None]).to(dtype)

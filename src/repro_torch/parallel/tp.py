@@ -82,13 +82,17 @@ class TrainStepConfig:
 
 
 def check_trainable(cfg: ModelConfig, device) -> None:
-    """Refuse what the port cannot train yet: MLA (layer_kinds raises), a
+    """Refuse what the port cannot train yet: MLA (its backward through
+    the replicated latent projection is not held to the reference), a
     modality frontend, the MoE family (the port's loss_fn does not carry
     the reference's aux_coef * aux load-balance term), the hybrid family
     on any device and an SSM stack on the card (the SSD scan kernel, B8,
     has no backward; a hybrid layer's scan runs it).  ROADMAP A3 lists
     them.  The plain scan is not a stand-in on the card."""
     kinds = layer_kinds(cfg)
+    if any(k.mixer == "mla" for k in kinds):
+        raise NotImplementedError(f"{cfg.name}: training MLA attention is "
+                                  "not ported yet (ROADMAP A3)")
     if cfg.frontend_dim:
         raise NotImplementedError(f"{cfg.name}: modality frontends are not "
                                   "ported (ROADMAP A4)")

@@ -39,10 +39,11 @@ class Engine:
 
     def insert_paged(self, pcaches, caches1, b: int, page_row):
         """Scatter slot `b`'s prefilled caches1 into its pages
-        (`page_row`, the slot's table row)."""
+        (`page_row`, the slot's table row) and its dense leaves into slot
+        `b`'s stripe."""
         step = self._step(("insert_paged",),
                           lambda: F.insert_paged_step(self.cfg, self.plan))
-        return step(pcaches, caches1, page_row)[0]
+        return step(pcaches, caches1, b, page_row)[0]
 
     def copy_paged_pages(self, pcaches, src, dst):
         """COW page duplication: physical page src[i] -> dst[i] on every
@@ -122,7 +123,8 @@ class Engine:
         suffix prefill): full-vocab logits of every chunk position,
         (B, C, V).  `tree` as in `verify`."""
         step = self._step(("verify_paged", tree), lambda: F.paged_verify_step(
-            self.cfg, self.plan, tp=self.tp, tree=tree))
+            self.cfg, self.plan, tp=self.tp, q_chunk=self.q_chunk,
+            tree=tree))
         return step(params, tokens, pos, page_table, pcaches)
 
     # ---- the self-draft steps (spec.draft.Drafter) ----

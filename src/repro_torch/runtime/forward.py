@@ -1,12 +1,18 @@
 """The forward step table (port of repro/runtime/forward.py: the dense
-steps, the fused paged ones, chunked prefill and the speculative verify,
-draft and copy steps).
+steps, the fused paged ones and the gather -> dense -> scatter fallback,
+chunked prefill and the speculative verify, draft and copy steps).
 
 Each step maker here returns ``(local_fn, StepSpec)``; a `ParallelBackend`
 wraps it into the runnable step.  Local functions take shard-stacked
 parameters and caches and per-request host arrays, and return global
 values: full-vocab logits and token ids are assembled across shards
 here (one device holds every shard, so the gather is a reshape).
+
+Paged layout: pageable cache leaves swap their (batch, seq) axes for
+(num_pages + 1, page_size) -- page `num_pages` is the trash page -- and
+the other leaves (rolling-window K/V, SSM state and conv tails) stay
+dense per slot; `_map_paged` dispatches on the pageable-flag tree
+(`model.cache_pageable_tree`).
 """
 from __future__ import annotations
 
@@ -16,9 +22,23 @@ import numpy as np
 import torch
 
 from repro_torch.core import model as M
+from repro_torch.kernels import ops as KOPS
 from repro_torch.parallel.backend import StepSpec
 from repro_torch.runtime import sampling as RS
 from repro_torch.tree import tree_map
+
+
+def _map_paged(flags, fn_paged, fn_dense, *trees):
+    """tree_map over cache trees, dispatching on the pageable-flag tree."""
+    return tree_map(lambda f, *ls: fn_paged(*ls) if f else fn_dense(*ls),
+                    flags, *trees)
+
+
+def _gathered(flags, pc, pt):
+    """The dense view of paged caches: pageable leaves gathered through
+    the table (copies), dense ones as they are (updated in place)."""
+    return _map_paged(flags, lambda c: KOPS.gather_pages(c, pt),
+                      lambda c: c, pc)
 
 
 def full_logits(cfg, logits):
@@ -75,14 +95,26 @@ def decode_step(cfg, plan, *, tp, with_logits=False, sampled=False):
 
 
 def paged_decode_step(cfg, plan, *, tp, with_logits=False, sampled=False):
-    """Paged decode, fused: K/V scatter straight into their pages and
-    attention reads through the page table (M.paged_step), so no cache
-    tree is gathered.  Returns (next ids (B, 1)[, full logits], pools)."""
-    M.require_paged_attention(cfg)
+    """Paged decode.  Where M.supports_paged_attention holds, fused: K/V
+    scatter straight into their pages and attention reads through the
+    page table (M.paged_step), so no cache tree is gathered.  Elsewhere
+    (int8 KV, MLA, windowed, hybrid, SSM) the fallback: every pageable
+    leaf gathered into a per-slot view, the dense decode on it, and the
+    token it wrote scattered back to its page.  Returns (next ids (B,
+    1)[, full logits], pools)."""
+    if M.supports_paged_attention(cfg):
+        def math(p, toks, pos, pt, pc):
+            lg, pc2 = M.paged_step(cfg, p, plan, toks, pos, pc, pt, tp=tp)
+            return lg[:, :, 0], pc2
+    else:
+        flags = M.cache_pageable_tree(cfg, plan)
 
-    def math(p, toks, pos, pt, pc):
-        lg, pc2 = M.paged_step(cfg, p, plan, toks, pos, pc, pt, tp=tp)
-        return lg[:, :, 0], pc2
+        def math(p, toks, pos, pt, pc):
+            lg, dense = M.decode_step(cfg, p, plan, toks, pos,
+                                      _gathered(flags, pc, pt), tp=tp)
+            _map_paged(flags, lambda c, nd: KOPS.scatter_token_page(
+                c, nd, pt, pos), lambda c, nd: None, pc, dense)
+            return lg, pc
 
     if sampled:
         def local(p, toks, pos, pt, pc, t, k, pp, gens):
@@ -133,18 +165,32 @@ def verify_step(cfg, plan, *, tp, q_chunk, tree=None):
                            ("batch", "cache"))
 
 
-def paged_verify_step(cfg, plan, *, tp, tree=None):
+def paged_verify_step(cfg, plan, *, tp, q_chunk=1024, tree=None):
     """Paged multi-token forward: the speculative verify chunk, and the
     SUFFIX PREFILL of a warm admission (the uncached prompt tail, with
-    other rows' tables masked to -1).  `tree` as in `verify_step`; the
-    chunk scatters contiguously at pos..pos+C-1 either way.  Returns
-    (full logits (B, C, V), pools)."""
-    M.require_paged_attention(cfg)
+    other rows' tables masked to -1).  Fused where
+    M.supports_paged_attention holds; elsewhere (an int8 KV cache: the
+    other fallback stacks have no multi-token forward) the pages are
+    gathered, M.verify_step runs on the view and the C tokens it wrote
+    are scattered back.  `tree` as in `verify_step`; the chunk scatters
+    contiguously at pos..pos+C-1 either way.  Returns (full logits (B, C,
+    V), pools)."""
+    if M.supports_paged_attention(cfg):
+        def local(p, toks, pos, pt, pc):
+            lg, pc2 = M.paged_step(cfg, p, plan, toks, pos, pc, pt, tp=tp,
+                                   tree=tree)
+            return full_logits_seq(cfg, lg), pc2
+    else:
+        flags = M.cache_pageable_tree(cfg, plan)
 
-    def local(p, toks, pos, pt, pc):
-        lg, pc2 = M.paged_step(cfg, p, plan, toks, pos, pc, pt, tp=tp,
-                               tree=tree)
-        return full_logits_seq(cfg, lg), pc2
+        def local(p, toks, pos, pt, pc):
+            lg, dense = M.verify_step(cfg, p, plan, toks, pos,
+                                      _gathered(flags, pc, pt), tp=tp,
+                                      q_chunk=q_chunk, tree=tree)
+            n = toks.shape[1]
+            _map_paged(flags, lambda c, nd: KOPS.scatter_chunk_pages(
+                c, nd, pt, pos, n), lambda c, nd: None, pc, dense)
+            return full_logits_seq(cfg, lg), pc
 
     return local, StepSpec(("params", "rep", "rep", "rep", "cache"),
                            ("rep", "cache"))
@@ -225,7 +271,7 @@ def copy_pos_step(cfg, plan):
     the rollback; src == dst rows (padding 0 -> 0) are no-ops."""
     def local(cs, src, dst):
         for seg in cs:
-            for leaf in seg.values():          # (tp, layers, B, S, H, D)
+            for leaf in seg.values():          # (tp, layers, B, S, ...)
                 bi = torch.arange(leaf.shape[2], device=leaf.device)
                 leaf[:, :, bi, dst.long()] = leaf[:, :, bi, src.long()]
         return (cs,)
@@ -237,8 +283,9 @@ def copy_pos_paged_step(cfg, plan, *, page_size):
     """copy_pos_step through the page table: each row's src / dst slot
     resolves to (page, offset); an unallocated page (or one past the
     table) resolves to the trash page, so padded rows copy trash ->
-    trash."""
-    M.require_paged_attention(cfg)
+    trash.  Pageable leaves only: the others have no sequence axis to
+    copy along."""
+    flags = M.cache_pageable_tree(cfg, plan)
 
     def local(pc, pt, src, dst):
         bi = torch.arange(pt.shape[0], device=pt.device)
@@ -250,13 +297,15 @@ def copy_pos_paged_step(cfg, plan, *, page_size):
             return pg, pidx >= table.shape[1]
 
         (sp, s_out), (dp, d_out) = phys(src), phys(dst)
-        for seg in pc:
-            for leaf in seg.values():          # (tp, layers, P+1, ps, H, D)
-                trash = leaf.shape[2] - 1
-                s_pg = torch.where((sp < 0) | s_out, trash, sp)
-                d_pg = torch.where((dp < 0) | d_out, trash, dp)
-                leaf[:, :, d_pg, dst.long() % page_size] = leaf[
-                    :, :, s_pg, src.long() % page_size]
+
+        def one(leaf):                         # (tp, layers, P+1, ps, ...)
+            trash = leaf.shape[2] - 1
+            s_pg = torch.where((sp < 0) | s_out, trash, sp)
+            d_pg = torch.where((dp < 0) | d_out, trash, dp)
+            leaf[:, :, d_pg, dst.long() % page_size] = leaf[
+                :, :, s_pg, src.long() % page_size]
+
+        _map_paged(flags, one, lambda c: None, pc)
         return (pc,)
 
     return local, StepSpec(("cache", "rep", "rep", "rep"), ("cache",))
@@ -265,31 +314,36 @@ def copy_pos_paged_step(cfg, plan, *, page_size):
 def copy_pages_step(cfg, plan):
     """Device-side copy-on-write page duplication: physical page src[i]
     -> dst[i] on every pageable leaf, in place (the PagePool rewires the
-    slot's table host-side)."""
-    M.require_paged_attention(cfg)
+    slot's table host-side); dense leaves are per slot, so nothing is
+    shared there."""
+    flags = M.cache_pageable_tree(cfg, plan)
 
     def local(pc, src, dst):
-        for seg in pc:
-            for leaf in seg.values():
-                leaf[:, :, dst.long()] = leaf[:, :, src.long()]
+        def one(leaf):
+            leaf[:, :, dst.long()] = leaf[:, :, src.long()]
+
+        _map_paged(flags, one, lambda c: None, pc)
         return (pc,)
 
     return local, StepSpec(("cache", "rep", "rep"), ("cache",))
 
 
 def insert_paged_step(cfg, plan):
-    """Scatter one prefilled request (batch-1 dense caches1) into its
-    pages (`page_row`) of the paged pools, in place."""
-    M.require_paged_attention(cfg)
-    from repro_torch.kernels import ops as KOPS
+    """Scatter one prefilled request (batch-1 dense caches1) into slot `b`
+    of the paged pools, in place: pageable leaves into its pages
+    (`page_row`), dense leaves (rolling-window K/V, SSM state and conv
+    tails) into the slot's stripe."""
+    flags = M.cache_pageable_tree(cfg, plan)
 
-    def local(pc, c1, row):
-        for seg, seg1 in zip(pc, c1):
-            for name in seg:
-                KOPS.scatter_prefill_pages(seg[name], seg1[name], row)
+    def local(pc, c1, b, row):
+        def dense(p, c):
+            p[:, :, int(b)].copy_(c[:, :, 0])
+
+        _map_paged(flags, lambda p, c: KOPS.scatter_prefill_pages(
+            p, c, row, tail=p.dim() - 4), dense, pc, c1)
         return (pc,)
 
-    return local, StepSpec(("cache", "cache", "rep"), ("cache",))
+    return local, StepSpec(("cache", "cache", "rep", "rep"), ("cache",))
 
 
 def insert_slot(caches, caches1, b: int, *, batch_axis: int):

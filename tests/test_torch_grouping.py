@@ -154,11 +154,11 @@ def test_grouping_keeps_tp_output_and_moves_spd_output(name):
 
 
 def test_unported_branches_raise_or_fall_back():
-    """MLA names ROADMAP A5; an SSM layer gets the identity grouping."""
+    """MLA names ROADMAP A3; an SSM layer gets the identity grouping."""
     import dataclasses
     _, cfg, _, plp, x = _setup("llama2-7b")
     mla = dataclasses.replace(cfg, mla=object())
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(NotImplementedError, match="A3"):
         G._units(mla)
     mamba = get_config("mamba2-370m", reduced=True)
     res = G.group_heads(mamba, layer_kinds(mamba)[0], {}, None, 2)

@@ -17,6 +17,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.config.base import MLAConfig as RMLAConfig  # noqa: E402
 from repro.config.base import SPDPlanConfig as RPlan  # noqa: E402
 from repro.config.base import replace as rreplace  # noqa: E402
 from repro.configs import get_config as rget  # noqa: E402
@@ -277,26 +278,41 @@ def test_hybrid_block_dec_matches_reference(tp, drop, comm):
 # ---------------------------------------------------------------------------
 
 def test_mla_refuses():
-    """MLA stays unported: layer_kinds and param_count name ROADMAP A4."""
-    _, cfg = _cfgs()
+    """MLA is ported for serving: its layer kinds and the reference's
+    parameter count.  What stays refused names its ROADMAP item: training
+    and Algorithm 1 on MLA (A3), weight-only int8 on MLA (C8)."""
     mla = replace(get_config("qwen3-1.7b-reduced"), mla=MLAConfig(
         kv_lora_rank=32, qk_nope_head_dim=16, qk_rope_head_dim=8,
         v_head_dim=16))
-    with pytest.raises(NotImplementedError, match="MLA.*ROADMAP A4"):
-        layer_kinds(mla)
-    with pytest.raises(NotImplementedError, match="MLA.*ROADMAP A4"):
-        mla.param_count()
+    rmla = rreplace(rget("qwen3-1.7b-reduced"), mla=RMLAConfig(
+        kv_lora_rank=32, qk_nope_head_dim=16, qk_rope_head_dim=8,
+        v_head_dim=16))
+    assert [k.mixer for k in layer_kinds(mla)] == \
+        [k.mixer for k in rkinds(rmla)] == ["mla"] * mla.n_layers
+    assert mla.param_count() == rmla.param_count()
+    for dev in ("cpu", "cuda"):
+        with pytest.raises(NotImplementedError, match="MLA.*ROADMAP A3"):
+            check_trainable(mla, dev)
+    from repro_torch.core.spd import require_algorithm1
+    with pytest.raises(NotImplementedError, match="MLA.*ROADMAP A3"):
+        require_algorithm1(mla)
+    with pytest.raises(NotImplementedError, match="C8"):
+        M.pad_model(M.init_model(replace(mla, weight_dtype="int8")),
+                    replace(mla, weight_dtype="int8"), 2)
 
 
 def test_paging_speculation_training_and_algorithm1_refuse():
-    """Paged caches (the gather -> dense -> scatter fallback is not
-    ported), speculation and chunked prefill (the extension forward
-    covers full-causal GQA stacks; chunked prefill falls back to whole,
-    as the reference's does), training and Algorithm 1."""
+    """Paged caches serve through the gather -> dense -> scatter fallback
+    (only the global layers' K/V paged; the windowed K/V, SSM state and
+    conv tails dense per slot); speculation refuses and chunked prefill
+    falls back to whole (the extension forward covers full-causal GQA
+    stacks, as the reference's does); training and Algorithm 1 refuse."""
     _, cfg = _cfgs()
     kw = dict(tp=2, device="cpu", cache_len=64, comm="quant8")
-    with pytest.raises(NotImplementedError, match="gather -> dense.*A4"):
-        LLM.load(cfg, page_size=8, num_pages=8, **kw)
+    flags = M.cache_pageable_tree(cfg, SPDPlanConfig.none(cfg.n_layers))
+    assert [seg["k"] for seg in flags] == [True, False, True]
+    assert not any(f for seg in flags for f in tree_leaves(
+        {k: v for k, v in seg.items() if k not in ("k", "v")}))
     with pytest.raises(SpecError):
         LLM.load(cfg, spec=SpecConfig(k=3), **kw)
     llm = LLM.load(cfg, **kw)
@@ -305,8 +321,13 @@ def test_paging_speculation_training_and_algorithm1_refuse():
     assert [o.token_ids for o in chunked.generate(
         prompts, SamplingParams(max_new=4))] == \
         [o.token_ids for o in llm.generate(prompts, SamplingParams(max_new=4))]
-    with pytest.raises(NotImplementedError, match="gather -> dense"):
-        llm.serve(page_size=8, num_pages=8)
+    assert not llm.serve(page_size=8, num_pages=8).kv.prefix_cache
+    paged = LLM.load(cfg, params=llm.canonical, page_size=8, num_pages=8,
+                     **kw)
+    assert [o.token_ids for o in paged.generate(
+        prompts, SamplingParams(max_new=4))] == \
+        [o.token_ids for o in llm.generate(prompts, SamplingParams(max_new=4))]
+    assert paged.serve().pool.num_free == 8
     for dev in ("cpu", "cuda"):
         with pytest.raises(NotImplementedError, match="hybrid.*ROADMAP A3"):
             check_trainable(cfg, dev)

@@ -39,7 +39,7 @@ from repro_torch.parallel.collectives import collective_ledger  # noqa: E402
 from repro_torch.runtime import forward as F  # noqa: E402
 from repro_torch.runtime.forward import (bucketed_prefill,  # noqa: E402
                                          full_logits_seq)
-from repro_torch.tree import tree_map  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 from torch_parity import one_torch_thread  # noqa: E402,F401
 
 ARCH = "mamba2-370m-reduced"
@@ -325,11 +325,16 @@ def test_facade_serves_mamba_and_refuses_paging():
     cfg = replace(get_config(ARCH), dtype="float32")
     llm = LLM.load(cfg, tp=TP, spd=0.25, device="cpu", cache_len=32)
     assert llm.plan.n_dropped == 0                # SPD does not apply
-    with pytest.raises(NotImplementedError, match="gather -> dense"):
-        LLM.load(cfg, tp=TP, device="cpu", cache_len=32, page_size=8,
-                 num_pages=8)
-    with pytest.raises(NotImplementedError, match="gather -> dense"):
-        llm.serve(page_size=8, num_pages=8)
+    # paged serving goes through the fallback, which pages nothing here
+    # (an SSM layer's state and conv tails have no sequence axis): the
+    # pool only meters admission, and the tokens are dense serving's
+    paged = LLM.load(cfg, tp=TP, device="cpu", cache_len=32, page_size=8,
+                     num_pages=8, params=llm.canonical)
+    assert not any(tree_leaves(M.cache_pageable_tree(cfg, llm.plan)))
+    prompts = [_prompt(9), _prompt(3)]
+    assert [o.token_ids for o in paged.generate(prompts)] == \
+        [o.token_ids for o in llm.generate(prompts)]
+    assert paged.serve().pool.num_free == 8
     # the overlap engine serves it unchanged: the same tokens as sim
     over = LLM.load(cfg, tp=TP, device="cpu", cache_len=32, comm="quant8",
                     engine="overlap", params=llm.canonical)

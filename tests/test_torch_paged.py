@@ -329,8 +329,9 @@ def test_prefix_cache_warm_equals_cold_equals_dense():
 def test_facade_paged_surface_and_later_slice_refusals():
     """LLM.load(page_size=, num_pages=) serves paged (greedy and sampled
     streams equal the dense ones, n_preempted reported); serve(**cache
-    fields) builds a fresh scheduler; chunked prefill, tree verify,
-    cluster serving and the legacy paged fallback raise."""
+    fields) builds a fresh scheduler; chunked prefill and tree verify are
+    ported, cluster serving raises, and an int8 KV cache pages through
+    the gather -> dense -> scatter fallback."""
     cfg = replace(get_config("smollm-360m-reduced"), dtype="float32")
     kw = dict(tp=TP, spd=0.25, device="cpu", cache_len=48, max_batch=3)
     dense = LLM.load(cfg, **kw)
@@ -382,5 +383,19 @@ def test_facade_paged_surface_and_later_slice_refusals():
                           anc=torch.eye(3, dtype=torch.bool))
     torch.testing.assert_close(diag[:, :1], chain[:, :1], rtol=0, atol=0)
     assert not torch.equal(diag[:, 2], chain[:, 2])
-    with pytest.raises(NotImplementedError, match="fallback"):
-        F.paged_decode_step(replace(cfg, kv_dtype="int8"), paged.plan, tp=TP)
+    # int8 KV: no fused paged forward, the fallback serves it (codes and
+    # scales paged, no prefix cache), with dense int8's tokens
+    q8 = replace(cfg, kv_dtype="int8")
+    assert not M.supports_paged_attention(q8)
+    d8 = LLM.load(q8, params=dense.canonical, **kw)
+    p8 = LLM.load(q8, page_size=8, num_pages=7, params=dense.canonical,
+                  **kw)
+    sp = SamplingParams(max_new=10)
+    assert [o.token_ids for o in p8.generate(prompts, sp)] == \
+        [o.token_ids for o in d8.generate(prompts, sp)]
+    sched = p8.serve()
+    assert sched.n_preemptions > 0 and sched.pool.num_free == 7
+    assert not sched.kv.prefix_cache
+    seg = sched.pcaches[0]
+    assert seg["k"].dtype == torch.int8
+    assert tuple(seg["k_s"].shape[2:]) == (8, 8, lay.kv_local)

@@ -27,10 +27,10 @@ def one_torch_thread():
     yield
     torch.set_num_threads(n)
 
-# leaves the reference initialises to constants (0 or 1), and OPT's
-# position table
+# leaves the reference initialises to constants (0 or 1; MLA's latent
+# norm `lnorm`), and OPT's position table
 CONSTANT_LEAVES = ("b", "w", "qn", "kn", "bq", "bk", "bv", "bo", "bu",
-                   "bd", "bg", "pos")
+                   "bd", "bg", "pos", "lnorm")
 
 
 def perturb(tree, rng, key=""):
@@ -141,3 +141,55 @@ def ref_split_layer(lp, rcfg, rkind, tp):
 
 def ledger_tuples(ledger):
     return [(e.op, e.axis, e.nbytes) for e in ledger]
+
+
+# ---------------------------------------------------------------------------
+# Model parity (the MLA, int8 and paged-fallback files)
+# ---------------------------------------------------------------------------
+
+def model_pair(arch, *, comm="exact", cfg_kw=None, tp=2, **load_kw):
+    """(reference LLM, port LLM) of `arch` in fp32 with `cfg_kw` replaced
+    in both configs, spd=0.25, `comm` on the kept syncs and the logits
+    gather: the reference on its perturbed params, the port on the same
+    params carried over (convert.from_reference)."""
+    from repro.api import LLM as RLLM
+    from repro.config.base import replace as rreplace
+    from repro.configs import get_config as rget
+    from repro_torch.api import LLM
+    from repro_torch.config.base import replace
+    from repro_torch.configs import get_config
+    from repro_torch.core.convert import from_reference
+
+    cfg_kw = dict(cfg_kw or {}, dtype="float32")
+    rcfg = rreplace(rget(arch), **cfg_kw)
+    cfg = replace(get_config(arch), **cfg_kw)
+    kw = dict(dict(tp=tp, spd=0.25, comm=comm, comm_logits=comm,
+                   q_chunk=64), **load_kw)
+    ref = RLLM.load(rcfg, params=jax.tree.map(
+        jnp.asarray, perturbed_canonical(rcfg)), **kw)
+    port = LLM.load(cfg, device="cpu", params=from_reference(
+        jax.tree.map(np.asarray, ref.canonical), cfg), **kw)
+    return ref, port
+
+
+def teacher_forced_logits(llm, prompt, stream, cache_len):
+    """Full logits (len(stream), V) of one request (batch 1) through
+    either package's engine -- the prefill's, then each decode step's
+    with `stream` forced in -- and the caches after."""
+    if isinstance(llm.canonical["emb"], torch.Tensor):
+        from repro_torch.runtime.forward import bucketed_prefill
+        to_np = lambda t: t.numpy()            # noqa: E731
+    else:
+        from repro.runtime.forward import bucketed_prefill
+        to_np = np.asarray
+    eng = llm.engine
+    lg, c1 = bucketed_prefill(eng, llm.params, prompt, len(prompt),
+                              cache_len)
+    caches = eng.insert_slot(eng.blank_caches(1, cache_len), c1, 0)
+    out = [to_np(lg)[0]]
+    for i, tok in enumerate(stream[:-1]):
+        _, lg, caches = eng.decode_with_logits(
+            llm.params, np.asarray([[tok]]), np.asarray([len(prompt) + i]),
+            caches)
+        out.append(to_np(lg)[0])
+    return np.stack(out), caches
