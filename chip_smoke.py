@@ -228,7 +228,35 @@
    token by token (a capacity that holds every assignment), fp32 on
    layers 5-8 and bf16 at full width.  Before it, B3 alone on
    deepseek's logits gather (2, 51200).
-22. Prints the seconds since the build at the end of each part, the
+22. The shard engine (one process per TP shard, launch.dist.spawn):
+   (a) NCCL at the card count, one rank a card, tp = min(cards, 4): on
+   one card a world of 1 on purpose (tp 1, no wire), and it says so;
+   llama2-7b at full width through LLM.load(engine="shard") must give
+   the tokens of sim at the same tp on the same weights, each rank's
+   kept-sync kernels counted; with two or more cards one kept sync's
+   bf16 all-reduce is timed on the wire (CUDA events on rank 0) at the
+   decode and prefill payloads.  (b) Two ranks on card 0 over gloo
+   (NCCL refuses two ranks on one card): SmolLM-360M dense, then paged
+   (the 40-page pool with a preemption, the 256-token prefix admitted
+   warm), then llama2-7b dense, each at full width with the main path's
+   settings, against the sim runs above (3, 4, 12): the same tokens on
+   both ranks; every logits tensor the run decides tokens by (each
+   prefill's, each greedy step's shard logits) within 5% of its largest
+   |sim logit| of sim's, event by event, up to the first whose argmax
+   parts, and there sim's top-2 margin within twice that (sim multiplies
+   its stacked shards in one batched cuBLAS call, a rank its one shard
+   alone: cuBLAS picks its algorithm by the batch count, so the bits can
+   differ; no parting, the tokens equal sim's); rank 0's ledger equals
+   sim's entry for entry, and on
+   every rank B1 launches as on sim, B2 on the paged path, and per
+   quantized kept sync of every forward B4 once, B6 twice, B3 once (B3
+   once more a forward, the logits gather); every rank checks at each
+   step that the other took the same tokens.  Prints
+   decode_ms_per_token and prefill_ms of a host-staged wire, each
+   rank's llama peak memory (the canonical weights drawn on the card
+   and kept on the host), and B4 and B6 checked and timed at one rank's
+   SmolLM decode and prefill payloads (their kernels-line rows).
+23. Prints the seconds since the build at the end of each part, the
    kernels JSON line (the rows above beside the earlier ones), the card
    line, and last {"ok": true, "device": {...}}.
 
@@ -307,7 +335,9 @@ PAGED_CHUNK_WIDTHS = (
     (8, (100, 3, 50, 117), (), 8))
 # prefill logits, flash kernel vs plain attention through 32 layers
 # (exact syncs): bf16 rounds each layer's attention output differently
-# (2^-8 relative per layer), fp32 only reorders sums
+# (2^-8 relative per layer), fp32 only reorders sums.  The same bound
+# holds the shard engine's logits to sim's (shard phase (b)): another
+# cuBLAS algorithm rounds each bf16 product differently
 TF_BF16_REL = 0.05                     # x max |logit|
 TF_FP32_ATOL = 1e-3
 # one decode step, paged kernel vs dense plain decode attention, after
@@ -1034,6 +1064,7 @@ def main_path(torch, np, card, arch="smollm-360m", label="main path",
     from repro_torch.api import LLM, SamplingParams
     from repro_torch.config.base import replace
     from repro_torch.configs import get_config
+    from repro_torch.parallel.collectives import collective_ledger
     from repro_torch.tree import tree_leaves
 
     cfg = replace(get_config(arch), attn_backend="pallas", **(cfg_kw or {}))
@@ -1061,11 +1092,16 @@ def main_path(torch, np, card, arch="smollm-360m", label="main path",
     for k in kernels:
         k.launches = 0
     t0 = time.perf_counter()
-    outs = llm.generate(prompts, SamplingParams(max_new=MAX_NEW))
+    with collective_ledger() as led, LogitsTape(llm.engine,
+                                                label in SHARD_LABELS) as tape:
+        outs = llm.generate(prompts, SamplingParams(max_new=MAX_NEW))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kernels}
     check_sync_launches(label, llm, launches, times)
+    SIM_RUNS[label] = dict(tokens=[o.token_ids for o in outs],
+                           ledger=ledger_rows(led), launches=dict(launches),
+                           tape=tape.host())
 
     for o, p in zip(outs, prompts):
         if (o.finish_reason != "length" or len(o.token_ids) != MAX_NEW
@@ -1093,6 +1129,15 @@ def main_path(torch, np, card, arch="smollm-360m", label="main path",
     return llm, prompts, launches, tokens
 
 
+def prefix_prompts(np, vocab: int, seed: int) -> list:
+    """Two prompts sharing a PREFIX_LEN prefix (suffixes of 20 and 30):
+    the second admits warm through the prefix cache."""
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, vocab, PREFIX_LEN)
+    return [np.concatenate([prefix, rng.integers(0, vocab, n)])
+            for n in (20, 30)]
+
+
 def paged_path(torch, np, llm, prompts, dense_tokens, card,
                label="paged path"):
     """Paged serving at full width: the dense path's model and settings
@@ -1101,6 +1146,7 @@ def paged_path(torch, np, llm, prompts, dense_tokens, card,
     from repro_torch.api import LLM, SamplingParams
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import quant_collectives as QC
+    from repro_torch.parallel.collectives import collective_ledger
 
     cfg = llm.cfg
     torch.cuda.reset_peak_memory_stats()
@@ -1124,11 +1170,16 @@ def paged_path(torch, np, llm, prompts, dense_tokens, card,
     FA.paged_flash_attention.chunk_launches = 0
     pre0 = sched.n_preemptions
     t0 = time.perf_counter()
-    outs = paged.generate(prompts, SamplingParams(max_new=MAX_NEW))
+    # the tape runs on through the warm prefix pair below
+    tape = LogitsTape(paged.engine, label in SHARD_LABELS).__enter__()
+    with collective_ledger() as led:
+        outs = paged.generate(prompts, SamplingParams(max_new=MAX_NEW))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kernels}
     check_sync_launches(label, paged, launches, times)
+    SIM_RUNS[label] = dict(tokens=[o.token_ids for o in outs],
+                           ledger=ledger_rows(led), launches=dict(launches))
     n_pre = sched.n_preemptions - pre0
     for o, p in zip(outs, prompts):
         if (o.finish_reason != "length" or len(o.token_ids) != MAX_NEW
@@ -1167,10 +1218,7 @@ def paged_path(torch, np, llm, prompts, dense_tokens, card,
         """Two prompts sharing a PREFIX_LEN prefix, 8 tokens each: the
         second admits warm.  Returns (prefix hits, suffix prefills, decode
         steps, paged launches, tokens)."""
-        rng = np.random.default_rng(seed)
-        prefix = rng.integers(0, cfg.vocab_size, PREFIX_LEN)
-        pair = [np.concatenate([prefix, rng.integers(0, cfg.vocab_size, n)])
-                for n in (20, 30)]
+        pair = prefix_prompts(np, cfg.vocab_size, seed)
         hits0 = sched.kv.prefix_hits
         n_dec, n_suf = len(times["decode_paged"]), len(times["verify_paged"])
         before = FA.paged_flash_attention.launches
@@ -1185,6 +1233,8 @@ def paged_path(torch, np, llm, prompts, dense_tokens, card,
     chunk0 = FA.paged_flash_attention.chunk_launches
     hits, n_suf, n_dec, warm, toks = prefix_pair(1)
     chunks = FA.paged_flash_attention.chunk_launches - chunk0
+    tape.__exit__(None, None, None)
+    SIM_RUNS[label].update(prefix_tokens=toks, tape=tape.host())
     print(f"paged prefix pair (prefix {PREFIX_LEN}, suffixes 20/30): "
           f"prefix_hits={hits} suffix_prefills={n_suf} decode_steps={n_dec} "
           f"paged launches={warm} (chunks {chunks}) tokens={toks}")
@@ -4251,6 +4301,507 @@ def int8_phase(torch, np, llama, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The shard engine: one process per TP shard over torch.distributed
+# ---------------------------------------------------------------------------
+
+#: the sim engine's counted runs, by path label ({"tokens", "ledger",
+#: "launches"}, the paged path's "prefix_tokens"): the shard phase holds
+#: its ranks to them
+SIM_RUNS: dict = {}
+#: the sim runs the shard phase (b) holds its ranks to
+SHARD_LABELS = ("main path", "paged path", "llama2-7b path")
+
+
+class LogitsTape:
+    """Every logits tensor a generate decides its tokens by, in order:
+    the shard logits each greedy decode step reduces ("shards": sim's
+    (tp, B, Vl) stack, or a rank's (1, B, Vl) row) and the full logits
+    each prefill or warm suffix prefill returns ("full").  A context
+    manager over `engine` (off: records nothing); `host()` gives them as
+    fp32 numpy.  The copies are taken on the device and moved after the
+    run, so the timed steps are not held up."""
+
+    def __init__(self, engine, on=True):
+        self.engine, self.on, self.events, self._undo = engine, on, [], []
+
+    def __enter__(self):
+        if not self.on:
+            return self
+        from repro_torch.runtime import forward as F
+        greedy = F.greedy_token
+
+        def taped_greedy(cfg, logits):
+            self.events.append(("shards", logits.detach().clone()))
+            return greedy(cfg, logits)
+        F.greedy_token = taped_greedy
+        self._undo.append(lambda: setattr(F, "greedy_token", greedy))
+        eng = self.engine
+        for name in ("prefill", "verify_paged"):
+            fn, own = getattr(eng, name), name in vars(eng)
+
+            def taped(*a, _fn=fn, **kw):
+                out = _fn(*a, **kw)
+                self.events.append(("full", out[0].detach().clone()))
+                return out
+            setattr(eng, name, taped)
+            self._undo.append(lambda n=name, f=fn, o=own: setattr(eng, n, f)
+                              if o else delattr(eng, n))
+        return self
+
+    def __exit__(self, *exc):
+        while self._undo:
+            self._undo.pop()()
+
+    def host(self) -> list:
+        return [(k, t.float().cpu().numpy()) for k, t in self.events]
+
+
+def tape_rows(np, kind, parts, vocab):
+    """One tape event as full-vocab rows: a "full" event as it is, the
+    "shards" of every rank (or sim's stack) laid side by side in shard
+    order, the padding columns dropped."""
+    if kind == "full":
+        return parts[0]
+    a = np.concatenate(parts, 0)
+    tp, b, vl = a.shape
+    return a.transpose(1, 0, 2).reshape(b, tp * vl)[:, :vocab]
+
+
+def tapes_agree(np, label, sim_tape, rank_tapes, vocab):
+    """A shard run's logits against sim's, event by event, while the two
+    runs have taken the same tokens (so their inputs are the same): max
+    |shard - sim| within TF_BF16_REL of the event's largest |sim logit|;
+    at the first event whose argmax parts, every parted row's sim top-2
+    margin within twice that bound (else the shard engine decided
+    otherwise than rounding can).  Every rank's "full" events are equal
+    (all-gathered).  Returns (events compared, events, the largest err /
+    bound, the parting: None or (event, rows, the largest margin /
+    bound))."""
+    n = len(sim_tape)
+    worst = 0.0
+    for i, (kind, a) in enumerate(sim_tape):
+        if any(len(t) <= i or t[i][0] != kind for t in rank_tapes):
+            raise AssertionError(f"shard {label}: the ranks' logits events "
+                                 f"part from sim's at event {i} of {n} "
+                                 "before any token did")
+        parts = [t[i][1] for t in rank_tapes]
+        if kind == "full" and any(not np.array_equal(p, parts[0])
+                                  for p in parts[1:]):
+            raise AssertionError(f"shard {label}: the ranks' gathered "
+                                 f"logits differ at event {i}")
+        s = tape_rows(np, kind, [a], vocab)
+        r = tape_rows(np, kind, parts, vocab)
+        bound = TF_BF16_REL * float(np.abs(s).max())
+        err = float(np.abs(r - s).max())
+        worst = max(worst, err / bound)
+        if not err <= bound:
+            raise AssertionError(f"shard {label}: logits event {i} ({kind}, "
+                                 f"{s.shape}) max_abs_err {err:.4e} > "
+                                 f"{bound:.4e}")
+        parted = s.argmax(-1) != r.argmax(-1)
+        if parted.any():
+            top2 = np.sort(s[parted], -1)[:, -2:]
+            margin = float((top2[:, 1] - top2[:, 0]).max())
+            if not margin <= 2 * bound:
+                raise AssertionError(
+                    f"shard {label}: event {i} chose another token where "
+                    f"sim's margin {margin:.4e} > {2 * bound:.4e}")
+            return i + 1, n, worst, (i, int(parted.sum()), margin / bound)
+    if any(len(t) != n for t in rank_tapes):
+        raise AssertionError(f"shard {label}: {[len(t) for t in rank_tapes]}"
+                             f" logits events against sim's {n}")
+    return n, n, worst, None
+SHARD_KW = dict(tp=2, spd=0.25, comm="quant8", comm_logits="quant8",
+                dtype="bfloat16", cache_len=512, max_batch=4, seed=0)
+# one kept sync's payload on the wire at llama2-7b's width, bf16: a batch-4
+# decode step and one 512-token prefill
+WIRE_PAYLOADS = (("decode", (4, 1, 4096)), ("prefill", (1, 512, 4096)))
+SHARD_DEADLINE_S = 420
+
+
+def ledger_rows(led) -> list:
+    return [(e.op, e.axis, e.nbytes, e.overlappable, e.block, e.phase)
+            for e in led]
+
+
+def shard_launches_want(size: int, kept: int, fwd: int, logits_q: bool):
+    """Each rank's kept-sync kernels over `fwd` forwards of `kept`
+    quantized kept syncs: the fused kernel in a group of one; across
+    ranks B4 once, B6 once per rank of the group and B3 once (hop 2) a
+    sync, B3 once more a forward (the logits gather), B5 never."""
+    q = fwd if logits_q else 0
+    if size == 1:
+        return {"quantized_psum_absmax": kept * fwd, "qdq_absmax": q,
+                "quantize_absmax": 0, "dequant_accum_absmax": 0}
+    return {"quantized_psum_absmax": 0, "quantize_absmax": kept * fwd,
+            "dequant_accum_absmax": size * kept * fwd,
+            "qdq_absmax": kept * fwd + q, "dequantize_absmax": 0}
+
+
+def shard_serve(torch, np, llm, prompts, paged=False):
+    """On a rank: a warm-up, then the counted, timed generate of
+    `prompts` under the ledger (and, paged, the warm prefix pair).  Every
+    rank checks at each step that all took the same tokens."""
+    from repro_torch.api import SamplingParams
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.parallel.collectives import collective_ledger
+
+    llm.engine.backend.check_agreement = True
+    llm.generate([prompts[0][:8]], SamplingParams(max_new=2))
+    names = (("prefill", "verify_paged", "decode_paged") if paged
+             else ("prefill", "decode"))
+    times = timed_engine(torch, llm.engine, names)
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    FA.paged_flash_attention.chunk_launches = 0
+    sched = llm.serve()
+    pre0 = sched.n_preemptions
+    t0 = time.perf_counter()
+    tape = LogitsTape(llm.engine).__enter__()   # on through the prefix pair
+    with collective_ledger() as led:
+        outs = llm.generate(prompts, SamplingParams(max_new=MAX_NEW))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    fwd = sum(len(v) for v in times.values())
+    dec = times[names[-1]]
+    res = dict(tokens=[o.token_ids for o in outs], ledger=ledger_rows(led),
+               launches=launches, fwd=fwd, kept=kept_syncs(llm),
+               prefill_ms=1e3 * sum(sum(times[n]) for n in names[:-1]),
+               decode_ms=1e3 * sum(dec) / max(len(dec), 1),
+               steps=len(dec), wall=wall,
+               n_tok=sum(len(o.token_ids) for o in outs))
+    if paged:
+        res["preemptions"] = sched.n_preemptions - pre0
+        res["pages_back"] = sched.pool.num_free
+        hits0, suf0 = sched.kv.prefix_hits, len(times["verify_paged"])
+        chunk0 = FA.paged_flash_attention.chunk_launches
+        pair = prefix_prompts(np, llm.cfg.vocab_size, 1)
+        res["prefix_tokens"] = [o.token_ids for o in llm.generate(
+            pair, SamplingParams(max_new=8))]
+        res["prefix_hits"] = sched.kv.prefix_hits - hits0
+        res["suffix_prefills"] = len(times["verify_paged"]) - suf0
+        res["chunk_launches"] = (FA.paged_flash_attention.chunk_launches
+                                 - chunk0)
+    tape.__exit__(None, None, None)
+    res["tape"] = tape.host()
+    return res
+
+
+def wire_ms(torch, g) -> dict:
+    """One kept sync's bf16 all-reduce over the model group at the
+    WIRE_PAYLOADS, CUDA events on this rank: ms per call (20 calls after
+    3), every rank calling."""
+    import torch.distributed as dist
+
+    out = {}
+    for name, shape in WIRE_PAYLOADS:
+        x = torch.randn(shape, device=g.device, dtype=torch.bfloat16)
+        for _ in range(3):
+            dist.all_reduce(x, group=g.model_group)
+        torch.cuda.synchronize()
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        for _ in range(20):
+            dist.all_reduce(x, group=g.model_group)
+        t1.record()
+        torch.cuda.synchronize()
+        out[name] = dict(shape=list(shape), bytes=x.numel() * 2,
+                         ms=t0.elapsed_time(t1) / 20)
+    return out
+
+
+def shard_rank_nccl(torch, np, g):
+    """(a): llama2-7b at full width at tp = the world, one rank a card:
+    sim at that tp on this rank's card, then the shard engine on the
+    same canonical weights."""
+    from repro_torch.api import LLM, SamplingParams
+    from repro_torch.config.base import replace
+    from repro_torch.configs import get_config
+
+    cfg = replace(get_config("llama2-7b"), attn_backend="pallas")
+    kw = dict(SHARD_KW, tp=g.tp)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in PROMPT_LENS]
+    sim = LLM.load(cfg, device=g.device, **kw)
+    sim.generate([prompts[0][:8]], SamplingParams(max_new=2))
+    sim_tokens = [o.token_ids for o in sim.generate(
+        prompts, SamplingParams(max_new=MAX_NEW))]
+    canonical = sim.canonical
+    del sim
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    llm = LLM.load(cfg, engine="shard", params=canonical, **kw)
+    out = shard_serve(torch, np, llm, prompts)
+    out["sim_tokens"] = sim_tokens
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    if g.world > 1:
+        out["wire"] = wire_ms(torch, g)
+    return out
+
+
+def shard_rank_gloo(torch, np, g):
+    """(b): two ranks on one card over gloo: SmolLM-360M dense and paged,
+    then llama2-7b dense, each at full width with the main path's
+    settings (SHARD_KW), the canonical weights drawn on the card and kept
+    on the host."""
+    import gc
+
+    from repro_torch.api import LLM
+    from repro_torch.config.base import replace
+    from repro_torch.configs import get_config
+
+    out = {}
+    cfg = replace(get_config("smollm-360m"), attn_backend="pallas")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in PROMPT_LENS]
+    llm = LLM.load(cfg, engine="shard", **SHARD_KW)
+    out["main path"] = shard_serve(torch, np, llm, prompts)
+    paged = LLM.load(cfg, tp=2, plan=llm.plan, cache_len=512, max_batch=4,
+                     page_size=PAGE_SIZE, num_pages=NUM_PAGES,
+                     params=llm.canonical, engine="shard")
+    out["paged path"] = shard_serve(torch, np, paged, prompts, paged=True)
+    del llm, paged
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = replace(get_config("llama2-7b"), attn_backend="pallas")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in PROMPT_LENS]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    llm = LLM.load(cfg, engine="shard", **SHARD_KW)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    out["llama2-7b path"] = shard_serve(torch, np, llm, prompts)
+    out["llama2-7b path"].update(
+        load_s=load_s, peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        held_gib=torch.cuda.memory_allocated() / 2 ** 30)
+    return out
+
+
+def shard_rank(rank, job):
+    """One rank of the shard phase (started by launch.dist.spawn): the TP
+    groups, then (a) or (b).  Kernels are loaded from build/, which the
+    parent built."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch.dist import init_tp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = init_tp(job["tp"], 1, backend=job["backend"], device=job["device"])
+    fn = shard_rank_nccl if job["backend"] == "nccl" else shard_rank_gloo
+    return fn(torch, np, g)
+
+
+def check_shard_path(np, label, tp, ranks, sim, transport, card, vocab):
+    """The same tokens on every rank; the ranks' logits against sim's
+    (`tapes_agree`), and the tokens equal to sim's unless the logits
+    parted within the bound; rank 0's ledger against sim's entry for
+    entry, and each rank's kernels.  Returns the parting (see
+    tapes_agree)."""
+    for r, res in enumerate(ranks):
+        if res["tokens"] != ranks[0]["tokens"]:
+            raise AssertionError(f"shard {label} rank {r}: tokens "
+                                 f"{res['tokens']} != rank 0's "
+                                 f"{ranks[0]['tokens']}")
+        want = shard_launches_want(tp, res["kept"], res["fwd"], True)
+        got = {k: res["launches"][k] for k in want}
+        if got != want:
+            raise AssertionError(f"shard {label} rank {r}: kept-sync "
+                                 f"launches {got} != {want}")
+        if res["launches"]["flash_attention_bhsd"] != sim["launches"][
+                "flash_attention_bhsd"] or not res["launches"][
+                    "flash_attention_bhsd"]:
+            raise AssertionError(f"shard {label} rank {r}: flash launches "
+                                 f"{res['launches']} against sim's "
+                                 f"{sim['launches']}")
+        print(f"shard {label} rank {r} launches: "
+              f"{json.dumps(res['launches'])} ({res['fwd']} forwards x "
+              f"{res['kept']} kept quantized syncs)")
+    done, n, worst, parted = tapes_agree(
+        np, label, sim["tape"], [rk["tape"] for rk in ranks], vocab)
+    r0 = ranks[0]
+    same = sum(a == b for t, u in zip(r0["tokens"], sim["tokens"])
+               for a, b in zip(t, u))
+    total = sum(len(t) for t in sim["tokens"])
+    if parted is None and r0["tokens"] != sim["tokens"]:
+        raise AssertionError(f"shard {label}: no logits event parted, yet "
+                             f"the tokens {r0['tokens']} != sim's "
+                             f"{sim['tokens']}")
+    if r0["ledger"] != sim["ledger"]:
+        raise AssertionError(f"shard {label}: rank 0's ledger "
+                             f"({len(r0['ledger'])} entries) != sim's "
+                             f"({len(sim['ledger'])})")
+    how = ("no argmax parted: the tokens equal sim's bit for bit"
+           if parted is None else
+           f"event {parted[0]} parted {parted[1]} row(s) at a sim top-2 "
+           f"margin of {parted[2]:.3f} x the bound (<= 2 allowed)")
+    print(f"shard {label} [{card}] tp {tp} over {transport}: the same "
+          f"tokens on {len(ranks)} ranks; logits within "
+          f"{TF_BF16_REL} x max|logit| of sim's on {done} of {n} events "
+          f"(largest err {worst:.4f} x the bound); {how}; {same}/{total} "
+          f"tokens equal sim's; rank 0's ledger equals sim's "
+          f"({len(r0['ledger'])} entries); prefill_ms={r0['prefill_ms']:.2f}"
+          f" decode_ms_per_token={r0['decode_ms']:.2f} ({r0['steps']} "
+          f"steps) tokens_per_s={r0['n_tok'] / r0['wall']:.1f}")
+    return parted
+
+
+# the hop kernels at the shard path's payloads: SmolLM-360M's kept sync
+# of a batch-4 decode step and of a 512-token prefill, one rank's row
+SHARD_HOP_SHAPES = ((1, 4 * 960), (1, 512 * 960))
+
+
+def shard_hop_rows(torch, launches) -> list:
+    """B4 (the send side) and B6 (the receive side) at SHARD_HOP_SHAPES:
+    bit for bit against their plain versions, timed beside them, B6
+    beside `torch.addcmul` and each at its bound; `launches` the shard
+    path's (rank 0's)."""
+    from repro_torch.kernels import quant_collectives as QC
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(25)
+    out = []
+    for rows, n in SHARD_HOP_SHAPES:
+        x = torch.randn(rows, n, generator=gen, device=dev)
+        acc = torch.randn(rows, n, generator=gen, device=dev)
+        q, s = QC.quantize_absmax(x, levels=127)
+        qp, sp = QC.quantize_absmax_plain(x, levels=127)
+        z = QC.dequant_accum_absmax(q, s, acc)
+        zp = QC.dequant_accum_absmax_plain(q, s, acc)
+        torch.cuda.synchronize()
+        if not (torch.equal(q, qp) and torch.equal(s, sp)
+                and torch.equal(z, zp)):
+            raise AssertionError(f"hop kernels not bit-identical at "
+                                 f"({rows},{n})")
+        sb = s.numel() * 4
+        qc, sc, ac = (q.view(rows, -1, QC.CHUNK), s[..., None],
+                      acc.view(rows, -1, QC.CHUNK))
+        prof = device_us(torch, lambda: (
+            QC.quantize_absmax(x, levels=127),
+            QC.dequant_accum_absmax(q, s, acc)),
+            QUANT_KERNELS[::2], need=QUANT_KERNELS[::2])
+        cases = (
+            ("quantize_absmax", ":93", "quant_kernel",
+             lambda: QC.quantize_absmax(x, levels=127),
+             lambda: QC.quantize_absmax_plain(x, levels=127), None,
+             4 * x.numel() + q.numel() + sb, 6.0 * x.numel()),
+            ("dequant_accum_absmax", ":137", "dequant_accum_kernel",
+             lambda: QC.dequant_accum_absmax(q, s, acc),
+             lambda: QC.dequant_accum_absmax_plain(q, s, acc),
+             lambda: torch.addcmul(ac, qc, sc),
+             q.numel() + sb + 8 * q.numel(), 2.0 * q.numel()))
+        for name, line, kname, fn, plain, lib, nbytes, flops in cases:
+            ms = cuda_ms(torch, fn, iters=100)
+            plain_ms = cuda_ms(torch, plain, iters=100)
+            library_ms = cuda_ms(torch, lib, iters=100) if lib else None
+            b_ms, b_by = bound_ms(nbytes, flops, "float32")
+            print(f"{name} at the shard path's ({rows},{n}): ms={ms:.5f} "
+                  f"plain_ms={plain_ms:.5f} library_ms={library_ms} "
+                  f"device_us_per_launch={prof[kname]} bound_ms={b_ms:.6f}")
+            out.append({"name": name, "route": "cuda",
+                        "source": "src/repro_torch/csrc/quant_collectives.cu",
+                        "replaces": "src/repro/kernels/quant_collectives.py"
+                                    + line,
+                        "launches": launches[name], "max_abs_err": 0.0,
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                        "bound_by": b_by, "library_ms": library_ms,
+                        "device_us": prof[kname],
+                        "shape": f"({rows},{n}) fp32 L=127, one rank's "
+                                 "SmolLM-360M kept sync on the shard "
+                                 "path (launches: rank 0's)"})
+    return out
+
+
+def shard_phase(torch, np, card):
+    """The shard engine on the card: (a) NCCL at the card count, (b) two
+    ranks on one card over gloo.  Returns each path's rank-0 launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dist import spawn
+
+    n = torch.cuda.device_count()
+    world = min(n, 4)
+    t0 = time.perf_counter()
+    if world == 1:
+        print("shard (a): one card, so a world of 1 on purpose (tp 1 over "
+              "nccl; no wire): llama2-7b through engine='shard' against "
+              "sim at tp 1")
+    else:
+        print(f"shard (a): {n} cards, tp {world} over nccl, one rank a "
+              "card: llama2-7b against sim at that tp, and the wire")
+    ranks = spawn(shard_rank, world, backend="nccl", device="cuda",
+                  args=(dict(tp=world, backend="nccl", device="cuda"),),
+                  deadline_s=SHARD_DEADLINE_S, timeout_s=300)
+    for r, res in enumerate(ranks):
+        if res["tokens"] != res["sim_tokens"] or (
+                res["tokens"] != ranks[0]["tokens"]):
+            raise AssertionError(f"shard (a) rank {r}: tokens "
+                                 f"{res['tokens']} != sim's "
+                                 f"{res['sim_tokens']}")
+        want = shard_launches_want(world, res["kept"], res["fwd"], True)
+        got = {k: res["launches"][k] for k in want}
+        if got != want or not res["launches"]["flash_attention_bhsd"]:
+            raise AssertionError(f"shard (a) rank {r}: launches "
+                                 f"{res['launches']}, want {want}")
+    r0 = ranks[0]
+    print(f"shard (a) [{card}] llama2-7b tp {world} over nccl: tokens equal "
+          f"sim's; launches {json.dumps(r0['launches'])}; prefill_ms="
+          f"{r0['prefill_ms']:.2f} decode_ms_per_token={r0['decode_ms']:.2f}"
+          f" peak_memory_gib={r0['peak_gib']:.2f} (sim's canonical weights "
+          f"beside the shard placement); {time.perf_counter() - t0:.1f} s")
+    if "wire" in r0:
+        print(f"shard (a) wire [{card}]: one kept sync's bf16 all-reduce "
+              f"over nccl at tp {world}, CUDA events on rank 0: "
+              f"{json.dumps(r0['wire'])}")
+
+    t0 = time.perf_counter()
+    ranks = spawn(shard_rank, 2, backend="gloo", device="cuda:0",
+                  args=(dict(tp=2, backend="gloo", device="cuda:0"),),
+                  deadline_s=SHARD_DEADLINE_S, timeout_s=300)
+    transport = ("gloo on one card (CUDA tensors staged through the host: "
+                 "these times measure a host-staged wire, not NVLink)")
+    out = {"shard (a)": r0["launches"]}
+    parted = {}
+    for label in SHARD_LABELS:
+        res = [rk[label] for rk in ranks]
+        vocab = get_config("llama2-7b" if label.startswith("llama")
+                           else "smollm-360m").vocab_size
+        parted[label] = check_shard_path(np, label, 2, res, SIM_RUNS[label],
+                                         transport, card, vocab)
+        out[label] = res[0]["launches"]
+    for r, rk in enumerate(ranks):
+        p = rk["paged path"]
+        if (p["preemptions"] < 1 or p["pages_back"] != NUM_PAGES
+                or p["prefix_hits"] < 1
+                or p["prefix_tokens"] != ranks[0]["paged path"][
+                    "prefix_tokens"]
+                or (parted["paged path"] is None and p["prefix_tokens"]
+                    != SIM_RUNS["paged path"]["prefix_tokens"])
+                or not p["launches"]["paged_flash_attention"]
+                or not p["chunk_launches"]):
+            raise AssertionError(f"shard paged path rank {r}: {p}")
+    p, ll = ranks[0]["paged path"], ranks[0]["llama2-7b path"]
+    print(f"shard paged path: preemptions={p['preemptions']} pages back "
+          f"{p['pages_back']}/{NUM_PAGES}, warm prefix pair: prefix_hits="
+          f"{p['prefix_hits']} suffix_prefills={p['suffix_prefills']} chunk "
+          f"launches {p['chunk_launches']}, prefix tokens equal sim's: "
+          f"{p['prefix_tokens'] == SIM_RUNS['paged path']['prefix_tokens']}")
+    for r, rk in enumerate(ranks):
+        q = rk["llama2-7b path"]
+        print(f"shard llama2-7b rank {r}: loaded in {q['load_s']:.1f} s, "
+              f"peak_memory_gib={q['peak_gib']:.2f} (load included; the "
+              f"canonical weights kept on the host), "
+              f"{q['held_gib']:.2f} GiB held after")
+    print(f"shard (b) over {transport}: {time.perf_counter() - t0:.1f} s; "
+          f"llama2-7b decode_ms_per_token={ll['decode_ms']:.2f}")
+    return out
+
+
 def clock(t_start, what):
     """Where the run's time goes: seconds since the build at the end of
     each part."""
@@ -4395,6 +4946,13 @@ def main() -> int:
     deepseek_launches = deepseek_phase(torch, np, card)
     clock(t_start, "the deepseek paths")
 
+    # the shard engine: one process per shard, against the sim runs above
+    release(torch)
+    shard_launches = shard_phase(torch, np, card)
+    print(f"shard path launches (rank 0): {json.dumps(shard_launches)}")
+    hop_rows = shard_hop_rows(torch, shard_launches["main path"])
+    clock(t_start, "the shard phase")
+
     # each kernel's launches on the main path it serves: the paged kernel
     # on the paged path, quantize and dequant-accumulate on the ring
     # phase, the SSD scan on the mamba path, the rest on the dense path
@@ -4438,6 +4996,8 @@ def main() -> int:
     deepseek_row.pop("_path")
     deepseek_row["launches"] = deepseek_launches["qdq_absmax"]
     kernels.append(deepseek_row)
+    # B4 and B6 at the shard path's payloads: rank 0's launches there
+    kernels += hop_rows
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
           f"build")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

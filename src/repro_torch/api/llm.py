@@ -25,8 +25,25 @@ decoding and streaming).
 Runs on the CUDA device by default; with no CUDA device it raises
 unless `device="cpu"` is asked for explicitly (there is no silent CPU
 path).  Arguments that belong to later slices of the port (cluster
-replicas, other backends, observability) raise NotImplementedError when
-given.
+replicas, observability) raise NotImplementedError when given.
+
+`engine="shard"` runs one process per TP shard (tp x dp ranks; rank
+d * tp + m is data rank d, model rank m).  Every rank runs the same
+program after `launch.dist.init_tp`, e.g. under
+`torchrun --nproc-per-node 2 app.py`:
+
+    from repro_torch.launch.dist import init_tp
+    init_tp(2, 1, backend="nccl")         # on the CPU: backend="gloo",
+                                          # device="cpu"
+    llm = LLM.load("llama2-7b", tp=2, spd=0.25, comm="quant8",
+                   engine="shard")        # on cuda:LOCAL_RANK
+    outs = llm.generate(prompts)          # the same outputs on every rank
+
+or `launch.dist.spawn(fn, world, backend=, device=)` from one process.
+Without the groups it raises.  Dense GQA stacks only, dense or paged
+caches; speculation, chunked prefill, the other families, int8 caches
+and weights, Algorithm 1 and training raise NotImplementedError there
+(ROADMAP A5).
 """
 from __future__ import annotations
 
@@ -70,6 +87,55 @@ def resolve_device(device) -> torch.device:
     return torch.device("cuda")
 
 
+def _rank_groups(device):
+    """This rank's groups (`launch.dist.init_tp`) for a multi-process
+    engine; raises without them (there is no single-process stand-in)."""
+    from repro_torch.launch import dist as D
+    g = D.current()
+    if g is None:
+        raise NotImplementedError(
+            "engine='shard' runs one process per shard and has no "
+            "single-process form (ROADMAP A5): call "
+            "repro_torch.launch.dist.init_tp(tp, dp, backend=...) in every "
+            "rank first (torchrun, or launch.dist.spawn)")
+    if device is not None and torch.device(device) != g.device:
+        raise ValueError(f"device {device} is not this rank's {g.device}")
+    return g
+
+
+def _no_overlap_in_rank() -> None:
+    from repro_torch.launch import dist as D
+    g = D.current()
+    if g is not None and g.world > 1:
+        raise NotImplementedError(
+            "the overlap engine on the shard backend's ranks is not ported "
+            "yet (ROADMAP A5b); it runs every shard on one device")
+
+
+def _check_shard(cfg, *, prefill_chunk) -> None:
+    """What the shard engine serves: dense GQA stacks with fp caches and
+    weights, dense or paged, without chunked prefill (speculation:
+    `enable_spec`)."""
+    from repro_torch.core.layer_kinds import layer_kinds
+    if prefill_chunk:
+        raise NotImplementedError("chunked prefill on the shard engine is "
+                                  "not ported yet (ROADMAP A5c)")
+    kinds = layer_kinds(cfg)
+    family = next((k.mixer for k in kinds if k.mixer != "gqa"), None)
+    if family is None and any(k.ffn != "mlp" for k in kinds):
+        family = "moe"
+    if family is None and any(k.window for k in kinds):
+        family = "windowed attention"
+    if family is None and cfg.frontend_dim:
+        family = "frontend"
+    if family is None and "int8" in (cfg.kv_dtype, cfg.weight_dtype):
+        family = "int8 KV / weights"
+    if family is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the {family} family on the shard engine is not "
+            "ported yet (ROADMAP A5d); it serves dense GQA stacks")
+
+
 def _as_prompts(prompts) -> List[np.ndarray]:
     if isinstance(prompts, np.ndarray):
         prompts = [prompts] if prompts.ndim == 1 else list(prompts)
@@ -95,9 +161,10 @@ class LLM:
 
     def __init__(self, cfg, plan, engine_kind, canonical,
                  cache: CacheConfig, *, tp: int, dp: int, q_chunk: int,
-                 device):
+                 device, groups=None):
         self.cfg, self.plan = cfg, plan
         self.engine_kind = engine_kind
+        self.groups = groups          # launch.dist.TPGroups on `shard`
         self.canonical = canonical
         self.cache = cache
         self.tp, self.dp, self.q_chunk = tp, dp, q_chunk
@@ -122,9 +189,12 @@ class LLM:
              dp_replicas: int = 1, obs=None, device=None) -> "LLM":
         """Load `arch` (config name or ModelConfig) onto an engine.
 
-        engine     "sim" (every shard on one device) or "overlap" (sim
+        engine     "sim" (every shard on one device), "overlap" (sim
                    plus the ring-step comm ledger and pipelined decode;
-                   the same tokens).
+                   the same tokens) or "shard" (one process per shard,
+                   see the module doc; the canonical weights are drawn on
+                   the card and kept on the host, so a rank's card holds
+                   its shard).
         spd        fraction of blocks to SPD-drop (first-k plan), ignored
                    when an explicit `plan` is given; no block drops on
                    an attention-free (SSM) model, which has one sync
@@ -143,7 +213,8 @@ class LLM:
         params     canonical parameter tree (e.g. carried over from the
                    reference with core.convert.from_reference); a fresh
                    seeded `init_model` when omitted.
-        device     where the shards live: CUDA by default, "cpu" only on
+        device     where the shards live: CUDA by default (on "shard",
+                   the rank's own: cuda:LOCAL_RANK), "cpu" only on
                    request.
         prefill_chunk
                    prefill prompts in chunks of this many tokens (either
@@ -163,20 +234,33 @@ class LLM:
         if dp_replicas != 1:
             raise NotImplementedError("dp_replicas > 1 is not ported yet "
                                       "(ROADMAP A6)")
-        if engine not in ("sim", "overlap"):
-            raise NotImplementedError(
-                f"engine={engine!r} is not ported yet (only 'sim' and "
-                "'overlap'; the multi-process backend is ROADMAP A5)")
         from repro_torch.configs import get_config
         from repro_torch.core import model as M
+        from repro_torch.parallel.backend import backend_names, resolve_backend
 
+        if engine not in backend_names():
+            raise NotImplementedError(
+                f"engine={engine!r} is not ported (the engines are "
+                f"{backend_names()}; ROADMAP A5)")
         cache = CacheConfig(cache_len=cache_len, max_batch=max_batch,
                             page_size=page_size, num_pages=num_pages,
                             prefill_chunk=prefill_chunk)
-        dev = resolve_device(device)
         cfg = arch if isinstance(arch, ModelConfig) else get_config(arch)
         if dtype is not None:
             cfg = replace(cfg, dtype=dtype)
+        keep = groups = None
+        if resolve_backend(engine).multi_process:
+            groups = _rank_groups(device)
+            dev = groups.device
+            _check_shard(cfg, prefill_chunk=prefill_chunk)
+            if max_batch % dp:
+                raise ValueError(f"max_batch {max_batch} does not split over "
+                                 f"dp {dp} data ranks")
+            keep = torch.device("cpu")
+        else:
+            if engine == "overlap":
+                _no_overlap_in_rank()
+            dev = resolve_device(device)
         if plan is None:
             k = int(round(cfg.n_layers * spd)) if cfg.spd_applicable else 0
             plan = SPDPlanConfig.first_k(cfg.n_layers, k)
@@ -187,9 +271,10 @@ class LLM:
             plan = plan.with_comm(_resolve_comm(comm, cfg.n_layers,
                                                 comm_logits))
         canonical = (params if params is not None
-                     else M.init_model(cfg, seed=seed, device=dev))
+                     else M.init_model(cfg, seed=seed, device=dev,
+                                       keep=keep))
         llm = cls(cfg, plan, engine, canonical, cache, tp=tp, dp=dp,
-                  q_chunk=q_chunk, device=dev)
+                  q_chunk=q_chunk, device=dev, groups=groups)
         llm._build_engine()
         if spec is not None:
             llm.enable_spec(spec)
@@ -201,7 +286,8 @@ class LLM:
         from repro_torch.runtime.engines import Engine
 
         backend = make_backend(self.engine_kind, self.cfg, plan, tp=self.tp,
-                               dp=self.dp, device=self.device)
+                               dp=self.dp, device=self.device,
+                               groups=self.groups)
         return Engine(self.cfg, plan, backend, q_chunk=self.q_chunk)
 
     def _place(self, engine, padded=None):
@@ -251,6 +337,10 @@ class LLM:
         self."""
         from repro_torch.spec import SpecConfig, SpecError, derive_draft_plan
 
+        if self.engine.backend.multi_process:
+            raise NotImplementedError("speculative decoding on the shard "
+                                      "engine is not ported yet (ROADMAP "
+                                      "A5c)")
         if not isinstance(spec, SpecConfig):
             raise TypeError(f"spec must be a repro_torch.spec.SpecConfig, "
                             f"got {spec!r}")
@@ -422,6 +512,13 @@ class LLM:
 
     # ---------------- the paper's SPD pipeline ----------------
 
+    def _single_process(self, what: str) -> None:
+        """Algorithm 1 (the sweep, distillation) runs on one device."""
+        if self.engine.backend.multi_process:
+            raise NotImplementedError(
+                f"{what} on the shard engine is not ported yet (ROADMAP "
+                "A5e); run it on engine='sim' and serve the plan")
+
     def apply_spd(self, calib_batches, *, n_spd: int, tau1: float,
                   tau2: float, lr: float = 5e-5, epochs: int = 10,
                   strategies=("ZS", "B2B", "HG"),
@@ -436,6 +533,7 @@ class LLM:
         dropped."""
         from repro_torch.core import spd as SPD
 
+        self._single_process("apply_spd")
         SPD.require_algorithm1(self.cfg)
         self._release_engine()
         padded = None
@@ -462,6 +560,7 @@ class LLM:
         SensitivityResult; `self.plan.comm` holds the policy after."""
         from repro_torch.core import spd as SPD
 
+        self._single_process("apply_comm_policy")
         SPD.require_algorithm1(self.cfg)
         self._release_engine()
         try:

@@ -32,6 +32,12 @@ The rejected suffix rolls back: dense caches rewind the position,
 paged slots return their suffix pages (`PagePool.shrink`).  Greedy
 streams equal plain decoding's token for token.
 
+On the `shard` engine every rank runs this same host program: its
+decisions (admission, preemption, prefix hits, sampled tokens) depend
+only on the tokens, which the logits all-gather makes equal on every
+rank.  `backend.agree` checks that at each admission and decode step
+when the backend's `check_agreement` is set (off by default).
+
 Divergence from the reference: when no slot is active after admission
 (or after paged growth), `step` returns whether requests are still
 queued.  The reference returns False after admission
@@ -482,6 +488,7 @@ class Scheduler:
                 else:
                     logits, caches1 = self._prefill(toks, s)
                 first = self._first_token(req, logits)
+                self.engine.backend.agree([first])
             except BaseException:
                 # free the pages admit_begin reserved and requeue
                 self.kv.release(b)
@@ -823,6 +830,7 @@ class Scheduler:
         if not active:
             return bool(self.queue)
         nxt = self._decode_active(active).cpu().numpy()
+        self.engine.backend.agree(nxt[active, 0])
         for b in active:
             req = self.slots[b]
             tok = int(nxt[b, 0])

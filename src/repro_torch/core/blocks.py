@@ -50,8 +50,8 @@ from repro_torch.models import attention as A
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.common import act_fn, apply_rope, norm_apply, rmsnorm
-from repro_torch.parallel.collectives import (column_entry, shared_param,
-                                              sync_output)
+from repro_torch.parallel.collectives import (column_entry, shard_ids,
+                                              shared_param, sync_output)
 from repro_torch.parallel.layout import (REPLICATED, kv_head_orig,
                                          make_gqa_layout, pad_heads,
                                          q_head_orig)
@@ -842,7 +842,7 @@ def moe_partial(cfg, mo_p, h):
     cap = max(int(mo.capacity_factor * t * mo.top_k / max(mo.n_routed, 1)),
               mo.top_k)
     slot_token, tok_slot = MOE.dispatch_local(
-        idx, torch.arange(tp, device=h.device) * e_l, e_l, cap)
+        idx, shard_ids(h) * e_l, e_l, cap)
     part = MOE.moe_local(hf, gates, tok_slot, slot_token, mo_p.get("wg"),
                          mo_p["wu"], mo_p["wd"], cfg.act, cfg.gated_mlp)
     part = part.to(h.dtype)

@@ -29,7 +29,7 @@ from repro_torch.core import blocks as B
 from repro_torch.core.layer_kinds import layer_kinds, plan_segments
 from repro_torch.parallel.collectives import (column_entry, comm_context,
                                               ledger_paused, ledger_scale,
-                                              pmax, sync_output)
+                                              pmax, shard_ids, sync_output)
 from repro_torch.parallel.layout import REPLICATED, make_gqa_layout
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -38,26 +38,36 @@ from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 # Init / specs / padding
 # ---------------------------------------------------------------------------
 
-def init_model(cfg: ModelConfig, *, seed: int = 0, device="cpu") -> dict:
+def init_model(cfg: ModelConfig, *, seed: int = 0, device="cpu",
+               keep=None) -> dict:
     """Canonical (unpadded, unstacked) parameters from a seeded
     torch.Generator (not the reference's numbers: parity tests carry the
-    reference's parameters across with `core.convert.from_reference`)."""
+    reference's parameters across with `core.convert.from_reference`).
+    The numbers are drawn on `device`; `keep` moves each leaf there as
+    soon as its layer is drawn (the shard backend keeps the canonical
+    tree on the host, so a rank's card holds only its shard)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     f32 = dict(dtype=torch.float32, device=device)
+    dt = B.torch_dtype(cfg)
+
+    def kept(t):
+        return t if keep is None else tree_map(lambda w: w.to(keep), t)
+
     emb = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
                       **f32) * 0.02
-    p = {"emb": emb.to(B.torch_dtype(cfg)),
-         "lnf": B._norm_init(cfg, cfg.d_model, device),
-         "layers": [B.init_layer(gen, cfg, k, device)
+    p = {"emb": kept(emb.to(dt)),
+         "lnf": kept(B._norm_init(cfg, cfg.d_model, device)),
+         "layers": [kept(B.init_layer(gen, cfg, k, device))
                     for k in layer_kinds(cfg)]}
+    del emb
     if not cfg.tie_embeddings:
         head = torch.randn((cfg.d_model, cfg.vocab_size), generator=gen,
                            **f32) / cfg.d_model ** 0.5
-        p["head"] = head.to(B.torch_dtype(cfg))
+        p["head"] = kept(head.to(dt))
     if cfg.pos_emb == "learned":
         pos = torch.randn((cfg.max_seq_len, cfg.d_model), generator=gen,
                           **f32) * 0.02
-        p["pos"] = pos.to(B.torch_dtype(cfg))
+        p["pos"] = kept(pos.to(dt))
     return p
 
 
@@ -123,10 +133,11 @@ def unstack_segments(stacked: dict, cfg: ModelConfig,
 def embed_tokens(emb, tokens):
     """emb (tp, Vl, d); tokens (B,S) -> (tp,B,S,d) via a masked psum."""
     tp, vl = emb.shape[:2]
-    shard = torch.arange(tp, device=emb.device).view(tp, 1, 1)
+    shard = shard_ids(emb).view(tp, 1, 1)
     local = tokens[None] - shard * vl
     valid = (local >= 0) & (local < vl)
-    e = emb[shard, local.clamp(0, vl - 1)]
+    rows = torch.arange(tp, device=emb.device).view(tp, 1, 1)
+    e = emb[rows, local.clamp(0, vl - 1)]
     e = torch.where(valid[..., None], e, torch.zeros_like(e))
     return sync_output(e, compressible=False)
 
@@ -308,8 +319,8 @@ def token_ce(logits, labels, cfg):
     row max carries no gradient, as the reference's stop_gradient.
     Returns ce (tp,B,S): every shard holds the same values, each through
     its own graph."""
-    tp, vl = logits.shape[0], logits.shape[-1]
-    shard = torch.arange(tp, device=logits.device)
+    vl = logits.shape[-1]
+    shard = shard_ids(logits)
     gcol = shard[:, None] * vl + torch.arange(vl, device=logits.device)
     logits = torch.where((gcol < cfg.vocab_size)[:, None, None], logits,
                          torch.full_like(logits, -1e30))

@@ -23,7 +23,8 @@ from repro_torch.config.base import ModelConfig, SPDPlanConfig
 from repro_torch.core import blocks as B
 from repro_torch.core import model as M
 from repro_torch.core.layer_kinds import plan_segments
-from repro_torch.parallel.layout import REPLICATED, merge_leaf, split_leaf
+from repro_torch.parallel.layout import (REPLICATED, merge_leaf, shard_leaf,
+                                         split_leaf)
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -33,13 +34,33 @@ def _split_with_offset(tree, specs, tp, offset):
 
 
 def split_padded(padded: dict, cfg: ModelConfig, plan: SPDPlanConfig,
-                 tp: int) -> dict:
+                 tp: int, *, rank=None, device=None) -> dict:
     """Padded per-layer list -> every leaf with a leading (tp, ...) axis
     (segment leaves carry their layer axis at dim 1): the reference's
     `split_stacked(stack_segments(padded))` in one pass.  Each segment
     leaf is stacked and split on its own, so at most one stacked leaf
-    lives beside the result (a 7B model is not held three times over)."""
+    lives beside the result (a 7B model is not held three times over).
+
+    With `rank` (the shard backend's per-rank placement) only shard
+    `rank` of each leaf is made, (1, ...), and moved to `device`: each
+    layer's slice is cut before the layers stack, so a rank never holds
+    more than its own shard beside the padded tree."""
     specs = M.stacked_specs(cfg, plan)
+    if rank is not None:
+        def cut(w, a):
+            return shard_leaf(w, a, tp, rank).to(device)
+
+        out = {k: tree_map(cut, v, specs[k])
+               for k, v in padded.items() if k != "layers"}
+        out["segs"] = []
+        for (start, length, _, _), ss in zip(
+                plan_segments(cfg, plan.drop_mask, plan.qmodes),
+                specs["segs"]):
+            layers = padded["layers"][start:start + length]
+            out["segs"].append(tree_map(
+                lambda a, *ws: torch.cat([cut(w, a) for w in ws])[None],
+                ss, *layers))
+        return out
     out = {k: _split_with_offset(v, specs[k], tp, offset=0)
            for k, v in padded.items() if k != "layers"}
     out["segs"] = []

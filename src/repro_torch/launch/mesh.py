@@ -6,7 +6,10 @@ a layout of the optimizer state and of the comm ledger (parallel/tp.py).
 A `SimMesh` carries what the reference's callers read of a
 `jax.sharding.Mesh`: `.shape` (axis name -> degree), `.axis_names` and
 `.devices`, an array of slot ids shaped like the mesh.  It is not a
-`torch.distributed` mesh: a multi-process backend is ROADMAP item A5.
+`torch.distributed` mesh: the real-device counterpart of
+`make_test_mesh` is `launch/dist.init_tp` (one process per shard, rank
+d * tp + m at data rank d and model rank m), which the `shard` engine
+serves on.
 """
 from __future__ import annotations
 

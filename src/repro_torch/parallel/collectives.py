@@ -42,6 +42,14 @@ concatenations over the axis, and each logs the entry the reference's
 shard_map logs, with the bytes one device of the mesh holds.  Inside
 `ledger_share(n)` a forward over the rows of n data slots at once logs
 one slot's bytes.
+
+On the `shard` backend each process holds ONE shard (dim 0 of size 1)
+and the backend binds a model-group context (`model_group`) around every
+step: `psum`, `pmax` and `ppermute` then reduce or permute over that
+torch.distributed group after the local op over dim 0, `axis_size` is
+the group's size and `shard_ids` this rank's shard index.  Without a
+context (the `sim` backend) every path is the single-device one.  The
+ledger logs the same entries either way.
 """
 from __future__ import annotations
 
@@ -286,9 +294,95 @@ def shard_nbytes(x) -> int:
     return x[0].numel() * x.element_size()
 
 
+# ---------------------------------------------------------------------------
+# The model-group context of the multi-process (`shard`) backend
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ModelGroup:
+    """The TP group a rank's step runs in: `size` shards, this rank
+    holding shard `index`, `group` the torch.distributed group."""
+
+    size: int
+    index: int
+    group: object
+
+
+class _GroupCtx(threading.local):
+    def __init__(self):
+        self.ctx: Optional[ModelGroup] = None
+
+
+_GROUP = _GroupCtx()
+
+
+@contextmanager
+def model_group(ctx: Optional[ModelGroup]):
+    """Run the syncs inside over `ctx`'s group (None: the sim layout)."""
+    prev, _GROUP.ctx = _GROUP.ctx, ctx
+    try:
+        yield ctx
+    finally:
+        _GROUP.ctx = prev
+
+
+def current_group() -> Optional[ModelGroup]:
+    return _GROUP.ctx
+
+
+def _wired() -> Optional[ModelGroup]:
+    """The bound context when its group has more than one rank."""
+    ctx = _GROUP.ctx
+    return ctx if ctx is not None and ctx.size > 1 else None
+
+
+def axis_size(x) -> int:
+    """The TP degree a shard-stacked x belongs to: the bound group's size,
+    else x's shard axis."""
+    ctx = _GROUP.ctx
+    return ctx.size if ctx is not None else x.shape[0]
+
+
+def shard_ids(x):
+    """The global shard index of each row of x's shard axis (int64, on
+    x's device): 0..tp-1 on sim, this rank's index on `shard`."""
+    ids = torch.arange(x.shape[0], device=x.device)
+    ctx = _GROUP.ctx
+    return ids if ctx is None else ids + ctx.index * x.shape[0]
+
+
+def group_reduce(t, op: str):
+    """In-place all-reduce of t over the bound group (`op` "sum", "max"
+    or "min")."""
+    import torch.distributed as dist
+
+    ops = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+           "min": dist.ReduceOp.MIN}
+    dist.all_reduce(t, op=ops[op], group=_GROUP.ctx.group)
+    return t
+
+
+def gather_shards(x):
+    """x's shard axis all-gathered over the bound group, in rank order
+    ((size x local, ...)); x itself without a wired group."""
+    ctx = _wired()
+    if ctx is None:
+        return x
+    import torch.distributed as dist
+
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(ctx.size)]
+    dist.all_gather(parts, x, group=ctx.group)
+    return torch.cat(parts, 0)
+
+
 def psum(x):
-    """All-reduce over the shard axis: sum over dim 0, on every shard."""
-    return x.sum(dim=0, keepdim=True).expand_as(x)
+    """All-reduce over the shard axis: sum over dim 0, on every shard (then
+    over the bound group's ranks)."""
+    s = x.sum(dim=0, keepdim=True)
+    if _wired() is not None:
+        s = group_reduce(s, "sum")
+    return s.expand_as(x)
 
 
 def _records(x) -> bool:
@@ -339,15 +433,46 @@ def pmax(x, axis=MODEL_AXIS):
     """Max all-reduce over the shard axis (the vocab-parallel CE's row
     max); logged as an all-reduce of the same payload."""
     log_collective("all-reduce", axis, shard_nbytes(x))
-    return x.amax(dim=0, keepdim=True).expand_as(x)
+    m = x.amax(dim=0, keepdim=True)
+    if _wired() is not None:
+        m = group_reduce(m, "max")
+    return m.expand_as(x)
+
+
+def _permute_ranks(x, perm):
+    """ppermute across the bound group's ranks: each rank holds one row
+    (dim 0 of size 1)."""
+    import torch.distributed as dist
+
+    ctx = _wired()
+    n, me = ctx.size, ctx.index
+    if perm is None:
+        perm = [(i, (i + 1) % n) for i in range(n)]
+    x = x.contiguous()
+    out = torch.zeros_like(x)
+    ranks = dist.get_process_group_ranks(ctx.group)
+    ops = [dist.P2POp(dist.isend, x, ranks[dst], ctx.group)
+           for src, dst in perm if src == me and dst != me]
+    ops += [dist.P2POp(dist.irecv, out, ranks[src], ctx.group)
+            for src, dst in perm if dst == me and src != me]
+    if any(src == dst == me for src, dst in perm):
+        out.copy_(x)
+    for w in dist.batch_isend_irecv(ops) if ops else ():
+        w.wait()
+    return out
 
 
 def ppermute(x, axis=MODEL_AXIS, perm=None):
     """A permutation of the rows of a simulated axis (dim 0): with `perm`
     None the ring i -> i+1 (row j receives row j-1); else `perm` pairs
     (src, dst) and a row no pair reaches is zero, as jax.lax.ppermute's.
-    Logged as one collective-permute of one row's bytes."""
+    Under a wired model group the rows are the group's ranks.  Logged as
+    one collective-permute of one row's bytes."""
     log_collective("collective-permute", axis, shard_nbytes(x))
+    if _wired() is not None and axis == MODEL_AXIS:
+        if x.shape[0] != 1:
+            raise ValueError("a rank of the shard backend holds one shard")
+        return _permute_ranks(x, perm)
     if perm is None:
         return torch.roll(x, 1, dims=0)
     rows = [torch.zeros_like(x[0])] * x.shape[0]

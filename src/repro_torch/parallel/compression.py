@@ -17,6 +17,13 @@ autograd both are Functions whose forward is that same call and whose
 backward is the identity: the reference's straight-through estimator
 for `qdq`, and `g_psum`'s backward for the kept sync.
 
+On the `shard` backend (a wired model group, one shard a rank) hop 1
+travels as int8 codes: B4 (`quantize_absmax`) quantizes this rank's
+partial, the codes and fp32 scales are all-gathered over the group, and
+B6 (`dequant_accum_absmax`) adds every rank's partial in rank order from
++0, the fused kernel's order; B3 (`qdq_absmax`) is hop 2.  So a rank
+gets the `sim` engine's bits at every tp.
+
 The runnable ring collectives at the end (`ring_all_gather`,
 `ring_reduce_scatter`, `ring_quantized_psum`) execute the chunked ring
 schedule that the overlap backend's ledger accounts for, one
@@ -34,7 +41,8 @@ from repro_torch.kernels.quant_collectives import (dequant_accum_absmax,
                                                    qdq_absmax,
                                                    quantize_absmax,
                                                    quantized_psum_absmax)
-from repro_torch.parallel.collectives import (MODEL_AXIS, log_collective,
+from repro_torch.parallel.collectives import (MODEL_AXIS, axis_size,
+                                              current_group, log_collective,
                                               overlap_chunks, ppermute,
                                               ring_wire_bytes)
 
@@ -85,11 +93,48 @@ class _QuantizedPsum(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, flat, levels, chunk):
-        return quantized_psum_absmax(flat, levels=levels, chunk=chunk)
+        return _two_hops(flat, levels, chunk)
 
     @staticmethod
     def backward(ctx, ct):
         return ct, None, None
+
+
+def gather_codes(q, s):
+    """All-gather of this rank's int8 codes (1, n) and fp32 scales (1,
+    n/chunk) over the wired model group, as one int8 message of n + 4
+    n/chunk bytes a rank: (size, n) and (size, n/chunk), in rank
+    order."""
+    import torch.distributed as dist
+
+    ctx = current_group()
+    n = q.shape[1]
+    msg = torch.cat([q.reshape(-1), s.reshape(-1).view(torch.int8)])
+    parts = [torch.empty_like(msg) for _ in range(ctx.size)]
+    dist.all_gather(parts, msg, group=ctx.group)
+    got = torch.stack(parts)
+    return (got[:, :n].contiguous(),
+            got[:, n:].contiguous().view(torch.float32))
+
+
+def _two_hops(flat, levels: int, chunk: int):
+    """Both hops of a quantized kept sync of the shard-stacked flat
+    payload: one fused launch when every shard is on this device (sim, or
+    a group of one); across ranks, B4 -> all-gather of the codes -> B6
+    in rank order from +0 -> B3."""
+    ctx = current_group()
+    if ctx is None or ctx.size == 1:
+        return quantized_psum_absmax(flat, levels=levels, chunk=chunk)
+    if flat.shape[0] != 1:
+        raise ValueError("a rank of the shard backend holds one shard")
+    q, s = quantize_absmax(flat.float().contiguous(), levels=levels,
+                           chunk=chunk)
+    qa, sa = gather_codes(q, s)
+    acc = torch.zeros_like(flat, dtype=torch.float32)
+    for r in range(ctx.size):
+        acc = dequant_accum_absmax(qa[r:r + 1], sa[r:r + 1], acc,
+                                   chunk=chunk)
+    return qdq_absmax(acc, levels=levels, chunk=chunk).to(flat.dtype)
 
 
 def _records(x) -> bool:
@@ -133,16 +178,17 @@ def quantized_psum(x, axis, *, bits: int = 8, chunk: int = DEFAULT_CHUNK):
     """Low-bit psum over the shard axis (dim 0); returns x's dtype:
     qdq of each shard's payload (hop 1), their sum, qdq of the sum
     (hop 2), on every shard.  Differentiable: the backward is the
-    identity, as the exact sync's (`collectives.g_psum`)."""
-    tp = x.shape[0]
+    identity, as the exact sync's (`collectives.g_psum`).  `tp` is the
+    bound model group's size on the shard backend (x holds one shard)."""
+    tp = axis_size(x)
     n = x[0].numel()
     _log_two_hop(axis, wire_bytes(n, bits, chunk),
                  wire_bytes(-(-n // tp), bits, chunk), tp)
-    flat = x.reshape(tp, -1).contiguous()
+    flat = x.reshape(x.shape[0], -1).contiguous()
     if _records(flat):
         y = _QuantizedPsum.apply(flat, _levels(bits), chunk)
     else:
-        y = quantized_psum_absmax(flat, levels=_levels(bits), chunk=chunk)
+        y = _two_hops(flat, _levels(bits), chunk)
     return y.reshape(x.shape)
 
 
@@ -150,7 +196,8 @@ def quantized_gather_payload(x, axis, *, bits: int = 8,
                              chunk: int = DEFAULT_CHUNK):
     """Model a low-bit all-gather of each shard's payload (the
     vocab-parallel logits slice): qdq it and log the gather at quantized
-    bytes; the caller does the gather."""
+    bytes; the caller does the gather (on the shard backend an fp32
+    all-gather of the round-tripped slices)."""
     log_collective("all-gather", axis, wire_bytes(x[0].numel(), bits, chunk))
     return qdq(x, bits=bits, chunk=chunk).to(x.dtype)
 
@@ -171,10 +218,18 @@ def _pad_to(flat, n: int):
         (flat, flat.shape[-1])
 
 
+def _sim_only(what: str) -> None:
+    if current_group() is not None:
+        raise NotImplementedError(
+            f"{what} across the shard backend's ranks is not ported yet "
+            "(ROADMAP A5b)")
+
+
 def ring_all_gather(x, axis=MODEL_AXIS):
     """Ring all-gather of shard-stacked x (n, ...): returns (n, n, ...),
     [d, j] = shard j's x on every shard d; n-1 ring steps, each a
     collective-permute."""
+    _sim_only("ring_all_gather")
     n = x.shape[0]
     if n == 1:
         return x[:, None]
@@ -193,6 +248,7 @@ def ring_reduce_scatter(x, axis=MODEL_AXIS):
     slice d (length ceil(size/n), zero-padded) of the cross-shard sum of
     its flattened payload, fp32 (n, ceil(size/n)).  n-1 steps, each
     forwarding one partial slice and adding the local contribution."""
+    _sim_only("ring_reduce_scatter")
     n = x.shape[0]
     flat = x.float().reshape(n, -1)
     if n == 1:
@@ -217,6 +273,7 @@ def ring_quantized_psum(x, axis=MODEL_AXIS, *, bits: int = 8,
     `dequant_accum_absmax`), then the reduced slice requantized (`qdq`)
     and ring all-gathered.  Returns x's shape and dtype.  Its error grows
     with the n-1 per-step requantizations, unlike `quantized_psum`."""
+    _sim_only("ring_quantized_psum")
     shape, dtype = x.shape, x.dtype
     n = x.shape[0]
     levels = _levels(bits)

@@ -107,6 +107,19 @@ def split_leaf(w, axis: int, tp: int):
     return w.movedim(axis, 0).contiguous()
 
 
+def shard_leaf(w, axis: int, tp: int, rank: int):
+    """Shard `rank` of split_leaf(w, axis, tp), as (1, ...): a new
+    contiguous tensor (never a view of w, which may then be freed)."""
+    if axis == REPLICATED:
+        return w[None].clone(memory_format=torch.contiguous_format)
+    if w.shape[axis] % tp:
+        raise ValueError(f"axis {axis} of {tuple(w.shape)} does not split "
+                         f"{tp} ways")
+    local = w.shape[axis] // tp
+    return w.narrow(axis, rank * local, local)[None].clone(
+        memory_format=torch.contiguous_format)
+
+
 def merge_leaf(w, axis: int, tp: int):
     """Inverse of split_leaf (replicated leaves: shard 0)."""
     if axis == REPLICATED:

@@ -125,7 +125,15 @@ def build_train_step(cfg: ModelConfig, plan: SPDPlanConfig, mesh,
     specs {"params": the TP split axes, "fsdp": FSDPSpecs or None, set
     at the first call}.  `device` is where the step will run (the
     refusals of check_trainable): None is the card, an error without
-    one."""
+    one.  Not in a process of a torch.distributed group (the shard
+    backend's ranks, ROADMAP A5e): the step runs the simulated mesh on
+    one device."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        raise NotImplementedError(
+            "training across processes (the shard backend's ranks) is not "
+            "ported yet (ROADMAP A5e); the train step runs the simulated "
+            "mesh on one device")
     check_trainable(cfg, resolve_device(device))
     tp = mesh.shape[MODEL_AXIS]
     dp = mesh.shape["data"]

@@ -28,14 +28,18 @@ class Engine:
         return self._steps[key]
 
     def blank_caches(self, batch: int, cache_len: int):
+        """Dense caches of `batch` slots (on `shard`, this data rank's
+        share of them)."""
         return self.backend.blank_caches(
             M.cache_struct(self.cfg, self.plan, batch, cache_len, self.tp))
 
     def blank_paged_caches(self, max_slots: int, cache_len: int, *,
                            page_size: int, num_pages: int):
+        """Page pools, whole on every data rank (paged steps run the batch
+        replicated)."""
         return self.backend.blank_caches(M.paged_cache_struct(
             self.cfg, self.plan, max_slots, cache_len, self.tp,
-            page_size=page_size, num_pages=num_pages))
+            page_size=page_size, num_pages=num_pages), shard_batch=False)
 
     def insert_paged(self, pcaches, caches1, b: int, page_row):
         """Scatter slot `b`'s prefilled caches1 into its pages
@@ -54,20 +58,39 @@ class Engine:
                     np.asarray(dst, np.int64))[0]
 
     def insert_slot(self, caches, caches1, b: int):
-        return F.insert_slot(caches, caches1, b,
-                             batch_axis=self.backend.cache_batch_axis)
+        return self.backend.insert_slot(caches, caches1, b)
 
     def prefill(self, params, tokens, *, cache_len: int, lengths=None):
+        """Whole-batch prefill -> (full logits (B, V), caches).  On a
+        backend with data ranks the batch pads to a multiple of them and
+        the result is cut back, as the reference's engine does."""
         step = self._step(("prefill", cache_len), lambda: F.prefill_step(
             self.cfg, self.plan, tp=self.tp, q_chunk=self.q_chunk,
             cache_len=cache_len))
-        return step(params, tokens, lengths)
+        dpn = self.backend.dp_total
+        if dpn == 1:
+            return step(params, tokens, lengths)
+        tokens = np.asarray(tokens)
+        b0 = tokens.shape[0]
+        pad = (-b0) % dpn
+        if pad:
+            tokens = np.concatenate(
+                [tokens, np.zeros((pad,) + tokens.shape[1:], tokens.dtype)])
+            if lengths is not None:
+                lengths = np.asarray(lengths)
+                lengths = np.concatenate(
+                    [lengths, np.ones((pad,), lengths.dtype)])
+        lg, caches = step(params, tokens, lengths)
+        return lg[:b0], self.backend.cache_rows(caches, b0)
 
     def prefill_chunked(self, params, tokens, *, cache_len: int, lengths,
                         chunk: int):
         """Incremental prefill in fixed-size chunks: tokens (B, S)
         right-padded, lengths (B,) the real lengths.  Archs the extension
         forward does not cover prefill whole, at the tokens' own length."""
+        if self.backend.multi_process:
+            raise NotImplementedError("chunked prefill on the shard backend "
+                                      "is not ported yet (ROADMAP A5c)")
         if not M.supports_chunked_prefill(self.cfg):
             return self.prefill(params, tokens, cache_len=cache_len,
                                 lengths=np.asarray(lengths, np.int64))

@@ -6,7 +6,11 @@ Each step maker here returns ``(local_fn, StepSpec)``; a `ParallelBackend`
 wraps it into the runnable step.  Local functions take shard-stacked
 parameters and caches and per-request host arrays, and return global
 values: full-vocab logits and token ids are assembled across shards
-here (one device holds every shard, so the gather is a reshape).
+here (on `sim` one device holds every shard, so the gather is a
+reshape; on `shard` an all-gather over the model group, and greedy
+tokens come from a gather-free masked argmax with a max / min pair).
+Steps whose batch runs replicated over the data ranks (the paged, chunk,
+insert and copy steps) declare `shard_batch=False`, as the reference's.
 
 Paged layout: pageable cache leaves swap their (batch, seq) axes for
 (num_pages + 1, page_size) -- page `num_pages` is the trash page -- and
@@ -23,6 +27,7 @@ import torch
 
 from repro_torch.core import model as M
 from repro_torch.kernels import ops as KOPS
+from repro_torch.parallel import collectives as COL
 from repro_torch.parallel.backend import StepSpec
 from repro_torch.runtime import sampling as RS
 from repro_torch.tree import tree_map
@@ -43,12 +48,14 @@ def _gathered(flags, pc, pt):
 
 def full_logits(cfg, logits):
     """Vocab-parallel shard logits (tp, B, Vl) -> full (B, V)."""
+    logits = COL.gather_shards(logits)
     tp, b, vl = logits.shape
     return logits.permute(1, 0, 2).reshape(b, tp * vl)[:, : cfg.vocab_size]
 
 
 def full_logits_seq(cfg, logits):
     """Vocab-parallel shard logits (tp, B, C, Vl) -> full (B, C, V)."""
+    logits = COL.gather_shards(logits)
     tp, b, c, vl = logits.shape
     return logits.permute(1, 2, 0, 3).reshape(b, c, tp * vl)[
         ..., : cfg.vocab_size]
@@ -56,9 +63,24 @@ def full_logits_seq(cfg, logits):
 
 def greedy_token(cfg, logits):
     """Greedy next token from shard logits (tp, B, Vl): the argmax of the
-    full logits, first maximal index on ties (as the reference's
-    gather-free pmax/pmin pair gives)."""
-    return RS.greedy_tokens(full_logits(cfg, logits))
+    full logits, first maximal index on ties.  Across ranks without
+    gathering the vocab (the reference's form): each rank's masked local
+    argmax, a max all-reduce of the row maxima, then a min all-reduce of
+    the candidates that reach it picks the first maximal global column."""
+    ctx = COL.current_group()
+    if ctx is None or ctx.size == 1:
+        return RS.greedy_tokens(full_logits(cfg, logits))
+    vl = logits.shape[-1]
+    gcol = COL.shard_ids(logits)[:, None] * vl + torch.arange(
+        vl, device=logits.device)
+    masked = torch.where((gcol < cfg.vocab_size)[:, None], logits,
+                         torch.full_like(logits, float("-inf")))[0]
+    mx = masked.amax(-1)
+    lidx = torch.argmax(masked, -1) + gcol[0, 0]
+    gmx = COL.group_reduce(mx.clone(), "max")
+    cand = torch.where(mx >= gmx, lidx, torch.full_like(lidx,
+                                                        cfg.vocab_size + 1))
+    return COL.group_reduce(cand, "min")
 
 
 def prefill_step(cfg, plan, *, tp, q_chunk, cache_len):
@@ -81,7 +103,7 @@ def decode_step(cfg, plan, *, tp, with_logits=False, sampled=False):
 
         return local, StepSpec(
             ("params", "batch", "batch", "cache", "batch", "batch", "batch",
-             "rep"), ("batch", "cache"))
+             "batch"), ("batch", "cache"))
 
     def local(p, toks, pos, cs):
         lg, ncs = M.decode_step(cfg, p, plan, toks, pos, cs, tp=tp)
@@ -124,7 +146,7 @@ def paged_decode_step(cfg, plan, *, tp, with_logits=False, sampled=False):
 
         return local, StepSpec(
             ("params", "rep", "rep", "rep", "cache", "rep", "rep", "rep",
-             "rep"), ("rep", "cache"))
+             "rep"), ("rep", "cache"), shard_batch=False)
 
     def local(p, toks, pos, pt, pc):
         lg, pc2 = math(p, toks, pos, pt, pc)
@@ -134,7 +156,8 @@ def paged_decode_step(cfg, plan, *, tp, with_logits=False, sampled=False):
         return nxt, pc2
 
     out = ("rep", "rep", "cache") if with_logits else ("rep", "cache")
-    return local, StepSpec(("params", "rep", "rep", "rep", "cache"), out)
+    return local, StepSpec(("params", "rep", "rep", "rep", "cache"), out,
+                           shard_batch=False)
 
 
 def prefill_chunk_step(cfg, plan, *, tp, q_chunk):
@@ -147,7 +170,7 @@ def prefill_chunk_step(cfg, plan, *, tp, q_chunk):
         return full_logits(cfg, lg), cs
 
     return local, StepSpec(("params", "rep", "rep", "rep", "cache"),
-                           ("rep", "cache"))
+                           ("rep", "cache"), shard_batch=False)
 
 
 def verify_step(cfg, plan, *, tp, q_chunk, tree=None):
@@ -193,7 +216,7 @@ def paged_verify_step(cfg, plan, *, tp, q_chunk=1024, tree=None):
             return full_logits_seq(cfg, lg), pc
 
     return local, StepSpec(("params", "rep", "rep", "rep", "cache"),
-                           ("rep", "cache"))
+                           ("rep", "cache"), shard_batch=False)
 
 
 def draft_step(cfg, plan, *, tp, q_chunk, k, sampled=False, tree_width=1):
@@ -308,7 +331,8 @@ def copy_pos_paged_step(cfg, plan, *, page_size):
         _map_paged(flags, one, lambda c: None, pc)
         return (pc,)
 
-    return local, StepSpec(("cache", "rep", "rep", "rep"), ("cache",))
+    return local, StepSpec(("cache", "rep", "rep", "rep"), ("cache",),
+                           shard_batch=False)
 
 
 def copy_pages_step(cfg, plan):
@@ -325,7 +349,8 @@ def copy_pages_step(cfg, plan):
         _map_paged(flags, one, lambda c: None, pc)
         return (pc,)
 
-    return local, StepSpec(("cache", "rep", "rep"), ("cache",))
+    return local, StepSpec(("cache", "rep", "rep"), ("cache",),
+                           shard_batch=False)
 
 
 def insert_paged_step(cfg, plan):
@@ -343,7 +368,8 @@ def insert_paged_step(cfg, plan):
             p, c, row, tail=p.dim() - 4), dense, pc, c1)
         return (pc,)
 
-    return local, StepSpec(("cache", "cache", "rep", "rep"), ("cache",))
+    return local, StepSpec(("cache", "cache", "rep", "rep"), ("cache",),
+                           shard_batch=False)
 
 
 def insert_slot(caches, caches1, b: int, *, batch_axis: int):
