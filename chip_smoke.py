@@ -249,13 +249,20 @@
    differ; no parting, the tokens equal sim's); rank 0's ledger equals
    sim's entry for entry, and on
    every rank B1 launches as on sim, B2 on the paged path, and per
-   quantized kept sync of every forward B4 once, B6 twice, B3 once (B3
-   once more a forward, the logits gather); every rank checks at each
-   step that the other took the same tokens.  Prints
-   decode_ms_per_token and prefill_ms of a host-staged wire, each
-   rank's llama peak memory (the canonical weights drawn on the card
-   and kept on the host), and B4 and B6 checked and timed at one rank's
-   SmolLM decode and prefill payloads (their kernels-line rows).
+   quantized kept sync of every forward the send kernel
+   (quantize_message_absmax) once and the receive kernel
+   (reduce_messages_absmax) once, B4 and B6 never, B3 once a forward
+   (the logits gather); every rank checks at each step that the other
+   took the same tokens.  Prints decode_ms_per_token and prefill_ms of
+   a host-staged wire and each rank's llama peak memory (the canonical
+   weights drawn on the card and kept on the host).  Then the send and
+   receive kernels at one rank's SmolLM-360M and LLaMA2-7B decode and
+   prefill payloads, bf16, two ranks' messages made on the card: bit for
+   bit against their plain versions and against the chain of one sync
+   they replaced (cast, B4, cat, stack, copies, zeros, B6 x 2, B3,
+   cast), timed beside both (their kernels-line rows; the chain as
+   context), and the old B4 and B6 wrappers and torch.addcmul timed at
+   the SmolLM shapes.
 23. Prints the seconds since the build at the end of each part, the
    kernels JSON line (the rows above beside the earlier ones), the card
    line, and last {"ok": true, "device": {...}}.
@@ -1046,6 +1053,7 @@ def all_kernels():
     return (FA.flash_attention_bhsd, FA.paged_flash_attention, QC.qdq_absmax,
             QC.quantized_psum_absmax, QC.quantize_absmax,
             QC.dequantize_absmax, QC.dequant_accum_absmax,
+            QC.quantize_message_absmax, QC.reduce_messages_absmax,
             FN.fused_residual_rmsnorm, SS.ssd_scan)
 
 
@@ -4428,15 +4436,15 @@ def ledger_rows(led) -> list:
 def shard_launches_want(size: int, kept: int, fwd: int, logits_q: bool):
     """Each rank's kept-sync kernels over `fwd` forwards of `kept`
     quantized kept syncs: the fused kernel in a group of one; across
-    ranks B4 once, B6 once per rank of the group and B3 once (hop 2) a
-    sync, B3 once more a forward (the logits gather), B5 never."""
-    q = fwd if logits_q else 0
-    if size == 1:
-        return {"quantized_psum_absmax": kept * fwd, "qdq_absmax": q,
-                "quantize_absmax": 0, "dequant_accum_absmax": 0}
-    return {"quantized_psum_absmax": 0, "quantize_absmax": kept * fwd,
-            "dequant_accum_absmax": size * kept * fwd,
-            "qdq_absmax": kept * fwd + q, "dequantize_absmax": 0}
+    ranks the send and the receive kernel once a sync each; B3 once a
+    forward (the logits gather); B4, B5 and B6 never."""
+    syncs = kept * fwd
+    across = size > 1
+    return {"quantized_psum_absmax": 0 if across else syncs,
+            "quantize_message_absmax": syncs if across else 0,
+            "reduce_messages_absmax": syncs if across else 0,
+            "qdq_absmax": fwd if logits_q else 0, "quantize_absmax": 0,
+            "dequant_accum_absmax": 0, "dequantize_absmax": 0}
 
 
 def shard_serve(torch, np, llm, prompts, paged=False):
@@ -4652,69 +4660,157 @@ def check_shard_path(np, label, tp, ranks, sim, transport, card, vocab):
     return parted
 
 
-# the hop kernels at the shard path's payloads: SmolLM-360M's kept sync
-# of a batch-4 decode step and of a 512-token prefill, one rank's row
-SHARD_HOP_SHAPES = ((1, 4 * 960), (1, 512 * 960))
+# the kept sync's payloads on the shard path, one rank's row: the
+# SmolLM-360M and LLaMA2-7B syncs of a batch-4 decode step and of one
+# 512-token prefill; two ranks' messages are made on the one card
+SHARD_HOP_SHAPES = (("smollm-360m", 4 * 960), ("smollm-360m", 512 * 960),
+                    ("llama2-7b", 4 * 4096), ("llama2-7b", 512 * 4096))
+SHARD_HOP_PATHS = {"smollm-360m": "main path", "llama2-7b": "llama2-7b path"}
+SHARD_HOP_TP = 2
+SYNC_KERNELS = ("quant_message_kernel", "reduce_messages_kernel")
 
 
-def shard_hop_rows(torch, launches) -> list:
-    """B4 (the send side) and B6 (the receive side) at SHARD_HOP_SHAPES:
-    bit for bit against their plain versions, timed beside them, B6
-    beside `torch.addcmul` and each at its bound; `launches` the shard
-    path's (rank 0's)."""
+def old_shard_sync(torch, QC, x, other):
+    """One rank's quantized kept sync as the chain the two kernels
+    replaced ran it (context): the cast, B4, the message's cat, the
+    gather's stack (`other`, the other rank's message, stands in for the
+    wire), two copies, zeros, B6 once a rank, B3, the cast back."""
+    n = x.shape[1]
+    q, s = QC.quantize_absmax(x.float().contiguous(), levels=127)
+    got = torch.stack([torch.cat([q.reshape(-1),
+                                  s.reshape(-1).view(torch.int8)]), other])
+    qa, sa = got[:, :n].contiguous(), got[:, n:].contiguous().view(
+        torch.float32)
+    acc = torch.zeros_like(x, dtype=torch.float32)
+    for r in range(got.shape[0]):
+        acc = QC.dequant_accum_absmax(qa[r:r + 1], sa[r:r + 1], acc)
+    return QC.qdq_absmax(acc, levels=127).to(x.dtype)
+
+
+def shard_hop_rows(torch, launches, card) -> list:
+    """The send and receive kernels at SHARD_HOP_SHAPES, bf16 L=127, tp 2:
+    bit for bit against their plain versions and against the chain they
+    replaced, timed (events and profile) beside both and at their
+    bounds; the old B4 and B6 wrappers and `torch.addcmul` at the SmolLM
+    shapes (the host-path repair, and B6's yardstick on the device).
+    `launches`:
+    rank 0's on each shard path, a row's from its model's dense path."""
     from repro_torch.kernels import quant_collectives as QC
 
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(25)
+    gen = torch.Generator(device=dev).manual_seed(26)
     out = []
-    for rows, n in SHARD_HOP_SHAPES:
-        x = torch.randn(rows, n, generator=gen, device=dev)
-        acc = torch.randn(rows, n, generator=gen, device=dev)
-        q, s = QC.quantize_absmax(x, levels=127)
-        qp, sp = QC.quantize_absmax_plain(x, levels=127)
-        z = QC.dequant_accum_absmax(q, s, acc)
-        zp = QC.dequant_accum_absmax_plain(q, s, acc)
+    for arch, n in SHARD_HOP_SHAPES:
+        x = torch.randn(SHARD_HOP_TP, n, generator=gen, device=dev)
+        x *= torch.logspace(0, 1, SHARD_HOP_TP, device=dev)[:, None]
+        x[0, :QC.CHUNK] = 0.0          # an all-zero chunk: the 1e-12 floor
+        x = x.to(torch.bfloat16)
+        mine = x[:1]
+        msgs = QC.quantize_message_absmax(x, levels=127)   # both ranks'
+        y = QC.reduce_messages_absmax(msgs, n, levels=127,
+                                      dtype=torch.bfloat16)
+        q1, s1 = QC.quantize_absmax(x[1:].float(), levels=127)
+        other = torch.cat([q1.reshape(-1), s1.reshape(-1).view(torch.int8)])
+        old = old_shard_sync(torch, QC, mine, other)
         torch.cuda.synchronize()
-        if not (torch.equal(q, qp) and torch.equal(s, sp)
-                and torch.equal(z, zp)):
-            raise AssertionError(f"hop kernels not bit-identical at "
-                                 f"({rows},{n})")
-        sb = s.numel() * 4
-        qc, sc, ac = (q.view(rows, -1, QC.CHUNK), s[..., None],
-                      acc.view(rows, -1, QC.CHUNK))
+        if not (torch.equal(msgs, QC.quantize_message_absmax_plain(
+                    x, levels=127))
+                and torch.equal(msgs[:1], QC.quantize_message_absmax(
+                    mine, levels=127))
+                and same_bits(torch, y, QC.reduce_messages_absmax_plain(
+                    msgs, n, levels=127, dtype=torch.bfloat16))
+                and same_bits(torch, y, old)):
+            raise AssertionError(f"send / receive not bit-identical to their "
+                                 f"plain versions and the old chain at "
+                                 f"(1,{n}) tp {SHARD_HOP_TP}")
         prof = device_us(torch, lambda: (
-            QC.quantize_absmax(x, levels=127),
-            QC.dequant_accum_absmax(q, s, acc)),
-            QUANT_KERNELS[::2], need=QUANT_KERNELS[::2])
+            QC.quantize_message_absmax(mine, levels=127),
+            QC.reduce_messages_absmax(msgs, n, levels=127,
+                                      dtype=torch.bfloat16)),
+            SYNC_KERNELS, need=SYNC_KERNELS)
+        chain = lambda: old_shard_sync(torch, QC, mine, other)  # noqa: E731
+        chain_ms = cuda_ms(torch, chain, iters=100)
+        # the profiler at times loses some of a window's kernels: keep the
+        # window that saw the most, up to the chain's 9 + tp launches
+        chain_rows, chain_n = [], 0
+        for _ in range(5):
+            rows = device_rows(torch, chain, iters=20)
+            seen = sum(k for _, _, k in rows) / 20
+            if seen > chain_n:
+                chain_rows, chain_n = rows, seen
+            if chain_n >= 9 + SHARD_HOP_TP:
+                break
+        chain_us = sum(us for _, us, _ in chain_rows) / 20
+        m = msgs.shape[1]
+        counts = launches[SHARD_HOP_PATHS[arch]]
         cases = (
-            ("quantize_absmax", ":93", "quant_kernel",
-             lambda: QC.quantize_absmax(x, levels=127),
-             lambda: QC.quantize_absmax_plain(x, levels=127), None,
-             4 * x.numel() + q.numel() + sb, 6.0 * x.numel()),
-            ("dequant_accum_absmax", ":137", "dequant_accum_kernel",
-             lambda: QC.dequant_accum_absmax(q, s, acc),
-             lambda: QC.dequant_accum_absmax_plain(q, s, acc),
-             lambda: torch.addcmul(ac, qc, sc),
-             q.numel() + sb + 8 * q.numel(), 2.0 * q.numel()))
-        for name, line, kname, fn, plain, lib, nbytes, flops in cases:
-            ms = cuda_ms(torch, fn, iters=100)
-            plain_ms = cuda_ms(torch, plain, iters=100)
-            library_ms = cuda_ms(torch, lib, iters=100) if lib else None
+            ("quantize_message_absmax", ":93", "quant_message_kernel",
+             lambda: QC.quantize_message_absmax(mine, levels=127),
+             lambda: QC.quantize_message_absmax_plain(mine, levels=127),
+             2 * n + m, 6.0 * n),
+            ("reduce_messages_absmax", ":137", "reduce_messages_kernel",
+             lambda: QC.reduce_messages_absmax(msgs, n, levels=127,
+                                               dtype=torch.bfloat16),
+             lambda: QC.reduce_messages_absmax_plain(
+                 msgs, n, levels=127, dtype=torch.bfloat16),
+             SHARD_HOP_TP * m + 2 * n, (2.0 * SHARD_HOP_TP + 7) * n))
+        for name, line, kname, fn, plain, nbytes, flops in cases:
+            ms = cuda_ms(torch, fn, iters=200)
+            plain_ms = cuda_ms(torch, plain, iters=50)
             b_ms, b_by = bound_ms(nbytes, flops, "float32")
-            print(f"{name} at the shard path's ({rows},{n}): ms={ms:.5f} "
-                  f"plain_ms={plain_ms:.5f} library_ms={library_ms} "
-                  f"device_us_per_launch={prof[kname]} bound_ms={b_ms:.6f}")
+            share = (b_ms * 1e3 / prof[kname]) if prof[kname] else None
+            # yardstick: one copy_ moving the same bytes (half read, half
+            # written), how near a lone launch of this size gets its bound
+            src = torch.empty(nbytes // 2, dtype=torch.uint8, device=dev)
+            dst = torch.empty_like(src)
+            copy_us, _ = device_total_us(torch, lambda: dst.copy_(src))
+            print(f"{name} [{card}] {arch}'s (1,{n}) bf16 L=127 tp "
+                  f"{SHARD_HOP_TP}: ms={ms:.5f} plain_ms={plain_ms:.5f} "
+                  f"device_us={prof[kname]} bound_ms={b_ms:.7f} ({b_by}, "
+                  f"{nbytes} bytes; {share} of it on the device; a copy_ "
+                  f"of the same bytes {copy_us:.3f} us on the device) "
+                  f"launches={counts[name]}")
             out.append({"name": name, "route": "cuda",
                         "source": "src/repro_torch/csrc/quant_collectives.cu",
                         "replaces": "src/repro/kernels/quant_collectives.py"
                                     + line,
-                        "launches": launches[name], "max_abs_err": 0.0,
+                        "launches": counts[name], "max_abs_err": 0.0,
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                        "bound_by": b_by, "library_ms": library_ms,
-                        "device_us": prof[kname],
-                        "shape": f"({rows},{n}) fp32 L=127, one rank's "
-                                 "SmolLM-360M kept sync on the shard "
-                                 "path (launches: rank 0's)"})
+                        "bound_by": b_by, "library_ms": None,
+                        "device_us": prof[kname], "context_ms": chain_ms,
+                        "context_device_us": chain_us,
+                        "shape": f"(1,{n}) bf16 L=127 tp {SHARD_HOP_TP}, "
+                                 f"one rank's {arch} kept sync on the shard "
+                                 "path (launches: its rank 0's); context: "
+                                 "the replaced chain of one sync"})
+        print(f"the shard sync [{card}] at {arch}'s (1,{n}) bf16 tp "
+              f"{SHARD_HOP_TP}, device time a rank's sync (the wire apart): "
+              f"send + receive "
+              f"{prof['quant_message_kernel'] + prof['reduce_messages_kernel']:.3f}"
+              f" us in 2 launches; the replaced chain {chain_us:.3f} us over "
+              f"{chain_n:g} launches ("
+              + ", ".join(k.split("(")[0][:40] for k, _, _ in chain_rows)
+              + f"), ms={chain_ms:.5f}")
+        if arch != "smollm-360m":
+            continue
+        xf = mine.float()
+        q, s = QC.quantize_absmax(xf, levels=127)
+        acc = torch.randn(1, n, generator=gen, device=dev)
+        qc, sc, ac = q.view(1, -1, QC.CHUNK), s[..., None], acc.view(
+            1, -1, QC.CHUNK)
+        lib = lambda: torch.addcmul(ac, qc, sc)  # noqa: E731
+        old_us = device_us(torch, lambda: (
+            QC.quantize_absmax(xf, levels=127),
+            QC.dequant_accum_absmax(q, s, acc), lib()),
+            QUANT_KERNELS[::2], need=QUANT_KERNELS[::2])
+        lib_us, _ = device_total_us(torch, lib)
+        print(f"the old hop kernels [{card}] at (1,{n}) fp32: "
+              f"quantize_absmax ms="
+              f"{cuda_ms(torch, lambda: QC.quantize_absmax(xf, levels=127), iters=100):.5f}"
+              f" device_us={old_us['quant_kernel']}; dequant_accum_absmax ms="
+              f"{cuda_ms(torch, lambda: QC.dequant_accum_absmax(q, s, acc), iters=100):.5f}"
+              f" device_us={old_us['dequant_accum_kernel']}; torch.addcmul "
+              f"ms={cuda_ms(torch, lib, iters=100):.5f} device_us={lib_us:.3f}")
     return out
 
 
@@ -4950,7 +5046,7 @@ def main() -> int:
     release(torch)
     shard_launches = shard_phase(torch, np, card)
     print(f"shard path launches (rank 0): {json.dumps(shard_launches)}")
-    hop_rows = shard_hop_rows(torch, shard_launches["main path"])
+    hop_rows = shard_hop_rows(torch, shard_launches, card)
     clock(t_start, "the shard phase")
 
     # each kernel's launches on the main path it serves: the paged kernel
@@ -4996,7 +5092,8 @@ def main() -> int:
     deepseek_row.pop("_path")
     deepseek_row["launches"] = deepseek_launches["qdq_absmax"]
     kernels.append(deepseek_row)
-    # B4 and B6 at the shard path's payloads: rank 0's launches there
+    # the send and receive kernels at the shard paths' payloads: rank 0's
+    # launches on the dense shard path of each row's model
     kernels += hop_rows
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
           f"build")

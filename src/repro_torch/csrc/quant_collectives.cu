@@ -1,7 +1,8 @@
 // Absmax quantization kernels per 128-element chunk, for Hopper: the
 // quantize-dequantize round trip (qdq), the two hops of a quantized kept
 // sync fused into one launch, quantize, dequantize and the fused
-// dequantize-accumulate of the quantized ring reduce-scatter.
+// dequantize-accumulate of the quantized ring reduce-scatter, and the send
+// and receive sides of a quantized kept sync across ranks.
 //
 // qdq replaces the TPU kernel repro/kernels/quant_collectives.py::qdq_absmax
 // (body _qdq_kernel): there a grid step takes a (block_rows, 128) tile of
@@ -54,6 +55,36 @@
 // as __fadd_rn(acc, __fmul_rn(q, s)) so nvcc cannot contract it into an
 // FMA: it then equals PyTorch's two-op plain version bit for bit (the TPU
 // kernel contracts it and is 1 ulp off its oracle).
+//
+// The quantized kept sync across ranks (the shard backend, one shard a
+// rank) is two launches and one all-gather: the send side redesigns B4
+// (quantize_absmax) for the wire, the receive side B6
+// (dequant_accum_absmax) fused with hop 2.  Rank r's wire message for an
+// n-element payload is one int8 row of m = pad16(n) + 4 * ceil(n/128)
+// bytes:
+//     [0, n)             the int8 codes, in element order
+//     [n, pad16(n))      zero bytes (pad16: n rounded up to 16)
+//     [pad16(n), m)      the fp32 scale of each 128-element chunk
+// m and every lane's offset are multiples of 4, so in a gathered (tp, m)
+// buffer each lane's 4 codes are one aligned char4 in every row.
+//
+// quant_message_kernel (the send): x (rows, n) bf16 or fp32, no cast
+// before it, with quantized_psum_kernel's layout (one warp a chunk,
+// lane l owns elements 4l .. 4l+3 in one 8- or 16-byte load where `vec`,
+// a scalar path where not, warp-shuffle absmax) and B4's arithmetic;
+// each lane stores its 4 codes as one char4 (an element at or past n
+// loads as 0 and so codes 0, and the last chunk's warp spans pad16(n):
+// it writes the pad), lane 0 the chunk's scale.  Reads n elements,
+// writes m bytes: memory-bound.
+// reduce_messages_kernel (the receive): the gathered (tp, m) messages ->
+// y (1, n) bf16 or fp32, one warp a chunk index.  For r in rank order a
+// lane reads rank r's 4 codes as one char4 and rank r's scale (lane 0
+// loads it, a shuffle spreads it) and adds __fmul_rn(q, s) into fp32
+// from +0 with __fadd_rn, which is tp B6 steps from a zero accumulator;
+// then hop 2 in registers (warp absmax, qdq_one), one rounding to y's
+// type and one packed store: B3 and both casts of the unfused chain.
+// Reads tp * m bytes, writes n elements: memory-bound.  Both kernels are
+// bit for bit the chain cast -> B4 -> gather -> B6 x tp -> B3 -> cast.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -123,6 +154,33 @@ qdq_kernel(const float* __restrict__ x, float* __restrict__ y, int n,
   }
 }
 
+// clip(rint(v / s), -L, L) as an int8 code (B4's arithmetic)
+__device__ __forceinline__ signed char code_one(float v, float s,
+                                                float levels) {
+  return static_cast<signed char>(
+      fminf(fmaxf(rintf(v / s), -levels), levels));
+}
+
+// Lane l's 4 elements c*128 + 4l .. 4l+3 of a row as fp32, 0 past n.
+template <typename T>
+__device__ __forceinline__ void load4(const T* __restrict__ row, int i0,
+                                      int n, int vec, float* v) {
+  if (vec) {
+    if (i0 < n) {
+      const Pack4<T> p = *reinterpret_cast<const Pack4<T>*>(row + i0);
+#pragma unroll
+      for (int j = 0; j < PER_LANE; ++j) v[j] = to_f(p.v[j]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < PER_LANE; ++j) v[j] = 0.f;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < PER_LANE; ++j)
+      v[j] = i0 + j < n ? to_f(row[i0 + j]) : 0.f;
+  }
+}
+
 // One warp per chunk index c of all TP rows; lane l owns elements
 // c*128 + 4l .. 4l+3 of every row.  `vec`: rows 4-aligned (n % 4 == 0,
 // aligned bases), so each row's 4 elements are one access.
@@ -137,23 +195,7 @@ quantized_psum_kernel(const T* __restrict__ x, T* __restrict__ y, int n,
 
   float v[TP][PER_LANE];
 #pragma unroll
-  for (int r = 0; r < TP; ++r) {
-    const T* row = x + (size_t)r * n;
-    if (vec) {
-      if (i0 < n) {
-        const Pack4<T> p = *reinterpret_cast<const Pack4<T>*>(row + i0);
-#pragma unroll
-        for (int j = 0; j < PER_LANE; ++j) v[r][j] = to_f(p.v[j]);
-      } else {
-#pragma unroll
-        for (int j = 0; j < PER_LANE; ++j) v[r][j] = 0.f;
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < PER_LANE; ++j)
-        v[r][j] = i0 + j < n ? to_f(row[i0 + j]) : 0.f;
-    }
-  }
+  for (int r = 0; r < TP; ++r) load4(x + (size_t)r * n, i0, n, vec, v[r]);
   // hop 1 on each row, summed over rows in row order from +0
   float acc[PER_LANE];
 #pragma unroll
@@ -269,6 +311,83 @@ dequant_accum_kernel(const int8_t* __restrict__ q,
   y[i] = __fadd_rn(acc[i], d);
 }
 
+// One warp a chunk c of row blockIdx.y; `pad` = pad16(n), `m` the
+// message row's bytes.  `vec`: x's rows 4-aligned.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+quant_message_kernel(const T* __restrict__ x, int8_t* __restrict__ msg,
+                     int n, int pad, int m, int chunks, float levels,
+                     int vec) {
+  const int c = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (c >= chunks) return;             // uniform across the warp
+  const int i0 = c * CHUNK + lane * PER_LANE;
+  int8_t* out = msg + (size_t)blockIdx.y * m;
+  float v[PER_LANE];
+  load4(x + (size_t)blockIdx.y * n, i0, n, vec, v);
+  float mx = 0.f;
+#pragma unroll
+  for (int j = 0; j < PER_LANE; ++j) mx = fmaxf(mx, fabsf(v[j]));
+  const float s = fmaxf(warp_absmax(mx) / levels, 1e-12f);
+  if (lane == 0) reinterpret_cast<float*>(out + pad)[c] = s;
+  if (i0 < pad)
+    *reinterpret_cast<char4*>(out + i0) = make_char4(
+        code_one(v[0], s, levels), code_one(v[1], s, levels),
+        code_one(v[2], s, levels), code_one(v[3], s, levels));
+}
+
+// One warp a chunk index c of all TP messages (rows of `m` bytes);
+// `vec`: y 4-aligned and n % 4 == 0.
+template <typename T, int TP>
+__global__ void __launch_bounds__(THREADS)
+reduce_messages_kernel(const int8_t* __restrict__ msg, T* __restrict__ y,
+                       int n, int pad, int m, int chunks, float levels,
+                       int vec) {
+  const int c = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (c >= chunks) return;             // uniform across the warp
+  const int i0 = c * CHUNK + lane * PER_LANE;
+  char4 q[TP];
+  float s[TP];
+#pragma unroll
+  for (int r = 0; r < TP; ++r) {
+    const int8_t* row = msg + (size_t)r * m;
+    // i0 < n: the char4 ends inside the codes' pad16(n) bytes
+    q[r] = i0 < n ? *reinterpret_cast<const char4*>(row + i0)
+                  : make_char4(0, 0, 0, 0);
+    s[r] = __shfl_sync(
+        FULL, lane == 0 ? reinterpret_cast<const float*>(row + pad)[c] : 0.f,
+        0);
+  }
+  // rank order from +0; codes past n count as 0, whatever the pad holds
+  float acc[PER_LANE] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < TP; ++r) {
+    const signed char b[PER_LANE] = {q[r].x, q[r].y, q[r].z, q[r].w};
+#pragma unroll
+    for (int j = 0; j < PER_LANE; ++j) {
+      const float qf = i0 + j < n ? static_cast<float>(b[j]) : 0.f;
+      acc[j] = __fadd_rn(acc[j], __fmul_rn(qf, s[r]));
+    }
+  }
+  // hop 2 on the sum, one rounding to T, one packed store
+  float mx = 0.f;
+#pragma unroll
+  for (int j = 0; j < PER_LANE; ++j) mx = fmaxf(mx, fabsf(acc[j]));
+  const float s2 = fmaxf(warp_absmax(mx) / levels, 1e-12f);
+  Pack4<T> out;
+#pragma unroll
+  for (int j = 0; j < PER_LANE; ++j)
+    out.v[j] = from_f<T>(qdq_one(acc[j], s2, levels));
+  if (vec) {
+    if (i0 < n) *reinterpret_cast<Pack4<T>*>(y + i0) = out;
+  } else {
+#pragma unroll
+    for (int j = 0; j < PER_LANE; ++j)
+      if (i0 + j < n) y[i0 + j] = out.v[j];
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -353,6 +472,65 @@ int dequant_accum_absmax_fwd(const int8_t* q, const float* s,
   dequant_accum_kernel<<<blocks, THREADS, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       q, s, acc, y, n, (n + CHUNK - 1) / CHUNK, total);
+  return cudaGetLastError();
+}
+
+// x: (rows, n) fp32 (bf16 == 0) or bf16; msg: (rows, m) int8 messages,
+// m = pad16(n) + 4 * ceil(n/128).  `blocks` x `warps` warps cover the
+// chunks of a row (grid y: the rows); `vec`: x's rows 4-aligned.
+int quantize_message_absmax_fwd(const void* x, int8_t* msg, int rows, int n,
+                                int levels, int bf16, int blocks, int warps,
+                                int vec, void* stream) {
+  if (rows <= 0 || n <= 0) return 0;
+  if (rows > 65535 || warps <= 0 || warps > THREADS / 32 || blocks <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int chunks = (n + CHUNK - 1) / CHUNK;
+  const int pad = (n + 15) / 16 * 16;
+  const int m = pad + 4 * chunks;
+  const dim3 grid(blocks, rows);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float lv = static_cast<float>(levels);
+  if (bf16)
+    quant_message_kernel<__nv_bfloat16><<<grid, warps * 32, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), msg, n, pad, m, chunks, lv,
+        vec);
+  else
+    quant_message_kernel<float><<<grid, warps * 32, 0, st>>>(
+        static_cast<const float*>(x), msg, n, pad, m, chunks, lv, vec);
+  return cudaGetLastError();
+}
+
+// msg: (tp, m) int8, rank r's message in row r, 1 <= tp <= 8; y: (1, n)
+// fp32 (bf16 == 0) or bf16.  `vec`: n % 4 == 0 and y 4-element aligned.
+int reduce_messages_absmax_fwd(const int8_t* msg, void* y, int tp, int n,
+                               int levels, int bf16, int blocks, int warps,
+                               int vec, void* stream) {
+  if (tp <= 0 || n <= 0) return 0;
+  if (tp > 8 || warps <= 0 || warps > THREADS / 32 || blocks <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int chunks = (n + CHUNK - 1) / CHUNK;
+  const int pad = (n + 15) / 16 * 16;
+  const int m = pad + 4 * chunks;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float lv = static_cast<float>(levels);
+#define REDUCE_CASE(T, R)                                                \
+  case R:                                                                \
+    reduce_messages_kernel<T, R><<<blocks, warps * 32, 0, st>>>(         \
+        msg, static_cast<T*>(y), n, pad, m, chunks, lv, vec);            \
+    break;
+#define REDUCE_SWITCH(T)                                                 \
+  switch (tp) {                                                          \
+    REDUCE_CASE(T, 1) REDUCE_CASE(T, 2) REDUCE_CASE(T, 3)                \
+    REDUCE_CASE(T, 4) REDUCE_CASE(T, 5) REDUCE_CASE(T, 6)                \
+    REDUCE_CASE(T, 7) REDUCE_CASE(T, 8)                                  \
+  }
+  if (bf16) {
+    REDUCE_SWITCH(__nv_bfloat16)
+  } else {
+    REDUCE_SWITCH(float)
+  }
+#undef REDUCE_SWITCH
+#undef REDUCE_CASE
   return cudaGetLastError();
 }
 

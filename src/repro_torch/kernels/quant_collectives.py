@@ -10,6 +10,13 @@ TPU kernels, and of their oracles in repro/kernels/ref.py).
                           fp32 scales (rows, ceil(n/128))
     dequantize_absmax     codes, scales -> fp32 (rows, n)
     dequant_accum_absmax  codes, scales, fp32 acc -> acc + codes*scales
+    quantize_message_absmax  bf16 / fp32 (rows, n) -> int8 wire messages
+                          (rows, m): codes, a zero pad, fp32 scales
+                          (`message_layout`); the send side of a
+                          quantized kept sync across ranks
+    reduce_messages_absmax   gathered messages (tp, m) -> (1, n)
+                          qdq(sum_r dequantize(message r)): the receive
+                          side and hop 2, one launch
 
 Rows are chunked independently from element 0: each row is one TP
 shard's flattened payload, which the reference quantizes per shard
@@ -84,6 +91,49 @@ def dequantize_absmax_plain(q, s, *, chunk: int = CHUNK):
 def dequant_accum_absmax_plain(q, s, acc, *, chunk: int = CHUNK):
     """acc + dequantize(q, s): a multiply, then an add (two roundings)."""
     return acc.float() + dequantize_absmax_plain(q, s, chunk=chunk)
+
+
+def message_layout(n: int, chunk: int = CHUNK) -> tuple:
+    """(byte offset of the scales, bytes) of one rank's wire message for
+    an n-element payload: n int8 codes, zero bytes up to the next 16-byte
+    boundary, then one fp32 scale a chunk (csrc/quant_collectives.cu)."""
+    pad = -(-n // 16) * 16
+    return pad, pad + 4 * -(-n // chunk)
+
+
+def message_parts(msg, n: int, chunk: int = CHUNK) -> tuple:
+    """Views of messages (rows, m): int8 codes (rows, n) and fp32 scales
+    (rows, ceil(n/chunk))."""
+    pad, m = message_layout(n, chunk)
+    return msg[:, :n], msg[:, pad:m].view(torch.float32)
+
+
+def quantize_message_absmax_plain(x, *, levels: int, chunk: int = CHUNK):
+    """x (rows, n) -> int8 messages (rows, m): row r's
+    `quantize_absmax_plain` codes and scales at `message_layout`, the pad
+    zero."""
+    rows, n = x.shape
+    q, s = quantize_absmax_plain(x, levels=levels, chunk=chunk)
+    msg = torch.zeros((rows, message_layout(n, chunk)[1]), dtype=torch.int8,
+                      device=x.device)
+    mq, ms = message_parts(msg, n, chunk)
+    mq.copy_(q)
+    ms.copy_(s)
+    return msg
+
+
+def reduce_messages_absmax_plain(msg, n: int, *, levels: int, dtype,
+                                 chunk: int = CHUNK):
+    """Gathered messages (tp, m) -> dtype (1, n): the tp dequantized rows
+    added one after another from +0 in row order
+    (`dequant_accum_absmax_plain`), hop 2 (`qdq_absmax_plain`), one
+    cast."""
+    q, s = message_parts(msg, n, chunk)
+    acc = torch.zeros((1, n), dtype=torch.float32, device=msg.device)
+    for r in range(msg.shape[0]):
+        acc = dequant_accum_absmax_plain(q[r:r + 1], s[r:r + 1], acc,
+                                         chunk=chunk)
+    return qdq_absmax_plain(acc, levels=levels, chunk=chunk).to(dtype)
 
 
 def _check_2d(name, t, dtype) -> None:
@@ -172,38 +222,43 @@ def _on_card(x, what: str) -> bool:
     return True
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    "qdq_absmax_fwd": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
-    "quantize_absmax_fwd": [ctypes.c_void_p, ctypes.c_void_p,
-                            ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                            ctypes.c_int, ctypes.c_void_p],
-    "quantized_psum_absmax_fwd": [ctypes.c_void_p, ctypes.c_void_p,
-                                  ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                  ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                  ctypes.c_int, ctypes.c_void_p],
-    "dequantize_absmax_fwd": [ctypes.c_void_p, ctypes.c_void_p,
-                              ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                              ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
-    "dequant_accum_absmax_fwd": [ctypes.c_void_p, ctypes.c_void_p,
-                                 ctypes.c_void_p, ctypes.c_void_p,
-                                 ctypes.c_int, ctypes.c_int,
-                                 ctypes.c_void_p],
+    "qdq_absmax_fwd": [_P, _P, _I, _I, _I, _P],
+    "quantize_absmax_fwd": [_P, _P, _P, _I, _I, _I, _P],
+    "quantized_psum_absmax_fwd": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "dequantize_absmax_fwd": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "dequant_accum_absmax_fwd": [_P, _P, _P, _P, _I, _I, _P],
+    "quantize_message_absmax_fwd": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "reduce_messages_absmax_fwd": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
+_FNS: dict = {}
 
 
-def _lib():
-    lib = build.load("quant_collectives")
-    for name, argtypes in _ARGTYPES.items():
-        fn = getattr(lib, name)
-        if not fn.argtypes:
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-    return lib
+def _bind(name: str):
+    """The C entry `name`, its argument types set once and cached."""
+    fn = getattr(build.load("quant_collectives"), name)
+    fn.argtypes = _ARGTYPES[name]
+    fn.restype = ctypes.c_int
+    _FNS[name] = fn
+    return fn
 
 
-def _stream(t) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+def _launch(name: str, device, *args) -> None:
+    """Call the C entry `name` (its last argument PyTorch's current stream
+    on `device`, read as the raw handle: `torch.cuda.current_stream`
+    would build a Python Stream object on every call), inside `device`'s
+    context only where it is not the current device; raise on the CUDA
+    error it returns."""
+    fn = _FNS.get(name) or _bind(name)
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    if device.index == torch.cuda.current_device():
+        rc = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, stream)
+    if rc:
+        build.check(build.load("quant_collectives"), rc, name)
 
 
 def qdq_absmax(x, *, levels: int, chunk: int = CHUNK):
@@ -212,12 +267,9 @@ def qdq_absmax(x, *, levels: int, chunk: int = CHUNK):
     if not _on_card(x, "qdq"):
         return qdq_absmax_plain(x, levels=levels, chunk=chunk)
     build.refuse_grad("qdq", x)
-    lib = _lib()
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        rc = lib.qdq_absmax_fwd(x.data_ptr(), out.data_ptr(), x.shape[0],
-                                x.shape[1], levels, _stream(x))
-    build.check(lib, rc, "qdq_absmax_fwd")
+    _launch("qdq_absmax_fwd", x.device, x.data_ptr(), out.data_ptr(),
+            x.shape[0], x.shape[1], levels)
     qdq_absmax.launches += 1
     return out
 
@@ -225,12 +277,16 @@ def qdq_absmax(x, *, levels: int, chunk: int = CHUNK):
 qdq_absmax.launches = 0
 
 
+def _check_psum_dtype(x) -> None:
+    if x.dtype not in PSUM_DTYPES:
+        raise TypeError(f"want float32 or bfloat16 x; got {x.dtype}")
+
+
 def quantized_psum_absmax(x, *, levels: int, chunk: int = CHUNK):
     """x (tp, n) bf16 or fp32, row r shard r's flattened payload -> x's
     dtype (tp, n), every row qdq(sum_r qdq(x_r)): the two hops of a
     quantized kept sync, one launch."""
-    if x.dtype not in PSUM_DTYPES:
-        raise TypeError(f"want float32 or bfloat16 x; got {x.dtype}")
+    _check_psum_dtype(x)
     _check_2d("x", x, x.dtype)
     _check_levels(levels)
     _check_chunk(chunk)
@@ -240,21 +296,82 @@ def quantized_psum_absmax(x, *, levels: int, chunk: int = CHUNK):
     if not _on_card(x, "quantized-psum"):
         return quantized_psum_absmax_plain(x, levels=levels, chunk=chunk)
     build.refuse_grad("quantized-psum", x)
-    lib = _lib()
     tp, n = x.shape
     out = torch.empty_like(x)
     blocks, warps = qpsum_grid(n, _sm_count(x.device))
-    with torch.cuda.device(x.device):
-        rc = lib.quantized_psum_absmax_fwd(
-            x.data_ptr(), out.data_ptr(), tp, n, levels,
-            int(x.dtype == torch.bfloat16), blocks, warps,
-            int(vector_rows(n, x, out)), _stream(x))
-    build.check(lib, rc, "quantized_psum_absmax_fwd")
+    _launch("quantized_psum_absmax_fwd", x.device, x.data_ptr(),
+            out.data_ptr(), tp, n, levels, int(x.dtype == torch.bfloat16),
+            blocks, warps, int(vector_rows(n, x, out)))
     quantized_psum_absmax.launches += 1
     return out
 
 
 quantized_psum_absmax.launches = 0
+
+
+def quantize_message_absmax(x, *, levels: int, chunk: int = CHUNK):
+    """x (rows, n) bf16 or fp32, row r a rank's flattened partial -> int8
+    wire messages (rows, m) at `message_layout`, in one launch and with
+    no cast before it: the send side of a quantized kept sync across
+    ranks."""
+    _check_psum_dtype(x)
+    _check_2d("x", x, x.dtype)
+    _check_levels(levels)
+    _check_chunk(chunk)
+    rows, n = x.shape
+    m = message_layout(n)[1]
+    if rows * m >= 2 ** 31:
+        raise ValueError("messages too large for the kernel's int indexing")
+    if not _on_card(x, "quantize-message"):
+        return quantize_message_absmax_plain(x, levels=levels, chunk=chunk)
+    build.refuse_grad("quantize-message", x)
+    msg = torch.empty((rows, m), dtype=torch.int8, device=x.device)
+    blocks, warps = qpsum_grid(n, _sm_count(x.device))
+    _launch("quantize_message_absmax_fwd", x.device, x.data_ptr(),
+            msg.data_ptr(), rows, n, levels, int(x.dtype == torch.bfloat16),
+            blocks, warps, int(vector_rows(n, x)))
+    quantize_message_absmax.launches += 1
+    return msg
+
+
+quantize_message_absmax.launches = 0
+
+
+def reduce_messages_absmax(msg, n: int, *, levels: int, dtype,
+                           chunk: int = CHUNK):
+    """Gathered messages (tp, m) int8, row r rank r's, of n-element
+    payloads -> dtype (1, n), qdq(sum_r dequantize(message r)) summed in
+    row order from +0: the receive side and hop 2 of a quantized kept
+    sync across ranks, one launch."""
+    _check_2d("msg", msg, torch.int8)
+    _check_levels(levels)
+    _check_chunk(chunk)
+    if dtype not in PSUM_DTYPES:
+        raise TypeError(f"want a float32 or bfloat16 result; got {dtype}")
+    tp, m = msg.shape
+    if m != message_layout(n)[1]:
+        raise ValueError(f"messages of {n} elements are "
+                         f"{message_layout(n)[1]} bytes; got {m}")
+    if not 1 <= tp <= MAX_TP:
+        raise ValueError(f"the kernel takes 1 to {MAX_TP} messages; got "
+                         f"{tp}")
+    if msg.data_ptr() % 4:
+        raise ValueError("messages must start on a 4-byte boundary (the "
+                         "kernel reads 4 codes and a scale at a time)")
+    if not _on_card(msg, "reduce-messages"):
+        return reduce_messages_absmax_plain(msg, n, levels=levels,
+                                            dtype=dtype, chunk=chunk)
+    build.refuse_grad("reduce-messages", msg)
+    out = torch.empty((1, n), dtype=dtype, device=msg.device)
+    blocks, warps = qpsum_grid(n, _sm_count(msg.device))
+    _launch("reduce_messages_absmax_fwd", msg.device, msg.data_ptr(),
+            out.data_ptr(), tp, n, levels, int(dtype == torch.bfloat16),
+            blocks, warps, int(vector_rows(n, out)))
+    reduce_messages_absmax.launches += 1
+    return out
+
+
+reduce_messages_absmax.launches = 0
 
 
 def quantize_absmax(x, *, levels: int, chunk: int = CHUNK):
@@ -264,16 +381,12 @@ def quantize_absmax(x, *, levels: int, chunk: int = CHUNK):
     if not _on_card(x, "quantize"):
         return quantize_absmax_plain(x, levels=levels, chunk=chunk)
     build.refuse_grad("quantize", x)
-    lib = _lib()
     rows, n = x.shape
     q = torch.empty((rows, n), dtype=torch.int8, device=x.device)
     s = torch.empty((rows, -(-n // chunk)), dtype=torch.float32,
                     device=x.device)
-    with torch.cuda.device(x.device):
-        rc = lib.quantize_absmax_fwd(x.data_ptr(), q.data_ptr(),
-                                     s.data_ptr(), rows, n, levels,
-                                     _stream(x))
-    build.check(lib, rc, "quantize_absmax_fwd")
+    _launch("quantize_absmax_fwd", x.device, x.data_ptr(), q.data_ptr(),
+            s.data_ptr(), rows, n, levels)
     quantize_absmax.launches += 1
     return q, s
 
@@ -288,15 +401,12 @@ def dequantize_absmax(q, s, *, chunk: int = CHUNK):
     if not _on_card(q, "dequantize"):
         return dequantize_absmax_plain(q, s, chunk=chunk)
     build.refuse_grad("dequantize", q, s)
-    lib = _lib()
     rows, n = q.shape
     out = torch.empty((rows, n), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        rc = lib.dequantize_absmax_fwd(
-            q.data_ptr(), s.data_ptr(), out.data_ptr(), rows, n,
+    _launch("dequantize_absmax_fwd", q.device, q.data_ptr(), s.data_ptr(),
+            out.data_ptr(), rows, n,
             dequant_grid(rows, n, _sm_count(q.device)),
-            int(vector_rows(n, q, out)), _stream(q))
-    build.check(lib, rc, "dequantize_absmax_fwd")
+            int(vector_rows(n, q, out)))
     dequantize_absmax.launches += 1
     return out
 
@@ -315,14 +425,10 @@ def dequant_accum_absmax(q, s, acc, *, chunk: int = CHUNK):
     if not _on_card(q, "dequant-accumulate"):
         return dequant_accum_absmax_plain(q, s, acc, chunk=chunk)
     build.refuse_grad("dequant-accumulate", q, s, acc)
-    lib = _lib()
     out = torch.empty_like(acc)
-    with torch.cuda.device(q.device):
-        rc = lib.dequant_accum_absmax_fwd(q.data_ptr(), s.data_ptr(),
-                                          acc.data_ptr(), out.data_ptr(),
-                                          q.shape[0], q.shape[1],
-                                          _stream(q))
-    build.check(lib, rc, "dequant_accum_absmax_fwd")
+    _launch("dequant_accum_absmax_fwd", q.device, q.data_ptr(),
+            s.data_ptr(), acc.data_ptr(), out.data_ptr(), q.shape[0],
+            q.shape[1])
     dequant_accum_absmax.launches += 1
     return out
 

@@ -18,11 +18,13 @@ backward is the identity: the reference's straight-through estimator
 for `qdq`, and `g_psum`'s backward for the kept sync.
 
 On the `shard` backend (a wired model group, one shard a rank) hop 1
-travels as int8 codes: B4 (`quantize_absmax`) quantizes this rank's
-partial, the codes and fp32 scales are all-gathered over the group, and
-B6 (`dequant_accum_absmax`) adds every rank's partial in rank order from
-+0, the fused kernel's order; B3 (`qdq_absmax`) is hop 2.  So a rank
-gets the `sim` engine's bits at every tp.
+travels as int8 codes: the send kernel (`quantize_message_absmax`)
+quantizes this rank's partial, in its own dtype, into one int8 message
+of codes and fp32 scales; the messages are all-gathered into the rows
+of one (size, m) tensor; and the receive kernel
+(`reduce_messages_absmax`) adds every rank's partial in rank order from
++0, the fused kernel's order, and runs hop 2.  Two launches and one
+collective a sync, and a rank gets the `sim` engine's bits at every tp.
 
 The runnable ring collectives at the end (`ring_all_gather`,
 `ring_reduce_scatter`, `ring_quantized_psum`) execute the chunked ring
@@ -40,7 +42,9 @@ import torch.nn.functional as F
 from repro_torch.kernels.quant_collectives import (dequant_accum_absmax,
                                                    qdq_absmax,
                                                    quantize_absmax,
-                                                   quantized_psum_absmax)
+                                                   quantize_message_absmax,
+                                                   quantized_psum_absmax,
+                                                   reduce_messages_absmax)
 from repro_torch.parallel.collectives import (MODEL_AXIS, axis_size,
                                               current_group, log_collective,
                                               overlap_chunks, ppermute,
@@ -100,41 +104,36 @@ class _QuantizedPsum(torch.autograd.Function):
         return ct, None, None
 
 
-def gather_codes(q, s):
-    """All-gather of this rank's int8 codes (1, n) and fp32 scales (1,
-    n/chunk) over the wired model group, as one int8 message of n + 4
-    n/chunk bytes a rank: (size, n) and (size, n/chunk), in rank
-    order."""
+def gather_messages(msg):
+    """All-gather of this rank's wire message (1, m) over the wired model
+    group into the rows of one (size, m) int8 tensor, in rank order: NCCL
+    gathers straight into it, other backends into its row views."""
     import torch.distributed as dist
 
     ctx = current_group()
-    n = q.shape[1]
-    msg = torch.cat([q.reshape(-1), s.reshape(-1).view(torch.int8)])
-    parts = [torch.empty_like(msg) for _ in range(ctx.size)]
-    dist.all_gather(parts, msg, group=ctx.group)
-    got = torch.stack(parts)
-    return (got[:, :n].contiguous(),
-            got[:, n:].contiguous().view(torch.float32))
+    buf = torch.empty((ctx.size, msg.shape[1]), dtype=msg.dtype,
+                      device=msg.device)
+    if dist.get_backend(ctx.group) == "nccl":
+        dist.all_gather_into_tensor(buf, msg, group=ctx.group)
+    else:
+        dist.all_gather(list(buf.unbind(0)), msg[0], group=ctx.group)
+    return buf
 
 
 def _two_hops(flat, levels: int, chunk: int):
     """Both hops of a quantized kept sync of the shard-stacked flat
     payload: one fused launch when every shard is on this device (sim, or
-    a group of one); across ranks, B4 -> all-gather of the codes -> B6
-    in rank order from +0 -> B3."""
+    a group of one); across ranks, the send kernel -> all-gather of the
+    messages -> the receive kernel (rank order from +0, then hop 2)."""
     ctx = current_group()
     if ctx is None or ctx.size == 1:
         return quantized_psum_absmax(flat, levels=levels, chunk=chunk)
     if flat.shape[0] != 1:
         raise ValueError("a rank of the shard backend holds one shard")
-    q, s = quantize_absmax(flat.float().contiguous(), levels=levels,
-                           chunk=chunk)
-    qa, sa = gather_codes(q, s)
-    acc = torch.zeros_like(flat, dtype=torch.float32)
-    for r in range(ctx.size):
-        acc = dequant_accum_absmax(qa[r:r + 1], sa[r:r + 1], acc,
-                                   chunk=chunk)
-    return qdq_absmax(acc, levels=levels, chunk=chunk).to(flat.dtype)
+    msg = quantize_message_absmax(flat, levels=levels, chunk=chunk)
+    return reduce_messages_absmax(gather_messages(msg), flat.shape[1],
+                                  levels=levels, dtype=flat.dtype,
+                                  chunk=chunk)
 
 
 def _records(x) -> bool:

@@ -9,10 +9,10 @@ across ranks, the collectives under a model group, and the refusals.
     page back; reduced SmolLM-360M, LLaMA2-7B and OPT-6.7B at tp 2 dp 1,
     SmolLM and OPT at tp 2 dp 2 (the paged steps run the batch on every
     data rank), SmolLM at tp 4;
-  * the quantized kept sync across ranks (B4 -> all-gather of the int8
-    codes -> B6 in rank order from +0 -> B3) equals sim's fused sync
-    bit for bit, zero signs included, at tp 2 and 4, int8 and int4, fp32
-    and bf16, with the same ledger;
+  * the quantized kept sync across ranks (the send kernel -> all-gather
+    of the int8 messages -> the receive kernel: rank order from +0, then
+    hop 2) equals sim's fused sync bit for bit, zero signs included, at
+    tp 2 and 4, int8 and int4, fp32 and bf16, with the same ledger;
   * pmax, psum, ppermute (ring and pairs), the shard gather, the axis
     size and the shard ids under the model group;
   * everything outside this slice raises NotImplementedError naming its
@@ -47,8 +47,10 @@ PREEMPT_LENS = (20, 22, 17, 25)
 PREFIX = dict(page_size=8, num_pages=16)
 Q8 = dict(comm="quant8", comm_logits="quant8")
 # (payload elements, seed, bits): a decode sync of d 960, a ragged int4
-# payload, a prefill-bucket one of whole chunks
-PAYLOADS = ((960, 0, 8), (1001, 1, 4), (16 * 128, 2, 8))
+# payload, a prefill-bucket one of whole chunks, a payload shorter than
+# one code word of 4 and one just past a chunk (neither 4-aligned)
+PAYLOADS = ((960, 0, 8), (1001, 1, 4), (16 * 128, 2, 8), (3, 3, 4),
+            (130, 4, 8))
 LAYOUTS = {(2, 1): ARCHS, (2, 2): ("smollm-360m", "opt-6.7b"),
            (4, 1): ("smollm-360m",)}
 # each refusal and the ROADMAP item its message names
@@ -190,9 +192,10 @@ def test_warm_prefix_admission(runs, case):
 
 @pytest.mark.parametrize("tp", (2, 4))
 def test_quantized_sync_across_ranks_equals_fused_sim(runs, tp):
-    """Each rank's result of the B4 -> all-gather -> B6 (rank order, from
-    +0) -> B3 transport equals its row of sim's fused sync bit for bit,
-    zero signs included; the ledger entries are sim's."""
+    """Each rank's result of the send -> all-gather -> receive (rank
+    order from +0, then hop 2) transport equals its row of sim's fused
+    sync bit for bit, zero signs included; the ledger entries are
+    sim's."""
     ranks, _ = runs(tp, 1)
     i = 0
     for n, seed, bits in PAYLOADS:

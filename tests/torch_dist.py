@@ -118,15 +118,15 @@ def hop_payloads(tp, n, seed):
     all-zero chunk: the zero signs the fused kernel keeps."""
     x = np.random.default_rng(seed).standard_normal((tp, n)).astype(
         np.float32)
-    x[:, 3] = 0.0
-    x[0, 5], x[1 % tp, 5] = -0.0, -0.0
+    x[:, 3 % n] = 0.0
+    x[0, 5 % n], x[1 % tp, 5 % n] = -0.0, -0.0
     x[:, 128:256] = -0.0
     return x
 
 
 def quantized_sync(job, case, canon):
     """This rank's row of compression.quantized_psum over the model group
-    (the B4 -> all-gather -> B6 -> B3 transport) for each payload of the
+    (the send -> all-gather -> receive transport) for each payload of the
     case, in fp32 and bf16, and its ledger."""
     from repro_torch.launch.dist import current
     from repro_torch.parallel import compression as C
