@@ -34,10 +34,11 @@
    path's kernels must each be > 0; the fused kept sync must launch once
    per quantized kept sync of every forward (56 a dense forward) and qdq
    once per forward (the logits gather).  One more generate with the
-   fused kernel's plain version swapped in must give the same tokens (so
-   on every path below).  A profiled generate then shows the
-   device-busy share and the top kernels by device time; its prefill must
-   run on the tensor-core flash kernel, never on the fp32 one.
+   quantized collectives' plain versions swapped in (the fused kept sync,
+   B3) must give the same tokens (so on every path below).  A profiled
+   generate then shows the device-busy share and the top kernels by
+   device time; its prefill must run on the tensor-core flash kernel,
+   never on the fp32 one.
 4. Paged main path: the same model and settings plus page_size=16 and a
    pool of 40 pages that the 4 requests outgrow at their peak (they need
    41): every request finishes, at least one is preempted, and every page
@@ -142,11 +143,14 @@
    chunks on a page boundary and one before it) and its chain-verify
    call (C 5) timed; then LLM.load(tp=2, spd=0.25, quant8, bf16) serves
    the four prompts plainly and through (a) SpecConfig(k=4, "all-drop")
-   dense, (b) the same paged on the 40-page pool (a preemption), (c)
+   dense over chunked prefill (64; its full logits and ledger kept for
+   22's speculative path), (b) the same paged on the 40-page pool (a
+   preemption; whole prefill), (c)
    the tiered draft from 13's sensitivities, (d) adaptive k 1..6 with
    tree width 2, paged: launch counts as the code implies (B1 per
-   prefill of the target and the drafter; the fused sync per kept sync
-   per forward of each engine; B2 chunks per chain verify and warm
+   whole prefill of the target and the drafter; the fused sync per kept
+   sync per forward of each engine, a chunk a forward; B2 chunks per
+   chain verify and warm
    suffix prefill; no B2 decode), every page back, each committed
    token the argmax of a teacher-forced plain forward or within 5% of
    its row's largest logit; (e) calibrate_draft over the candidates
@@ -159,14 +163,14 @@
    logits within 1e-3.  Prints acceptance, tokens per round, decode ms
    per token against plain, prefill ms chunked against whole, the
    calibrated winner and its trials, and peak memory.
-16. Training: SmolLM-360M at full width and 16 of its 32 layers (bf16,
+16. Training: SmolLM-360M at full width and 8 of its 32 layers (bf16,
    random weights from seed 0) through the train CLI's
    make_trainer on the simulated (data 2, model 2) mesh, plan
-   first_k(16, 4), sequence 4096, batch 8 in 4 microbatches of 2, remat,
+   first_k(8, 2), sequence 4096, batch 8 in 4 microbatches of 2, remat,
    q_chunk 2048, lr 1e-3 (cosine, 2 warm-up steps), clip 1.0, weight
    decay 0.1, the batches of make_batch_iterator(49152, 8, 4096, seed=0):
    (a) ZeRO-1 for 12 steps with every kernel's count zeroed before and
-   read after (B1 must launch 2 x 16 layers x 4 microbatches a step,
+   read after (B1 must launch 2 x 8 layers x 4 microbatches a step,
    forward and remat recompute under autograd; nothing else), the loss
    must fall (mean of the last 4 below the first 4); step ms, tokens/s,
    MFU (formula printed), peak memory; one more step under the profiler
@@ -255,13 +259,51 @@
    (the logits gather); every rank checks at each step that the other
    took the same tokens.  Prints decode_ms_per_token and prefill_ms of
    a host-staged wire and each rank's llama peak memory (the canonical
-   weights drawn on the card and kept on the host).  Then the send and
-   receive kernels at one rank's SmolLM-360M and LLaMA2-7B decode and
-   prefill payloads, bf16, two ranks' messages made on the card: bit for
-   bit against their plain versions and against the chain of one sync
-   they replaced (cast, B4, cat, stack, copies, zeros, B6 x 2, B3,
-   cast), timed beside both (their kernels-line rows; the chain as
-   context), and the old B4 and B6 wrappers and torch.addcmul timed at
+   weights drawn on the card and kept on the host).  In the same spawn,
+   on the llama2-7b placement: the speculative path, 15 (a)'s settings
+   (all-drop chain, k 4, dense, chunks of 64): the same tokens on both
+   ranks, every full logits tensor (chunk, draft step, verify) against
+   15 (a)'s within the same bound up to the first argmax that parts,
+   then the tokens and the ledger equal to sim's unless one parted, the
+   ledger of the first draft call and the first verify equal to sim's
+   either way, each committed token the argmax of a teacher-forced plain
+   forward on the rank or within 5% of its row's largest logit; the
+   send and receive kernels once a quantized kept sync of every forward
+   (the target's: the all-drop draft keeps its syncs exact), B3 a
+   target forward, B1 never (the prefill is chunked, the drafter
+   adopts it); prints acceptance, rounds, spec against plain
+   decode_ms_per_token (the rank's own plain llama run) beside 15 (a)'s
+   ratio, and rank 0's ledger entries of a draft and a target forward.
+   Then llama2-7b with int8 KV and weights on the same canonical weights
+   against 20's run.  A second gloo spawn serves the families at full
+   width, one model at a time, each with its sim run's settings:
+   mamba2-370m (10) and hymba-1.5b (19) dense, qwen2-moe-a2.7b (18)
+   dense and paged (the 40-page pool with a preemption, the warm prefix
+   pair), deepseek-v2-lite-16b (21) dense and paged through the fallback
+   (a 128-page pool): the same tokens on both ranks, rank 0's ledger
+   equal to sim's, the kernels counted as on the paths above (B1, B2
+   and B8 as on sim: B8 32 x 4 on hymba, 48 x 4 on mamba2, one shard a
+   rank), each rank's load time, decode ms a token, card peak and host
+   memory printed as it loads.  Each bf16 path is served a second time
+   with the quantized collectives' plain versions on both ranks: tokens
+   and every logits event equal to the kernels' run bit for bit.  Their
+   bf16 logits are not held to sim's: a near-tied MoE routing choice or
+   the SSM state carries one product's rounding (a lone shard against
+   sim's batched call) past the 5% bound.  Each family is held to sim
+   instead in fp32, at full width on four of its layers with SHARD_KW's
+   quant8 kept syncs and logits gather (SHARD_FP32_LAYERS, served by sim
+   in 10, 18, 19 and 21), so that the send, receive and B3 kernels run at
+   the family's width, and the MoE routing pinned to sim's run (a
+   flipped code can flip a near-tied top-k choice): the same tokens on
+   both ranks and the logits within the 5% bound of sim's up to the
+   first argmax that parts.  Then the send and receive kernels at one rank's
+   SmolLM-360M and LLaMA2-7B decode and prefill payloads and the
+   families' decode payloads and hymba's 17-token prefill (a ragged last
+   chunk), bf16, two ranks' messages made on the card: bit for bit
+   against their plain versions and against the chain of one sync they
+   replaced (cast, B4, cat, stack, copies, zeros, B6 x 2, B3, cast),
+   timed beside both (their kernels-line rows; the chain as context),
+   and the old B4 and B6 wrappers and torch.addcmul timed at
    the SmolLM shapes.
 23. Prints the seconds since the build at the end of each part, the
    kernels JSON line (the rows above beside the earlier ones), the card
@@ -731,19 +773,26 @@ def qpsum_row(torch, x, card, what):
                      "six-kernel chain"}
 
 
-class plain_qpsum:
-    """Inside: every kept sync takes the fused kernel's plain version on
-    the card (the compression module's wrapper name is swapped)."""
+class plain_syncs:
+    """Inside: every quantized collective takes its kernels' plain
+    versions on the card (the compression module's wrapper names are
+    swapped): the fused kept sync, the send and receive kernels of a sync
+    across ranks, B3 (the logits gather, the ring's hop 2), B4 and B6."""
+    NAMES = ("quantized_psum_absmax", "quantize_message_absmax",
+             "reduce_messages_absmax", "qdq_absmax", "quantize_absmax",
+             "dequant_accum_absmax")
 
     def __enter__(self):
         from repro_torch.kernels import quant_collectives as QC
         from repro_torch.parallel import compression as C
-        self.saved = C.quantized_psum_absmax
-        C.quantized_psum_absmax = QC.quantized_psum_absmax_plain
+        self.saved = {n: getattr(C, n) for n in self.NAMES}
+        for n in self.NAMES:
+            setattr(C, n, getattr(QC, f"{n}_plain"))
 
     def __exit__(self, *exc):
         from repro_torch.parallel import compression as C
-        C.quantized_psum_absmax = self.saved
+        for n, fn in self.saved.items():
+            setattr(C, n, fn)
 
 
 def kept_syncs(llm) -> int:
@@ -769,28 +818,36 @@ def check_sync_launches(label, llm, launches, times):
         raise AssertionError(f"{label}: sync launches {got} != {want}")
 
 
-def same_tokens_plain(torch, label, llm, prompts, tokens, fresh=False):
-    """One more greedy generate with every kept sync on the fused
-    kernel's plain version: the tokens must equal `tokens` bit for bit.
-    `fresh`: on a new scheduler, warmed up as the counted run was (the
-    paged pool's prefix cache would admit the prompts warm), and the old
-    one restored after."""
+def plain_rerun(torch, llm, prompts, fresh=False):
+    """One more greedy generate of `prompts` with every quantized
+    collective on its kernels' plain versions (`plain_syncs`).  `fresh`:
+    on a new scheduler, warmed up as the counted run was (the paged
+    pool's prefix cache would admit the prompts warm), and the old one
+    restored after.  Returns (tokens, its logits tape on the host, the
+    kernels' launches inside, which must be 0)."""
     from repro_torch.api import SamplingParams
     from repro_torch.kernels import quant_collectives as QC
 
-    before = QC.quantized_psum_absmax.launches
+    before = {n: getattr(QC, n).launches for n in plain_syncs.NAMES}
     saved = llm._sched
-    with plain_qpsum():
+    with plain_syncs():
         if fresh:
             llm._sched = None
             llm.generate([prompts[0][:8]], SamplingParams(max_new=2))
-        outs = llm.generate(prompts, SamplingParams(max_new=MAX_NEW))
+        with LogitsTape() as tape:
+            outs = llm.generate(prompts, SamplingParams(max_new=MAX_NEW))
     torch.cuda.synchronize()
     llm._sched = saved
-    toks = [o.token_ids for o in outs]
-    leaked = QC.quantized_psum_absmax.launches - before
-    print(f"{label}: tokens with the fused kernel's plain version equal "
-          f"the kernel's: {toks == tokens} (kernel launches inside: "
+    leaked = sum(getattr(QC, n).launches - before[n]
+                 for n in plain_syncs.NAMES)
+    return [o.token_ids for o in outs], tape.host(), leaked
+
+
+def same_tokens_plain(torch, label, llm, prompts, tokens, fresh=False):
+    """`plain_rerun`: its tokens must equal `tokens` bit for bit."""
+    toks, _, leaked = plain_rerun(torch, llm, prompts, fresh)
+    print(f"{label}: tokens with the quantized collectives' plain versions "
+          f"equal the kernels': {toks == tokens} (kernel launches inside: "
           f"{leaked})")
     if toks != tokens or leaked:
         raise AssertionError(f"{label}: plain-sync tokens {toks} != kernel "
@@ -1100,8 +1157,8 @@ def main_path(torch, np, card, arch="smollm-360m", label="main path",
     for k in kernels:
         k.launches = 0
     t0 = time.perf_counter()
-    with collective_ledger() as led, LogitsTape(llm.engine,
-                                                label in SHARD_LABELS) as tape:
+    with collective_ledger() as led, \
+            LogitsTape(label in TAPED_LABELS) as tape:
         outs = llm.generate(prompts, SamplingParams(max_new=MAX_NEW))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1179,7 +1236,7 @@ def paged_path(torch, np, llm, prompts, dense_tokens, card,
     pre0 = sched.n_preemptions
     t0 = time.perf_counter()
     # the tape runs on through the warm prefix pair below
-    tape = LogitsTape(paged.engine, label in SHARD_LABELS).__enter__()
+    tape = LogitsTape(label in TAPED_LABELS).__enter__()
     with collective_ledger() as led:
         outs = paged.generate(prompts, SamplingParams(max_new=MAX_NEW))
     torch.cuda.synchronize()
@@ -1340,11 +1397,12 @@ def profile_phase(torch, llm, prompts, card, label="profile"):
     return seen
 
 
-def tf_model(llm, dtype, fp32_layers=None):
+def tf_model(llm, dtype, fp32_layers=None, device=None):
     """(cfg, params, plan) of a teacher-forced check in `dtype`, with
     the plan's drop mask and exact syncs.  `fp32_layers` (start, stop)
     keeps only those layers for the fp32 check (a full-width fp32 copy of
-    a 7B model is 27 GB)."""
+    a 7B model is 27 GB).  `device`: where the params are cast (default:
+    where the canonical tree lives)."""
     import dataclasses
     from repro_torch.config.base import SPDPlanConfig, replace
     from repro_torch.core import blocks as B
@@ -1360,7 +1418,8 @@ def tf_model(llm, dtype, fp32_layers=None):
                 cfg.moe, n_dense_layers=dense))
         canonical = dict(canonical, layers=canonical["layers"][lo:hi])
         drop = drop[lo:hi]
-    params = tree_map(lambda w: w.to(B.TORCH_DTYPES[dtype]), canonical)
+    params = tree_map(lambda w: w.to(device=device,
+                                     dtype=B.TORCH_DTYPES[dtype]), canonical)
     return replace(cfg, dtype=dtype), params, SPDPlanConfig(drop)
 
 
@@ -1374,10 +1433,21 @@ class RoutePin:
     expert moves its logits by far more than the rounding did: pinned,
     the check measures the attention kernel, not the router's
     discontinuity (as the syncs run exact so as not to measure the
-    quantizer).  A model without MoE layers never routes."""
+    quantizer).  A model without MoE layers never routes.  `host()` and
+    `from_host` carry a sim run's routes to a shard engine's rank, which
+    replays its own shard's rows of them (`replay(shard=)`)."""
 
     def __init__(self):
         self.kept, self.flips, self.choices = [], 0, 0
+
+    @classmethod
+    def from_host(cls, kept):
+        pin = cls()
+        pin.kept = kept
+        return pin
+
+    def host(self) -> list:
+        return [(g.cpu().numpy(), i.cpu().numpy()) for g, i, _ in self.kept]
 
     @contextlib.contextmanager
     def _patched(self, fn):
@@ -1396,11 +1466,15 @@ class RoutePin:
             return out
         return self._patched(rec)
 
-    def replay(self):
+    def replay(self, shard=None):
         it = iter(self.kept)
 
         def rep(orig, *a, **kw):
-            own, kept = orig(*a, **kw)[1], next(it)
+            out, kept = orig(*a, **kw), next(it)
+            if shard is not None:       # a rank: its shard's rows, on host
+                kept = tuple(o.new_tensor(k[shard:shard + 1])
+                             for o, k in zip(out, kept)) + (out[2],)
+            own = out[1]
             same = own.sort(-1).values == kept[1].sort(-1).values
             self.flips += int((~same).sum())
             self.choices += same.numel()
@@ -2071,6 +2145,49 @@ class plain_ssd:
         SS.ssd_scan = self.saved
 
 
+def fp32_run(torch, llm, prompts, label, cache_len=512, shard=False):
+    """`llm`'s model cut to SHARD_FP32_LAYERS[label] at full width in
+    fp32 with the plan's drop mask, quantized kept syncs and logits
+    gather as SHARD_KW's (`tf_model`, then SHARD_KW's comm levels),
+    served on its engine kind: sim here (its tokens, ledger, launches,
+    logits and MoE routing, warm-up included, kept in
+    SIM_RUNS[f"{label} fp32"] for the shard phase), or on the shard
+    engine's ranks (`shard`: the LLM, for `shard_serve`), where every
+    kept sync runs the send and receive kernels at the family's
+    width."""
+    from repro_torch.api import LLM, SamplingParams
+    from repro_torch.parallel.collectives import collective_ledger
+
+    # a rank casts the cut of its host tree on its card
+    cfg, params, plan = tf_model(llm, "float32", SHARD_FP32_LAYERS[label],
+                                 llm.device)
+    kw = dict(tp=2, plan=plan, cache_len=cache_len, max_batch=4,
+              params=params, comm=SHARD_KW["comm"],
+              comm_logits=SHARD_KW["comm_logits"])
+    if shard:
+        return LLM.load(cfg, engine="shard", **kw)
+    m = LLM.load(cfg, **kw)
+    del params
+    with RoutePin().record() as pin:
+        m.generate([prompts[0][:8]], SamplingParams(max_new=2))  # warm-up
+        kernels = all_kernels()
+        for k in kernels:
+            k.launches = 0
+        with collective_ledger() as led, LogitsTape() as tape:
+            outs = m.generate(prompts, SamplingParams(max_new=MAX_NEW))
+    torch.cuda.synchronize()
+    SIM_RUNS[f"{label} fp32"] = dict(
+        tokens=[o.token_ids for o in outs], ledger=ledger_rows(led),
+        launches={k.__name__: k.launches for k in kernels},
+        tape=tape.host(), routes=pin.host())
+    print(f"{label} fp32 (layers {SHARD_FP32_LAYERS[label]}, "
+          f"{SHARD_KW['comm']} kept syncs and logits gather, {len(pin.kept)} "
+          f"MoE routings kept for the shard phase): tokens[0] "
+          f"{outs[0].token_ids}")
+    del m
+    release(torch)
+
+
 def recurrent_path(torch, np, prompts, card, arch="mamba2-370m",
                    cache_len=512, label="mamba path"):
     """A full-width model with recurrent state (Mamba2-370M; hymba-1.5b)
@@ -2082,6 +2199,7 @@ def recurrent_path(torch, np, prompts, card, arch="mamba2-370m",
     from repro_torch.api import LLM, SamplingParams
     from repro_torch.core.blocks import ssm_heads
     from repro_torch.configs import get_config
+    from repro_torch.parallel.collectives import collective_ledger
 
     cfg = get_config(arch)
     torch.cuda.reset_peak_memory_stats()
@@ -2106,12 +2224,17 @@ def recurrent_path(torch, np, prompts, card, arch="mamba2-370m",
     for k in kernels:
         k.launches = 0
     t0 = time.perf_counter()
-    outs = llm.generate(prompts, SamplingParams(max_new=MAX_NEW))
+    with collective_ledger() as led, \
+            LogitsTape(label in TAPED_LABELS) as tape:
+        outs = llm.generate(prompts, SamplingParams(max_new=MAX_NEW))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kernels}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     check_sync_launches(label, llm, launches, times)
+    SIM_RUNS[label] = dict(tokens=[o.token_ids for o in outs],
+                           ledger=ledger_rows(led), launches=dict(launches),
+                           tape=tape.host())
     for o, p in zip(outs, prompts):
         if (o.finish_reason != "length" or len(o.token_ids) != MAX_NEW
                 or not all(0 <= t < cfg.vocab_size for t in o.token_ids)):
@@ -3016,8 +3139,9 @@ def verify_kernel_phase(torch):
 def spec_counter(torch, engine, names):
     """Wrap `names` of `engine` with synchronized host timers; each call
     records (seconds, forwards): a draft call runs k forwards (the
-    catch-up and k-1 one-token steps), any other step one; a paged verify
-    also records whether it was a tree chunk."""
+    catch-up and k-1 one-token steps), a chunked prefill one a chunk,
+    any other step one; a paged verify also records whether it was a
+    tree chunk."""
     calls = {name: [] for name in names}
     for name in names:
         fn = getattr(engine, name)
@@ -3027,8 +3151,10 @@ def spec_counter(torch, engine, names):
             t0 = time.perf_counter()
             out = _fn(*a, **kw)
             torch.cuda.synchronize()
-            calls[_name].append((time.perf_counter() - t0,
-                                 int(kw.get("k", 1)),
+            fwd = int(kw.get("k", 1))
+            if _name == "prefill_chunked":
+                fwd = -(-int(max(kw["lengths"])) // int(kw["chunk"]))
+            calls[_name].append((time.perf_counter() - t0, fwd,
                                  kw.get("tree") is not None))
             return out
         setattr(engine, name, wrapped)
@@ -3041,21 +3167,23 @@ def plan_kept_syncs(cfg, plan) -> int:
     return kept_syncs(SimpleNamespace(cfg=cfg, plan=plan))
 
 
-SPEC_TARGET_STEPS = ("prefill", "verify", "verify_paged", "decode",
-                     "decode_paged")
-SPEC_DRAFT_STEPS = ("prefill", "draft", "draft_tree")
+SPEC_TARGET_STEPS = ("prefill", "prefill_chunked", "verify",
+                     "verify_paged", "decode", "decode_paged")
+SPEC_DRAFT_STEPS = ("prefill", "prefill_chunked", "draft", "draft_tree")
 
 
 def spec_counts(label, llm, sched, tcalls, dcalls, launches, paged):
     """The launch counts the speculative path implies, against the
-    counted ones: B1 once a layer per prefill of the target and of the
-    drafter; the fused kept sync kept_syncs(plan) per forward of each
-    engine and B3 alone once per forward of an engine whose plan
-    quantizes the logits gather; on a paged path B2's chunk kernel once a
-    layer per chain verify or warm suffix prefill (a tree chunk takes the
-    plain attention), and no B2 decode."""
+    counted ones: B1 once a layer per whole prefill of the target and of
+    the drafter (a chunked prefill takes the plain attention); the fused
+    kept sync kept_syncs(plan) per forward of each engine (on the shard
+    engine's ranks the send and the receive kernel instead) and B3 alone
+    once per forward of an engine whose plan quantizes the logits gather;
+    on a paged path B2's chunk kernel once a layer per chain verify or
+    warm suffix prefill (a tree chunk takes the plain attention), and no
+    B2 decode."""
     cfg, n = llm.cfg, llm.cfg.n_layers
-    t_fwd = sum(len(v) for v in tcalls.values())
+    t_fwd = sum(f for v in tcalls.values() for _, f, _ in v)
     d_fwd = sum(f for v in dcalls.values() for _, f, _ in v)
     chain_verify = sum(1 for _, _, tree in tcalls["verify_paged"]
                        if not tree)
@@ -3072,9 +3200,14 @@ def spec_counts(label, llm, sched, tcalls, dcalls, launches, paged):
     # none
     want["paged_flash_attention"] = n * chain_verify if paged else 0
     want["paged_flash_attention_chunk"] = want["paged_flash_attention"]
+    if llm.engine.backend.multi_process and llm.tp > 1:
+        syncs = want["quantized_psum_absmax"]
+        want.update(quantized_psum_absmax=0, quantize_message_absmax=syncs,
+                    reduce_messages_absmax=syncs)
     got = {k: launches[k] for k in want}
     print(f"{label}: target forwards {t_fwd} (prefill "
-          f"{len(tcalls['prefill'])}, verify "
+          f"{len(tcalls['prefill'])}, chunks "
+          f"{sum(f for _, f, _ in tcalls['prefill_chunked'])}, verify "
           f"{len(tcalls['verify']) + len(tcalls['verify_paged'])}, chain "
           f"paged {chain_verify}), draft forwards {d_fwd} (prefill "
           f"{len(dcalls['prefill'])}, {sched.spec.drafter.adoptions} "
@@ -3084,18 +3217,22 @@ def spec_counts(label, llm, sched, tcalls, dcalls, launches, paged):
 
 
 def spec_generate(torch, llm, prompts, label, card, overrides,
-                  max_new=MAX_NEW):
+                  max_new=MAX_NEW, record=None):
     """Greedy speculative serving of `prompts` on a fresh scheduler
     (`overrides` of the LLM's cache config) with every kernel's count
     zeroed before and read after, the launch counts checked
     (spec_counts), every request finished and (paged) every page back.
     Returns (tokens, preemptions, launches, decode ms per token, wall
     s); the scheduler and its drafter (the draft placement) are dropped
-    with it."""
+    with it.  `record` (a dict) gets the run's tokens, its full logits
+    (LogitsTape), its ledger, the ledger entries of its first draft
+    call ("draft", k forwards) and first verify ("verify"), and the
+    decode ms per token."""
     from repro_torch.api import SamplingParams
     from repro_torch.api.scheduler import Request
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import quant_collectives as QC
+    from repro_torch.parallel.collectives import collective_ledger
 
     sched = llm.serve(**overrides)
     paged = sched.kv.paged
@@ -3103,28 +3240,38 @@ def spec_generate(torch, llm, prompts, label, card, overrides,
     dcalls = spec_counter(torch, sched.spec.drafter.engine,
                           SPEC_DRAFT_STEPS)
     round_s = []                 # the draft and verify calls of each round
+    led = [] if record is None else None
+    spans = {}                   # the first call's ledger entries, by name
     for obj, name in ((sched.kv, "verify"), (sched.spec.drafter, "draft")):
-        def timed(*a, _fn=getattr(obj, name), **kw):
+        def timed(*a, _fn=getattr(obj, name), _name=name, **kw):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
+            n0 = len(led)
             res = _fn(*a, **kw)
             torch.cuda.synchronize()
             round_s.append(time.perf_counter() - t0)
+            spans.setdefault(_name, (n0, len(led)))
             return res
         setattr(obj, name, timed)
     kernels = (FA.flash_attention_bhsd, FA.paged_flash_attention,
-               QC.qdq_absmax, QC.quantized_psum_absmax)
+               QC.qdq_absmax, QC.quantized_psum_absmax,
+               QC.quantize_message_absmax, QC.reduce_messages_absmax)
     for k in kernels:
         k.launches = 0
     FA.paged_flash_attention.chunk_launches = 0
-    t0 = time.perf_counter()
-    base = -1000 * (1 + len(sched.completed))
-    for i, p in enumerate(prompts):
-        sched.submit(Request(uid=base - i, prompt=p, max_new=max_new,
-                             sampling=SamplingParams(max_new=max_new)))
-    done = sched.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    tape = LogitsTape()
+    with contextlib.ExitStack() as stack:
+        if record is not None:
+            stack.enter_context(tape)
+            led = stack.enter_context(collective_ledger())
+        t0 = time.perf_counter()
+        base = -1000 * (1 + len(sched.completed))
+        for i, p in enumerate(prompts):
+            sched.submit(Request(uid=base - i, prompt=p, max_new=max_new,
+                                 sampling=SamplingParams(max_new=max_new)))
+        done = sched.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     for name in SPEC_TARGET_STEPS:
         delattr(llm.engine, name)
     for name in SPEC_DRAFT_STEPS:
@@ -3145,6 +3292,13 @@ def spec_generate(torch, llm, prompts, label, card, overrides,
                                  f"{sched.pool.num_pages} pages back")
     rounds = sum(round_s)
     decode_ms = 1e3 * rounds * len(prompts) / max(sched.spec_committed, 1)
+    if record is not None:
+        rows = ledger_rows(led)
+        record.update(tokens=[r.out for r in outs], tape=tape.host(),
+                      ledger=rows, decode_ms=decode_ms,
+                      acceptance=sched.spec_acceptance,
+                      rounds=sched.spec_rounds, launches=dict(launches),
+                      **{k: rows[a:b] for k, (a, b) in spans.items()})
     print(f"{label} [{card}]: acceptance={sched.spec_acceptance:.4f} "
           f"tokens_per_round={sched.spec_tokens_per_step:.4f} "
           f"rounds={sched.spec_rounds} alt_commits="
@@ -3294,7 +3448,9 @@ def spec_phase(torch, np, llama, sweep_res, card):
     width (bf16, tp=2, spd=0.25, quant8 kept syncs and logits gather, B1
     and B2, cache_len 512, max batch 4, the four prompts, 16 greedy
     tokens), the canonical weights of the llama2-7b phases: (a) chain
-    k=SPEC_K all-drop, dense; (b) the same, paged, on a pool the requests
+    k=SPEC_K all-drop, dense, over chunked prefill (SPEC_CHUNK; its
+    logits and ledger recorded for the shard phase's speculative path);
+    (b) chain k=SPEC_K all-drop, paged, on a pool the requests
     outgrow; (c) the tiered draft from the sweep's sensitivities; (d)
     adaptive k in [1, 6] with tree width 2, paged; (e) calibrate_draft
     over candidate_policies(sensitivity=...) on 2 held-out prompts; (f)
@@ -3330,8 +3486,12 @@ def spec_phase(torch, np, llama, sweep_res, card):
     llm.generate([prompts[0][:8]], SamplingParams(max_new=2))  # warm-up
     paged = dict(page_size=PAGE_SIZE, num_pages=NUM_PAGES)
     dense = dict(max_batch=4)          # a fresh scheduler for each run
-    out["a"] = spec_generate(torch, llm, prompts, "spec (a) all-drop dense",
-                             card, dense)
+    rec = {}
+    out["a"] = spec_generate(torch, llm, prompts,
+                             "spec (a) all-drop dense, chunked prefill",
+                             card, dict(dense, prefill_chunk=SPEC_CHUNK),
+                             record=rec)
+    SIM_RUNS[SHARD_SPEC_LABEL] = dict(rec, plain_ms=plain_ms)
     out["b"] = spec_generate(torch, llm, prompts, "spec (b) all-drop paged",
                              card, paged)
     if out["b"][1] < 1:
@@ -3429,8 +3589,9 @@ def spec_phase(torch, np, llama, sweep_res, card):
 
 TRAIN_ARCH = "smollm-360m"
 # full width, cut from 32 layers to 16 since the MoE and hybrid paths
-# came (the run stays inside its time: the phase took ~240 s at 32)
-TRAIN_LAYERS = 16
+# came (the phase took ~240 s at 32), and to 8 since the shard phase
+# serves every family (it took ~125 s at 16)
+TRAIN_LAYERS = 8
 TRAIN_KW = dict(tp=2, dp=2, batch=8, seq=4096, microbatches=4, q_chunk=2048,
                 lr=1e-3, spd=0.25, dtype="bfloat16", attn_backend="pallas",
                 warmup=2, seed=0)
@@ -3914,6 +4075,7 @@ def moe_phase(torch, np, card):
                              f"tensor-core flash kernel: {seen}")
     llm._release_engine()             # the canonical weights stay
     release(torch)
+    fp32_run(torch, llm, prompts, "qwen2-moe path")
     paged, paged_launches = paged_path(torch, np, llm, prompts, tokens, card,
                                        label="qwen2-moe paged path")
     decode = (paged_launches["paged_flash_attention"]
@@ -3965,6 +4127,7 @@ def hymba_phase(torch, np, card):
                      "hymba")
     llm._release_engine()
     release(torch)
+    fp32_run(torch, llm, prompts, "hymba path", HYMBA_CACHE_LEN)
     # paged through the fallback: the global layers' K/V paged, the
     # windowed K/V, SSM state and conv tails dense per slot
     paged, _ = fallback_path(
@@ -4023,6 +4186,7 @@ def fallback_path(torch, np, llm, prompts, dense_tokens, card, label, *,
     import dataclasses
     from repro_torch.api import LLM, SamplingParams
     from repro_torch.core import model as M
+    from repro_torch.parallel.collectives import collective_ledger
 
     cfg = llm.cfg
     if M.supports_paged_attention(cfg):
@@ -4044,12 +4208,17 @@ def fallback_path(torch, np, llm, prompts, dense_tokens, card, label, *,
     for k in kernels:
         k.launches = 0
     t0 = time.perf_counter()
-    outs = paged.generate(prompts, SamplingParams(max_new=MAX_NEW))
+    with collective_ledger() as led, \
+            LogitsTape(label in TAPED_LABELS) as tape:
+        outs = paged.generate(prompts, SamplingParams(max_new=MAX_NEW))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kernels}
     check_sync_launches(label, paged, launches, times)
     check_launches(label, launches, want)
+    SIM_RUNS[label] = dict(tokens=[o.token_ids for o in outs],
+                           ledger=ledger_rows(led), launches=dict(launches),
+                           tape=tape.host())
     sched = paged.serve()
     tokens = [o.token_ids for o in outs]
     n_tok = sum(len(t) for t in tokens)
@@ -4223,6 +4392,7 @@ def deepseek_phase(torch, np, card):
     profile_phase(torch, llm, prompts, card, label="deepseek profile")
     llm._release_engine()             # the canonical weights stay
     release(torch)
+    fp32_run(torch, llm, prompts, "deepseek path")
     paged, _ = fallback_path(
         torch, np, llm, prompts, tokens, card, "deepseek paged path",
         want={"qdq_absmax": fwd, "flash_attention_bhsd": 0,
@@ -4319,19 +4489,38 @@ def int8_phase(torch, np, llama, card):
 SIM_RUNS: dict = {}
 #: the sim runs the shard phase (b) holds its ranks to
 SHARD_LABELS = ("main path", "paged path", "llama2-7b path")
+#: the same for (b)'s speculative path and its family and int8 paths
+SHARD_SPEC_LABEL = "llama2-7b spec path"
+SHARD_INT8_LABEL = "llama2-7b int8 KV + weights path"
+SHARD_FAMILY_LABELS = ("mamba path", "hymba path", "qwen2-moe path",
+                       "qwen2-moe paged path", "deepseek path",
+                       "deepseek paged path")
+#: the sim runs that record their logits (LogitsTape) for the shard phase
+TAPED_LABELS = SHARD_LABELS + (SHARD_INT8_LABEL,)
+#: the families' fp32 runs on four layers at full width, quantized kept
+#: syncs and logits gather (`fp32_run`): (first, stop) layer of each;
+#: hymba's keep its global layer 15, qwen2-moe's and deepseek's those of
+#: their fp32 checks
+SHARD_FP32_LAYERS = {"mamba path": (20, 24), "hymba path": (14, 18),
+                     "qwen2-moe path": (4, 8), "deepseek path": (5, 9)}
 
 
 class LogitsTape:
     """Every logits tensor a generate decides its tokens by, in order:
     the shard logits each greedy decode step reduces ("shards": sim's
-    (tp, B, Vl) stack, or a rank's (1, B, Vl) row) and the full logits
-    each prefill or warm suffix prefill returns ("full").  A context
-    manager over `engine` (off: records nothing); `host()` gives them as
-    fp32 numpy.  The copies are taken on the device and moved after the
-    run, so the timed steps are not held up."""
+    (tp, B, Vl) stack, or a rank's (1, B, Vl) row) and every full-vocab
+    logits tensor a step assembles ("full": a whole or chunked prefill's
+    and a draft step's (B, V), a verify's or warm suffix prefill's (B, C,
+    V)), through runtime.forward's greedy_token, full_logits and
+    full_logits_seq (sim's reshape of its stacked shards, a rank's
+    all-gather), which this wraps while it is entered (off: records
+    nothing).  A full_logits call inside greedy_token (sim's reduction)
+    is not an event of its own.  `host()` gives them as fp32 numpy.  The
+    copies are taken on the device and moved after the run, so the timed
+    steps are not held up."""
 
-    def __init__(self, engine, on=True):
-        self.engine, self.on, self.events, self._undo = engine, on, [], []
+    def __init__(self, on=True):
+        self.on, self.events, self._undo, self._reducing = on, [], [], False
 
     def __enter__(self):
         if not self.on:
@@ -4341,20 +4530,23 @@ class LogitsTape:
 
         def taped_greedy(cfg, logits):
             self.events.append(("shards", logits.detach().clone()))
-            return greedy(cfg, logits)
+            self._reducing = True
+            try:
+                return greedy(cfg, logits)
+            finally:
+                self._reducing = False
         F.greedy_token = taped_greedy
         self._undo.append(lambda: setattr(F, "greedy_token", greedy))
-        eng = self.engine
-        for name in ("prefill", "verify_paged"):
-            fn, own = getattr(eng, name), name in vars(eng)
+        for name in ("full_logits", "full_logits_seq"):
+            fn = getattr(F, name)
 
-            def taped(*a, _fn=fn, **kw):
-                out = _fn(*a, **kw)
-                self.events.append(("full", out[0].detach().clone()))
+            def taped(cfg, logits, _fn=fn):
+                out = _fn(cfg, logits)
+                if not self._reducing:
+                    self.events.append(("full", out.detach().clone()))
                 return out
-            setattr(eng, name, taped)
-            self._undo.append(lambda n=name, f=fn, o=own: setattr(eng, n, f)
-                              if o else delattr(eng, n))
+            setattr(F, name, taped)
+            self._undo.append(lambda n=name, f=fn: setattr(F, n, f))
         return self
 
     def __exit__(self, *exc):
@@ -4383,11 +4575,15 @@ def tapes_agree(np, label, sim_tape, rank_tapes, vocab):
     at the first event whose argmax parts, every parted row's sim top-2
     margin within twice that bound (else the shard engine decided
     otherwise than rounding can).  Every rank's "full" events are equal
-    (all-gathered).  Returns (events compared, events, the largest err /
-    bound, the parting: None or (event, rows, the largest margin /
-    bound))."""
+    (all-gathered).  Prints err / bound event by event.  Returns (events
+    compared, events, the largest err / bound, the parting: None or
+    (event, rows, the largest margin / bound))."""
     n = len(sim_tape)
-    worst = 0.0
+    worst, ratios = 0.0, []
+
+    def seen():
+        return (f"shard {label}: err / bound by event "
+                f"{[round(x, 3) for x in ratios]}")
     for i, (kind, a) in enumerate(sim_tape):
         if any(len(t) <= i or t[i][0] != kind for t in rank_tapes):
             raise AssertionError(f"shard {label}: the ranks' logits events "
@@ -4403,10 +4599,11 @@ def tapes_agree(np, label, sim_tape, rank_tapes, vocab):
         bound = TF_BF16_REL * float(np.abs(s).max())
         err = float(np.abs(r - s).max())
         worst = max(worst, err / bound)
+        ratios.append(err / bound)
         if not err <= bound:
             raise AssertionError(f"shard {label}: logits event {i} ({kind}, "
                                  f"{s.shape}) max_abs_err {err:.4e} > "
-                                 f"{bound:.4e}")
+                                 f"{bound:.4e}; {seen()}")
         parted = s.argmax(-1) != r.argmax(-1)
         if parted.any():
             top2 = np.sort(s[parted], -1)[:, -2:]
@@ -4414,11 +4611,13 @@ def tapes_agree(np, label, sim_tape, rank_tapes, vocab):
             if not margin <= 2 * bound:
                 raise AssertionError(
                     f"shard {label}: event {i} chose another token where "
-                    f"sim's margin {margin:.4e} > {2 * bound:.4e}")
+                    f"sim's margin {margin:.4e} > {2 * bound:.4e}; {seen()}")
+            print(seen())
             return i + 1, n, worst, (i, int(parted.sum()), margin / bound)
     if any(len(t) != n for t in rank_tapes):
         raise AssertionError(f"shard {label}: {[len(t) for t in rank_tapes]}"
                              f" logits events against sim's {n}")
+    print(seen())
     return n, n, worst, None
 SHARD_KW = dict(tp=2, spd=0.25, comm="quant8", comm_logits="quant8",
                 dtype="bfloat16", cache_len=512, max_batch=4, seed=0)
@@ -4426,6 +4625,31 @@ SHARD_KW = dict(tp=2, spd=0.25, comm="quant8", comm_logits="quant8",
 # decode step and one 512-token prefill
 WIRE_PAYLOADS = (("decode", (4, 1, 4096)), ("prefill", (1, 512, 4096)))
 SHARD_DEADLINE_S = 420
+#: (b)'s second spawn: the families, one model at a time
+SHARD_FAMILY_DEADLINE_S = 600
+#: each (b) path's model, by label (its vocabulary for the logits rows)
+SHARD_ARCHS = {"main path": "smollm-360m", "paged path": "smollm-360m",
+               "llama2-7b path": "llama2-7b", SHARD_SPEC_LABEL: "llama2-7b",
+               SHARD_INT8_LABEL: "llama2-7b", "mamba path": "mamba2-370m",
+               "hymba path": HYMBA_ARCH, "qwen2-moe path": MOE_ARCH,
+               "qwen2-moe paged path": MOE_ARCH,
+               "deepseek path": DEEPSEEK_ARCH,
+               "deepseek paged path": DEEPSEEK_ARCH}
+#: the kernels a (b) path launches as its sim run does, by count
+SHARD_SAME_AS_SIM = ("flash_attention_bhsd", "paged_flash_attention",
+                     "ssd_scan")
+
+
+def host_gib() -> tuple:
+    """This process's host memory: (resident GiB now, from
+    /proc/self/status; peak resident GiB, resource.getrusage)."""
+    import resource
+    now = 0.0
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                now = int(line.split()[1]) / 2 ** 20
+    return now, resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
 
 
 def ledger_rows(led) -> list:
@@ -4447,27 +4671,32 @@ def shard_launches_want(size: int, kept: int, fwd: int, logits_q: bool):
             "dequant_accum_absmax": 0, "dequantize_absmax": 0}
 
 
-def shard_serve(torch, np, llm, prompts, paged=False):
+def shard_serve(torch, np, llm, prompts):
     """On a rank: a warm-up, then the counted, timed generate of
-    `prompts` under the ledger (and, paged, the warm prefix pair).  Every
-    rank checks at each step that all took the same tokens."""
+    `prompts` under the ledger and the logits tape; on a paged cache
+    with a prefix cache (the fused paged kernels) also the warm prefix
+    pair.  Every rank checks at each step that all took the same
+    tokens."""
     from repro_torch.api import SamplingParams
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.parallel.collectives import collective_ledger
 
     llm.engine.backend.check_agreement = True
     llm.generate([prompts[0][:8]], SamplingParams(max_new=2))
-    names = (("prefill", "verify_paged", "decode_paged") if paged
+    sched = llm.serve()
+    paged = sched.kv.paged
+    prefix = paged and bool(sched.kv.prefix_cache)
+    names = (("prefill", "verify_paged", "decode_paged") if prefix
+             else ("prefill", "decode_paged") if paged
              else ("prefill", "decode"))
     times = timed_engine(torch, llm.engine, names)
     kernels = all_kernels()
     for k in kernels:
         k.launches = 0
     FA.paged_flash_attention.chunk_launches = 0
-    sched = llm.serve()
     pre0 = sched.n_preemptions
     t0 = time.perf_counter()
-    tape = LogitsTape(llm.engine).__enter__()   # on through the prefix pair
+    tape = LogitsTape().__enter__()   # on through the prefix pair
     with collective_ledger() as led:
         outs = llm.generate(prompts, SamplingParams(max_new=MAX_NEW))
     torch.cuda.synchronize()
@@ -4477,13 +4706,15 @@ def shard_serve(torch, np, llm, prompts, paged=False):
     dec = times[names[-1]]
     res = dict(tokens=[o.token_ids for o in outs], ledger=ledger_rows(led),
                launches=launches, fwd=fwd, kept=kept_syncs(llm),
+               logits_q=llm.plan.logits_mode != "exact",
                prefill_ms=1e3 * sum(sum(times[n]) for n in names[:-1]),
                decode_ms=1e3 * sum(dec) / max(len(dec), 1),
-               steps=len(dec), wall=wall,
+               steps=len(dec), wall=wall, events=len(tape.events),
                n_tok=sum(len(o.token_ids) for o in outs))
     if paged:
         res["preemptions"] = sched.n_preemptions - pre0
         res["pages_back"] = sched.pool.num_free
+    if prefix:
         hits0, suf0 = sched.kv.prefix_hits, len(times["verify_paged"])
         chunk0 = FA.paged_flash_attention.chunk_launches
         pair = prefix_prompts(np, llm.cfg.vocab_size, 1)
@@ -4495,6 +4726,21 @@ def shard_serve(torch, np, llm, prompts, paged=False):
                                  - chunk0)
     tape.__exit__(None, None, None)
     res["tape"] = tape.host()
+    return res
+
+
+def shard_plain_same(torch, np, llm, prompts, res):
+    """On a rank, after `shard_serve`: `plain_rerun` on a fresh
+    scheduler, every rank swapping the send, receive and B3 kernels for
+    their plain versions.  Its tokens and every logits event must equal
+    the kernels' run bit for bit (the kernels are bit-identical to their
+    plain versions at every payload the path sends, ragged last chunks
+    included).  Sets res["plain_same"] and res["plain_leaked"]."""
+    toks, tape, leaked = plain_rerun(torch, llm, prompts, fresh=True)
+    res["plain_leaked"] = leaked
+    res["plain_same"] = (toks == res["tokens"] and len(tape) == res["events"]
+                         and all(k == k2 and np.array_equal(a, b)
+                                 for (k, a), (k2, b) in zip(tape, res["tape"])))
     return res
 
 
@@ -4550,11 +4796,70 @@ def shard_rank_nccl(torch, np, g):
     return out
 
 
-def shard_rank_gloo(torch, np, g):
+def rank_load(torch, g, label, load):
+    """`load()` on a rank, timed, its card peak since and host memory
+    after printed at once (before anything is checked)."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    llm = load()
+    torch.cuda.synchronize()
+    info = dict(load_s=time.perf_counter() - t0, t0=t0)
+    rss, peak = host_gib()
+    print(f"shard {label} rank {g.rank}: loaded in {info['load_s']:.1f} s; "
+          f"card {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB held "
+          f"(peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}); host "
+          f"rss {rss:.2f} GiB (peak {peak:.2f})", flush=True)
+    return llm, info
+
+
+def rank_done(torch, res, info):
+    """A rank's path result with its load time, card peak (load
+    included), host memory and seconds (load + serve)."""
+    rss, peak = host_gib()
+    res.update(load_s=info["load_s"],
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               rss_gib=rss, maxrss_gib=peak,
+               seconds=time.perf_counter() - info["t0"])
+    return res
+
+
+def shard_spec_serve(torch, np, llm, prompts, plain, g, card):
+    """(b)'s speculative path on a rank: spec phase (a)'s settings (chain
+    k=SPEC_K, the all-drop draft, dense) over chunked prefill
+    (SPEC_CHUNK) on the llama2-7b placement, counted (spec_counts: the
+    send and receive kernels a kept quantized sync of each forward, B3 a
+    target forward, no B1: the prefill is chunked and the drafter adopts
+    it), its logits and ledger recorded; every committed token held to a
+    teacher-forced plain forward on the same rank; `plain` is the
+    rank's own plain llama2-7b run (its decode ms a token)."""
+    from repro_torch.api import SamplingParams
+    from repro_torch.spec import SpecConfig
+
+    t0 = time.perf_counter()
+    llm.enable_spec(SpecConfig(k=SPEC_K, draft="all-drop"))
+    llm.engine.backend.check_agreement = True
+    llm.generate([prompts[0][:8]], SamplingParams(max_new=2))  # warm-up
+    rec = {}
+    label = f"shard {SHARD_SPEC_LABEL} rank {g.rank}"
+    spec_generate(torch, llm, prompts, label, card,
+                  dict(max_batch=4, prefill_chunk=SPEC_CHUNK), record=rec)
+    rec["teacher_forced"] = teacher_forced_tokens(
+        torch, llm, prompts, rec["tokens"], f"{label} teacher-forced")
+    rec["same_as_plain"] = sum(a == b for t, u in zip(rec["tokens"],
+                                                     plain["tokens"])
+                               for a, b in zip(t, u))
+    rec.update(plain_ms=plain["decode_ms"],
+               seconds=time.perf_counter() - t0)
+    llm.disable_spec()
+    return rec
+
+
+def shard_rank_gloo(torch, np, g, card):
     """(b): two ranks on one card over gloo: SmolLM-360M dense and paged,
-    then llama2-7b dense, each at full width with the main path's
-    settings (SHARD_KW), the canonical weights drawn on the card and kept
-    on the host."""
+    then llama2-7b dense, its speculative path and its int8 KV + weights
+    variant, each at full width with the main path's settings
+    (SHARD_KW), the canonical weights drawn on the card and kept on the
+    host."""
     import gc
 
     from repro_torch.api import LLM
@@ -4570,7 +4875,7 @@ def shard_rank_gloo(torch, np, g):
     paged = LLM.load(cfg, tp=2, plan=llm.plan, cache_len=512, max_batch=4,
                      page_size=PAGE_SIZE, num_pages=NUM_PAGES,
                      params=llm.canonical, engine="shard")
-    out["paged path"] = shard_serve(torch, np, paged, prompts, paged=True)
+    out["paged path"] = shard_serve(torch, np, paged, prompts)
     del llm, paged
     gc.collect()
     torch.cuda.empty_cache()
@@ -4586,6 +4891,105 @@ def shard_rank_gloo(torch, np, g):
     out["llama2-7b path"].update(
         load_s=load_s, peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
         held_gib=torch.cuda.memory_allocated() / 2 ** 30)
+    out[SHARD_SPEC_LABEL] = shard_spec_serve(
+        torch, np, llm, prompts, out["llama2-7b path"], g, card)
+    canonical = llm.canonical
+    del llm
+    release(torch)
+    cfg8 = replace(cfg, kv_dtype="int8", weight_dtype="int8")
+    m, info = rank_load(torch, g, SHARD_INT8_LABEL, lambda: LLM.load(
+        cfg8, engine="shard", params=canonical, **SHARD_KW))
+    out[SHARD_INT8_LABEL] = rank_done(
+        torch, shard_serve(torch, np, m, prompts), info)
+    return out
+
+
+def rank_fp32(torch, np, g, llm, prompts, label, routes, cache_len=512):
+    """`fp32_run` of `llm`'s model on the shard engine's ranks, served
+    by `shard_serve` with the MoE routing pinned to sim's fp32 run
+    (`routes`, RoutePin.host(); this rank's shard rows): a quantized
+    sync's flipped code can flip a near-tied top-k choice, which moves a
+    token's logits by far more than the flip did, so pinned the check
+    measures the shard math and the syncs, not the router's
+    discontinuity."""
+    m, info = rank_load(torch, g, f"{label} fp32", lambda: fp32_run(
+        torch, llm, prompts, label, cache_len, shard=True))
+    with RoutePin.from_host(routes).replay(shard=g.rank) as pin:
+        res = shard_serve(torch, np, m, prompts)
+    return rank_done(torch, dict(res, route_flips=pin.flips,
+                                 route_choices=pin.choices), info)
+
+
+def shard_rank_families(torch, np, g, card, routes):
+    """(b)'s second spawn: the MoE, MLA, SSM and hybrid families at full
+    width on two ranks of one card over gloo, one model at a time (each
+    released before the next), each with its sim run's settings: mamba2
+    and hymba as `recurrent_path` loads them (hymba's prompts and cache
+    of `hymba_phase`), qwen2-moe and deepseek as `main_path` does; then
+    on the same canonical weights qwen2-moe paged as `paged_path` (the
+    40-page pool, the warm prefix pair) and deepseek paged through the
+    fallback as `fallback_path` (a pool for every request at its peak).
+    Each bf16 path is served again with the quantized collectives' plain
+    versions (`shard_plain_same`); each model's four-layer fp32 cut
+    (`fp32_run`) is served after its dense path, its MoE routing pinned
+    to sim's (`routes`: by path label, RoutePin.host())."""
+    from repro_torch.api import LLM
+    from repro_torch.config.base import replace
+    from repro_torch.configs import get_config
+    from repro_torch.core import model as M
+
+    out = {}
+
+    def prompts_for(arch, lens=PROMPT_LENS):
+        rng = np.random.default_rng(0)
+        return [rng.integers(0, get_config(arch).vocab_size, n)
+                for n in lens]
+
+    def serve(label, llm, prompts, info, **extra):
+        res = shard_plain_same(torch, np, llm, prompts,
+                               shard_serve(torch, np, llm, prompts))
+        out[label] = rank_done(torch, dict(res, **extra), info)
+
+    # the mamba path serves the SmolLM main path's prompts
+    for label, arch, lens, kw in (
+            ("mamba path", "smollm-360m", PROMPT_LENS, {}),
+            ("hymba path", HYMBA_ARCH, HYMBA_PROMPT_LENS,
+             dict(cache_len=HYMBA_CACHE_LEN))):
+        cfg = get_config(SHARD_ARCHS[label])
+        prompts = prompts_for(arch, lens)
+        llm, info = rank_load(torch, g, label, lambda: LLM.load(
+            cfg, engine="shard", **dict(SHARD_KW, **kw)))
+        serve(label, llm, prompts, info)
+        llm._release_engine()
+        release(torch)
+        out[f"{label} fp32"] = rank_fp32(torch, np, g, llm, prompts, label,
+                                         routes[label],
+                                         kw.get("cache_len", 512))
+        del llm
+        release(torch)
+    for arch, label in ((MOE_ARCH, "qwen2-moe"), (DEEPSEEK_ARCH, "deepseek")):
+        cfg = replace(get_config(arch), attn_backend="pallas")
+        prompts = prompts_for(arch)
+        llm, info = rank_load(torch, g, f"{label} path", lambda: LLM.load(
+            cfg, engine="shard", **SHARD_KW))
+        serve(f"{label} path", llm, prompts, info)
+        llm._release_engine()          # the canonical weights stay
+        release(torch)
+        out[f"{label} path fp32"] = rank_fp32(torch, np, g, llm, prompts,
+                                              f"{label} path",
+                                              routes[f"{label} path"])
+        release(torch)
+        # the fused paged kernels' pool, or one for every request at its
+        # peak through the fallback
+        pages = (NUM_PAGES if M.supports_paged_attention(cfg)
+                 else 4 * 512 // PAGE_SIZE)
+        m, info = rank_load(torch, g, f"{label} paged path", lambda: LLM.load(
+            cfg, tp=2, plan=llm.plan, cache_len=512, max_batch=4,
+            page_size=PAGE_SIZE, num_pages=pages, params=llm.canonical,
+            engine="shard"))
+        serve(f"{label} paged path", m, prompts, info, pages=pages)
+        del m, llm
+        release(torch)
     return out
 
 
@@ -4602,49 +5006,61 @@ def shard_rank(rank, job):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     g = init_tp(job["tp"], 1, backend=job["backend"], device=job["device"])
-    fn = shard_rank_nccl if job["backend"] == "nccl" else shard_rank_gloo
-    return fn(torch, np, g)
+    if job["backend"] == "nccl":
+        return shard_rank_nccl(torch, np, g)
+    if job.get("families"):
+        return shard_rank_families(torch, np, g, job["card"], job["routes"])
+    return shard_rank_gloo(torch, np, g, job["card"])
 
 
-def check_shard_path(np, label, tp, ranks, sim, transport, card, vocab):
-    """The same tokens on every rank; the ranks' logits against sim's
-    (`tapes_agree`), and the tokens equal to sim's unless the logits
-    parted within the bound; rank 0's ledger against sim's entry for
-    entry, and each rank's kernels.  Returns the parting (see
-    tapes_agree)."""
+def check_rank_runs(label, tp, ranks, sim):
+    """The same tokens on every rank; each rank's kernels: the kept-sync
+    kernels as shard_launches_want says, B1, B2 and B8 as on sim; rank
+    0's ledger against sim's entry for entry.  Returns (how many of rank
+    0's tokens equal sim's, how many sim's run has)."""
     for r, res in enumerate(ranks):
         if res["tokens"] != ranks[0]["tokens"]:
             raise AssertionError(f"shard {label} rank {r}: tokens "
                                  f"{res['tokens']} != rank 0's "
                                  f"{ranks[0]['tokens']}")
-        want = shard_launches_want(tp, res["kept"], res["fwd"], True)
+        want = shard_launches_want(tp, res["kept"], res["fwd"],
+                                   res["logits_q"])
+        want.update({k: sim["launches"].get(k, 0) for k in SHARD_SAME_AS_SIM})
         got = {k: res["launches"][k] for k in want}
         if got != want:
-            raise AssertionError(f"shard {label} rank {r}: kept-sync "
-                                 f"launches {got} != {want}")
-        if res["launches"]["flash_attention_bhsd"] != sim["launches"][
-                "flash_attention_bhsd"] or not res["launches"][
-                    "flash_attention_bhsd"]:
-            raise AssertionError(f"shard {label} rank {r}: flash launches "
-                                 f"{res['launches']} against sim's "
-                                 f"{sim['launches']}")
+            raise AssertionError(f"shard {label} rank {r}: launches {got} "
+                                 f"!= {want} (B1, B2 and B8: sim's)")
         print(f"shard {label} rank {r} launches: "
               f"{json.dumps(res['launches'])} ({res['fwd']} forwards x "
               f"{res['kept']} kept quantized syncs)")
-    done, n, worst, parted = tapes_agree(
-        np, label, sim["tape"], [rk["tape"] for rk in ranks], vocab)
     r0 = ranks[0]
-    same = sum(a == b for t, u in zip(r0["tokens"], sim["tokens"])
-               for a, b in zip(t, u))
-    total = sum(len(t) for t in sim["tokens"])
-    if parted is None and r0["tokens"] != sim["tokens"]:
-        raise AssertionError(f"shard {label}: no logits event parted, yet "
-                             f"the tokens {r0['tokens']} != sim's "
-                             f"{sim['tokens']}")
     if r0["ledger"] != sim["ledger"]:
         raise AssertionError(f"shard {label}: rank 0's ledger "
                              f"({len(r0['ledger'])} entries) != sim's "
                              f"({len(sim['ledger'])})")
+    same = sum(a == b for t, u in zip(r0["tokens"], sim["tokens"])
+               for a, b in zip(t, u))
+    return same, sum(len(t) for t in sim["tokens"])
+
+
+def timing_note(r0) -> str:
+    return (f"prefill_ms={r0['prefill_ms']:.2f} decode_ms_per_token="
+            f"{r0['decode_ms']:.2f} ({r0['steps']} steps) tokens_per_s="
+            f"{r0['n_tok'] / r0['wall']:.1f}")
+
+
+def check_shard_path(np, label, tp, ranks, sim, transport, card, vocab):
+    """`check_rank_runs`, then the ranks' logits against sim's
+    (`tapes_agree`), and the tokens equal to sim's unless the logits
+    parted within the bound.  Returns the parting (see tapes_agree)."""
+    same, total = check_rank_runs(label, tp, ranks, sim)
+    r0 = ranks[0]
+    done, n, worst, parted = tapes_agree(
+        np, label, sim["tape"], [rk["tape"] for rk in ranks], vocab)
+    if parted is None and r0["tokens"] != sim["tokens"]:
+        raise AssertionError(f"shard {label}: no logits event parted, yet "
+                             f"the tokens {r0['tokens']} != sim's "
+                             f"{sim['tokens']}")
     how = ("no argmax parted: the tokens equal sim's bit for bit"
            if parted is None else
            f"event {parted[0]} parted {parted[1]} row(s) at a sim top-2 "
@@ -4654,18 +5070,49 @@ def check_shard_path(np, label, tp, ranks, sim, transport, card, vocab):
           f"{TF_BF16_REL} x max|logit| of sim's on {done} of {n} events "
           f"(largest err {worst:.4f} x the bound); {how}; {same}/{total} "
           f"tokens equal sim's; rank 0's ledger equals sim's "
-          f"({len(r0['ledger'])} entries); prefill_ms={r0['prefill_ms']:.2f}"
-          f" decode_ms_per_token={r0['decode_ms']:.2f} ({r0['steps']} "
-          f"steps) tokens_per_s={r0['n_tok'] / r0['wall']:.1f}")
+          f"({len(r0['ledger'])} entries); {timing_note(r0)}"
+          + (f"; MoE routing pinned to sim's: {r0['route_flips']} of "
+             f"{r0['route_choices']} top-k choices would differ"
+             if r0.get("route_choices") else ""))
     return parted
+
+
+def check_family_path(label, tp, ranks, sim, transport, card):
+    """A family's bf16 path: `check_rank_runs`, and on every rank the
+    run with the quantized collectives' plain versions equal to the
+    kernels' bit for bit, tokens and logits (`shard_plain_same`).  Its
+    logits are held to sim's by its fp32 cut (`fp32_run`): in bf16 a
+    near-tied MoE routing choice or the SSM state carries a lone shard's
+    product rounding past the 5% bound (PERF.md §6 has the readings)."""
+    same, total = check_rank_runs(label, tp, ranks, sim)
+    for r, res in enumerate(ranks):
+        if not res["plain_same"] or res["plain_leaked"]:
+            raise AssertionError(f"shard {label} rank {r}: the run with the "
+                                 f"collectives' plain versions differs from "
+                                 f"the kernels' (or launched "
+                                 f"{res['plain_leaked']} kernels)")
+    r0 = ranks[0]
+    print(f"shard {label} [{card}] tp {tp} over {transport}: the same "
+          f"tokens on {len(ranks)} ranks; on every rank the send, receive "
+          f"and B3 kernels' run equals their plain versions' bit for bit "
+          f"({r0['events']} logits events, {r0['n_tok']} tokens); "
+          f"{same}/{total} tokens equal sim's bf16 run's; rank 0's ledger "
+          f"equals sim's ({len(r0['ledger'])} entries); {timing_note(r0)}")
 
 
 # the kept sync's payloads on the shard path, one rank's row: the
 # SmolLM-360M and LLaMA2-7B syncs of a batch-4 decode step and of one
-# 512-token prefill; two ranks' messages are made on the one card
+# 512-token prefill; the families' batch-4 decode syncs (mamba2 d 1024,
+# hymba d 1600, qwen2-moe d 2048, as deepseek's) and hymba's 17-token
+# prefill sync, 212.5 chunks (a ragged last chunk of 64); two ranks'
+# messages are made on the one card
 SHARD_HOP_SHAPES = (("smollm-360m", 4 * 960), ("smollm-360m", 512 * 960),
-                    ("llama2-7b", 4 * 4096), ("llama2-7b", 512 * 4096))
-SHARD_HOP_PATHS = {"smollm-360m": "main path", "llama2-7b": "llama2-7b path"}
+                    ("llama2-7b", 4 * 4096), ("llama2-7b", 512 * 4096),
+                    ("mamba2-370m", 4 * 1024), (HYMBA_ARCH, 4 * 1600),
+                    (HYMBA_ARCH, 17 * 1600), (MOE_ARCH, 4 * 2048))
+SHARD_HOP_PATHS = {"smollm-360m": "main path", "llama2-7b": "llama2-7b path",
+                   "mamba2-370m": "mamba path", HYMBA_ARCH: "hymba path",
+                   MOE_ARCH: "qwen2-moe path"}
 SHARD_HOP_TP = 2
 SYNC_KERNELS = ("quant_message_kernel", "reduce_messages_kernel")
 
@@ -4823,6 +5270,9 @@ def shard_phase(torch, np, card):
     n = torch.cuda.device_count()
     world = min(n, 4)
     t0 = time.perf_counter()
+    rss, peak = host_gib()
+    print(f"shard phase: this process's host rss {rss:.2f} GiB (peak "
+          f"{peak:.2f}) before the ranks start")
     if world == 1:
         print("shard (a): one card, so a world of 1 on purpose (tp 1 over "
               "nccl; no wire): llama2-7b through engine='shard' against "
@@ -4856,31 +5306,24 @@ def shard_phase(torch, np, card):
               f"{json.dumps(r0['wire'])}")
 
     t0 = time.perf_counter()
+    job = dict(tp=2, backend="gloo", device="cuda:0", card=card)
     ranks = spawn(shard_rank, 2, backend="gloo", device="cuda:0",
-                  args=(dict(tp=2, backend="gloo", device="cuda:0"),),
-                  deadline_s=SHARD_DEADLINE_S, timeout_s=300)
+                  args=(job,), deadline_s=SHARD_DEADLINE_S, timeout_s=300)
+    b_s = time.perf_counter() - t0
     transport = ("gloo on one card (CUDA tensors staged through the host: "
                  "these times measure a host-staged wire, not NVLink)")
     out = {"shard (a)": r0["launches"]}
     parted = {}
-    for label in SHARD_LABELS:
+    for label in SHARD_LABELS + (SHARD_INT8_LABEL,):
         res = [rk[label] for rk in ranks]
-        vocab = get_config("llama2-7b" if label.startswith("llama")
-                           else "smollm-360m").vocab_size
-        parted[label] = check_shard_path(np, label, 2, res, SIM_RUNS[label],
-                                         transport, card, vocab)
+        parted[label] = check_shard_path(
+            np, label, 2, res, SIM_RUNS[label], transport, card,
+            get_config(SHARD_ARCHS[label]).vocab_size)
         out[label] = res[0]["launches"]
-    for r, rk in enumerate(ranks):
-        p = rk["paged path"]
-        if (p["preemptions"] < 1 or p["pages_back"] != NUM_PAGES
-                or p["prefix_hits"] < 1
-                or p["prefix_tokens"] != ranks[0]["paged path"][
-                    "prefix_tokens"]
-                or (parted["paged path"] is None and p["prefix_tokens"]
-                    != SIM_RUNS["paged path"]["prefix_tokens"])
-                or not p["launches"]["paged_flash_attention"]
-                or not p["chunk_launches"]):
-            raise AssertionError(f"shard paged path rank {r}: {p}")
+    # sim's prefix tokens where the path's logits parted nowhere
+    check_paged_prefix(ranks, "paged path",
+                       None if parted["paged path"] else
+                       SIM_RUNS["paged path"]["prefix_tokens"])
     p, ll = ranks[0]["paged path"], ranks[0]["llama2-7b path"]
     print(f"shard paged path: preemptions={p['preemptions']} pages back "
           f"{p['pages_back']}/{NUM_PAGES}, warm prefix pair: prefix_hits="
@@ -4893,9 +5336,158 @@ def shard_phase(torch, np, card):
               f"peak_memory_gib={q['peak_gib']:.2f} (load included; the "
               f"canonical weights kept on the host), "
               f"{q['held_gib']:.2f} GiB held after")
-    print(f"shard (b) over {transport}: {time.perf_counter() - t0:.1f} s; "
-          f"llama2-7b decode_ms_per_token={ll['decode_ms']:.2f}")
+    out[SHARD_SPEC_LABEL] = check_shard_spec(np, ranks, card)
+    print_rank_memory(ranks, (SHARD_INT8_LABEL,))
+    print(f"shard (b) over {transport}: {b_s:.1f} s; llama2-7b "
+          f"decode_ms_per_token={ll['decode_ms']:.2f}; the speculative path "
+          f"{ranks[0][SHARD_SPEC_LABEL]['seconds']:.1f} s, the int8 path "
+          f"{ranks[0][SHARD_INT8_LABEL]['seconds']:.1f} s (rank 0's)")
+
+    out.update(shard_family_phase(np, card, job, transport))
     return out
+
+
+def shard_family_phase(np, card, job, transport):
+    """(b)'s second spawn: the families, one model at a time, each bf16
+    path checked by `check_family_path`, each fp32 cut held to sim's by
+    `check_shard_path` (every path checked before any failure raises).
+    Returns each path's rank-0 launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dist import spawn
+
+    t0 = time.perf_counter()
+    routes = {lb: SIM_RUNS[f"{lb} fp32"]["routes"] for lb in SHARD_FP32_LAYERS}
+    ranks = spawn(shard_rank, 2, backend="gloo", device="cuda:0",
+                  args=(dict(job, families=True, routes=routes),),
+                  deadline_s=SHARD_FAMILY_DEADLINE_S, timeout_s=300)
+    print_rank_memory(ranks, SHARD_FAMILY_LABELS)
+    out, parted, failed = {}, {}, []
+    for label in SHARD_FAMILY_LABELS + tuple(f"{lb} fp32"
+                                             for lb in SHARD_FP32_LAYERS):
+        res = [rk[label] for rk in ranks]
+        out[label] = res[0]["launches"]
+        try:
+            if label.endswith(" fp32"):
+                parted[label] = check_shard_path(
+                    np, label, 2, res, SIM_RUNS[label], transport, card,
+                    get_config(SHARD_ARCHS[label.removesuffix(" fp32")]
+                               ).vocab_size)
+            else:
+                check_family_path(label, 2, res, SIM_RUNS[label], transport,
+                                  card)
+        except AssertionError as e:
+            print(f"FAILED: {e}")
+            failed.append(label)
+    if failed:
+        raise AssertionError(f"shard (b): the paths {failed} failed")
+    check_paged_prefix(ranks, "qwen2-moe paged path")
+    for r, rk in enumerate(ranks):
+        p = rk["deepseek paged path"]
+        if p["pages_back"] != p["pages"] or p["preemptions"]:
+            raise AssertionError(f"shard deepseek paged path rank {r}: "
+                                 f"{p['pages_back']}/{p['pages']} pages "
+                                 f"back, {p['preemptions']} preemptions")
+    print(f"shard (b) families over {transport}: "
+          f"{time.perf_counter() - t0:.1f} s; rank 0's seconds a path "
+          "(load + serve): " + ", ".join(
+              f"{lb} {ranks[0][lb]['seconds']:.1f}"
+              for lb in SHARD_FAMILY_LABELS))
+    return out
+
+
+def check_paged_prefix(ranks, label, want=None):
+    """A (b) path on the fused paged kernels: at least one preemption,
+    every page back, the warm prefix pair admitted warm (a prefix hit,
+    B2's chunk kernel) with the same tokens on every rank (and `want`,
+    sim's, where given)."""
+    for r, rk in enumerate(ranks):
+        p = rk[label]
+        if (p["preemptions"] < 1 or p["pages_back"] != NUM_PAGES
+                or p["prefix_hits"] < 1
+                or p["prefix_tokens"] != ranks[0][label]["prefix_tokens"]
+                or (want is not None and p["prefix_tokens"] != want)
+                or not p["launches"]["paged_flash_attention"]
+                or not p["chunk_launches"]):
+            raise AssertionError(f"shard {label} rank {r}: {p}")
+
+
+def print_rank_memory(ranks, labels):
+    """Each rank's load time, decode ms a token, card peak and host
+    memory on each path of `labels`."""
+    for label in labels:
+        for r, rk in enumerate(ranks):
+            q = rk[label]
+            print(f"shard {label} rank {r}: loaded in {q['load_s']:.1f} s, "
+                  f"decode_ms_per_token={q['decode_ms']:.2f}, "
+                  f"peak_memory_gib={q['peak_gib']:.2f} (load included; "
+                  f"the canonical weights kept on the host), host rss "
+                  f"{q['rss_gib']:.2f} GiB (peak {q['maxrss_gib']:.2f}); "
+                  f"{q['seconds']:.1f} s")
+
+
+def check_shard_spec(np, ranks, card):
+    """(b)'s speculative path against sim's spec (a) run (SIM_RUNS): the
+    same tokens on every rank; every full logits tensor (chunk, draft
+    step, verify) within the bound of sim's up to the first argmax that
+    parts (`tapes_agree`), and then the tokens and the whole ledger
+    equal sim's unless one parted; the ledger of the first draft call
+    and of the first verify equal sim's either way.  Prints acceptance,
+    rounds, spec against plain decode ms a token (the rank's own plain
+    llama2-7b run) beside sim's ratio, the ledger entries of a draft and
+    of a target forward, and the hand launches.  Returns rank 0's
+    launches."""
+    label, sim = SHARD_SPEC_LABEL, SIM_RUNS[SHARD_SPEC_LABEL]
+    res = [rk[label] for rk in ranks]
+    for r, q in enumerate(res):
+        if q["tokens"] != res[0]["tokens"]:
+            raise AssertionError(f"shard {label} rank {r}: tokens differ "
+                                 "from rank 0's")
+        for key in ("draft", "verify"):
+            if q[key] != sim[key]:
+                raise AssertionError(f"shard {label} rank {r}: the first "
+                                     f"{key} call's ledger {q[key]} != "
+                                     f"sim's {sim[key]}")
+    from repro_torch.configs import get_config
+    vocab = get_config(SHARD_ARCHS[label]).vocab_size
+    done, n, worst, parted = tapes_agree(np, label, sim["tape"],
+                                         [q["tape"] for q in res], vocab)
+    r0 = res[0]
+    if parted is None and (r0["tokens"] != sim["tokens"]
+                           or r0["ledger"] != sim["ledger"]):
+        raise AssertionError(f"shard {label}: no logits event parted, yet "
+                             "the tokens or the ledger differ from sim's")
+    k = SPEC_K
+    draft1 = r0["draft"][-len(r0["draft"]) // k:]
+    ratio = r0["decode_ms"] / r0["plain_ms"]
+    sim_ratio = sim["decode_ms"] / sim["plain_ms"]
+    total = sum(len(t) for t in r0["tokens"])
+    print(f"shard {label} [{card}]: the same tokens on {len(res)} ranks; "
+          f"full logits within {TF_BF16_REL} x max|logit| of sim's spec (a) "
+          f"on {done} of {n} events (largest err {worst:.4f} x the bound); "
+          + ("no argmax parted: the tokens and the ledger equal sim's"
+             if parted is None else
+             f"event {parted[0]} parted {parted[1]} row(s) at a sim top-2 "
+             f"margin of {parted[2]:.3f} x the bound (<= 2 allowed)")
+          + f"; acceptance={r0['acceptance']:.4f} rounds={r0['rounds']} "
+          f"(sim {sim['acceptance']:.4f}, {sim['rounds']}); "
+          f"{r0['same_as_plain']}/{total} tokens equal the rank's plain "
+          f"greedy, {r0['teacher_forced']}/{total} the argmax of a "
+          f"teacher-forced plain forward on the rank")
+    print(f"shard {label} [{card}]: decode_ms_per_token spec "
+          f"{r0['decode_ms']:.2f} / plain {r0['plain_ms']:.2f} = "
+          f"{ratio:.3f} over gloo (sim: {sim['decode_ms']:.2f} / "
+          f"{sim['plain_ms']:.2f} = {sim_ratio:.3f}); {r0['seconds']:.1f} s")
+    print(f"shard {label}: rank 0's ledger entries of one draft forward "
+          f"(the last of the first draft call's {k}): {json.dumps(draft1)}; "
+          f"of one target forward (the first verify): "
+          f"{json.dumps(r0['verify'])}")
+    for r, q in enumerate(res):
+        print(f"shard {label} rank {r} hand launches: " + json.dumps(
+            {nm: q["launches"][nm] for nm in (
+                "flash_attention_bhsd", "qdq_absmax",
+                "quantize_message_absmax", "reduce_messages_absmax",
+                "quantized_psum_absmax")}))
+    return r0["launches"]
 
 
 def clock(t_start, what):
@@ -4975,6 +5567,7 @@ def main() -> int:
         raise AssertionError(f"the bf16 mamba path's prefill did not run the "
                              f"three tensor-core SSD kernels: {seen}")
     recurrent_checks(torch, mamba, prompts[3], mamba_tokens[3])
+    fp32_run(torch, mamba, prompts, "mamba path")
     del mamba
     release(torch)
     clock(t_start, "the kernel phases and the SmolLM and mamba paths")

@@ -40,10 +40,11 @@ program after `launch.dist.init_tp`, e.g. under
     outs = llm.generate(prompts)          # the same outputs on every rank
 
 or `launch.dist.spawn(fn, world, backend=, device=)` from one process.
-Without the groups it raises.  Dense GQA stacks only, dense or paged
-caches; speculation, chunked prefill, the other families, int8 caches
-and weights, Algorithm 1 and training raise NotImplementedError there
-(ROADMAP A5).
+Without the groups it raises.  It serves what `sim` serves: every
+family (dense, MoE, MLA, SSM, hybrid), int8 caches and weights, dense
+or paged caches, chunked prefill and speculative decoding.  The
+overlap engine (ROADMAP A5b), Algorithm 1 and training (A5e) and the
+modality frontends (A4) raise NotImplementedError there.
 """
 from __future__ import annotations
 
@@ -112,28 +113,13 @@ def _no_overlap_in_rank() -> None:
             "yet (ROADMAP A5b); it runs every shard on one device")
 
 
-def _check_shard(cfg, *, prefill_chunk) -> None:
-    """What the shard engine serves: dense GQA stacks with fp caches and
-    weights, dense or paged, without chunked prefill (speculation:
-    `enable_spec`)."""
-    from repro_torch.core.layer_kinds import layer_kinds
-    if prefill_chunk:
-        raise NotImplementedError("chunked prefill on the shard engine is "
-                                  "not ported yet (ROADMAP A5c)")
-    kinds = layer_kinds(cfg)
-    family = next((k.mixer for k in kinds if k.mixer != "gqa"), None)
-    if family is None and any(k.ffn != "mlp" for k in kinds):
-        family = "moe"
-    if family is None and any(k.window for k in kinds):
-        family = "windowed attention"
-    if family is None and cfg.frontend_dim:
-        family = "frontend"
-    if family is None and "int8" in (cfg.kv_dtype, cfg.weight_dtype):
-        family = "int8 KV / weights"
-    if family is not None:
+def _check_shard(cfg) -> None:
+    """What the shard engine refuses beyond what `sim` refuses: the
+    modality frontends, which no engine of the port serves yet."""
+    if cfg.frontend_dim:
         raise NotImplementedError(
-            f"{cfg.name}: the {family} family on the shard engine is not "
-            "ported yet (ROADMAP A5d); it serves dense GQA stacks")
+            f"{cfg.name}: modality frontends are not ported yet (ROADMAP "
+            "A4)")
 
 
 def _as_prompts(prompts) -> List[np.ndarray]:
@@ -252,7 +238,7 @@ class LLM:
         if resolve_backend(engine).multi_process:
             groups = _rank_groups(device)
             dev = groups.device
-            _check_shard(cfg, prefill_chunk=prefill_chunk)
+            _check_shard(cfg)
             if max_batch % dp:
                 raise ValueError(f"max_batch {max_batch} does not split over "
                                  f"dp {dp} data ranks")
@@ -297,7 +283,8 @@ class LLM:
         from repro_torch.core import model as M
 
         if padded is None:
-            padded = M.pad_model(self.canonical, self.cfg, self.tp)
+            padded = M.pad_model(self.canonical, self.cfg, self.tp,
+                                 device=self.device)
         return engine.backend.place_params(padded)
 
     def _build_engine(self, padded=None):
@@ -334,13 +321,10 @@ class LLM:
         `calib_batches`) clears `calib_target`; cached per (arch, engine,
         tp) unless `force_calibration`; the result lands on
         `self.spec_calibration`.  Drops the cached scheduler.  Returns
-        self."""
+        self.  On `shard` every rank runs the same sweep and search and
+        reaches the same draft plan."""
         from repro_torch.spec import SpecConfig, SpecError, derive_draft_plan
 
-        if self.engine.backend.multi_process:
-            raise NotImplementedError("speculative decoding on the shard "
-                                      "engine is not ported yet (ROADMAP "
-                                      "A5c)")
         if not isinstance(spec, SpecConfig):
             raise TypeError(f"spec must be a repro_torch.spec.SpecConfig, "
                             f"got {spec!r}")
@@ -348,9 +332,13 @@ class LLM:
         if (needs_tiers and sensitivity is None
                 and calib_batches is not None):
             from repro_torch.core.spd import sweep_sensitivity
-            res, _ = sweep_sensitivity(self.cfg, self.canonical,
-                                       calib_batches, self.tp,
-                                       q_chunk=self.q_chunk)
+            from repro_torch.tree import tree_map
+            # on `shard` the canonical tree stays on the host: every rank
+            # runs the same sweep on its own device
+            canon = tree_map(lambda w: w.to(self.device), self.canonical)
+            res, _ = sweep_sensitivity(self.cfg, canon, calib_batches,
+                                       self.tp, q_chunk=self.q_chunk)
+            del canon
             sensitivity, ranking = res.sensitivity, res.ranking
         policy = None
         if spec.draft == "calibrated":

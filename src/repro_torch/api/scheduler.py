@@ -745,7 +745,7 @@ class Scheduler:
         else:
             argmax, logits = None, lg.float().cpu().numpy()
         self.spec_rounds += 1
-        relocs, post = [], []
+        relocs, post, seen = [], [], []
         for b in active:
             req = self.slots[b]
             sp = req.sampling or _GREEDY
@@ -780,6 +780,7 @@ class Scheduler:
             budget = self._max_new(req) - len(req.out)
             done_b = False
             for tok in committed[:budget]:
+                seen.append(tok)
                 req.out.append(tok)
                 self.spec_committed += 1
                 self.pos[b] += 1
@@ -791,6 +792,7 @@ class Scheduler:
             if used_alt and not done_b:
                 relocs.append((b, old_pos + k + used_alt, old_pos + 1))
             post.append((b, done_b, used_alt, old_pos))
+        self.engine.backend.agree(seen)
         if relocs:
             src = np.zeros(n, np.int64)
             dst = np.zeros(n, np.int64)

@@ -75,10 +75,13 @@ def vocab_pad(cfg: ModelConfig, tp: int) -> int:
     return -(-cfg.vocab_size // tp) * tp
 
 
-def pad_model(p: dict, cfg: ModelConfig, tp: int) -> dict:
+def pad_model(p: dict, cfg: ModelConfig, tp: int, device=None) -> dict:
     """Canonical -> TP-layout (padded) params; layers stay a list.  With
     weight_dtype="int8" the attention and MLP leaves are quantized after
-    padding, as the reference's are."""
+    padding, as the reference's are; given a `device`, each layer is
+    quantized there and comes back where it was (the shard engine keeps
+    the canonical tree on the host and quantizes on the rank's card, one
+    layer at a time)."""
     out = {k: v for k, v in p.items() if k != "layers"}
     pad = vocab_pad(cfg, tp) - cfg.vocab_size
     if pad:
@@ -87,8 +90,17 @@ def pad_model(p: dict, cfg: ModelConfig, tp: int) -> dict:
         if "head" in p:
             out["head"] = torch.cat([p["head"], p["head"].new_zeros(
                 (cfg.d_model, pad))], 1)
-    out["layers"] = [B.quantize_layer_weights(B.pad_layer(lp, cfg, k, tp),
-                                              cfg, k)
+
+    def layer(lp, k):
+        if device is None or cfg.weight_dtype != "int8":
+            return B.quantize_layer_weights(B.pad_layer(lp, cfg, k, tp),
+                                            cfg, k)
+        home = p["emb"].device
+        lp = tree_map(lambda w: w.to(device), lp)
+        return tree_map(lambda w: w.to(home), B.quantize_layer_weights(
+            B.pad_layer(lp, cfg, k, tp), cfg, k))
+
+    out["layers"] = [layer(lp, k)
                      for lp, k in zip(p["layers"], layer_kinds(cfg))]
     return out
 

@@ -374,12 +374,19 @@ class ShardBackend(ParallelBackend):
         return caches
 
     def agree(self, tokens) -> None:
+        """Rank 0 broadcasts how many tokens it took, then the tokens (a
+        speculative round commits a count of them that the host
+        decides); every rank checks its own against them."""
         if not self.check_agreement or self.groups.world == 1:
             return
         import torch.distributed as dist
         mine = torch.as_tensor(np.asarray(tokens, np.int64)).reshape(-1)
         mine = mine.to(self.device)
-        ref = mine.clone()
+        n = torch.tensor([mine.numel()], dtype=torch.int64,
+                         device=self.device)
+        dist.broadcast(n, src=0)
+        ref = (mine.clone() if self.groups.rank == 0 else
+               torch.empty(int(n), dtype=torch.int64, device=self.device))
         dist.broadcast(ref, src=0)
         if not torch.equal(ref, mine):
             raise RuntimeError(

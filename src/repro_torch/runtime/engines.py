@@ -87,20 +87,22 @@ class Engine:
                         chunk: int):
         """Incremental prefill in fixed-size chunks: tokens (B, S)
         right-padded, lengths (B,) the real lengths.  Archs the extension
-        forward does not cover prefill whole, at the tokens' own length."""
-        if self.backend.multi_process:
-            raise NotImplementedError("chunked prefill on the shard backend "
-                                      "is not ported yet (ROADMAP A5c)")
+        forward does not cover prefill whole, at the tokens' own length.
+        The chunk step runs the batch replicated over the data ranks, so
+        its caches hold every row on each of them (`shard_batch=False`),
+        as a whole prefill's do after `backend.cache_rows`."""
         if not M.supports_chunked_prefill(self.cfg):
             return self.prefill(params, tokens, cache_len=cache_len,
                                 lengths=np.asarray(lengths, np.int64))
         step = self._step(("prefill_chunk", cache_len),
                           lambda: F.prefill_chunk_step(
             self.cfg, self.plan, tp=self.tp, q_chunk=self.q_chunk))
+        caches = self.backend.blank_caches(M.cache_struct(
+            self.cfg, self.plan, tokens.shape[0], cache_len, self.tp),
+            shard_batch=False)
         return F.drive_chunked_prefill(
-            lambda t, st, ln, cs: step(params, t, st, ln, cs),
-            self.blank_caches(tokens.shape[0], cache_len), tokens, lengths,
-            int(chunk))
+            lambda t, st, ln, cs: step(params, t, st, ln, cs), caches,
+            tokens, lengths, int(chunk))
 
     def _decode(self, with_logits: bool):
         return self._step(("decode", with_logits), lambda: F.decode_step(
@@ -174,12 +176,15 @@ class Engine:
                       top_p, generators, *, k: int):
         """Sampled draft: per-request temperature / top-k / top-p, and
         `generators[i]` (one per row) for draft draw i.  Returns (toks
-        (B, k), full logits (B, k, V), caches)."""
+        (B, k), full logits (B, k, V), caches).  The step takes the
+        generators a row (row b's k draws), so that a backend with data
+        ranks splits them with the other rows."""
         step = self._step(("draft_sampled", int(k)), lambda: F.draft_step(
             self.cfg, self.plan, tp=self.tp, q_chunk=self.q_chunk, k=k,
             sampled=True))
+        rows = [list(g) for g in zip(*generators)]
         return step(params, ctx, start, caches, temperature, top_k, top_p,
-                    generators)
+                    rows)
 
     def copy_pos(self, caches, src, dst):
         """Per-row cache position copy src[b] -> dst[b] on dense caches

@@ -231,9 +231,11 @@ def draft_step(cfg, plan, *, tp, q_chunk, k, sampled=False, tree_width=1):
 
     Greedy returns (toks (B, k), caches); tree_width > 1 also returns the
     first position's top-2..top-w candidates (toks, alts (B, w-1),
-    caches).  Sampled draws draft i with `gens[i]` (one generator a row)
-    and returns (toks, full logits (B, k, V), caches): the scheduler
-    rebuilds each draw's distribution from them."""
+    caches).  Sampled takes `gens` a row (gens[b][i]: row b's generator
+    of draw i, a "batch" argument that splits over the data ranks with
+    the rows), draws draft i with each row's i-th, and returns (toks,
+    full logits (B, k, V), caches): the scheduler rebuilds each draw's
+    distribution from them."""
     def chain(p, ctx, start, cs, first, draw):
         lg, cs = M.verify_step(cfg, p, plan, ctx, start, cs, tp=tp,
                                q_chunk=q_chunk)
@@ -251,7 +253,8 @@ def draft_step(cfg, plan, *, tp, q_chunk, k, sampled=False, tree_width=1):
     if sampled:
         def local(p, ctx, start, cs, t, kk, pp, gens):
             def draw(full, i):
-                return RS.sample_core(full, t, kk, pp, gens[i]), full
+                return RS.sample_core(full, t, kk, pp,
+                                      [g[i] for g in gens]), full
 
             toks, recs, cs = chain(p, ctx, start, cs,
                                    lambda full: draw(full, 0), draw)
@@ -259,7 +262,7 @@ def draft_step(cfg, plan, *, tp, q_chunk, k, sampled=False, tree_width=1):
 
         return local, StepSpec(
             ("params", "batch", "batch", "cache", "batch", "batch", "batch",
-             "rep"), ("batch", "batch", "cache"))
+             "batch"), ("batch", "batch", "cache"))
 
     def greedy(full, i=0):
         return (RS.greedy_tokens(full),)

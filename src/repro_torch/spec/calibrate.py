@@ -128,9 +128,10 @@ def _measure(llm, plan: SPDPlanConfig, prompts, *, k: int,
     from repro_torch.spec.draft import Drafter, SpecState
 
     engine = llm._make_engine(plan)
-    cc = CacheConfig(cache_len=llm.cache.cache_len,
-                     max_batch=min(llm.cache.max_batch,
-                                   max(len(prompts), 1)))
+    # a slot a prompt, rounded up to whole data ranks (on `shard`)
+    dpn = llm.engine.backend.dp_total
+    slots = -(-min(llm.cache.max_batch, max(len(prompts), 1)) // dpn) * dpn
+    cc = CacheConfig(cache_len=llm.cache.cache_len, max_batch=slots)
     drafter = Drafter(engine, llm._place(engine), cc.max_batch,
                       cc.cache_len)
     sched = Scheduler(llm.engine, llm.params, cc,

@@ -15,8 +15,8 @@ across ranks, the collectives under a model group, and the refusals.
     tp 2 and 4, int8 and int4, fp32 and bf16, with the same ledger;
   * pmax, psum, ppermute (ring and pairs), the shard gather, the axis
     size and the shard ids under the model group;
-  * everything outside this slice raises NotImplementedError naming its
-    ROADMAP item, inside a rank.
+  * what the shard engine still refuses raises NotImplementedError
+    naming its ROADMAP item, inside a rank.
 Spawns: one per layout, each running all of its cases (torch_dist.py).
 """
 import numpy as np
@@ -53,11 +53,12 @@ PAYLOADS = ((960, 0, 8), (1001, 1, 4), (16 * 128, 2, 8), (3, 3, 4),
             (130, 4, 8))
 LAYOUTS = {(2, 1): ARCHS, (2, 2): ("smollm-360m", "opt-6.7b"),
            (4, 1): ("smollm-360m",)}
-# each refusal and the ROADMAP item its message names
-REFUSED = {"spec": "A5c", "prefill_chunk": "A5c", "enable_spec": "A5c",
-           "prefill_chunked": "A5c", "moe": "A5d", "mla": "A5d",
-           "hybrid": "A5d", "ssm": "A5d", "int8_kv": "A5d",
-           "overlap": "A5b", "ring": "A5b",
+# each refusal and the ROADMAP item its message names: the frontends
+# (no engine serves them yet), weight-only int8 on MLA and hybrid layers
+# (as on sim: the reference fails there too), the overlap engine and
+# the rings across ranks, training and Algorithm 1
+REFUSED = {"frontend": "A4", "int8_weights_mla": "C8",
+           "int8_weights_hybrid": "C8", "overlap": "A5b", "ring": "A5b",
            "train": "A5e", "apply_spd": "A5e", "apply_comm_policy": "A5e"}
 
 
@@ -94,7 +95,8 @@ def _cases(tp, dp):
                        payloads=PAYLOADS),
                   dict(kind="collectives", name="collectives")]
     if (tp, dp) == (2, 1):
-        cases.append(dict(kind="refusals", name="refusals"))
+        cases += [dict(kind="refusals", name="refusals"),
+                  dict(kind="agreement", name="agreement")]
     return cases
 
 
@@ -236,6 +238,17 @@ def test_refusals_name_their_roadmap_item(runs, what):
         kind, msg = res["refusals"][what]
         assert kind == "NotImplementedError", (what, msg)
         assert f"ROADMAP {REFUSED[what]}" in msg, (what, msg)
+
+
+@pytest.mark.parametrize("what", ("values", "count"))
+def test_agreement_catches_a_rank_that_took_other_tokens(runs, what):
+    """With `check_agreement` on, a rank whose host took other tokens, or
+    another count of them, raises naming rank 0's; rank 0 and ranks that
+    agree go on."""
+    ranks, _ = runs(2, 1)
+    assert [r["agreement"]["same"] for r in ranks] == ["agreed"] * 2
+    assert ranks[0]["agreement"][what] == "agreed"
+    assert "differ from rank 0's [5, 7]" in ranks[1]["agreement"][what]
 
 
 def test_a_world_that_is_not_tp_x_dp_raises(runs):

@@ -52,6 +52,15 @@ def serve(llm, case):
     out["greedy"] = [o.token_ids for o in got]
     out["n_preempted"] = [o.n_preempted for o in got]
     out["ledger"] = ledger_tuples(led)
+    sched = llm.serve()
+    if llm.spec is not None:
+        out["spec"] = dict(rounds=sched.spec_rounds,
+                           drafted=sched.spec_drafted,
+                           accepted=sched.spec_accepted,
+                           committed=sched.spec_committed,
+                           alt_commits=sched.spec_alt_commits,
+                           adoptions=sched.spec.drafter.adoptions,
+                           draft_prefills=sched.spec.drafter.prefills)
     for p in case.get("then", ()):
         # a later admission of the same scheduler (the warm prefix)
         more = llm.generate([np.asarray(p, np.int64)],
@@ -59,7 +68,6 @@ def serve(llm, case):
         out.setdefault("then", []).append(more[0].token_ids)
     if case.get("sampled"):
         out["sampled"] = [o.token_ids for o in llm.generate(ps, SAMPLED)]
-    sched = llm.serve()
     if llm.cache.paged:
         out["preemptions"] = sched.n_preemptions
         out["prefix_hits"] = sched.kv.prefix_hits
@@ -89,6 +97,106 @@ def logits(llm, case):
     return np.concatenate(rows)
 
 
+def spec_logits(llm, case):
+    """Full logits of one request's chunked prefill (`case["chunk"]`),
+    then of a verify chunk `case["verify"]` scored at its end, on dense
+    caches and through the page table (the prefill scattered into pages
+    0, 1, ... of a pool): {"chunk" (1, V), "verify" (1, C, V),
+    "verify_paged" (1, C, V)}."""
+    eng, params = llm.engine, llm.params
+    cl, ps = llm.cache.cache_len, 8
+    n = eng.backend.dp_total
+    prompt = prompts(llm.cfg.vocab_size, (case["len"],), 7)[0]
+    s = len(prompt)
+    lg, c1 = eng.prefill_chunked(params, prompt[None], cache_len=cl,
+                                 lengths=np.asarray([s], np.int64),
+                                 chunk=case["chunk"])
+    ver = np.zeros((n, len(case["verify"])), np.int64)
+    ver[0] = case["verify"]
+    pos = np.zeros((n,), np.int64)
+    pos[0] = s
+    caches = eng.insert_slot(eng.blank_caches(n, cl), c1, 0)
+    vlg, _ = eng.verify(params, ver, pos, caches)
+    table = np.full((n, cl // ps), -1, np.int64)
+    used = -(-(s + ver.shape[1]) // ps)
+    table[0, :used] = np.arange(used)
+    pools = eng.blank_paged_caches(n, cl, page_size=ps, num_pages=used)
+    pools = eng.insert_paged(pools, c1, 0, table[0])
+    plg, _ = eng.verify_paged(params, ver, pos, table, pools)
+    return {"chunk": lg[:1].numpy(), "verify": vlg[:1].numpy(),
+            "verify_paged": plg[:1].numpy()}
+
+
+def draft_policy(llm, case):
+    """The "calibrated" search on the case's prompts and the "tiered"
+    plan from a sweep over two `calibration_batches`: {"calibrated":
+    (winner, trials, modes), "tiered": modes, "greedy": tokens under the
+    calibrated draft}.  With `case["drops_only"]` the search walks
+    drop-only candidates (every kept sync exact), else the preset's own
+    candidates, the sweep's tier mixes among them."""
+    from repro_torch.config.base import SPDPlanConfig
+    from repro_torch.data import calibration_batches
+    from repro_torch.spec import SpecConfig
+    from repro_torch.spec import calibrate as CAL
+
+    calib = calibration_batches(llm.cfg.vocab_size, 2, 16, batch=1)
+    ps = prompts(llm.cfg.vocab_size, case["lens"])
+    n = llm.cfg.n_layers
+    CAL.clear_cache()
+    if case.get("drops_only"):
+        CAL.calibrate_draft(llm, ps, k=3, target=case["target"],
+                            candidates=[
+                                ("all-drop", SPDPlanConfig.full(n)),
+                                ("drop-half", SPDPlanConfig.first_k(
+                                    n, n // 2)),
+                                ("drop-one", SPDPlanConfig.first_k(n, 1))])
+    llm.enable_spec(SpecConfig(k=3, draft="calibrated"),
+                    calib_batches=calib, calib_prompts=ps,
+                    calib_target=case["target"])
+    cal = llm.spec_calibration
+    out = {"calibrated": (cal.name, [tuple(t) for t in cal.trials],
+                          llm.draft_plan.modes())}
+    out["greedy"] = [o.token_ids for o in llm.generate(
+        ps, SamplingParams(max_new=6))]
+    llm.enable_spec(SpecConfig(k=3, draft="tiered", n_spd=2), calib)
+    out["tiered"] = llm.draft_plan.modes()
+    CAL.clear_cache()
+    return out
+
+
+#: cases that load the case's model and run on it
+LLM_CASES = {"serve": serve, "logits": logits, "spec_logits": spec_logits,
+             "draft_policy": draft_policy}
+
+
+def start(job, **kw):
+    """Spawn `job`'s ranks over gloo on the CPU from a background thread
+    (so that the caller's own work overlaps them); returns a function
+    that waits for them and returns their results (`spawn`'s)."""
+    import threading
+
+    from repro_torch.launch.dist import spawn
+
+    box = {}
+
+    def go():
+        try:
+            box["ranks"] = spawn(run, job["tp"] * job["dp"], backend="gloo",
+                                 device="cpu", args=(job,), **kw)
+        except BaseException as e:                  # noqa: BLE001
+            box["error"] = e
+
+    th = threading.Thread(target=go, daemon=True)
+    th.start()
+
+    def wait():
+        th.join()
+        if "error" in box:
+            raise box["error"]
+        return box["ranks"]
+    return wait
+
+
 def run(rank, job):
     from repro_torch.launch.dist import init_tp
 
@@ -99,11 +207,11 @@ def run(rank, job):
     out = {}
     for case in job["cases"]:
         kind = case["kind"]
-        if kind in ("serve", "logits"):
+        if kind in LLM_CASES:
             llm = load(case["cfg"], canon[case["arch"]], "shard", job["tp"],
                        job["dp"], **case.get("load", {}))
-            out[case["name"]] = (serve if kind == "serve" else logits)(
-                llm, case)
+            out[case["name"]] = LLM_CASES[kind](llm, case)
+            del llm
         else:
             out[case["name"]] = CASES[kind](job, case, canon)
     return out
@@ -175,8 +283,6 @@ def refusals(job, case, canon):
     from repro_torch.parallel import compression as C
     from repro_torch.parallel import tp as TP
     from repro_torch.parallel.collectives import ModelGroup, model_group
-    from repro_torch.spec import SpecConfig
-
     tp, dp = job["tp"], job["dp"]
     base = replace(get_config("smollm-360m", reduced=True), dtype="float32")
     kw = dict(tp=tp, dp=dp, engine="shard", device="cpu", cache_len=64)
@@ -195,14 +301,12 @@ def refusals(job, case, canon):
             C.ring_quantized_psum(torch.zeros(1, 256))
 
     attempts = {
-        "spec": lambda: LLM.load(base, spec=SpecConfig(k=3), **kw),
-        "prefill_chunk": lambda: LLM.load(base, prefill_chunk=8, **kw),
-        "moe": lambda: LLM.load(reduced("qwen2-moe-a2.7b"), **kw),
-        "mla": lambda: LLM.load(reduced("deepseek-v2-lite-16b"), **kw),
-        "hybrid": lambda: LLM.load(reduced("hymba-1.5b"), **kw),
-        "ssm": lambda: LLM.load(reduced("mamba2-370m"), **kw),
-        "int8_kv": lambda: LLM.load(reduced("llama2-7b", kv_dtype="int8"),
-                                    **kw),
+        "frontend": lambda: LLM.load(
+            replace(base, frontend_dim=16, frontend_len=4), **kw),
+        "int8_weights_mla": lambda: LLM.load(
+            reduced("deepseek-v2-lite-16b", weight_dtype="int8"), **kw),
+        "int8_weights_hybrid": lambda: LLM.load(
+            reduced("hymba-1.5b", weight_dtype="int8"), **kw),
         "overlap": lambda: LLM.load(base, tp=tp, engine="overlap",
                                     device="cpu"),
         "ring": ring,
@@ -213,14 +317,10 @@ def refusals(job, case, canon):
                                   device="cpu", cache_len=64),
     }
     llm = LLM.load(base, **kw)
-    attempts["enable_spec"] = lambda: llm.enable_spec(SpecConfig(k=3))
     attempts["apply_spd"] = lambda: llm.apply_spd([], n_spd=1, tau1=0.0,
                                                   tau2=1.0)
     attempts["apply_comm_policy"] = lambda: llm.apply_comm_policy(
         [], n_spd=1, tau1=0.0, tau2=1.0)
-    attempts["prefill_chunked"] = lambda: llm.engine.prefill_chunked(
-        llm.params, np.zeros((1, 8), np.int64), cache_len=64,
-        lengths=np.asarray([8]), chunk=8)
     out = {}
     for name, fn in attempts.items():
         try:
@@ -231,5 +331,29 @@ def refusals(job, case, canon):
     return out
 
 
+def agreement(job, case, canon):
+    """`ShardBackend.agree` on host tokens that part between the ranks:
+    {name: "agreed" or the error it raised} for the same tokens, other
+    values on rank 1, and one token more on rank 1 (a speculative round
+    that committed another count)."""
+    from repro_torch.config.base import replace
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dist import current
+
+    base = replace(get_config("smollm-360m", reduced=True), dtype="float32")
+    llm = load(base, None, "shard", job["tp"], job["dp"])
+    rank = current().rank
+    out = {}
+    for name, toks in (("same", [5, 7]),
+                       ("values", [5, 7 + (rank == 1)]),
+                       ("count", [5, 7] + [9] * (rank == 1))):
+        try:
+            llm.engine.backend.agree(toks)
+            out[name] = "agreed"
+        except RuntimeError as e:
+            out[name] = str(e)
+    return out
+
+
 CASES = {"quantized_sync": quantized_sync, "collectives": collectives,
-         "refusals": refusals}
+         "refusals": refusals, "agreement": agreement}
