@@ -186,7 +186,9 @@
    at the path's payload (2, 2 x 4096 x 960) bf16 equals its plain
    version bit for bit; (e) fp32 (batch 2 x 1024): 2
    steps with B1 and 2 with the plain attention, loss and grad norm
-   within 1e-4, parameters within the sign-aware bound.  Then B1 at the
+   within 1e-4, parameters within the sign-aware bound; then 2 fp32
+   steps of the 2-layer cut (batch 4 x 512) that 22 (c) trains on its
+   ranks.  Then B1 at the
    train shape q (36, 4096, 64) in fp32 and bf16 against its plain
    version, every output row within a relative L2 bound, and the bf16
    call timed beside SDPA.
@@ -195,23 +197,25 @@
    1100) in bf16 and fp32, B1 at qwen2-moe-a2.7b's (q (16, 512, 128)),
    the fused kept sync at (2, 2048) and (2, 1600), B3 on (2, 75968) and
    (2, 16001); each against its plain version and timed.
-18. qwen2-moe-a2.7b at full width (24 layers, d 2048, 60 routed + 4
-   shared experts, top-4, 14.3 B parameters, bf16, random weights from
-   seed 0) through the same LLM.load: the dense path as in 3 (B1 24 x 4,
-   the fused sync 42 a forward, qdq 1), a profile; the dense placement
+18. qwen2-moe-a2.7b at full width on 12 of its 24 layers (d 2048, 60
+   routed + 4 shared experts, top-4, 14.3 B parameters at full depth;
+   FAMILY_LAYERS cuts the depth of 18, 19, 21 and their shard paths in
+   22 since PR 28, for the time limit), bf16, random weights from seed
+   0, through the same LLM.load: the dense path as in 3 (B1 12 x 4, the
+   fused sync 21 a forward, qdq 1), a profile; the dense placement
    freed, the paged path as in 4; the teacher-forced checks of 5 in
    bf16 at full width and fp32 on layers 4-7, the MoE routing of the
    kernel's forward replayed in the plain one (RoutePin).
-19. hymba-1.5b at full width (32 layers, d 1600, 25 attention and 25
-   SSM heads, a 1024-token window but on layers 0, 15, 31) on dense
-   caches (cache_len 2048): prompts of 17, 64, 200 and 1100 tokens at
-   their own length, 16 greedy tokens each; B8 32 x 4, the fused sync
-   56 a forward, qdq 1, B1 and B2 0; plain-sync tokens; a profile; then
+19. hymba-1.5b at full width on 18 of its 32 layers (d 1600, 25
+   attention and 25 SSM heads, a 1024-token window but on layers 0 and
+   15) on dense caches (cache_len 2048): prompts of 17, 64, 200 and 1100
+   tokens at their own length, 16 greedy tokens each; B8 18 x 4, the
+   fused sync per kept sync and forward, qdq 1, B1 and B2 0; plain-sync tokens; a profile; then
    as in 10 in bf16 and fp32 on the 1100-token prompt (its decode runs
    on the windowed layers' rolling buffers); then paged through the
    gather -> dense -> scatter fallback (16-token pages, a pool of 512
    pages: the global layers' K/V paged, the windowed K/V, SSM state and
-   conv tails dense per slot): the dense tokens, B8 128.
+   conv tails dense per slot): the dense tokens, B8 72.
 20. llama2-7b's int8 variants on its canonical weights (after 15, the
    llama placements freed): kv_dtype="int8", then int8 KV and
    weight_dtype="int8": the dense path as in 3 (B1 128, the syncs as
@@ -220,9 +224,10 @@
    bf16 path of the same weights within TF_INT8_REL, and the paged path
    through the fallback: on a 128-page pool the dense tokens, on the
    40-page pool a preemption and every page back.
-21. deepseek-v2-lite-16b at full width (27 layers, d 2048, MLA with 16
-   heads (8 a shard) and a 512-wide latent, 64 routed + 2 shared
-   experts, top-6, a dense first layer; 15.71 B parameters, bf16,
+21. deepseek-v2-lite-16b at full width on 14 of its 27 layers (d 2048,
+   MLA with 16 heads (8 a shard) and a 512-wide latent, 64 routed + 2
+   shared experts, top-6, a dense first layer; 15.71 B parameters at
+   full depth), bf16,
    random weights from seed 0) through the same LLM.load: the dense
    path as in 3 (the fused sync per kept sync and forward, qdq 19, B1,
    B2 and B8 0: MLA's prefill takes the plain attention, as the
@@ -274,15 +279,28 @@
    adopts it); prints acceptance, rounds, spec against plain
    decode_ms_per_token (the rank's own plain llama run) beside 15 (a)'s
    ratio, and rank 0's ledger entries of a draft and a target forward.
-   Then llama2-7b with int8 KV and weights on the same canonical weights
-   against 20's run.  A second gloo spawn serves the families at full
+   Then Algorithm 1 on the ranks (PR 28), on sweep_phase's calibration
+   batches: LLM.apply_comm_policy at 13's thresholds and LLM.apply_spd
+   at 14's (every rank checks inside that all reached one plan and
+   ranking): the perplexities against 13's sweep, the tiers equal to
+   sim's on every block further from a threshold than twice the
+   perplexities' largest difference; the tiered plan (sim's, should the
+   ranks' part at a near-tie) and the distilled plan served and held to
+   sim's runs of them under the dense paths' logits bound (the distilled
+   plan's when the ranks reached sim's tiers), the recovery's B1
+   launches as 14's, every distilled block's loss falling; the wall
+   seconds beside sim's; then the fp32 cut of llama2-7b's layers 6-9 at
+   full width: its tiered plan equal to sim's (alg1_cut, after 20), its
+   perplexities and sensitivities within ALG1_CUT_RTOL.  Then llama2-7b
+   with int8 KV and weights on the same canonical weights against 20's
+   run.  A second gloo spawn serves the families at full
    width, one model at a time, each with its sim run's settings:
    mamba2-370m (10) and hymba-1.5b (19) dense, qwen2-moe-a2.7b (18)
    dense and paged (the 40-page pool with a preemption, the warm prefix
    pair), deepseek-v2-lite-16b (21) dense and paged through the fallback
    (a 128-page pool): the same tokens on both ranks, rank 0's ledger
    equal to sim's, the kernels counted as on the paths above (B1, B2
-   and B8 as on sim: B8 32 x 4 on hymba, 48 x 4 on mamba2, one shard a
+   and B8 as on sim: B8 18 x 4 on hymba, 48 x 4 on mamba2, one shard a
    rank), each rank's load time, decode ms a token, card peak and host
    memory printed as it loads.  Each bf16 path is served a second time
    with the quantized collectives' plain versions on both ranks: tokens
@@ -296,7 +314,20 @@
    the family's width, and the MoE routing pinned to sim's run (a
    flipped code can flip a near-tied top-k choice): the same tokens on
    both ranks and the logits within the 5% bound of sim's up to the
-   first argmax that parts.  Then the send and receive kernels at one rank's
+   first argmax that parts.  (c) Four ranks on card 0 over gloo (tp 2 x
+   dp 2, PR 28) train 16's model through make_trainer(engine="shard")
+   at 16's settings: ZeRO-1 for SHARD_TRAIN_STEPS steps, timed (ms a
+   step, tokens/s of a host-staged wire); a fault before step 4 and the
+   resume from the step-2 checkpoint (gathered to rank 0, which writes),
+   its final state bit for bit the uninterrupted run's on every rank;
+   FSDP and quant8 for 2 steps each; the fp32 cut of 2 layers (batch 4
+   x 512) against sim's run of it in 16: the same losses and grad norms
+   on every rank, step 1's loss within SHARD_TRAIN_LOSS_RTOL of 16 (a)'s,
+   FSDP's within TRAJ_RTOL of ZeRO-1's, quant8's within QUANT_LOSS_RTOL,
+   the cut within SHARD_TRAIN_CUT_RTOL; B1 on every rank 2 x layers x
+   microbatches x steps, and on the quant8 steps the send and receive
+   kernels once a quantized kept sync and microbatch (the remat
+   recompute re-runs the attention syncs).  Then the send and receive kernels at one rank's
    SmolLM-360M and LLaMA2-7B decode and prefill payloads and the
    families' decode payloads and hymba's 17-token prefill (a ragged last
    chunk), bf16, two ranks' messages made on the card: bit for bit
@@ -1118,6 +1149,25 @@ MAIN_PATH_KERNELS = ("flash_attention_bhsd", "qdq_absmax",
                      "quantized_psum_absmax")
 
 
+#: the MoE, MLA and hybrid families run at full width on their first
+#: layers since PR 28 (sim and the shard engine alike), so that the
+#: shard phase's Algorithm 1 and training fit the run's time limit:
+#: qwen2-moe 12 of 24, deepseek 14 of 27, hymba 18 of 32 (its global
+#: attention layers 0 and 15 kept)
+FAMILY_LAYERS = {"qwen2-moe-a2.7b": 12, "deepseek-v2-lite-16b": 14,
+                 "hymba-1.5b": 18}
+
+
+def model_cfg(arch):
+    """`arch`'s config at full width, cut to FAMILY_LAYERS where named."""
+    from repro_torch.config.base import replace
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if arch in FAMILY_LAYERS:
+        cfg = replace(cfg, n_layers=FAMILY_LAYERS[arch])
+    return cfg
+
+
 def main_path(torch, np, card, arch="smollm-360m", label="main path",
               cfg_kw=None, params=None, need=MAIN_PATH_KERNELS):
     """`arch` at full width through the facade (tp=2, spd=0.25, quant8
@@ -1128,11 +1178,10 @@ def main_path(torch, np, card, arch="smollm-360m", label="main path",
     version."""
     from repro_torch.api import LLM, SamplingParams
     from repro_torch.config.base import replace
-    from repro_torch.configs import get_config
     from repro_torch.parallel.collectives import collective_ledger
     from repro_torch.tree import tree_leaves
 
-    cfg = replace(get_config(arch), attn_backend="pallas", **(cfg_kw or {}))
+    cfg = replace(model_cfg(arch), attn_backend="pallas", **(cfg_kw or {}))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     llm = LLM.load(cfg, tp=2, spd=0.25, comm="quant8", comm_logits="quant8",
@@ -2198,10 +2247,9 @@ def recurrent_path(torch, np, prompts, card, arch="mamba2-370m",
     reference's)."""
     from repro_torch.api import LLM, SamplingParams
     from repro_torch.core.blocks import ssm_heads
-    from repro_torch.configs import get_config
     from repro_torch.parallel.collectives import collective_ledger
 
-    cfg = get_config(arch)
+    cfg = model_cfg(arch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     llm = LLM.load(cfg, tp=2, spd=0.25, comm="quant8", comm_logits="quant8",
@@ -2620,6 +2668,7 @@ def sweep_phase(torch, np, llm, prompts, card):
     from repro_torch.data import calibration_batches
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import quant_collectives as QC
+    from repro_torch.parallel.collectives import collective_ledger
 
     cfg, n = llm.cfg, llm.cfg.n_layers
     calib = calibration_batches(cfg.vocab_size, **SWEEP_CALIB)
@@ -2686,15 +2735,23 @@ def sweep_phase(torch, np, llm, prompts, card):
         raise AssertionError(f"the tiered plan is not what Algorithm 1 "
                              f"gives: {modes}")
 
+    SIM_RUNS[ALG1_SWEEP] = dict(ppl=got.ppl_suffix, sens=got.sensitivity,
+                                ranking=got.ranking.tolist(), tau1=tau1,
+                                tau2=tau2, plan=llm.plan, wall=wall)
+
     llm.generate([prompts[0][:8]], SamplingParams(max_new=2))   # warm-up
     times = timed_engine(torch, llm.engine)
     kernels = (FA.flash_attention_bhsd, QC.qdq_absmax,
                QC.quantized_psum_absmax)
     for k in kernels:
         k.launches = 0
-    outs = llm.generate(prompts, SamplingParams(max_new=MAX_NEW))
+    with collective_ledger() as led, LogitsTape() as tape:
+        outs = llm.generate(prompts, SamplingParams(max_new=MAX_NEW))
     torch.cuda.synchronize()
     launches = {k.__name__: k.launches for k in kernels}
+    SIM_RUNS[ALG1_TIERED] = dict(tokens=[o.token_ids for o in outs],
+                                 ledger=ledger_rows(led),
+                                 launches=dict(launches), tape=tape.host())
     check_sync_launches("tiered plan", llm, launches, times)
     if min(launches.values()) <= 0 or any(
             len(o.token_ids) != MAX_NEW for o in outs):
@@ -2829,6 +2886,7 @@ def recovery_phase(torch, np, llm, prompts, sweep_res, card):
     from repro_torch.data import calibration_batches
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import quant_collectives as QC
+    from repro_torch.parallel.collectives import collective_ledger
 
     cfg, n = llm.cfg, llm.cfg.n_layers
     calib = calibration_batches(cfg.vocab_size, **SWEEP_CALIB)
@@ -2952,6 +3010,11 @@ def recovery_phase(torch, np, llm, prompts, sweep_res, card):
 
     recovery_checks(torch, llm, report, layer_x, card)
     layer_x.clear()
+    SIM_RUNS[ALG1_RECOVERY] = dict(
+        tau1=tau1, tau2=tau2, ppl=report.ppl_suffix,
+        ranking=report.ranking.tolist(), categories=list(report.categories),
+        chosen=list(report.chosen), modes=llm.plan.modes(), wall=wall,
+        seconds=dict(sec), b1=total)
 
     llm.generate([prompts[0][:8]], SamplingParams(max_new=2))   # warm-up
     times = timed_engine(torch, llm.engine)
@@ -2959,9 +3022,14 @@ def recovery_phase(torch, np, llm, prompts, sweep_res, card):
                QC.quantized_psum_absmax)
     for k in kernels:
         k.launches = 0
-    outs = llm.generate(prompts, SamplingParams(max_new=MAX_NEW))
+    with collective_ledger() as led, LogitsTape() as tape:
+        outs = llm.generate(prompts, SamplingParams(max_new=MAX_NEW))
     torch.cuda.synchronize()
     launches = {k.__name__: k.launches for k in kernels}
+    SIM_RUNS[ALG1_DISTILLED] = dict(tokens=[o.token_ids for o in outs],
+                                    ledger=ledger_rows(led),
+                                    launches=dict(launches),
+                                    tape=tape.host())
     check_sync_launches("distilled plan", llm, launches, times)
     if launches["flash_attention_bhsd"] <= 0 or any(
             o.finish_reason != "length" or len(o.token_ids) != MAX_NEW
@@ -3679,6 +3747,20 @@ def trainer_for(root, label, params, **kw):
                         **dict(TRAIN_KW, **kw))
 
 
+def train_cut_trainer(root, engine):
+    """The fp32 cut of the training phase's model (SHARD_TRAIN_CUT_LAYERS
+    layers at full width, seeded weights drawn on the card) for 2 steps
+    of SHARD_TRAIN_CUT on `engine` ("sim" here, "shard" on a rank)."""
+    import os
+    from repro_torch.config.base import replace
+    from repro_torch.launch.train import make_trainer
+    cfg = replace(train_cfg(), n_layers=SHARD_TRAIN_CUT_LAYERS)
+    return make_trainer(cfg, engine=engine, steps=2, ckpt_every=0,
+                        ckpt_dir=os.path.join(root, f"cut-{engine}"),
+                        device="cuda",
+                        **dict(TRAIN_KW, **SHARD_TRAIN_CUT))
+
+
 def losses_of(tr):
     return [m["loss"] for m in tr.metrics_log]
 
@@ -3799,6 +3881,7 @@ def train_phase(torch, np, card):
           f"peak_memory_gib={peak:.2f}")
     if not loss_fell(np, la):
         raise AssertionError(f"train (a): the loss did not fall: {la}")
+    SIM_RUNS["train (a)"] = dict(losses=la, step_ms=step_s * 1e3)
     profile_step(torch, tr, st, card)
     del tr, st
     release(torch)
@@ -3943,6 +4026,17 @@ def train_phase(torch, np, card):
                              "disagree in fp32")
     params_close(torch, pk, pp, kw["lr"], EXACT_STEPS, "train (e)")
     del res, pk, pp, canon32
+    release(torch)
+
+    # ---- the fp32 cut that shard (c) trains on its ranks ----
+    tr, st = train_cut_trainer(root, "sim")
+    tr.run(st)
+    SIM_RUNS["train cut"] = [dict(loss=m["loss"], grad_norm=m["grad_norm"])
+                             for m in tr.metrics_log]
+    print(f"train cut (fp32, {SHARD_TRAIN_CUT_LAYERS} layers, batch "
+          f"{SHARD_TRAIN_CUT['batch']} x seq {SHARD_TRAIN_CUT['seq']}) on "
+          f"sim for shard (c): {SIM_RUNS['train cut']}")
+    del tr, st
     shutil.rmtree(root, ignore_errors=True)
     release(torch)
 
@@ -4050,9 +4144,9 @@ def family_kernel_phase(torch, card):
 
 
 def moe_phase(torch, np, card):
-    """qwen2-moe-a2.7b at full width (24 layers, d 2048, 60 routed + 4
-    shared experts, top-4; ~14.3 B parameters, ~28.6 GB in bf16; random
-    weights from seed 0): the dense path (B1 once per layer and prefill,
+    """qwen2-moe-a2.7b at full width (FAMILY_LAYERS: 12 of its 24
+    layers, d 2048, 60 routed + 4 shared experts, top-4; ~14.3 B
+    parameters at full depth; random weights from seed 0): the dense path (B1 once per layer and prefill,
     the fused kept sync per kept sync and forward, qdq per forward, no B2
     or B8), plain-sync tokens, a profile; with the dense placement freed,
     the paged path (a preemption, every page back, a warm admission
@@ -4097,9 +4191,10 @@ def moe_phase(torch, np, card):
 
 
 def hymba_phase(torch, np, card):
-    """hymba-1.5b at full width (32 layers, d 1600, 25 attention heads
-    beside 25 SSM heads of 64, N 16, a 1024-token window but on layers
-    0, 15 and 31; random weights from seed 0) on dense caches
+    """hymba-1.5b at full width (FAMILY_LAYERS: 18 of its 32 layers, d
+    1600, 25 attention heads beside 25 SSM heads of 64, N 16, a
+    1024-token window but on layers 0 and 15; random weights from seed
+    0) on dense caches
     (cache_len 2048): prompts of 17, 64, 200 and 1100 tokens, each
     prefilled at its own length, 16 greedy tokens each; B8 once per layer
     and prefill, the fused kept sync per kept sync and forward, qdq per
@@ -4366,10 +4461,11 @@ def mla_decode_vs_prefill(torch, llm, prompt, toks, fp32_layers, label=""):
 
 
 def deepseek_phase(torch, np, card):
-    """deepseek-v2-lite-16b at full width (27 layers, d 2048, MLA with 16
-    heads of nope 128 + rope 64, v 128, a 512-wide latent; 64 routed + 2
-    shared experts, top-6, a dense first layer of 10944; 15.71 B
-    parameters, 31.4 GB in bf16; random weights from seed 0) through the
+    """deepseek-v2-lite-16b at full width (FAMILY_LAYERS: 14 of its 27
+    layers, d 2048, MLA with 16 heads of nope 128 + rope 64, v 128, a
+    512-wide latent; 64 routed + 2 shared experts, top-6, a dense first
+    layer of 10944; 15.71 B parameters at full depth; random weights from
+    seed 0) through the
     facade: the dense path (no B1: MLA's prefill takes the plain
     attention, as the reference's; the fused kept sync per kept sync and
     forward, qdq per forward, no B2 or B8), plain-sync tokens, a profile;
@@ -4377,9 +4473,7 @@ def deepseek_phase(torch, np, card):
     (dense tokens on a pool large enough, a preemption and every page
     back on one the requests outgrow); then the absorbed decode against
     the sequence form.  Returns the dense path's launches."""
-    from repro_torch.configs import get_config
-
-    n = get_config(DEEPSEEK_ARCH).param_count()
+    n = model_cfg(DEEPSEEK_ARCH).param_count()
     print(f"deepseek path: {DEEPSEEK_ARCH} param_count={n} "
           f"({n / 1e9:.2f} B, {2 * n / 1e9:.1f} GB in bf16)")
     llm, prompts, launches, tokens = main_path(
@@ -4624,7 +4718,34 @@ SHARD_KW = dict(tp=2, spd=0.25, comm="quant8", comm_logits="quant8",
 # one kept sync's payload on the wire at llama2-7b's width, bf16: a batch-4
 # decode step and one 512-token prefill
 WIRE_PAYLOADS = (("decode", (4, 1, 4096)), ("prefill", (1, 512, 4096)))
-SHARD_DEADLINE_S = 420
+SHARD_DEADLINE_S = 480
+#: shard (b)'s Algorithm 1 on llama2-7b against sim's: the sweep and
+#: tiered comm policy of sweep_phase, its served plan, the recovery of
+#: recovery_phase, its served distilled plan, and the fp32 cut
+ALG1_SWEEP, ALG1_TIERED = "llama2-7b sweep", "llama2-7b tiered plan"
+ALG1_RECOVERY, ALG1_DISTILLED = ("llama2-7b recovery",
+                                 "llama2-7b distilled plan")
+ALG1_CUT = "llama2-7b fp32 cut"
+#: the fp32 cut's perplexities and sensitivities against sim's, relative
+#: to the largest of each: fp32 products of one shard against sim's
+#: batched pair differ in summation order only
+ALG1_CUT_RTOL = 1e-3
+#: (c): the training spawn, tp 2 x dp 2 over gloo on one card
+SHARD_TRAIN_DEADLINE_S = 360
+SHARD_TRAIN_STEPS = 4                  # ZeRO-1, and the fault run's
+SHARD_FAULT_AT, SHARD_FAULT_EVERY = 3, 2
+SHARD_FSDP_STEPS = SHARD_QUANT_STEPS = 2
+#: (c)'s step-1 loss against train phase (a)'s, bf16: the same batch on
+#: the same weights, each rank's products on its own rows and shard
+#: (cuBLAS picks its algorithm by shape); the bound is QUANT_LOSS_RTOL's,
+#: a quarter of the loss's fall over (a)'s first 3 steps
+SHARD_TRAIN_LOSS_RTOL = QUANT_LOSS_RTOL
+#: (c)'s fp32 cut: 2 layers at full width, batch 4 x 512 tokens, against
+#: the sim step on the same seeded weights: summation order only
+SHARD_TRAIN_CUT = dict(batch=4, seq=512, microbatches=1, q_chunk=512,
+                       dtype="float32", warmup=0)
+SHARD_TRAIN_CUT_LAYERS = 2
+SHARD_TRAIN_CUT_RTOL = 1e-4
 #: (b)'s second spawn: the families, one model at a time
 SHARD_FAMILY_DEADLINE_S = 600
 #: each (b) path's model, by label (its vocabulary for the logits rows)
@@ -4854,10 +4975,11 @@ def shard_spec_serve(torch, np, llm, prompts, plain, g, card):
     return rec
 
 
-def shard_rank_gloo(torch, np, g, card):
+def shard_rank_gloo(torch, np, g, card, alg1):
     """(b): two ranks on one card over gloo: SmolLM-360M dense and paged,
-    then llama2-7b dense, its speculative path and its int8 KV + weights
-    variant, each at full width with the main path's settings
+    then llama2-7b dense, its speculative path, Algorithm 1 on it
+    (shard_rank_alg1, `alg1` sim's thresholds and plan) and its int8 KV
+    + weights variant, each at full width with the main path's settings
     (SHARD_KW), the canonical weights drawn on the card and kept on the
     host."""
     import gc
@@ -4893,6 +5015,9 @@ def shard_rank_gloo(torch, np, g, card):
         held_gib=torch.cuda.memory_allocated() / 2 ** 30)
     out[SHARD_SPEC_LABEL] = shard_spec_serve(
         torch, np, llm, prompts, out["llama2-7b path"], g, card)
+    llm._release_engine()
+    release(torch)
+    out["alg1"] = shard_rank_alg1(torch, np, g, llm, prompts, alg1)
     canonical = llm.canonical
     del llm
     release(torch)
@@ -4955,7 +5080,7 @@ def shard_rank_families(torch, np, g, card, routes):
             ("mamba path", "smollm-360m", PROMPT_LENS, {}),
             ("hymba path", HYMBA_ARCH, HYMBA_PROMPT_LENS,
              dict(cache_len=HYMBA_CACHE_LEN))):
-        cfg = get_config(SHARD_ARCHS[label])
+        cfg = model_cfg(SHARD_ARCHS[label])
         prompts = prompts_for(arch, lens)
         llm, info = rank_load(torch, g, label, lambda: LLM.load(
             cfg, engine="shard", **dict(SHARD_KW, **kw)))
@@ -4968,7 +5093,7 @@ def shard_rank_families(torch, np, g, card, routes):
         del llm
         release(torch)
     for arch, label in ((MOE_ARCH, "qwen2-moe"), (DEEPSEEK_ARCH, "deepseek")):
-        cfg = replace(get_config(arch), attn_backend="pallas")
+        cfg = replace(model_cfg(arch), attn_backend="pallas")
         prompts = prompts_for(arch)
         llm, info = rank_load(torch, g, f"{label} path", lambda: LLM.load(
             cfg, engine="shard", **SHARD_KW))
@@ -4993,6 +5118,402 @@ def shard_rank_families(torch, np, g, card, routes):
     return out
 
 
+def alg1_cut(torch, np, llm, taus=None, shard=False):
+    """Algorithm 1's tiered comm policy on `llm`'s model cut to its layers
+    TF_FP32_LAYERS at full width in fp32 (`tf_model`, cast on `llm`'s
+    device), on sim or on the shard engine's ranks, over sweep_phase's
+    calibration batches: n_spd 2 and `taus` (None: halfway between the
+    sorted sensitivities of a sweep made here, so that one block drops,
+    two keep quant8 and one stays exact).  Returns the perplexities,
+    sensitivities, ranking, plan modes, taus and wall seconds."""
+    from repro_torch.api import LLM
+    from repro_torch.core import spd as SPD
+    from repro_torch.data import calibration_batches
+
+    cfg, params, _ = tf_model(llm, "float32", TF_FP32_LAYERS, llm.device)
+    m = LLM.load(cfg, tp=2, params=params, cache_len=512, max_batch=4,
+                 **({"engine": "shard"} if shard else {}))
+    del params
+    calib = calibration_batches(cfg.vocab_size, **SWEEP_CALIB)
+    if taus is None:
+        res, _ = SPD.sweep_sensitivity(cfg, m.canonical, calib, 2,
+                                       q_chunk=m.q_chunk)
+        s = np.sort(res.sensitivity)
+        taus = (float((s[0] + s[1]) / 2), float((s[2] + s[3]) / 2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = m.apply_comm_policy(calib, n_spd=2, tau1=taus[0], tau2=taus[1],
+                              logits="quant8")
+    torch.cuda.synchronize()
+    out = dict(ppl=res.ppl_suffix, sens=res.sensitivity,
+               ranking=res.ranking.tolist(), modes=m.plan.modes(),
+               taus=taus, wall=time.perf_counter() - t0)
+    del m
+    release(torch)
+    return out
+
+
+def shard_rank_alg1(torch, np, g, llm, prompts, alg1):
+    """(b)'s Algorithm 1 on a rank, on the llama2-7b placement: the tiered
+    comm policy with sweep_phase's thresholds and the recovery with
+    recovery_phase's (`alg1`: sim's), each timed, B1 counted through
+    apply_spd, each plan served by `shard_serve` (sim's plan when the
+    ranks' parted from it at a near-tie, so that the logits can be held
+    to sim's run of it); then the fp32 cut (`alg1_cut`) at sim's taus.
+    Every rank checks inside the facade that all reached one plan and
+    ranking."""
+    from repro_torch.api import LLM
+    from repro_torch.config.base import SPDPlanConfig
+    from repro_torch.data import calibration_batches
+    from repro_torch.kernels import flash_attention as FA
+
+    out = {}
+    calib = calibration_batches(llm.cfg.vocab_size, **SWEEP_CALIB)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = llm.apply_comm_policy(calib, n_spd=N_SPD, tau1=alg1["tau1"],
+                                tau2=alg1["tau2"], logits="quant8")
+    torch.cuda.synchronize()
+    rec = dict(ppl=res.ppl_suffix, sens=res.sensitivity,
+               ranking=res.ranking.tolist(), modes=llm.plan.modes(),
+               wall=time.perf_counter() - t0,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    served = llm
+    if rec["modes"] != alg1["modes"]:
+        plan = SPDPlanConfig.from_modes(alg1["modes"], logits=alg1["logits"])
+        served = LLM.load(llm.cfg, engine="shard", tp=2, plan=plan,
+                          params=llm.canonical, cache_len=512, max_batch=4)
+    rec["serve"] = shard_serve(torch, np, served, prompts)
+    del served
+    out["policy"] = rec
+    llm._release_engine()
+    release(torch)
+
+    torch.cuda.reset_peak_memory_stats()
+    FA.flash_attention_bhsd.launches = 0
+    t0 = time.perf_counter()
+    rep = llm.apply_spd(calib, n_spd=N_SPD, tau1=alg1["r_tau1"],
+                        tau2=alg1["r_tau2"], lr=RECOVERY_LR,
+                        epochs=RECOVERY_EPOCHS, strategies=("ZS", "B2B", "HG"))
+    torch.cuda.synchronize()
+    rec = dict(ppl=rep.ppl_suffix, ranking=rep.ranking.tolist(),
+               categories=list(rep.categories), chosen=list(rep.chosen),
+               modes=llm.plan.modes(), wall=time.perf_counter() - t0,
+               seconds=dict(rep.seconds), b1=FA.flash_attention_bhsd.launches,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               fell={b: float(np.mean(v[-len(calib):]))
+                     < float(np.mean(v[:len(calib)]))
+                     for b, v in rep.distill_losses.items()})
+    rec["serve"] = shard_serve(torch, np, llm, prompts)
+    out["spd"] = rec
+    llm._release_engine()
+    release(torch)
+    out["cut"] = alg1_cut(torch, np, llm, taus=alg1["cut_taus"], shard=True)
+    return out
+
+
+def separated_tiers(sens, ref_sens, eps, tau1, tau2):
+    """Blocks whose sensitivity, here and in `ref_sens`, is further than
+    2 eps from both thresholds (a sensitivity is the difference of two
+    perplexities, each within eps of the other run's), and whether
+    their tiers agree: (blocks, the blocks that disagree)."""
+    from repro_torch.core import sensitivity as S
+    a = S.classify(sens, tau1, tau2)
+    b = S.classify(ref_sens, tau1, tau2)
+    far = [i for i, s in enumerate(ref_sens)
+           if min(abs(s - tau1), abs(s - tau2)) > 2 * eps]
+    return far, [i for i in far if a[i] != b[i]]
+
+
+def check_shard_alg1(np, ranks, card, transport):
+    """(b)'s Algorithm 1 against sim's: every rank the same plan, ranking
+    and report; the tiers equal sim's wherever the perplexities' spread
+    between the runs cannot move them (separated_tiers); the served
+    plans' logits within the dense paths' bound of sim's run of the same
+    plan (check_shard_path); the recovery's B1 launches as sim's; the
+    fp32 cut's plan equal to sim's, its perplexities and sensitivities
+    within ALG1_CUT_RTOL.  Prints the ranks' wall seconds beside sim's."""
+    from repro_torch.configs import get_config
+
+    vocab = get_config("llama2-7b").vocab_size
+    sweep, recov = SIM_RUNS[ALG1_SWEEP], SIM_RUNS[ALG1_RECOVERY]
+    res = [rk["alg1"] for rk in ranks]
+    for what in ("policy", "spd", "cut"):
+        for r, rr in enumerate(res[1:], 1):
+            for k in ("ranking", "modes"):
+                if rr[what][k] != res[0][what][k]:
+                    raise AssertionError(f"shard Algorithm 1 {what}: rank "
+                                         f"{r}'s {k} differs from rank 0's")
+    pol, spd, cut = res[0]["policy"], res[0]["spd"], res[0]["cut"]
+    eps = float(np.abs(pol["ppl"] - sweep["ppl"]).max())
+    rel = eps / float(np.abs(sweep["ppl"]).max())
+    far, wrong = separated_tiers(pol["sens"], sweep["sens"], eps,
+                                 sweep["tau1"], sweep["tau2"])
+    same_plan = pol["modes"] == sweep["plan"].modes()
+    print(f"shard apply_comm_policy [{card}] llama2-7b tp 2 over "
+          f"{transport}: {pol['wall']:.2f} s (sim {sweep['wall']:.2f} s), "
+          f"peak_memory_gib={pol['peak_gib']:.2f} a rank; perplexities "
+          f"within {eps:.3f} of sim's ({rel:.3e} relative); tiers equal "
+          f"sim's on {len(far) - len(wrong)} of the {len(far)} blocks "
+          f"further than 2 x that from tau1 and tau2; plan equal to sim's: "
+          f"{same_plan}; ranking agrees at "
+          f"{sum(a == b for a, b in zip(pol['ranking'], sweep['ranking']))}"
+          f"/32 places")
+    print("shard apply_comm_policy plan:", " ".join(
+        f"{i}:{m}" for i, m in enumerate(pol["modes"])))
+    if wrong or rel > SWEEP_PPL_RTOL:
+        raise AssertionError(f"shard apply_comm_policy: tiers of blocks "
+                             f"{wrong} differ from sim's, or the "
+                             f"perplexities by {rel:.3e}")
+    check_shard_path(np, ALG1_TIERED + (" (sim's plan)" if not same_plan
+                                        else ""),
+                     2, [rk["alg1"]["policy"]["serve"] for rk in ranks],
+                     SIM_RUNS[ALG1_TIERED], transport, card, vocab)
+
+    same = (spd["modes"] == recov["modes"]
+            and spd["categories"] == recov["categories"]
+            and spd["chosen"] == recov["chosen"])
+    sec = spd["seconds"]
+    print(f"shard apply_spd [{card}] llama2-7b tp 2 over {transport}: "
+          f"{spd['wall']:.2f} s wall (sweep {sec['sweep']:.2f} s, capture "
+          f"{sec['capture']:.3f} s, grouping {sec.get('grouping', 0):.2f} s,"
+          f" distillation {sec.get('distill', 0):.2f} s) against sim's "
+          f"{recov['wall']:.2f} s; peak_memory_gib={spd['peak_gib']:.2f} a "
+          f"rank; tiers " + " ".join(
+              f"{b}:{c}" for b, c in zip(spd["chosen"], spd["categories"]))
+          + f" (sim's " + " ".join(
+              f"{b}:{c}" for b, c in zip(recov["chosen"],
+                                         recov["categories"]))
+          + f"); B1 launches {spd['b1']} (sim {recov['b1']}); losses fell "
+          f"on every distilled block: {all(spd['fell'].values())}")
+    if spd["b1"] != recov["b1"] or not all(spd["fell"].values()):
+        raise AssertionError("shard apply_spd: B1 launches or the "
+                             "distillation losses are not sim's")
+    srv = [rk["alg1"]["spd"]["serve"] for rk in ranks]
+    if same:
+        check_shard_path(np, ALG1_DISTILLED, 2, srv, SIM_RUNS[ALG1_DISTILLED],
+                         transport, card, vocab)
+    else:
+        far, wrong = separated_tiers(spd["ppl"][:-1] - spd["ppl"][1:],
+                                     recov["ppl"][:-1] - recov["ppl"][1:],
+                                     eps, recov["tau1"], recov["tau2"])
+        if wrong or any(r["tokens"] != srv[0]["tokens"] for r in srv):
+            raise AssertionError(f"shard apply_spd: the plan parted from "
+                                 f"sim's at separated blocks {wrong}")
+        print(f"shard apply_spd: the plan parted from sim's at a near-tie "
+              f"(no block further than 2 x {eps:.3f} from a threshold "
+              f"changed tier): its tokens held to the ranks' agreement "
+              f"only")
+
+    simcut = SIM_RUNS[ALG1_CUT]
+    prel = float(np.abs(cut["ppl"] / simcut["ppl"] - 1).max())
+    srel = float(np.abs(cut["sens"] - simcut["sens"]).max()
+                 / np.abs(simcut["sens"]).max())
+    print(f"shard fp32 cut [{card}] llama2-7b layers {TF_FP32_LAYERS}: "
+          f"plan {cut['modes']} (sim {simcut['modes']}), perplexities "
+          f"within {prel:.3e} and sensitivities within {srel:.3e} of the "
+          f"largest (tol {ALG1_CUT_RTOL:.0e}); {cut['wall']:.2f} s (sim "
+          f"{simcut['wall']:.2f} s)")
+    if (cut["modes"] != simcut["modes"] or cut["ranking"]
+            != simcut["ranking"] or max(prel, srel) > ALG1_CUT_RTOL):
+        raise AssertionError("shard fp32 cut: Algorithm 1 parted from sim's")
+
+
+def shard_rank_train(torch, np, g, job):
+    """(c) on a rank of tp 2 x dp 2: the training phase's model and
+    settings (TRAIN_KW) through make_trainer(engine="shard"), the
+    weights drawn from seed 0 on the card and kept on the host: ZeRO-1
+    for SHARD_TRAIN_STEPS steps (counted, timed); the same with a
+    checkpoint every SHARD_FAULT_EVERY and a fault before step
+    SHARD_FAULT_AT + 1, resumed (its final state against the first run's,
+    bit for bit); FSDP and every kept sync at quant8 for 2 steps each
+    (counted); the fp32 cut (train_cut_trainer)."""
+    import os
+
+    from repro_torch.config.base import replace
+    from repro_torch.launch.train import make_trainer
+    from repro_torch.runtime.trainer import SimulatedFault
+    from repro_torch.tree import tree_leaves
+
+    root = job["root"]
+    cfg = replace(train_cfg(), dtype="bfloat16", attn_backend="pallas")
+    out = {}
+
+    def trainer(label, **kw):
+        return make_trainer(cfg, engine="shard", device="cuda",
+                            ckpt_dir=os.path.join(root, label),
+                            **dict(TRAIN_KW, steps=SHARD_TRAIN_STEPS, **kw))
+
+    def run(label, tr, st, steps=None):
+        torch.cuda.reset_peak_memory_stats()
+        st, launches = counted(torch, lambda: tr.run(st, steps=steps))
+        out[label] = dict(
+            losses=losses_of(tr),
+            grad_norms=[m["grad_norm"] for m in tr.metrics_log],
+            walls=[m["wall"] for m in tr.metrics_log], launches=launches,
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        return st
+
+    tr, st = trainer("zero1", ckpt_every=0)
+    st = run("zero1", tr, st)
+    first = [t.clone() for t in tree_leaves(st["params"])
+             + tree_leaves(st["opt"])]
+    del tr, st
+    armed = [True]
+
+    def hook(step):
+        if step == SHARD_FAULT_AT and armed[0]:
+            armed[0] = False
+            raise SimulatedFault(f"fault injected at step {step}")
+
+    tr, st = trainer("fault", ckpt_every=SHARD_FAULT_EVERY, ckpt_keep=2,
+                     fault_hook=hook)
+    st = run("fault", tr, st)
+    out["fault"].update(
+        same_bits=all(torch.equal(a, b) for a, b in zip(
+            first, tree_leaves(st["params"]) + tree_leaves(st["opt"]))),
+        saves=tr.save_log, restores=tr.restore_log, step=st["step"])
+    del tr, st, first
+    release(torch)
+    tr, st = trainer("fsdp", fsdp=True, ckpt_every=0)
+    run("fsdp", tr, st, SHARD_FSDP_STEPS)
+    tr, st = trainer("quant8", comm="quant8", ckpt_every=0)
+    kept = plan_kept_syncs(cfg, tr.plan)
+    recomputed = sum(not tr.plan.drop_mask[i] and tr.plan.block_mode(i)
+                     in ("quant8", "quant4") for i in range(cfg.n_layers))
+    run("quant8", tr, st, SHARD_QUANT_STEPS)
+    out["quant8"].update(kept=kept, recomputed=recomputed)
+    del tr, st
+    release(torch)
+    tr, st = train_cut_trainer(root, "shard")
+    run("cut", tr, st)
+    del tr, st
+    release(torch)
+    return out
+
+
+def check_shard_train(np, ranks, card, transport):
+    """(c) against the training phase: the same losses and grad norms on
+    every rank; the step-1 loss within SHARD_TRAIN_LOSS_RTOL of (a)'s;
+    the resumed run bit for bit the uninterrupted one; FSDP's losses
+    within TRAJ_RTOL of ZeRO-1's, quant8's within QUANT_LOSS_RTOL; B1 on
+    every rank 2 x layers x microbatches x steps, and on the quant8
+    steps the send and receive kernels once a quantized kept sync (the
+    remat recompute re-runs the attention syncs); the fp32 cut within
+    SHARD_TRAIN_CUT_RTOL of sim's.  Prints ms a step and tokens/s."""
+    nmb, layers = TRAIN_KW["microbatches"], train_cfg().n_layers
+    for label in ("zero1", "fault", "fsdp", "quant8", "cut"):
+        for r, rk in enumerate(ranks[1:], 1):
+            for k in ("losses", "grad_norms"):
+                if rk["train"][label][k] != ranks[0]["train"][label][k]:
+                    raise AssertionError(f"shard (c) {label}: rank {r}'s "
+                                         f"{k} differ from rank 0's")
+    t = ranks[0]["train"]
+    z, f, q = t["zero1"], t["fault"], t["quant8"]
+    la = SIM_RUNS["train (a)"]["losses"]
+    rel1 = abs(z["losses"][0] - la[0]) / abs(la[0])
+    step_s = float(np.mean(z["walls"][1:]))
+    tokens = TRAIN_KW["batch"] * TRAIN_KW["seq"]
+    print(f"shard (c) [{card}] {TRAIN_ARCH} L={layers} full width, bf16, tp "
+          f"2 x dp 2, four ranks on one card over {transport}: ZeRO-1 losses "
+          f"{[round(x, 4) for x in z['losses']]} grad_norms "
+          f"{[round(x, 3) for x in z['grad_norms']]} on every rank; step 1 "
+          f"{z['losses'][0]:.4f} against train (a)'s {la[0]:.4f}: rel "
+          f"{rel1:.3e} (tol {SHARD_TRAIN_LOSS_RTOL:.0e}); step_ms="
+          f"{step_s * 1e3:.1f} (mean of steps 2-{SHARD_TRAIN_STEPS}; step 1 "
+          f"{z['walls'][0] * 1e3:.1f}) tokens_per_s={tokens / step_s:.1f} "
+          f"(sim's train (a) step_ms={SIM_RUNS['train (a)']['step_ms']:.1f});"
+          f" peak_memory_gib={z['peak_gib']:.2f} a rank")
+    if not rel1 <= SHARD_TRAIN_LOSS_RTOL:
+        raise AssertionError("shard (c): the step-1 loss is not (a)'s")
+    for label, steps in (("zero1", SHARD_TRAIN_STEPS),
+                         ("fsdp", SHARD_FSDP_STEPS),
+                         ("quant8", SHARD_QUANT_STEPS)):
+        want = 2 * layers * nmb * steps
+        for r, rk in enumerate(ranks):
+            got = rk["train"][label]["launches"]["flash_attention_bhsd"]
+            if got != want:
+                raise AssertionError(f"shard (c) {label} rank {r}: B1 "
+                                     f"launches {got}, want {want}")
+    print(f"shard (c) B1 launches a rank: {z['launches']['flash_attention_bhsd']}"
+          f" = 2 x {layers} layers x {nmb} microbatches x "
+          f"{SHARD_TRAIN_STEPS} steps")
+    for step, sec, nb in f["saves"]:
+        print(f"shard (c) [{card}]: save at step {step}: {sec:.2f} s, "
+              f"{nb / 1e9:.3f} GB gathered, rank 0 writing")
+    for step, sec, nb in f["restores"]:
+        print(f"shard (c) [{card}]: restore of step {step}: {sec:.2f} s")
+    print(f"shard (c) fault before step {SHARD_FAULT_AT + 1}: losses "
+          f"{[round(x, 4) for x in f['losses']]}; final state equal to the "
+          f"uninterrupted run's bit for bit on every rank: "
+          f"{all(rk['train']['fault']['same_bits'] for rk in ranks)}")
+    if not (all(rk["train"]["fault"]["same_bits"] for rk in ranks)
+            and f["step"] == SHARD_TRAIN_STEPS and len(f["restores"]) == 1
+            and f["losses"][SHARD_FAULT_AT] == f["losses"][SHARD_FAULT_AT - 1]
+            == z["losses"][SHARD_FAULT_AT - 1]):
+        raise AssertionError("shard (c): the resumed run is not the "
+                             "uninterrupted one")
+    fl = t["fsdp"]["losses"]
+    frel = max(abs(a - b) / abs(b) for a, b in zip(fl, z["losses"]))
+    qrel = max(abs(a - b) / abs(b) for a, b in zip(q["losses"], z["losses"]))
+    want_q = (q["kept"] + q["recomputed"]) * nmb * SHARD_QUANT_STEPS
+    ql = q["launches"]
+    print(f"shard (c) FSDP losses {[round(x, 4) for x in fl]}: max rel "
+          f"{frel:.3e} from ZeRO-1's (tol {TRAJ_RTOL:.0e}) step_ms="
+          f"{1e3 * float(np.mean(t['fsdp']['walls'][1:])):.1f}; quant8 "
+          f"losses {[round(x, 4) for x in q['losses']]}: max rel "
+          f"{qrel:.3e} (tol {QUANT_LOSS_RTOL:.0e}) step_ms="
+          f"{1e3 * float(np.mean(q['walls'][1:])):.1f}; send "
+          f"{ql['quantize_message_absmax']} and receive "
+          f"{ql['reduce_messages_absmax']} launches a rank (want ("
+          f"{q['kept']} kept + {q['recomputed']} recomputed) x {nmb} "
+          f"microbatches x {SHARD_QUANT_STEPS} steps = {want_q}), fused "
+          f"sim sync {ql['quantized_psum_absmax']}")
+    for r, rk in enumerate(ranks):
+        ql = rk["train"]["quant8"]["launches"]
+        if not (ql["quantize_message_absmax"] == ql["reduce_messages_absmax"]
+                == want_q and ql["quantized_psum_absmax"] == 0):
+            raise AssertionError(f"shard (c) quant8 rank {r}: launches {ql}")
+    if not (frel <= TRAJ_RTOL and qrel <= QUANT_LOSS_RTOL):
+        raise AssertionError("shard (c): FSDP or quant8 parted from ZeRO-1")
+    sim, cut = SIM_RUNS["train cut"], t["cut"]
+    crel = max(abs(a - b) / abs(b) for m, c in zip(sim, zip(
+        cut["losses"], cut["grad_norms"])) for a, b in zip(
+            c, (m["loss"], m["grad_norm"])))
+    print(f"shard (c) fp32 cut ({SHARD_TRAIN_CUT_LAYERS} layers, batch "
+          f"{SHARD_TRAIN_CUT['batch']} x seq {SHARD_TRAIN_CUT['seq']}): "
+          f"losses {cut['losses']} grad_norms {cut['grad_norms']} against "
+          f"sim's {sim}: max rel {crel:.3e} (tol "
+          f"{SHARD_TRAIN_CUT_RTOL:.0e})")
+    if not crel <= SHARD_TRAIN_CUT_RTOL:
+        raise AssertionError("shard (c): the fp32 cut parted from sim's")
+    return z["launches"]
+
+
+def shard_train_phase(np, card, transport):
+    """(c): four ranks (tp 2 x dp 2) on card 0 over gloo train the
+    training phase's model (shard_rank_train, check_shard_train).
+    Returns rank 0's ZeRO-1 launches."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch.dist import spawn
+
+    root = tempfile.mkdtemp(prefix="shard_train_")
+    t0 = time.perf_counter()
+    try:
+        ranks = spawn(shard_rank, 4, backend="gloo", device="cuda:0",
+                      args=(dict(tp=2, dp=2, backend="gloo",
+                                 device="cuda:0", train=True, root=root),),
+                      deadline_s=SHARD_TRAIN_DEADLINE_S, timeout_s=300)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = check_shard_train(np, ranks, card, transport)
+    print(f"shard (c) over {transport}: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def shard_rank(rank, job):
     """One rank of the shard phase (started by launch.dist.spawn): the TP
     groups, then (a) or (b).  Kernels are loaded from build/, which the
@@ -5005,12 +5526,15 @@ def shard_rank(rank, job):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    g = init_tp(job["tp"], 1, backend=job["backend"], device=job["device"])
+    g = init_tp(job["tp"], job.get("dp", 1), backend=job["backend"],
+                device=job["device"])
     if job["backend"] == "nccl":
         return shard_rank_nccl(torch, np, g)
     if job.get("families"):
         return shard_rank_families(torch, np, g, job["card"], job["routes"])
-    return shard_rank_gloo(torch, np, g, job["card"])
+    if job.get("train"):
+        return {"train": shard_rank_train(torch, np, g, job)}
+    return shard_rank_gloo(torch, np, g, job["card"], job["alg1"])
 
 
 def check_rank_runs(label, tp, ranks, sim):
@@ -5306,9 +5830,17 @@ def shard_phase(torch, np, card):
               f"{json.dumps(r0['wire'])}")
 
     t0 = time.perf_counter()
+    sweep, recov = SIM_RUNS[ALG1_SWEEP], SIM_RUNS[ALG1_RECOVERY]
+    # plain values: a rank unpickles them before it can import the port
+    alg1 = dict(tau1=sweep["tau1"], tau2=sweep["tau2"],
+                modes=sweep["plan"].modes(),
+                logits=sweep["plan"].logits_mode,
+                r_tau1=recov["tau1"], r_tau2=recov["tau2"],
+                cut_taus=SIM_RUNS[ALG1_CUT]["taus"])
     job = dict(tp=2, backend="gloo", device="cuda:0", card=card)
     ranks = spawn(shard_rank, 2, backend="gloo", device="cuda:0",
-                  args=(job,), deadline_s=SHARD_DEADLINE_S, timeout_s=300)
+                  args=(dict(job, alg1=alg1),), deadline_s=SHARD_DEADLINE_S,
+                  timeout_s=300)
     b_s = time.perf_counter() - t0
     transport = ("gloo on one card (CUDA tensors staged through the host: "
                  "these times measure a host-staged wire, not NVLink)")
@@ -5337,6 +5869,7 @@ def shard_phase(torch, np, card):
               f"canonical weights kept on the host), "
               f"{q['held_gib']:.2f} GiB held after")
     out[SHARD_SPEC_LABEL] = check_shard_spec(np, ranks, card)
+    check_shard_alg1(np, ranks, card, transport)
     print_rank_memory(ranks, (SHARD_INT8_LABEL,))
     print(f"shard (b) over {transport}: {b_s:.1f} s; llama2-7b "
           f"decode_ms_per_token={ll['decode_ms']:.2f}; the speculative path "
@@ -5344,6 +5877,7 @@ def shard_phase(torch, np, card):
           f"{ranks[0][SHARD_INT8_LABEL]['seconds']:.1f} s (rank 0's)")
 
     out.update(shard_family_phase(np, card, job, transport))
+    out["shard (c)"] = shard_train_phase(np, card, transport)
     return out
 
 
@@ -5605,6 +6139,10 @@ def main() -> int:
     release(torch)
     int8_launches = int8_phase(torch, np, llama, card)
     print(f"int8 path launches: {json.dumps(int8_launches)}")
+    SIM_RUNS[ALG1_CUT] = alg1_cut(torch, np, llama)
+    print(f"{ALG1_CUT} layers {TF_FP32_LAYERS} on sim for the shard phase: "
+          f"plan {SIM_RUNS[ALG1_CUT]['modes']}, taus "
+          f"{SIM_RUNS[ALG1_CUT]['taus']}, {SIM_RUNS[ALG1_CUT]['wall']:.2f} s")
     del llama
     release(torch)
     clock(t_start, "the llama2-7b paths")

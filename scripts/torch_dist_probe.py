@@ -6,8 +6,12 @@ host from the repo root):
 1. gloo, two ranks on card 0 (CUDA tensors staged through the host):
    all-gather in list form and into one tensor (fp32, bf16, int8),
    all-reduce sum (fp32, bf16), max (fp32), min (int64) and broadcast,
-   each printed ok or with its error; then, in a spawn of its own, a
-   ring of isend / irecv (gloo may abort a rank there).
+   the reduce-scatter into one tensor that the train step's ZeRO-1
+   and FSDP run over the data group (fp32, bf16; collectives.
+   reduce_scatter), a barrier and an object broadcast (the trainer's
+   checkpoint directory), each printed ok or with its error; then, in a
+   spawn of its own, a ring of isend / irecv (gloo may abort a rank
+   there).
 2. nccl, two ranks on card 0: expected to be refused; its error printed.
 3. nccl at the card count, one rank a card: an all-reduce.
 4. With two or more cards, nccl at the card count: the quantized kept
@@ -68,6 +72,27 @@ def gloo_cases(rank):
             else "wrong"
     except Exception as e:                          # noqa: BLE001
         out["broadcast int64"] = repr(e)[:160]
+    from repro_torch.parallel.collectives import reduce_scatter
+    for dt in (torch.float32, torch.bfloat16):
+        name = f"reduce_scatter {str(dt).split('.')[-1]}"
+        try:
+            parts = torch.arange(6, dtype=dt, device=dev).reshape(2, 3) \
+                * (rank + 1)
+            y = torch.empty((1, 3), dtype=dt, device=dev)
+            reduce_scatter(y, parts, None)
+            want = (3 * torch.arange(6).reshape(2, 3)[rank]).tolist()
+            out[name] = "ok" if y[0].float().cpu().tolist() == want \
+                else "wrong"
+        except Exception as e:                      # noqa: BLE001
+            out[name] = repr(e)[:160]
+    try:
+        dist.barrier()
+        box = [f"dir of rank {rank}"]
+        dist.broadcast_object_list(box, src=0)
+        out["barrier, broadcast_object_list"] = (
+            "ok" if box == ["dir of rank 0"] else "wrong")
+    except Exception as e:                          # noqa: BLE001
+        out["barrier, broadcast_object_list"] = repr(e)[:160]
     return out
 
 

@@ -42,9 +42,11 @@ program after `launch.dist.init_tp`, e.g. under
 or `launch.dist.spawn(fn, world, backend=, device=)` from one process.
 Without the groups it raises.  It serves what `sim` serves: every
 family (dense, MoE, MLA, SSM, hybrid), int8 caches and weights, dense
-or paged caches, chunked prefill and speculative decoding.  The
-overlap engine (ROADMAP A5b), Algorithm 1 and training (A5e) and the
-modality frontends (A4) raise NotImplementedError there.
+or paged caches, chunked prefill and speculative decoding, and runs
+Algorithm 1 (`apply_spd`, `apply_comm_policy`) on each rank's own
+shard with the syncs over its model group; every rank must reach the
+same plan.  The overlap engine (ROADMAP A5b) and the modality frontends
+(A4) raise NotImplementedError there.
 """
 from __future__ import annotations
 
@@ -500,12 +502,19 @@ class LLM:
 
     # ---------------- the paper's SPD pipeline ----------------
 
-    def _single_process(self, what: str) -> None:
-        """Algorithm 1 (the sweep, distillation) runs on one device."""
-        if self.engine.backend.multi_process:
-            raise NotImplementedError(
-                f"{what} on the shard engine is not ported yet (ROADMAP "
-                "A5e); run it on engine='sim' and serve the plan")
+    def _rank_agree(self, plan, ranking, what: str) -> None:
+        """On `shard`: every rank of the world reached the same plan
+        (drop mask and comm levels) and report ranking, before the engine
+        is rebuilt on it (backend.agree_across)."""
+        if self.groups is None:
+            return
+        from repro_torch.parallel.backend import agree_across
+        levels = (list(plan.comm.block_modes) + [plan.comm.logits_mode]
+                  if plan.comm is not None else [])
+        vals = ([int(d) for d in plan.drop_mask]
+                + [SYNC_LEVELS.index(m) for m in levels]
+                + [int(i) for i in ranking])
+        agree_across(self.groups, vals, what)
 
     def apply_spd(self, calib_batches, *, n_spd: int, tau1: float,
                   tau2: float, lr: float = 5e-5, epochs: int = 10,
@@ -518,10 +527,10 @@ class LLM:
         padded params it returns are placed as they are (distilled SPD
         weights belong to this tp).  Returns the `SPDReport`; the plan,
         engine and placed params are replaced and the cached scheduler
-        dropped."""
+        dropped.  On `shard` each rank runs its own shard (core/spd.py)
+        and all must reach the same plan and ranking."""
         from repro_torch.core import spd as SPD
 
-        self._single_process("apply_spd")
         SPD.require_algorithm1(self.cfg)
         self._release_engine()
         padded = None
@@ -529,7 +538,9 @@ class LLM:
             padded, plan, report = SPD.apply_spd(
                 self.cfg, self.canonical, calib_batches, self.tp,
                 n_spd=n_spd, tau1=tau1, tau2=tau2, lr=lr, epochs=epochs,
-                strategies=strategies, q_chunk=q_chunk or self.q_chunk)
+                strategies=strategies, q_chunk=q_chunk or self.q_chunk,
+                groups=self.groups)
+            self._rank_agree(plan, report.ranking, "apply_spd")
             self.plan = plan
         finally:
             self._build_engine(padded)
@@ -548,7 +559,6 @@ class LLM:
         SensitivityResult; `self.plan.comm` holds the policy after."""
         from repro_torch.core import spd as SPD
 
-        self._single_process("apply_comm_policy")
         SPD.require_algorithm1(self.cfg)
         self._release_engine()
         try:
@@ -556,7 +566,8 @@ class LLM:
                 self.cfg, self.canonical, calib_batches, self.tp,
                 n_spd=n_spd, tau1=tau1, tau2=tau2, sb_level=sb_level,
                 esb_level=esb_level, logits=logits,
-                q_chunk=q_chunk or self.q_chunk)
+                q_chunk=q_chunk or self.q_chunk, groups=self.groups)
+            self._rank_agree(plan, res.ranking, "apply_comm_policy")
             self.plan = plan
         finally:
             self._build_engine()

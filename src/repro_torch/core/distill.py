@@ -12,7 +12,9 @@ The gradient is of the SUM over the shard axis of each shard's own fp32
 MSE (the reference's grad inside the shard map; see
 parallel/collectives.py), and the AdamW update (fp32 master copies, no
 weight decay) runs directly on the stacked (tp, ...) leaves.  The
-reported loss is shard 0's.
+reported loss is shard 0's.  Under a model group (a rank of the shard
+backend) the leaves are the rank's shard (1, ...), the block's syncs
+run over the group, and shard 0's loss is gathered from its rank.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from repro_torch.core import blocks as B
 from repro_torch.core import model as M
 from repro_torch.core import simtp
 from repro_torch.optim.adamw import adamw_init, adamw_update
+from repro_torch.parallel.collectives import gather_shards, local_shards
 
 
 def make_distill_step(cfg, kind, tp: int, *, lr: float, q_chunk: int = 1024):
@@ -32,7 +35,7 @@ def make_distill_step(cfg, kind, tp: int, *, lr: float, q_chunk: int = 1024):
     lay = M._gqa_layout(cfg, tp)
 
     def step(student, opt_state, teacher, x, pos):
-        xs = x[None].expand((tp,) + tuple(x.shape))
+        xs = x[None].expand((local_shards(tp),) + tuple(x.shape))
         with torch.no_grad():
             out_t, _ = B.block_seq(cfg, kind, lay, teacher, xs, pos,
                                    drop=False, q_chunk=q_chunk)
@@ -45,7 +48,7 @@ def make_distill_step(cfg, kind, tp: int, *, lr: float, q_chunk: int = 1024):
             grads = simtp.grads_of(mse.sum(), student, leaves)
         new, opt_state = adamw_update(grads, opt_state, student, lr=lr,
                                       weight_decay=0.0)
-        return new, opt_state, float(mse[0].detach())
+        return new, opt_state, float(gather_shards(mse.detach())[0])
 
     return step
 

@@ -307,13 +307,18 @@ def forward_seq(cfg, stacked, plan: SPDPlanConfig, tokens, *, tp,
 
 def _remat_block(cfg, kind, lay, layer_p, x, pos, drop, q_chunk, comm):
     """One block whose activations the backward recomputes.  The
-    recomputation logs nothing: the ledger counts the forward."""
+    recomputation logs nothing: the ledger counts the forward.  It syncs
+    over the groups bound now (a rank's): on a CUDA device it runs on
+    the autograd engine's thread, which has none bound."""
     from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.parallel.collectives import bound_groups, groups_bound
     calls = []
+    groups = bound_groups()
 
     def run(xc, *leaves):
         calls.append(1)
-        with ledger_paused(len(calls) > 1):
+        with ledger_paused(len(calls) > 1), groups_bound(groups):
             out, _ = B.block_seq(cfg, kind, lay,
                                  tree_unflatten(layer_p, leaves), xc, pos,
                                  drop=drop, q_chunk=q_chunk, comm=comm)

@@ -23,6 +23,7 @@ from repro_torch.config.base import ModelConfig, SPDPlanConfig
 from repro_torch.core import blocks as B
 from repro_torch.core import model as M
 from repro_torch.core.layer_kinds import plan_segments
+from repro_torch.parallel.collectives import local_shards
 from repro_torch.parallel.layout import (REPLICATED, merge_leaf, shard_leaf,
                                          split_leaf)
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
@@ -93,10 +94,15 @@ def merge_stacked(split: dict, cfg: ModelConfig, plan: SPDPlanConfig,
     return out
 
 
-def split_layer(layer_params: dict, cfg, kind, tp: int) -> dict:
-    """Canonical layer params -> padded, every leaf (tp, ...)."""
-    return _split_with_offset(B.pad_layer(layer_params, cfg, kind, tp),
-                              B.layer_specs(cfg, kind), tp, offset=0)
+def split_layer(layer_params: dict, cfg, kind, tp: int, rank=None) -> dict:
+    """Canonical layer params -> padded, every leaf (tp, ...); with
+    `rank`, only that shard, (1, ...)."""
+    padded = B.pad_layer(layer_params, cfg, kind, tp)
+    if rank is not None:
+        return tree_map(lambda w, a: shard_leaf(w, a, tp, rank), padded,
+                        B.layer_specs(cfg, kind))
+    return _split_with_offset(padded, B.layer_specs(cfg, kind), tp,
+                              offset=0)
 
 
 def merge_layer(split: dict, cfg, kind, tp: int) -> dict:
@@ -231,12 +237,12 @@ def make_collect_fn(cfg, plan, tp, *, q_chunk=1024):
 
 def make_block_fn(cfg, kind, tp, *, drop: bool, q_chunk=1024):
     """fn(split_layer_params, x (B,S,d), pos (B,S)) -> block output
-    (B,S,d), shard 0's copy."""
+    (B,S,d), shard 0's copy (a rank's own under a model group)."""
     lay = M._gqa_layout(cfg, tp)
 
     @torch.no_grad()
     def fn(split_p, x, pos):
-        xs = x[None].expand((tp,) + tuple(x.shape))
+        xs = x[None].expand((local_shards(tp),) + tuple(x.shape))
         out, _ = B.block_seq(cfg, kind, lay, split_p, xs, pos, drop=drop,
                              q_chunk=q_chunk)
         return out[0]

@@ -15,6 +15,16 @@ N_spd, `apply_spd`:
 
 The sensitivity-tiered comm policy (drop / quant8 / exact per block)
 reuses steps 1-3 zero-shot.
+
+On the `shard` backend's ranks (`groups`, this rank's
+launch.dist.TPGroups) every step runs each rank's own model shard with
+the model group bound, as the serving forward does: the canonical tree
+stays where it lies (the host), the rank places its shard under the
+no-SPD plan, the sweep, the capture and the distillation sync over the
+group, and head grouping is computed from the canonical layer, the same
+way on every rank.  A distilled block's shards are gathered back over
+the group, so every rank returns the same padded tree.  Each data rank
+runs the same work on the same calibration batches.
 """
 from __future__ import annotations
 
@@ -32,6 +42,8 @@ from repro_torch.core import model as M
 from repro_torch.core import sensitivity as S
 from repro_torch.core import simtp
 from repro_torch.core.layer_kinds import layer_kinds
+from repro_torch.parallel.collectives import gather_shards, rank_bound
+from repro_torch.tree import tree_map
 
 
 @dataclass
@@ -48,17 +60,29 @@ class SPDReport:
     seconds: Dict[str, float] = field(default_factory=dict)
 
 
+def place_no_spd(cfg, padded, tp, groups=None):
+    """`padded` placed under the no-SPD plan: every shard (sim), or this
+    rank's, (1, ...), on its device."""
+    plan = SPDPlanConfig.none(cfg.n_layers)
+    if groups is None:
+        return simtp.split_padded(padded, cfg, plan, tp)
+    return simtp.split_padded(padded, cfg, plan, tp, rank=groups.model_rank,
+                              device=groups.device)
+
+
 def capture_block_inputs(cfg, padded, tp, calib_batches, *, q_chunk=1024,
-                         split0=None):
+                         split0=None, groups=None):
     """Hidden states at every block's input, all-TP mode, per calib
     batch: a list over batches of (L+1,B,S,d) tensors on the params'
     device.  `split0` is the no-SPD placement of `padded` when the
-    caller holds one (the sweep's); else it is placed here and freed."""
+    caller holds one (the sweep's); else it is placed here and freed.
+    On a rank (`groups`), its shard runs with the model group bound."""
     plan = SPDPlanConfig.none(cfg.n_layers)
     if split0 is None:
-        split0 = simtp.split_padded(padded, cfg, plan, tp)
+        split0 = place_no_spd(cfg, padded, tp, groups)
     collect = simtp.make_collect_fn(cfg, plan, tp, q_chunk=q_chunk)
-    return [collect(split0, b["tokens"]) for b in calib_batches]
+    with rank_bound(groups):
+        return [collect(split0, b["tokens"]) for b in calib_batches]
 
 
 def require_algorithm1(cfg: ModelConfig) -> None:
@@ -76,17 +100,19 @@ def require_algorithm1(cfg: ModelConfig) -> None:
 
 
 def sweep_sensitivity(cfg: ModelConfig, canonical: dict, calib_batches,
-                      tp: int, *, q_chunk: int = 1024, keep_split=False):
+                      tp: int, *, q_chunk: int = 1024, keep_split=False,
+                      groups=None):
     """Place the canonical params once under the no-SPD plan and run
     Algorithm 1's block sweep.  Returns (SensitivityResult, padded
     params), and the placement too when `keep_split`; else it is freed
-    on return."""
+    on return.  On a rank (`groups`) the padded tree stays where the
+    canonical one lies and the rank's shard is placed on its device."""
     require_algorithm1(cfg)
-    plan0 = SPDPlanConfig.none(cfg.n_layers)
     padded = M.pad_model(canonical, cfg, tp)
-    split0 = simtp.split_padded(padded, cfg, plan0, tp)
-    res = S.measure_sensitivity(cfg, split0, calib_batches, tp,
-                                q_chunk=q_chunk)
+    split0 = place_no_spd(cfg, padded, tp, groups)
+    with rank_bound(groups):
+        res = S.measure_sensitivity(cfg, split0, calib_batches, tp,
+                                    q_chunk=q_chunk)
     return (res, padded, split0) if keep_split else (res, padded)
 
 
@@ -99,8 +125,9 @@ def _clock(device) -> float:
 def apply_spd(cfg: ModelConfig, canonical: dict, calib_batches, tp: int, *,
               n_spd: int, tau1: float, tau2: float, lr: float = 5e-5,
               epochs: int = 10, strategies=("ZS", "B2B", "HG"),
-              q_chunk: int = 1024):
-    """Returns (padded_params_final, plan, report)."""
+              q_chunk: int = 1024, groups=None):
+    """Returns (padded_params_final, plan, report).  `groups`: this
+    rank's launch.dist.TPGroups on the shard backend (module doc)."""
     require_algorithm1(cfg)
     if not cfg.spd_applicable:
         padded = M.pad_model(canonical, cfg, tp)
@@ -110,11 +137,11 @@ def apply_spd(cfg: ModelConfig, canonical: dict, calib_batches, tp: int, *,
         return padded, plan, rep
 
     # ---- 1-2: sensitivity + ranking ----
-    dev = canonical["emb"].device
+    dev = canonical["emb"].device if groups is None else groups.device
     t0 = _clock(dev)
     res, padded, split0 = sweep_sensitivity(cfg, canonical, calib_batches,
                                             tp, q_chunk=q_chunk,
-                                            keep_split=True)
+                                            keep_split=True, groups=groups)
     chosen = [int(i) for i in res.ranking[:n_spd]]
     cats = S.classify(res.sensitivity[chosen], tau1, tau2)
     plan = SPDPlanConfig.from_ranking(res.ranking, n_spd, cfg.n_layers)
@@ -129,7 +156,8 @@ def apply_spd(cfg: ModelConfig, canonical: dict, calib_batches, tp: int, *,
 
     # ---- hidden states at block inputs (TP mode, App C.1) ----
     hiddens = capture_block_inputs(cfg, padded, tp, calib_batches,
-                                   q_chunk=q_chunk, split0=split0)
+                                   q_chunk=q_chunk, split0=split0,
+                                   groups=groups)
     del split0
     t2 = _clock(dev)
     report.seconds["capture"] = t2 - t1
@@ -141,7 +169,8 @@ def apply_spd(cfg: ModelConfig, canonical: dict, calib_batches, tp: int, *,
         if cat == S.ISB:
             continue
         kind = kinds[bi]
-        layer_canonical = canonical["layers"][bi]
+        layer_canonical = tree_map(lambda w: w.to(dev),
+                                   canonical["layers"][bi])
         if cat == S.ESB and "HG" in strategies:
             t = _clock(dev)
             gres = G.group_heads(cfg, kind, layer_canonical, hiddens[0][bi],
@@ -151,10 +180,15 @@ def apply_spd(cfg: ModelConfig, canonical: dict, calib_batches, tp: int, *,
             report.seconds["grouping"] += _clock(dev) - t
         t = _clock(dev)
         # teacher = the (possibly permuted) TP weights
-        teacher_split = simtp.split_layer(layer_canonical, cfg, kind, tp)
-        student_split, losses = D.b2b_distill(
-            cfg, kind, tp, teacher_split, [h[bi] for h in hiddens], lr=lr,
-            epochs=epochs, q_chunk=q_chunk)
+        teacher_split = simtp.split_layer(
+            layer_canonical, cfg, kind, tp,
+            rank=None if groups is None else groups.model_rank)
+        with rank_bound(groups):
+            student_split, losses = D.b2b_distill(
+                cfg, kind, tp, teacher_split, [h[bi] for h in hiddens],
+                lr=lr, epochs=epochs, q_chunk=q_chunk)
+            # a rank's distilled shard, gathered back over the group
+            student_split = tree_map(gather_shards, student_split)
         report.distill_losses[bi] = losses
         new_layers[bi] = simtp.merge_layer(student_split, cfg, kind, tp)
         report.seconds["distill"] += _clock(dev) - t
@@ -202,9 +236,11 @@ def comm_policy_from_sensitivity(sens, ranking, n_layers: int, *,
 def assign_comm_policy(cfg: ModelConfig, canonical: dict, calib_batches,
                        tp: int, *, n_spd: int, tau1: float, tau2: float,
                        sb_level: str = "quant8", esb_level: str = "exact",
-                       logits: str = "exact", q_chunk: int = 1024):
+                       logits: str = "exact", q_chunk: int = 1024,
+                       groups=None):
     """Measure block sensitivity and give each block the cheapest sync it
-    can afford: drop / quant8 / quant4 / exact.  Zero-shot.
+    can afford: drop / quant8 / quant4 / exact.  Zero-shot.  `groups`:
+    this rank's launch.dist.TPGroups on the shard backend.
 
     Returns (plan_with_comm, SensitivityResult)."""
     if not cfg.spd_applicable:
@@ -214,7 +250,7 @@ def assign_comm_policy(cfg: ModelConfig, canonical: dict, calib_batches,
             np.zeros(cfg.n_layers + 1), np.zeros(cfg.n_layers),
             np.arange(cfg.n_layers))
     res, _ = sweep_sensitivity(cfg, canonical, calib_batches, tp,
-                               q_chunk=q_chunk)
+                               q_chunk=q_chunk, groups=groups)
     plan = comm_policy_from_sensitivity(
         res.sensitivity, res.ranking, cfg.n_layers, n_spd=n_spd,
         tau1=tau1, tau2=tau2, sb_level=sb_level, esb_level=esb_level,

@@ -374,21 +374,27 @@ class ShardBackend(ParallelBackend):
         return caches
 
     def agree(self, tokens) -> None:
-        """Rank 0 broadcasts how many tokens it took, then the tokens (a
-        speculative round commits a count of them that the host
-        decides); every rank checks its own against them."""
-        if not self.check_agreement or self.groups.world == 1:
-            return
-        import torch.distributed as dist
-        mine = torch.as_tensor(np.asarray(tokens, np.int64)).reshape(-1)
-        mine = mine.to(self.device)
-        n = torch.tensor([mine.numel()], dtype=torch.int64,
-                         device=self.device)
-        dist.broadcast(n, src=0)
-        ref = (mine.clone() if self.groups.rank == 0 else
-               torch.empty(int(n), dtype=torch.int64, device=self.device))
-        dist.broadcast(ref, src=0)
-        if not torch.equal(ref, mine):
-            raise RuntimeError(
-                f"rank {self.groups.rank}: host tokens {mine.tolist()} "
-                f"differ from rank 0's {ref.tolist()}")
+        """With `check_agreement` on: every rank took rank 0's tokens
+        (`agree_across`)."""
+        if self.check_agreement:
+            agree_across(self.groups, tokens, "host tokens")
+
+
+def agree_across(groups, values, what: str) -> None:
+    """Rank 0 broadcasts how many values it holds, then the values (a
+    speculative round commits a count of tokens that the host decides;
+    Algorithm 1 a plan and a ranking); every rank checks its own
+    against them and raises where they differ."""
+    if groups.world == 1:
+        return
+    import torch.distributed as dist
+    mine = torch.as_tensor(np.asarray(values, np.int64)).reshape(-1)
+    mine = mine.to(groups.device)
+    n = torch.tensor([mine.numel()], dtype=torch.int64, device=groups.device)
+    dist.broadcast(n, src=0)
+    ref = (mine.clone() if groups.rank == 0 else
+           torch.empty(int(n), dtype=torch.int64, device=groups.device))
+    dist.broadcast(ref, src=0)
+    if not torch.equal(ref, mine):
+        raise RuntimeError(f"rank {groups.rank}: {what} {mine.tolist()} "
+                           f"differ from rank 0's {ref.tolist()}")

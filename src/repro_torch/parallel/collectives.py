@@ -36,12 +36,17 @@ simulated axis (the pipeline's stage shift).
 
 The train step's data-axis collectives (`psum_plain`, `psum_scatter`,
 `all_gather`) run over SIMULATED mesh axes ("pod", "data"; the mesh is
-launch/mesh.py's descriptor): one device computes the whole global
-batch, so they move no bytes.  Their values are sums, slices and
-concatenations over the axis, and each logs the entry the reference's
-shard_map logs, with the bytes one device of the mesh holds.  Inside
-`ledger_share(n)` a forward over the rows of n data slots at once logs
-one slot's bytes.
+launch/mesh.py's descriptor) on one device, which computes the whole
+global batch: their values are sums, slices and concatenations over
+the axis's leading slot dims, and they move no bytes.  On the `shard`
+backend's ranks the train step binds a data-group context as well
+(`data_group`): each rank then holds ONE (data, model) slot, every slot
+dim is of size 1, and the same functions run their collective over the
+rank's groups (an all-reduce, a reduce-scatter, an all-gather); the
+"pod" axis has no group there (ROADMAP A5f).  Either way each logs the
+entry the reference's shard_map logs, with the bytes one device of the
+mesh holds.  Inside `ledger_share(n)` a forward over the rows of n data
+slots at once logs one slot's bytes.
 
 On the `shard` backend each process holds ONE shard (dim 0 of size 1)
 and the backend binds a model-group context (`model_group`) around every
@@ -308,9 +313,21 @@ class ModelGroup:
     group: object
 
 
+@dataclass(frozen=True)
+class DataGroup:
+    """The data-parallel group of a rank's train step: `size` data ranks,
+    this rank at `index`, `group` the torch.distributed group (one per
+    model rank, `launch.dist.TPGroups.data_group`)."""
+
+    size: int
+    index: int
+    group: object
+
+
 class _GroupCtx(threading.local):
     def __init__(self):
         self.ctx: Optional[ModelGroup] = None
+        self.data: Optional[DataGroup] = None
 
 
 _GROUP = _GroupCtx()
@@ -328,6 +345,53 @@ def model_group(ctx: Optional[ModelGroup]):
 
 def current_group() -> Optional[ModelGroup]:
     return _GROUP.ctx
+
+
+@contextmanager
+def data_group(ctx: Optional[DataGroup]):
+    """Run the data-axis collectives inside over `ctx`'s group, each rank
+    holding one data slot (None: the simulated data axes)."""
+    prev, _GROUP.data = _GROUP.data, ctx
+    try:
+        yield ctx
+    finally:
+        _GROUP.data = prev
+
+
+def current_data_group() -> Optional[DataGroup]:
+    return _GROUP.data
+
+
+def bound_groups() -> tuple:
+    """The (model, data) contexts bound in this thread.  The contexts are
+    thread-local, and on a CUDA device the autograd engine runs the
+    backward (and a checkpoint's recomputation) on a thread of its own:
+    whatever runs there binds them again (`groups_bound`)."""
+    return _GROUP.ctx, _GROUP.data
+
+
+@contextmanager
+def groups_bound(groups: tuple):
+    """Bind a `bound_groups()` pair inside."""
+    with model_group(groups[0]), data_group(groups[1]):
+        yield
+
+
+def rank_bound(g):
+    """The model and data groups of a shard-backend rank (`g`, its
+    launch.dist.TPGroups) bound inside; when g is None, whatever is bound
+    stays."""
+    if g is None:
+        from contextlib import nullcontext
+        return nullcontext()
+    return groups_bound((ModelGroup(g.tp, g.model_rank, g.model_group),
+                         DataGroup(g.dp, g.data_rank, g.data_group)))
+
+
+def local_shards(tp: int) -> int:
+    """The shard-axis length of a tensor a step makes from a replicated
+    one: tp on sim, 1 on a rank of the shard backend."""
+    return tp if _GROUP.ctx is None else 1
 
 
 def _wired() -> Optional[ModelGroup]:
@@ -406,15 +470,19 @@ class _SumGrad(torch.autograd.Function):
     """Identity forward, shard-summed cotangent backward: `f_ident` (a
     column-parallel entry on a replicated activation accumulates the
     per-shard cotangents) and `shard_sum_grad` (a replicated parameter in
-    a shard-divergent region: its gradient is the sum of the partials)."""
+    a shard-divergent region: its gradient is the sum of the partials).
+    The sum runs over the group bound at the forward."""
 
     @staticmethod
     def forward(ctx, x):
+        ctx.groups = bound_groups()
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, ct):
-        return psum(ct)
+        # the forward's group: the backward may run on another thread
+        with groups_bound(ctx.groups):
+            return psum(ct)
 
 
 def g_psum(x):
@@ -481,37 +549,161 @@ def ppermute(x, axis=MODEL_AXIS, perm=None):
     return torch.stack(rows)
 
 
+#: `_axes_group`'s answer when the sum needs no wire (one rank, or sim)
+_LOCAL = object()
+
+
+def _axes_group(axis):
+    """The torch.distributed group a data-axis collective runs over on a
+    rank (the whole world for ("data", "model")), or _LOCAL when no data
+    group is bound or the axes span one rank."""
+    d = _GROUP.data
+    if d is None:
+        return _LOCAL
+    names = {axis} if isinstance(axis, str) else set(axis)
+    if "pod" in names:
+        raise NotImplementedError(
+            "the pod axis on the shard backend's ranks is not ported yet "
+            "(ROADMAP A5f): launch.dist.init_tp builds (data, model) groups "
+            "only")
+    m = _GROUP.ctx
+    msize = m.size if m is not None else 1
+    want = {"data": d.size, "model": msize}
+    if not names <= set(want):
+        raise ValueError(f"unknown mesh axes {axis!r}")
+    wide = [a for a in names if want[a] > 1]
+    if not wide:
+        return _LOCAL
+    if len(wide) == 2:
+        import torch.distributed as dist
+        return dist.group.WORLD
+    return d.group if wide[0] == "data" else m.group
+
+
 def psum_plain(x, axis):
-    """All-reduce over simulated mesh axes, not differentiated (the train
-    step's token count, loss and gradient-norm partials).  `axis` is a
-    name or a tuple of names; x holds one partial per slot on its
-    leading dims, one dim per name, and their sum is returned.  Logged
-    once with one slot's bytes."""
+    """All-reduce over mesh axes, not differentiated (the train step's
+    token count, loss and gradient-norm partials).  `axis` is a name or a
+    tuple of names; x holds one partial per slot on its leading dims, one
+    dim per name (of size 1 on a rank: its own slot), and their sum is
+    returned, over the rank's groups on the shard backend.  Logged once
+    with one slot's bytes."""
     k = 1 if isinstance(axis, str) else len(axis)
     log_collective("all-reduce", axis,
                    x[(0,) * k].numel() * x.element_size())
-    return x.sum(dim=tuple(range(k)))
+    s = x.sum(dim=tuple(range(k)))
+    group = _axes_group(axis)
+    if group is not _LOCAL:
+        import torch.distributed as dist
+        dist.all_reduce(s, group=group)
+    return s
+
+
+def _data_wired() -> Optional[DataGroup]:
+    d = _GROUP.data
+    return d if d is not None and d.size > 1 else None
 
 
 def psum_scatter(x, axis, n: int):
-    """Reduce-scatter over a simulated axis of n slots (tiled, on the last
-    dim), of a shard-stacked x (tp, ..., L) that is already the sum over
-    the slots -- the port differentiates the whole global batch at once,
-    so its gradients arrive reduced over the data axes: returns (n, tp,
-    ..., L/n), slot i owning slice i.  Logged with one model shard's
-    bytes of x."""
+    """Reduce-scatter over a data axis of n slots (tiled, on the last
+    dim) of a shard-stacked x (tp, ..., L).  Returns (n, tp, ..., L/n),
+    slot i owning slice i.  On sim x is already the sum over the slots
+    (the port differentiates the whole global batch at once); on a rank
+    it is the rank's partial, (1, ..., L), and the result is the sum over
+    the data group of its own slice, (1, 1, ..., L/n).  Logged with one
+    model shard's bytes of x."""
     log_collective("reduce-scatter", axis, shard_nbytes(x))
     if x.shape[-1] % n:
         raise ValueError(f"last dim {x.shape[-1]} does not split {n} ways")
-    return x.unflatten(-1, (n, x.shape[-1] // n)).movedim(-2, 0)
+    parts = x.unflatten(-1, (n, x.shape[-1] // n)).movedim(-2, 0)
+    d = _GROUP.data
+    if d is None:
+        return parts
+    _axes_group(axis)                 # the pod axis refuses
+    if n != d.size:
+        raise ValueError(f"{n} slots on a data group of {d.size} ranks")
+    if d.size == 1:
+        return parts
+    out = torch.empty_like(parts[:1])
+    reduce_scatter(out, parts.contiguous(), d.group)
+    return out
+
+
+def reduce_scatter(out, parts, group):
+    """out (1, ...) := the sum over `group` of row `rank` of parts (n,
+    ...), n the group's size."""
+    import torch.distributed as dist
+
+    # torch >= 2.13 names it reduce_scatter_single (the old name warns)
+    fn = getattr(dist, "reduce_scatter_single", None)
+    (fn or dist.reduce_scatter_tensor)(out, parts, group=group)
+
+
+def gather_rows(x, dim: int, group, n: int):
+    """x all-gathered over `group` (n ranks), concatenated on `dim` in
+    rank order (x itself when n is 1)."""
+    if n == 1:
+        return x
+    import torch.distributed as dist
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim)
 
 
 def all_gather(x, axis):
-    """All-gather over a simulated axis (tiled, on the last dim): x (n,
-    tp, ..., m), slot i's slice of each model shard, -> (tp, ..., n*m),
-    their concatenation.  Logged with one slot's bytes of one shard."""
+    """All-gather over a data axis (tiled, on the last dim): x (n, tp, ...,
+    m), slot i's slice of each model shard, -> (tp, ..., n*m), their
+    concatenation.  On a rank x is its own slot, (1, 1, ..., m), gathered
+    over the data group.  Logged with one slot's bytes of one shard."""
     log_collective("all-gather", axis, x[0, 0].numel() * x.element_size())
+    d = _data_wired()
+    if d is not None:
+        _axes_group(axis)
+        x = gather_rows(x, 0, d.group, d.size)
     return x.movedim(0, -2).flatten(-2)
+
+
+class _GatherData(torch.autograd.Function):
+    """FSDP's weight gather on a rank: forward, the data group's slices
+    concatenated on `dim`; backward, the transpose: the cotangent
+    reduce-scattered back to this rank's slice (the reference's
+    all_gather transpose)."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        d = _GROUP.data
+        ctx.dim, ctx.d = dim, d
+        return gather_rows(x, dim, d.group, d.size)
+
+    @staticmethod
+    def backward(ctx, ct):
+        d, dim = ctx.d, ctx.dim
+        parts = ct.unflatten(dim, (d.size, ct.shape[dim] // d.size))
+        parts = parts.movedim(dim, 0).contiguous()
+        out = torch.empty_like(parts[:1])
+        reduce_scatter(out, parts, d.group)
+        return out[0], None
+
+
+def group_reduce_data(t):
+    """In-place sum of t over the bound data group (nothing without a
+    wired one): a rank's gradient of a weight every data rank holds
+    whole.  Not logged: the reference's shard_map transposes it in."""
+    d = _data_wired()
+    if d is not None:
+        import torch.distributed as dist
+        dist.all_reduce(t, group=d.group)
+    return t
+
+
+def gather_data(x, dim: int):
+    """A rank's data slice of a weight, all-gathered over the bound data
+    group on `dim` (differentiable: the gradient comes back reduce-
+    scattered); x itself without a wired data group.  Not logged: the
+    caller logs (fsdp.gather_leaf)."""
+    if _data_wired() is None:
+        return x
+    return _GatherData.apply(x, dim)
 
 
 # accepted spellings of the kept-sync levels

@@ -16,6 +16,14 @@ one card every weight is whole, so the port keeps the layout as
   * clips on the same norm groups (model-sharded leaves over data and
     model, replicated ones over data only) from per-slot partials over
     each leaf's data-split axis.
+
+On the `shard` backend's ranks (a data group bound,
+collectives.data_group) the layout is real: a rank stores its model
+shard's slice of each data-split leaf (`FSDPSpecs.scatter`), the
+forward all-gathers each weight over the data group where the ledger
+logs it (collectives.gather_data), the gather's backward hands back the
+reduce-scattered gradient, a leaf with no data-split axis has its
+gradient all-reduced over the data group, and AdamW runs on the slices.
 """
 from __future__ import annotations
 
@@ -24,7 +32,9 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.core import model as M
-from repro_torch.parallel.collectives import (ledger_unshared,
+from repro_torch.parallel.collectives import (current_data_group,
+                                              gather_data, group_reduce_data,
+                                              ledger_unshared,
                                               log_collective, psum_plain,
                                               shard_nbytes)
 from repro_torch.parallel.layout import REPLICATED
@@ -48,10 +58,13 @@ def _leaf_fsdp_axis(shape, tp_axis: int, dp: int, *, offset: int) -> int:
     return best
 
 
-def fsdp_specs(cfg, plan, dp: int, split_params: dict) -> dict:
+def fsdp_specs(cfg, plan, dp: int, split_params: dict,
+               tp: Optional[int] = None) -> dict:
     """Int tree parallel to the stacked params: each leaf's data-split
     axis in its GLOBAL stacked shape (the reference's stack_segments
-    output: the shard axis dropped, the TP split axis whole), or -1."""
+    output: the shard axis dropped, the TP split axis whole), or -1.
+    `tp` is the TP degree when the params hold fewer shards than that
+    (a rank's model shard); by default their shard axis's length."""
     specs = M.stacked_specs(cfg, plan)
 
     def one(w, tp_a, off):
@@ -59,7 +72,7 @@ def fsdp_specs(cfg, plan, dp: int, split_params: dict) -> dict:
         tp_axis = -999
         if tp_a != REPLICATED:
             tp_axis = tp_a + off
-            shape[tp_axis] *= w.shape[0]
+            shape[tp_axis] *= tp or w.shape[0]
         return _leaf_fsdp_axis(shape, tp_axis, dp, offset=off)
 
     out = {k: tree_map(lambda w, a: one(w, a, 0), v, specs[k])
@@ -75,22 +88,29 @@ def fsdp_specs(cfg, plan, dp: int, split_params: dict) -> dict:
 
 def local_nbytes(x, axis: int, dp: int) -> int:
     """One device's bytes of a shard-stacked leaf split over data on
-    `axis` (-1: not split): 1/dp of one model shard's leaf."""
-    return shard_nbytes(x) // (dp if axis >= 0 else 1)
+    `axis` (-1: not split): 1/dp of one model shard's leaf (on a rank, x
+    is that slice already)."""
+    if axis < 0 or current_data_group() is not None:
+        return shard_nbytes(x)
+    return shard_nbytes(x) // dp
 
 
-def gather_leaf(x, axis: int, dp: int):
+def gather_leaf(x, axis: int, dp: int, shift: int = 0):
     """The all-gather of a shard-stacked leaf's data slices (axis < 0: not
-    data-split, no gather): logged with one device's slice bytes.
-    Returns x, whole already."""
-    if axis >= 0:
-        with ledger_unshared():
-            log_collective("all-gather", "data", local_nbytes(x, axis, dp))
-    return x
+    data-split, no gather): logged with one device's slice bytes.  On
+    sim x is whole already and is returned; on a rank its slice is
+    gathered on dim axis + 1 + shift (`shift` -1: the layer axis is
+    gone)."""
+    if axis < 0:
+        return x
+    with ledger_unshared():
+        log_collective("all-gather", "data", local_nbytes(x, axis, dp))
+    return gather_data(x, axis + 1 + shift)
 
 
-def gather_tree(tree, spec_tree, dp: int):
-    return tree_map(lambda x, a: gather_leaf(x, a, dp), tree, spec_tree)
+def gather_tree(tree, spec_tree, dp: int, shift: int = 0):
+    return tree_map(lambda x, a: gather_leaf(x, a, dp, shift), tree,
+                    spec_tree)
 
 
 class FSDPSpecs(NamedTuple):
@@ -101,19 +121,39 @@ class FSDPSpecs(NamedTuple):
     dp: int
 
     def gather_top(self, stacked: dict, keys) -> dict:
-        """Gather the top-level leaves `keys` that the model has."""
+        """`stacked` with the top-level leaves `keys` that the model has
+        gathered."""
+        out = dict(stacked)
         for k in keys:
             if k in stacked:
-                gather_tree(stacked[k], self.tree[k], self.dp)
-        return stacked
+                out[k] = gather_tree(stacked[k], self.tree[k], self.dp)
+        return out
 
     def gather_layer(self, layer_p: dict, seg_i: int) -> dict:
         """One layer's weights of segment seg_i (layer axis removed)."""
-        return gather_tree(layer_p, self.tree["segs"][seg_i], self.dp)
+        return gather_tree(layer_p, self.tree["segs"][seg_i], self.dp,
+                           shift=-1)
+
+    def scatter(self, stacked: dict, index: int) -> dict:
+        """Data rank `index`'s slice of every data-split leaf of a
+        shard-stacked tree (a rank's stored layout); the other leaves as
+        they are."""
+        def cut(x, a):
+            if a < 0:
+                return x
+            k = x.shape[a + 1] // self.dp
+            return x.narrow(a + 1, index * k, k).clone()
+
+        out = {k: tree_map(cut, v, self.tree[k])
+               for k, v in stacked.items() if k != "segs"}
+        out["segs"] = [tree_map(cut, sv, ss)
+                       for sv, ss in zip(stacked["segs"], self.tree["segs"])]
+        return out
 
 
-def make_specs(split_params: dict, cfg, plan, dp: int) -> FSDPSpecs:
-    return FSDPSpecs(fsdp_specs(cfg, plan, dp, split_params), dp)
+def make_specs(split_params: dict, cfg, plan, dp: int,
+               tp: Optional[int] = None) -> FSDPSpecs:
+    return FSDPSpecs(fsdp_specs(cfg, plan, dp, split_params, tp), dp)
 
 
 # ---------------------------------------------------------------------------
@@ -133,8 +173,12 @@ def _slot_sq(g, axis: int, dp: int):
     """Sum of squares of a shard-stacked gradient per (data, model) slot,
     (dp, tp): slot d holds slice d of the leaf's data-split axis (in the
     global stacked shape; dim axis + 1 here).  A leaf with no split axis
-    counts once, on slot 0."""
+    counts once, on slot 0.  On a rank, its own slot, (1, 1)."""
     sq = g * g
+    d = current_data_group()
+    if d is not None:
+        s = sq.sum().reshape(1, 1)
+        return s if axis >= 0 or d.index == 0 else torch.zeros_like(s)
     if axis < 0:
         out = torch.zeros((dp, g.shape[0]), device=g.device)
         out[0] = sq.reshape(g.shape[0], -1).sum(-1)
@@ -147,12 +191,18 @@ def _slot_sq(g, axis: int, dp: int):
 def fsdp_update(grads, state, params, *, cfg, plan, specs: FSDPSpecs, lr,
                 b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0,
                 clip_norm: float = 0.0, pod_axis: Optional[str] = None):
-    """grads: shard-stacked, summed over the data axes.  Returns (params,
-    state, grad_norm), params and state updated in place."""
+    """grads: shard-stacked, summed over the data axes (on a rank: the
+    data-split leaves' reduce-scattered slices, the others this rank's
+    partials, all-reduced here).  Returns (params, state, grad_norm),
+    params and state updated in place."""
     step = state["step"] + 1
     c1, c2 = adam_consts(step, b1, b2)
     dp = specs.dp
     grads = tree_map(lambda g: g.float(), grads)
+    if current_data_group() is not None:
+        for g, f in zip(tree_leaves(grads), tree_leaves(specs.tree)):
+            if f < 0:
+                group_reduce_data(g)
     if pod_axis is not None:          # summed already: logged per leaf
         for g, f in zip(tree_leaves(grads), tree_leaves(specs.tree)):
             log_collective("all-reduce", pod_axis, local_nbytes(g, f, dp))
@@ -160,8 +210,10 @@ def fsdp_update(grads, state, params, *, cfg, plan, specs: FSDPSpecs, lr,
     tp_specs = M.stacked_specs(cfg, plan)
     flat_g = tree_leaves(grads)
     dev = flat_g[0].device
-    sh = torch.zeros((dp, flat_g[0].shape[0]), device=dev)
-    rp = torch.zeros((dp,), device=dev)
+    slots = ((1, 1) if current_data_group() is not None
+             else (dp, flat_g[0].shape[0]))
+    sh = torch.zeros(slots, device=dev)
+    rp = torch.zeros(slots[:1], device=dev)
     for g, a, f in zip(flat_g, tree_leaves(tp_specs),
                        tree_leaves(specs.tree)):
         sq = _slot_sq(g, f, dp)

@@ -22,6 +22,15 @@ the reference donates them.  No PartitionSpec helpers: on one card
 they have no counterpart.  Training uses exact comm plans, as in the
 reference; a quantized kept sync trains through its identity backward
 (P3), which the reference's does not give at tp > 1 (ROADMAP C5).
+
+In a process of the `shard` backend (`launch.dist.init_tp` has built
+its groups) the step runs as that rank of the mesh, the reference's
+shard_map body: its params are its model shard (1, ...), its batch its
+data rank's rows (`rank_rows`), and it binds the model and data groups
+(collectives.rank_bound) so that the syncs, the token
+count, the loss, the norm partials and ZeRO-1's / FSDP's reduce-scatter
+and all-gather run over them.  The mesh must be the groups' (data,
+model) layout; a "pod" axis has no group there (ROADMAP A5f).
 """
 from __future__ import annotations
 
@@ -39,7 +48,8 @@ from repro_torch.core.simtp import grad_leaves
 from repro_torch.parallel import fsdp as F
 from repro_torch.parallel import zero1 as Z
 from repro_torch.parallel.collectives import (MODEL_AXIS, ledger_paused,
-                                              ledger_share, psum_plain)
+                                              ledger_share, psum_plain,
+                                              rank_bound)
 from repro_torch.parallel.layout import REPLICATED
 from repro_torch.tree import tree_leaves, tree_unflatten
 
@@ -50,6 +60,42 @@ def dp_axes(mesh):
 
 def pod_axis(mesh) -> Optional[str]:
     return "pod" if "pod" in mesh.axis_names else None
+
+
+def rank_groups(mesh, device=None):
+    """This process's `launch.dist.TPGroups` when it is a rank of the
+    shard backend, checked against `mesh` (and `device`); None on one
+    process."""
+    from repro_torch.launch import dist as D
+    g = D.current()
+    if g is None:
+        return None
+    if pod_axis(mesh):
+        raise NotImplementedError(
+            "the pod axis on the shard backend's ranks is not ported yet "
+            "(ROADMAP A5f): launch.dist.init_tp builds (data, model) groups "
+            "only")
+    if (mesh.shape[MODEL_AXIS], mesh.shape["data"]) != (g.tp, g.dp):
+        raise ValueError(f"mesh {mesh.shape} is not this world's tp {g.tp} "
+                         f"x dp {g.dp}")
+    if device is not None and torch.device(device) != g.device:
+        raise ValueError(f"device {device} is not this rank's {g.device}")
+    return g
+
+
+def rank_rows(batch: dict, g) -> dict:
+    """Data rank g.data_rank's rows of a global batch (the reference's
+    P("data") split of dim 0); the batch itself when `g` is None."""
+    if g is None:
+        return batch
+    out = {}
+    for k, v in batch.items():
+        n = v.shape[0] // g.dp
+        if v.shape[0] % g.dp:
+            raise ValueError(f"a batch of {v.shape[0]} rows does not split "
+                             f"over {g.dp} data ranks")
+        out[k] = v[g.data_rank * n:(g.data_rank + 1) * n]
+    return out
 
 
 def _grad_sq_groups(grads, cfg, plan):
@@ -125,31 +171,40 @@ def build_train_step(cfg: ModelConfig, plan: SPDPlanConfig, mesh,
     specs {"params": the TP split axes, "fsdp": FSDPSpecs or None, set
     at the first call}.  `device` is where the step will run (the
     refusals of check_trainable): None is the card, an error without
-    one.  Not in a process of a torch.distributed group (the shard
-    backend's ranks, ROADMAP A5e): the step runs the simulated mesh on
-    one device."""
-    import torch.distributed as dist
-    if dist.is_available() and dist.is_initialized():
-        raise NotImplementedError(
-            "training across processes (the shard backend's ranks) is not "
-            "ported yet (ROADMAP A5e); the train step runs the simulated "
-            "mesh on one device")
-    check_trainable(cfg, resolve_device(device))
+    one.
+
+    On a rank of the shard backend (module doc) params are the rank's
+    model shard, batch its rows (`rank_rows`), the state its slot; with
+    `ts.fsdp`, init(params) takes the model shard whole and the step the
+    data slices `specs["fsdp"].scatter(params, data_rank)` (set by
+    init)."""
+    g = rank_groups(mesh, device)
+    check_trainable(cfg, g.device if g is not None else resolve_device(
+        device))
     tp = mesh.shape[MODEL_AXIS]
     dp = mesh.shape["data"]
     pod = pod_axis(mesh)
     dpx = dp_axes(mesh)
-    slots = tuple(mesh.shape[a] for a in dpx)        # (pod, data) | (data,)
+    # the data slots this process computes: all of them on sim, its own
+    # on a rank
+    slots = (tuple(mesh.shape[a] for a in dpx) if g is None else (1,))
     n_slots = int(np.prod(slots))
     red = dpx if pod else "data"
     specs = {"params": M.stacked_specs(cfg, plan), "fsdp": None}
 
     def fsdp_specs(params):
         if specs["fsdp"] is None:
+            if g is not None:
+                raise RuntimeError("on a rank, init(params) sets the FSDP "
+                                   "layout before the first step")
             specs["fsdp"] = F.make_specs(params, cfg, plan, dp)
         return specs["fsdp"]
 
     def step(params, opt_state, batch):
+        with rank_bound(g):
+            return local_step(params, opt_state, batch)
+
+    def local_step(params, opt_state, batch):
         nmb = ts.microbatches
         b = batch["tokens"].shape[0]
         if b % (n_slots * nmb):
@@ -206,8 +261,13 @@ def build_train_step(cfg: ModelConfig, plan: SPDPlanConfig, mesh,
         return params, opt_state, metrics
 
     def init(params):
-        if ts.fsdp:
-            return F.fsdp_opt_init(params)
-        return Z.zero1_init_structured(params, dp)
+        with rank_bound(g):
+            if not ts.fsdp:
+                return Z.zero1_init_structured(params, dp)
+            if g is None:
+                return F.fsdp_opt_init(params)
+            specs["fsdp"] = F.make_specs(params, cfg, plan, dp, tp=tp)
+            return F.fsdp_opt_init(specs["fsdp"].scatter(params,
+                                                         g.data_rank))
 
     return step, init, specs

@@ -20,6 +20,13 @@ their ledger entries:
 State leaves have the reference's GLOBAL shape (dp, tp, n), so a
 checkpoint holds the same arrays in both packages.  Parameters and
 state are updated in place (the reference donates them).
+
+On the `shard` backend's ranks (a data group bound,
+collectives.data_group) a rank's gradients are the partials of its own
+rows, its parameters its model shard (1, ...), and its state ONE (data,
+model) slot, (1, 1, n): step 2 is a reduce-scatter over the data group,
+the norm's partials are all-reduced over the rank's groups and step 5
+all-gathers the updated slice, with the same code and ledger.
 """
 from __future__ import annotations
 
@@ -28,9 +35,10 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.parallel.collectives import (all_gather, log_collective,
-                                              psum_plain, psum_scatter,
-                                              shard_nbytes)
+from repro_torch.parallel.collectives import (all_gather,
+                                              current_data_group,
+                                              log_collective, psum_plain,
+                                              psum_scatter, shard_nbytes)
 from repro_torch.parallel.layout import REPLICATED
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -52,10 +60,16 @@ def _leaf_states(state_leaves, params) -> list:
 
 def zero1_init_structured(params, dp: int):
     """{"leaves": per leaf {"m","v","w"} (dp, tp, n) fp32, "step" 0-d
-    int32}: w holds the parameter's slices, m and v zeros."""
+    int32}: w holds the parameter's slices, m and v zeros.  Under a data
+    group (a rank) only the rank's slot, (1, 1, n)."""
+    d = current_data_group()
+
     def one(p):
         flat = _pad_to(p.detach().float(), dp)
-        sl = flat.reshape(flat.shape[0], dp, -1).transpose(0, 1).contiguous()
+        sl = flat.reshape(flat.shape[0], dp, -1).transpose(0, 1)
+        if d is not None:
+            sl = sl[d.index:d.index + 1]
+        sl = sl.contiguous()
         return {"m": torch.zeros_like(sl), "v": torch.zeros_like(sl),
                 "w": sl}
     dev = tree_leaves(params)[0].device
@@ -99,9 +113,10 @@ def zero1_update_clipped(grads, state, params, *, specs, dp: int, lr,
         slices.append(psum_scatter(_pad_to(g32, dp), "data", dp))
 
     # ---- 3: spec-aware global norm on the slices, per (data, model) slot
+    # (dp, tp) on sim, (1, 1) on a rank
     dev = flat_p[0].device
-    sq_sh = torch.zeros((dp, slices[0].shape[1]), device=dev)
-    sq_rp = torch.zeros((dp,), device=dev)
+    sq_sh = torch.zeros(slices[0].shape[:2], device=dev)
+    sq_rp = torch.zeros(slices[0].shape[:1], device=dev)
     for s, a in zip(slices, flat_a):
         sq = torch.sum(s * s, dim=-1)                     # (dp, tp)
         if a == REPLICATED:

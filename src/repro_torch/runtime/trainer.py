@@ -16,9 +16,22 @@ Wraps the train step (parallel/tp.py) with:
 Each step's wall time includes its device work: the metrics are read
 back (a synchronising copy) inside the timed region, as the reference's
 `float(v)`.
+
+On the `shard` backend's ranks (`launch.dist.init_tp` has built the
+groups; the mesh is their (data, model) layout) every rank runs this
+loop: `init_state` places the rank's model shard (and, under FSDP, its
+data slice) from the canonical tree, `data_iter` yields its data rank's
+rows, `save` gathers the global tree over the groups and rank 0 writes
+it in the same format (every rank then waits on a barrier), and
+`restore` reads the global tree on every rank and keeps the rank's
+slice, re-sharding a checkpoint written at another data degree.  The
+checkpoint directory is rank 0's.  A checkpoint written on one process
+resumes on ranks, and the other way round.
 """
 from __future__ import annotations
 
+import dataclasses
+import os
 import tempfile
 import time
 from dataclasses import dataclass, field
@@ -35,7 +48,8 @@ from repro_torch.core import model as M
 from repro_torch.core import simtp
 from repro_torch.data.synthetic import make_batch_iterator
 from repro_torch.parallel import tp as TP
-from repro_torch.parallel.layout import REPLICATED, split_leaf
+from repro_torch.parallel.collectives import gather_rows
+from repro_torch.parallel.layout import REPLICATED, shard_leaf, split_leaf
 from repro_torch.parallel.zero1 import zero1_reshard
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -60,13 +74,18 @@ class TrainerConfig:
     ewma_alpha: float = 0.2
 
 
-def split_stacked(stacked: dict, cfg, plan, tp: int) -> dict:
+def split_stacked(stacked: dict, cfg, plan, tp: int, rank=None,
+                  device=None) -> dict:
     """Inverse of simtp.merge_stacked: global stacked trees -> every leaf
-    with a leading (tp, ...) shard axis."""
+    with a leading (tp, ...) shard axis; with `rank`, only that shard,
+    (1, ...), moved to `device`."""
     specs = M.stacked_specs(cfg, plan)
 
     def split(w, a, off):
-        return split_leaf(w, a if a == REPLICATED else a + off, tp)
+        a = a if a == REPLICATED else a + off
+        if rank is None:
+            return split_leaf(w, a, tp)
+        return shard_leaf(w, a, tp, rank).to(device)
 
     out = {k: tree_map(lambda w, a: split(w, a, 0), v, specs[k])
            for k, v in stacked.items() if k != "segs"}
@@ -82,10 +101,15 @@ class Trainer:
                  fault_hook: Optional[Callable[[int], None]] = None, *,
                  device=None):
         """`device` None is the card (an error without one); the CPU only
-        when asked for."""
+        when asked for.  On a rank of the shard backend, the rank's
+        device."""
         self.cfg, self.plan, self.mesh = cfg, plan, mesh
+        self.groups = TP.rank_groups(mesh, device)
+        g = self.groups
+        if g is not None and g.world > 1:
+            tc = dataclasses.replace(tc, ckpt_dir=_shared_dir(tc.ckpt_dir))
         self.ts, self.tc = ts, tc
-        self.device = resolve_device(device)
+        self.device = g.device if g is not None else resolve_device(device)
         self.tp = mesh.shape["model"]
         self.step_fn, self.init_fn, self.specs = TP.build_train_step(
             cfg, plan, mesh, ts, lr_schedule, device=self.device)
@@ -104,55 +128,110 @@ class Trainer:
         """Placed params and fresh optimizer state.  The step updates the
         params in place, so every leaf gets storage of its own: a split
         leaf can be a view of the caller's canonical tensor."""
+        g = self.groups
+        if g is not None:
+            # the rank's shard, cut from the canonical tree where it lies
+            params = simtp.split_padded(
+                M.pad_model(canonical_params, self.cfg, self.tp), self.cfg,
+                self.plan, self.tp, rank=g.model_rank, device=self.device)
+            opt = self.init_fn(params)
+            if self.ts.fsdp:
+                params = self.specs["fsdp"].scatter(params, g.data_rank)
+            return {"params": params, "opt": opt, "step": 0}
         padded = tree_map(lambda w: w.to(self.device),
                           M.pad_model(canonical_params, self.cfg, self.tp))
         params = tree_map(torch.clone, simtp.split_padded(
             padded, self.cfg, self.plan, self.tp))
         return {"params": params, "opt": self.init_fn(params), "step": 0}
 
-    def _global_opt(self, opt):
-        """The optimizer state in the reference's global shapes: ZeRO-1's
-        is already (dp, tp, n); FSDP's trees merge as the params do."""
-        if "master" not in opt:
-            return opt
-        return {k: (v if k == "step" else self._merge(v))
-                for k, v in opt.items()}
-
     def _merge(self, tree):
         return simtp.merge_stacked(tree, self.cfg, self.plan, self.tp)
 
     def _split(self, tree):
-        return split_stacked(tree, self.cfg, self.plan, self.tp)
+        g = self.groups
+        if g is None:
+            return split_stacked(tree, self.cfg, self.plan, self.tp)
+        out = split_stacked(tree, self.cfg, self.plan, self.tp,
+                            rank=g.model_rank, device=self.device)
+        if self.ts.fsdp:
+            out = self.specs["fsdp"].scatter(out, g.data_rank)
+        return out
 
-    def _local_opt(self, opt):
-        if "master" not in opt:
-            return opt
-        return {k: (v if k == "step" else self._split(v))
-                for k, v in opt.items()}
+    def _whole(self, tree):
+        """A rank's shard-stacked tree (FSDP: data slices) gathered over
+        its groups to (tp, ...) whole leaves."""
+        g = self.groups
+        if self.ts.fsdp:
+            def data(x, a):
+                return x if a < 0 else gather_rows(x, a + 1, g.data_group,
+                                                   g.dp)
+            f = self.specs["fsdp"].tree
+            tree = {k: (tree_map(data, v, f[k]) if k != "segs" else
+                        [tree_map(data, sv, fs)
+                         for sv, fs in zip(v, f["segs"])])
+                    for k, v in tree.items()}
+        return tree_map(lambda x: gather_rows(x, 0, g.model_group, g.tp),
+                        tree)
+
+    def global_tree(self, state):
+        """{"params", "opt"} in the reference's global shapes: the split
+        leaves merged; ZeRO-1's state is already (dp, tp, n), FSDP's
+        trees merge as the params do.  On a rank every rank takes part:
+        the leaves are gathered over its groups first."""
+        g, opt = self.groups, state["opt"]
+        whole = (lambda t: t) if g is None else self._whole
+        if "master" in opt:
+            opt = {k: (v if k == "step" else self._merge(whole(v)))
+                   for k, v in opt.items()}
+        elif g is not None:
+            opt = {"step": opt["step"], "leaves": tree_map(
+                lambda x: gather_rows(gather_rows(x, 0, g.data_group, g.dp),
+                                      1, g.model_group, g.tp),
+                opt["leaves"])}
+        return {"params": self._merge(whole(state["params"])), "opt": opt}
+
+    def _local(self, tree, step):
+        """A state from a global tree: the split leaves (on a rank, its
+        slot of each)."""
+        opt, g = tree["opt"], self.groups
+        if "master" in opt:
+            opt = {k: (v if k == "step" else self._split(v))
+                   for k, v in opt.items()}
+        elif g is not None:
+            opt = {"step": opt["step"].to(self.device), "leaves": tree_map(
+                lambda x: x[g.data_rank:g.data_rank + 1,
+                            g.model_rank:g.model_rank + 1].to(
+                                self.device).contiguous(), opt["leaves"])}
+        return {"params": self._split(tree["params"]), "opt": opt,
+                "step": step}
 
     def save(self, state, force=False):
+        """Write a checkpoint when the cadence (or `force`) says so; on
+        the shard backend every rank gathers, rank 0 writes and all wait
+        for it.  Returns the path (None where nothing was written)."""
+        every = self.ckpt.every
+        if not (force or (every > 0 and state["step"] % every == 0)):
+            return None
         t0 = time.perf_counter()
-        tree = {"params": self._merge(state["params"]),
-                "opt": self._global_opt(state["opt"])}
-        path = self.ckpt.maybe_save(
-            state["step"], tree,
-            meta={"data_step": state["step"], "arch": self.cfg.name,
-                  "plan": list(map(bool, self.plan.drop_mask))},
-            force=force)
-        if path is not None:
-            nbytes = sum(t.numel() * t.element_size()
-                         for t in tree_leaves(tree))
-            self.save_log.append((state["step"], time.perf_counter() - t0,
-                                  nbytes))
+        tree = self.global_tree(state)
+        path = None
+        if self.groups is None or self.groups.rank == 0:
+            path = self.ckpt.maybe_save(
+                state["step"], tree,
+                meta={"data_step": state["step"], "arch": self.cfg.name,
+                      "plan": list(map(bool, self.plan.drop_mask))},
+                force=True)
+        if self.groups is not None:
+            import torch.distributed as dist
+            dist.barrier()
+        nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+        self.save_log.append((state["step"], time.perf_counter() - t0,
+                              nbytes))
         return path
-
-    def _like(self, state_like):
-        return {"params": self._merge(state_like["params"]),
-                "opt": self._global_opt(state_like["opt"])}
 
     def restore(self, state_like):
         t0 = time.perf_counter()
-        like = self._like(state_like)
+        like = self.global_tree(state_like)
         try:
             res = self.ckpt.restore(like)
         except CheckpointShapeError:       # elastic re-mesh
@@ -162,8 +241,7 @@ class Trainer:
         if res is None:
             return None
         step, tree, _ = res
-        state = {"params": self._split(tree["params"]),
-                 "opt": self._local_opt(tree["opt"]), "step": step}
+        state = self._local(tree, step)
         self.restore_log.append((step, time.perf_counter() - t0, sum(
             t.numel() * t.element_size() for t in tree_leaves(tree))))
         return state
@@ -207,8 +285,10 @@ class Trainer:
                                  self.tc.seq, seed=self.tc.seed,
                                  start_step=start_step)
         for b in it:
+            b = TP.rank_rows({k: v for k, v in b.items()
+                              if not k.startswith("_")}, self.groups)
             yield {k: torch.from_numpy(v).to(self.device)
-                   for k, v in b.items() if not k.startswith("_")}
+                   for k, v in b.items()}
 
     # ---------------- loop ----------------
 
@@ -268,6 +348,19 @@ class Trainer:
                                           "ewma": self._ewma})
         a = self.tc.ewma_alpha
         self._ewma = (1 - a) * self._ewma + a * dt
+
+
+def _shared_dir(path: str) -> str:
+    """Rank 0's checkpoint directory on every rank (a rank's own default
+    temporary directory, left empty, is removed)."""
+    import torch.distributed as dist
+    box = [path]
+    dist.broadcast_object_list(box, src=0)
+    if (box[0] != path and os.path.basename(path).startswith(
+            "repro_torch_ckpt_") and os.path.isdir(path)
+            and not os.listdir(path)):
+        os.rmdir(path)
+    return box[0]
 
 
 def _fit(x, n: int):

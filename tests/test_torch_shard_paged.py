@@ -16,7 +16,9 @@ across ranks, the collectives under a model group, and the refusals.
   * pmax, psum, ppermute (ring and pairs), the shard gather, the axis
     size and the shard ids under the model group;
   * what the shard engine still refuses raises NotImplementedError
-    naming its ROADMAP item, inside a rank.
+    naming its ROADMAP item, inside a rank (training and Algorithm 1 run
+    there: test_torch_shard_train.py, test_torch_shard_trainer.py,
+    test_torch_shard_spd.py).
 Spawns: one per layout, each running all of its cases (torch_dist.py).
 """
 import numpy as np
@@ -56,10 +58,12 @@ LAYOUTS = {(2, 1): ARCHS, (2, 2): ("smollm-360m", "opt-6.7b"),
 # each refusal and the ROADMAP item its message names: the frontends
 # (no engine serves them yet), weight-only int8 on MLA and hybrid layers
 # (as on sim: the reference fails there too), the overlap engine and
-# the rings across ranks, training and Algorithm 1
+# the rings across ranks, the pod axis in a train step on the ranks,
+# and training the MoE, hybrid and MLA families (as on sim)
 REFUSED = {"frontend": "A4", "int8_weights_mla": "C8",
            "int8_weights_hybrid": "C8", "overlap": "A5b", "ring": "A5b",
-           "train": "A5e", "apply_spd": "A5e", "apply_comm_policy": "A5e"}
+           "train_pod": "A5f", "train_moe": "A3", "train_hybrid": "A3",
+           "train_mla": "A3"}
 
 
 def _cfg(arch):

@@ -310,17 +310,21 @@ def refusals(job, case, canon):
         "overlap": lambda: LLM.load(base, tp=tp, engine="overlap",
                                     device="cpu"),
         "ring": ring,
-        "train": lambda: TP.build_train_step(
-            base, None, make_test_mesh(dp, tp), TP.TrainStepConfig(),
-            device="cpu"),
         "world": lambda: LLM.load(base, tp=2 * tp, dp=dp, engine="shard",
                                   device="cpu", cache_len=64),
     }
-    llm = LLM.load(base, **kw)
-    attempts["apply_spd"] = lambda: llm.apply_spd([], n_spd=1, tau1=0.0,
-                                                  tau2=1.0)
-    attempts["apply_comm_policy"] = lambda: llm.apply_comm_policy(
-        [], n_spd=1, tau1=0.0, tau2=1.0)
+
+    def train(cfg, pod=0):
+        return lambda: TP.build_train_step(
+            cfg, None, make_test_mesh(dp, tp, pod=pod), TP.TrainStepConfig(),
+            device="cpu")
+
+    # the pod axis has no group on the ranks; the families that no
+    # engine trains yet refuse on the ranks as on sim
+    attempts["train_pod"] = train(base, pod=2)
+    for fam, arch in (("moe", "qwen2-moe-a2.7b"), ("hybrid", "hymba-1.5b"),
+                      ("mla", "deepseek-v2-lite-16b")):
+        attempts[f"train_{fam}"] = train(reduced(arch))
     out = {}
     for name, fn in attempts.items():
         try:
@@ -357,3 +361,206 @@ def agreement(job, case, canon):
 
 CASES = {"quantized_sync": quantized_sync, "collectives": collectives,
          "refusals": refusals, "agreement": agreement}
+
+
+# ---------------------------------------------------------------------------
+# Training and Algorithm 1 on the ranks (test_torch_shard_train.py,
+# test_torch_shard_trainer.py, test_torch_shard_spd.py); the sim side of
+# each test runs the same functions in its own process
+# ---------------------------------------------------------------------------
+
+def trained(tr, st, steps, leaves=True):
+    """`steps` more steps of the Trainer `tr` from state `st`: each
+    step's {"loss", "grad_norm", "tokens", "lr"}, the first step's
+    ledger, the final step, and (with `leaves`) the global params and
+    optimizer state as numpy leaves (Trainer.global_tree: every rank
+    gathers; only rank 0 returns them): "params", "master" (ZeRO-1's w
+    slices or FSDP's master tree), "moments" (m, then v) and "opt_step"."""
+    from repro_torch.launch.dist import current
+    from repro_torch.tree import tree_leaves
+
+    step_fn, led = tr.step_fn, []
+
+    def first(*a):
+        tr.step_fn = step_fn
+        with collective_ledger() as lg:
+            out = step_fn(*a)
+        led.extend(lg)
+        return out
+
+    tr.step_fn = first
+    n0 = len(tr.metrics_log)
+    st = tr.run(st, steps=steps)
+    out = {"metrics": [{k: m[k] for k in ("loss", "grad_norm", "tokens",
+                                          "lr")}
+                       for m in tr.metrics_log[n0:]],
+           "ledger": ledger_tuples(led), "step": st["step"]}
+    if leaves:
+        glob = tr.global_tree(st)
+        g = current()
+        if g is None or g.rank == 0:
+            def arrays(tree):
+                return [t.detach().float().cpu().numpy()
+                        for t in tree_leaves(tree)]
+
+            opt = glob["opt"]
+            if "master" in opt:
+                master, moments = opt["master"], [opt["m"], opt["v"]]
+            else:           # per leaf {"m", "v", "w"}, in that order
+                flat = tree_leaves(opt["leaves"])
+                master, moments = flat[2::3], [flat[0::3], flat[1::3]]
+            out.update(params=arrays(glob["params"]), master=arrays(master),
+                       moments=arrays(moments), opt_step=int(opt["step"]))
+    return out
+
+
+def trainer(cfg, params, engine, tp, dp, **kw):
+    """launch.train.make_trainer on the CPU at the tests' settings (fp32,
+    batch 8 x 32 tokens in 2 microbatches, lr 1e-3 from step 0, no
+    checkpoints); `kw` overrides."""
+    from repro_torch.launch.train import make_trainer
+
+    kw = dict(dict(steps=3, batch=8, seq=32, lr=1e-3, microbatches=2,
+                   warmup=0, ckpt_every=0, dtype="float32"), **kw)
+    return make_trainer(cfg, engine=engine, tp=tp, dp=dp, device="cpu",
+                        params=params, **kw)
+
+
+def train(job, case, canon):
+    """The case's model trained on the ranks (`trained`)."""
+    tr, st = trainer(case["cfg"], canon[case["arch"]], "shard", job["tp"],
+                     job["dp"], **case["kw"])
+    return trained(tr, st, case["kw"].get("steps", 3))
+
+
+class Fault:
+    """A fault hook that raises SimulatedFault once, at step `at`."""
+
+    def __init__(self, at):
+        self.at, self.hit = at, False
+
+    def __call__(self, step):
+        from repro_torch.runtime.trainer import SimulatedFault
+        if step == self.at and not self.hit:
+            self.hit = True
+            raise SimulatedFault(f"fault at step {step}")
+
+
+def train_ckpt(job, case, canon):
+    """A Trainer on the ranks with checkpoints under `case["dir"]`
+    (resumed from there when it holds one), an optional fault
+    (`case["fault"]`): `trained` of `case["steps"]` more steps, the step
+    it resumed from and how many restores it made."""
+    kw = dict(case["kw"], ckpt_dir=case["dir"])
+    fault = Fault(case["fault"]) if "fault" in case else None
+    tr, st = trainer(case["cfg"], canon[case["arch"]], "shard", job["tp"],
+                     job["dp"], fault_hook=fault, **kw)
+    start = st["step"]
+    out = trained(tr, st, case["steps"])
+    out.update(resumed=start, restores=len(tr.restore_log),
+               saves=[s for s, _, _ in tr.save_log])
+    return out
+
+
+def train_cli(job, case, canon):
+    """`launch.train.main(case["argv"])` on the ranks: its standard
+    output."""
+    import contextlib
+    import io
+
+    from repro_torch.launch.train import main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(case["argv"])
+    return {"rc": rc, "stdout": buf.getvalue()}
+
+
+def spd_report(llm, rep):
+    """The plan and report of an Algorithm 1 call, as plain values."""
+    out = {"modes": llm.plan.modes(), "logits_mode": (llm.plan.comm.logits_mode if llm.plan.comm
+                           else "exact"),
+           "sensitivity": np.asarray(rep.sensitivity),
+           "ppl_suffix": np.asarray(rep.ppl_suffix),
+           "ranking": [int(i) for i in rep.ranking]}
+    if hasattr(rep, "categories"):
+        out.update(categories=list(rep.categories), chosen=list(rep.chosen),
+                   distill=dict(rep.distill_losses),
+                   grouping={b: (g.supported, g.groups, g.assignment)
+                             for b, g in rep.grouping.items()})
+    return out
+
+
+def algorithm1(llm, case):
+    """`apply_comm_policy` (case["policy"]), then `apply_spd`
+    (case["spd"]), each on `calibration_batches` of the case, each
+    followed by a greedy generate of the case's prompts: {"policy",
+    "spd"} -> spd_report + "greedy"."""
+    from repro_torch.data import calibration_batches
+
+    calib = calibration_batches(llm.cfg.vocab_size, 4, 32, batch=2)
+    ps = prompts(llm.cfg.vocab_size, case["lens"])
+    out = {}
+    for what in ("policy", "spd"):
+        fn = llm.apply_comm_policy if what == "policy" else llm.apply_spd
+        rep = fn(calib, **case[what])
+        out[what] = spd_report(llm, rep)
+        out[what]["greedy"] = [o.token_ids for o in llm.generate(
+            ps, SamplingParams(max_new=6))]
+    return out
+
+
+def grads_off_thread(job, case, canon):
+    """The gradient of a rank's shard of the training loss (plan
+    first_k(L, 2), remat on, the syncs over the rank's groups), its
+    backward run on this thread and on another one while this one waits
+    in the groups' context, as the autograd engine runs a CUDA backward
+    and a checkpoint's recomputation: {"same": the two bit for bit
+    equal, "norm": the gradient's norm}."""
+    import threading
+
+    from repro_torch.config.base import SPDPlanConfig
+    from repro_torch.core import model as M
+    from repro_torch.core import simtp
+    from repro_torch.data.synthetic import make_batch_iterator
+    from repro_torch.launch.dist import current
+    from repro_torch.parallel.collectives import rank_bound
+    from repro_torch.parallel.tp import rank_rows
+
+    g = current()
+    cfg = case["cfg"]
+    plan = SPDPlanConfig.first_k(cfg.n_layers, 2)
+    params = simtp.split_padded(M.pad_model(canon[case["arch"]], cfg, g.tp),
+                                cfg, plan, g.tp, rank=g.model_rank,
+                                device="cpu")
+    batch = rank_rows({k: torch.from_numpy(v) for k, v in next(
+        make_batch_iterator(cfg.vocab_size, 4, 32, seed=0)).items()
+        if not k.startswith("_")}, g)
+
+    def grads(off):
+        box = []
+        with rank_bound(g):
+            p, leaves = simtp.grad_leaves(params)
+            with torch.enable_grad():
+                _, met = M.loss_fn(cfg, p, plan, batch, tp=g.tp, q_chunk=32,
+                                   remat=True)
+
+            def back():
+                box.extend(torch.autograd.grad(met["shard_ce"].sum(),
+                                               leaves))
+            if off:
+                th = threading.Thread(target=back)
+                th.start()
+                th.join()
+            else:
+                back()
+        return box
+
+    here, there = grads(False), grads(True)
+    return {"same": all(torch.equal(a, b) for a, b in zip(here, there)),
+            "norm": float(sum((a.double() ** 2).sum() for a in here))}
+
+
+LLM_CASES["algorithm1"] = algorithm1
+CASES.update(train=train, train_ckpt=train_ckpt, train_cli=train_cli,
+             grads_off_thread=grads_off_thread)
