@@ -1984,7 +1984,8 @@ def overlap_path(torch, np, prompts, dense_tokens, card):
     for k in kernels:
         k.launches = 0
     t0 = time.perf_counter()
-    outs = llm.generate(prompts, SamplingParams(max_new=MAX_NEW))
+    with collective_ledger() as served:
+        outs = llm.generate(prompts, SamplingParams(max_new=MAX_NEW))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kernels}
@@ -1999,6 +2000,9 @@ def overlap_path(torch, np, prompts, dense_tokens, card):
     n_tok = sum(len(t) for t in toks)
     prefill_ms = 1e3 * sum(times["prefill"])
     decode_ms = 1e3 * sum(times["decode"]) / max(len(times["decode"]), 1)
+    # shard (b)'s overlap pass holds rank 0's ledger to this one
+    SIM_RUNS["overlap path"] = dict(ledger=ledger_rows(served),
+                                    decode_ms=decode_ms)
     print(f"overlap path launches: {json.dumps(launches)}")
     print(f"overlap path [{card}]: prefill_ms={prefill_ms:.2f} "
           f"decode_ms_per_token={decode_ms:.2f} "
@@ -3747,18 +3751,20 @@ def trainer_for(root, label, params, **kw):
                         **dict(TRAIN_KW, **kw))
 
 
-def train_cut_trainer(root, engine):
+def train_cut_trainer(root, engine, **layout):
     """The fp32 cut of the training phase's model (SHARD_TRAIN_CUT_LAYERS
     layers at full width, seeded weights drawn on the card) for 2 steps
-    of SHARD_TRAIN_CUT on `engine` ("sim" here, "shard" on a rank)."""
+    of SHARD_TRAIN_CUT on `engine` ("sim" here, "shard" on a rank);
+    `layout` overrides TRAIN_KW's (SHARD_POD: the pod mesh)."""
     import os
     from repro_torch.config.base import replace
     from repro_torch.launch.train import make_trainer
     cfg = replace(train_cfg(), n_layers=SHARD_TRAIN_CUT_LAYERS)
+    tag = "".join(f"-{k}{v}" for k, v in sorted(layout.items()))
     return make_trainer(cfg, engine=engine, steps=2, ckpt_every=0,
-                        ckpt_dir=os.path.join(root, f"cut-{engine}"),
+                        ckpt_dir=os.path.join(root, f"cut-{engine}{tag}"),
                         device="cuda",
-                        **dict(TRAIN_KW, **SHARD_TRAIN_CUT))
+                        **dict(TRAIN_KW, **SHARD_TRAIN_CUT, **layout))
 
 
 def losses_of(tr):
@@ -4036,6 +4042,14 @@ def train_phase(torch, np, card):
     print(f"train cut (fp32, {SHARD_TRAIN_CUT_LAYERS} layers, batch "
           f"{SHARD_TRAIN_CUT['batch']} x seq {SHARD_TRAIN_CUT['seq']}) on "
           f"sim for shard (c): {SIM_RUNS['train cut']}")
+    del tr, st
+    tr, st = train_cut_trainer(root, "sim", **SHARD_POD)
+    tr.run(st)
+    SIM_RUNS["train cut pod"] = [dict(loss=m["loss"],
+                                      grad_norm=m["grad_norm"])
+                                 for m in tr.metrics_log]
+    print(f"train cut on sim's mesh (pod 2, data 1, model 2) for shard "
+          f"(c)'s pod layout: {SIM_RUNS['train cut pod']}")
     del tr, st
     shutil.rmtree(root, ignore_errors=True)
     release(torch)
@@ -4715,6 +4729,9 @@ def tapes_agree(np, label, sim_tape, rank_tapes, vocab):
     return n, n, worst, None
 SHARD_KW = dict(tp=2, spd=0.25, comm="quant8", comm_logits="quant8",
                 dtype="bfloat16", cache_len=512, max_batch=4, seed=0)
+#: (b)'s overlap pass: SmolLM-360M on engine="overlap" in the world of
+#: ranks, after its dense and paged shard paths
+SHARD_OVERLAP_LABEL = "overlap path"
 # one kept sync's payload on the wire at llama2-7b's width, bf16: a batch-4
 # decode step and one 512-token prefill
 WIRE_PAYLOADS = (("decode", (4, 1, 4096)), ("prefill", (1, 512, 4096)))
@@ -4746,6 +4763,11 @@ SHARD_TRAIN_CUT = dict(batch=4, seq=512, microbatches=1, q_chunk=512,
                        dtype="float32", warmup=0)
 SHARD_TRAIN_CUT_LAYERS = 2
 SHARD_TRAIN_CUT_RTOL = 1e-4
+#: (c)'s pod layout: the same four ranks re-bound as pod 2 x dp 1 x tp 2
+#: (the reference's three-axis mesh, make_test_mesh(1, 2, pod=2)); 2
+#: ZeRO-1 steps, 1 FSDP step and the fp32 cut there
+SHARD_POD = dict(dp=1, pod=2)
+SHARD_POD_STEPS = 2
 #: (b)'s second spawn: the families, one model at a time
 SHARD_FAMILY_DEADLINE_S = 600
 #: each (b) path's model, by label (its vocabulary for the logits rows)
@@ -4977,7 +4999,8 @@ def shard_spec_serve(torch, np, llm, prompts, plain, g, card):
 
 def shard_rank_gloo(torch, np, g, card, alg1):
     """(b): two ranks on one card over gloo: SmolLM-360M dense and paged,
-    then llama2-7b dense, its speculative path, Algorithm 1 on it
+    its overlap pass (shard_rank_overlap), the rings across the two
+    ranks (shard_rank_rings), then llama2-7b dense, its speculative path, Algorithm 1 on it
     (shard_rank_alg1, `alg1` sim's thresholds and plan) and its int8 KV
     + weights variant, each at full width with the main path's settings
     (SHARD_KW), the canonical weights drawn on the card and kept on the
@@ -4998,7 +5021,11 @@ def shard_rank_gloo(torch, np, g, card, alg1):
                      page_size=PAGE_SIZE, num_pages=NUM_PAGES,
                      params=llm.canonical, engine="shard")
     out["paged path"] = shard_serve(torch, np, paged, prompts)
-    del llm, paged
+    del paged
+    out[SHARD_OVERLAP_LABEL] = shard_rank_overlap(
+        torch, np, cfg, llm.canonical, prompts, out["main path"])
+    out["rings"] = shard_rank_rings(torch, g)
+    del llm
     gc.collect()
     torch.cuda.empty_cache()
     cfg = replace(get_config("llama2-7b"), attn_backend="pallas")
@@ -5027,6 +5054,112 @@ def shard_rank_gloo(torch, np, g, card, alg1):
     out[SHARD_INT8_LABEL] = rank_done(
         torch, shard_serve(torch, np, m, prompts), info)
     return out
+
+
+def shard_rank_overlap(torch, np, cfg, canonical, prompts, shard):
+    """(b)'s overlap pass on a rank: the main path's canonical weights on
+    engine="overlap" with SHARD_KW (in this world of ranks the shard
+    backend plus the overlap seams), served by `shard_serve` (counted,
+    timed, its ledger); its logits events against the shard main path's
+    (`shard`, this rank's run) bit for bit; then `decode_pipelined` over
+    PIPE_GROUPS groups of 4 against serial decode, in turns (S P P S),
+    host ms each."""
+    from repro_torch.api import LLM
+
+    ov = LLM.load(cfg, engine="overlap", params=canonical, **SHARD_KW)
+    res = shard_serve(torch, np, ov, prompts)
+    tape = res.pop("tape")
+    res.update(backend=type(ov.engine.backend).__name__,
+               overlaps_comm=ov.engine.backend.overlaps_comm,
+               same_logits=len(tape) == len(shard["tape"]) and all(
+                   k == k2 and np.array_equal(a, b)
+                   for (k, a), (k2, b) in zip(tape, shard["tape"])))
+    eng, params = ov.engine, ov.params
+    toks0 = np.random.default_rng(2).integers(0, cfg.vocab_size, (4, 1))
+    pos = np.zeros((4,), np.int64)
+
+    def run(piped):
+        gs = [(toks0 + i, pos, eng.blank_caches(4, 512))
+              for i in range(PIPE_GROUPS)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = (eng.decode_pipelined(params, gs, depth=2) if piped
+               else [eng.decode(params, *g) for g in gs])
+        torch.cuda.synchronize()
+        return [o[0] for o in out], 1e3 * (time.perf_counter() - t0)
+
+    (s1, ts1), (p1, tp1) = run(False), run(True)
+    (p2, tp2), (s2, ts2) = run(True), run(False)
+    res["pipelined"] = dict(
+        same=all(torch.equal(a, b) for a, b in zip(s1 + s2, p1 + p2)),
+        serial_ms=(ts1, ts2), piped_ms=(tp1, tp2))
+    return res
+
+
+def shard_rank_rings(torch, g):
+    """(b)'s rings across the two ranks of the model group, on this
+    rank's row of the ring phase's tp-2 SmolLM payloads (drawn from its
+    seed, in its order, on card 0: prefill 2 x 4 x 512 x 960, then
+    decode 2 x 4 x 960).  Per payload and bits 8 / 4: the kernel path's
+    row against the plain path's (`plain_ring`) and against this rank's
+    row of the sim ring on the stacked tensor, bit for bit; the kernels'
+    launches a call; ms a call across the ranks (gloo, staged through
+    the host) beside the sim ring's.  Then ring_reduce_scatter and
+    ring_all_gather across the ranks against the sim rows."""
+    from repro_torch.kernels import quant_collectives as QC
+    from repro_torch.parallel import compression as C
+    from repro_torch.parallel.collectives import ModelGroup, model_group
+
+    gen = torch.Generator(device=g.device).manual_seed(5)
+    counted = (QC.quantize_absmax, QC.dequant_accum_absmax, QC.qdq_absmax)
+    ctx, r = ModelGroup(g.tp, g.model_rank, g.model_group), g.model_rank
+    rows = []
+
+    def across(fn, mine):
+        with model_group(ctx):
+            return fn(mine)
+
+    for label, shp in (("prefill", (2, 4, 512, 960)),
+                       ("decode", (2, 4, 1, 960))):
+        x = torch.randn(shp, generator=gen, device=g.device)
+        mine = x[r:r + 1]
+        exact = x.sum(dim=0)
+        for bits in (8, 4):
+            def ring(v, b=bits):
+                return C.ring_quantized_psum(v, bits=b)
+            sim_row = ring(x)[r]
+            for k in counted:
+                k.launches = 0
+            y = across(ring, mine)
+            torch.cuda.synchronize()
+            got = {k.__name__: k.launches for k in counted}
+            for k in counted:
+                k.launches = 0
+            with plain_ring():
+                yp = across(ring, mine)
+            torch.cuda.synchronize()
+            levels = 127 if bits == 8 else 7
+            rows.append(dict(
+                label=label, shape=list(mine.shape), bits=bits,
+                same_plain=torch.equal(y, yp),
+                same_sim=torch.equal(y[0], sim_row), launches=got,
+                leaked=sum(k.launches for k in counted),
+                err=(y[0] - exact).abs().max().item(),
+                bound=(2 * 2 + 1) / levels * x.abs().max().item(),
+                ms=cuda_ms(torch, lambda: across(ring, mine), iters=10,
+                           warmup=2),
+                sim_ms=cuda_ms(torch, lambda: ring(x), iters=20)))
+        rs = across(C.ring_reduce_scatter, mine)
+        ag = across(C.ring_all_gather, mine)
+        rows.append(dict(
+            label=label, shape=list(mine.shape), bits=None,
+            same_sim=(torch.equal(rs[0], C.ring_reduce_scatter(x)[r])
+                      and torch.equal(ag[0], C.ring_all_gather(x)[r])),
+            rs_ms=cuda_ms(torch, lambda: across(C.ring_reduce_scatter,
+                                                mine), iters=10, warmup=2),
+            ag_ms=cuda_ms(torch, lambda: across(C.ring_all_gather, mine),
+                          iters=10, warmup=2)))
+    return rows
 
 
 def rank_fp32(torch, np, g, llm, prompts, label, routes, cache_len=512):
@@ -5390,6 +5523,24 @@ def shard_rank_train(torch, np, g, job):
     run("cut", tr, st)
     del tr, st
     release(torch)
+
+    # the same four ranks as pod 2 x dp 1 x tp 2: new groups over the
+    # same default group
+    from repro_torch.launch.dist import init_tp
+    init_tp(2, 1, SHARD_POD["pod"], backend=job["backend"],
+            device=job["device"])
+    tr, st = trainer("pod zero1", ckpt_every=0, **SHARD_POD)
+    run("pod zero1", tr, st, SHARD_POD_STEPS)
+    del tr, st
+    release(torch)
+    tr, st = trainer("pod fsdp", fsdp=True, ckpt_every=0, **SHARD_POD)
+    run("pod fsdp", tr, st, 1)
+    del tr, st
+    release(torch)
+    tr, st = train_cut_trainer(root, "shard", **SHARD_POD)
+    run("pod cut", tr, st)
+    del tr, st
+    release(torch)
     return out
 
 
@@ -5510,8 +5661,61 @@ def shard_train_phase(np, card, transport):
     finally:
         shutil.rmtree(root, ignore_errors=True)
     launches = check_shard_train(np, ranks, card, transport)
+    check_shard_pod(np, ranks, card, transport)
     print(f"shard (c) over {transport}: {time.perf_counter() - t0:.1f} s")
     return launches
+
+
+def check_shard_pod(np, ranks, card, transport):
+    """(c)'s pod layout (pod 2 x dp 1 x tp 2 on the same four ranks): the
+    same losses and grad norms on every rank; ZeRO-1's and FSDP's step-1
+    loss within SHARD_TRAIN_LOSS_RTOL of the tp 2 x dp 2 run's (the same
+    rows a rank, the same global batch), ZeRO-1's second within it too;
+    B1 on every rank 2 x layers x microbatches x steps; the fp32 cut
+    within SHARD_TRAIN_CUT_RTOL of sim's step on the same pod mesh.
+    Prints ms a step beside the tp 2 x dp 2 step's."""
+    nmb, layers = TRAIN_KW["microbatches"], train_cfg().n_layers
+    for label in ("pod zero1", "pod fsdp", "pod cut"):
+        for r, rk in enumerate(ranks[1:], 1):
+            for k in ("losses", "grad_norms"):
+                if rk["train"][label][k] != ranks[0]["train"][label][k]:
+                    raise AssertionError(f"shard (c) {label}: rank {r}'s "
+                                         f"{k} differ from rank 0's")
+    t = ranks[0]["train"]
+    z, pz, pf = t["zero1"], t["pod zero1"], t["pod fsdp"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(
+        pz["losses"] + pf["losses"], z["losses"][:SHARD_POD_STEPS]
+        + z["losses"][:1]))
+    for label, steps in (("pod zero1", SHARD_POD_STEPS), ("pod fsdp", 1)):
+        want = 2 * layers * nmb * steps
+        for r, rk in enumerate(ranks):
+            got = rk["train"][label]["launches"]["flash_attention_bhsd"]
+            if got != want:
+                raise AssertionError(f"shard (c) {label} rank {r}: B1 "
+                                     f"launches {got}, want {want}")
+    sim, cut = SIM_RUNS["train cut pod"], t["pod cut"]
+    crel = max(abs(a - b) / abs(b) for m, c in zip(sim, zip(
+        cut["losses"], cut["grad_norms"])) for a, b in zip(
+            c, (m["loss"], m["grad_norm"])))
+    step_ms = 1e3 * float(np.mean(pz["walls"][1:]))
+    print(f"shard (c) pod layout [{card}] {TRAIN_ARCH} L={layers} full "
+          f"width, bf16, pod 2 x dp 1 x tp 2 (init_tp(2, 1, pod=2) on the "
+          f"same four ranks) over {transport}: ZeRO-1 losses "
+          f"{[round(x, 4) for x in pz['losses']]} grad_norms "
+          f"{[round(x, 3) for x in pz['grad_norms']]}, FSDP step 1 "
+          f"{pf['losses'][0]:.4f}, on every rank; max rel {rel:.3e} from "
+          f"the tp 2 x dp 2 run's (tol {SHARD_TRAIN_LOSS_RTOL:.0e}); "
+          f"step_ms={step_ms:.1f} (step 2; step 1 {1e3 * pz['walls'][0]:.1f})"
+          f" against tp 2 x dp 2's {1e3 * float(np.mean(z['walls'][1:])):.1f}"
+          f"; FSDP step_ms={1e3 * pf['walls'][0]:.1f} (its first); B1 "
+          f"launches a rank {pz['launches']['flash_attention_bhsd']}; "
+          f"peak_memory_gib={pz['peak_gib']:.2f} a rank")
+    print(f"shard (c) pod fp32 cut: losses {cut['losses']} grad_norms "
+          f"{cut['grad_norms']} against sim's on mesh (pod 2, data 1, model "
+          f"2) {sim}: max rel {crel:.3e} (tol {SHARD_TRAIN_CUT_RTOL:.0e})")
+    if not (rel <= SHARD_TRAIN_LOSS_RTOL and crel <= SHARD_TRAIN_CUT_RTOL):
+        raise AssertionError("shard (c): the pod layout parted from the tp "
+                             "2 x dp 2 run or from sim's cut")
 
 
 def shard_rank(rank, job):
@@ -5868,6 +6072,8 @@ def shard_phase(torch, np, card):
               f"peak_memory_gib={q['peak_gib']:.2f} (load included; the "
               f"canonical weights kept on the host), "
               f"{q['held_gib']:.2f} GiB held after")
+    out[SHARD_OVERLAP_LABEL] = check_shard_overlap(ranks, card, transport)
+    out["rings across ranks"] = check_shard_rings(ranks, card)
     out[SHARD_SPEC_LABEL] = check_shard_spec(np, ranks, card)
     check_shard_alg1(np, ranks, card, transport)
     print_rank_memory(ranks, (SHARD_INT8_LABEL,))
@@ -5879,6 +6085,107 @@ def shard_phase(torch, np, card):
     out.update(shard_family_phase(np, card, job, transport))
     out["shard (c)"] = shard_train_phase(np, card, transport)
     return out
+
+
+def check_shard_overlap(ranks, card, transport):
+    """(b)'s overlap pass: the shard backend plus the seams on every
+    rank; its tokens and logits events equal the shard main path's on the
+    same rank bit for bit, and the same on both ranks; the send and
+    receive kernels launched as on that path (and as shard_launches_want
+    says), B1 as there; rank 0's ledger equal to the sim overlap path's,
+    ring-step collective-permutes included; decode_pipelined equal to
+    serial decode.  Prints ms a token beside the shard path's and sim
+    overlap's.  Returns rank 0's launches."""
+    for r, rk in enumerate(ranks):
+        ov, mp = rk[SHARD_OVERLAP_LABEL], rk["main path"]
+        want = shard_launches_want(2, ov["kept"], ov["fwd"], ov["logits_q"])
+        got = {k: ov["launches"][k] for k in want}
+        if not (ov["backend"] == "ShardOverlapBackend"
+                and ov["overlaps_comm"]):
+            raise AssertionError(f"shard overlap rank {r}: backend "
+                                 f"{ov['backend']}")
+        if ov["tokens"] != mp["tokens"] or not ov["same_logits"]:
+            raise AssertionError(f"shard overlap rank {r}: tokens or logits "
+                                 f"differ from the shard main path's")
+        if got != want or ov["launches"] != mp["launches"]:
+            raise AssertionError(f"shard overlap rank {r}: launches "
+                                 f"{ov['launches']} != the shard path's "
+                                 f"{mp['launches']} / {want}")
+        if not ov["pipelined"]["same"]:
+            raise AssertionError(f"shard overlap rank {r}: decode_pipelined "
+                                 f"differs from serial decode")
+    r0 = ranks[0][SHARD_OVERLAP_LABEL]
+    if r0["tokens"] != ranks[1][SHARD_OVERLAP_LABEL]["tokens"]:
+        raise AssertionError("shard overlap: the ranks' tokens differ")
+    sim = SIM_RUNS["overlap path"]
+    perms = sum(e[0] == "collective-permute" for e in r0["ledger"])
+    if r0["ledger"] != sim["ledger"] or not perms:
+        raise AssertionError(f"shard overlap: rank 0's ledger "
+                             f"({len(r0['ledger'])} entries, {perms} ring "
+                             f"steps) != the sim overlap path's "
+                             f"({len(sim['ledger'])})")
+    pl = r0["pipelined"]
+    ql = r0["launches"]
+    print(f"shard {SHARD_OVERLAP_LABEL} [{card}] tp 2 over {transport}: "
+          f"ShardOverlapBackend on both ranks; tokens and {r0['events']} "
+          f"logits events equal the shard main path's bit for bit; send "
+          f"{ql['quantize_message_absmax']} and receive "
+          f"{ql['reduce_messages_absmax']} launches a rank, as there; rank "
+          f"0's ledger equals sim overlap's ({len(r0['ledger'])} entries, "
+          f"{perms} ring-step collective-permutes); {timing_note(r0)}; "
+          f"shard main path decode_ms_per_token="
+          f"{ranks[0]['main path']['decode_ms']:.2f}, sim overlap "
+          f"{sim['decode_ms']:.2f}")
+    print(f"shard decode_pipelined [{card}] over {transport}: "
+          f"{PIPE_GROUPS} groups of 4, depth 2: equal to serial on both "
+          f"ranks; rank 0 host ms serial={pl['serial_ms'][0]:.2f}/"
+          f"{pl['serial_ms'][1]:.2f} pipelined={pl['piped_ms'][0]:.2f}/"
+          f"{pl['piped_ms'][1]:.2f} (in turns S P P S)")
+    return r0["launches"]
+
+
+def check_shard_rings(ranks, card):
+    """(b)'s rings across the two ranks: on each rank the kernel path's
+    row equals the plain path's and the sim ring's row bit for bit, within
+    the ring's error bound of the exact sum, with n-1 B4, n-1 B6 and one
+    B3 a call and none on the plain path; the reduce-scatter and the
+    all-gather rows equal sim's.  Prints ms a call beside sim's ring.
+    Returns rank 0's launches summed over the calls."""
+    want = {"quantize_absmax": 1, "dequant_accum_absmax": 1,
+            "qdq_absmax": 1}
+    total = {k: 0 for k in want}
+    for r, rk in enumerate(ranks):
+        for row in rk["rings"]:
+            what = f"rings across ranks rank {r} {row['label']}"
+            if row["bits"] is None:
+                if not row["same_sim"]:
+                    raise AssertionError(f"{what}: ring_reduce_scatter or "
+                                         "ring_all_gather differs from sim's")
+                continue
+            if not (row["same_plain"] and row["same_sim"]
+                    and row["launches"] == want and not row["leaked"]
+                    and row["err"] <= row["bound"]):
+                raise AssertionError(f"{what} bits={row['bits']}: {row}")
+            if r == 0:
+                for k, v in row["launches"].items():
+                    total[k] += v
+    for row in ranks[0]["rings"]:
+        if row["bits"] is None:
+            print(f"rings across ranks [{card}] tp 2 {row['label']} "
+                  f"{tuple(row['shape'])} a rank: ring_reduce_scatter="
+                  f"{row['rs_ms']:.4f} ms ring_all_gather={row['ag_ms']:.4f}"
+                  f" ms a call (gloo, host-staged); both equal sim's rows")
+            continue
+        print(f"rings across ranks [{card}] tp 2 {row['label']} "
+              f"{tuple(row['shape'])} a rank bits={row['bits']}: kernel=="
+              f"plain True, == sim ring's row True on both ranks; err="
+              f"{row['err']:.4e} bound={row['bound']:.4e}; launches "
+              f"{json.dumps(row['launches'])} a call; "
+              f"ring_quantized_psum={row['ms']:.4f} ms a call (gloo, "
+              f"host-staged) against the sim ring's {row['sim_ms']:.4f} ms "
+              "(both ranks' rows on one card)")
+    print(f"rings across ranks launches (rank 0): {json.dumps(total)}")
+    return total
 
 
 def shard_family_phase(np, card, job, transport):

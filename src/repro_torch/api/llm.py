@@ -45,8 +45,11 @@ family (dense, MoE, MLA, SSM, hybrid), int8 caches and weights, dense
 or paged caches, chunked prefill and speculative decoding, and runs
 Algorithm 1 (`apply_spd`, `apply_comm_policy`) on each rank's own
 shard with the syncs over its model group; every rank must reach the
-same plan.  The overlap engine (ROADMAP A5b) and the modality frontends
-(A4) raise NotImplementedError there.
+same plan.  In such a world `engine="overlap"` is the shard engine plus
+the overlap seams (the ring-step ledger, the hidden-comm pricing and
+`Engine.decode_pipelined`; `parallel.backend.OverlapSeams`), with the
+same tokens; in one process it runs on sim.  The modality frontends
+(ROADMAP A4) raise NotImplementedError on the ranks.
 """
 from __future__ import annotations
 
@@ -104,15 +107,6 @@ def _rank_groups(device):
     if device is not None and torch.device(device) != g.device:
         raise ValueError(f"device {device} is not this rank's {g.device}")
     return g
-
-
-def _no_overlap_in_rank() -> None:
-    from repro_torch.launch import dist as D
-    g = D.current()
-    if g is not None and g.world > 1:
-        raise NotImplementedError(
-            "the overlap engine on the shard backend's ranks is not ported "
-            "yet (ROADMAP A5b); it runs every shard on one device")
 
 
 def _check_shard(cfg) -> None:
@@ -177,12 +171,13 @@ class LLM:
              dp_replicas: int = 1, obs=None, device=None) -> "LLM":
         """Load `arch` (config name or ModelConfig) onto an engine.
 
-        engine     "sim" (every shard on one device), "overlap" (sim
-                   plus the ring-step comm ledger and pipelined decode;
-                   the same tokens) or "shard" (one process per shard,
-                   see the module doc; the canonical weights are drawn on
-                   the card and kept on the host, so a rank's card holds
-                   its shard).
+        engine     "sim" (every shard on one device), "shard" (one
+                   process per shard, see the module doc; the canonical
+                   weights are drawn on the card and kept on the host,
+                   so a rank's card holds its shard) or "overlap" (the
+                   ring-step comm ledger and pipelined decode on sim in
+                   one process, on shard in a world of ranks; the same
+                   tokens).
         spd        fraction of blocks to SPD-drop (first-k plan), ignored
                    when an explicit `plan` is given; no block drops on
                    an attention-free (SSM) model, which has one sync
@@ -224,7 +219,7 @@ class LLM:
                                       "(ROADMAP A6)")
         from repro_torch.configs import get_config
         from repro_torch.core import model as M
-        from repro_torch.parallel.backend import backend_names, resolve_backend
+        from repro_torch.parallel.backend import backend_class, backend_names
 
         if engine not in backend_names():
             raise NotImplementedError(
@@ -237,7 +232,7 @@ class LLM:
         if dtype is not None:
             cfg = replace(cfg, dtype=dtype)
         keep = groups = None
-        if resolve_backend(engine).multi_process:
+        if backend_class(engine).multi_process:
             groups = _rank_groups(device)
             dev = groups.device
             _check_shard(cfg)
@@ -246,8 +241,6 @@ class LLM:
                                  f"dp {dp} data ranks")
             keep = torch.device("cpu")
         else:
-            if engine == "overlap":
-                _no_overlap_in_rank()
             dev = resolve_device(device)
         if plan is None:
             k = int(round(cfg.n_layers * spd)) if cfg.spd_applicable else 0

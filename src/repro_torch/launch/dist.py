@@ -1,15 +1,19 @@
 """Process groups for the `shard` engine: one rank per TP shard, the
 real-device counterpart of `launch/mesh.make_test_mesh`.
 
-World rank `d * tp + m` is data rank d and model rank m, the reference's
-mesh layout (`make_test_mesh(dp, tp)` reshapes its devices to (dp, tp)).
-`init_tp` builds one model group per data rank (the ranks of one TP
-replica, over which the syncs reduce) and one data group per model rank
-(over which a sharded batch is gathered back).  The backend is named by
-the caller: "nccl" for ranks on CUDA devices, "gloo" for the CPU (or for
-CUDA tensors staged through the host).  Nothing tries one backend and
-then another.  A rank runs on cuda:LOCAL_RANK unless the caller asks
-for the CPU (`device="cpu"`).
+World rank `(p * dp + d) * tp + m` is pod rank p, data rank d and model
+rank m, the reference's mesh layout (`make_test_mesh(dp, tp, pod)`
+reshapes its devices to (pod, dp, tp); without a pod factor, rank
+`d * tp + m`).  `init_tp` builds one model group per (pod, data) slot
+(the ranks of one TP replica, over which the syncs reduce) and one data
+group per (pod, model) pair (over which a sharded batch is gathered
+back and a train step reduce-scatters).  With a pod factor > 1 it also
+builds, for the train step's pod axis, one pod group per (data, model)
+pair, one (pod, data) group per model rank and one (data, model) group
+per pod.  The backend is named by the caller: "nccl" for ranks on CUDA
+devices, "gloo" for the CPU (or for CUDA tensors staged through the
+host).  Nothing tries one backend and then another.  A rank runs on
+cuda:LOCAL_RANK unless the caller asks for the CPU (`device="cpu"`).
 
 Launch one rank per GPU with torchrun, which sets RANK, WORLD_SIZE,
 LOCAL_RANK, MASTER_ADDR and MASTER_PORT:
@@ -43,7 +47,13 @@ DEFAULT_TIMEOUT_S = 300.0
 
 @dataclass(frozen=True)
 class TPGroups:
-    """This rank's place in the (data, model) layout and its two groups."""
+    """This rank's place in the (pod, data, model) layout and its groups:
+    the model and data groups, and for the train step's pod axis the pod
+    group (ranks of this (data, model) pair), the (pod, data) group
+    (ranks of this model rank) and the replica group (ranks of this pod,
+    its (data, model) slots).  With a pod factor of 1 the pod group is
+    None, the (pod, data) group the data group and the replica group the
+    world."""
 
     tp: int
     dp: int
@@ -55,6 +65,11 @@ class TPGroups:
     data_group: object
     backend: str
     device: torch.device
+    pod: int = 1
+    pod_rank: int = 0
+    pod_group: object = None
+    pod_data_group: object = None
+    replica_group: object = None
 
 
 _GROUPS: Optional[TPGroups] = None
@@ -92,21 +107,23 @@ def rank_device(backend: str, device, local_rank: int) -> torch.device:
     return dev
 
 
-def init_tp(tp: int, dp: int = 1, *, backend: str, device=None,
-            rank: Optional[int] = None, world_size: Optional[int] = None,
+def init_tp(tp: int, dp: int = 1, pod: int = 0, *, backend: str,
+            device=None, rank: Optional[int] = None,
+            world_size: Optional[int] = None,
             local_rank: Optional[int] = None,
             timeout_s: float = DEFAULT_TIMEOUT_S) -> TPGroups:
-    """Initialize the default group (unless it is) and this rank's model
-    and data groups.  RANK, WORLD_SIZE and LOCAL_RANK come from the
-    environment (torchrun's) unless given; the world must be tp x dp.
-    `device` as in `rank_device`: cuda:LOCAL_RANK unless "cpu" is
-    asked for."""
+    """Initialize the default group (unless it is) and this rank's
+    groups.  RANK, WORLD_SIZE and LOCAL_RANK come from the environment
+    (torchrun's) unless given; the world must be pod x tp x dp (`pod` 0:
+    no pod axis, as 1).  `device` as in `rank_device`: cuda:LOCAL_RANK
+    unless "cpu" is asked for."""
     global _GROUPS
     import torch.distributed as dist
 
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got "
                          f"{backend!r}")
+    npod = max(int(pod), 1)
     if dist.is_initialized():
         rank, world = dist.get_rank(), dist.get_world_size()
         if dist.get_backend() != backend:
@@ -115,8 +132,10 @@ def init_tp(tp: int, dp: int = 1, *, backend: str, device=None,
     else:
         rank = _from_env("RANK", rank)
         world = _from_env("WORLD_SIZE", world_size)
-    if world != tp * dp:
-        raise ValueError(f"world size {world} is not tp {tp} x dp {dp}")
+    if world != npod * tp * dp:
+        raise ValueError(f"world size {world} is not "
+                         + (f"pod {pod} x " if pod else "")
+                         + f"tp {tp} x dp {dp}")
     local = _from_env("LOCAL_RANK", local_rank)
     dev = rank_device(backend, device, local)
     if dev.type == "cuda":
@@ -125,22 +144,34 @@ def init_tp(tp: int, dp: int = 1, *, backend: str, device=None,
     if not dist.is_initialized():
         dist.init_process_group(backend, init_method="env://", rank=rank,
                                 world_size=world, timeout=timeout)
-    model = data = None
-    # every rank creates every group, in the same order
-    for d in range(dp):
-        ranks = [d * tp + m for m in range(tp)]
-        g = dist.new_group(ranks, timeout=timeout, backend=backend)
-        if rank in ranks:
-            model = g
-    for m in range(tp):
-        ranks = [d * tp + m for d in range(dp)]
-        g = dist.new_group(ranks, timeout=timeout, backend=backend)
-        if rank in ranks:
-            data = g
+
+    def at(p, d, m):
+        return (p * dp + d) * tp + m
+
+    def mine(rank_lists):
+        """Create a group of each list, in order (every rank creates every
+        group, in the same order); return the one holding this rank."""
+        out = None
+        for ranks in rank_lists:
+            g = dist.new_group(ranks, timeout=timeout, backend=backend)
+            if rank in ranks:
+                out = g
+        return out
+
+    P, D, M = range(npod), range(dp), range(tp)
+    model = mine([[at(p, d, m) for m in M] for p in P for d in D])
+    data = mine([[at(p, d, m) for d in D] for p in P for m in M])
+    pod_g, pod_data, replica = None, data, dist.group.WORLD
+    if npod > 1:
+        pod_g = mine([[at(p, d, m) for p in P] for d in D for m in M])
+        pod_data = mine([[at(p, d, m) for p in P for d in D] for m in M])
+        replica = mine([[at(p, d, m) for d in D for m in M] for p in P])
     _GROUPS = TPGroups(tp=tp, dp=dp, rank=rank, world=world,
-                       model_rank=rank % tp, data_rank=rank // tp,
+                       model_rank=rank % tp, data_rank=rank // tp % dp,
                        model_group=model, data_group=data, backend=backend,
-                       device=dev)
+                       device=dev, pod=npod, pod_rank=rank // (tp * dp),
+                       pod_group=pod_g, pod_data_group=pod_data,
+                       replica_group=replica)
     return _GROUPS
 
 

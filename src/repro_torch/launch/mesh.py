@@ -8,8 +8,8 @@ A `SimMesh` carries what the reference's callers read of a
 `.devices`, an array of slot ids shaped like the mesh.  It is not a
 `torch.distributed` mesh: the real-device counterpart of
 `make_test_mesh` is `launch/dist.init_tp` (one process per shard, rank
-d * tp + m at data rank d and model rank m), which the `shard` engine
-serves on.
+(p * dp + d) * tp + m at pod rank p, data rank d and model rank m),
+which the `shard` engine serves and trains on.
 """
 from __future__ import annotations
 

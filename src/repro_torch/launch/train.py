@@ -40,7 +40,7 @@ def make_trainer(arch, *, steps: int = 100, tp: int = 2, dp: int = 1,
                  dtype: str = "float32", device="cuda",
                  attn_backend: str = "pallas", q_chunk: int = 0,
                  warmup: int = 10, comm: str = "exact", fault_hook=None,
-                 params=None, engine: str = "sim"):
+                 params=None, engine: str = "sim", pod: int = 0):
     """The CLI's trainer: (Trainer, initial state), the state restored
     from `ckpt_dir` when it holds a checkpoint (None: a new temporary
     directory).  `arch` is a config name or a ModelConfig.  `params`
@@ -48,7 +48,10 @@ def make_trainer(arch, *, steps: int = 100, tp: int = 2, dp: int = 1,
     every kept sync's level (CommPolicy.uniform); `q_chunk` 0 takes
     min(1024, seq).  `engine` "shard": this process is a rank of the
     groups `launch.dist.init_tp` built (tp x dp), on its device; the
-    seeded init is drawn there and kept on the host, as LLM.load's."""
+    seeded init is drawn there and kept on the host, as LLM.load's.
+    `pod` > 0 trains on the (pod, data, model) mesh `make_test_mesh(dp,
+    tp, pod)` (on "shard", a world that `init_tp(tp, dp, pod=)` built);
+    the CLI takes no pod flag, as the reference's takes none."""
     import torch
 
     from repro_torch.api.llm import resolve_device
@@ -79,7 +82,7 @@ def make_trainer(arch, *, steps: int = 100, tp: int = 2, dp: int = 1,
                            "--device cpu to train on the CPU")
     cfg = arch if isinstance(arch, ModelConfig) else get_config(arch)
     cfg = replace(cfg, dtype=dtype, attn_backend=attn_backend)
-    mesh = make_test_mesh(dp, tp)
+    mesh = make_test_mesh(dp, tp, pod)
     k = int(round(cfg.n_layers * spd)) if cfg.spd_applicable else 0
     plan = SPDPlanConfig.first_k(cfg.n_layers, k)
     if comm != "exact":

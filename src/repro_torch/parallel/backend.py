@@ -7,8 +7,10 @@ shard-stacked tensors (dim 0 = TP shard).  A backend owns where those
 live: it places parameters, materializes blank caches, and wraps each
 step so per-request host arrays ("batch"/"rep" arguments) land on its
 device.  `LLM.load(engine=...)` resolves backends through the registry:
-`sim` and `overlap` (every shard on one device) and `shard` (one process
-per shard over torch.distributed, `launch/dist.init_tp`).
+`sim` (every shard on one device), `shard` (one process per shard over
+torch.distributed, `launch/dist.init_tp`) and `overlap`, the comm
+schedule's seams (`OverlapSeams`) on `sim` in one process and on
+`shard` in a world of ranks (`backend_class`).
 """
 from __future__ import annotations
 
@@ -56,6 +58,9 @@ class ParallelBackend:
     #: one process per shard (the facade hands `build` the rank's groups;
     #: what the engine has not ported for it raises)
     multi_process: bool = False
+    #: the class a registered name resolves to inside a world of ranks
+    #: (`backend_class`); None: this one
+    rank_form = None
 
     @property
     def dp_total(self) -> int:
@@ -119,11 +124,25 @@ def resolve_backend(name: str) -> Type[ParallelBackend]:
     return _BACKENDS[name]
 
 
+def backend_class(name: str) -> Type[ParallelBackend]:
+    """The class `name` resolves to in this process: a registered backend
+    with a rank form (`overlap`) takes it inside a world of more than one
+    rank (`launch.dist.init_tp`); one process keeps the registered
+    class."""
+    cls = resolve_backend(name)
+    if cls.rank_form is not None:
+        from repro_torch.launch import dist as D
+        g = D.current()
+        if g is not None and g.world > 1:
+            return cls.rank_form
+    return cls
+
+
 def make_backend(name: str, cfg, plan, *, tp: int = 1, dp: int = 1,
                  device="cuda", groups=None) -> ParallelBackend:
     """`groups`: a multi-process backend's `launch.dist.TPGroups`."""
-    return resolve_backend(name).build(cfg, plan, tp=tp, dp=dp,
-                                       device=device, groups=groups)
+    return backend_class(name).build(cfg, plan, tp=tp, dp=dp,
+                                     device=device, groups=groups)
 
 
 @register_backend("sim")
@@ -183,12 +202,9 @@ class SimBackend(ParallelBackend):
         return [tree_map(one, s, a) for s, a in zip(structs, specs)]
 
 
-@register_backend("overlap")
-class OverlapBackend(SimBackend):
-    """`sim` plus the comm schedule that hides the syncs SPD keeps.
-
-    The same math as `sim` (greedy tokens equal bit for bit), three
-    seams:
+class OverlapSeams:
+    """The overlap engine's three seams over a backend's math (mixed in
+    before it: the same steps, greedy tokens equal bit for bit):
 
       * every step runs inside `collectives.overlap_region`, so each
         kept quantized sync logs its two hops as `ring_chunks` ring-step
@@ -198,11 +214,7 @@ class OverlapBackend(SimBackend):
       * `overlaps_comm=True` tells `LatencyModel.summarize` to price
         overlappable entries as hidden behind compute;
       * `Engine.decode_pipelined` issues independent decode groups back
-        to back.
-
-    The reference's overlap backend subclasses its shard_map backend;
-    the port's stays on `sim`, and its move onto the `shard` backend is
-    ROADMAP A5b."""
+        to back."""
 
     overlaps_comm = True
     #: ring-pipeline depth of each kept sync (LatencyModel.ring_chunks)
@@ -216,6 +228,14 @@ class OverlapBackend(SimBackend):
                 return local_fn(*args)
 
         return super().wrap(overlapped, spec)
+
+
+@register_backend("overlap")
+class OverlapBackend(OverlapSeams, SimBackend):
+    """`sim` plus the overlap seams, in one process.  Inside a world of
+    ranks `overlap` resolves to `rank_form` (`backend_class`): `shard`
+    plus the same seams, as the reference's overlap backend subclasses
+    its shard_map backend."""
 
 
 @register_backend("shard")
@@ -255,7 +275,8 @@ class ShardBackend(ParallelBackend):
                              "(launch.dist.init_tp)")
         g = groups
         if (g.tp, g.dp) != (tp, dp) or g.world != tp * dp:
-            raise ValueError(f"the initialized world is tp {g.tp} x dp "
+            pod = f"pod {g.pod} x " if g.pod > 1 else ""
+            raise ValueError(f"the initialized world is {pod}tp {g.tp} x dp "
                              f"{g.dp} ({g.world} ranks), not tp {tp} x dp "
                              f"{dp}")
         if device is not None and torch.device(device) != g.device:
@@ -378,6 +399,17 @@ class ShardBackend(ParallelBackend):
         (`agree_across`)."""
         if self.check_agreement:
             agree_across(self.groups, tokens, "host tokens")
+
+
+class ShardOverlapBackend(OverlapSeams, ShardBackend):
+    """`overlap` on the shard backend's ranks: `ShardBackend` (its
+    two-launch quantized sync across ranks in every kept sync) plus the
+    overlap seams."""
+
+    name = "overlap"
+
+
+OverlapBackend.rank_form = ShardOverlapBackend
 
 
 def agree_across(groups, values, what: str) -> None:

@@ -40,12 +40,15 @@ launch/mesh.py's descriptor) on one device, which computes the whole
 global batch: their values are sums, slices and concatenations over
 the axis's leading slot dims, and they move no bytes.  On the `shard`
 backend's ranks the train step binds a data-group context as well
-(`data_group`): each rank then holds ONE (data, model) slot, every slot
-dim is of size 1, and the same functions run their collective over the
-rank's groups (an all-reduce, a reduce-scatter, an all-gather); the
-"pod" axis has no group there (ROADMAP A5f).  Either way each logs the
-entry the reference's shard_map logs, with the bytes one device of the
-mesh holds.  Inside `ledger_share(n)` a forward over the rows of n data
+(`data_group`): each rank then holds ONE (pod, data, model) slot,
+every slot dim is of size 1, and the same functions run their
+collective over the rank's groups (an all-reduce, a reduce-scatter, an
+all-gather); each set of axes runs over the group of the ranks that
+share the other axes' coordinates (`init_tp`'s data, model, pod, (pod,
+data) and replica groups; `pod_all_reduce` is ZeRO-1's and FSDP's
+gradient sum over "pod").  Either way each logs the entry the
+reference's shard_map logs, with the bytes one device of the mesh
+holds.  Inside `ledger_share(n)` a forward over the rows of n data
 slots at once logs one slot's bytes.
 
 On the `shard` backend each process holds ONE shard (dim 0 of size 1)
@@ -317,11 +320,16 @@ class ModelGroup:
 class DataGroup:
     """The data-parallel group of a rank's train step: `size` data ranks,
     this rank at `index`, `group` the torch.distributed group (one per
-    model rank, `launch.dist.TPGroups.data_group`)."""
+    (pod, model) pair, `launch.dist.TPGroups.data_group`).  `pod` is the
+    pod factor and `wires` the groups of the other axis sets a step
+    reduces over, ((axis names), group) pairs: the pod, (pod, data),
+    replica and world groups of `launch.dist.TPGroups`."""
 
     size: int
     index: int
     group: object
+    pod: int = 1
+    wires: tuple = ()
 
 
 class _GroupCtx(threading.local):
@@ -384,8 +392,14 @@ def rank_bound(g):
     if g is None:
         from contextlib import nullcontext
         return nullcontext()
+    import torch.distributed as dist
+
+    wires = ((("pod",), g.pod_group), (("pod", "data"), g.pod_data_group),
+             (("data", "model"), g.replica_group),
+             (("pod", "data", "model"), dist.group.WORLD))
     return groups_bound((ModelGroup(g.tp, g.model_rank, g.model_group),
-                         DataGroup(g.dp, g.data_rank, g.data_group)))
+                         DataGroup(g.dp, g.data_rank, g.data_group,
+                                   pod=g.pod, wires=wires)))
 
 
 def local_shards(tp: int) -> int:
@@ -509,25 +523,30 @@ def pmax(x, axis=MODEL_AXIS):
 
 def _permute_ranks(x, perm):
     """ppermute across the bound group's ranks: each rank holds one row
-    (dim 0 of size 1)."""
+    (dim 0 of size 1).  The transport is the group's: NCCL sends the
+    device tensors; gloo moves host memory only, so under gloo a CUDA
+    row is staged through the host on every call (copied to a host
+    buffer and sent; the host buffer received is copied back to the
+    rank's device); on the CPU gloo sends the row itself."""
     import torch.distributed as dist
 
     ctx = _wired()
     n, me = ctx.size, ctx.index
     if perm is None:
         perm = [(i, (i + 1) % n) for i in range(n)]
-    x = x.contiguous()
-    out = torch.zeros_like(x)
+    staged = x.is_cuda and dist.get_backend(ctx.group) != "nccl"
+    send = x.cpu() if staged else x.contiguous()
+    out = torch.zeros_like(send)
     ranks = dist.get_process_group_ranks(ctx.group)
-    ops = [dist.P2POp(dist.isend, x, ranks[dst], ctx.group)
+    ops = [dist.P2POp(dist.isend, send, ranks[dst], ctx.group)
            for src, dst in perm if src == me and dst != me]
     ops += [dist.P2POp(dist.irecv, out, ranks[src], ctx.group)
             for src, dst in perm if dst == me and src != me]
     if any(src == dst == me for src, dst in perm):
-        out.copy_(x)
+        out.copy_(send)
     for w in dist.batch_isend_irecv(ops) if ops else ():
         w.wait()
-    return out
+    return out.to(x.device) if staged else out
 
 
 def ppermute(x, axis=MODEL_AXIS, perm=None):
@@ -555,29 +574,33 @@ _LOCAL = object()
 
 def _axes_group(axis):
     """The torch.distributed group a data-axis collective runs over on a
-    rank (the whole world for ("data", "model")), or _LOCAL when no data
-    group is bound or the axes span one rank."""
+    rank: the ranks that share every coordinate but those of the named
+    axes wider than 1 (the data, model, pod, (pod, data) or replica
+    group, or the world), or _LOCAL when no data group is bound or the
+    axes span one rank."""
     d = _GROUP.data
     if d is None:
         return _LOCAL
-    names = {axis} if isinstance(axis, str) else set(axis)
-    if "pod" in names:
-        raise NotImplementedError(
-            "the pod axis on the shard backend's ranks is not ported yet "
-            "(ROADMAP A5f): launch.dist.init_tp builds (data, model) groups "
-            "only")
+    names = (axis,) if isinstance(axis, str) else tuple(axis)
     m = _GROUP.ctx
-    msize = m.size if m is not None else 1
-    want = {"data": d.size, "model": msize}
-    if not names <= set(want):
+    size = {"pod": d.pod, "data": d.size,
+            "model": m.size if m is not None else 1}
+    if not set(names) <= set(size):
         raise ValueError(f"unknown mesh axes {axis!r}")
-    wide = [a for a in names if want[a] > 1]
-    if not wide:
+
+    def wide(axes):
+        return frozenset(a for a in axes if size[a] > 1)
+
+    if not wide(names):
         return _LOCAL
-    if len(wide) == 2:
-        import torch.distributed as dist
-        return dist.group.WORLD
-    return d.group if wide[0] == "data" else m.group
+    groups = {frozenset({"data"}): d.group}
+    if m is not None:
+        groups[frozenset({"model"})] = m.group
+    for axes, g in d.wires:
+        groups.setdefault(wide(axes), g)
+    if wide(names) not in groups:
+        raise ValueError(f"no group of this rank spans the axes {axis!r}")
+    return groups[wide(names)]
 
 
 def psum_plain(x, axis):
@@ -596,6 +619,20 @@ def psum_plain(x, axis):
         import torch.distributed as dist
         dist.all_reduce(s, group=group)
     return s
+
+
+def pod_all_reduce(x, axis, nbytes: int):
+    """The multi-pod gradient sum of ZeRO-1 and FSDP: the optimizer state
+    is data-sharded within a pod and replicated across pods, so the
+    pods' gradients are all-reduced once.  Logged as one all-reduce of
+    `nbytes`.  On sim x already holds the sum over every slot; on a rank
+    x (its partial) is summed in place over its pod group."""
+    log_collective("all-reduce", axis, nbytes)
+    group = _axes_group(axis)
+    if group is not _LOCAL:
+        import torch.distributed as dist
+        dist.all_reduce(x, group=group)
+    return x
 
 
 def _data_wired() -> Optional[DataGroup]:
@@ -618,7 +655,6 @@ def psum_scatter(x, axis, n: int):
     d = _GROUP.data
     if d is None:
         return parts
-    _axes_group(axis)                 # the pod axis refuses
     if n != d.size:
         raise ValueError(f"{n} slots on a data group of {d.size} ranks")
     if d.size == 1:
@@ -658,7 +694,6 @@ def all_gather(x, axis):
     log_collective("all-gather", axis, x[0, 0].numel() * x.element_size())
     d = _data_wired()
     if d is not None:
-        _axes_group(axis)
         x = gather_rows(x, 0, d.group, d.size)
     return x.movedim(0, -2).flatten(-2)
 

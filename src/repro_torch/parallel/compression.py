@@ -29,10 +29,12 @@ collective a sync, and a rank gets the `sim` engine's bits at every tp.
 The runnable ring collectives at the end (`ring_all_gather`,
 `ring_reduce_scatter`, `ring_quantized_psum`) execute the chunked ring
 schedule that the overlap backend's ledger accounts for, one
-`collectives.ppermute` (a roll of the shard axis) per ring step.  The
-quantized ring sends through the quantize kernel and receives through
-the fused dequant-accumulate kernel.  The serving engines keep the
-two-hop `quantized_psum` above, as the reference's engines do.
+`collectives.ppermute` per ring step: a roll of the shard axis on sim,
+a send to the next rank of the model group on the shard backend (over
+NCCL from the card; over gloo staged through the host).  The quantized
+ring sends through the quantize kernel and receives through the fused
+dequant-accumulate kernel.  The serving engines keep the two-hop
+`quantized_psum` above, as the reference's engines do.
 """
 from __future__ import annotations
 
@@ -48,7 +50,7 @@ from repro_torch.kernels.quant_collectives import (dequant_accum_absmax,
 from repro_torch.parallel.collectives import (MODEL_AXIS, axis_size,
                                               current_group, log_collective,
                                               overlap_chunks, ppermute,
-                                              ring_wire_bytes)
+                                              ring_wire_bytes, shard_ids)
 
 QUANT_BITS = {"quant8": 8, "int8": 8, "quant4": 4, "int4": 4}
 DEFAULT_CHUNK = 128
@@ -203,10 +205,13 @@ def quantized_gather_payload(x, axis, *, bits: int = 8,
 
 # ---------------------------------------------------------------------------
 # Runnable ring collectives over the shard axis.  The reference runs one
-# copy per device under vmap/shard_map; here every shard is a row of one
-# stacked tensor, `d` is `torch.arange(n)`, and each per-device
-# `jnp.take(xs, i(d), axis=0)` is the gather `xs[ar, i(ar)]` on the
-# stacked (n, n, m) tensor.
+# copy per device under vmap/shard_map.  On sim every shard is a row of
+# one stacked tensor; on a rank of the shard backend x is the rank's one
+# row and the ring steps cross the bound model group's ranks.  Either
+# way `d` holds each row's shard index (collectives.shard_ids), and each
+# per-device `jnp.take(xs, i(d), axis=0)` is the gather `xs[rows, i(d)]`
+# on the (rows, n, m) tensor, so that a rank's row equals the stacked
+# result's row bit for bit.
 # ---------------------------------------------------------------------------
 
 
@@ -217,19 +222,19 @@ def _pad_to(flat, n: int):
         (flat, flat.shape[-1])
 
 
-def _sim_only(what: str) -> None:
-    if current_group() is not None:
-        raise NotImplementedError(
-            f"{what} across the shard backend's ranks is not ported yet "
-            "(ROADMAP A5b)")
+def _ring_rows(x):
+    """(n, rows, d): the ring's length (the bound group's size on a
+    rank, else x's shard axis), the row indices of x's shard axis and
+    each row's shard index."""
+    rows = torch.arange(x.shape[0], device=x.device)
+    return axis_size(x), rows, shard_ids(x)
 
 
 def ring_all_gather(x, axis=MODEL_AXIS):
-    """Ring all-gather of shard-stacked x (n, ...): returns (n, n, ...),
-    [d, j] = shard j's x on every shard d; n-1 ring steps, each a
-    collective-permute."""
-    _sim_only("ring_all_gather")
-    n = x.shape[0]
+    """Ring all-gather of shard-stacked x (rows, ...): returns (rows, n,
+    ...), [r, j] = shard j's x on the shard of row r; n-1 ring steps, each
+    a collective-permute."""
+    n, rows, d = _ring_rows(x)
     if n == 1:
         return x[:, None]
     ar = torch.arange(n, device=x.device)
@@ -239,28 +244,26 @@ def ring_all_gather(x, axis=MODEL_AXIS):
         parts.append(cur)
     # part t holds shard (d - t) % n; reorder so column j is shard j
     stacked = torch.stack(parts, dim=1)
-    return stacked[ar[:, None], (ar[:, None] - ar[None, :]) % n]
+    return stacked[rows[:, None], (d[:, None] - ar[None, :]) % n]
 
 
 def ring_reduce_scatter(x, axis=MODEL_AXIS):
-    """Ring reduce-scatter of shard-stacked x (n, ...): shard d returns
+    """Ring reduce-scatter of shard-stacked x (rows, ...): shard d returns
     slice d (length ceil(size/n), zero-padded) of the cross-shard sum of
-    its flattened payload, fp32 (n, ceil(size/n)).  n-1 steps, each
+    its flattened payload, fp32 (rows, ceil(size/n)).  n-1 steps, each
     forwarding one partial slice and adding the local contribution."""
-    _sim_only("ring_reduce_scatter")
-    n = x.shape[0]
-    flat = x.float().reshape(n, -1)
+    n, rows, d = _ring_rows(x)
+    flat = x.float().reshape(x.shape[0], -1)
     if n == 1:
         return flat
     padded, _ = _pad_to(flat, n)
-    xs = padded.reshape(n, n, -1)
-    ar = torch.arange(n, device=x.device)
+    xs = padded.reshape(x.shape[0], n, -1)
     # chunk c starts at shard c+1 with that shard's contribution; after
     # n-1 forward-and-add steps it is complete at shard c
-    buf = xs[ar, (ar - 1) % n]
+    buf = xs[rows, (d - 1) % n]
     for t in range(n - 1):
         buf = ppermute(buf, axis)
-        buf = buf + xs[ar, (ar - 2 - t) % n]
+        buf = buf + xs[rows, (d - 2 - t) % n]
     return buf
 
 
@@ -272,24 +275,22 @@ def ring_quantized_psum(x, axis=MODEL_AXIS, *, bits: int = 8,
     `dequant_accum_absmax`), then the reduced slice requantized (`qdq`)
     and ring all-gathered.  Returns x's shape and dtype.  Its error grows
     with the n-1 per-step requantizations, unlike `quantized_psum`."""
-    _sim_only("ring_quantized_psum")
     shape, dtype = x.shape, x.dtype
-    n = x.shape[0]
+    n, rows, d = _ring_rows(x)
     levels = _levels(bits)
     if n == 1:
         return qdq(x, bits=bits, chunk=chunk).to(dtype)
-    padded, size = _pad_to(x.float().reshape(n, -1), n)
-    xs = padded.reshape(n, n, -1)
-    ar = torch.arange(n, device=x.device)
+    padded, size = _pad_to(x.float().reshape(x.shape[0], -1), n)
+    xs = padded.reshape(x.shape[0], n, -1)
     # hop 1: quantized ring reduce-scatter (requantize before each send)
-    buf = xs[ar, (ar - 1) % n]
+    buf = xs[rows, (d - 1) % n]
     for t in range(n - 1):
         q, s = quantize_absmax(buf.contiguous(), levels=levels, chunk=chunk)
         q = ppermute(q, axis)
         s = ppermute(s, axis)
-        buf = dequant_accum_absmax(q, s, xs[ar, (ar - 2 - t) % n],
+        buf = dequant_accum_absmax(q, s, xs[rows, (d - 2 - t) % n],
                                    chunk=chunk)
     # hop 2: requantize the reduced slice, ring all-gather, reassemble
     buf = qdq(buf, bits=bits, chunk=chunk)
-    out = ring_all_gather(buf, axis).reshape(n, -1)[:, :size]
+    out = ring_all_gather(buf, axis).reshape(x.shape[0], -1)[:, :size]
     return out.reshape(shape).to(dtype)

@@ -23,7 +23,10 @@ shard's slice of each data-split leaf (`FSDPSpecs.scatter`), the
 forward all-gathers each weight over the data group where the ledger
 logs it (collectives.gather_data), the gather's backward hands back the
 reduce-scattered gradient, a leaf with no data-split axis has its
-gradient all-reduced over the data group, and AdamW runs on the slices.
+gradient all-reduced over the data group, every gradient is then
+all-reduced over the pod group (collectives.pod_all_reduce; the state
+is data-sharded within a pod and replicated across pods), and AdamW
+runs on the slices.
 """
 from __future__ import annotations
 
@@ -35,8 +38,8 @@ from repro_torch.core import model as M
 from repro_torch.parallel.collectives import (current_data_group,
                                               gather_data, group_reduce_data,
                                               ledger_unshared,
-                                              log_collective, psum_plain,
-                                              shard_nbytes)
+                                              log_collective, pod_all_reduce,
+                                              psum_plain, shard_nbytes)
 from repro_torch.parallel.layout import REPLICATED
 from repro_torch.parallel.zero1 import adam_consts, clip_scale
 from repro_torch.tree import tree_leaves, tree_map
@@ -203,9 +206,9 @@ def fsdp_update(grads, state, params, *, cfg, plan, specs: FSDPSpecs, lr,
         for g, f in zip(tree_leaves(grads), tree_leaves(specs.tree)):
             if f < 0:
                 group_reduce_data(g)
-    if pod_axis is not None:          # summed already: logged per leaf
+    if pod_axis is not None:
         for g, f in zip(tree_leaves(grads), tree_leaves(specs.tree)):
-            log_collective("all-reduce", pod_axis, local_nbytes(g, f, dp))
+            pod_all_reduce(g, pod_axis, local_nbytes(g, f, dp))
 
     tp_specs = M.stacked_specs(cfg, plan)
     flat_g = tree_leaves(grads)

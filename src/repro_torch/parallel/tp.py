@@ -28,9 +28,11 @@ its groups) the step runs as that rank of the mesh, the reference's
 shard_map body: its params are its model shard (1, ...), its batch its
 data rank's rows (`rank_rows`), and it binds the model and data groups
 (collectives.rank_bound) so that the syncs, the token
-count, the loss, the norm partials and ZeRO-1's / FSDP's reduce-scatter
-and all-gather run over them.  The mesh must be the groups' (data,
-model) layout; a "pod" axis has no group there (ROADMAP A5f).
+count, the loss, the norm partials, the pod all-reduce and ZeRO-1's /
+FSDP's reduce-scatter and all-gather run over them.  The mesh must be
+the groups' layout: (data, model), or (pod, data, model) on a world
+that `init_tp(tp, dp, pod=)` built; a rank then differentiates the rows
+of its own (pod, data) slot.
 """
 from __future__ import annotations
 
@@ -70,31 +72,30 @@ def rank_groups(mesh, device=None):
     g = D.current()
     if g is None:
         return None
-    if pod_axis(mesh):
-        raise NotImplementedError(
-            "the pod axis on the shard backend's ranks is not ported yet "
-            "(ROADMAP A5f): launch.dist.init_tp builds (data, model) groups "
-            "only")
-    if (mesh.shape[MODEL_AXIS], mesh.shape["data"]) != (g.tp, g.dp):
-        raise ValueError(f"mesh {mesh.shape} is not this world's tp {g.tp} "
-                         f"x dp {g.dp}")
+    have = (mesh.shape.get("pod", 1), mesh.shape["data"],
+            mesh.shape[MODEL_AXIS])
+    if have != (g.pod, g.dp, g.tp):
+        raise ValueError(f"mesh {mesh.shape} is not this world's pod "
+                         f"{g.pod} x dp {g.dp} x tp {g.tp}")
     if device is not None and torch.device(device) != g.device:
         raise ValueError(f"device {device} is not this rank's {g.device}")
     return g
 
 
 def rank_rows(batch: dict, g) -> dict:
-    """Data rank g.data_rank's rows of a global batch (the reference's
-    P("data") split of dim 0); the batch itself when `g` is None."""
+    """The rows of this rank's (pod, data) slot of a global batch (the
+    reference's P(("pod", "data")) split of dim 0: slot
+    pod_rank * dp + data_rank); the batch itself when `g` is None."""
     if g is None:
         return batch
+    slots, slot = g.pod * g.dp, g.pod_rank * g.dp + g.data_rank
     out = {}
     for k, v in batch.items():
-        n = v.shape[0] // g.dp
-        if v.shape[0] % g.dp:
+        n = v.shape[0] // slots
+        if v.shape[0] % slots:
             raise ValueError(f"a batch of {v.shape[0]} rows does not split "
-                             f"over {g.dp} data ranks")
-        out[k] = v[g.data_rank * n:(g.data_rank + 1) * n]
+                             f"over {slots} data slots")
+        out[k] = v[slot * n:(slot + 1) * n]
     return out
 
 
@@ -187,7 +188,8 @@ def build_train_step(cfg: ModelConfig, plan: SPDPlanConfig, mesh,
     dpx = dp_axes(mesh)
     # the data slots this process computes: all of them on sim, its own
     # on a rank
-    slots = (tuple(mesh.shape[a] for a in dpx) if g is None else (1,))
+    slots = (tuple(mesh.shape[a] for a in dpx) if g is None
+             else (1,) * len(dpx))
     n_slots = int(np.prod(slots))
     red = dpx if pod else "data"
     specs = {"params": M.stacked_specs(cfg, plan), "fsdp": None}

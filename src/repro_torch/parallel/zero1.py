@@ -6,8 +6,9 @@ over the data axes: the port differentiates the whole global batch at
 once (parallel/tp.py).  The update keeps the reference's steps and
 their ledger entries:
 
-  1. (multi-pod) all-reduce over "pod": logged, the gradient already
-     holds the sum;
+  1. (multi-pod) all-reduce over "pod": the optimizer state is
+     data-sharded within a pod and replicated across pods; on sim
+     logged only, the gradient already holds the sum;
   2. reduce-scatter each flattened leaf over "data": slot i owns slice i
      of every TP shard's fp32 leaf, padded to a multiple of dp;
   3. the global-grad-norm clip on the slices (spec-aware: TP-sharded
@@ -24,9 +25,11 @@ state are updated in place (the reference donates them).
 On the `shard` backend's ranks (a data group bound,
 collectives.data_group) a rank's gradients are the partials of its own
 rows, its parameters its model shard (1, ...), and its state ONE (data,
-model) slot, (1, 1, n): step 2 is a reduce-scatter over the data group,
-the norm's partials are all-reduced over the rank's groups and step 5
-all-gathers the updated slice, with the same code and ledger.
+model) slot of its pod, (1, 1, n): step 1 all-reduces the gradient over
+the pod group (collectives.pod_all_reduce), step 2 is a reduce-scatter
+over the data group, the norm's partials are all-reduced over the
+rank's groups (within its pod: every pod holds the same sums) and step
+5 all-gathers the updated slice, with the same code and ledger.
 """
 from __future__ import annotations
 
@@ -37,7 +40,7 @@ import torch.nn.functional as F
 
 from repro_torch.parallel.collectives import (all_gather,
                                               current_data_group,
-                                              log_collective, psum_plain,
+                                              pod_all_reduce, psum_plain,
                                               psum_scatter, shard_nbytes)
 from repro_torch.parallel.layout import REPLICATED
 from repro_torch.tree import tree_leaves, tree_map
@@ -108,8 +111,8 @@ def zero1_update_clipped(grads, state, params, *, specs, dp: int, lr,
     slices = []
     for g in tree_leaves(grads):
         g32 = g.float()
-        if pod_axis is not None:      # summed already: logged
-            log_collective("all-reduce", pod_axis, shard_nbytes(g32))
+        if pod_axis is not None:
+            g32 = pod_all_reduce(g32, pod_axis, shard_nbytes(g32))
         slices.append(psum_scatter(_pad_to(g32, dp), "data", dp))
 
     # ---- 3: spec-aware global norm on the slices, per (data, model) slot

@@ -116,7 +116,10 @@ class Engine:
         before waiting on the one before (F.drive_pipelined_decode), the
         host-level overlap seam of the "overlap" backend.  `groups` is a
         list of ``(tokens, pos, caches)``; returns ``[(ids, caches),
-        ...]`` token-identical to calling `decode` per group."""
+        ...]`` token-identical to calling `decode` per group.  On the
+        shard backend's ranks each group's rows split over the data ranks
+        and its ids come back through the data group, as `decode`'s (the
+        step is the backend's wrapped decode)."""
         return F.drive_pipelined_decode(self._decode(False), params,
                                         groups, depth=depth)
 

@@ -18,7 +18,8 @@ across ranks, the collectives under a model group, and the refusals.
   * what the shard engine still refuses raises NotImplementedError
     naming its ROADMAP item, inside a rank (training and Algorithm 1 run
     there: test_torch_shard_train.py, test_torch_shard_trainer.py,
-    test_torch_shard_spd.py).
+    test_torch_shard_spd.py; the overlap engine, the rings and the pod
+    axis too: test_torch_shard_overlap.py, test_torch_shard_pod.py).
 Spawns: one per layout, each running all of its cases (torch_dist.py).
 """
 import numpy as np
@@ -57,13 +58,11 @@ LAYOUTS = {(2, 1): ARCHS, (2, 2): ("smollm-360m", "opt-6.7b"),
            (4, 1): ("smollm-360m",)}
 # each refusal and the ROADMAP item its message names: the frontends
 # (no engine serves them yet), weight-only int8 on MLA and hybrid layers
-# (as on sim: the reference fails there too), the overlap engine and
-# the rings across ranks, the pod axis in a train step on the ranks,
-# and training the MoE, hybrid and MLA families (as on sim)
+# (as on sim: the reference fails there too), and training the MoE,
+# hybrid and MLA families (as on sim)
 REFUSED = {"frontend": "A4", "int8_weights_mla": "C8",
-           "int8_weights_hybrid": "C8", "overlap": "A5b", "ring": "A5b",
-           "train_pod": "A5f", "train_moe": "A3", "train_hybrid": "A3",
-           "train_mla": "A3"}
+           "int8_weights_hybrid": "C8", "train_moe": "A3",
+           "train_hybrid": "A3", "train_mla": "A3"}
 
 
 def _cfg(arch):

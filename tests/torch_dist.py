@@ -6,8 +6,11 @@ a rank.  `run(rank, job)` builds the TP groups, loads the canonical trees
 the parent saved (`job["params"]`, a torch.save'd {arch: tree}) and runs
 `job["cases"]` in order, each a dict with a "kind" (a function below)
 and its arguments; it returns {case name: result} of plain Python and
-numpy values.  Every LLM it builds checks, at each admission and decode
+numpy values.  A served case loads `case["engine"]` ("shard" unless
+given; "overlap" is the shard engine plus the overlap seams in a world
+of ranks).  Every LLM it builds checks, at each admission and decode
 step, that all ranks took the same tokens (`ShardBackend.agree`).
+`job["pod"]` adds a pod factor to the world (pod x dp x tp ranks).
 """
 import numpy as np
 import torch
@@ -30,7 +33,7 @@ def load(cfg, canon, engine, tp, dp=1, **kw):
     kw = dict(dict(spd=0.25, cache_len=64, max_batch=4, q_chunk=64), **kw)
     llm = LLM.load(cfg, tp=tp, dp=dp, engine=engine, params=canon,
                    device="cpu", **kw)
-    if engine == "shard":
+    if llm.engine.backend.multi_process:
         llm.engine.backend.check_agreement = True
     return llm
 
@@ -181,7 +184,7 @@ def start(job, **kw):
 
     def go():
         try:
-            box["ranks"] = spawn(run, job["tp"] * job["dp"], backend="gloo",
+            box["ranks"] = spawn(run, world(job), backend="gloo",
                                  device="cpu", args=(job,), **kw)
         except BaseException as e:                  # noqa: BLE001
             box["error"] = e
@@ -197,19 +200,25 @@ def start(job, **kw):
     return wait
 
 
+def world(job) -> int:
+    """The job's world size: pod x dp x tp (no pod factor: dp x tp)."""
+    return max(job.get("pod", 0), 1) * job["tp"] * job["dp"]
+
+
 def run(rank, job):
     from repro_torch.launch.dist import init_tp
 
     torch.set_num_threads(1)
-    init_tp(job["tp"], job["dp"], backend="gloo", device="cpu",
-            timeout_s=60)
+    init_tp(job["tp"], job["dp"], job.get("pod", 0), backend="gloo",
+            device="cpu", timeout_s=60)
     canon = torch.load(job["params"]) if job.get("params") else {}
     out = {}
     for case in job["cases"]:
         kind = case["kind"]
         if kind in LLM_CASES:
-            llm = load(case["cfg"], canon[case["arch"]], "shard", job["tp"],
-                       job["dp"], **case.get("load", {}))
+            llm = load(case["cfg"], canon[case["arch"]],
+                       case.get("engine", "shard"), job["tp"], job["dp"],
+                       **case.get("load", {}))
             out[case["name"]] = LLM_CASES[kind](llm, case)
             del llm
         else:
@@ -280,9 +289,7 @@ def refusals(job, case, canon):
     from repro_torch.config.base import replace
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_test_mesh
-    from repro_torch.parallel import compression as C
     from repro_torch.parallel import tp as TP
-    from repro_torch.parallel.collectives import ModelGroup, model_group
     tp, dp = job["tp"], job["dp"]
     base = replace(get_config("smollm-360m", reduced=True), dtype="float32")
     kw = dict(tp=tp, dp=dp, engine="shard", device="cpu", cache_len=64)
@@ -291,15 +298,6 @@ def refusals(job, case, canon):
         return replace(get_config(name, reduced=True), dtype="float32",
                        **cfg_kw)
 
-    def shard_ctx():
-        from repro_torch.launch.dist import current
-        g = current()
-        return model_group(ModelGroup(g.tp, g.model_rank, g.model_group))
-
-    def ring():
-        with shard_ctx():
-            C.ring_quantized_psum(torch.zeros(1, 256))
-
     attempts = {
         "frontend": lambda: LLM.load(
             replace(base, frontend_dim=16, frontend_len=4), **kw),
@@ -307,21 +305,17 @@ def refusals(job, case, canon):
             reduced("deepseek-v2-lite-16b", weight_dtype="int8"), **kw),
         "int8_weights_hybrid": lambda: LLM.load(
             reduced("hymba-1.5b", weight_dtype="int8"), **kw),
-        "overlap": lambda: LLM.load(base, tp=tp, engine="overlap",
-                                    device="cpu"),
-        "ring": ring,
         "world": lambda: LLM.load(base, tp=2 * tp, dp=dp, engine="shard",
                                   device="cpu", cache_len=64),
     }
 
-    def train(cfg, pod=0):
+    def train(cfg):
         return lambda: TP.build_train_step(
-            cfg, None, make_test_mesh(dp, tp, pod=pod), TP.TrainStepConfig(),
+            cfg, None, make_test_mesh(dp, tp), TP.TrainStepConfig(),
             device="cpu")
 
-    # the pod axis has no group on the ranks; the families that no
-    # engine trains yet refuse on the ranks as on sim
-    attempts["train_pod"] = train(base, pod=2)
+    # the families that no engine trains yet refuse on the ranks as on
+    # sim
     for fam, arch in (("moe", "qwen2-moe-a2.7b"), ("hybrid", "hymba-1.5b"),
                       ("mla", "deepseek-v2-lite-16b")):
         attempts[f"train_{fam}"] = train(reduced(arch))
@@ -564,3 +558,142 @@ def grads_off_thread(job, case, canon):
 LLM_CASES["algorithm1"] = algorithm1
 CASES.update(train=train, train_ckpt=train_ckpt, train_cli=train_cli,
              grads_off_thread=grads_off_thread)
+
+
+# ---------------------------------------------------------------------------
+# The overlap engine and the rings on the ranks (test_torch_shard_overlap.py)
+# and the groups of a (pod, data, model) world (test_torch_shard_pod.py,
+# which trains there through `train` with a pod factor in its kw)
+# ---------------------------------------------------------------------------
+
+#: the reference's LatencyModel defaults, passed explicitly to both
+#: packages (test_torch_overlap.py)
+REF_LINK, REF_LAUNCH = 50e9, 0.1
+
+
+def priced_tuples(led):
+    """Ledger rows with their priced times: ledger_tuples + (est_us,
+    fixed_us)."""
+    return [t + (e.est_us, e.fixed_us)
+            for t, e in zip(ledger_tuples(led), led)]
+
+
+def step_inputs(vocab, rows, seed=0):
+    """A prefill batch (rows, 16) with real lengths 7 + row, and a
+    decode step's tokens after it."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, vocab, (rows, 16)).astype(np.int64)
+    lengths = 7 + np.arange(rows, dtype=np.int64)
+    nxt = rng.integers(0, vocab, (rows, 1)).astype(np.int64)
+    return toks, lengths, nxt
+
+
+def overlap_steps(llm, case):
+    """One prefill and one decode step through the engine's backend
+    (`backend.wrap` of forward's steps: the overlap region), under a
+    ledger priced at the reference's link (tp = the model group's):
+    the priced rows, the backend's class and its overlaps_comm."""
+    from repro_torch.parallel.collectives import LatencyModel
+    from repro_torch.runtime import forward as F
+
+    b, tp = llm.engine.backend, llm.tp
+    pre = b.wrap(*F.prefill_step(llm.cfg, llm.plan, tp=tp, q_chunk=64,
+                                 cache_len=48))
+    dec = b.wrap(*F.decode_step(llm.cfg, llm.plan, tp=tp))
+    toks, lengths, nxt = step_inputs(llm.cfg.vocab_size, case["rows"])
+    lat = LatencyModel(link_bytes_per_s=REF_LINK, launch_us=REF_LAUNCH)
+    with collective_ledger(latency=lat, tp=tp) as led:
+        _, caches = pre(llm.params, toks, lengths)
+        ids, _ = dec(llm.params, nxt, lengths, caches)
+    return {"ledger": priced_tuples(led), "ids": ids.tolist(),
+            "backend": type(b).__name__, "overlaps_comm": b.overlaps_comm}
+
+
+def pipelined(llm, case):
+    """`Engine.decode_pipelined` over `case["groups"]` decode groups of
+    `case["rows"]` rows against serial `decode` of the same groups:
+    {"ids": serial ids per group, "same": pipelined equal at depth 1, 2
+    and 4, ids and caches}."""
+    eng, params = llm.engine, llm.params
+    rows = case["rows"]
+    toks = np.random.default_rng(0).integers(0, llm.cfg.vocab_size,
+                                             (rows, 1))
+    pos = np.arange(rows, dtype=np.int64)
+
+    def groups():
+        return [(toks + i, pos, eng.blank_caches(rows, 32))
+                for i in range(case["groups"])]
+
+    serial = [eng.decode(params, *g) for g in groups()]
+    same = True
+    for depth in (1, 2, 4):
+        piped = eng.decode_pipelined(params, groups(), depth=depth)
+        for (ts, cs), (tq, cq) in zip(serial, piped):
+            same = same and torch.equal(ts, tq) and all(
+                torch.equal(a[k], c[k]) for a, c in zip(cs, cq) for k in a)
+    return {"ids": [ts.tolist() for ts, _ in serial], "same": same}
+
+
+LLM_CASES.update(overlap_steps=overlap_steps, pipelined=pipelined)
+
+
+def ring_input(n, size, seed):
+    """The (n, size) fp32 payload of a ring case, scaled by 2."""
+    return (np.random.default_rng(seed).standard_normal((n, size))
+            * 2.0).astype(np.float32)
+
+
+def rings(job, case, canon):
+    """The three ring collectives on this rank's row of each payload
+    (`case["payloads"]`: (size, seed) pairs), the ring over the model
+    group, or over the world (`case["over"] == "world"`, one ring of
+    every rank): per payload and bits 8 / 4 the quantized ring's row and
+    ledger, then the reduce-scatter's and the all-gather's rows and
+    ledgers.  Returns {"n": the ring's length, "rows": [...]}."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.dist import current
+    from repro_torch.parallel import compression as C
+    from repro_torch.parallel.collectives import ModelGroup, model_group
+
+    g = current()
+    if case.get("over") == "world":
+        ctx = ModelGroup(g.world, g.rank, dist.group.WORLD)
+    else:
+        ctx = ModelGroup(g.tp, g.model_rank, g.model_group)
+    out = []
+    for size, seed in case["payloads"]:
+        x = torch.from_numpy(ring_input(ctx.size, size, seed))
+        mine = x[ctx.index:ctx.index + 1]
+        calls = [(f"q{bits}", lambda v, b=bits: C.ring_quantized_psum(
+            v, bits=b)) for bits in (8, 4)]
+        calls += [("rs", C.ring_reduce_scatter), ("ag", C.ring_all_gather)]
+        for name, fn in calls:
+            with model_group(ctx), collective_ledger() as led:
+                y = fn(mine)
+            out.append((name, size, y.numpy(), ledger_tuples(led)))
+    return {"n": ctx.size, "rows": out}
+
+
+def layout(job, case, canon):
+    """This rank's place in the world and the world ranks of each of its
+    groups (None where it has none)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.dist import current
+
+    g = current()
+
+    def ranks(grp):
+        return (None if grp is None else
+                sorted(dist.get_process_group_ranks(grp)))
+
+    return {"rank": g.rank, "pod_rank": g.pod_rank,
+            "data_rank": g.data_rank, "model_rank": g.model_rank,
+            "pod": g.pod, "model": ranks(g.model_group),
+            "data": ranks(g.data_group), "pod_group": ranks(g.pod_group),
+            "pod_data": ranks(g.pod_data_group),
+            "replica": ranks(g.replica_group)}
+
+
+CASES.update(rings=rings, layout=layout)
