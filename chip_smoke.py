@@ -98,16 +98,18 @@
    and chunk calls at D 128, groups 1 and 8 (serving positions, a full
    table, holes); the fused kept sync at (2, 4096) and (2, 4096 x 512);
    B3 alone on the logits gathers (2, 16000) and (2, 25136).
-12. llama2-7b at full width (32 layers, d 4096, 6.74 B parameters, bf16,
-   random weights from seed 0) through LLM.load(tp=2, spd=0.25, quant8
+12. llama2-7b at full width on 16 of its 32 layers (d 4096, 6.74 B
+   parameters at full depth; PAPER_LAYERS cuts the depth of 12-15, 20,
+   its alg1 cut and its shard paths in 22, for the time limit), bf16,
+   random weights from seed 0, through LLM.load(tp=2, spd=0.25, quant8
    kept syncs and logits gather, flash prefill): the dense path as in 3
    (counts zeroed before and read after, sync counts, plain-sync tokens,
    a profile), the paged path as in 4 (a preemption and a warm
    admission through the chunk kernel), and the teacher-forced checks of
    5 in bf16 at full width and in fp32 on layers 6-9.
 13. Algorithm 1 on llama2-7b: the sensitivity sweep over
-   calibration_batches(32000, 4 samples of 128 tokens, 2 batches), 33
-   evaluations x 2 batches x 32 layers through B1, and again with the
+   calibration_batches(32000, 4 samples of 128 tokens, 2 batches), 17
+   evaluations x 2 batches x 16 layers through B1, and again with the
    plain attention (perplexities within SWEEP_PPL_RTOL); then
    LLM.apply_comm_policy(n_spd=8, tau1, tau2 at the 25th and 75th
    percentiles of the sensitivities) must give a plan with dropped,
@@ -129,7 +131,8 @@
    Prints each part's wall seconds, ms per distill step, the peak
    memory and every block's losses.  B1 at the distill step's shape is
    then checked and timed for the kernels line.
-14. opt-6.7b at full width (LayerNorm, learned positions, biases, ReLU)
+14. opt-6.7b at full width on 16 of its 32 layers (PAPER_LAYERS; LayerNorm,
+   learned positions, biases, ReLU)
    through the same LLM.load: the dense path as in 3, a profile, the
    teacher-forced prefill check, and decode logits after teacher-forcing
    its tokens against one exact-length prefill (learned positions read
@@ -163,14 +166,14 @@
    logits within 1e-3.  Prints acceptance, tokens per round, decode ms
    per token against plain, prefill ms chunked against whole, the
    calibrated winner and its trials, and peak memory.
-16. Training: SmolLM-360M at full width and 8 of its 32 layers (bf16,
+16. Training: SmolLM-360M at full width and 3 of its 32 layers (bf16,
    random weights from seed 0) through the train CLI's
    make_trainer on the simulated (data 2, model 2) mesh, plan
-   first_k(8, 2), sequence 4096, batch 8 in 4 microbatches of 2, remat,
+   first_k(3, 1), sequence 4096, batch 8 in 4 microbatches of 2, remat,
    q_chunk 2048, lr 1e-3 (cosine, 2 warm-up steps), clip 1.0, weight
    decay 0.1, the batches of make_batch_iterator(49152, 8, 4096, seed=0):
    (a) ZeRO-1 for 12 steps with every kernel's count zeroed before and
-   read after (B1 must launch 2 x 8 layers x 4 microbatches a step,
+   read after (B1 must launch 2 x 3 layers x 4 microbatches a step,
    forward and remat recompute under autograd; nothing else), the loss
    must fall (mean of the last 4 below the first 4); step ms, tokens/s,
    MFU (formula printed), peak memory; one more step under the profiler
@@ -192,30 +195,63 @@
    train shape q (36, 4096, 64) in fp32 and bf16 against its plain
    version, every output row within a relative L2 bound, and the bf16
    call timed beside SDPA.
+16f. The families' training on the same simulated mesh (ROADMAP A3):
+   mamba2-370m (48 layers), qwen2-moe-a2.7b (2 layers), deepseek-v2-
+   lite-16b (2: the dense layer 0 and a MoE layer) and hymba-1.5b (32,
+   its global layer 0 among them), each at full width through
+   make_trainer, bf16, random weights from seed 0, ZeRO-1, half the
+   blocks dropped (mamba2 none), every kept sync at quant8, sequence 512,
+   batch 4 in 2 microbatches, remat: 3 steps with every kernel counted
+   (B8 once an SSM or hybrid layer a microbatch in the forward and again
+   in the remat recompute, B1 as in 16, the fused kept sync once a
+   quantized kept sync of the forward and of the recompute's attention
+   syncs, nothing else), each step's loss (with the MoE aux), aux, grad
+   norm and ms, the peak memory; then each family's fp32 cut (2 layers,
+   qwen2-moe 1; batch 2 x 256), at quant8 and at exact kept syncs: 2
+   steps with the kernels and 2 with their plain versions, the MoE
+   routing replayed (TrainRoutePin): step 1's loss and grad norm within
+   1e-4 and its gradients leaf by leaf within FAMILY_CUT_GRAD_L2, their
+   sign disagreements counted; with exact syncs step 2 within 1e-4 and
+   the params after within FAMILY_CUT_PAST.  Then B8 under autograd at
+   mamba2's and hymba's train shapes (x (4, 512, 16 | 15, 64)), bf16:
+   the forward (the kernel) and the backward (the plain VJP) against the
+   plain version differentiated directly within the relative L2 bounds
+   B8_FWD_L2 and B8_GRAD_L2, the forward, the backward and the plain
+   forward timed (kernels-line rows "B8 under autograd").
 17. The MoE and hybrid families' kernel shapes: B8 at hymba-1.5b's
    prefill (x (2, S, 15, 64), N 16, one group, chunk 256; S 300 and
    1100) in bf16 and fp32, B1 at qwen2-moe-a2.7b's (q (16, 512, 128)),
    the fused kept sync at (2, 2048) and (2, 1600), B3 on (2, 75968) and
    (2, 16001); each against its plain version and timed.
-18. qwen2-moe-a2.7b at full width on 12 of its 24 layers (d 2048, 60
+18. qwen2-moe-a2.7b at full width on 8 of its 24 layers (d 2048, 60
    routed + 4 shared experts, top-4, 14.3 B parameters at full depth;
    FAMILY_LAYERS cuts the depth of 18, 19, 21 and their shard paths in
-   22 since PR 28, for the time limit), bf16, random weights from seed
-   0, through the same LLM.load: the dense path as in 3 (B1 12 x 4, the
-   fused sync 21 a forward, qdq 1), a profile; the dense placement
-   freed, the paged path as in 4; the teacher-forced checks of 5 in
-   bf16 at full width and fp32 on layers 4-7, the MoE routing of the
-   kernel's forward replayed in the plain one (RoutePin).
-19. hymba-1.5b at full width on 18 of its 32 layers (d 1600, 25
-   attention and 25 SSM heads, a 1024-token window but on layers 0 and
-   15) on dense caches (cache_len 2048): prompts of 17, 64, 200 and 1100
-   tokens at their own length, 16 greedy tokens each; B8 18 x 4, the
+   22, for the time limit), bf16, random weights from seed
+   0, through the same LLM.load: the dense path as in 3 (B1 8 x 4, the
+   fused sync per kept sync and forward, qdq 1), a profile; the dense
+   placement freed, the paged path as in 4; the teacher-forced checks of
+   5 in bf16 at full width and fp32 on layers 4-7, the MoE routing of the
+   kernel's forward replayed in the plain one (RoutePin).  Then
+   Algorithm 1 on the same weights (family_alg1): the sweep,
+   apply_comm_policy (n_spd = L // 4, at least 3; tau1 and tau2 at the
+   25th and 75th percentiles: dropped, quant8 and exact syncs), its plan
+   served, then apply_spd ("ZS", "B2B", "HG"; one block a tier, 4
+   epochs) with B1 counted by part (sweep, capture, distillation) and
+   each part's wall seconds, the groupings the identity on MoE layers,
+   its plan served; each served plan's greedy tokens equal to a rerun
+   on the quantized collectives' plain versions.
+19. hymba-1.5b at full width on 8 of its 32 layers (d 1600, 25
+   attention and 25 SSM heads, a 1024-token window but on layer 0) on
+   dense caches (cache_len 2048): prompts of 17, 64, 200 and 1100
+   tokens at their own length, 16 greedy tokens each; B8 8 x 4, the
    fused sync per kept sync and forward, qdq 1, B1 and B2 0; plain-sync tokens; a profile; then
    as in 10 in bf16 and fp32 on the 1100-token prompt (its decode runs
    on the windowed layers' rolling buffers); then paged through the
    gather -> dense -> scatter fallback (16-token pages, a pool of 512
    pages: the global layers' K/V paged, the windowed K/V, SSM state and
-   conv tails dense per slot): the dense tokens, B8 72.
+   conv tails dense per slot): the dense tokens, B8 32.  Then
+   Algorithm 1 as in 18 (B8 in every evaluation; the groupings the
+   identity on hybrid layers).
 20. llama2-7b's int8 variants on its canonical weights (after 15, the
    llama placements freed): kv_dtype="int8", then int8 KV and
    weight_dtype="int8": the dense path as in 3 (B1 128, the syncs as
@@ -224,7 +260,7 @@
    bf16 path of the same weights within TF_INT8_REL, and the paged path
    through the fallback: on a 128-page pool the dense tokens, on the
    40-page pool a preemption and every page back.
-21. deepseek-v2-lite-16b at full width on 14 of its 27 layers (d 2048,
+21. deepseek-v2-lite-16b at full width on 10 of its 27 layers (d 2048,
    MLA with 16 heads (8 a shard) and a 512-wide latent, 64 routed + 2
    shared experts, top-6, a dense first layer; 15.71 B parameters at
    full depth), bf16,
@@ -236,7 +272,10 @@
    absorbed decode against one exact-length prefill with routing pinned
    token by token (a capacity that holds every assignment), fp32 on
    layers 5-8 and bf16 at full width.  Before it, B3 alone on
-   deepseek's logits gather (2, 51200).
+   deepseek's logits gather (2, 51200).  Then Algorithm 1 as in 18 (no
+   B1: MLA's prefill takes the plain attention), and the dense MLA
+   layer 0 grouped one head a unit on its captured block input: a
+   partition of the 16 heads over the two shards (supported).
 22. The shard engine (one process per TP shard, launch.dist.spawn):
    (a) NCCL at the card count, one rank a card, tp = min(cards, 4): on
    one card a world of 1 on purpose (tp 1, no wire), and it says so;
@@ -300,7 +339,7 @@
    pair), deepseek-v2-lite-16b (21) dense and paged through the fallback
    (a 128-page pool): the same tokens on both ranks, rank 0's ledger
    equal to sim's, the kernels counted as on the paths above (B1, B2
-   and B8 as on sim: B8 18 x 4 on hymba, 48 x 4 on mamba2, one shard a
+   and B8 as on sim: B8 8 x 4 on hymba, 48 x 4 on mamba2, one shard a
    rank), each rank's load time, decode ms a token, card peak and host
    memory printed as it loads.  Each bf16 path is served a second time
    with the quantized collectives' plain versions on both ranks: tokens
@@ -314,7 +353,16 @@
    the family's width, and the MoE routing pinned to sim's run (a
    flipped code can flip a near-tied top-k choice): the same tokens on
    both ranks and the logits within the 5% bound of sim's up to the
-   first argmax that parts.  (c) Four ranks on card 0 over gloo (tp 2 x
+   first argmax that parts.  In the same spawn, on hymba's weights,
+   apply_comm_policy at 19's n_spd and thresholds (B8 in every
+   evaluation of the sweep, on each rank's shard): the same plan and
+   ranking on both ranks, the perplexities within SWEEP_PPL_RTOL of
+   19's, the tiers 19's wherever the perplexities' spread cannot move
+   them (the plan 19's, or parted only at such a near-tie), the wall
+   seconds beside sim's; then apply_spd at 19's recovery thresholds:
+   the same plan on both ranks, its distillation through B8's autograd
+   Function (its forward the kernel) once a step of each distilled
+   hybrid block on each rank, finite losses.  (c) Four ranks on card 0 over gloo (tp 2 x
    dp 2, PR 28) train 16's model through make_trainer(engine="shard")
    at 16's settings: ZeRO-1 for SHARD_TRAIN_STEPS steps, timed (ms a
    step, tokens/s of a host-staged wire); a fault before step 4 and the
@@ -324,7 +372,11 @@
    x 512) against sim's run of it in 16: the same losses and grad norms
    on every rank, step 1's loss within SHARD_TRAIN_LOSS_RTOL of 16 (a)'s,
    FSDP's within TRAJ_RTOL of ZeRO-1's, quant8's within QUANT_LOSS_RTOL,
-   the cut within SHARD_TRAIN_CUT_RTOL; B1 on every rank 2 x layers x
+   the cut within SHARD_TRAIN_CUT_RTOL; then qwen2-moe at 16f's depth
+   and settings for 2 ZeRO-1 steps (each rank routing its own data
+   slot's rows), step 1's loss within SHARD_TRAIN_LOSS_RTOL of 16f's sim
+   run, B1 as on sim and the send and receive kernels where sim launches
+   the fused sync, on every rank; B1 on every rank 2 x layers x
    microbatches x steps, and on the quant8 steps the send and receive
    kernels once a quantized kept sync and microbatch (the remat
    recompute re-runs the attention syncs).  Then the send and receive kernels at one rank's
@@ -1150,21 +1202,28 @@ MAIN_PATH_KERNELS = ("flash_attention_bhsd", "qdq_absmax",
 
 
 #: the MoE, MLA and hybrid families run at full width on their first
-#: layers since PR 28 (sim and the shard engine alike), so that the
-#: shard phase's Algorithm 1 and training fit the run's time limit:
-#: qwen2-moe 12 of 24, deepseek 14 of 27, hymba 18 of 32 (its global
-#: attention layers 0 and 15 kept)
-FAMILY_LAYERS = {"qwen2-moe-a2.7b": 12, "deepseek-v2-lite-16b": 14,
-                 "hymba-1.5b": 18}
+#: layers (sim and the shard engine alike), so that the run with the
+#: families' training and Algorithm 1 fits its time limit: qwen2-moe 8
+#: of 24, deepseek 10 of 27, hymba 8 of 32 (its global attention layer
+#: 0 kept)
+FAMILY_LAYERS = {"qwen2-moe-a2.7b": 8, "deepseek-v2-lite-16b": 10,
+                 "hymba-1.5b": 8}
+#: the paper's 7B models at full width on 16 of their 32 layers (sim
+#: and the shard engine alike; every check counts from the config): at
+#: 32 the run took 1122.9 s after the build on a slow host, too near its
+#: limit
+PAPER_LAYERS = {"llama2-7b": 16, "opt-6.7b": 16}
 
 
 def model_cfg(arch):
-    """`arch`'s config at full width, cut to FAMILY_LAYERS where named."""
+    """`arch`'s config at full width, cut to FAMILY_LAYERS or
+    PAPER_LAYERS where named."""
     from repro_torch.config.base import replace
     from repro_torch.configs import get_config
     cfg = get_config(arch)
-    if arch in FAMILY_LAYERS:
-        cfg = replace(cfg, n_layers=FAMILY_LAYERS[arch])
+    layers = FAMILY_LAYERS.get(arch) or PAPER_LAYERS.get(arch)
+    if layers:
+        cfg = replace(cfg, n_layers=layers)
     return cfg
 
 
@@ -2319,9 +2378,9 @@ def layer_outputs(fn):
     outs, orig = [], B.block_seq
 
     def spy(*a, **kw):
-        out, cache = orig(*a, **kw)
-        outs.append(out[0].float())
-        return out, cache
+        res = orig(*a, **kw)
+        outs.append(res[0][0].float())
+        return res
 
     B.block_seq = spy
     try:
@@ -2789,8 +2848,8 @@ def student_grads(torch, cfg, kind, tp, split, x, out_t):
     xs = x[None].expand((tp,) + tuple(x.shape))
     pos = torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
     p, leaves = simtp.grad_leaves(split)
-    out, _ = B.block_seq(cfg, kind, M._gqa_layout(cfg, tp), p, xs, pos,
-                         drop=True)
+    out, _, _ = B.block_seq(cfg, kind, M._gqa_layout(cfg, tp), p, xs, pos,
+                            drop=True)
     d = (out - out_t).float()
     return tree_leaves(simtp.grads_of((d * d).flatten(1).mean(1).sum(),
                                       split, leaves))
@@ -2878,7 +2937,7 @@ def recovery_phase(torch, np, llm, prompts, sweep_res, card):
     sorted sensitivities of the N_SPD cheapest blocks of `sweep_res` (the
     same sweep apply_spd repeats), so that two blocks are ISB, two ESB
     and the rest SB.  B1's launches are counted part by part (the sweep;
-    the capture, 2 batches x 32 layers; 2 per distill step, teacher and
+    the capture, 2 batches x L layers; 2 per distill step, teacher and
     student) and must be what the code implies.  Every distilled block's
     mean loss over its last epoch must be below its first epoch's, every
     ESB block's grouping supported and a partition of the heads; then
@@ -3661,9 +3720,10 @@ def spec_phase(torch, np, llama, sweep_res, card):
 
 TRAIN_ARCH = "smollm-360m"
 # full width, cut from 32 layers to 16 since the MoE and hybrid paths
-# came (the phase took ~240 s at 32), and to 8 since the shard phase
-# serves every family (it took ~125 s at 16)
-TRAIN_LAYERS = 8
+# came (the phase took ~240 s at 32), to 8 since the shard phase serves
+# every family (it took ~125 s at 16), and to 3 since the families train
+# (16f; 4 left the run ~110 s from its limit on a slow host)
+TRAIN_LAYERS = 3
 TRAIN_KW = dict(tp=2, dp=2, batch=8, seq=4096, microbatches=4, q_chunk=2048,
                 lr=1e-3, spd=0.25, dtype="bfloat16", attn_backend="pallas",
                 warmup=2, seed=0)
@@ -4086,6 +4146,698 @@ def train_phase(torch, np, card):
 
 
 # ---------------------------------------------------------------------------
+# 16f: the families' training on sim (ROADMAP A3): mamba2, qwen2-moe,
+# deepseek and hymba at full width, bf16, through the train CLI's
+# make_trainer; their fp32 cuts against the plain versions; B8 under
+# autograd at the train shape
+# ---------------------------------------------------------------------------
+
+#: each family's depth in 16f at full width.  ZeRO-1 on sim holds ~18
+#: bytes a parameter (a bf16 parameter, an fp32 gradient accumulator,
+#: the fp32 master and two fp32 moments): qwen2-moe's 2 layers are 1.76 B
+#: parameters (~32 GB of state), deepseek's 2 (the dense layer 0 and a
+#: MoE layer) 1.09 B (~20 GB), hymba's 32 1.23 B (~22 GB), mamba2's 48
+#: 0.42 B (~8 GB); activations (remat) on top
+FAMILY_TRAIN_LAYERS = {"mamba2-370m": 48, "qwen2-moe-a2.7b": 2,
+                       "deepseek-v2-lite-16b": 2, "hymba-1.5b": 32}
+#: tp 2 x dp 2 simulated, half the blocks dropped (none on mamba2: one
+#: sync a block), every kept sync at quant8 (the fused kept sync under
+#: autograd, identity backward), sequence 512, batch 4 in 2 microbatches
+FAMILY_TRAIN_KW = dict(tp=2, dp=2, batch=4, seq=512, microbatches=2,
+                       q_chunk=512, lr=1e-3, spd=0.5, comm="quant8",
+                       dtype="bfloat16", attn_backend="pallas", warmup=0,
+                       seed=0)
+FAMILY_TRAIN_STEPS = 3
+#: the fp32 cuts: 2 layers at full width (qwen2-moe 1: its fp32 state
+#: is 20 bytes a parameter), batch 2 x 256, 2 steps with the kernels and
+#: 2 with their plain versions (the plain attention, the plain scan, the
+#: quantized collectives' plain versions), MoE routing replayed, once at
+#: each of FAMILY_CUT_COMMS' kept-sync levels.  Step 1's loss and grad
+#: norm (the kernels' forward and backward on the same parameters)
+#: within FAMILY_CUT_RTOL, its gradients leaf by leaf within
+#: FAMILY_CUT_GRAD_L2.  With exact syncs step 2 too, and at most
+#: FAMILY_CUT_PAST of the params past 1e-5 of their leaf's largest after
+#: the steps.  At quant8 step 2 and the params are printed, not held: a
+#: last-ulp difference flips a code at a rounding boundary, which moves
+#: a synced element by a quant step (1/127 of its chunk's largest) in
+#: one run only.  Measured (H100, 700 W): with exact syncs step 2 within
+#: 1.9e-6 and 0.001-0.244% of the params past, at quant8 up to 2.3e-4
+#: and 4-38%, with step 1's sign disagreements above 8x the leaf's RMS
+#: difference at most 165 elements in either: the quantizer, not
+#: AdamW's sign-like first step on noise-level gradients
+FAMILY_CUT_LAYERS = {"mamba2-370m": 2, "qwen2-moe-a2.7b": 1,
+                     "deepseek-v2-lite-16b": 2, "hymba-1.5b": 2}
+FAMILY_CUT_KW = dict(batch=2, seq=256, microbatches=1, q_chunk=256,
+                     dtype="float32")
+FAMILY_CUT_STEPS = 2
+FAMILY_CUT_RTOL = 1e-4
+#: each cut runs at FAMILY_TRAIN_KW's quant8 kept syncs and again at
+#: exact ones, which leave the kernels' summation order as the only
+#: difference (no quant8 code to flip)
+FAMILY_CUT_COMMS = ("quant8", "exact")
+#: step 1's gradients, leaf by leaf: each leaf's relative L2 distance
+#: from the plain run's.  Exact: summation order (measured worst 1.5e-5,
+#: a 15-element leaf); quant8: a flipped code's quant step on top
+#: (measured worst 1.2e-3, hymba's head)
+FAMILY_CUT_GRAD_L2 = {"quant8": 1e-2, "exact": 1e-4}
+FAMILY_CUT_PAST = 0.01
+#: a gradient element counts as above the noise past this many times
+#: its leaf's RMS kernel-plain difference
+GRAD_NOISE_X = 8
+#: B8 under autograd at a train step's shape (a microbatch: tp 2 x 2
+#: rows = 4 streams, S 512): mamba2's (16 heads a shard of P 64, N 128)
+#: and hymba's (15 heads a shard, N 16), bf16.  The forward is the
+#: kernel: y within SSD_BF16_Y_REL of the largest |y| of the plain
+#: forward's (ssd_phase's bound), its relative L2 error within
+#: B8_FWD_L2 (one bf16 rounding, 2^-8, doubled).  The backward is the
+#: plain version's VJP recomputed from the same saved inputs, so each
+#: gradient's relative L2 distance from the plain version's own
+#: autograd gradient is the order of the same products: B8_GRAD_L2
+B8_TRAIN_SHAPES = (("mamba2-370m", dict(bt=4, h=16, p=64, n=128, g=1,
+                                        chunk=256)),
+                   ("hymba-1.5b", dict(bt=4, h=15, p=64, n=16, g=1,
+                                       chunk=256)))
+B8_TRAIN_S = 512
+B8_FWD_L2 = 2.0 ** -7
+B8_GRAD_L2 = 1e-5
+
+
+def family_cfg(arch, layers, **kw):
+    """`arch` at full width, `layers` deep (a MoE model keeps its dense
+    first layers within them)."""
+    import dataclasses
+    from repro_torch.config.base import replace
+    from repro_torch.configs import get_config
+    cfg = replace(get_config(arch), n_layers=layers, **kw)
+    if cfg.moe is not None:
+        cfg = replace(cfg, moe=dataclasses.replace(
+            cfg.moe, n_dense_layers=min(cfg.moe.n_dense_layers, layers)))
+    return cfg
+
+
+class TrainRoutePin(RoutePin):
+    """RoutePin between two training runs of one model: the second routes
+    with the first's recorded expert choice, its gates recomputed from
+    its own router (so the router keeps its gradient), and counts the
+    choices it would have made otherwise.  The aux is the run's own: its
+    gradient goes through the router's probabilities only, and its value
+    is the pinned one where no choice differs.  A training step routes
+    in the forward, for the aux term and again in the remat recompute,
+    in the same order in both runs."""
+
+    def replay(self):
+        import torch
+        it = iter(self.kept)
+
+        def rep(orig, h, w, top_k, n_routed):
+            _, own, aux = orig(h, w, top_k, n_routed)
+            idx = next(it)[1]
+            same = own.sort(-1).values == idx.sort(-1).values
+            self.flips += int((~same).sum())
+            self.choices += same.numel()
+            probs = torch.softmax(torch.matmul(
+                h.float(), w.float())[..., :n_routed], dim=-1)
+            gates = probs.gather(-1, idx)
+            return gates / gates.sum(-1, keepdim=True).clamp_min(1e-9), \
+                idx, aux
+        return self._patched(rep)
+
+
+def train_launches_want(cfg, plan, nmb, steps):
+    """A train step's kernel launches on sim: B1 forward and remat
+    recompute on each full-causal attention layer, B8 the same on each
+    SSM or hybrid layer, the fused kept sync once a quantized kept sync
+    of the forward and once a kept non-SSM block's attention sync of the
+    recompute (it stops before a block's last sync), a microbatch."""
+    from repro_torch.core.layer_kinds import layer_kinds
+    kinds = layer_kinds(cfg)
+    b1 = sum(k.mixer == "gqa" and not k.window for k in kinds)
+    b8 = sum(k.mixer in ("ssm", "hybrid") for k in kinds)
+    kept = plan_kept_syncs(cfg, plan)
+    recomputed = sum(not plan.drop_mask[i] and k.mixer != "ssm"
+                     and plan.block_mode(i) in ("quant8", "quant4")
+                     for i, k in enumerate(kinds))
+    m = nmb * steps
+    return {"flash_attention_bhsd": 2 * b1 * m, "ssd_scan": 2 * b8 * m,
+            "quantized_psum_absmax": (kept + recomputed) * m}
+
+
+def family_trainer(root, cfg, label, params, steps, **kw):
+    import os
+    from repro_torch.launch.train import make_trainer
+    return make_trainer(cfg, ckpt_dir=os.path.join(root, label),
+                        params=params, device="cuda", steps=steps,
+                        ckpt_every=0, **dict(FAMILY_TRAIN_KW, **kw))
+
+
+def family_train_phase(torch, np, card):
+    """16f: each family at full width (FAMILY_TRAIN_LAYERS) through
+    make_trainer on the simulated (data 2, model 2) mesh, bf16, random
+    weights from seed 0: FAMILY_TRAIN_STEPS ZeRO-1 steps with every
+    kernel counted (train_launches_want), each step's loss, aux, grad
+    norm, ms and the peak memory; then its fp32 cut (FAMILY_CUT_LAYERS)
+    with the kernels against the same steps with their plain versions,
+    MoE routing replayed (TrainRoutePin): losses and grad norms within
+    FAMILY_CUT_RTOL at step 1; then B8 under autograd at the train shapes
+    (b8_train_rows).  Fills SIM_RUNS["family train <arch>"] (shard (c)
+    trains qwen2-moe's).  Returns (B8's row, the mamba2 run's
+    launches)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core import model as M
+
+    root = tempfile.mkdtemp(prefix="family_train_")
+    nmb = FAMILY_TRAIN_KW["microbatches"]
+    tokens = FAMILY_TRAIN_KW["batch"] * FAMILY_TRAIN_KW["seq"]
+    runs = {}
+    try:
+        for arch, layers in FAMILY_TRAIN_LAYERS.items():
+            cfg = family_cfg(arch, layers, dtype="bfloat16",
+                             attn_backend="pallas")
+            canon = M.init_model(cfg, seed=0, device=torch.device("cuda"))
+            torch.cuda.reset_peak_memory_stats()
+            tr, st = family_trainer(root, cfg, arch, canon,
+                                    FAMILY_TRAIN_STEPS)
+            st, launches = counted(torch, lambda: tr.run(st))
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            want = train_launches_want(cfg, tr.plan, nmb, FAMILY_TRAIN_STEPS)
+            got = {k: launches[k] for k in want}
+            others = {k: v for k, v in launches.items()
+                      if k not in want and v}
+            log = tr.metrics_log
+            rate = tokens / float(np.mean([m["wall"] for m in log[1:]]))
+            print(f"family train {arch} [{card}]: L={cfg.n_layers} full "
+                  f"width ({cfg.param_count() / 1e9:.3f} B parameters), "
+                  f"bf16, tp 2 x dp 2, plan {tr.plan.n_dropped} of "
+                  f"{cfg.n_layers} dropped, quant8 kept syncs, batch "
+                  f"{FAMILY_TRAIN_KW['batch']} x seq "
+                  f"{FAMILY_TRAIN_KW['seq']} in {nmb} microbatches, remat: "
+                  f"losses {[round(m['loss'], 5) for m in log]} aux "
+                  f"{[round(m['aux'], 5) for m in log]} grad_norms "
+                  f"{[round(m['grad_norm'], 4) for m in log]}; step_ms "
+                  f"{[round(1e3 * m['wall'], 1) for m in log]} "
+                  f"(tokens_per_s={rate:.1f}"
+                  f" after step 1); peak_memory_gib={peak:.2f}; launches "
+                  f"{json.dumps(got)} (want {json.dumps(want)})")
+            if got != want or others:
+                raise AssertionError(f"family train {arch}: launches "
+                                     f"{launches}, want {want} and no other")
+            if not all(np.isfinite([m["loss"], m["grad_norm"], m["aux"]]).all()
+                       for m in log):
+                raise AssertionError(f"family train {arch}: not finite")
+            if (cfg.moe is not None) != all(m["aux"] > 0 for m in log):
+                raise AssertionError(f"family train {arch}: aux {log}")
+            runs[arch] = dict(launches=launches,
+                              losses=[m["loss"] for m in log],
+                              grad_norms=[m["grad_norm"] for m in log],
+                              walls=[m["wall"] for m in log])
+            SIM_RUNS[f"family train {arch}"] = runs[arch]
+            del tr, st
+            release(torch)
+            family_cut(torch, root, arch, canon)
+            del canon
+            release(torch)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rows = b8_train_rows(torch, card)
+    rows[0]["launches"] = runs["mamba2-370m"]["launches"]["ssd_scan"]
+    rows[1]["launches"] = runs["hymba-1.5b"]["launches"]["ssd_scan"]
+    return rows, runs
+
+
+class StepGrads:
+    """Inside: each leaf of the gradient tree that a sim ZeRO-1 train
+    step's first optimizer update receives (the step's accumulated fp32
+    gradients, `parallel.zero1.zero1_update_clipped`'s first argument)
+    handed to `take(i, leaf)`, once."""
+
+    def __init__(self, take):
+        self.take, self.seen = take, False
+
+    def __enter__(self):
+        from repro_torch.parallel import zero1 as Z
+        from repro_torch.tree import tree_leaves
+        self.orig = orig = Z.zero1_update_clipped
+
+        def spy(grads, *a, **kw):
+            if not self.seen:
+                self.seen = True
+                for i, g in enumerate(tree_leaves(grads)):
+                    self.take(i, g)
+            return orig(grads, *a, **kw)
+
+        Z.zero1_update_clipped = spy
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.parallel import zero1 as Z
+        Z.zero1_update_clipped = self.orig
+
+
+def family_cut(torch, root, arch, canon):
+    """`arch`'s fp32 cut (FAMILY_CUT_LAYERS at full width), once for each
+    of FAMILY_CUT_COMMS' kept-sync levels (cut_pair)."""
+    from repro_torch.tree import tree_map
+
+    cfg = family_cfg(arch, FAMILY_CUT_LAYERS[arch], dtype="float32")
+    params = dict(canon, layers=canon["layers"][:cfg.n_layers])
+    params = tree_map(lambda w: w.float(), params)
+    for comm in FAMILY_CUT_COMMS:
+        cut_pair(torch, root, arch, cfg, params, comm)
+        release(torch)
+
+
+def cut_pair(torch, root, arch, cfg, params, comm):
+    """FAMILY_CUT_STEPS steps at kept-sync level `comm` with the kernels
+    (B1, B8 and, at quant8, the fused kept sync) and the same steps with
+    their plain versions (attn_backend "xla", plain_ssd, plain_syncs),
+    the MoE routing of the first replayed in the second: step 1's loss
+    and grad norm within FAMILY_CUT_RTOL, and its gradients leaf by leaf
+    within FAMILY_CUT_GRAD_L2[comm] (relative L2) with their sign
+    disagreements counted (all, and among elements above GRAD_NOISE_X x
+    the leaf's RMS difference); with exact syncs the later steps within
+    FAMILY_CUT_RTOL and the params after within FAMILY_CUT_PAST, at
+    quant8 printed (FAMILY_CUT_LAYERS' note)."""
+    from repro_torch.tree import tree_leaves
+
+    pin = TrainRoutePin()
+    res, kept, stats = {}, [], []
+
+    def keep(i, g):
+        kept.append(g.detach().clone())
+
+    def compare(i, g):
+        k, p = kept[i].float(), g.detach().float()
+        d = k - p
+        rms = d.pow(2).mean().sqrt()
+        flips = torch.sign(k) != torch.sign(p)
+        above = p.abs() > GRAD_NOISE_X * rms
+        stats.append(dict(
+            i=i, shape=tuple(p.shape), n=p.numel(),
+            l2=(d.norm() / p.norm().clamp_min(1e-30)).item(),
+            flips=int(flips.sum()), above=int(above.sum()),
+            flips_above=int((flips & above).sum())))
+        kept[i] = None
+
+    for backend in ("pallas", "xla"):
+        tr, st = family_trainer(root, cfg, f"cut-{arch}-{comm}-{backend}",
+                                params, FAMILY_CUT_STEPS,
+                                attn_backend=backend, comm=comm,
+                                **FAMILY_CUT_KW)
+        if backend == "pallas":
+            with pin.record(), StepGrads(keep):
+                st, launches = counted(torch, lambda: tr.run(st))
+        else:
+            with pin.replay(), plain_ssd(), plain_syncs(), \
+                    StepGrads(compare):
+                st, launches = counted(torch, lambda: tr.run(st))
+        res[backend] = ([m["loss"] for m in tr.metrics_log],
+                        [m["grad_norm"] for m in tr.metrics_log], launches,
+                        [w.detach().clone() for w in
+                         tree_leaves(st["params"])])
+        del tr, st
+        release(torch)
+    (lk, gk, ek, pk), (lp, gp, ep, pp) = res["pallas"], res["xla"]
+    rel = max(abs(a - b) / abs(b) for a, b in ((lk[0], lp[0]),
+                                                (gk[0], gp[0])))
+    rel2 = max(abs(a - b) / abs(b) for a, b in zip(lk[1:] + gk[1:],
+                                                   lp[1:] + gp[1:]))
+    ran = {k: v for k, v in ek.items() if v}
+    worst = max(stats, key=lambda r: r["l2"])
+    n = sum(r["n"] for r in stats)
+    flips = sum(r["flips"] for r in stats)
+    above = sum(r["above"] for r in stats)
+    flips_above = sum(r["flips_above"] for r in stats)
+    bound = FAMILY_CUT_GRAD_L2[comm]
+    print(f"family cut {arch} fp32 {comm} kept syncs ({cfg.n_layers} "
+          f"layers, batch {FAMILY_CUT_KW['batch']} x "
+          f"{FAMILY_CUT_KW['seq']}): kernels losses {lk} grad_norms {gk}; "
+          f"plain {lp} {gp}; step 1 max rel {rel:.3e} (tol "
+          f"{FAMILY_CUT_RTOL:.0e}), later steps {rel2:.3e}"
+          + (" (held)" if comm == "exact" else "") + "; kernel launches "
+          f"{json.dumps(ran)}, plain {sum(ep.values())}"
+          + (f"; routing replayed: {pin.flips} of {pin.choices} top-k "
+             "choices would differ" if pin.choices else ""))
+    print(f"family cut {arch} {comm}: step 1 gradients, {len(stats)} "
+          f"leaves: worst leaf relative L2 {worst['l2']:.3e} (leaf "
+          f"{worst['i']} {worst['shape']}; bound {bound:.0e}); median "
+          f"leaf {sorted(r['l2'] for r in stats)[len(stats) // 2]:.3e}; "
+          f"sign disagreements {flips} of {n} elements ({flips / n:.3%}), "
+          f"{flips_above} among the {above} ({above / n:.3%}) above "
+          f"{GRAD_NOISE_X} x their leaf's RMS difference")
+    diff = max((a.float() - b.float()).abs().max().item()
+               for a, b in zip(pk, pp))
+    past = sum(int(((a.float() - b.float()).abs() > 1e-5 * a.float().abs()
+                    .max()).sum().item()) for a, b in zip(pk, pp)) / sum(
+                        a.numel() for a in pk)
+    print(f"family cut {arch} {comm}: params after {FAMILY_CUT_STEPS} steps "
+          f"max abs diff {diff:.3e} (2 lr x steps "
+          f"{2 * FAMILY_TRAIN_KW['lr'] * FAMILY_CUT_STEPS:.1e}), {past:.3%} "
+          f"of the elements past 1e-5 of their leaf's largest"
+          + (f" (tol {FAMILY_CUT_PAST:.0%})" if comm == "exact" else ""))
+    if not (rel <= FAMILY_CUT_RTOL and worst["l2"] <= bound
+            and (ran or comm == "exact") and not any(ep.values())) or (
+                comm == "exact" and not (rel2 <= FAMILY_CUT_RTOL
+                                         and past <= FAMILY_CUT_PAST)):
+        raise AssertionError(f"family cut {arch} {comm}: the kernels and "
+                             f"their plain versions disagree in fp32")
+
+
+def b8_train_rows(torch, card):
+    """B8 under autograd at each B8_TRAIN_SHAPES shape, bf16: the forward
+    through the autograd Function (the kernel) and its backward (the
+    plain VJP) against the plain version differentiated directly, with
+    the bounds above; the forward, the backward and the plain forward
+    timed.  Returns their kernels-line rows."""
+    from repro_torch.kernels import ssd_scan as SS
+
+    rows = []
+    for arch, sh in B8_TRAIN_SHAPES:
+        chunk, s = sh["chunk"], B8_TRAIN_S
+        args = [t.detach().requires_grad_() for t in
+                ssd_inputs(torch, s, torch.bfloat16, sh)]
+        gen = torch.Generator(device="cuda").manual_seed(31)
+        w = torch.randn(args[0].shape, generator=gen, device="cuda")
+
+        def fwd():
+            return SS.ssd_scan(*args, chunk=chunk)
+
+        def grads(y):
+            return torch.autograd.grad((y.float() * w).sum(), args)
+
+        n0 = SS.ssd_scan.launches
+        y, _ = fwd()
+        if SS.ssd_scan.launches != n0 + 1 or "SSDScan" not in type(
+                y.grad_fn).__name__:
+            raise AssertionError("B8 under autograd did not launch through "
+                                 "its autograd Function")
+        gk = grads(y)
+        yp, _ = SS.ssd_scan_plain(*args, chunk=chunk)
+        gp = grads(yp)
+        torch.cuda.synchronize()
+
+        def l2(a, b):
+            return ((a.float() - b.float()).norm()
+                    / b.float().norm().clamp_min(1e-30)).item()
+
+        err = (y.float() - yp.float()).abs().max().item()
+        top = yp.float().abs().max().item()
+        fl2 = l2(y, yp)
+        gl2 = {n: l2(a, b) for n, a, b in zip(
+            ("x", "dt", "a", "bm", "cm", "dd"), gk, gp)}
+        fwd_ms = cuda_ms(torch, fwd, iters=10)
+        step_ms = cuda_ms(torch, lambda: grads(fwd()[0]), iters=5)
+        plain_ms = cuda_ms(torch, lambda: SS.ssd_scan_plain(
+            *args, chunk=chunk), iters=5)
+        plain_step = cuda_ms(torch, lambda: grads(SS.ssd_scan_plain(
+            *args, chunk=chunk)[0]), iters=5)
+        nbytes, flops = ssd_work(sh["bt"], sh["h"], s, sh["p"], sh["n"],
+                                 sh["g"], chunk, 2)
+        b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
+        rel = {k: float(f"{v:.3e}") for k, v in gl2.items()}
+        print(f"B8 under autograd [{card}] {arch} x ({sh['bt']},{s},"
+              f"{sh['h']},{sh['p']}) N {sh['n']} bf16: y max_abs_err="
+              f"{err:.3e} (tol {SSD_BF16_Y_REL * top:.3e}), relative L2 "
+              f"{fl2:.3e} (tol {B8_FWD_L2:.1e}); gradients' relative L2 "
+              f"from the plain version's {json.dumps(rel)}"
+              f" (tol {B8_GRAD_L2:.0e}); forward ms={fwd_ms:.5f} (the "
+              f"kernel), backward ms={step_ms - fwd_ms:.5f} (the plain "
+              f"VJP; forward + backward {step_ms:.5f}), plain forward "
+              f"{plain_ms:.5f}, plain forward + backward {plain_step:.5f}; "
+              f"bound_ms={b_ms:.6f} ({b_by}, the forward's work)")
+        if not (err <= SSD_BF16_Y_REL * top and fl2 <= B8_FWD_L2
+                and max(gl2.values()) <= B8_GRAD_L2):
+            raise AssertionError(f"B8 under autograd at {arch}'s train "
+                                 f"shape disagrees with the plain version")
+        rows.append({"name": "ssd_scan", "route": "cuda",
+                     "source": "src/repro_torch/csrc/ssd_scan.cu",
+                     "replaces": "src/repro/kernels/ssd_scan.py:66",
+                     "max_abs_err": err, "ms": fwd_ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                     "context_ms": step_ms - fwd_ms,
+                     "shape": f"x ({sh['bt']},{s},{sh['h']},{sh['p']}) bf16, "
+                              f"N {sh['n']}: under autograd in {arch}'s "
+                              f"train step (forward the kernel; "
+                              f"context_ms the backward, the plain VJP)"})
+        del args, y, yp, gk, gp
+        release(torch)
+    return rows
+
+
+#: Algorithm 1 on the families (18, 19, 21): a quarter of the blocks
+#: chosen, the recovery over FAMILY_ALG1_EPOCHS epochs at RECOVERY_LR
+FAMILY_ALG1_EPOCHS = 4
+
+
+class b1_parts:
+    """Inside: B1's launches counted by part of an apply_spd call (the
+    sweep, the capture and each block's distillation), the capture's
+    block inputs kept (`inputs`)."""
+
+    def __enter__(self):
+        from repro_torch.core import distill as D
+        from repro_torch.core import spd as SPD
+        from repro_torch.kernels import flash_attention as FA
+        self.saved = (SPD.capture_block_inputs, D.b2b_distill)
+        self.counts = {"capture": 0, "distill": []}
+        self.inputs = None
+        capture, distill = self.saved
+        fa = FA.flash_attention_bhsd
+        fa.launches = 0
+
+        def counted_capture(*a, **kw):
+            self.counts["sweep"] = fa.launches
+            hid = capture(*a, **kw)
+            self.counts["capture"] = fa.launches - self.counts["sweep"]
+            self.inputs = hid
+            return hid
+
+        def counted_distill(*a, **kw):
+            before = fa.launches
+            out = distill(*a, **kw)
+            self.counts["distill"].append((fa.launches - before,
+                                           len(out[1])))
+            return out
+
+        SPD.capture_block_inputs, D.b2b_distill = (counted_capture,
+                                                   counted_distill)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import distill as D
+        from repro_torch.core import spd as SPD
+        SPD.capture_block_inputs, D.b2b_distill = self.saved
+
+
+class b8_autograd:
+    """Inside: `n`, the SSD scans that entered B8's autograd Function
+    (`kernels.ssd_scan._SSDScan`, whose forward is the kernel launch)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ssd_scan as SS
+        orig, self.n = SS._SSDScan.apply, 0
+
+        def apply(*a):
+            self.n += 1
+            return orig(*a)
+
+        SS._SSDScan.apply = apply
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ssd_scan as SS
+        del SS._SSDScan.apply          # Function.apply again
+
+
+def b8_distill_want(kinds, distill_losses):
+    """B8's autograd launches in an apply_spd's distillation: the
+    student's forward, once a step of each distilled SSM or hybrid
+    block (the teacher's runs without grad)."""
+    return sum(len(losses) for b, losses in distill_losses.items()
+               if kinds[b].mixer in ("ssm", "hybrid"))
+
+
+def family_alg1(torch, np, llm, prompts, card, label):
+    """Algorithm 1 on a family's full-width model `llm` (its serving
+    placement released): the sensitivity sweep; apply_comm_policy with
+    n_spd = L // 4 and (tau1, tau2) at the 25th and 75th percentiles of
+    the sensitivities (drop, quant8 and exact syncs in one plan; at
+    least 3 blocks); then
+    apply_spd (ZS, B2B, HG) at recovery_taus over FAMILY_ALG1_EPOCHS
+    epochs: B1 counted by part against what the code implies (each
+    evaluation and capture a launch a full-causal attention layer and
+    batch, 2 a distill step of such a block), each part's wall seconds,
+    every distillation loss finite, each grouping the reference's rule
+    (a partition of the heads on an MLA layer with an MLP FFN, the
+    identity on MoE and hybrid layers).  Each plan is served, its
+    greedy tokens equal to a rerun on the quantized collectives' plain
+    versions.  Returns what the shard phase holds its ranks to."""
+    from repro_torch.core import spd as SPD
+    from repro_torch.core.layer_kinds import layer_kinds
+    from repro_torch.data import calibration_batches
+    from repro_torch.kernels import flash_attention as FA
+
+    cfg, n = llm.cfg, llm.cfg.n_layers
+    kinds = layer_kinds(cfg)
+    flash = sum(k.mixer == "gqa" and not k.window for k in kinds) if (
+        cfg.attn_backend == "pallas") else 0
+    calib = calibration_batches(cfg.vocab_size, **SWEEP_CALIB)
+    n_spd = max(n // 4, 3)          # room for one ISB, SB and ESB block
+    llm._release_engine()
+    release(torch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, _ = SPD.sweep_sensitivity(cfg, llm.canonical, calib, llm.tp,
+                                   q_chunk=llm.q_chunk)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    tau1, tau2 = (float(np.percentile(res.sensitivity, 25)),
+                  float(np.percentile(res.sensitivity, 75)))
+    FA.flash_attention_bhsd.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    got = llm.apply_comm_policy(calib, n_spd=n_spd, tau1=tau1, tau2=tau2,
+                                logits="quant8")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    modes = llm.plan.modes()
+    counts = {m: modes.count(m) for m in ("drop", "quant8", "exact")}
+    b1 = FA.flash_attention_bhsd.launches
+    want = (n + 1) * len(calib) * flash
+    print(f"{label} apply_comm_policy [{card}]: L={n} n_spd={n_spd} "
+          f"tau1={tau1:.4f} tau2={tau2:.4f}: plan {counts} ("
+          + " ".join(f"{i}:{m}" for i, m in enumerate(modes))
+          + f"); sweep {sweep_s:.2f} s, apply_comm_policy {wall:.2f} s "
+          f"(its sweep and the re-placement); B1 launches {b1} (want "
+          f"{want}); peak_memory_gib="
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f}")
+    if not (np.isfinite(got.ppl_suffix).all() and b1 == want
+            and sorted(got.ranking.tolist()) == list(range(n))
+            and 0 < llm.plan.n_dropped <= n_spd
+            and counts["quant8"] and counts["exact"]):
+        raise AssertionError(f"{label}: the tiered plan is not what "
+                             f"Algorithm 1 gives: {modes}, B1 {b1}")
+    out = {"policy": dict(ppl=got.ppl_suffix, sens=got.sensitivity,
+                          ranking=got.ranking.tolist(), modes=modes,
+                          tau1=tau1, tau2=tau2, n_spd=n_spd, wall=wall)}
+    family_serve(torch, llm, prompts, f"{label} tiered plan")
+
+    llm._release_engine()
+    release(torch)
+    r_tau1, r_tau2 = recovery_taus(np, got, n_spd)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with b1_parts() as parts, b8_autograd() as b8:
+        rep = llm.apply_spd(calib, n_spd=n_spd, tau1=r_tau1, tau2=r_tau2,
+                            lr=RECOVERY_LR, epochs=FAMILY_ALG1_EPOCHS,
+                            strategies=("ZS", "B2B", "HG"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sec = rep.seconds
+    c = parts.counts
+    steps = [k for _, k in c["distill"]]
+    rec = [b for b, t in zip(rep.chosen, rep.categories) if t != "ISB"]
+    want = {"sweep": (n + 1) * len(calib) * flash,
+            "capture": len(calib) * flash if rec else 0,
+            "distill": [(2 * k * (kinds[b].mixer == "gqa"
+                                  and not kinds[b].window and bool(flash)), k)
+                        for b, k in zip(rec, steps)]}
+    have = {"sweep": c.get("sweep", FA.flash_attention_bhsd.launches),
+            "capture": c["capture"], "distill": c["distill"]}
+    b8_want = b8_distill_want(kinds, rep.distill_losses)
+    print(f"{label} apply_spd [{card}]: n_spd={n_spd} tau1={r_tau1:.4f} "
+          f"tau2={r_tau2:.4f} lr={RECOVERY_LR:g} epochs="
+          f"{FAMILY_ALG1_EPOCHS}: tiers " + " ".join(
+              f"{b}:{t}" for b, t in zip(rep.chosen, rep.categories))
+          + f"; {wall:.2f} s wall (sweep {sec['sweep']:.2f} s"
+          + "".join(f", {k} {sec[k]:.2f} s" for k in
+                    ("capture", "grouping", "distill") if k in sec)
+          + f"); B1 launches by part {json.dumps(have)} (want "
+          f"{json.dumps(want)}); B8 under autograd (distillation) "
+          f"{b8.n} (want {b8_want}); peak_memory_gib="
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f}")
+    if have != want or len(steps) != len(rec) or any(
+            k != FAMILY_ALG1_EPOCHS * len(calib) for k in steps) or (
+                b8.n != b8_want):
+        raise AssertionError(f"{label} apply_spd: B1 launches {have} or "
+                             f"B8's under autograd {b8.n} are not what "
+                             f"the code implies ({want}, {b8_want})")
+    for b, losses in sorted(rep.distill_losses.items()):
+        first = float(np.mean(losses[:len(calib)]))
+        last = float(np.mean(losses[-len(calib):]))
+        print(f"{label} distill block {b} ({kinds[b].mixer}, {kinds[b].ffn}"
+              f"): loss first epoch {first:.4e} last epoch {last:.4e} "
+              f"({last / first:.3f}x)")
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"{label}: block {b}'s losses {losses}")
+    for b, g in sorted(rep.grouping.items()):
+        grouped = kinds[b].mixer == "mla" and kinds[b].ffn == "mlp"
+        print(f"{label} grouping block {b} ({kinds[b].mixer}, "
+              f"{kinds[b].ffn}): supported={g.supported} groups={g.groups} "
+              f"assignment={g.assignment}")
+        if g.supported != grouped or (grouped and sorted(
+                h for grp in g.groups for h in grp) != list(range(
+                    cfg.n_heads))):
+            raise AssertionError(f"{label}: block {b}'s grouping {g}")
+    if llm.plan.n_dropped != n_spd:
+        raise AssertionError(f"{label}: the recovered plan drops "
+                             f"{llm.plan.n_dropped}, not {n_spd}")
+    out["spd"] = dict(modes=llm.plan.modes(), chosen=list(rep.chosen),
+                      categories=list(rep.categories), wall=wall,
+                      seconds=dict(sec), tau1=r_tau1, tau2=r_tau2,
+                      b8_autograd=b8.n)
+    family_serve(torch, llm, prompts, f"{label} recovered plan")
+    if cfg.mla is not None:
+        mla_grouping_check(torch, llm, parts.inputs, card, label)
+    llm._release_engine()
+    release(torch)
+    return out
+
+
+def family_serve(torch, llm, prompts, label):
+    """A plan of Algorithm 1 served: greedy tokens of `prompts`, then the
+    same with the quantized collectives' plain versions, bit for bit."""
+    from repro_torch.api import SamplingParams
+    outs = llm.generate(prompts, SamplingParams(max_new=MAX_NEW))
+    tokens = [o.token_ids for o in outs]
+    if any(len(t) != MAX_NEW for t in tokens):
+        raise AssertionError(f"{label}: the plan's generate failed")
+    print(f"{label}: served, tokens[0] {tokens[0]}")
+    same_tokens_plain(torch, label, llm, prompts, tokens)
+
+
+def mla_grouping_check(torch, llm, inputs, card, label):
+    """deepseek's dense MLA layer (layer 0: MLA with an MLP FFN) grouped
+    one head a unit on its captured block input (or the embedding when
+    the capture did not run): a partition of the heads over the shards
+    (supported, as the reference groups it)."""
+    from repro_torch.core import grouping as G
+    from repro_torch.core.layer_kinds import layer_kinds
+    from repro_torch.data import calibration_batches
+    from repro_torch.tree import tree_map
+
+    kind = layer_kinds(llm.cfg)[0]
+    if inputs is not None:
+        x = inputs[0][0]
+    else:
+        calib = calibration_batches(llm.cfg.vocab_size, **SWEEP_CALIB)
+        tok = torch.as_tensor(calib[0]["tokens"]).to(llm.device)
+        x = llm.canonical["emb"].to(llm.device)[tok]
+    layer = tree_map(lambda w: w.to(llm.device), llm.canonical["layers"][0])
+    t0 = time.perf_counter()
+    g = G.group_heads(llm.cfg, kind, layer, x, llm.tp)
+    heads = sorted(h for grp in g.groups for h in grp)
+    print(f"{label} grouping of layer 0 ({kind.mixer}, {kind.ffn}) [{card}]:"
+          f" supported={g.supported} groups={g.groups} assignment="
+          f"{g.assignment} score={g.score:.4f} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    if not (g.supported and heads == list(range(llm.cfg.n_heads))
+            and len(g.groups) == llm.tp):
+        raise AssertionError(f"{label}: the dense MLA layer's grouping {g}")
+
+
+# ---------------------------------------------------------------------------
 # The MoE and hybrid families: qwen2-moe-a2.7b and hymba-1.5b at full
 # width through the facade (tp=2, spd=0.25, quant8, attn_backend="pallas")
 # ---------------------------------------------------------------------------
@@ -4158,16 +4910,17 @@ def family_kernel_phase(torch, card):
 
 
 def moe_phase(torch, np, card):
-    """qwen2-moe-a2.7b at full width (FAMILY_LAYERS: 12 of its 24
+    """qwen2-moe-a2.7b at full width (FAMILY_LAYERS: 8 of its 24
     layers, d 2048, 60 routed + 4 shared experts, top-4; ~14.3 B
     parameters at full depth; random weights from seed 0): the dense path (B1 once per layer and prefill,
     the fused kept sync per kept sync and forward, qdq per forward, no B2
     or B8), plain-sync tokens, a profile; with the dense placement freed,
     the paged path (a preemption, every page back, a warm admission
     through B2's chunk kernel, B2's decode); then the teacher-forced
-    checks in bf16 at full width and in fp32 on MOE_FP32_LAYERS.  One
-    placement at a time beside the canonical weights (two would not fit
-    beside them).  Returns (dense launches, paged launches)."""
+    checks in bf16 at full width and in fp32 on MOE_FP32_LAYERS; then
+    Algorithm 1 (family_alg1).  One placement at a time beside the
+    canonical weights (two would not fit beside them).  Returns (dense
+    launches, paged launches)."""
     llm, prompts, launches, tokens = main_path(torch, np, card, MOE_ARCH,
                                                "qwen2-moe path")
     cfg = llm.cfg
@@ -4199,15 +4952,17 @@ def moe_phase(torch, np, card):
     print(f"qwen2-moe phase: peak_memory_gib="
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} since the "
           "paged path's load")
+    SIM_RUNS["qwen2-moe alg1"] = family_alg1(torch, np, llm, prompts, card,
+                                             "qwen2-moe")
     del llm
     release(torch)
     return launches, paged_launches
 
 
 def hymba_phase(torch, np, card):
-    """hymba-1.5b at full width (FAMILY_LAYERS: 18 of its 32 layers, d
+    """hymba-1.5b at full width (FAMILY_LAYERS: 8 of its 32 layers, d
     1600, 25 attention heads beside 25 SSM heads of 64, N 16, a
-    1024-token window but on layers 0 and 15; random weights from seed
+    1024-token window but on layer 0; random weights from seed
     0) on dense caches
     (cache_len 2048): prompts of 17, 64, 200 and 1100 tokens, each
     prefilled at its own length, 16 greedy tokens each; B8 once per layer
@@ -4217,7 +4972,8 @@ def hymba_phase(torch, np, card):
     the same weights with exact syncs, bf16 and fp32: prefill logits
     through B8 against the plain scan, and the 1100-token prompt's decode
     logits after teacher-forcing its tokens against one exact-length
-    prefill (the rolling window).  Returns the path's launches."""
+    prefill (the rolling window); the paged fallback; then Algorithm 1
+    (family_alg1).  Returns the path's launches."""
     from repro_torch.configs import get_config
 
     vocab = get_config(HYMBA_ARCH).vocab_size
@@ -4244,7 +5000,11 @@ def hymba_phase(torch, np, card):
         cache_len=HYMBA_CACHE_LEN, preempt=False,
         want={"ssd_scan": llm.cfg.n_layers * len(prompts),
               "flash_attention_bhsd": 0, "paged_flash_attention": 0})
-    del paged, llm
+    del paged
+    release(torch)
+    SIM_RUNS["hymba alg1"] = family_alg1(torch, np, llm, prompts, card,
+                                         "hymba")
+    del llm
     release(torch)
     return launches
 
@@ -4475,7 +5235,7 @@ def mla_decode_vs_prefill(torch, llm, prompt, toks, fp32_layers, label=""):
 
 
 def deepseek_phase(torch, np, card):
-    """deepseek-v2-lite-16b at full width (FAMILY_LAYERS: 14 of its 27
+    """deepseek-v2-lite-16b at full width (FAMILY_LAYERS: 10 of its 27
     layers, d 2048, MLA with 16 heads of nope 128 + rope 64, v 128, a
     512-wide latent; 64 routed + 2 shared experts, top-6, a dense first
     layer of 10944; 15.71 B parameters at full depth; random weights from
@@ -4486,7 +5246,8 @@ def deepseek_phase(torch, np, card):
     with the dense placement freed, the paged path through the fallback
     (dense tokens on a pool large enough, a preemption and every page
     back on one the requests outgrow); then the absorbed decode against
-    the sequence form.  Returns the dense path's launches."""
+    the sequence form; then Algorithm 1 (family_alg1, the dense MLA layer
+    grouped).  Returns the dense path's launches."""
     n = model_cfg(DEEPSEEK_ARCH).param_count()
     print(f"deepseek path: {DEEPSEEK_ARCH} param_count={n} "
           f"({n / 1e9:.2f} B, {2 * n / 1e9:.1f} GB in bf16)")
@@ -4512,6 +5273,8 @@ def deepseek_phase(torch, np, card):
     print(f"deepseek phase: peak_memory_gib="
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} since the "
           "paged path's load")
+    SIM_RUNS["deepseek alg1"] = family_alg1(torch, np, llm, prompts, card,
+                                            "deepseek")
     del llm
     release(torch)
     return launches
@@ -4607,9 +5370,11 @@ SHARD_FAMILY_LABELS = ("mamba path", "hymba path", "qwen2-moe path",
 TAPED_LABELS = SHARD_LABELS + (SHARD_INT8_LABEL,)
 #: the families' fp32 runs on four layers at full width, quantized kept
 #: syncs and logits gather (`fp32_run`): (first, stop) layer of each;
-#: hymba's keep its global layer 15, qwen2-moe's and deepseek's those of
-#: their fp32 checks
-SHARD_FP32_LAYERS = {"mamba path": (20, 24), "hymba path": (14, 18),
+#: hymba's hold its global layer 0 (the cut numbers its layers from 0,
+#: so its layer 0 attends globally: only a cut from 0 gives it a global
+#: layer's weights), qwen2-moe's and deepseek's those of their fp32
+#: checks
+SHARD_FP32_LAYERS = {"mamba path": (20, 24), "hymba path": (0, 4),
                      "qwen2-moe path": (4, 8), "deepseek path": (5, 9)}
 
 
@@ -4768,6 +5533,10 @@ SHARD_TRAIN_CUT_RTOL = 1e-4
 #: ZeRO-1 steps, 1 FSDP step and the fp32 cut there
 SHARD_POD = dict(dp=1, pod=2)
 SHARD_POD_STEPS = 2
+#: (c)'s MoE training: qwen2-moe at 16f's depth and settings
+#: (FAMILY_TRAIN_LAYERS, FAMILY_TRAIN_KW) on the four ranks, its step-1
+#: loss against 16f's sim run within SHARD_TRAIN_LOSS_RTOL
+SHARD_MOE_STEPS = 2
 #: (b)'s second spawn: the families, one model at a time
 SHARD_FAMILY_DEADLINE_S = 600
 #: each (b) path's model, by label (its vocabulary for the logits rows)
@@ -4916,9 +5685,8 @@ def shard_rank_nccl(torch, np, g):
     same canonical weights."""
     from repro_torch.api import LLM, SamplingParams
     from repro_torch.config.base import replace
-    from repro_torch.configs import get_config
 
-    cfg = replace(get_config("llama2-7b"), attn_backend="pallas")
+    cfg = replace(model_cfg("llama2-7b"), attn_backend="pallas")
     kw = dict(SHARD_KW, tp=g.tp)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n) for n in PROMPT_LENS]
@@ -5028,7 +5796,7 @@ def shard_rank_gloo(torch, np, g, card, alg1):
     del llm
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = replace(get_config("llama2-7b"), attn_backend="pallas")
+    cfg = replace(model_cfg("llama2-7b"), attn_backend="pallas")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n) for n in PROMPT_LENS]
     torch.cuda.reset_peak_memory_stats()
@@ -5178,7 +5946,53 @@ def rank_fp32(torch, np, g, llm, prompts, label, routes, cache_len=512):
                                  route_choices=pin.choices), info)
 
 
-def shard_rank_families(torch, np, g, card, routes):
+def rank_family_policy(torch, np, llm, alg1):
+    """hymba's Algorithm 1 on a rank, over sim's calibration batches:
+    apply_comm_policy at sim's n_spd and thresholds (`alg1`:
+    family_alg1's "policy"), its sweep running B8 on the rank's shard;
+    then apply_spd at sim's recovery thresholds (`alg1["spd"]`), whose
+    distillation runs B8 under autograd on the rank (b8_autograd).
+    Each timed, B8 counted."""
+    from repro_torch.core.layer_kinds import layer_kinds
+    from repro_torch.data import calibration_batches
+    from repro_torch.kernels import ssd_scan as SS
+
+    calib = calibration_batches(llm.cfg.vocab_size, **SWEEP_CALIB)
+    SS.ssd_scan.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = llm.apply_comm_policy(calib, n_spd=alg1["n_spd"],
+                                tau1=alg1["tau1"], tau2=alg1["tau2"],
+                                logits="quant8")
+    torch.cuda.synchronize()
+    out = dict(ppl=res.ppl_suffix, sens=res.sensitivity,
+               ranking=res.ranking.tolist(), modes=llm.plan.modes(),
+               wall=time.perf_counter() - t0, b8=SS.ssd_scan.launches)
+    llm._release_engine()
+    release(torch)
+    t0 = time.perf_counter()
+    with b8_autograd() as b8:
+        rep = llm.apply_spd(calib, n_spd=alg1["n_spd"],
+                            tau1=alg1["spd"]["tau1"],
+                            tau2=alg1["spd"]["tau2"], lr=RECOVERY_LR,
+                            epochs=FAMILY_ALG1_EPOCHS,
+                            strategies=("ZS", "B2B", "HG"))
+    torch.cuda.synchronize()
+    losses = {int(b): [float(x) for x in v]
+              for b, v in rep.distill_losses.items()}
+    out["spd"] = dict(
+        modes=llm.plan.modes(), chosen=[int(b) for b in rep.chosen],
+        categories=list(rep.categories), wall=time.perf_counter() - t0,
+        b8_autograd=b8.n,
+        b8_want=b8_distill_want(layer_kinds(llm.cfg), rep.distill_losses),
+        losses=losses,
+        finite=bool(all(np.isfinite(v).all() for v in losses.values())))
+    llm._release_engine()
+    release(torch)
+    return out
+
+
+def shard_rank_families(torch, np, g, card, routes, hymba_alg1):
     """(b)'s second spawn: the MoE, MLA, SSM and hybrid families at full
     width on two ranks of one card over gloo, one model at a time (each
     released before the next), each with its sim run's settings: mamba2
@@ -5190,7 +6004,9 @@ def shard_rank_families(torch, np, g, card, routes):
     Each bf16 path is served again with the quantized collectives' plain
     versions (`shard_plain_same`); each model's four-layer fp32 cut
     (`fp32_run`) is served after its dense path, its MoE routing pinned
-    to sim's (`routes`: by path label, RoutePin.host())."""
+    to sim's (`routes`: by path label, RoutePin.host()); after hymba's,
+    its comm policy and recovery at sim's thresholds (`hymba_alg1`,
+    rank_family_policy)."""
     from repro_torch.api import LLM
     from repro_torch.config.base import replace
     from repro_torch.configs import get_config
@@ -5223,6 +6039,9 @@ def shard_rank_families(torch, np, g, card, routes):
         out[f"{label} fp32"] = rank_fp32(torch, np, g, llm, prompts, label,
                                          routes[label],
                                          kw.get("cache_len", 512))
+        if label == "hymba path":
+            out["hymba alg1"] = rank_family_policy(torch, np, llm,
+                                                   hymba_alg1)
         del llm
         release(torch)
     for arch, label in ((MOE_ARCH, "qwen2-moe"), (DEEPSEEK_ARCH, "deepseek")):
@@ -5392,7 +6211,7 @@ def check_shard_alg1(np, ranks, card, transport):
           f"further than 2 x that from tau1 and tau2; plan equal to sim's: "
           f"{same_plan}; ranking agrees at "
           f"{sum(a == b for a, b in zip(pol['ranking'], sweep['ranking']))}"
-          f"/32 places")
+          f"/{len(sweep['ranking'])} places")
     print("shard apply_comm_policy plan:", " ".join(
         f"{i}:{m}" for i, m in enumerate(pol["modes"])))
     if wrong or rel > SWEEP_PPL_RTOL:
@@ -5461,7 +6280,9 @@ def shard_rank_train(torch, np, g, job):
     checkpoint every SHARD_FAULT_EVERY and a fault before step
     SHARD_FAULT_AT + 1, resumed (its final state against the first run's,
     bit for bit); FSDP and every kept sync at quant8 for 2 steps each
-    (counted); the fp32 cut (train_cut_trainer)."""
+    (counted); the fp32 cut (train_cut_trainer); qwen2-moe at 16f's
+    depth and settings for SHARD_MOE_STEPS steps (counted); then the pod
+    layout."""
     import os
 
     from repro_torch.config.base import replace
@@ -5521,6 +6342,22 @@ def shard_rank_train(torch, np, g, job):
     release(torch)
     tr, st = train_cut_trainer(root, "shard")
     run("cut", tr, st)
+    del tr, st
+    release(torch)
+
+    # qwen2-moe at 16f's depth and settings: B1, the send and receive
+    # kernels under autograd, each rank routing its own data slot's rows
+    mcfg = family_cfg(MOE_ARCH, FAMILY_TRAIN_LAYERS[MOE_ARCH],
+                      dtype="bfloat16", attn_backend="pallas")
+    tr, st = make_trainer(mcfg, engine="shard", device="cuda",
+                          ckpt_dir=os.path.join(root, "moe"),
+                          steps=SHARD_MOE_STEPS, ckpt_every=0,
+                          **FAMILY_TRAIN_KW)
+    run("moe", tr, st)
+    out["moe"].update(aux=[m["aux"] for m in tr.metrics_log],
+                      want=train_launches_want(
+                          mcfg, tr.plan, FAMILY_TRAIN_KW["microbatches"],
+                          SHARD_MOE_STEPS))
     del tr, st
     release(torch)
 
@@ -5661,9 +6498,53 @@ def shard_train_phase(np, card, transport):
     finally:
         shutil.rmtree(root, ignore_errors=True)
     launches = check_shard_train(np, ranks, card, transport)
+    check_shard_moe_train(np, ranks, card, transport)
     check_shard_pod(np, ranks, card, transport)
     print(f"shard (c) over {transport}: {time.perf_counter() - t0:.1f} s")
     return launches
+
+
+def check_shard_moe_train(np, ranks, card, transport):
+    """(c)'s qwen2-moe run: the same losses, aux and grad norms on every
+    rank; step 1's loss within SHARD_TRAIN_LOSS_RTOL of 16f's sim run;
+    on every rank B1 as on sim and the send and receive kernels once a
+    quantized kept sync of the forward and of the recompute's attention
+    syncs (sim's fused-sync count: train_launches_want), the fused sync
+    never.  Prints ms a step beside sim's."""
+    for r, rk in enumerate(ranks[1:], 1):
+        for k in ("losses", "grad_norms", "aux"):
+            if rk["train"]["moe"][k] != ranks[0]["train"]["moe"][k]:
+                raise AssertionError(f"shard (c) moe: rank {r}'s {k} differ "
+                                     f"from rank 0's")
+    m = ranks[0]["train"]["moe"]
+    sim = SIM_RUNS[f"family train {MOE_ARCH}"]
+    rel = abs(m["losses"][0] - sim["losses"][0]) / abs(sim["losses"][0])
+    want = m["want"]
+    sync = want["quantized_psum_absmax"]
+    for r, rk in enumerate(ranks):
+        got = rk["train"]["moe"]["launches"]
+        if not (got["flash_attention_bhsd"] == want["flash_attention_bhsd"]
+                and got["quantize_message_absmax"]
+                == got["reduce_messages_absmax"] == sync
+                and got["quantized_psum_absmax"] == got["ssd_scan"] == 0):
+            raise AssertionError(f"shard (c) moe rank {r}: launches {got}, "
+                                 f"want B1 {want['flash_attention_bhsd']}, "
+                                 f"send and receive {sync} each")
+    step_s = float(np.mean(m["walls"][1:]))
+    print(f"shard (c) {MOE_ARCH} [{card}] L={FAMILY_TRAIN_LAYERS[MOE_ARCH]} "
+          f"full width, bf16, quant8, tp 2 x dp 2, four ranks over "
+          f"{transport}: losses {[round(x, 5) for x in m['losses']]} aux "
+          f"{[round(x, 5) for x in m['aux']]} grad_norms "
+          f"{[round(x, 4) for x in m['grad_norms']]} on every rank; step 1 "
+          f"against 16f's sim {sim['losses'][0]:.5f}: rel {rel:.3e} (tol "
+          f"{SHARD_TRAIN_LOSS_RTOL:.0e}); step_ms={1e3 * step_s:.1f} (step "
+          f"2; sim {1e3 * float(np.mean(sim['walls'][1:])):.1f}); B1 "
+          f"{m['launches']['flash_attention_bhsd']}, send "
+          f"{m['launches']['quantize_message_absmax']} and receive "
+          f"{m['launches']['reduce_messages_absmax']} a rank; "
+          f"peak_memory_gib={m['peak_gib']:.2f} a rank")
+    if not rel <= SHARD_TRAIN_LOSS_RTOL:
+        raise AssertionError("shard (c) moe: the step-1 loss is not sim's")
 
 
 def check_shard_pod(np, ranks, card, transport):
@@ -5735,7 +6616,8 @@ def shard_rank(rank, job):
     if job["backend"] == "nccl":
         return shard_rank_nccl(torch, np, g)
     if job.get("families"):
-        return shard_rank_families(torch, np, g, job["card"], job["routes"])
+        return shard_rank_families(torch, np, g, job["card"], job["routes"],
+                                   job["hymba_alg1"])
     if job.get("train"):
         return {"train": shard_rank_train(torch, np, g, job)}
     return shard_rank_gloo(torch, np, g, job["card"], job["alg1"])
@@ -6198,8 +7080,12 @@ def shard_family_phase(np, card, job, transport):
 
     t0 = time.perf_counter()
     routes = {lb: SIM_RUNS[f"{lb} fp32"]["routes"] for lb in SHARD_FP32_LAYERS}
+    pol, spd = (SIM_RUNS["hymba alg1"][k] for k in ("policy", "spd"))
+    hymba_alg1 = dict({k: pol[k] for k in ("n_spd", "tau1", "tau2")},
+                      spd={k: spd[k] for k in ("tau1", "tau2")})
     ranks = spawn(shard_rank, 2, backend="gloo", device="cuda:0",
-                  args=(dict(job, families=True, routes=routes),),
+                  args=(dict(job, families=True, routes=routes,
+                             hymba_alg1=hymba_alg1),),
                   deadline_s=SHARD_FAMILY_DEADLINE_S, timeout_s=300)
     print_rank_memory(ranks, SHARD_FAMILY_LABELS)
     out, parted, failed = {}, {}, []
@@ -6222,6 +7108,7 @@ def shard_family_phase(np, card, job, transport):
     if failed:
         raise AssertionError(f"shard (b): the paths {failed} failed")
     check_paged_prefix(ranks, "qwen2-moe paged path")
+    check_shard_family_policy(np, ranks, card, transport)
     for r, rk in enumerate(ranks):
         p = rk["deepseek paged path"]
         if p["pages_back"] != p["pages"] or p["preemptions"]:
@@ -6234,6 +7121,68 @@ def shard_family_phase(np, card, job, transport):
               f"{lb} {ranks[0][lb]['seconds']:.1f}"
               for lb in SHARD_FAMILY_LABELS))
     return out
+
+
+def check_shard_family_policy(np, ranks, card, transport):
+    """(b)'s hymba apply_comm_policy against sim's (family_alg1), then its
+    apply_spd (every rank the same plan, its distillation through B8's
+    autograd Function once a step of each distilled hybrid block,
+    finite losses; printed beside sim's).  The comm policy: every
+    rank the same plan and ranking; the perplexities within
+    SWEEP_PPL_RTOL of sim's, the tiers equal to sim's wherever the
+    perplexities' spread between the runs cannot move them
+    (separated_tiers), the plan sim's or parted only at such a near-tie;
+    B8 once a hybrid layer a forward of the sweep.  Prints the wall
+    seconds beside sim's."""
+    res = [rk["hymba alg1"] for rk in ranks]
+    for r, rr in enumerate(res[1:], 1):
+        for k in ("ranking", "modes"):
+            if rr[k] != res[0][k]:
+                raise AssertionError(f"shard hymba apply_comm_policy: rank "
+                                     f"{r}'s {k} differs from rank 0's")
+    pol, sim = res[0], SIM_RUNS["hymba alg1"]["policy"]
+    eps = float(np.abs(pol["ppl"] - sim["ppl"]).max())
+    rel = eps / float(np.abs(sim["ppl"]).max())
+    far, wrong = separated_tiers(pol["sens"], sim["sens"], eps, sim["tau1"],
+                                 sim["tau2"])
+    n = len(pol["modes"])
+    b8 = (n + 1) * SWEEP_CALIB["n_samples"] // SWEEP_CALIB["batch"] * n
+    print(f"shard hymba apply_comm_policy [{card}] L={n} tp 2 over "
+          f"{transport}: {pol['wall']:.2f} s (sim {sim['wall']:.2f} s); "
+          f"perplexities within {eps:.4f} of sim's ({rel:.3e} relative, tol "
+          f"{SWEEP_PPL_RTOL:.0e}); tiers equal sim's on "
+          f"{len(far) - len(wrong)} of the {len(far)} blocks further than "
+          f"2 x that from tau1 and "
+          f"tau2; plan equal to sim's: {pol['modes'] == sim['modes']}; B8 "
+          f"launches a rank {[r['b8'] for r in res]} (want {b8})")
+    if wrong or rel > SWEEP_PPL_RTOL or any(r["b8"] != b8 for r in res):
+        raise AssertionError(f"shard hymba apply_comm_policy: tiers of "
+                             f"blocks {wrong} differ from sim's, the "
+                             f"perplexities by {rel:.3e}, or B8 launches")
+    spd, sim_spd = [r["spd"] for r in res], SIM_RUNS["hymba alg1"]["spd"]
+    for r, rr in enumerate(spd[1:], 1):
+        for k in ("modes", "chosen", "categories"):
+            if rr[k] != spd[0][k]:
+                raise AssertionError(f"shard hymba apply_spd: rank {r}'s "
+                                     f"{k} differs from rank 0's")
+    s0 = spd[0]
+    print(f"shard hymba apply_spd [{card}] L={n} tp 2 over {transport}: "
+          f"{s0['wall']:.2f} s (sim {sim_spd['wall']:.2f} s); tiers "
+          + " ".join(f"{b}:{t}" for b, t in zip(s0["chosen"],
+                                                 s0["categories"]))
+          + f"; plan equal to sim's: {s0['modes'] == sim_spd['modes']}; "
+          f"distilled blocks (steps) "
+          f"{ {b: len(v) for b, v in s0['losses'].items()} }, losses "
+          + ", ".join(f"{b}: {v[0]:.4e} -> {v[-1]:.4e}"
+                      for b, v in s0["losses"].items())
+          + f"; B8 under autograd (the student's forward) a rank "
+          f"{[r['b8_autograd'] for r in spd]} (want {s0['b8_want']}; sim "
+          f"{sim_spd['b8_autograd']})")
+    if not all(r["finite"] and r["b8_want"] > 0
+               and r["b8_autograd"] == r["b8_want"] for r in spd):
+        raise AssertionError("shard hymba apply_spd: B8 did not run under "
+                             "autograd once a distillation step of each "
+                             "hybrid block, or a loss is not finite")
 
 
 def check_paged_prefix(ranks, label, want=None):
@@ -6466,6 +7415,8 @@ def main() -> int:
     train_row, train_launches = train_phase(torch, np, card)
     print(f"train path launches: {json.dumps(train_launches)}")
     clock(t_start, "the training phase")
+    b8_rows, family_train = family_train_phase(torch, np, card)
+    clock(t_start, "the families' training")
 
     # the MoE and hybrid families at full width, one model at a time
     family_rows = family_kernel_phase(torch, card)
@@ -6526,6 +7477,9 @@ def main() -> int:
     for k in family_rows:
         k["launches"] = fam_paths[k.pop("_path")][k["name"]]
     kernels += family_rows
+    # B8 under autograd at the train shapes: its launches in 16f's mamba2
+    # and hymba train steps
+    kernels += b8_rows
     # B3 at deepseek's logits gather: its launches on the deepseek path
     deepseek_row.pop("_path")
     deepseek_row["launches"] = deepseek_launches["qdq_absmax"]

@@ -524,7 +524,6 @@ class LLM:
         and all must reach the same plan and ranking."""
         from repro_torch.core import spd as SPD
 
-        SPD.require_algorithm1(self.cfg)
         self._release_engine()
         padded = None
         try:
@@ -552,7 +551,6 @@ class LLM:
         SensitivityResult; `self.plan.comm` holds the policy after."""
         from repro_torch.core import spd as SPD
 
-        SPD.require_algorithm1(self.cfg)
         self._release_engine()
         try:
             plan, res = SPD.assign_comm_policy(

@@ -28,7 +28,9 @@ Block wiring (Fig 3):
   MoE FFN: every shard routes all its tokens and runs its own experts
   (the expert axis is split over the shards); the routed and shared
   experts' partials ride the FFN's sync, so the combine adds no sync.
-  In a dropped block each shard routes its own divergent input.
+  In a dropped block each shard routes its own divergent input.  Its
+  load-balance aux is `block_seq`'s third output, for the training loss
+  (moe_partial says how its gradient counts once).
 
   MLA: the heads are split over the shards, but the latent `c` and the
   rope key `kr` come from replicated weights (`wdkv`, `lnorm`) and are
@@ -822,8 +824,8 @@ def mlp_partial(cfg, m, h, *, divergent: bool):
     return _mm(hid, m["wd"])      # the wd bias (bd) is added at the sync
 
 
-def moe_partial(cfg, mo_p, h):
-    """h (tp,B,S,d) -> (the partial combine (tp,B,S,d), aux (tp,)).
+def moe_partial(cfg, mo_p, h, *, h_aux=None, slots: int = 1):
+    """h (tp,B,S,d) -> (the partial combine (tp,B,S,d), aux (tp, slots)).
 
     Each shard routes its own rows (in a dropped block they differ) over
     T = B*S tokens, pad and idle rows included, as the reference does:
@@ -831,13 +833,45 @@ def moe_partial(cfg, mo_p, h):
     and the queue order depend on T.  Shard i runs experts [i*E_l,
     (i+1)*E_l).  The shared experts are an MLP split over the shards.
     `aux` is the load-balance loss each shard computes (serving ignores
-    it)."""
+    it).  With `slots` > 1 the B rows are that many data slots' rows,
+    slot-major (the sim train step's batch): each slot's rows route on
+    their own, with their own T, capacity and aux, as on the device
+    that holds the slot.
+
+    Gradients (the reference's moe_partial): the combine's cotangents
+    differ by shard, so `h` arrives through column_entry and the router
+    through shared_param.  The aux loss is the same on every shard of a
+    TP block; through those wrappers its gradient would count tp times.
+    So in TP mode the caller passes `h_aux`, the replicated activation
+    before column_entry, and where autograd records aux is taken from it
+    through the raw router: counted once.  In SPD mode (`h_aux` None)
+    each shard's aux is its own and the wrapped path is right."""
+    b = h.shape[1]
+    if b % slots:
+        raise ValueError(f"{b} rows do not split into {slots} data slots")
+    n = b // slots
+    parts, auxs = [], []
+    for i in range(slots):
+        rows = slice(i * n, (i + 1) * n)
+        part, aux = _moe_rows(cfg, mo_p, h[:, rows],
+                              None if h_aux is None else h_aux[:, rows])
+        parts.append(part)
+        auxs.append(aux)
+    part = parts[0] if slots == 1 else torch.cat(parts, 1)
+    return part, torch.stack(auxs, -1)
+
+
+def _moe_rows(cfg, mo_p, h, h_aux):
+    """One data slot's rows: (partial (tp,B,S,d), aux (tp,))."""
     mo = cfg.moe
     tp, b, s, d = h.shape
     t = b * s
     hf = h.reshape(tp, t, d)
     gates, idx, aux = MOE.route(hf, shared_param(mo_p["router"]), mo.top_k,
                                 mo.n_routed)
+    if h_aux is not None and torch.is_grad_enabled():
+        _, _, aux = MOE.route(h_aux.reshape(tp, t, d), mo_p["router"],
+                              mo.top_k, mo.n_routed)
     e_l = mo_p["wu"].shape[1]
     cap = max(int(mo.capacity_factor * t * mo.top_k / max(mo.n_routed, 1)),
               mo.top_k)
@@ -874,58 +908,72 @@ def _mixer_seq(cfg, kind, p, x, pos, lay, want_cache, q_chunk):
     return part, p["attn"].get("bo"), cache
 
 
-def _ffn_partial(cfg, kind, p, u, *, divergent):
-    """norm2 -> (column entry) -> ffn partial: (z_partial, bias_d).  A MoE
-    FFN's aux loss is dropped: serving ignores it."""
+def _ffn_partial(cfg, kind, p, u, *, divergent, slots=1):
+    """norm2 -> (column entry) -> ffn partial: (z_partial, bias_d, aux).
+    A MoE FFN's aux (tp, slots) is its load-balance loss (see
+    moe_partial: in TP mode taken from the activation before the column
+    entry, so its gradient counts once); an MLP has none (None)."""
     ln2 = ({k: shared_param(v) for k, v in p["ln2"].items()} if divergent
            else p["ln2"])
-    h2 = _norm(u, ln2, cfg)
-    h2 = h2 if divergent else column_entry(h2)
+    h2_raw = _norm(u, ln2, cfg)
+    h2 = h2_raw if divergent else column_entry(h2_raw)
     if kind.ffn == "moe":
-        return moe_partial(cfg, p["moe"], h2)[0], None
-    return mlp_partial(cfg, p["mlp"], h2, divergent=divergent), \
-        p["mlp"].get("bd")
+        z, aux = moe_partial(cfg, p["moe"], h2,
+                             h_aux=None if divergent else h2_raw,
+                             slots=slots)
+        return z, None, aux
+    return (mlp_partial(cfg, p["mlp"], h2, divergent=divergent),
+            p["mlp"].get("bd"), None)
 
 
-def _wire_post_mixer(cfg, kind, p, x, part, bo, *, drop: bool, comm=None):
-    """TP/SPD post-mixer wiring (Fig 3) shared by prefill and decode.  x
-    is the block input, `part` the shard-local mixer partial, `comm` the
-    block's kept-sync level."""
+def _wire_post_mixer(cfg, kind, p, x, part, bo, *, drop: bool, comm=None,
+                     slots=1):
+    """TP/SPD post-mixer wiring (Fig 3) shared by every mode: (block
+    output, the FFN's aux (tp, slots) or None; the cached paths drop the
+    aux).
+    x is the block input, `part` the shard-local mixer partial, `comm`
+    the block's kept-sync level."""
     if not drop:
         y = sync_output(part, mode=comm)
         if bo is not None:
             y = y + _bcast(bo, y)
         u = x + y
-        z, bd = _ffn_partial(cfg, kind, p, u, divergent=False)
+        z, bd, aux = _ffn_partial(cfg, kind, p, u, divergent=False,
+                                  slots=slots)
         z = sync_output(z, mode=comm)
         if bd is not None:
             z = z + _bcast(bd, z)
-        return u + z
+        return u + z, aux
     # ---- SPD wiring ----
     y_i = part
     if bo is not None:
         y_i = y_i + _bcast(shared_param(bo), y_i)   # b on the divergent path
     u_i = column_entry(x) + y_i
-    z_i, bd = _ffn_partial(cfg, kind, p, u_i, divergent=True)
+    z_i, bd, aux = _ffn_partial(cfg, kind, p, u_i, divergent=True,
+                                slots=slots)
     out = x + sync_output(z_i + part, mode=comm)     # deferred residual: P_i
     if bo is not None:
         out = out + _bcast(bo, out)                  # bias re-added once
     if bd is not None:
         out = out + _bcast(bd, out)
-    return out
+    return out, aux
 
 
 def block_seq(cfg, kind, lay, p, x, pos, *, drop: bool, want_cache=False,
-              q_chunk=1024, comm=None):
-    """Sequence-mode block (prefill): x (tp,B,S,d).  Returns (out, cache)."""
+              q_chunk=1024, comm=None, slots=1):
+    """Sequence-mode block (prefill, training): x (tp,B,S,d).  Returns
+    (out, cache, aux): aux (tp, slots) is a MoE FFN's load-balance loss,
+    each of `slots` data slots' rows routed on their own (moe_partial);
+    None for any other block."""
     if kind.mixer == "ssm":
         h = column_entry(_norm(x, p["ln1"], cfg))
         part, cache = ssm_mixer_seq(cfg, p["ssm"], h, want_cache=want_cache)
-        return x + sync_output(part, mode=comm), cache
+        return x + sync_output(part, mode=comm), cache, None
     part, bo, cache = _mixer_seq(cfg, kind, p, x, pos, lay, want_cache,
                                  q_chunk)
-    out = _wire_post_mixer(cfg, kind, p, x, part, bo, drop=drop, comm=comm)
-    return out, cache
+    out, aux = _wire_post_mixer(cfg, kind, p, x, part, bo, drop=drop,
+                                comm=comm, slots=slots)
+    return out, cache, aux
 
 
 def block_dec(cfg, kind, lay, p, x, pos, cache, *, drop: bool, comm=None):
@@ -941,8 +989,8 @@ def block_dec(cfg, kind, lay, p, x, pos, cache, *, drop: bool, comm=None):
     else:
         part, cache = gqa_mixer_dec(cfg, kind, p["attn"], h, pos, cache,
                                     lay)
-    out = _wire_post_mixer(cfg, kind, p, x, part, p["attn"].get("bo"),
-                           drop=drop, comm=comm)
+    out, _ = _wire_post_mixer(cfg, kind, p, x, part, p["attn"].get("bo"),
+                              drop=drop, comm=comm)
     return out, cache
 
 
@@ -997,8 +1045,8 @@ def block_ext(cfg, kind, lay, p, x, pos, cache, *, drop: bool, q_chunk=1024,
     h = column_entry(_norm(x, p["ln1"], cfg))
     part, cache = gqa_mixer_ext(cfg, kind, p["attn"], h, pos, cache, lay,
                                 q_chunk=q_chunk, spos=spos, anc=anc)
-    out = _wire_post_mixer(cfg, kind, p, x, part, p["attn"].get("bo"),
-                           drop=drop, comm=comm)
+    out, _ = _wire_post_mixer(cfg, kind, p, x, part, p["attn"].get("bo"),
+                              drop=drop, comm=comm)
     return out, cache
 
 
@@ -1051,6 +1099,6 @@ def block_page(cfg, kind, lay, p, x, pos, cache, page_table, *, drop: bool,
     h = column_entry(_norm(x, p["ln1"], cfg))
     part, cache = gqa_mixer_page(cfg, kind, p["attn"], h, pos, cache,
                                  page_table, lay, depths=depths, anc=anc)
-    out = _wire_post_mixer(cfg, kind, p, x, part, p["attn"].get("bo"),
-                           drop=drop, comm=comm)
+    out, _ = _wire_post_mixer(cfg, kind, p, x, part, p["attn"].get("bo"),
+                              drop=drop, comm=comm)
     return out, cache

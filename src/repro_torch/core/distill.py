@@ -37,12 +37,12 @@ def make_distill_step(cfg, kind, tp: int, *, lr: float, q_chunk: int = 1024):
     def step(student, opt_state, teacher, x, pos):
         xs = x[None].expand((local_shards(tp),) + tuple(x.shape))
         with torch.no_grad():
-            out_t, _ = B.block_seq(cfg, kind, lay, teacher, xs, pos,
-                                   drop=False, q_chunk=q_chunk)
+            out_t, _, _ = B.block_seq(cfg, kind, lay, teacher, xs, pos,
+                                      drop=False, q_chunk=q_chunk)
         sp, leaves = simtp.grad_leaves(student)
         with torch.enable_grad():
-            out_s, _ = B.block_seq(cfg, kind, lay, sp, xs, pos, drop=True,
-                                   q_chunk=q_chunk)
+            out_s, _, _ = B.block_seq(cfg, kind, lay, sp, xs, pos, drop=True,
+                                      q_chunk=q_chunk)
             d = (out_s - out_t).float()
             mse = (d * d).flatten(1).mean(1)                  # (tp,)
             grads = simtp.grads_of(mse.sum(), student, leaves)

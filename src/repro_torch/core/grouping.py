@@ -12,13 +12,15 @@ Two steps, both realised as WEIGHT PERMUTATIONS (runtime code unchanged):
 
 GQA adaptation: the movable unit is a KV GROUP (a kv head moves with
 all its query heads); with n_kv == n_heads (the paper's MHA models) it
-is the paper's per-head method.  The features and the MLP scores are
+is the paper's per-head method.  For MLA the unit is one head over the
+shared latent (its rows of `wq`, `wuk`, `wuv` and `wo` move; `wdkv` and
+`lnorm` are replicated and stay).  The features and the MLP scores are
 torch on the device, in the model's dtype as the reference's are; the
 combinatorial parts (the greedy anti-clustering with its pairwise-swap
-search, the bitmask DP) are the reference's numpy.  Families without a
-supported grouping (kv < tp replication, SSM) return the identity
-grouping with `supported=False`; MLA (the reference's per-head unit
-over a shared latent) is not ported (ROADMAP A3).
+search, the bitmask DP) are the reference's numpy.  Layers without a
+supported grouping (kv < tp replication, a MoE FFN, hybrid and SSM
+mixers) return the identity grouping with `supported=False`, as the
+reference's do.
 """
 from __future__ import annotations
 
@@ -40,12 +42,6 @@ class GroupingResult:
     groups: List[List[int]]        # per device: unit indices
     assignment: List[int]          # assignment[m] = group index on MLP shard m
     score: float
-
-
-def _no_mla(cfg: ModelConfig) -> None:
-    if cfg.mla is not None:
-        raise NotImplementedError("head grouping for MLA attention is not "
-                                  "ported yet (ROADMAP A3)")
 
 
 def _positions(b: int, s: int, dev):
@@ -74,6 +70,26 @@ def _qkv_heads(cfg, a, h, pos, *, with_v: bool):
     return q, k, v
 
 
+def _mla_heads(cfg, a, h, pos, *, with_v: bool):
+    """MLA's canonical heads -> q (B,S,H,nope+rope), k (B,S,H,nope+rope)
+    with the one rope key broadcast over the heads [, v (B,S,H,v_dim)],
+    and the score scale (nope + rope)^-1/2."""
+    m = cfg.mla
+    b, s = h.shape[:2]
+    hq = cfg.n_heads
+    q = (h @ a["wq"]).reshape(b, s, hq, -1)
+    qn, qr = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    qr = apply_rope(qr, pos, cfg.rope_theta)
+    ckr = h @ a["wdkv"]
+    c = rmsnorm(ckr[..., :m.kv_lora_rank], a["lnorm"], cfg.norm_eps)
+    kr = apply_rope(ckr[..., None, m.kv_lora_rank:], pos, cfg.rope_theta)
+    kn = (c @ a["wuk"]).reshape(b, s, hq, m.qk_nope_head_dim)
+    k = torch.cat([kn, kr.expand(b, s, hq, m.qk_rope_head_dim)], -1)
+    v = (c @ a["wuv"]).reshape(b, s, hq, m.v_head_dim) if with_v else None
+    return (torch.cat([qn, qr], -1), k, v,
+            (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5)
+
+
 # ---------------------------------------------------------------------------
 # Per-head attention-score features (canonical weights, direct math)
 # ---------------------------------------------------------------------------
@@ -84,16 +100,20 @@ def head_score_features(cfg: ModelConfig, kind: LayerKind, layer_p: dict,
     """x (B,S,d) block input (calibration).  Returns (H, F) per-head
     attention-score vectors (softmax probs, subsampled to max_pos rows),
     fp32 numpy."""
-    _no_mla(cfg)
     x = torch.as_tensor(x)
     h = norm_apply(x, layer_p["ln1"], cfg)
     b, s, _ = h.shape
     sp = min(s, max_pos)
-    q, k, _ = _qkv_heads(cfg, layer_p["attn"], h, _positions(b, s, x.device),
-                         with_v=False)
-    k = k.repeat_interleave(cfg.n_heads // cfg.n_kv_heads, dim=2)
+    pos = _positions(b, s, x.device)
+    if cfg.mla is not None:
+        q, k, _, scale = _mla_heads(cfg, layer_p["attn"], h, pos,
+                                    with_v=False)
+    else:
+        q, k, _ = _qkv_heads(cfg, layer_p["attn"], h, pos, with_v=False)
+        k = k.repeat_interleave(cfg.n_heads // cfg.n_kv_heads, dim=2)
+        scale = cfg.d_head ** -0.5
     scores = torch.einsum("bqhd,bkhd->bhqk", q[:, :sp].float(),
-                          k[:, :sp].float()) * cfg.d_head ** -0.5
+                          k[:, :sp].float()) * scale
     mask = torch.ones(sp, sp, dtype=torch.bool, device=x.device).tril()
     scores = torch.where(mask[None, None], scores,
                          torch.full_like(scores, -1e30))
@@ -214,16 +234,20 @@ def mlp_match_scores(cfg: ModelConfig, kind: LayerKind, layer_p: dict, x,
 
     Y_{A} = attention output restricted to group A's heads (their wo rows);
     MLP_m = the m-th 1/tp slice of the MLP weights."""
-    _no_mla(cfg)
     x = torch.as_tensor(x)
     b, s, d = x.shape
     tp = len(groups)
     a = layer_p["attn"]
     pos = _positions(b, s, x.device)
     h = norm_apply(x, layer_p["ln1"], cfg)
-    q, k, v = _qkv_heads(cfg, a, h, pos, with_v=True)
-    o = attend(q, k, v, causal_mask(pos, pos))          # (B,S,H,dh)
-    wo = a["wo"].reshape(cfg.n_heads, cfg.d_head, d)
+    if cfg.mla is not None:
+        q, k, v, scale = _mla_heads(cfg, a, h, pos, with_v=True)
+        dh_v = cfg.mla.v_head_dim
+    else:
+        q, k, v = _qkv_heads(cfg, a, h, pos, with_v=True)
+        scale, dh_v = None, cfg.d_head
+    o = attend(q, k, v, causal_mask(pos, pos), scale)   # (B,S,H,dh_v)
+    wo = a["wo"].reshape(cfg.n_heads, dh_v, d)
     mlp = layer_p["mlp"]
     ffl = mlp["wu"].shape[1] // tp
     act = act_fn(cfg.act)
@@ -258,8 +282,10 @@ def mlp_match_scores(cfg: ModelConfig, kind: LayerKind, layer_p: dict, x,
 # ---------------------------------------------------------------------------
 
 def _units(cfg: ModelConfig):
-    """Movable units -> list of q-head lists (kv-group granularity)."""
-    _no_mla(cfg)
+    """Movable units -> list of q-head lists (kv-group granularity; one
+    head each on MLA)."""
+    if cfg.mla is not None:
+        return [[h] for h in range(cfg.n_heads)]
     g = cfg.n_heads // cfg.n_kv_heads
     return [list(range(kv * g, (kv + 1) * g)) for kv in range(cfg.n_kv_heads)]
 
@@ -296,9 +322,19 @@ def apply_grouping(layer_p: dict, cfg: ModelConfig, res: GroupingResult,
     kv_idx = torch.as_tensor(order, device=dev)   # kv heads, unit order
     dh, d = cfg.d_head, cfg.d_model
 
-    def perm_cols(w, n_heads, sel):
-        return w.reshape(w.shape[0], n_heads, dh)[:, sel].reshape(
+    def perm_cols(w, n_heads, sel, width=dh):
+        return w.reshape(w.shape[0], n_heads, width)[:, sel].reshape(
             w.shape[0], -1)
+
+    if cfg.mla is not None:       # heads over the shared latent
+        m = cfg.mla
+        a["wq"] = perm_cols(a["wq"], cfg.n_heads, idx,
+                            m.qk_nope_head_dim + m.qk_rope_head_dim)
+        a["wuk"] = perm_cols(a["wuk"], cfg.n_heads, idx, m.qk_nope_head_dim)
+        a["wuv"] = perm_cols(a["wuv"], cfg.n_heads, idx, m.v_head_dim)
+        a["wo"] = a["wo"].reshape(cfg.n_heads, m.v_head_dim, d)[idx].reshape(
+            -1, d)
+        return dict(layer_p, attn=a)
 
     def perm_vec(v, n_heads, sel):
         return v.reshape(n_heads, dh)[sel].reshape(-1)

@@ -237,9 +237,9 @@ def _seg_cache(kind, cache: dict, length: int, cache_len: int) -> dict:
 
 def forward_seq(cfg, stacked, plan: SPDPlanConfig, tokens, *, tp,
                 q_chunk=1024, cache_len: int = 0, want_cache=False,
-                drop_flags=None, remat=False, fsdp=None):
+                drop_flags=None, remat=False, fsdp=None, slots: int = 1):
     """Sequence forward.  tokens (B,S).  Returns (hidden (tp,B,S,d) after
-    the final norm, caches) — caches per segment: attention layers'
+    the final norm, caches, aux) — caches per segment: attention layers'
     {"k","v"} of shape (tp, layers, B, max(S, cache_len), HkvL, dh), zero
     past S (a windowed layer's rolling buffer: max(min(S, window),
     min(window, cache_len)) slots; an int8 cache's codes and "k_s"/"v_s"
@@ -262,7 +262,13 @@ def forward_seq(cfg, stacked, plan: SPDPlanConfig, tokens, *, tp,
     `fsdp` (parallel/fsdp.FSDPSpecs, training) logs the all-gathers of
     the data-sharded weights where the reference gathers them: the
     embedding, each layer (one layer's, scaled over its segment) and the
-    final norm.  On one device the weights are whole: nothing moves."""
+    final norm.  On one device the weights are whole: nothing moves.
+
+    `aux` is the MoE load-balance aux summed over the layers, (tp, slots)
+    fp32 (zeros without a MoE FFN; each layer's by its own wiring, also
+    under `drop_flags`, as the reference's dual mode selects it).
+    `slots` > 1 routes each of that many data slots' rows on their own
+    (blocks.moe_partial: the sim train step)."""
     lay = _gqa_layout(cfg, tp)
     view = stacked if fsdp is None else fsdp.gather_top(stacked, ("emb",))
     x = embed_tokens(view["emb"], tokens)
@@ -271,6 +277,7 @@ def forward_seq(cfg, stacked, plan: SPDPlanConfig, tokens, *, tp,
     if fsdp is not None:
         view = fsdp.gather_top(view, ("pos",))
     x = _add_positions(view, cfg, x, pos)
+    aux_total = None
     caches = []
     for seg_i, (start, length, kind, dropped) in enumerate(
             plan_segments(cfg, plan.drop_mask, plan.qmodes)):
@@ -285,13 +292,20 @@ def forward_seq(cfg, stacked, plan: SPDPlanConfig, tokens, *, tp,
                     if fsdp is not None:
                         lp = fsdp.gather_layer(lp, seg_i)
                     if remat and not want_cache:
-                        x = _remat_block(cfg, kind, lay, lp, x, pos, drop,
-                                         q_chunk, plan.block_mode(start))
-                        continue
-                    x, c = B.block_seq(cfg, kind, lay, lp, x, pos,
-                                       drop=drop, want_cache=want_cache,
-                                       q_chunk=q_chunk,
-                                       comm=plan.block_mode(start))
+                        x, c, aux = _remat_block(cfg, kind, lay, lp, x, pos,
+                                                 drop, q_chunk,
+                                                 plan.block_mode(start),
+                                                 slots)
+                    else:
+                        x, c, aux = B.block_seq(cfg, kind, lay, lp, x, pos,
+                                                drop=drop,
+                                                want_cache=want_cache,
+                                                q_chunk=q_chunk,
+                                                comm=plan.block_mode(start),
+                                                slots=slots)
+                    if aux is not None:
+                        aux_total = aux if aux_total is None else (
+                            aux_total + aux)
                 if want_cache:
                     if seg_cache is None:
                         seg_cache = _seg_cache(kind, c, length, cache_len)
@@ -302,14 +316,21 @@ def forward_seq(cfg, stacked, plan: SPDPlanConfig, tokens, *, tp,
         caches.append(seg_cache)
     if fsdp is not None:
         view = fsdp.gather_top(stacked, ("lnf",))
-    return _final_norm(view, cfg, x), (caches if want_cache else None)
+    if aux_total is None:
+        aux_total = torch.zeros((x.shape[0], slots), dtype=torch.float32,
+                                device=x.device)
+    return (_final_norm(view, cfg, x), caches if want_cache else None,
+            aux_total)
 
 
-def _remat_block(cfg, kind, lay, layer_p, x, pos, drop, q_chunk, comm):
-    """One block whose activations the backward recomputes.  The
-    recomputation logs nothing: the ledger counts the forward.  It syncs
-    over the groups bound now (a rank's): on a CUDA device it runs on
-    the autograd engine's thread, which has none bound."""
+def _remat_block(cfg, kind, lay, layer_p, x, pos, drop, q_chunk, comm,
+                 slots):
+    """One block whose activations the backward recomputes: block_seq's
+    (out, None, aux), no cache.  The recomputation logs nothing: the
+    ledger counts the forward.  It syncs over the groups bound now (a
+    rank's): on a CUDA device it runs on the autograd engine's thread,
+    which has none bound."""
+
     from torch.utils.checkpoint import checkpoint
 
     from repro_torch.parallel.collectives import bound_groups, groups_bound
@@ -319,10 +340,9 @@ def _remat_block(cfg, kind, lay, layer_p, x, pos, drop, q_chunk, comm):
     def run(xc, *leaves):
         calls.append(1)
         with ledger_paused(len(calls) > 1), groups_bound(groups):
-            out, _ = B.block_seq(cfg, kind, lay,
-                                 tree_unflatten(layer_p, leaves), xc, pos,
-                                 drop=drop, q_chunk=q_chunk, comm=comm)
-        return out
+            return B.block_seq(cfg, kind, lay, tree_unflatten(layer_p, leaves),
+                               xc, pos, drop=drop, q_chunk=q_chunk,
+                               comm=comm, slots=slots)
 
     return checkpoint(run, x, *tree_leaves(layer_p), use_reentrant=False)
 
@@ -353,31 +373,35 @@ def token_ce(logits, labels, cfg):
 
 
 def loss_fn(cfg, stacked, plan, batch, *, tp, q_chunk=1024,
-            drop_flags=None, remat=False, fsdp=None):
-    """The LM loss.  batch {"tokens", "labels", "mask"} (B,S) tensors.
-    Returns (shard 0's mean CE over the mask, {"sum_ce", "n_tok",
-    "shard_loss" (tp,), "shard_ce" (tp,), "row_ce" (B,)}): a gradient
-    is taken of shard_loss.sum(), the reference's grad inside the shard
-    map; the train step takes it of
-    shard_ce.sum() over the GLOBAL token count instead (parallel/tp.py).
-    `row_ce` is shard 0's masked CE sum of each row, without a graph.
-    The MoE family's auxiliary loss is not carried (its training is
-    refused: parallel/tp.check_trainable).
-    `fsdp` logs the head's all-gather as the reference does (see
-    forward_seq)."""
-    x, _ = forward_seq(cfg, stacked, plan, batch["tokens"], tp=tp,
-                       q_chunk=q_chunk, drop_flags=drop_flags, remat=remat,
-                       fsdp=fsdp)
+            drop_flags=None, remat=False, fsdp=None, aux_coef=0.01,
+            slots: int = 1):
+    """The LM loss plus `aux_coef` x the MoE load-balance aux, as the
+    reference's.  batch {"tokens", "labels", "mask"} (B,S) tensors.
+    Returns (shard 0's mean CE over the mask + aux_coef * aux, {"sum_ce",
+    "n_tok", "aux", "shard_loss" (tp,), "shard_ce" (tp,), "shard_aux"
+    (tp, slots), "row_ce" (B,)}): a gradient is taken of
+    shard_loss.sum(), the reference's grad inside the shard map; the
+    train step takes it of shard_ce.sum() over the GLOBAL token count
+    plus aux_coef x shard_aux.sum() over the microbatches instead
+    (parallel/tp.py).  `aux` is shard 0's aux summed over the slots
+    (zero without a MoE FFN); `slots` > 1 routes each data slot's rows
+    on their own (forward_seq).  `row_ce` is shard 0's masked CE sum of
+    each row, without a graph.  `fsdp` logs the head's all-gather as
+    the reference does (see forward_seq)."""
+    x, _, aux = forward_seq(cfg, stacked, plan, batch["tokens"], tp=tp,
+                            q_chunk=q_chunk, drop_flags=drop_flags,
+                            remat=remat, fsdp=fsdp, slots=slots)
     head = stacked if fsdp is None else fsdp.gather_top(
         stacked, ("emb",) if cfg.tie_embeddings else ("head",))
     mask = batch["mask"].float()
     ce = token_ce(lm_logits(head, cfg, x), batch["labels"], cfg)
     shard_ce = torch.stack([(c * mask).sum() for c in ce])
     n_tok = mask.sum()
-    shard_loss = shard_ce / n_tok.clamp_min(1.0)
+    shard_loss = shard_ce / n_tok.clamp_min(1.0) + aux_coef * aux.sum(-1)
     return shard_loss[0], {"sum_ce": shard_ce[0], "n_tok": n_tok,
+                           "aux": aux[0].sum(),
                            "shard_loss": shard_loss,
-                           "shard_ce": shard_ce,
+                           "shard_ce": shard_ce, "shard_aux": aux,
                            "row_ce": (ce[0].detach() * mask).sum(-1)}
 
 
@@ -389,9 +413,9 @@ def prefill(cfg, stacked, plan, tokens, *, tp, q_chunk=1024,
     length; `lengths` (B,) are the real prompt lengths of a right-padded
     batch (logits are taken at lengths-1; decode overwrites the padded
     cache slots before they become causally visible)."""
-    x, caches = forward_seq(cfg, stacked, plan, tokens, tp=tp,
-                            q_chunk=q_chunk, cache_len=cache_len,
-                            want_cache=True)
+    x, caches, _ = forward_seq(cfg, stacked, plan, tokens, tp=tp,
+                               q_chunk=q_chunk, cache_len=cache_len,
+                               want_cache=True)
     if lengths is None:
         xq = x[:, :, -1:]
     else:

@@ -188,8 +188,8 @@ def make_logits_fn(cfg, plan, tp, *, q_chunk=1024):
     def fn(split_params, tokens):
         tokens = torch.as_tensor(np.asarray(tokens)).to(
             _device(split_params))
-        x, _ = M.forward_seq(cfg, split_params, plan, tokens, tp=tp,
-                             q_chunk=q_chunk)
+        x, _, _ = M.forward_seq(cfg, split_params, plan, tokens, tp=tp,
+                                q_chunk=q_chunk)
         lg = M.lm_logits(split_params, cfg, x)          # (tp,B,S,Vl)
         tp_, b, s, vl = lg.shape
         full = lg.permute(1, 2, 0, 3).reshape(b, s, tp_ * vl)
@@ -222,9 +222,9 @@ def make_collect_fn(cfg, plan, tp, *, q_chunk=1024):
         for seg_i, (start, length, kind, dropped) in enumerate(segs):
             sp = split_params["segs"][seg_i]
             for j in range(length):
-                x, _ = B.block_seq(cfg, kind, lay, M._layer(sp, j), x, pos,
-                                   drop=dropped, q_chunk=q_chunk,
-                                   comm=plan.block_mode(start))
+                x, _, _ = B.block_seq(cfg, kind, lay, M._layer(sp, j), x, pos,
+                                      drop=dropped, q_chunk=q_chunk,
+                                      comm=plan.block_mode(start))
                 outs.append(x[0])
         return torch.stack(outs)
 
@@ -243,8 +243,8 @@ def make_block_fn(cfg, kind, tp, *, drop: bool, q_chunk=1024):
     @torch.no_grad()
     def fn(split_p, x, pos):
         xs = x[None].expand((local_shards(tp),) + tuple(x.shape))
-        out, _ = B.block_seq(cfg, kind, lay, split_p, xs, pos, drop=drop,
-                             q_chunk=q_chunk)
+        out, _, _ = B.block_seq(cfg, kind, lay, split_p, xs, pos, drop=drop,
+                                q_chunk=q_chunk)
         return out[0]
 
     return fn

@@ -85,20 +85,6 @@ def capture_block_inputs(cfg, padded, tp, calib_batches, *, q_chunk=1024,
         return [collect(split0, b["tokens"]) for b in calib_batches]
 
 
-def require_algorithm1(cfg: ModelConfig) -> None:
-    """Algorithm 1 (the sweep, the comm policy, recovery) is held to the
-    reference on the dense and SSM families only: MLA, the MoE and the
-    hybrid families are refused until a test holds them (ROADMAP A3)."""
-    if cfg.mla is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: Algorithm 1 on MLA attention is not ported yet "
-            "(ROADMAP A3)")
-    if cfg.moe is not None or cfg.family == "hybrid":
-        raise NotImplementedError(
-            f"{cfg.name}: Algorithm 1 on the {cfg.family} family is not "
-            "ported yet (ROADMAP A3)")
-
-
 def sweep_sensitivity(cfg: ModelConfig, canonical: dict, calib_batches,
                       tp: int, *, q_chunk: int = 1024, keep_split=False,
                       groups=None):
@@ -107,7 +93,6 @@ def sweep_sensitivity(cfg: ModelConfig, canonical: dict, calib_batches,
     params), and the placement too when `keep_split`; else it is freed
     on return.  On a rank (`groups`) the padded tree stays where the
     canonical one lies and the rank's shard is placed on its device."""
-    require_algorithm1(cfg)
     padded = M.pad_model(canonical, cfg, tp)
     split0 = place_no_spd(cfg, padded, tp, groups)
     with rank_bound(groups):
@@ -128,7 +113,6 @@ def apply_spd(cfg: ModelConfig, canonical: dict, calib_batches, tp: int, *,
               q_chunk: int = 1024, groups=None):
     """Returns (padded_params_final, plan, report).  `groups`: this
     rank's launch.dist.TPGroups on the shard backend (module doc)."""
-    require_algorithm1(cfg)
     if not cfg.spd_applicable:
         padded = M.pad_model(canonical, cfg, tp)
         plan = SPDPlanConfig.none(cfg.n_layers)

@@ -12,10 +12,15 @@ which leaves y at real positions and the state exactly as they are.
 
 `ssd_scan` launches `csrc/ssd_scan.cu` for CUDA tensors and takes
 `ssd_scan_plain` only for CPU tensors; `.launches` counts calls that
-launched.  In bf16 one call launches three tensor-core kernels (scores
-C.B^T once per (row, group, chunk); each chunk's own state; y with the
-state passed between chunks) through fp32 scratch that the wrapper
-allocates (`scratch_shapes`); in fp32 one CUDA-core kernel.
+launched.  Where autograd records and an input requires grad, the
+launch goes through `_SSDScan`: the forward is still the kernel (and
+counts), the backward the VJP of `ssd_scan_plain` recomputed from the
+saved inputs in their dtype (the reference's Pallas scan has no VJP: it
+has no backward kernel either).  In bf16 one call launches three
+tensor-core kernels (scores C.B^T once per (row, group, chunk); each
+chunk's own state; y with the state passed between chunks) through fp32
+scratch that the wrapper allocates (`scratch_shapes`); in fp32 one
+CUDA-core kernel.
 """
 from __future__ import annotations
 
@@ -133,7 +138,45 @@ def ssd_scan(x, dt, a, bm, cm, dd, *, chunk: int):
         return ssd_scan_plain(x, dt, a, bm, cm, dd, chunk=chunk)
     if x.device.type != "cuda":
         raise ValueError(f"no ssd_scan kernel for device {x.device}")
-    build.refuse_grad("ssd_scan", x, dt, a, bm, cm, dd)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, a, bm, cm, dd)):
+        return _SSDScan.apply(_ssd_launch, chunk, x, dt, a, bm, cm, dd)
+    return _ssd_launch(x, dt, a, bm, cm, dd, chunk=chunk)
+
+
+class _SSDScan(torch.autograd.Function):
+    """forward: `launch(x, dt, a, bm, cm, dd, chunk=)` (the kernel on the
+    card; a test may pass the plain version); backward: the VJP of
+    `ssd_scan_plain` at the saved inputs.  The final state's cotangent
+    may be None (training reads only y)."""
+
+    @staticmethod
+    def forward(ctx, launch, chunk, x, dt, a, bm, cm, dd):
+        ctx.save_for_backward(x, dt, a, bm, cm, dd)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        y, state = launch(x, dt, a, bm, cm, dd, chunk=chunk)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        ins = [t.detach().requires_grad_(need) for t, need in
+               zip(ctx.saved_tensors, ctx.needs_input_grad[2:])]
+        with torch.enable_grad():
+            y, state = ssd_scan_plain(*ins, chunk=ctx.chunk)
+            outs, cts = [], []
+            for o, c in ((y, dy), (state, dstate)):
+                if c is not None:
+                    outs.append(o)
+                    cts.append(c)
+            want = [t for t in ins if t.requires_grad]
+            gs = iter(torch.autograd.grad(outs, want, cts, allow_unused=True)
+                      if outs else [None] * len(want))
+        return (None, None) + tuple(next(gs) if t.requires_grad else None
+                                    for t in ins)
+
+
+def _ssd_launch(x, dt, a, bm, cm, dd, *, chunk: int):
     bt, s, h, p = x.shape
     g, n = bm.shape[2:]
     bf16 = x.dtype == torch.bfloat16

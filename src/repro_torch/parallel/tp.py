@@ -14,12 +14,17 @@ of the mesh holds.
 
 Microbatch m gathers the m-th microbatch of every data slot's rows (the
 reference's reshape of each slot's local batch), and its loss is each
-shard's CE sum over the GLOBAL token count, so the gradients accumulate
-(in fp32, each microbatch's gradient rounded to the parameter dtype
-first, as jax.value_and_grad + tree.map(add)) to that of the
-global-mean loss.  Parameters and optimizer state are updated in place:
-the reference donates them.  No PartitionSpec helpers: on one card
-they have no counterpart.  Training uses exact comm plans, as in the
+shard's CE sum over the GLOBAL token count plus aux_coef x the MoE
+load-balance aux over the microbatch count (the reference's objective
+per data slot and microbatch, summed over the slots), so the gradients
+accumulate (in fp32, each microbatch's gradient rounded to the
+parameter dtype first, as jax.value_and_grad + tree.map(add)) to that
+of the global objective.  Parameters and optimizer state are updated
+in place: the reference donates them.  No PartitionSpec helpers: on one card
+they have no counterpart.  A MoE FFN routes each data slot's rows of
+the microbatch on their own (blocks.moe_partial): its capacity counts
+the slot's tokens and its aux is the slot's, as on the reference's
+device of that slot.  Training uses exact comm plans, as in the
 reference; a quantized kept sync trains through its identity backward
 (P3), which the reference's does not give at tp > 1 (ROADMAP C5).
 
@@ -45,13 +50,12 @@ import torch
 from repro_torch.api.llm import resolve_device
 from repro_torch.config.base import ModelConfig, SPDPlanConfig
 from repro_torch.core import model as M
-from repro_torch.core.layer_kinds import layer_kinds
 from repro_torch.core.simtp import grad_leaves
 from repro_torch.parallel import fsdp as F
 from repro_torch.parallel import zero1 as Z
-from repro_torch.parallel.collectives import (MODEL_AXIS, ledger_paused,
-                                              ledger_share, psum_plain,
-                                              rank_bound)
+from repro_torch.parallel.collectives import (MODEL_AXIS, gather_shards,
+                                              ledger_paused, ledger_share,
+                                              psum_plain, rank_bound)
 from repro_torch.parallel.layout import REPLICATED
 from repro_torch.tree import tree_leaves, tree_unflatten
 
@@ -123,40 +127,20 @@ class TrainStepConfig:
     lr: float = 3e-4
     weight_decay: float = 0.1
     clip_norm: float = 1.0
+    aux_coef: float = 0.01
     b1: float = 0.9
     b2: float = 0.95
     fsdp: bool = False     # ZeRO-3 param sharding over "data" (see fsdp.py)
 
 
-def check_trainable(cfg: ModelConfig, device) -> None:
-    """Refuse what the port cannot train yet: MLA (its backward through
-    the replicated latent projection is not held to the reference), a
-    modality frontend, the MoE family (the port's loss_fn does not carry
-    the reference's aux_coef * aux load-balance term), the hybrid family
-    on any device and an SSM stack on the card (the SSD scan kernel, B8,
-    has no backward; a hybrid layer's scan runs it).  ROADMAP A3 lists
-    them.  The plain scan is not a stand-in on the card."""
-    kinds = layer_kinds(cfg)
-    if any(k.mixer == "mla" for k in kinds):
-        raise NotImplementedError(f"{cfg.name}: training MLA attention is "
-                                  "not ported yet (ROADMAP A3)")
+def check_trainable(cfg: ModelConfig) -> None:
+    """Refuse what the port cannot train yet: a modality frontend
+    (ROADMAP A4).  Every ported family trains on every device: on the
+    card the SSD scan (B8) runs under autograd (its kernel forward, the
+    plain VJP backward)."""
     if cfg.frontend_dim:
         raise NotImplementedError(f"{cfg.name}: modality frontends are not "
                                   "ported (ROADMAP A4)")
-    if any(k.ffn == "moe" for k in kinds):
-        raise NotImplementedError(
-            f"{cfg.name}: training a MoE stack needs the load-balance aux "
-            "term in loss_fn, which is not ported yet (ROADMAP A3)")
-    if any(k.mixer == "hybrid" for k in kinds):
-        raise NotImplementedError(
-            f"{cfg.name}: training a hybrid stack needs the SSD scan kernel "
-            "under autograd, which is not ported yet (ROADMAP A3)")
-    if torch.device(device).type == "cuda" and any(
-            k.mixer == "ssm" for k in kinds):
-        raise NotImplementedError(
-            f"{cfg.name}: training an SSM stack on the card needs the SSD "
-            "scan kernel under autograd, which is not ported yet "
-            "(ROADMAP A3)")
 
 
 def build_train_step(cfg: ModelConfig, plan: SPDPlanConfig, mesh,
@@ -165,14 +149,17 @@ def build_train_step(cfg: ModelConfig, plan: SPDPlanConfig, mesh,
     """Returns (step, init, specs).
 
     step(params, opt_state, batch) -> (params, opt_state, metrics
-    {"loss", "grad_norm", "lr", "tokens"} 0-d tensors); params are
+    {"loss", "grad_norm", "lr", "tokens", "aux"} 0-d tensors; "aux" the
+    MoE load-balance aux the loss carries x aux_coef, summed over the
+    data slots, each slot's mean over the microbatches: 0 without a MoE
+    FFN); params are
     shard-stacked (simtp.split_padded), batch {"tokens", "labels",
     "mask"} (B, S) tensors on their device, rows laid out over the data
     slots as the reference shards them.  init(params) -> opt_state.
     specs {"params": the TP split axes, "fsdp": FSDPSpecs or None, set
-    at the first call}.  `device` is where the step will run (the
-    refusals of check_trainable): None is the card, an error without
-    one.
+    at the first call}.  `device` is where the step will run: None is
+    the card, an error without one.  metrics["loss"] includes aux_coef x the MoE aux, as the
+    reference's does.
 
     On a rank of the shard backend (module doc) params are the rank's
     model shard, batch its rows (`rank_rows`), the state its slot; with
@@ -180,8 +167,9 @@ def build_train_step(cfg: ModelConfig, plan: SPDPlanConfig, mesh,
     data slices `specs["fsdp"].scatter(params, data_rank)` (set by
     init)."""
     g = rank_groups(mesh, device)
-    check_trainable(cfg, g.device if g is not None else resolve_device(
-        device))
+    if g is None:
+        resolve_device(device)          # None is the card: raises without
+    check_trainable(cfg)
     tp = mesh.shape[MODEL_AXIS]
     dp = mesh.shape["data"]
     pod = pod_axis(mesh)
@@ -225,24 +213,34 @@ def build_train_step(cfg: ModelConfig, plan: SPDPlanConfig, mesh,
         p, leaves = grad_leaves(params)
         gacc = [torch.zeros_like(w, dtype=torch.float32) for w in leaves]
         loss = torch.zeros(slots, dtype=torch.float32, device=mask.device)
+        aux = torch.zeros_like(loss)
         with ledger_share(n_slots):
             for m in range(nmb):
                 mb = {k: micro(v, m) for k, v in batch.items()}
                 with ledger_paused(m > 0), torch.enable_grad():
                     _, met = M.loss_fn(cfg, p, plan, mb, tp=tp,
                                        q_chunk=ts.q_chunk, remat=ts.remat,
-                                       fsdp=f_specs)
-                    # the ported families carry no auxiliary loss: the
-                    # reference's aux_coef * aux / nmb term is 0
-                    obj = (met["shard_ce"] / total_tok).sum()
+                                       fsdp=f_specs, aux_coef=ts.aux_coef,
+                                       slots=n_slots)
+                    # each slot's sum_ce / total_tok + aux_coef * aux / nmb
+                    # (zero aux without a MoE FFN), summed over the slots
+                    obj = ((met["shard_ce"] / total_tok).sum()
+                           + ts.aux_coef * met["shard_aux"].sum() / nmb)
                     gs = torch.autograd.grad(obj, leaves, allow_unused=True)
                 with torch.no_grad():
                     for acc, g in zip(gacc, gs):
                         if g is not None:
                             acc.add_(g)
-                    loss += (met["row_ce"].reshape(slots + (-1,)).sum(-1)
-                             / total_tok)
+                    loss += met["row_ce"].reshape(slots + (-1,)).sum(-1) \
+                        / total_tok
+                    if cfg.moe is not None:
+                        # model shard 0's aux, as the reported loss is
+                        # shard 0's (a dropped block's aux differs by
+                        # shard): a rank gathers it over its model group
+                        aux0 = gather_shards(met["shard_aux"].detach())[0]
+                        aux += aux0.reshape(slots) / nmb
                 del met, obj, gs
+        loss += ts.aux_coef * aux
         del p, leaves
         grads = tree_unflatten(params, gacc)
         lr = (lr_schedule(opt_state["step"]) if lr_schedule is not None
@@ -257,9 +255,11 @@ def build_train_step(cfg: ModelConfig, plan: SPDPlanConfig, mesh,
             params, opt_state, gnorm = Z.zero1_update_clipped(
                 grads, opt_state, params, specs=specs["params"], dp=dp, **kw)
         del grads, gacc
+        with ledger_paused(True):      # a metric the reference lacks
+            aux = psum_plain(aux, red) if cfg.moe is not None else aux.sum()
         metrics = {"loss": psum_plain(loss, red), "grad_norm": gnorm,
                    "lr": torch.as_tensor(lr, dtype=torch.float32),
-                   "tokens": total_tok}
+                   "tokens": total_tok, "aux": aux}
         return params, opt_state, metrics
 
     def init(params):

@@ -42,7 +42,8 @@ import torch
 from repro_torch.api.llm import resolve_device
 from repro_torch.checkpoint.ckpt import (CheckpointManager,
                                          CheckpointShapeError, _key_paths,
-                                         _rebuild, load_checkpoint)
+                                         _rebuild, list_checkpoints,
+                                         load_checkpoint)
 from repro_torch.config.base import ModelConfig, SPDPlanConfig
 from repro_torch.core import model as M
 from repro_torch.core import simtp
@@ -230,6 +231,12 @@ class Trainer:
         return path
 
     def restore(self, state_like):
+        """The newest checkpoint (resharded to this data degree where it
+        was written under another) as a state like `state_like`, or None.
+        With no checkpoint written yet nothing is gathered: on a rank the
+        global tree would be the whole model and optimizer state."""
+        if not list_checkpoints(self.tc.ckpt_dir):
+            return None
         t0 = time.perf_counter()
         like = self.global_tree(state_like)
         try:

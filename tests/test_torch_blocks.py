@@ -64,11 +64,10 @@ def test_block_seq_matches_reference(tp, drop, comm):
     ref = np.asarray(jax.vmap(per_shard, in_axes=(0, None, None),
                               axis_name=MODEL_AXIS)(rsplit, jnp.asarray(x),
                                                     jnp.asarray(pos)))
-    out, _ = B.block_seq(cfg, kind,
-                         make_gqa_layout(cfg.n_heads, cfg.n_kv_heads, tp),
-                         psplit, torch.from_numpy(x).expand((tp,) + x.shape),
-                         torch.from_numpy(pos).long(), drop=drop, q_chunk=64,
-                         comm=comm)
+    out, _, _ = B.block_seq(
+        cfg, kind, make_gqa_layout(cfg.n_heads, cfg.n_kv_heads, tp), psplit,
+        torch.from_numpy(x).expand((tp,) + x.shape),
+        torch.from_numpy(pos).long(), drop=drop, q_chunk=64, comm=comm)
     out = out.numpy()
     # the block output is replicated: every shard holds the same value
     for t in range(1, tp):
@@ -143,7 +142,8 @@ def test_block_seq_bias_branch_matches_reference(drop):
     ref = np.asarray(jax.vmap(per_shard, in_axes=(0, None, None),
                               axis_name=MODEL_AXIS)(rsplit, jnp.asarray(x),
                                                     jnp.asarray(pos)))
-    out, _ = B.block_seq(cfg, layer_kinds(cfg)[1], make_gqa_layout(6, 2, tp),
-                         psplit, torch.from_numpy(x).expand((tp,) + x.shape),
-                         torch.from_numpy(pos).long(), drop=drop, q_chunk=64)
+    out, _, _ = B.block_seq(
+        cfg, layer_kinds(cfg)[1], make_gqa_layout(6, 2, tp), psplit,
+        torch.from_numpy(x).expand((tp,) + x.shape),
+        torch.from_numpy(pos).long(), drop=drop, q_chunk=64)
     assert np.abs(out.numpy() - ref).max() <= ATOL

@@ -152,8 +152,9 @@ def test_block_grads_match_reference(name, tp, drop):
                                kind, tp)
     p, leaves = simtp.grad_leaves(psplit)
     xs = torch.from_numpy(x)[None].expand(tp, 2, 16, cfg.d_model)
-    out, _ = B.block_seq(cfg, kind, M._gqa_layout(cfg, tp), p, xs,
-                         torch.from_numpy(pos.copy()), drop=drop, q_chunk=64)
+    out, _, _ = B.block_seq(cfg, kind, M._gqa_layout(cfg, tp), p, xs,
+                            torch.from_numpy(pos.copy()), drop=drop,
+                            q_chunk=64)
     g = simtp.grads_of((out ** 2).sum(), psplit, leaves)
     _close_trees(g, g_ref)
     # every copy of a replicated leaf holds the same, full gradient

@@ -154,12 +154,12 @@ def test_grouping_keeps_tp_output_and_moves_spd_output(name):
 
 
 def test_unported_branches_raise_or_fall_back():
-    """MLA names ROADMAP A3; an SSM layer gets the identity grouping."""
+    """MLA moves one head at a time (its latent is shared: the
+    reference's units); an SSM layer gets the identity grouping."""
     import dataclasses
     _, cfg, _, plp, x = _setup("llama2-7b")
     mla = dataclasses.replace(cfg, mla=object())
-    with pytest.raises(NotImplementedError, match="A3"):
-        G._units(mla)
+    assert G._units(mla) == [[h] for h in range(cfg.n_heads)]
     mamba = get_config("mamba2-370m", reduced=True)
     res = G.group_heads(mamba, layer_kinds(mamba)[0], {}, None, 2)
     assert (res.supported, res.groups, res.assignment) == (False, [], [0, 1])

@@ -118,10 +118,10 @@ def test_ssm_block_seq_matches_reference(comm):
     ref, rcache = jax.vmap(per_shard, in_axes=(0, None, None),
                            axis_name=MODEL_AXIS)(rsplit, jnp.asarray(x),
                                                  jnp.asarray(pos))
-    out, cache = B.block_seq(cfg, kind, None, psplit,
-                             torch.from_numpy(x).expand((TP,) + x.shape),
-                             torch.from_numpy(pos).long(), drop=False,
-                             want_cache=True, comm=comm)
+    out, cache, _ = B.block_seq(cfg, kind, None, psplit,
+                                torch.from_numpy(x).expand((TP,) + x.shape),
+                                torch.from_numpy(pos).long(), drop=False,
+                                want_cache=True, comm=comm)
     for t in range(1, TP):
         np.testing.assert_array_equal(out[t].numpy(), out[0].numpy())
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=BLOCK_ATOL,
@@ -271,8 +271,8 @@ def _port_greedy_check(port, prompt, toks):
     generated tokens; its argmax at each position must be the next
     generated token."""
     seq = np.concatenate([prompt, toks[:-1]])[None]
-    x, _ = M.forward_seq(port.cfg, port.params, port.plan,
-                         torch.from_numpy(seq).long(), tp=TP)
+    x, _, _ = M.forward_seq(port.cfg, port.params, port.plan,
+                            torch.from_numpy(seq).long(), tp=TP)
     lg = full_logits_seq(port.cfg, M.lm_logits(port.params, port.cfg, x))
     return [int(t) for t in lg[0, len(prompt) - 1:].argmax(-1)]
 

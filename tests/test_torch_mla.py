@@ -93,7 +93,7 @@ def test_mla_block_seq_matches_reference(tp, drop, comm):
     ref, rcache = jax.jit(jax.vmap(per_shard, in_axes=(0, None, None),
                                    axis_name=MODEL_AXIS))(
         rsplit, jnp.asarray(x), jnp.asarray(pos))
-    out, cache = B.block_seq(
+    out, cache, _ = B.block_seq(
         cfg, kind, None, psplit, torch.from_numpy(x).expand((tp,) + x.shape),
         torch.from_numpy(pos).long(), drop=drop, want_cache=True, q_chunk=16,
         comm=comm)
@@ -154,9 +154,9 @@ def test_absorbed_decode_matches_sequence_form(tp, drop):
     x = torch.from_numpy(rng.standard_normal((b, s, cfg.d_model))
                          .astype(np.float32)).expand(tp, b, s, cfg.d_model)
     pos = torch.arange(s).expand(b, s)
-    full, _ = B.block_seq(cfg, kind, None, psplit, x, pos, drop=drop)
-    head, cache = B.block_seq(cfg, kind, None, psplit, x[:, :, :-1].clone(),
-                              pos[:, :-1], drop=drop, want_cache=True)
+    full, _, _ = B.block_seq(cfg, kind, None, psplit, x, pos, drop=drop)
+    head, cache, _ = B.block_seq(cfg, kind, None, psplit, x[:, :, :-1].clone(),
+                                 pos[:, :-1], drop=drop, want_cache=True)
     cache = {k: torch.cat([v, torch.zeros_like(v[:, :, :3])], 2)
              for k, v in cache.items()}            # room past the prompt
     last, _ = B.block_dec(cfg, kind, None, psplit, x[:, :, -1:].clone(),

@@ -222,10 +222,10 @@ def test_moe_block_seq_matches_reference(tp, drop, comm):
     ref = np.asarray(jax.jit(jax.vmap(
         per_shard, in_axes=(0, None, None), axis_name=MODEL_AXIS))(
         rsplit, jnp.asarray(x), jnp.asarray(pos)))
-    out, _ = B.block_seq(cfg, kind, make_gqa_layout(4, 4, tp), psplit,
-                         torch.from_numpy(x).expand((tp,) + x.shape),
-                         torch.from_numpy(pos).long(), drop=drop, q_chunk=64,
-                         comm=comm)
+    out, _, _ = B.block_seq(cfg, kind, make_gqa_layout(4, 4, tp), psplit,
+                            torch.from_numpy(x).expand((tp,) + x.shape),
+                            torch.from_numpy(pos).long(), drop=drop,
+                            q_chunk=64, comm=comm)
     out = out.numpy()
     for t in range(1, tp):
         np.testing.assert_array_equal(out[t], out[0])
@@ -270,16 +270,19 @@ def test_moe_block_dec_matches_reference(tp, drop, comm):
 # ---------------------------------------------------------------------------
 
 def test_training_and_algorithm1_refuse():
+    """The MoE family trains and runs Algorithm 1 (its load-balance aux in
+    the loss since ROADMAP A3): check_trainable passes (no device
+    decides a refusal any more), the comm policy and a zero-shot apply_spd place their plans, and the
+    engine serves after each."""
     _, cfg = _cfgs()
-    for dev in ("cpu", "cuda"):
-        with pytest.raises(NotImplementedError, match="aux.*ROADMAP A3"):
-            check_trainable(cfg, dev)
+    check_trainable(cfg)
     from repro_torch.api import LLM
     llm = LLM.load(cfg, tp=2, device="cpu", cache_len=32)
     from repro_torch.data import calibration_batches
     calib = calibration_batches(cfg.vocab_size, 2, 16, batch=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        llm.apply_comm_policy(calib, n_spd=1, tau1=-1.0, tau2=1.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        llm.apply_spd(calib, n_spd=1, tau1=1e9, tau2=2e9)
-    assert llm.engine is not None                # nothing was released
+    res = llm.apply_comm_policy(calib, n_spd=1, tau1=-1.0, tau2=1.0)
+    assert sorted(res.ranking.tolist()) == list(range(cfg.n_layers))
+    rep = llm.apply_spd(calib, n_spd=1, tau1=1e9, tau2=2e9)
+    assert rep.categories == ["ISB"] and llm.plan.n_dropped == 1
+    assert llm.engine is not None
+    assert len(llm.generate([[1, 2, 3]])[0].token_ids) > 0

@@ -57,12 +57,10 @@ PAYLOADS = ((960, 0, 8), (1001, 1, 4), (16 * 128, 2, 8), (3, 3, 4),
 LAYOUTS = {(2, 1): ARCHS, (2, 2): ("smollm-360m", "opt-6.7b"),
            (4, 1): ("smollm-360m",)}
 # each refusal and the ROADMAP item its message names: the frontends
-# (no engine serves them yet), weight-only int8 on MLA and hybrid layers
-# (as on sim: the reference fails there too), and training the MoE,
-# hybrid and MLA families (as on sim)
+# (no engine serves them yet) and weight-only int8 on MLA and hybrid
+# layers (as on sim: the reference fails there too)
 REFUSED = {"frontend": "A4", "int8_weights_mla": "C8",
-           "int8_weights_hybrid": "C8", "train_moe": "A3",
-           "train_hybrid": "A3", "train_mla": "A3"}
+           "int8_weights_hybrid": "C8"}
 
 
 def _cfg(arch):

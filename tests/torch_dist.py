@@ -288,8 +288,6 @@ def refusals(job, case, canon):
     type, message)} for each attempt, or "ran" if it did not raise."""
     from repro_torch.config.base import replace
     from repro_torch.configs import get_config
-    from repro_torch.launch.mesh import make_test_mesh
-    from repro_torch.parallel import tp as TP
     tp, dp = job["tp"], job["dp"]
     base = replace(get_config("smollm-360m", reduced=True), dtype="float32")
     kw = dict(tp=tp, dp=dp, engine="shard", device="cpu", cache_len=64)
@@ -308,17 +306,6 @@ def refusals(job, case, canon):
         "world": lambda: LLM.load(base, tp=2 * tp, dp=dp, engine="shard",
                                   device="cpu", cache_len=64),
     }
-
-    def train(cfg):
-        return lambda: TP.build_train_step(
-            cfg, None, make_test_mesh(dp, tp), TP.TrainStepConfig(),
-            device="cpu")
-
-    # the families that no engine trains yet refuse on the ranks as on
-    # sim
-    for fam, arch in (("moe", "qwen2-moe-a2.7b"), ("hybrid", "hymba-1.5b"),
-                      ("mla", "deepseek-v2-lite-16b")):
-        attempts[f"train_{fam}"] = train(reduced(arch))
     out = {}
     for name, fn in attempts.items():
         try:
