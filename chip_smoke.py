@@ -98,7 +98,7 @@
    and chunk calls at D 128, groups 1 and 8 (serving positions, a full
    table, holes); the fused kept sync at (2, 4096) and (2, 4096 x 512);
    B3 alone on the logits gathers (2, 16000) and (2, 25136).
-12. llama2-7b at full width on 16 of its 32 layers (d 4096, 6.74 B
+12. llama2-7b at full width on 12 of its 32 layers (d 4096, 6.74 B
    parameters at full depth; PAPER_LAYERS cuts the depth of 12-15, 20,
    its alg1 cut and its shard paths in 22, for the time limit), bf16,
    random weights from seed 0, through LLM.load(tp=2, spd=0.25, quant8
@@ -108,8 +108,8 @@
    admission through the chunk kernel), and the teacher-forced checks of
    5 in bf16 at full width and in fp32 on layers 6-9.
 13. Algorithm 1 on llama2-7b: the sensitivity sweep over
-   calibration_batches(32000, 4 samples of 128 tokens, 2 batches), 17
-   evaluations x 2 batches x 16 layers through B1, and again with the
+   calibration_batches(32000, 4 samples of 128 tokens, 2 batches), 13
+   evaluations x 2 batches x 12 layers through B1, and again with the
    plain attention (perplexities within SWEEP_PPL_RTOL); then
    LLM.apply_comm_policy(n_spd=8, tau1, tau2 at the 25th and 75th
    percentiles of the sensitivities) must give a plan with dropped,
@@ -131,7 +131,7 @@
    Prints each part's wall seconds, ms per distill step, the peak
    memory and every block's losses.  B1 at the distill step's shape is
    then checked and timed for the kernels line.
-14. opt-6.7b at full width on 16 of its 32 layers (PAPER_LAYERS; LayerNorm,
+14. opt-6.7b at full width on 12 of its 32 layers (PAPER_LAYERS; LayerNorm,
    learned positions, biases, ReLU)
    through the same LLM.load: the dense path as in 3, a profile, the
    teacher-forced prefill check, and decode logits after teacher-forcing
@@ -276,6 +276,31 @@
    B1: MLA's prefill takes the plain attention), and the dense MLA
    layer 0 grouped one head a unit on its captured block input: a
    partition of the 16 heads over the two shards (supported).
+21f. The modality frontends (ROADMAP A4): internvl2-1b (24 layers, d
+   896, GQA 14/2 heads of 64, a 256 x 1024 vision prefix, vocab 151655)
+   and musicgen-medium (48 layers, d 1536, MHA 24 heads, LayerNorm,
+   GELU, biases, a 64 x 768 audio prefix, vocab 2048) at full width and
+   depth, bf16, random weights from seed 0.  First the kernels at their
+   shapes: B1 at each frontend prefill (q (56, 556, 64) on kv (8, 556,
+   64): group 7; q (96, 364, 64): group 1) in fp32 and bf16 against its
+   plain version, timed beside SDPA; the fused kept sync at (2, 896)
+   and (2, 1536) and B3 on (2, 75828) and (2, 1024), bit for bit.  Then
+   each model through LLM.load(tp=2, spd=0.25, quant8 kept syncs and
+   logits gather): the text-only dense path as in 3, then a frontend
+   prefill through Engine.prefill(embeds=) of the four prompts behind
+   seeded embeds (a 1024-slot buffer: internvl's prefix and the longest
+   prompt take 572) and 16 greedy decode steps at Flen + lengths: B1
+   once a layer, the fused sync once a quantized kept sync and forward,
+   B3 once a forward, and the run with the quantized collectives' plain
+   versions equal to it bit for bit, tokens and logits; its fp32 cut on
+   layers 0-3 (exact syncs): the frontend prefill's logits with B1
+   against the plain attention within TF_FP32_ATOL.  Sim serves 22
+   (b)'s musicgen cut (FRONT_SHARD_LAYERS).  Then each model's training
+   at 2 layers, full width, through make_trainer at 16f's settings with
+   the trainer's embeds (B1 under autograd, counted), and its fp32 cut
+   at exact kept syncs against the plain versions (cut_pair: step 1
+   within 1e-4, every gradient leaf, `front`'s printed, within 1e-4
+   relative L2).
 22. The shard engine (one process per TP shard, launch.dist.spawn):
    (a) NCCL at the card count, one rank a card, tp = min(cards, 4): on
    one card a world of 1 on purpose (tp 1, no wire), and it says so;
@@ -362,7 +387,13 @@
    seconds beside sim's; then apply_spd at 19's recovery thresholds:
    the same plan on both ranks, its distillation through B8's autograd
    Function (its forward the kernel) once a step of each distilled
-   hybrid block on each rank, finite losses.  (c) Four ranks on card 0 over gloo (tp 2 x
+   hybrid block on each rank, finite losses.  Last in that spawn,
+   musicgen-medium's 8-layer cut (21f) serves 21f's frontend prefill
+   and decode on both ranks (embeds whole on each model rank, `front`
+   replicated): the same tokens on both ranks, B1 once a layer and the
+   send and receive kernels once a kept sync and forward, every logits
+   tensor within the 5% bound of sim's up to the first argmax that
+   parts.  (c) Four ranks on card 0 over gloo (tp 2 x
    dp 2, PR 28) train 16's model through make_trainer(engine="shard")
    at 16's settings: ZeRO-1 for SHARD_TRAIN_STEPS steps, timed (ms a
    step, tokens/s of a host-staged wire); a fault before step 4 and the
@@ -1208,11 +1239,11 @@ MAIN_PATH_KERNELS = ("flash_attention_bhsd", "qdq_absmax",
 #: 0 kept)
 FAMILY_LAYERS = {"qwen2-moe-a2.7b": 8, "deepseek-v2-lite-16b": 10,
                  "hymba-1.5b": 8}
-#: the paper's 7B models at full width on 16 of their 32 layers (sim
+#: the paper's 7B models at full width on 12 of their 32 layers (sim
 #: and the shard engine alike; every check counts from the config): at
 #: 32 the run took 1122.9 s after the build on a slow host, too near its
-#: limit
-PAPER_LAYERS = {"llama2-7b": 16, "opt-6.7b": 16}
+#: limit; 12 since the frontend phase (21f) joined the run (16 before)
+PAPER_LAYERS = {"llama2-7b": 12, "opt-6.7b": 12}
 
 
 def model_cfg(arch):
@@ -4418,7 +4449,8 @@ def cut_pair(torch, root, arch, cfg, params, comm):
     disagreements counted (all, and among elements above GRAD_NOISE_X x
     the leaf's RMS difference); with exact syncs the later steps within
     FAMILY_CUT_RTOL and the params after within FAMILY_CUT_PAST, at
-    quant8 printed (FAMILY_CUT_LAYERS' note)."""
+    quant8 printed (FAMILY_CUT_LAYERS' note).  Returns step 1's
+    per-leaf gradient statistics, in tree_leaves order."""
     from repro_torch.tree import tree_leaves
 
     pin = TrainRoutePin()
@@ -4502,6 +4534,7 @@ def cut_pair(torch, root, arch, cfg, params, comm):
                                          and past <= FAMILY_CUT_PAST)):
         raise AssertionError(f"family cut {arch} {comm}: the kernels and "
                              f"their plain versions disagree in fp32")
+    return stats
 
 
 def b8_train_rows(torch, card):
@@ -5349,6 +5382,321 @@ def int8_phase(torch, np, llama, card):
         out[label] = launches
     return out
 
+# ---------------------------------------------------------------------------
+# The modality frontends: internvl2-1b and musicgen-medium (A4)
+# ---------------------------------------------------------------------------
+
+FRONT_ARCHS = ("internvl2-1b", "musicgen-medium")
+#: the frontend prefill's decode buffer: internvl's 256-token prefix
+#: before the 300-token prompt and MAX_NEW tokens takes 572 slots
+FRONT_CACHE_LEN = 1024
+#: the fp32 checks of the frontend prefill keep the first four layers
+FRONT_FP32_LAYERS = (0, 4)
+#: (c): each model's bf16 train run (FAMILY_TRAIN_KW: tp 2 x dp 2,
+#: ZeRO-1, batch 4 x 512 in 2 microbatches, quant8 kept syncs, half the
+#: blocks dropped) at this depth, full width, and its fp32 cut
+#: (FAMILY_CUT_KW) at the same depth with exact kept syncs
+FRONT_TRAIN_LAYERS = 2
+FRONT_TRAIN_STEPS = 2
+#: (d): musicgen-medium on the shard engine's ranks, full width, this
+#: many of its 48 layers, serving a frontend prefill; sim serves the same
+#: cut in the frontend phase (SIM_RUNS[FRONT_SHARD_LABEL])
+FRONT_SHARD_ARCH = "musicgen-medium"
+FRONT_SHARD_LAYERS = 8
+FRONT_SHARD_LABEL = "musicgen frontend path"
+#: B1 at each model's frontend prefill (tp 2, the four rows of PROMPT_LENS
+#: behind the prefix, S = Flen + 300): internvl 7 q heads on 1 kv head a
+#: shard (group 7), musicgen 12 on 12 (group 1), D 64; the fused kept
+#: sync at one decode token of each (d 896, d 1536); B3 on each logits
+#: gather (151656 / 2 and 2048 / 2 columns)
+FRONT_FLASH = {"internvl2-1b": dict(bh=2 * 4 * 7, bhkv=2 * 4 * 1,
+                                    s=256 + 300, d=64),
+               "musicgen-medium": dict(bh=2 * 4 * 12, bhkv=2 * 4 * 12,
+                                       s=64 + 300, d=64)}
+FRONT_QPSUM = (((2, 896), "internvl2-1b"), ((2, 1536), "musicgen-medium"))
+FRONT_QDQ = (((2, 75828), "internvl2-1b"), ((2, 1024), "musicgen-medium"))
+
+
+def frontend_inputs(np, cfg, seed=0):
+    """The frontend prefill's inputs: PROMPT_LENS prompts right-padded
+    into one (4, 300) batch, their lengths, and seeded embeds (4, Flen,
+    frontend_dim) fp32 (the reference's tests draw them so)."""
+    rng = np.random.default_rng(seed)
+    lens = np.asarray(PROMPT_LENS, np.int64)
+    toks = np.zeros((len(lens), int(lens.max())), np.int64)
+    for i, n in enumerate(lens):
+        toks[i, :n] = rng.integers(0, cfg.vocab_size, n)
+    emb = rng.standard_normal((len(lens), cfg.frontend_len,
+                               cfg.frontend_dim)).astype(np.float32)
+    return toks, lens, emb
+
+
+def frontend_run(torch, np, llm, steps=MAX_NEW, cache_len=FRONT_CACHE_LEN):
+    """A frontend prefill through `Engine.prefill(embeds=)` (the caches
+    hold Flen + S positions; the logits are the last real token's), then
+    `steps` greedy decode steps at Flen + lengths on its caches, counted
+    (every kernel's launches), timed, every full-vocab logits tensor
+    kept (a LogitsTape's "full" events).  Returns {"tokens" (B lists of
+    steps + 1), "tape", "launches", "fwd", "prefill_ms", "decode_ms"}."""
+    eng, cfg = llm.engine, llm.cfg
+    toks, lens, emb = frontend_inputs(np, cfg)
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    tape = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, caches = eng.prefill(llm.params, toks, cache_len=cache_len,
+                             lengths=lens, embeds=emb)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    tape.append(("full", lg.detach().clone()))
+    cur = torch.argmax(lg, -1)[:, None]
+    out = [cur]
+    pos = cfg.frontend_len + lens
+    t0 = time.perf_counter()
+    for i in range(steps):
+        cur, lg, caches = eng.decode_with_logits(llm.params, cur, pos + i,
+                                                 caches)
+        tape.append(("full", lg.detach().clone()))
+        out.append(cur)
+    torch.cuda.synchronize()
+    decode_ms = 1e3 * (time.perf_counter() - t0) / max(steps, 1)
+    return dict(tokens=torch.cat(out, 1).tolist(),
+                tape=[(k, t.float().cpu().numpy()) for k, t in tape],
+                launches={k.__name__: k.launches for k in kernels},
+                fwd=1 + steps, prefill_ms=prefill_ms, decode_ms=decode_ms)
+
+
+def frontend_serve(torch, np, llm, label, card):
+    """`frontend_run` on `llm`, its launches held (B1 once a layer, the
+    fused kept sync once a quantized kept sync and forward, B3 once a
+    forward, nothing else), then again with the quantized collectives'
+    plain versions: the same tokens and logits, bit for bit, and no
+    kernel of theirs launched.  Returns the counted run."""
+    res = frontend_run(torch, np, llm)
+    fwd, layers = res["fwd"], llm.cfg.n_layers
+    want = {"flash_attention_bhsd": layers,
+            "quantized_psum_absmax": kept_syncs(llm) * fwd,
+            "qdq_absmax": fwd}
+    got = {k: res["launches"][k] for k in want}
+    others = {k: v for k, v in res["launches"].items() if k not in want and v}
+    print(f"{label} [{card}]: frontend prefill of prompts "
+          f"{list(PROMPT_LENS)} behind {llm.cfg.frontend_len} x "
+          f"{llm.cfg.frontend_dim} embeds (cache {FRONT_CACHE_LEN}), "
+          f"{fwd - 1} greedy decode steps: prefill_ms="
+          f"{res['prefill_ms']:.2f} decode_ms_per_token="
+          f"{res['decode_ms']:.2f}; launches {json.dumps(got)} (want "
+          f"{json.dumps(want)}); tokens[0] {res['tokens'][0]}")
+    if got != want or others:
+        raise AssertionError(f"{label}: launches {res['launches']}, want "
+                             f"{want} and no other")
+    with plain_syncs():
+        plain = frontend_run(torch, np, llm)
+    leaked = sum(plain["launches"][n] for n in plain_syncs.NAMES)
+    same = plain["tokens"] == res["tokens"] and all(
+        np.array_equal(a, b) for (_, a), (_, b) in zip(plain["tape"],
+                                                        res["tape"]))
+    print(f"{label}: tokens and logits with the quantized collectives' "
+          f"plain versions equal the kernels': {same} (kernel launches "
+          f"inside: {leaked})")
+    if not same or leaked:
+        raise AssertionError(f"{label}: the plain-sync frontend run differs "
+                             "from the kernels'")
+    return res
+
+
+def frontend_fp32(torch, np, llm, label):
+    """The frontend prefill's logits in fp32 on FRONT_FP32_LAYERS at full
+    width (`tf_model`: the plan's drop mask, exact syncs), with B1
+    against the plain attention: within TF_FP32_ATOL."""
+    from repro_torch.api import LLM
+    from repro_torch.config.base import replace
+
+    cfg0, params, plan = tf_model(llm, "float32", FRONT_FP32_LAYERS)
+    toks, lens, emb = frontend_inputs(np, cfg0)
+    logits, launches = {}, {}
+    for backend in ("pallas", "xla"):
+        m = LLM.load(replace(cfg0, attn_backend=backend), tp=2, plan=plan,
+                     cache_len=FRONT_CACHE_LEN, max_batch=4, params=params)
+        (lg, _), launches[backend] = counted(torch, lambda: m.engine.prefill(
+            m.params, toks, cache_len=FRONT_CACHE_LEN, lengths=lens,
+            embeds=emb))
+        logits[backend] = lg.float()
+        del m
+    del params
+    err = (logits["pallas"] - logits["xla"]).abs().max().item()
+    b1 = launches["pallas"]["flash_attention_bhsd"]
+    print(f"{label} fp32 frontend prefill (layers {FRONT_FP32_LAYERS}, "
+          f"exact syncs): B1 against the plain attention max_abs_err="
+          f"{err:.3e} tol={TF_FP32_ATOL:.0e} max|logit|="
+          f"{logits['xla'].abs().max().item():.3e}; B1 launches {b1}, "
+          f"plain {launches['xla']['flash_attention_bhsd']}")
+    if not (err <= TF_FP32_ATOL and b1 == cfg0.n_layers
+            and not launches["xla"]["flash_attention_bhsd"]):
+        raise AssertionError(f"{label}: the fp32 frontend prefill's kernel "
+                             f"and plain logits disagree ({err})")
+
+
+def frontend_kernel_phase(torch, card):
+    """The kernels at the frontend paths' shapes, each against its plain
+    version, timed beside it and its library call, with its bound: B1 at
+    each model's frontend prefill (fp32 and bf16), the fused kept sync at
+    d 896 and 1536, B3 on 75828 and 1024 columns.  Returns kernels-line
+    rows tagged with the path whose launches each reports (`_path`)."""
+    from repro_torch.kernels import flash_attention as FA
+
+    gen = torch.Generator(device=torch.device("cuda")).manual_seed(31)
+    rows = []
+    for arch, sh in FRONT_FLASH.items():
+        g = sh["bh"] // sh["bhkv"]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = flash_inputs(torch, gen, sh["s"], sh["d"], dtype,
+                                   bh=sh["bh"], bhkv=sh["bhkv"])
+            out = FA.flash_attention_bhsd(q, k, v)
+            ref = FA.flash_attention_plain(q, k, v)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            tol = (FLASH_FP32_ATOL if dtype == torch.float32 else
+                   2.0 ** -7 * max(ref.float().abs().max().item(), 1e-3))
+            print(f"flash {str(dtype)[6:]} q ({sh['bh']},{sh['s']},"
+                  f"{sh['d']}) group {g} ({arch}'s frontend prefill): "
+                  f"max_abs_err={err:.3e} tol={tol:.3e}")
+            if not err <= tol:
+                raise AssertionError(f"flash kernel disagrees at {arch}'s "
+                                     f"frontend prefill in {dtype}: {err} > "
+                                     f"{tol}")
+        row = flash_row(torch, q, k, v, err, f"{arch}'s frontend prefill "
+                        f"(group {g})")
+        row["_path"] = arch
+        rows.append(row)
+    for (tp, n), path in FRONT_QPSUM:
+        rows.append(checked_qpsum_row(torch, gen, card, tp, n, path,
+                                      f"a {path} kept sync at d {n}"))
+    for (r, n), path in FRONT_QDQ:
+        rows.append(checked_qdq_row(torch, gen, r, n, path))
+    return rows
+
+
+def frontend_train(torch, np, card, arch):
+    """(c): `arch` at full width, FRONT_TRAIN_LAYERS deep, through
+    make_trainer on the simulated (data 2, model 2) mesh, bf16, with the
+    trainer's embeds: FRONT_TRAIN_STEPS ZeRO-1 steps with every kernel
+    counted (train_launches_want: B1 forward and remat recompute under
+    autograd), finite losses; then the same depth's fp32 cut at exact
+    kept syncs (`cut_pair`: step 1 within FAMILY_CUT_RTOL of the plain versions',
+    each gradient leaf, `front`'s printed, within FAMILY_CUT_GRAD_L2)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.config.base import SPDPlanConfig
+    from repro_torch.core import model as M
+    from repro_torch.tree import tree_leaves, tree_map
+
+    root = tempfile.mkdtemp(prefix="front_train_")
+    try:
+        cfg = family_cfg(arch, FRONT_TRAIN_LAYERS, dtype="bfloat16",
+                         attn_backend="pallas")
+        canon = M.init_model(cfg, seed=0, device=torch.device("cuda"))
+        torch.cuda.reset_peak_memory_stats()
+        tr, st = family_trainer(root, cfg, arch, canon, FRONT_TRAIN_STEPS)
+        st, launches = counted(torch, lambda: tr.run(st))
+        nmb = FAMILY_TRAIN_KW["microbatches"]
+        want = train_launches_want(cfg, tr.plan, nmb, FRONT_TRAIN_STEPS)
+        got = {k: launches[k] for k in want}
+        others = {k: v for k, v in launches.items() if k not in want and v}
+        log = tr.metrics_log
+        print(f"frontend train {arch} [{card}]: L={cfg.n_layers} full width, "
+              f"bf16, tp 2 x dp 2, plan {tr.plan.n_dropped} of "
+              f"{cfg.n_layers} dropped, quant8 kept syncs, batch "
+              f"{FAMILY_TRAIN_KW['batch']} x seq {FAMILY_TRAIN_KW['seq']} "
+              f"behind {cfg.frontend_len} x {cfg.frontend_dim} embeds in "
+              f"{nmb} microbatches, remat: losses "
+              f"{[round(m['loss'], 5) for m in log]} grad_norms "
+              f"{[round(m['grad_norm'], 4) for m in log]}; step_ms "
+              f"{[round(1e3 * m['wall'], 1) for m in log]}; peak_memory_gib="
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f}; launches "
+              f"{json.dumps(got)} (want {json.dumps(want)})")
+        if got != want or others or not all(
+                np.isfinite([m["loss"], m["grad_norm"]]).all() for m in log):
+            raise AssertionError(f"frontend train {arch}: launches "
+                                 f"{launches} (want {want}), log {log}")
+        del tr, st
+        release(torch)
+        cut = family_cfg(arch, FRONT_TRAIN_LAYERS, dtype="float32")
+        params = tree_map(lambda w: w.float(), canon)
+        del canon
+        stats = cut_pair(torch, root, arch, cut, params, "exact")
+        specs = M.stacked_specs(cut, SPDPlanConfig.none(cut.n_layers))
+        i = len(tree_leaves({k: v for k, v in specs.items() if k < "front"}))
+        print(f"frontend train {arch} exact: the front leaf's step 1 "
+              f"gradient {stats[i]['shape']} relative L2 "
+              f"{stats[i]['l2']:.3e} from the plain version's (bound "
+              f"{FAMILY_CUT_GRAD_L2['exact']:.0e}), {stats[i]['flips']} "
+              f"sign disagreements of {stats[i]['n']}")
+        if stats[i]["shape"][-2:] != (cut.frontend_dim, cut.d_model):
+            raise AssertionError(f"frontend train {arch}: leaf {i} is not "
+                                 f"front: {stats[i]}")
+        del params
+        release(torch)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def front_shard_cfg():
+    """(d)'s model: FRONT_SHARD_ARCH at full width, FRONT_SHARD_LAYERS
+    deep, flash prefill."""
+    from repro_torch.config.base import replace
+    from repro_torch.configs import get_config
+    return replace(get_config(FRONT_SHARD_ARCH),
+                   n_layers=FRONT_SHARD_LAYERS, attn_backend="pallas")
+
+
+def frontend_phase(torch, np, card):
+    """The modality frontends at full width (internvl2-1b: 24 layers, d
+    896, GQA 14/2, a 256 x 1024 vision prefix, vocab 151655;
+    musicgen-medium: 48 layers, d 1536, MHA 24 heads, LayerNorm, GELU,
+    biases, a 64 x 768 audio prefix, vocab 2048; random weights from seed
+    0), each at tp 2, spd 0.25, quant8 kept syncs and logits gather,
+    bf16: (a) / (b) a text-only generate through `main_path` (its
+    launches and plain-sync rerun), then a frontend prefill and
+    MAX_NEW greedy decode steps (`frontend_serve`), the fp32 cut's
+    frontend prefill against the plain attention (`frontend_fp32`);
+    then (c) each model's training pair (`frontend_train`).  Sim's run
+    of (d)'s cut is kept for the shard phase.  Returns ({arch: the
+    frontend run's launches}, the kernel rows)."""
+    from repro_torch.api import LLM
+    from repro_torch.configs import get_config
+
+    rows = frontend_kernel_phase(torch, card)
+    out = {}
+    for arch in FRONT_ARCHS:
+        label = f"{arch} path"
+        llm, _, _, _ = main_path(torch, np, card, arch, label)
+        out[arch] = frontend_serve(torch, np, llm, f"{arch} frontend path",
+                                   card)["launches"]
+        llm._release_engine()          # the canonical weights stay
+        release(torch)
+        frontend_fp32(torch, np, llm, arch)
+        del llm
+        release(torch)
+    m = LLM.load(front_shard_cfg(), **dict(SHARD_KW,
+                                           cache_len=FRONT_CACHE_LEN))
+    SIM_RUNS[FRONT_SHARD_LABEL] = frontend_run(torch, np, m)
+    SIM_RUNS[FRONT_SHARD_LABEL]["kept"] = kept_syncs(m)
+    print(f"{FRONT_SHARD_LABEL} ({FRONT_SHARD_LAYERS} of "
+          f"{get_config(FRONT_SHARD_ARCH).n_layers} layers) on sim for the "
+          f"shard phase: tokens[0] "
+          f"{SIM_RUNS[FRONT_SHARD_LABEL]['tokens'][0]}")
+    del m
+    release(torch)
+    for arch in FRONT_ARCHS:
+        frontend_train(torch, np, card, arch)
+    for r in rows:
+        r["launches"] = out[r.pop("_path")][r["name"]]
+    return out, rows
+
+
 
 # ---------------------------------------------------------------------------
 # The shard engine: one process per TP shard over torch.distributed
@@ -6067,7 +6415,24 @@ def shard_rank_families(torch, np, g, card, routes, hymba_alg1):
         serve(f"{label} paged path", m, prompts, info, pages=pages)
         del m, llm
         release(torch)
+    out[FRONT_SHARD_LABEL] = shard_rank_frontend(torch, np, g)
     return out
+
+
+def shard_rank_frontend(torch, np, g):
+    """(d) on a rank: the frontend phase's musicgen cut (front_shard_cfg)
+    on the shard engine with SHARD_KW's settings, serving `frontend_run`'s
+    frontend prefill and greedy decode."""
+    from repro_torch.api import LLM
+
+    m, info = rank_load(torch, g, FRONT_SHARD_LABEL, lambda: LLM.load(
+        front_shard_cfg(), engine="shard",
+        **dict(SHARD_KW, cache_len=FRONT_CACHE_LEN)))
+    res = rank_done(torch, dict(frontend_run(torch, np, m),
+                                kept=kept_syncs(m)), info)
+    del m
+    release(torch)
+    return res
 
 
 def alg1_cut(torch, np, llm, taus=None, shard=False):
@@ -7105,6 +7470,13 @@ def shard_family_phase(np, card, job, transport):
         except AssertionError as e:
             print(f"FAILED: {e}")
             failed.append(label)
+    try:
+        out[FRONT_SHARD_LABEL] = check_shard_frontend(
+            np, [rk[FRONT_SHARD_LABEL] for rk in ranks],
+            SIM_RUNS[FRONT_SHARD_LABEL], transport, card)
+    except AssertionError as e:
+        print(f"FAILED: {e}")
+        failed.append(FRONT_SHARD_LABEL)
     if failed:
         raise AssertionError(f"shard (b): the paths {failed} failed")
     check_paged_prefix(ranks, "qwen2-moe paged path")
@@ -7121,6 +7493,46 @@ def shard_family_phase(np, card, job, transport):
               f"{lb} {ranks[0][lb]['seconds']:.1f}"
               for lb in SHARD_FAMILY_LABELS))
     return out
+
+
+def check_shard_frontend(np, ranks, sim, transport, card):
+    """(d): the frontend prefill and its greedy decode on the ranks: the
+    same tokens on every rank, each rank's kept-sync kernels as
+    shard_launches_want says and B1 as sim's (once a layer), and the
+    logits (the prefill's and every decode step's, all-gathered) within
+    TF_BF16_REL of sim's largest until an argmax parts, a parting only
+    where sim's top-2 margin allows it (`tapes_agree`).  Returns rank 0's
+    launches."""
+    from repro_torch.configs import get_config
+
+    label = FRONT_SHARD_LABEL
+    for r, res in enumerate(ranks):
+        if res["tokens"] != ranks[0]["tokens"]:
+            raise AssertionError(f"shard {label} rank {r}: tokens "
+                                 f"{res['tokens']} != rank 0's")
+        want = shard_launches_want(2, res["kept"], res["fwd"], True)
+        want["flash_attention_bhsd"] = sim["launches"]["flash_attention_bhsd"]
+        got = {k: res["launches"][k] for k in want}
+        if got != want:
+            raise AssertionError(f"shard {label} rank {r}: launches {got} "
+                                 f"!= {want}")
+    done, n, worst, parted = tapes_agree(
+        np, label, sim["tape"], [rk["tape"] for rk in ranks],
+        get_config(FRONT_SHARD_ARCH).vocab_size)
+    r0 = ranks[0]
+    if parted is None and r0["tokens"] != sim["tokens"]:
+        raise AssertionError(f"shard {label}: no logits event parted, yet "
+                             f"the tokens differ from sim's")
+    print(f"shard {label} [{card}] tp 2 over {transport}: the same tokens "
+          f"on {len(ranks)} ranks; logits within {TF_BF16_REL} x "
+          f"max|logit| of sim's on {done} of {n} events (largest err "
+          f"{worst:.4f} x the bound); "
+          + ("no argmax parted: the tokens equal sim's" if parted is None
+             else f"event {parted[0]} parted {parted[1]} row(s)")
+          + f"; launches {json.dumps(r0['launches'])}; prefill_ms="
+          f"{r0['prefill_ms']:.2f} decode_ms_per_token="
+          f"{r0['decode_ms']:.2f}")
+    return r0["launches"]
 
 
 def check_shard_family_policy(np, ranks, card, transport):
@@ -7431,6 +7843,12 @@ def main() -> int:
     deepseek_launches = deepseek_phase(torch, np, card)
     clock(t_start, "the deepseek paths")
 
+    # the modality frontends at full width: served, prefilled with
+    # embeds and trained
+    front_launches, front_rows = frontend_phase(torch, np, card)
+    print(f"frontend path launches: {json.dumps(front_launches)}")
+    clock(t_start, "the frontend paths")
+
     # the shard engine: one process per shard, against the sim runs above
     release(torch)
     shard_launches = shard_phase(torch, np, card)
@@ -7484,6 +7902,9 @@ def main() -> int:
     deepseek_row.pop("_path")
     deepseek_row["launches"] = deepseek_launches["qdq_absmax"]
     kernels.append(deepseek_row)
+    # the frontend rows: launches of each model's frontend prefill and
+    # decode (frontend_phase)
+    kernels += front_rows
     # the send and receive kernels at the shard paths' payloads: rank 0's
     # launches on the dense shard path of each row's model
     kernels += hop_rows

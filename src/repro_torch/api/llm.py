@@ -48,8 +48,12 @@ shard with the syncs over its model group; every rank must reach the
 same plan.  In such a world `engine="overlap"` is the shard engine plus
 the overlap seams (the ring-step ledger, the hidden-comm pricing and
 `Engine.decode_pipelined`; `parallel.backend.OverlapSeams`), with the
-same tokens; in one process it runs on sim.  The modality frontends
-(ROADMAP A4) raise NotImplementedError on the ranks.
+same tokens; in one process it runs on sim.
+
+The modality-frontend configs (internvl2-1b, musicgen-medium) load and
+`generate` text-only on every engine, as the reference's `LLM` does;
+a prefill with precomputed embeddings goes through
+`llm.engine.prefill(..., embeds=)`.
 """
 from __future__ import annotations
 
@@ -107,15 +111,6 @@ def _rank_groups(device):
     if device is not None and torch.device(device) != g.device:
         raise ValueError(f"device {device} is not this rank's {g.device}")
     return g
-
-
-def _check_shard(cfg) -> None:
-    """What the shard engine refuses beyond what `sim` refuses: the
-    modality frontends, which no engine of the port serves yet."""
-    if cfg.frontend_dim:
-        raise NotImplementedError(
-            f"{cfg.name}: modality frontends are not ported yet (ROADMAP "
-            "A4)")
 
 
 def _as_prompts(prompts) -> List[np.ndarray]:
@@ -235,7 +230,6 @@ class LLM:
         if backend_class(engine).multi_process:
             groups = _rank_groups(device)
             dev = groups.device
-            _check_shard(cfg)
             if max_batch % dp:
                 raise ValueError(f"max_batch {max_batch} does not split over "
                                  f"dp {dp} data ranks")

@@ -9,7 +9,10 @@ every leaf has a leading (tp, ...) axis and segment leaves are
 (tp, layers, ...).  The vocab axis of the embedding is split over the
 shards; the LM head is the tied embedding or, untied, a `head` (d, V)
 split on its vocab axis.  A learned position table (`pos`, OPT) is
-replicated and added at absolute positions.  Pure-SSM layers carry
+replicated and added at absolute positions.  A modality frontend's
+`front` (frontend_dim, d) is replicated too: it projects precomputed
+embeddings (B, Flen, frontend_dim) into a prefix of the token stream
+(`forward_seq(embeds=)`).  Pure-SSM layers carry
 recurrent state (the scan state and the conv tails) instead of K/V
 caches; hybrid layers carry both.  A sliding-window layer's K/V is a
 rolling buffer of min(window, cache_len) slots.  An MLA layer caches its
@@ -68,6 +71,10 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device="cpu",
         pos = torch.randn((cfg.max_seq_len, cfg.d_model), generator=gen,
                           **f32) * 0.02
         p["pos"] = kept(pos.to(dt))
+    if cfg.frontend_dim:
+        front = torch.randn((cfg.frontend_dim, cfg.d_model), generator=gen,
+                            **f32) / cfg.frontend_dim ** 0.5
+        p["front"] = kept(front.to(dt))
     return p
 
 
@@ -112,6 +119,8 @@ def model_specs(cfg: ModelConfig) -> dict:
         s["head"] = 1
     if cfg.pos_emb == "learned":
         s["pos"] = REPLICATED
+    if cfg.frontend_dim:
+        s["front"] = REPLICATED
     return s
 
 
@@ -235,11 +244,26 @@ def _seg_cache(kind, cache: dict, length: int, cache_len: int) -> dict:
             for name, sub in cache.items()}
 
 
+def _prepend_front(view, x, embeds):
+    """A modality prefix (reference model.py:228-235): embeds (B, Flen,
+    frontend_dim), cast to the activation dtype, projected by each
+    shard's copy of the replicated `front` and put before the token
+    embeddings x (tp,B,S,d).  Returns (x (tp,B,Flen+S,d), Flen)."""
+    e = embeds.to(x.dtype)
+    e = e[None].expand((x.shape[0],) + tuple(e.shape))
+    return torch.cat([B._mm(e, view["front"]), x], 2), embeds.shape[1]
+
+
 def forward_seq(cfg, stacked, plan: SPDPlanConfig, tokens, *, tp,
                 q_chunk=1024, cache_len: int = 0, want_cache=False,
-                drop_flags=None, remat=False, fsdp=None, slots: int = 1):
-    """Sequence forward.  tokens (B,S).  Returns (hidden (tp,B,S,d) after
-    the final norm, caches, aux) — caches per segment: attention layers'
+                drop_flags=None, remat=False, fsdp=None, slots: int = 1,
+                embeds=None):
+    """Sequence forward.  tokens (B,S); `embeds` (B, Flen, frontend_dim)
+    for a modality-frontend config, whose projection is the stream's
+    first Flen positions (positions, RoPE or learned, run over the
+    combined stream).  Returns (hidden (tp,B,S,d) after the final norm,
+    caches, aux, prefix), S counting the prefix and `prefix` its length
+    (0 without embeds) — caches per segment: attention layers'
     {"k","v"} of shape (tp, layers, B, max(S, cache_len), HkvL, dh), zero
     past S (a windowed layer's rolling buffer: max(min(S, window),
     min(window, cache_len)) slots; an int8 cache's codes and "k_s"/"v_s"
@@ -261,8 +285,9 @@ def forward_seq(cfg, stacked, plan: SPDPlanConfig, tokens, *, tp,
 
     `fsdp` (parallel/fsdp.FSDPSpecs, training) logs the all-gathers of
     the data-sharded weights where the reference gathers them: the
-    embedding, each layer (one layer's, scaled over its segment) and the
-    final norm.  On one device the weights are whole: nothing moves.
+    embedding, the frontend projection, each layer (one layer's, scaled
+    over its segment) and the final norm.  On one device the weights are
+    whole: nothing moves.
 
     `aux` is the MoE load-balance aux summed over the layers, (tp, slots)
     fp32 (zeros without a MoE FFN; each layer's by its own wiring, also
@@ -272,7 +297,12 @@ def forward_seq(cfg, stacked, plan: SPDPlanConfig, tokens, *, tp,
     lay = _gqa_layout(cfg, tp)
     view = stacked if fsdp is None else fsdp.gather_top(stacked, ("emb",))
     x = embed_tokens(view["emb"], tokens)
-    b, s = tokens.shape
+    prefix = 0
+    if cfg.frontend_dim and embeds is not None:
+        if fsdp is not None:
+            view = fsdp.gather_top(view, ("front",))
+        x, prefix = _prepend_front(view, x, embeds)
+    b, s = x.shape[1:3]
     pos = torch.arange(s, device=tokens.device).expand(b, s)
     if fsdp is not None:
         view = fsdp.gather_top(view, ("pos",))
@@ -320,7 +350,7 @@ def forward_seq(cfg, stacked, plan: SPDPlanConfig, tokens, *, tp,
         aux_total = torch.zeros((x.shape[0], slots), dtype=torch.float32,
                                 device=x.device)
     return (_final_norm(view, cfg, x), caches if want_cache else None,
-            aux_total)
+            aux_total, prefix)
 
 
 def _remat_block(cfg, kind, lay, layer_p, x, pos, drop, q_chunk, comm,
@@ -376,7 +406,9 @@ def loss_fn(cfg, stacked, plan, batch, *, tp, q_chunk=1024,
             drop_flags=None, remat=False, fsdp=None, aux_coef=0.01,
             slots: int = 1):
     """The LM loss plus `aux_coef` x the MoE load-balance aux, as the
-    reference's.  batch {"tokens", "labels", "mask"} (B,S) tensors.
+    reference's.  batch {"tokens", "labels", "mask"} (B,S) tensors and,
+    for a frontend config, "embeds" (B, Flen, frontend_dim): the logits
+    are the token positions' (after the prefix).
     Returns (shard 0's mean CE over the mask + aux_coef * aux, {"sum_ce",
     "n_tok", "aux", "shard_loss" (tp,), "shard_ce" (tp,), "shard_aux"
     (tp, slots), "row_ce" (B,)}): a gradient is taken of
@@ -388,13 +420,16 @@ def loss_fn(cfg, stacked, plan, batch, *, tp, q_chunk=1024,
     on their own (forward_seq).  `row_ce` is shard 0's masked CE sum of
     each row, without a graph.  `fsdp` logs the head's all-gather as
     the reference does (see forward_seq)."""
-    x, _, aux = forward_seq(cfg, stacked, plan, batch["tokens"], tp=tp,
-                            q_chunk=q_chunk, drop_flags=drop_flags,
-                            remat=remat, fsdp=fsdp, slots=slots)
+    x, _, aux, prefix = forward_seq(cfg, stacked, plan, batch["tokens"],
+                                    tp=tp, q_chunk=q_chunk,
+                                    drop_flags=drop_flags, remat=remat,
+                                    fsdp=fsdp, slots=slots,
+                                    embeds=batch.get("embeds"))
     head = stacked if fsdp is None else fsdp.gather_top(
         stacked, ("emb",) if cfg.tie_embeddings else ("head",))
     mask = batch["mask"].float()
-    ce = token_ce(lm_logits(head, cfg, x), batch["labels"], cfg)
+    ce = token_ce(lm_logits(head, cfg, x[:, :, prefix:]), batch["labels"],
+                  cfg)
     shard_ce = torch.stack([(c * mask).sum() for c in ce])
     n_tok = mask.sum()
     shard_loss = shard_ce / n_tok.clamp_min(1.0) + aux_coef * aux.sum(-1)
@@ -406,20 +441,24 @@ def loss_fn(cfg, stacked, plan, batch, *, tp, q_chunk=1024,
 
 
 def prefill(cfg, stacked, plan, tokens, *, tp, q_chunk=1024,
-            cache_len: int = 0, lengths=None):
+            cache_len: int = 0, lengths=None, embeds=None):
     """Returns (next-token logits (tp,B,Vl) fp32 shard-local, caches).
 
     `cache_len` pads the caches' sequence axis to the decode buffer
     length; `lengths` (B,) are the real prompt lengths of a right-padded
-    batch (logits are taken at lengths-1; decode overwrites the padded
-    cache slots before they become causally visible)."""
-    x, caches, _ = forward_seq(cfg, stacked, plan, tokens, tp=tp,
-                               q_chunk=q_chunk, cache_len=cache_len,
-                               want_cache=True)
+    batch (decode overwrites the padded cache slots before they become
+    causally visible).  `embeds` (B, Flen, frontend_dim) prefills a
+    modality prefix before the tokens; decode then goes on at Flen +
+    lengths.  The logits are taken at the last real token, Flen +
+    lengths - 1: the reference takes them at lengths - 1 of the combined
+    stream, inside the prefix (ROADMAP C12)."""
+    x, caches, _, prefix = forward_seq(cfg, stacked, plan, tokens, tp=tp,
+                                       q_chunk=q_chunk, cache_len=cache_len,
+                                       want_cache=True, embeds=embeds)
     if lengths is None:
         xq = x[:, :, -1:]
     else:
-        idx = (lengths.long() - 1).clamp(0, x.shape[2] - 1)
+        idx = (prefix + lengths.long() - 1).clamp(0, x.shape[2] - 1)
         xq = x[:, torch.arange(x.shape[1], device=x.device), idx][:, :, None]
     return serve_logits(stacked, cfg, xq, plan)[:, :, 0], caches
 
@@ -445,7 +484,9 @@ def decode_step(cfg, stacked, plan, tokens, pos, caches, *, tp):
 
 def supports_chunked_prefill(cfg) -> bool:
     """Full-causal GQA stacks (MLP or MoE FFNs) without a modality
-    prefix; windowed, SSM and hybrid layers prefill whole."""
+    prefix; windowed, SSM and hybrid layers and frontend configs prefill
+    whole (reference model.py:532-539), so they neither speculate nor
+    take the fused paged forward."""
     return (not cfg.frontend_dim
             and all(k.mixer == "gqa" and k.window == 0
                     for k in layer_kinds(cfg)))

@@ -181,16 +181,21 @@ def make_grad_fn(cfg, plan, tp, *, q_chunk=1024, remat=False):
 
 
 def make_logits_fn(cfg, plan, tp, *, q_chunk=1024):
-    """fn(split_params, tokens) -> full logits (B,S,V) fp32, the shards'
-    vocab slices concatenated and the padded columns cut."""
+    """fn(split_params, tokens, embeds=None) -> full logits (B,S,V) fp32
+    of the token positions (a frontend's prefix cut, as the reference's
+    simtp.py:132-146), the shards' vocab slices concatenated and the
+    padded columns cut."""
 
     @torch.inference_mode()
-    def fn(split_params, tokens):
-        tokens = torch.as_tensor(np.asarray(tokens)).to(
-            _device(split_params))
-        x, _, _ = M.forward_seq(cfg, split_params, plan, tokens, tp=tp,
-                                q_chunk=q_chunk)
-        lg = M.lm_logits(split_params, cfg, x)          # (tp,B,S,Vl)
+    def fn(split_params, tokens, embeds=None):
+        dev = _device(split_params)
+        tokens = torch.as_tensor(np.asarray(tokens)).to(dev)
+        if embeds is not None:
+            embeds = torch.as_tensor(np.asarray(embeds)).to(dev)
+        x, _, _, prefix = M.forward_seq(cfg, split_params, plan, tokens,
+                                        tp=tp, q_chunk=q_chunk,
+                                        embeds=embeds)
+        lg = M.lm_logits(split_params, cfg, x[:, :, prefix:])  # (tp,B,S,Vl)
         tp_, b, s, vl = lg.shape
         full = lg.permute(1, 2, 0, 3).reshape(b, s, tp_ * vl)
         return full[..., : cfg.vocab_size]

@@ -29,8 +29,14 @@ def norm_apply(x, p, cfg):
     return rmsnorm(x, p["w"], cfg.norm_eps)
 
 
+def _gelu_tanh(x):
+    """GELU in its tanh form, the reference's `jax.nn.gelu` (whose
+    default is approximate=True); F.gelu's default is the erf form."""
+    return F.gelu(x, approximate="tanh")
+
+
 def act_fn(name: str):
-    return {"silu": F.silu, "gelu": F.gelu, "relu": F.relu}[name]
+    return {"silu": F.silu, "gelu": _gelu_tanh, "relu": F.relu}[name]
 
 
 def rope_freqs(d_rot: int, theta: float) -> np.ndarray:

@@ -248,7 +248,10 @@ class ShardBackend(ParallelBackend):
     dim 0, then over the group.  "batch" arguments split over the data
     ranks when the step's `shard_batch` holds, and its "batch" results
     are all-gathered back over the data group, so every rank's host
-    program (LLM, Scheduler, PagePool) sees the whole batch.  Every rank
+    program (LLM, Scheduler, PagePool) sees the whole batch.  A
+    frontend prefill's embeds are such a "batch" argument: whole on each
+    model rank, split over the data ranks like the tokens; the
+    replicated `front` leaf is each rank's whole copy.  Every rank
     runs the same host program; `launch/dist.init_tp` must have built
     the groups first."""
 

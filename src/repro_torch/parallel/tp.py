@@ -134,13 +134,11 @@ class TrainStepConfig:
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """Refuse what the port cannot train yet: a modality frontend
-    (ROADMAP A4).  Every ported family trains on every device: on the
-    card the SSD scan (B8) runs under autograd (its kernel forward, the
-    plain VJP backward)."""
-    if cfg.frontend_dim:
-        raise NotImplementedError(f"{cfg.name}: modality frontends are not "
-                                  "ported (ROADMAP A4)")
+    """What the port cannot train: nothing any more.  Every ported
+    config trains on every device, the modality frontends too (their
+    batches carry "embeds", which `rank_rows` and the microbatches split
+    by row like the tokens); on the card the SSD scan (B8) runs under
+    autograd (its kernel forward, the plain VJP backward)."""
 
 
 def build_train_step(cfg: ModelConfig, plan: SPDPlanConfig, mesh,
@@ -154,7 +152,8 @@ def build_train_step(cfg: ModelConfig, plan: SPDPlanConfig, mesh,
     data slots, each slot's mean over the microbatches: 0 without a MoE
     FFN); params are
     shard-stacked (simtp.split_padded), batch {"tokens", "labels",
-    "mask"} (B, S) tensors on their device, rows laid out over the data
+    "mask"} (B, S) tensors on their device (and, for a frontend config,
+    "embeds" (B, Flen, frontend_dim)), rows laid out over the data
     slots as the reference shards them.  init(params) -> opt_state.
     specs {"params": the TP split axes, "fsdp": FSDPSpecs or None, set
     at the first call}.  `device` is where the step will run: None is

@@ -60,16 +60,21 @@ class Engine:
     def insert_slot(self, caches, caches1, b: int):
         return self.backend.insert_slot(caches, caches1, b)
 
-    def prefill(self, params, tokens, *, cache_len: int, lengths=None):
-        """Whole-batch prefill -> (full logits (B, V), caches).  On a
-        backend with data ranks the batch pads to a multiple of them and
-        the result is cut back, as the reference's engine does."""
+    def prefill(self, params, tokens, *, cache_len: int, lengths=None,
+                embeds=None):
+        """Whole-batch prefill -> (full logits (B, V), caches).  `embeds`
+        (B, Flen, frontend_dim), a frontend config's prefix: the caches
+        then hold Flen + S positions, the logits are the last real
+        token's and decode goes on at Flen + lengths.  On a backend with
+        data ranks the batch (tokens, lengths and embeds) pads to a
+        multiple of them and the result is cut back, as the reference's
+        engine does (engines.py:96-123)."""
         step = self._step(("prefill", cache_len), lambda: F.prefill_step(
             self.cfg, self.plan, tp=self.tp, q_chunk=self.q_chunk,
             cache_len=cache_len))
         dpn = self.backend.dp_total
         if dpn == 1:
-            return step(params, tokens, lengths)
+            return step(params, tokens, lengths, embeds)
         tokens = np.asarray(tokens)
         b0 = tokens.shape[0]
         pad = (-b0) % dpn
@@ -80,7 +85,12 @@ class Engine:
                 lengths = np.asarray(lengths)
                 lengths = np.concatenate(
                     [lengths, np.ones((pad,), lengths.dtype)])
-        lg, caches = step(params, tokens, lengths)
+            if embeds is not None:
+                embeds = np.asarray(embeds)
+                embeds = np.concatenate(
+                    [embeds, np.zeros((pad,) + embeds.shape[1:],
+                                      embeds.dtype)])
+        lg, caches = step(params, tokens, lengths, embeds)
         return lg[:b0], self.backend.cache_rows(caches, b0)
 
     def prefill_chunked(self, params, tokens, *, cache_len: int, lengths,

@@ -84,13 +84,16 @@ def greedy_token(cfg, logits):
 
 
 def prefill_step(cfg, plan, *, tp, q_chunk, cache_len):
-    """Whole-batch prefill -> (full logits (B, V), caches)."""
-    def local(p, toks, ln):
+    """Whole-batch prefill -> (full logits (B, V), caches); `emb` the
+    frontend's embeds (B, Flen, frontend_dim) or None, a "batch"
+    argument like the tokens (reference forward.py:86-101)."""
+    def local(p, toks, ln, emb=None):
         lg, caches = M.prefill(cfg, p, plan, toks, tp=tp, q_chunk=q_chunk,
-                               cache_len=cache_len, lengths=ln)
+                               cache_len=cache_len, lengths=ln, embeds=emb)
         return full_logits(cfg, lg), caches
 
-    return local, StepSpec(("params", "batch", "batch"), ("batch", "cache"))
+    return local, StepSpec(("params", "batch", "batch", "batch"),
+                           ("batch", "cache"))
 
 
 def decode_step(cfg, plan, *, tp, with_logits=False, sampled=False):

@@ -37,6 +37,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.api.llm import resolve_device
@@ -285,15 +286,27 @@ class Trainer:
     # ---------------- data ----------------
 
     def data_iter(self, start_step: int):
-        if self.cfg.frontend_dim:
-            raise NotImplementedError(f"{self.cfg.name}: modality frontends "
-                                      "are not ported (ROADMAP A4)")
-        it = make_batch_iterator(self.cfg.vocab_size, self.tc.batch,
-                                 self.tc.seq, seed=self.tc.seed,
-                                 start_step=start_step)
+        """Batches from `start_step` on, this rank's rows of them.  A
+        frontend config's batch also carries "embeds" (batch,
+        frontend_len, frontend_dim) fp32, drawn in turn from one
+        default_rng(seed + 99), as the reference's (trainer.py:153-161).
+        Resumed at step k the stream first discards k draws, so step k
+        gets the k-th draw as an uninterrupted run does; the reference
+        restarts it and gives step k the draw of step 0 (ROADMAP
+        C13)."""
+        cfg, tc = self.cfg, self.tc
+        it = make_batch_iterator(cfg.vocab_size, tc.batch, tc.seq,
+                                 seed=tc.seed, start_step=start_step)
+        shape = (tc.batch, cfg.frontend_len, cfg.frontend_dim)
+        rngf = np.random.default_rng(tc.seed + 99)
+        if cfg.frontend_dim:
+            for _ in range(start_step):
+                rngf.standard_normal(shape)
         for b in it:
-            b = TP.rank_rows({k: v for k, v in b.items()
-                              if not k.startswith("_")}, self.groups)
+            b = {k: v for k, v in b.items() if not k.startswith("_")}
+            if cfg.frontend_dim:
+                b["embeds"] = rngf.standard_normal(shape).astype(np.float32)
+            b = TP.rank_rows(b, self.groups)
             yield {k: torch.from_numpy(v).to(self.device)
                    for k, v in b.items()}
 

@@ -171,7 +171,7 @@ def test_capture_block_inputs_matches_reference():
                                  split0=split)[0]
     tokens = torch.from_numpy(calib[0]["tokens"])
     with torch.no_grad():
-        x, _, _ = M.forward_seq(cfg, split, plan, tokens, tp=TP, q_chunk=64)
+        x, _, _, _ = M.forward_seq(cfg, split, plan, tokens, tp=TP, q_chunk=64)
         last = M._final_norm(split, cfg, h[-1][None].expand(TP, *h[-1].shape))
         emb = pcanon["emb"][tokens] + pcanon["pos"][:tokens.shape[1]]
     torch.testing.assert_close(last[0], x[0], rtol=0, atol=0)

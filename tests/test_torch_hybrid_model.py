@@ -102,7 +102,7 @@ def _port_greedy_check(port, prompt, toks):
     generated tokens; its argmax at each position must be the next
     generated token."""
     seq = np.concatenate([prompt, toks[:-1]])[None]
-    x, _, _ = M.forward_seq(port.cfg, port.params, port.plan,
+    x, _, _, _ = M.forward_seq(port.cfg, port.params, port.plan,
                             torch.from_numpy(seq).long(), tp=TP, q_chunk=16)
     lg = full_logits_seq(port.cfg, M.lm_logits(port.params, port.cfg, x))
     return [int(t) for t in lg[0, len(prompt) - 1:].argmax(-1)]

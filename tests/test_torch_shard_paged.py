@@ -56,11 +56,17 @@ PAYLOADS = ((960, 0, 8), (1001, 1, 4), (16 * 128, 2, 8), (3, 3, 4),
             (130, 4, 8))
 LAYOUTS = {(2, 1): ARCHS, (2, 2): ("smollm-360m", "opt-6.7b"),
            (4, 1): ("smollm-360m",)}
-# each refusal and the ROADMAP item its message names: the frontends
-# (no engine serves them yet) and weight-only int8 on MLA and hybrid
-# layers (as on sim: the reference fails there too)
-REFUSED = {"frontend": "A4", "int8_weights_mla": "C8",
-           "int8_weights_hybrid": "C8"}
+# each refusal and the ROADMAP item its message names: weight-only int8
+# on MLA and hybrid layers (as on sim: the reference fails there too)
+REFUSED = {"int8_weights_mla": "C8", "int8_weights_hybrid": "C8"}
+# a modality-frontend config served on the ranks: a frontend prefill of
+# three rows (padded to four at dp 2) and four greedy decode steps
+FRONT_ARCH = "musicgen-medium"
+FRONT_CASE = dict(kind="frontend", name="frontend", arch=FRONT_ARCH,
+                  lens=(12, 9, 11), steps=4, load=dict(spd=0.5))
+# the ranks' logits against sim's: per-shard products on the CPU
+# (test_torch_shard.py's bound)
+FRONT_LOGITS_ATOL = 2e-5
 
 
 def _cfg(arch):
@@ -91,6 +97,8 @@ def _cases(tp, dp):
             dict(kind="serve", name=f"{a} prefix", arch=a, cfg=cfg,
                  lens=(19,), seed=6, max_new=5, then=[pb],
                  load=dict(PREFIX, **Q8))]
+    if tp == 2:
+        cases.append(dict(FRONT_CASE, cfg=_cfg(FRONT_ARCH)))
     if dp == 1:
         cases += [dict(kind="quantized_sync", name="hop1",
                        payloads=PAYLOADS),
@@ -103,7 +111,7 @@ def _cases(tp, dp):
 
 @pytest.fixture(scope="module")
 def canon(tmp_path_factory):
-    trees = {a: perturbed_canonical(_rcfg(a)) for a in ARCHS}
+    trees = {a: perturbed_canonical(_rcfg(a)) for a in ARCHS + (FRONT_ARCH,)}
     port = {a: from_reference(t, _cfg(a)) for a, t in trees.items()}
     path = tmp_path_factory.mktemp("shard_paged") / "canon.pt"
     torch.save(port, path)
@@ -122,9 +130,9 @@ def runs(canon):
             job = dict(tp=tp, dp=dp, params=path, cases=_cases(tp, dp))
             ranks = spawn(TD.run, tp * dp, backend="gloo", device="cpu",
                           args=(job,), deadline_s=240, timeout_s=60)
-            sim = {c["name"]: TD.serve(TD.load(c["cfg"], port[c["arch"]],
-                                               "sim", tp, **c["load"]), c)
-                   for c in job["cases"] if c["kind"] == "serve"}
+            sim = {c["name"]: TD.LLM_CASES[c["kind"]](TD.load(
+                c["cfg"], port[c["arch"]], "sim", tp, **c["load"]), c)
+                for c in job["cases"] if c["kind"] in ("serve", "frontend")}
             for c in job["cases"]:
                 if c["name"].endswith("preempt"):
                     # the same requests on dense caches
@@ -230,6 +238,24 @@ def test_collectives_under_the_model_group(runs, tp):
         np.testing.assert_array_equal(got["pairs"][0], want)
         np.testing.assert_array_equal(got["gather"], x)
         assert got["size"] == tp and got["ids"] == [r]
+
+
+@pytest.mark.parametrize("layout", [(2, 1), (2, 2)],
+                         ids=["tp2dp1", "tp2dp2"])
+def test_frontend_prefill_on_the_ranks_equals_sim(runs, layout):
+    """musicgen-reduced (a modality frontend, ROADMAP A4) on the shard
+    engine: `Engine.prefill(embeds=)` with the embeds split over the
+    data ranks like the tokens (three rows padded to four at dp 2), then
+    greedy decode at Flen + lens: every rank's tokens are sim's, its
+    logits within FRONT_LOGITS_ATOL of sim's."""
+    ranks, sim = runs(*layout)
+    want = sim["frontend"]
+    assert want["tokens"].shape == (3, FRONT_CASE["steps"] + 1)
+    for r in ranks:
+        got = r["frontend"]
+        np.testing.assert_array_equal(got["tokens"], want["tokens"])
+        np.testing.assert_allclose(got["logits"], want["logits"],
+                                   atol=FRONT_LOGITS_ATOL, rtol=0)
 
 
 @pytest.mark.parametrize("what", sorted(REFUSED))

@@ -2,8 +2,7 @@
 re-mesh (runtime/elastic.py) and train CLI (launch/train.py) on the CPU:
 the reference's trainer tests (tests/test_checkpoint_trainer.py,
 tests/test_server_elastic.py) on the port, the CLI in a subprocess, and
-the refusals: no card without --device cpu, no SSM training on the
-card."""
+the refusal of a run without --device cpu and no card."""
 import json
 import os
 import subprocess
@@ -226,11 +225,11 @@ def test_ssm_training_on_card_refuses(tmp_path):
     """Mamba2 is trainable on a CUDA device (its SSD scan runs under
     autograd there: the kernel forward, the plain VJP backward) as on
     the CPU, where it trains: check_trainable takes no device and
-    passes; only a modality frontend still refuses (ROADMAP A4)."""
+    passes, for the modality frontends too (ROADMAP A4 is ported)."""
     cfg = get_config("mamba2-370m-reduced")
     TP.check_trainable(cfg)
-    with pytest.raises(NotImplementedError, match="A4"):
-        TP.check_trainable(replace(cfg, frontend_dim=16))
+    for front in ("internvl2-1b-reduced", "musicgen-medium-reduced"):
+        TP.check_trainable(get_config(front))
     tr, st = make_trainer("mamba2-370m-reduced", device="cpu", steps=1,
                           batch=2, seq=16, dp=1, ckpt_dir=str(tmp_path))
     tr.run(st)

@@ -168,8 +168,43 @@ def draft_policy(llm, case):
 
 
 #: cases that load the case's model and run on it
+def frontend(llm, case):
+    """A frontend prefill through `Engine.prefill(embeds=)`: right-padded
+    seeded tokens of `case["lens"]` behind seeded embeds (B, Flen,
+    frontend_dim), each row then inserted into its own slot of dense
+    caches (on data ranks, the slot's rank keeps it) and decoded greedily
+    for `case["steps"]` steps at Flen + lens.  Returns {"tokens" (B,
+    steps + 1), "logits" (B, steps + 1, V)}: the prefill's and each
+    decode step's."""
+    from repro_torch.tree import tree_map
+    eng, cfg = llm.engine, llm.cfg
+    rng = np.random.default_rng(case.get("seed", 5))
+    lens = np.asarray(case["lens"], np.int64)
+    b, n = len(lens), llm.cache.max_batch
+    toks = rng.integers(0, cfg.vocab_size, (b, int(lens.max())))
+    emb = rng.standard_normal((b, cfg.frontend_len, cfg.frontend_dim))
+    cl, ax = llm.cache.cache_len, eng.backend.cache_batch_axis
+    lg, c1 = eng.prefill(llm.params, toks, cache_len=cl, lengths=lens,
+                         embeds=emb.astype(np.float32))
+    caches = eng.blank_caches(n, cl)
+    for i in range(b):
+        caches = eng.insert_slot(
+            caches, tree_map(lambda c, i=i: c.narrow(ax, i, 1), c1), i)
+    cur = np.zeros((n, 1), np.int64)
+    pos = np.zeros((n,), np.int64)
+    pos[:b] = cfg.frontend_len + lens
+    rows = [lg.numpy()]
+    for _ in range(case["steps"]):
+        cur[:b, 0] = rows[-1].argmax(-1)
+        _, lg, caches = eng.decode_with_logits(llm.params, cur, pos, caches)
+        rows.append(lg[:b].numpy())
+        pos[:b] += 1
+    lgs = np.stack(rows, 1)
+    return {"tokens": lgs.argmax(-1), "logits": lgs}
+
+
 LLM_CASES = {"serve": serve, "logits": logits, "spec_logits": spec_logits,
-             "draft_policy": draft_policy}
+             "draft_policy": draft_policy, "frontend": frontend}
 
 
 def start(job, **kw):
@@ -297,8 +332,6 @@ def refusals(job, case, canon):
                        **cfg_kw)
 
     attempts = {
-        "frontend": lambda: LLM.load(
-            replace(base, frontend_dim=16, frontend_len=4), **kw),
         "int8_weights_mla": lambda: LLM.load(
             reduced("deepseek-v2-lite-16b", weight_dtype="int8"), **kw),
         "int8_weights_hybrid": lambda: LLM.load(

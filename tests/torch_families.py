@@ -136,10 +136,25 @@ def merged_grads(name, tp, seq=24):
     return float(loss), tree_leaves(simtp.merge_stacked(g, cfg, plan, tp))
 
 
-def train_batches(vocab, n, batch, seq):
+def train_batches(vocab, n, batch, seq, front=None):
+    """`n` batches of the synthetic stream; `front` (frontend_len,
+    frontend_dim): each also carries fp32 "embeds" drawn in turn from
+    default_rng(99), as the trainers draw them (seed 0)."""
     it = make_batch_iterator(vocab, batch, seq, seed=0)
-    return [{k: v for k, v in next(it).items() if not k.startswith("_")}
-            for _ in range(n)]
+    rngf = np.random.default_rng(99)
+    out = []
+    for _ in range(n):
+        b = {k: v for k, v in next(it).items() if not k.startswith("_")}
+        if front is not None:
+            b["embeds"] = rngf.standard_normal((batch,) + tuple(front)) \
+                .astype(np.float32)
+        out.append(b)
+    return out
+
+
+def front_of(cfg):
+    """(frontend_len, frontend_dim) of a frontend config, else None."""
+    return (cfg.frontend_len, cfg.frontend_dim) if cfg.frontend_dim else None
 
 
 @functools.lru_cache(maxsize=None)
@@ -162,7 +177,8 @@ def ref_train(name, plan_kind, *, dp, tp, nmb, steps, batch, seq,
     gp = jax.device_put(stacked, RTP.named(mesh, specs["params"]))
     opt = init(gp)
     mets = []
-    for b in train_batches(rcfg.vocab_size, steps, batch, seq):
+    for b in train_batches(rcfg.vocab_size, steps, batch, seq,
+                           front_of(rcfg)):
         gp, opt, met = step(gp, opt, jax.device_put(
             b, RTP.named(mesh, specs["batch"])))
         mets.append({k: float(v) for k, v in met.items()})
@@ -182,7 +198,8 @@ def port_train(name, plan_kind, *, dp, tp, nmb, steps, batch, seq,
     params = simtp.prepare_params(from_reference(canon, cfg), cfg, plan, tp)
     opt = init(params)
     mets = []
-    for b in train_batches(cfg.vocab_size, steps, batch, seq):
+    for b in train_batches(cfg.vocab_size, steps, batch, seq,
+                           front_of(cfg)):
         params, opt, met = step(params, opt, {
             k: torch.from_numpy(v) for k, v in b.items()})
         mets.append({k: float(v) for k, v in met.items()})
