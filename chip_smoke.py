@@ -50,6 +50,22 @@
    another prefix) under the profiler must run the tensor-core chunk
    kernel once per layer and the fp32 one never.  A profiled paged
    generate follows; its decode must run the split and combine kernels.
+4b. Serve phase (obs/, cluster/, launch/serve.py): the serve CLI's
+   `main([...])` in this process on the same model and weights (bf16, tp
+   2, spd 0.25, quant8 kept syncs and logits gather, 16-token pages, a
+   64-page pool a replica, chunked prefill 64, 8 requests, 2 replicas
+   behind prefix-affinity, --metrics-json and --trace into a temporary
+   directory): every request completes, every page back, the files
+   parse with the per-slot, scheduler, cluster and comm tracks; B1 0
+   (the chunked prefill takes the plain attention), B2 once a layer of
+   every paged forward, the fused sync and B3 per forward, the
+   replicas' warm-ups counted; TTFT, TPOT and queue wait from the
+   recorder, decode ms a step.  One replica's CLI line beside it (its
+   agreement printed: ROADMAP C15).  Then LLM.load(dp_replicas=2,
+   router="prefix-affinity") on two shared-prefix pairs, whole prefill:
+   obs on and off and one replica give the same tokens bit for bit, B1
+   once a layer a prefill, B2 chunks once a layer a warm admission, two
+   prefix hits; decode ms with obs on and off.
 5. Teacher-forced checks: prefill logits with the flash kernel against
    the plain attention, and one decode step's logits through the paged
    kernel against the dense plain decode, on the same parameters, in
@@ -98,7 +114,7 @@
    and chunk calls at D 128, groups 1 and 8 (serving positions, a full
    table, holes); the fused kept sync at (2, 4096) and (2, 4096 x 512);
    B3 alone on the logits gathers (2, 16000) and (2, 25136).
-12. llama2-7b at full width on 12 of its 32 layers (d 4096, 6.74 B
+12. llama2-7b at full width on 11 of its 32 layers (d 4096, 6.74 B
    parameters at full depth; PAPER_LAYERS cuts the depth of 12-15, 20,
    its alg1 cut and its shard paths in 22, for the time limit), bf16,
    random weights from seed 0, through LLM.load(tp=2, spd=0.25, quant8
@@ -108,8 +124,8 @@
    admission through the chunk kernel), and the teacher-forced checks of
    5 in bf16 at full width and in fp32 on layers 6-9.
 13. Algorithm 1 on llama2-7b: the sensitivity sweep over
-   calibration_batches(32000, 4 samples of 128 tokens, 2 batches), 13
-   evaluations x 2 batches x 12 layers through B1, and again with the
+   calibration_batches(32000, 4 samples of 128 tokens, 2 batches), 12
+   evaluations x 2 batches x 11 layers through B1, and again with the
    plain attention (perplexities within SWEEP_PPL_RTOL); then
    LLM.apply_comm_policy(n_spd=8, tau1, tau2 at the 25th and 75th
    percentiles of the sensitivities) must give a plan with dropped,
@@ -131,7 +147,7 @@
    Prints each part's wall seconds, ms per distill step, the peak
    memory and every block's losses.  B1 at the distill step's shape is
    then checked and timed for the kernels line.
-14. opt-6.7b at full width on 12 of its 32 layers (PAPER_LAYERS; LayerNorm,
+14. opt-6.7b at full width on 11 of its 32 layers (PAPER_LAYERS; LayerNorm,
    learned positions, biases, ReLU)
    through the same LLM.load: the dense path as in 3, a profile, the
    teacher-forced prefill check, and decode logits after teacher-forcing
@@ -1239,11 +1255,12 @@ MAIN_PATH_KERNELS = ("flash_attention_bhsd", "qdq_absmax",
 #: 0 kept)
 FAMILY_LAYERS = {"qwen2-moe-a2.7b": 8, "deepseek-v2-lite-16b": 10,
                  "hymba-1.5b": 8}
-#: the paper's 7B models at full width on 12 of their 32 layers (sim
+#: the paper's 7B models at full width on 11 of their 32 layers (sim
 #: and the shard engine alike; every check counts from the config): at
 #: 32 the run took 1122.9 s after the build on a slow host, too near its
-#: limit; 12 since the frontend phase (21f) joined the run (16 before)
-PAPER_LAYERS = {"llama2-7b": 12, "opt-6.7b": 12}
+#: limit; 12 since the frontend phase (21f) joined the run (16 before),
+#: 11 since the serve phase (4b)
+PAPER_LAYERS = {"llama2-7b": 11, "opt-6.7b": 11}
 
 
 def model_cfg(arch):
@@ -1478,6 +1495,230 @@ def paged_path(torch, np, llm, prompts, dense_tokens, card,
     same_tokens_plain(torch, label, paged, prompts,
                       [o.token_ids for o in outs], fresh=True)
     return paged, launches
+
+
+#: the serve phase (ROADMAP A6 + A7a's serve CLI): the CLI's flags on
+#: full-width SmolLM-360M, two replicas behind prefix-affinity; a pool of
+#: SERVE_PAGES 16-token pages a replica holds every request (no
+#: preemption: the paged path has one)
+SERVE_PAGES = 64
+SERVE_CLI = ["--arch", "smollm-360m", "--dtype", "bfloat16", "--tp", "2",
+             "--spd", "0.25", "--comm", "quant8", "--comm-logits", "quant8",
+             "--page-size", str(PAGE_SIZE), "--num-pages", str(SERVE_PAGES),
+             "--prefill-chunk", "64", "--requests", "8", "--max-new",
+             str(MAX_NEW), "--cache-len", "128", "--seed", "0"]
+SERVE_CLUSTER = ["--replicas", "2", "--router", "prefix-affinity"]
+#: the Python-API cluster run: two shared-prefix pairs (prefix_prompts),
+#: whole prefill (B1), a pool that holds all four prompts in one replica
+SERVE_API_PAGES = 128
+SERVE_API_NEW = 8
+SERVE_TRACKS = ("cluster", "slot0", "scheduler", "comm")
+
+
+class captured_load:
+    """Inside: every `LLM.load` also records its LLM and wraps its
+    engine's steps `names` with `timed_engine` (the CLI builds its LLM
+    itself)."""
+
+    def __init__(self, torch, names):
+        self.torch, self.names, self.runs = torch, names, []
+
+    def __enter__(self):
+        from repro_torch.api.llm import LLM
+        self.saved = LLM.__dict__["load"]
+        orig = LLM.load
+
+        def load(*a, **kw):
+            llm = orig(*a, **kw)
+            self.runs.append((llm, timed_engine(self.torch, llm.engine,
+                                                self.names)))
+            return llm
+        LLM.load = load
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.api.llm import LLM
+        LLM.load = self.saved
+
+
+def serve_cli_run(torch, argv, names):
+    """`launch.serve.main(argv)` in this process, its kernels counted
+    from 0: (its JSON line, launches, the engine's step times, the LLM)."""
+    import io
+    from repro_torch.launch import serve
+
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    buf = io.StringIO()
+    with captured_load(torch, names) as cap, \
+            contextlib.redirect_stdout(buf):
+        rc = serve.main(argv)
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise AssertionError(f"serve CLI {argv} exited {rc}")
+    (llm, times), = cap.runs
+    return (json.loads(buf.getvalue().strip().splitlines()[-1]),
+            {k.__name__: k.launches for k in kernels}, times, llm)
+
+
+def hist_mean_ms(snap, name) -> float:
+    """The mean of a recorder histogram, ms."""
+    return 1e3 * snap[f"{name}_sum"] / max(snap[f"{name}_count"], 1)
+
+
+def serve_api_run(torch, np, llm, pairs, replicas, obs):
+    """The Python API: LLM.load(dp_replicas=, router="prefix-affinity",
+    obs=) on `llm`'s weights (whole prefill, the serve pool), a generate
+    of the shared-prefix pairs counted from 0.  Returns (tokens,
+    launches, step times, the router's or scheduler's stats, wall s)."""
+    from repro_torch.api import LLM, SamplingParams
+    from repro_torch.kernels import flash_attention as FA
+
+    kernels = all_kernels()
+    with captured_load(torch, ("prefill", "verify_paged",
+                               "decode_paged")) as cap:
+        api = LLM.load(llm.cfg, tp=2, plan=llm.plan, cache_len=512,
+                       max_batch=4, page_size=PAGE_SIZE,
+                       num_pages=SERVE_API_PAGES, params=llm.canonical,
+                       dp_replicas=replicas, router="prefix-affinity",
+                       obs=obs)
+    (_, times), = cap.runs
+    for k in kernels:
+        k.launches = 0
+    FA.paged_flash_attention.chunk_launches = 0
+    t0 = time.perf_counter()
+    outs = api.generate(pairs, SamplingParams(max_new=SERVE_API_NEW))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    launches["paged_flash_attention_chunk"] = (
+        FA.paged_flash_attention.chunk_launches)
+    sched = api.serve()
+    stats = sched.stats() if replicas > 1 else sched.metrics()
+    return [o.token_ids for o in outs], launches, times, stats, wall
+
+
+def serve_phase(torch, np, llm, card):
+    """The serve CLI and cluster serving at full width (ROADMAP A6, A7a's
+    serve CLI): the CLI's JSON line, files, kernels and timings; one
+    replica's CLI line beside it; the Python-API cluster over shared-
+    prefix pairs with obs on and off against one replica, bit for bit.
+    Returns the phase's launches, each run's apart."""
+    import tempfile
+
+    from repro_torch.obs import MetricsRegistry, Recorder, Tracer
+
+    cfg, L = llm.cfg, llm.cfg.n_layers
+    names = ("prefill_chunked", "verify_paged", "decode_paged")
+    with tempfile.TemporaryDirectory(prefix="serve_phase_") as root:
+        mpath, tpath = f"{root}/metrics.json", f"{root}/trace.json"
+        t0 = time.perf_counter()
+        line, launches, times, cli = serve_cli_run(
+            torch, SERVE_CLI + SERVE_CLUSTER
+            + ["--metrics-json", mpath, "--trace", tpath], names)
+        wall = time.perf_counter() - t0
+        with open(mpath) as f:
+            metrics = json.load(f)
+        with open(tpath) as f:
+            trace = json.load(f)
+    n_req = 8
+    print(f"serve CLI (2 replicas, prefix-affinity, obs on): "
+          f"{json.dumps({k: line[k] for k in ('completed', 'paged')})}; "
+          f"cluster routed {line['cluster']['routed']}, replicas "
+          f"{ {r: v['routed'] for r, v in line['cluster']['replicas'].items()} }"
+          f"; obs.comm {json.dumps(line['obs']['comm'])}")
+    # the CLI's prompts are 4..23 tokens: one 64-token chunk a prefill
+    check_sync_launches("serve CLI", cli, launches, times)
+    snap = metrics["metrics"]
+    tracks = [e["args"]["name"] for e in trace["traceEvents"]
+              if e["name"] == "thread_name"]
+    n_paged = len(times["verify_paged"]) + len(times["decode_paged"])
+    if (line["completed"] != n_req or len(line["outputs"]) != n_req
+            or line["paged"]["free_pages"] != 2 * SERVE_PAGES
+            or line["cluster"]["routed"] != n_req
+            or len(line["cluster"]["replicas"]) != 2
+            or snap["requests_submitted_total"] != n_req
+            or snap["ttft_seconds_count"] != n_req
+            or not metrics["prometheus"].startswith("# TYPE")
+            or not set(SERVE_TRACKS) <= set(tracks)
+            or tracks != line["obs"]["tracks"]):
+        raise AssertionError(f"serve CLI: line {line}, tracks {tracks}")
+    # B1 0: the chunked prefill attends through the plain chunk path; B2
+    # once a layer of every paged forward; B3 alone once a forward (the
+    # logits gather), the fused kept sync as check_sync_launches holds
+    if (launches["flash_attention_bhsd"] != 0
+            or launches["paged_flash_attention"] != L * n_paged
+            or min(launches["qdq_absmax"],
+                   launches["quantized_psum_absmax"]) <= 0):
+        raise AssertionError(f"serve CLI launches {launches}, {n_paged} "
+                             "paged forwards")
+    dec = times["decode_paged"]
+    print(f"serve CLI [{card}]: wall {wall:.2f} s (load and warm-up "
+          f"included), ttft_ms={hist_mean_ms(snap, 'ttft_seconds'):.2f} "
+          f"tpot_ms={hist_mean_ms(snap, 'tpot_seconds'):.2f} "
+          f"queue_wait_ms={hist_mean_ms(snap, 'queue_wait_seconds'):.2f} "
+          f"(recorder means over {n_req} requests) "
+          f"decode_ms_per_step={1e3 * sum(dec) / len(dec):.2f} "
+          f"({len(dec)} paged decode steps, both replicas and their "
+          f"warm-ups); launches {json.dumps(launches)}")
+    del cli
+    one, _, _, _ = serve_cli_run(torch, SERVE_CLI, names)
+    same = sum(a == b for k in line["outputs"]
+               for a, b in zip(line["outputs"][k], one["outputs"][k]))
+    total = sum(len(v) for v in line["outputs"].values())
+    print(f"serve CLI: {same}/{total} of the printed tokens equal one "
+          "replica's (quant8 chunks span neighbour slots: another "
+          "co-batch can move a code, ROADMAP C15)")
+
+    # the Python API: two shared-prefix pairs; prefix-affinity keeps each
+    # pair on one replica in the slots one replica gives it
+    pairs = prefix_prompts(np, cfg.vocab_size, 5) + prefix_prompts(
+        np, cfg.vocab_size, 6)
+    obs = Recorder(MetricsRegistry(), Tracer())
+    on, api_launches, api_times, stats, wall_on = serve_api_run(
+        torch, np, llm, pairs, 2, obs)
+    off, off_launches, off_times, _, wall_off = serve_api_run(
+        torch, np, llm, pairs, 2, None)
+    lone, _, _, lone_stats, _ = serve_api_run(torch, np, llm, pairs, 1,
+                                              None)
+    snap = obs.snapshot()
+    where = {r: v["routed"] for r, v in stats["replicas"].items()}
+    print(f"serve API (2 replicas, prefix-affinity): routed {where}, "
+          f"prefix_affinity_hit_rate {stats['prefix_affinity_hit_rate']}, "
+          f"prefix hits {[v['prefix_hits'] for v in stats['replicas'].values()]}"
+          f" (one replica: {lone_stats['prefix_hits']}); tokens equal one "
+          f"replica's: {on == lone}; obs on == off: {on == off}")
+    if on != lone or on != off or api_launches != off_launches:
+        raise AssertionError(f"serve API: tokens on {on}, off {off}, one "
+                             f"replica {lone}; launches {api_launches} vs "
+                             f"{off_launches}")
+    n_pre = len(api_times["prefill"])
+    n_pg = len(api_times["verify_paged"]) + len(api_times["decode_paged"])
+    check_sync_launches("serve API", llm, api_launches, api_times)
+    if (api_launches["flash_attention_bhsd"] != L * n_pre
+            or api_launches["paged_flash_attention"] != L * n_pg
+            or api_launches["paged_flash_attention_chunk"]
+            != L * len(api_times["verify_paged"])
+            or not api_times["verify_paged"] or sorted(where.values()) != [2, 2]
+            or snap["prefix_cache_hits_total"] != 2):
+        raise AssertionError(f"serve API launches {api_launches}, "
+                             f"{n_pre} prefills, {n_pg} paged forwards, "
+                             f"routed {where}, hits "
+                             f"{snap.get('prefix_cache_hits_total')}")
+    for label, ts, w, rec in (("obs on", api_times, wall_on, snap),
+                              ("obs off", off_times, wall_off, None)):
+        dec = ts["decode_paged"]
+        extra = ("" if rec is None else
+                 f"ttft_ms={hist_mean_ms(rec, 'ttft_seconds'):.2f} "
+                 f"tpot_ms={hist_mean_ms(rec, 'tpot_seconds'):.2f} ")
+        print(f"serve API {label} [{card}]: {extra}"
+              f"decode_ms_per_step={1e3 * sum(dec) / len(dec):.2f} "
+              f"({len(dec)} steps, warm-ups included) generate wall "
+              f"{w:.3f} s (the replicas' warm-up included)")
+    print(f"serve phase launches: CLI {json.dumps(launches)}; API (obs on) "
+          f"{json.dumps(api_launches)}")
+    return launches, api_launches
 
 
 # the port's own kernels, by the names the profiler shows (a name here is
@@ -7755,6 +7996,8 @@ def main() -> int:
         raise AssertionError(f"the paged path's decode did not run the "
                              f"split and combine kernels: {seen}")
     del paged
+    serve_phase(torch, np, llm, card)
+    clock(t_start, "the serve phase")
     teacher_forced(torch, llm, prompts[2])
     teacher_forced_paged(torch, llm, prompts[2])
     del llm

@@ -24,8 +24,22 @@ decoding and streaming).
 
 Runs on the CUDA device by default; with no CUDA device it raises
 unless `device="cpu"` is asked for explicitly (there is no silent CPU
-path).  Arguments that belong to later slices of the port (cluster
-replicas, observability) raise NotImplementedError when given.
+path).
+
+Cluster serving and observability (cluster/, obs/):
+
+    from repro_torch.obs import MetricsRegistry, Recorder, Tracer
+    obs = Recorder(MetricsRegistry(), Tracer())
+    llm = LLM.load("smollm-360m", tp=2, page_size=16, num_pages=64,
+                   cache_len=512, dp_replicas=2, router="prefix-affinity",
+                   obs=obs)
+    llm.generate(prompts)        # routed over two replicas
+    llm.serve().stats()          # the ClusterRouter's per-replica stats
+    obs.snapshot(); obs.tracer.save("trace.json")
+
+The replicas share the engine and the placed weights; each has its own
+scheduler, KV pool, prefix cache and draft state.  Observability never
+changes tokens.
 
 `engine="shard"` runs one process per TP shard (tp x dp ranks; rank
 d * tp + m is data rank d, model rank m).  Every rank runs the same
@@ -68,6 +82,7 @@ from repro_torch.api.sampling import SamplingParams
 from repro_torch.api.scheduler import CacheConfig, Request, Scheduler
 from repro_torch.config.base import (SYNC_LEVELS, CommPolicy, ModelConfig,
                                      SPDPlanConfig, replace)
+from repro_torch.obs.recorder import NULL_RECORDER
 
 
 def _resolve_comm(comm, n_layers: int,
@@ -138,7 +153,9 @@ class LLM:
 
     def __init__(self, cfg, plan, engine_kind, canonical,
                  cache: CacheConfig, *, tp: int, dp: int, q_chunk: int,
-                 device, groups=None):
+                 device, groups=None, dp_replicas: int = 1,
+                 router: str = "least-outstanding", obs=None):
+        self.obs = obs if obs is not None else NULL_RECORDER
         self.cfg, self.plan = cfg, plan
         self.engine_kind = engine_kind
         self.groups = groups          # launch.dist.TPGroups on `shard`
@@ -146,6 +163,10 @@ class LLM:
         self.cache = cache
         self.tp, self.dp, self.q_chunk = tp, dp, q_chunk
         self.device = device
+        # DP-over-TP cluster serving: > 1 makes serve() a ClusterRouter
+        # over this many replicas sharing the engine and weights
+        self.dp_replicas = dp_replicas
+        self.router_policy = router
         self.engine = self.params = None
         # self-speculative decoding: the draft is these same canonical
         # weights placed under a cheaper plan
@@ -163,7 +184,8 @@ class LLM:
              num_pages=None, prefill_chunk=None, cache_len: int = 128,
              max_batch: int = 4, dtype: Optional[str] = None, seed: int = 0,
              params=None, q_chunk: int = 64, spec=None,
-             dp_replicas: int = 1, obs=None, device=None) -> "LLM":
+             dp_replicas: int = 1, router: str = "least-outstanding",
+             obs=None, device=None) -> "LLM":
         """Load `arch` (config name or ModelConfig) onto an engine.
 
         engine     "sim" (every shard on one device), "shard" (one
@@ -205,13 +227,24 @@ class LLM:
                    identical; sampling keeps its distribution).  The
                    "tiered" and "calibrated" presets need calibration
                    data: use `enable_spec`.
+        dp_replicas
+                   data parallelism over the TP groups: `serve()` and
+                   `generate()` then run through a ClusterRouter over
+                   this many replicas, each its own Scheduler (KV pool,
+                   prefix cache, draft state) on the shared engine and
+                   weights.  On "shard" every rank holds the same
+                   replicas and routes alike.
+        router     the cluster's routing policy when dp_replicas > 1
+                   (`repro_torch.cluster.route_policy_names()`):
+                   "round-robin" | "least-outstanding" |
+                   "prefix-affinity".
+        obs        a `repro_torch.obs.Recorder` wired through every
+                   scheduler, router, page pool and drafter this LLM
+                   builds (metrics and the request-lifecycle trace);
+                   the default null recorder costs nothing, and
+                   observability never changes tokens.
         """
-        if obs is not None:
-            raise NotImplementedError("LLM.load(obs=...) is not ported yet "
-                                      "(ROADMAP A6)")
-        if dp_replicas != 1:
-            raise NotImplementedError("dp_replicas > 1 is not ported yet "
-                                      "(ROADMAP A6)")
+        from repro_torch.cluster.router import make_policy
         from repro_torch.configs import get_config
         from repro_torch.core import model as M
         from repro_torch.parallel.backend import backend_class, backend_names
@@ -220,6 +253,11 @@ class LLM:
             raise NotImplementedError(
                 f"engine={engine!r} is not ported (the engines are "
                 f"{backend_names()}; ROADMAP A5)")
+        if dp_replicas < 1:
+            from repro_torch.runtime.elastic import ClusterConfigError
+            raise ClusterConfigError(
+                f"dp_replicas must be >= 1, got {dp_replicas}")
+        make_policy(router)           # fail fast on unknown policy names
         cache = CacheConfig(cache_len=cache_len, max_batch=max_batch,
                             page_size=page_size, num_pages=num_pages,
                             prefill_chunk=prefill_chunk)
@@ -249,7 +287,8 @@ class LLM:
                      else M.init_model(cfg, seed=seed, device=dev,
                                        keep=keep))
         llm = cls(cfg, plan, engine, canonical, cache, tp=tp, dp=dp,
-                  q_chunk=q_chunk, device=dev, groups=groups)
+                  q_chunk=q_chunk, device=dev, groups=groups,
+                  dp_replicas=dp_replicas, router=router, obs=obs)
         llm._build_engine()
         if spec is not None:
             llm.enable_spec(spec)
@@ -390,23 +429,60 @@ class LLM:
                          k_min=self.spec.k_min, k_max=self.spec.k_max,
                          tree_width=self.spec.tree_width)
 
-    def serve(self, **overrides) -> Scheduler:
-        """Without overrides, the (cached) scheduler `generate` drives;
-        with overrides (any CacheConfig field), a fresh scheduler on the
-        same engine and params."""
-        for name in ("dp_replicas", "router"):
-            if name in overrides:
-                raise NotImplementedError(
-                    f"serve({name}=...): cluster serving is not ported yet "
-                    "(ROADMAP A6)")
+    def serve(self, **overrides):
+        """A scheduler on this model: a `Scheduler`, or with
+        `dp_replicas > 1` a `repro_torch.cluster.ClusterRouter` over that
+        many replicas (the same surface: submit / step / run / cancel /
+        completed).  Without overrides, the (cached) one `generate`
+        drives; with overrides (any CacheConfig field, `dp_replicas`,
+        `router`), a fresh one on the same engine and params."""
         if overrides:
+            n = overrides.pop("dp_replicas", self.dp_replicas)
+            policy = overrides.pop("router", self.router_policy)
             cc = dataclasses.replace(self.cache, **overrides)
-            return Scheduler(self.engine, self.params, cc,
-                             spec=self._spec_state(cc))
+            if n > 1:
+                return self.make_cluster(n, policy=policy, cache=cc)
+            return self._scheduler(cc)
         if self._sched is None:
-            self._sched = Scheduler(self.engine, self.params, self.cache,
-                                    spec=self._spec_state(self.cache))
+            self._sched = (self.make_cluster() if self.dp_replicas > 1
+                           else self._scheduler(self.cache))
         return self._sched
+
+    def _scheduler(self, cache: CacheConfig) -> Scheduler:
+        return Scheduler(self.engine, self.params, cache,
+                         spec=self._spec_state(cache), obs=self.obs)
+
+    # ---------------- cluster serving ----------------
+
+    def replica_factory(self, cache: Optional[CacheConfig] = None):
+        """`rid -> Replica` over this model's engine and placed params:
+        what `make_cluster` builds from and what a cluster
+        `ElasticScaler` scales up with.  Each replica gets its own
+        `Scheduler` (KV pool, prefix cache, draft state); the engine and
+        the weights on the card are shared."""
+        from repro_torch.cluster import Replica
+
+        cc = cache or self.cache
+
+        def factory(rid: int) -> "Replica":
+            return Replica(rid, self._scheduler(cc), comm=self.plan.comm)
+        return factory
+
+    def make_cluster(self, n: Optional[int] = None, *, policy=None,
+                     cache: Optional[CacheConfig] = None,
+                     warmup: bool = True):
+        """A `ClusterRouter` over `n` replicas of this model (default:
+        the `dp_replicas` / `router` this LLM was loaded with); each
+        replica runs a warm-up request first unless `warmup=False`."""
+        from repro_torch.cluster import ClusterConfigError, ClusterRouter
+
+        n = n if n is not None else self.dp_replicas
+        if n < 1:
+            raise ClusterConfigError(f"need >= 1 replica, got {n}")
+        factory = self.replica_factory(cache)
+        return ClusterRouter([factory(rid) for rid in range(n)],
+                             policy=policy or self.router_policy,
+                             warmup=warmup, obs=self.obs)
 
     def _submit(self, prompts, sampling) -> List[Request]:
         """Validate the whole batch (all or nothing), then enqueue it on
@@ -421,7 +497,13 @@ class LLM:
             self._next_uid -= 1
         for req in reqs:
             sched.validate(req)
-        sched.queue.extend(reqs)
+        # a Scheduler stamps submission here; a ClusterRouter's replicas
+        # stamp it at routed enqueue
+        stamp = getattr(sched, "note_submit", None)
+        for req in reqs:
+            if stamp is not None:
+                stamp(req)
+            sched.queue.append(req)
         return reqs
 
     def generate(self, prompts, sampling: Optional[SamplingParams] = None,

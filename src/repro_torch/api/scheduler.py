@@ -1,6 +1,6 @@
 """The continuous-batching scheduler behind the facade (port of
-repro/api/scheduler.py: dense and paged, chunked prefill and
-speculative decoding; observability comes with a later slice).
+repro/api/scheduler.py: dense and paged, chunked prefill, speculative
+decoding and the observability hooks).
 
 One `Scheduler` over a `CacheConfig`: dense when page_size / num_pages
 are None, paged otherwise, through a pluggable KV-cache manager.
@@ -32,6 +32,19 @@ The rejected suffix rolls back: dense caches rewind the position,
 paged slots return their suffix pages (`PagePool.shrink`).  Greedy
 streams equal plain decoding's token for token.
 
+Observability: built with a `repro_torch.obs.Recorder` (or given one
+through `set_obs`), the scheduler, its page pool and its drafter feed
+the reference's metrics (TTFT, TPOT and queue-wait histograms, request,
+token, preemption, prefix and speculation counters, slot and queue
+gauges) and trace (per-slot `queue` / `prefill` / `serve` slices and
+`preempt` instants, the `scheduler` track's `step` spans and
+`active_slots` counter, the `spec` track's `draft` / `verify` spans),
+at the reference's places and in its order of clock reads.  The
+default `NULL_RECORDER` makes every hook a no-op: no clock is read and
+no request metadata kept.  No hook touches a tensor: the times are the
+host's, and TTFT and TPOT end where the scheduler reads a step's tokens
+back, which it does either way.
+
 On the `shard` engine every rank runs this same host program: its
 decisions (admission, preemption, prefix hits, sampled tokens) depend
 only on the tokens, which the logits all-gather makes equal on every
@@ -55,6 +68,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from repro_torch.api.sampling import SamplingParams
+from repro_torch.obs.recorder import NULL_RECORDER
 from repro_torch.runtime import sampling as RS
 from repro_torch.runtime.paging import PagePool, page_hashes
 from repro_torch.spec.verify import (accept_greedy_tree,
@@ -65,6 +79,9 @@ __all__ = ["CacheConfig", "Request", "Scheduler", "InvalidRequestError",
            "DenseKVCacheManager", "PagedKVCacheManager"]
 
 _GREEDY = SamplingParams()
+
+# spec acceptance-rate histogram layout (a 0..1 ratio, not seconds)
+_ACCEPT_BUCKETS = (0.0, 0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0)
 
 
 class InvalidRequestError(ValueError):
@@ -161,6 +178,11 @@ class DenseKVCacheManager:
 
     def register_prefix(self, slot: int, toks):
         pass
+
+    # prefix-cache stats (always zero on dense, for uniform reporting)
+    prefix_queries = 0
+    prefix_hits = 0
+    prefix_tokens_reused = 0
 
     def insert(self, caches1, slot: int):
         self.caches = self.engine.insert_slot(self.caches, caches1, slot)
@@ -381,7 +403,8 @@ class PagedKVCacheManager:
 class Scheduler:
     """Continuous batching over either cache layout (see module doc)."""
 
-    def __init__(self, engine, params, cache: CacheConfig, spec=None):
+    def __init__(self, engine, params, cache: CacheConfig, spec=None,
+                 obs=None):
         self.engine = engine
         self.params = params
         self.cache = cache
@@ -390,16 +413,32 @@ class Scheduler:
         self.max_batch = cache.max_batch
         self.cache_len = cache.cache_len
         self.prefill_chunk = cache.prefill_chunk
+        # speculative decoding (a spec.SpecState, or None)
+        self.spec = spec
+        self.reset()
+        # observability: the null recorder makes every hook a no-op
+        self.obs = NULL_RECORDER
+        if obs is not None:
+            self.set_obs(obs)
+
+    def reset(self):
+        """Restore the state of a freshly built scheduler on the same
+        caches: no queue, slots, completions or request metadata, every
+        position, token and counter at zero, the page pool at its
+        canonical fresh state (the same free-list order) with an empty
+        prefix cache, the drafter's positions and counters at zero.  The
+        caches' contents are left: a fresh slot is written before it is
+        read, and masked positions are never read.  A cluster replica
+        calls it after its warm-up request (cluster/replica.py)."""
+        n = self.max_batch
         self.queue: deque = deque()
-        self.slots: List[Optional[Request]] = [None] * cache.max_batch
-        self.pos = np.zeros(cache.max_batch, np.int64)
-        self.cur = np.zeros((cache.max_batch, 1), np.int64)
-        self.admit_seq = np.zeros(cache.max_batch, np.int64)
+        self.slots: List[Optional[Request]] = [None] * n
+        self.pos = np.zeros(n, np.int64)
+        self.cur = np.zeros((n, 1), np.int64)
+        self.admit_seq = np.zeros(n, np.int64)
         self._seq = 0
         self.completed: Dict[int, Request] = {}
         self.n_preemptions = 0
-        # speculative decoding (a spec.SpecState, or None)
-        self.spec = spec
         self.spec_rounds = 0          # verify forwards
         self.spec_row_rounds = 0      # active rows summed over rounds
         self.spec_drafted = 0
@@ -407,8 +446,56 @@ class Scheduler:
         self.spec_committed = 0       # tokens committed by rounds
         self.spec_alt_commits = 0     # tree rounds committed via an alt
         # per-slot adaptive budget and zero-acceptance streak
-        self._spec_kb = np.zeros(cache.max_batch, np.int64)
-        self._spec_rej = np.zeros(cache.max_batch, np.int64)
+        self._spec_kb = np.zeros(n, np.int64)
+        self._spec_rej = np.zeros(n, np.int64)
+        self._req_meta: Dict[int, dict] = {}   # id(Request) -> times
+        kv = self.kv
+        if kv.paged:
+            kv.pool.reset()
+            kv._admit_hashes.clear()
+            kv.prefix_queries = kv.prefix_hits = kv.prefix_tokens_reused = 0
+        if self.spec is not None:
+            dr = self.spec.drafter
+            dr.pos[:] = 0
+            dr.adoptions = dr.prefills = dr.rounds = 0
+
+    def set_obs(self, obs):
+        """Attach (or, with None, detach) a recorder on the scheduler and
+        what it drives (page pool, drafter).  Returns the previous one: a
+        replica swaps in NULL_RECORDER around its warm-up request."""
+        prev = self.obs
+        self.obs = obs if obs is not None else NULL_RECORDER
+        if self.kv.paged:
+            self.kv.pool.obs = self.obs
+        if self.spec is not None:
+            self.spec.drafter.obs = self.obs
+        return prev
+
+    def metrics(self) -> dict:
+        """Scheduler stats (always) plus, with a live recorder, the flat
+        registry snapshot under "registry"."""
+        out = {
+            "queue_depth": len(self.queue),
+            "active_slots": len(self._active()),
+            "completed": len(self.completed),
+            "n_preemptions": self.n_preemptions,
+            "prefix_queries": self.kv.prefix_queries,
+            "prefix_hits": self.kv.prefix_hits,
+            "prefix_tokens_reused": self.kv.prefix_tokens_reused,
+        }
+        if self.kv.paged:
+            pool = self.kv.pool
+            out["pool_pages_used"] = (pool.num_pages - len(pool.free)
+                                      - len(pool.cached))
+            out["pool_high_water"] = pool.high_water
+        if self.spec is not None:
+            out["spec_rounds"] = self.spec_rounds
+            out["spec_acceptance"] = self.spec_acceptance
+            out["spec_tokens_per_step"] = self.spec_tokens_per_step
+            out["spec_alt_commits"] = self.spec_alt_commits
+        if self.obs.enabled:
+            out["registry"] = self.obs.snapshot()
+        return out
 
     @property
     def pcaches(self):
@@ -423,7 +510,20 @@ class Scheduler:
     def submit(self, req: Request):
         """Validate and enqueue."""
         self.validate(req)
+        self.note_submit(req)
         self.queue.append(req)
+
+    def note_submit(self, req: Request):
+        """Stamp a request's submission time (the queue-wait and TTFT
+        base).  `submit` calls it; a caller that enqueues directly (the
+        facade validates a batch first) calls it itself.  A request never
+        stamped is back-filled at admission with no queue wait."""
+        if self.obs.enabled:
+            t = self.obs.now()
+            meta = self._req_meta.setdefault(
+                id(req), {"submit0": t, "first": None})
+            meta["submit"] = t
+            self.obs.inc("requests_submitted_total")
 
     def validate(self, req: Request):
         """Admission checks only; raises InvalidRequestError."""
@@ -481,6 +581,15 @@ class Scheduler:
             if m is None:
                 break          # head-of-line: wait for pages, stay FIFO
             self.queue.popleft()
+            if self.obs.enabled:
+                t_admit = self.obs.now()
+                meta = self._req_meta.setdefault(
+                    id(req),
+                    {"submit0": t_admit, "submit": t_admit, "first": None})
+                wait = t_admit - meta["submit"]
+                self.obs.observe("queue_wait_seconds", wait)
+                self.obs.complete(f"slot{b}", "queue", meta["submit"],
+                                  wait, uid=req.uid)
             try:
                 if m:
                     # warm: prefill only the uncached suffix, in place
@@ -500,6 +609,21 @@ class Scheduler:
             self.cur[b, 0] = first
             self.admit_seq[b] = self._seq
             self._seq += 1
+            if self.obs.enabled:
+                t_first = self.obs.now()
+                meta["serve_start"] = t_admit
+                self.obs.complete(f"slot{b}", "prefill", t_admit,
+                                  t_first - t_admit, uid=req.uid,
+                                  tokens=s - m, cached=m)
+                if meta["first"] is None:
+                    # TTFT once, from the ORIGINAL submit (a re-admission
+                    # after preemption does not count again)
+                    meta["first"] = t_first
+                    self.obs.observe("ttft_seconds",
+                                     t_first - meta["submit0"])
+                if m:
+                    self.obs.inc("prefix_cache_hits_total")
+                    self.obs.inc("prefix_tokens_reused_total", m)
             if not m:
                 self.kv.insert(caches1, b)
             self.kv.register_prefix(b, toks)
@@ -533,10 +657,36 @@ class Scheduler:
     def _finish(self, b: int):
         req = self.slots[b]
         req.done = True
+        if self.obs.enabled:
+            self._observe_finish(b, req)
         self.completed[req.uid] = req
         self.slots[b] = None
         self.pos[b] = 0
         self.kv.release(b)
+
+    def _observe_finish(self, b: int, req: Request):
+        """A finished request's counters, acceptance, TPOT and its final
+        `serve` slice."""
+        t = self.obs.now()
+        meta = self._req_meta.pop(id(req), None)
+        reason = req.finish_reason or "stop"
+        self.obs.inc("requests_finished_total", reason=reason)
+        self.obs.inc("tokens_generated_total", len(req.out))
+        if req.n_drafted:
+            self.obs.metrics.observe(
+                "spec_request_acceptance",
+                req.n_draft_accepted / req.n_drafted,
+                buckets=_ACCEPT_BUCKETS)
+        if meta is None:
+            return
+        if meta.get("first") is not None and len(req.out) > 1:
+            # time per output token over the decode tail (the first
+            # token is TTFT's)
+            self.obs.observe("tpot_seconds",
+                             (t - meta["first"]) / (len(req.out) - 1))
+        t0 = meta.get("serve_start", t)
+        self.obs.complete(f"slot{b}", "serve", t0, t - t0, uid=req.uid,
+                          tokens=len(req.out), reason=reason)
 
     def cancel(self, reqs):
         """Withdraw requests (queued, active, or completed)."""
@@ -553,6 +703,7 @@ class Scheduler:
         for r in reqs:
             if self.completed.get(r.uid) is r:
                 del self.completed[r.uid]
+            self._req_meta.pop(id(r), None)
 
     def _grow_active(self, active: List[int], upto_fn) -> List[int]:
         """Paged growth with preemption-by-eviction: oldest-admitted
@@ -585,6 +736,17 @@ class Scheduler:
         self.pos[v] = 0
         self.queue.appendleft(req)
         self.n_preemptions += 1
+        self.obs.inc("preemptions_total")
+        if self.obs.enabled:
+            t = self.obs.now()
+            self.obs.instant(f"slot{v}", "preempt", uid=req.uid,
+                             n_preempted=req.n_preempted)
+            meta = self._req_meta.get(id(req))
+            if meta is not None:
+                t0 = meta.get("serve_start", t)
+                self.obs.complete(f"slot{v}", "serve", t0, t - t0,
+                                  uid=req.uid, preempted=True)
+                meta["submit"] = t       # queue wait restarts at requeue
         return v
 
     # ---------------- main loop ----------------
@@ -730,20 +892,24 @@ class Scheduler:
         n = self.max_batch
         ctx, start, rngs, alt_ok, sampling = self._spec_inputs(active, k,
                                                                chunk)
-        draft_toks, draft_logits, alts = dr.draft(
-            ctx, start, k, greedy=sampling is None, tree_width=w,
-            sampling=sampling)
+        with self.obs.span("spec", "draft", k=k, rows=len(active), tree=w):
+            draft_toks, draft_logits, alts = dr.draft(
+                ctx, start, k, greedy=sampling is None, tree_width=w,
+                sampling=sampling)
         ver = np.concatenate([self.cur, draft_toks], axis=1)   # (n, k+1)
         tree = None
         if w > 1:
             ver = np.concatenate([ver, np.asarray(alts, np.int64)], axis=1)
             tree = tree_layout(k, w)
-        lg = self.kv.verify(self.params, ver, self.pos, tree=tree)
-        if sampling is None:
-            # only the (n, C) argmax ids come to the host
-            argmax, logits = lg.argmax(dim=-1).cpu().numpy(), None
-        else:
-            argmax, logits = None, lg.float().cpu().numpy()
+        # the span ends where the verify's result reaches the host (the
+        # read the round makes either way)
+        with self.obs.span("spec", "verify", rows=len(active), tree=w):
+            lg = self.kv.verify(self.params, ver, self.pos, tree=tree)
+            if sampling is None:
+                # only the (n, C) argmax ids come to the host
+                argmax, logits = lg.argmax(dim=-1).cpu().numpy(), None
+            else:
+                argmax, logits = None, lg.float().cpu().numpy()
         self.spec_rounds += 1
         relocs, post, seen = [], [], []
         for b in active:
@@ -775,6 +941,16 @@ class Scheduler:
             self.spec_row_rounds += 1
             if used_alt:
                 self.spec_alt_commits += 1
+            if self.obs.enabled:
+                self.obs.inc("spec_drafted_total", k_b)
+                self.obs.inc("spec_accepted_total", n_acc)
+                if used_alt:
+                    self.obs.inc("spec_tree_alt_commits_total")
+                if self.spec.adaptive:
+                    self.obs.gauge("spec_k", k_b, slot=str(b))
+                self.obs.metrics.observe("spec_acceptance_ratio",
+                                         n_acc / k_b,
+                                         buckets=_ACCEPT_BUCKETS)
             if self.spec.adaptive:
                 self._spec_adapt(b, k_b, n_acc, used_alt)
             budget = self._max_new(req) - len(req.out)
@@ -820,6 +996,19 @@ class Scheduler:
         """Admit, (paged) grow, then one decode step (or, with
         speculation, one draft / verify round) for all active slots.
         Returns False when there is nothing left to do."""
+        if not self.obs.enabled:
+            return self._step()
+        with self.obs.span("scheduler", "step") as s:
+            out = self._step()
+            act = len(self._active())
+            s["active"] = act
+            s["queued"] = len(self.queue)
+            self.obs.gauge("active_slots", act)
+            self.obs.gauge("queue_depth", len(self.queue))
+            self.obs.counter_event("scheduler", "active_slots", act)
+        return out
+
+    def _step(self) -> bool:
         self._admit()
         active = self._active()
         if self.spec is not None and active:
@@ -845,6 +1034,17 @@ class Scheduler:
 
     def has_work(self) -> bool:
         return bool(self.queue) or any(s is not None for s in self.slots)
+
+    def outstanding_tokens(self) -> int:
+        """Token-work backlog: a queued request counts its full prefill
+        (prompt + kept output) plus its remaining decode budget, an
+        active slot its remaining decode budget.  The load signal the
+        cluster router's least-outstanding policy balances."""
+        n = sum(len(r.prompt) + self._max_new(r) for r in self.queue)
+        for b in self._active():
+            r = self.slots[b]
+            n += self._max_new(r) - len(r.out)
+        return n
 
     def run(self, max_steps: int = 10_000) -> Dict[int, Request]:
         steps = 0

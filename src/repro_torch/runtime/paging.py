@@ -21,8 +21,10 @@ admission shares a prompt's resident prefix pages read-only and
 prefills only the suffix; a write to a shared page copies it first
 (`ensure_writable` returns the (src, dst) pair for the device copy).
 
-The reference's observability hooks (recorder counters and gauges) come
-with the obs layer, ROADMAP A6.
+Observability: the pool carries the recorder the scheduler wires in
+(`obs`, the null recorder by default) and counts prefix-cache evictions,
+shared pages and copy-on-write copies, and mirrors the referenced pages
+as the `pool_pages_used` gauge, at the reference's places.
 """
 from __future__ import annotations
 
@@ -32,6 +34,8 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+from repro_torch.obs.recorder import NULL_RECORDER
 
 
 def pages_for(n_tokens: int, page_size: int) -> int:
@@ -144,7 +148,11 @@ class PagePool:
     max_slots: int
     pages_per_slot: int
 
-    high_water = 0          # pages referenced at peak (not a field)
+    # plain class attributes (not dataclass fields): the recorder the
+    # scheduler wires in (the null recorder makes every hook a no-op) and
+    # the pages referenced at peak
+    obs = NULL_RECORDER
+    high_water = 0
 
     def __post_init__(self):
         assert self.num_pages > 0 and self.page_size > 0
@@ -175,6 +183,7 @@ class PagePool:
             return self.free.pop()
         p, _ = self.cached.popitem(last=False)
         self._deregister(p)
+        self.obs.inc("prefix_cache_evictions_total")
         return p
 
     def _unref(self, p: int):
@@ -254,9 +263,12 @@ class PagePool:
         self.high_water = 0
 
     def _note_occupancy(self):
+        """Track peak referenced pages; mirror the live value as a gauge
+        (a no-op under the null recorder)."""
         used = self.num_pages - len(self.free) - len(self.cached)
         if used > self.high_water:
             self.high_water = used
+        self.obs.gauge("pool_pages_used", used)
 
     # ---------------- prefix cache ----------------
 
@@ -288,6 +300,7 @@ class PagePool:
             self.refs[p] += 1
         self.owned[slot] = len(pages)
         if pages:
+            self.obs.inc("pages_shared_total", len(pages))
             self._note_occupancy()
 
     def register_prefix(self, slot: int, tokens,
@@ -326,6 +339,7 @@ class PagePool:
             self.refs[p] -= 1
             self.table[slot, page_idx] = dst
             self.refs[dst] += 1
+            self.obs.inc("cow_copies_total")
             return p, dst
         self._deregister(p)
         return None

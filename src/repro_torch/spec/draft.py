@@ -22,8 +22,10 @@ weights.  Presets (`DRAFT_PRESETS`):
 params and a dense per-slot cache, follows the committed stream, and
 proposes k tokens per round for the target's verify forward
 (api/scheduler.py drives it; the acceptance math is spec/verify.py).
-The reference's observability counters are plain attributes here
-(`adoptions`, `prefills`, `rounds`); no recorder is ported.
+Its counters are plain attributes (`adoptions`, `prefills`, `rounds`)
+and, with a recorder wired in by `Scheduler.set_obs`, the reference's
+`spec_draft_adoptions_total`, `spec_draft_prefills_total` and
+`spec_draft_rounds_total`.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.config.base import ModelConfig, SPDPlanConfig
+from repro_torch.obs.recorder import NULL_RECORDER
 
 __all__ = ["SpecConfig", "SpecError", "SpecState", "DRAFT_PRESETS",
            "derive_draft_plan", "Drafter", "spec_supported"]
@@ -195,6 +198,9 @@ class Drafter:
     at most one token, so a round's catch-up context is 1 or 2 tokens
     (re-processing a written position is idempotent)."""
 
+    # the recorder Scheduler.set_obs wires in
+    obs = NULL_RECORDER
+
     def __init__(self, engine, params, max_batch: int, cache_len: int,
                  prefill_chunk: Optional[int] = None):
         self.engine = engine
@@ -225,11 +231,13 @@ class Drafter:
         if caches1 is not None:
             c1 = self._resegment(caches1)
             self.adoptions += 1
+            self.obs.inc("spec_draft_adoptions_total")
         else:
             from repro_torch.runtime.forward import bucketed_prefill
             _, c1 = bucketed_prefill(self.engine, self.params, toks, s,
                                      self.cache_len, self.prefill_chunk)
             self.prefills += 1
+            self.obs.inc("spec_draft_prefills_total")
         self.caches = self.engine.insert_slot(self.caches, c1, b)
         self.pos[b] = s
 
@@ -271,6 +279,7 @@ class Drafter:
         None when greedy, alts (B, tree_width-1) or None when
         tree_width = 1), numpy."""
         self.rounds += 1
+        self.obs.inc("spec_draft_rounds_total")
         ctx = np.asarray(ctx, np.int64)
         start = np.asarray(start, np.int64)
         if greedy and tree_width > 1:

@@ -1,6 +1,7 @@
 """PyTorch port: import isolation from JAX and the reference package,
-device selection, the facade's refusal of later-slice arguments and of a
-half-set paged geometry, the scheduler's queued-request fix (ROADMAP
+device selection, the facade's refusal of engines it does not have
+(and its acceptance of the cluster and observability arguments) and of
+a half-set paged geometry, the scheduler's queued-request fix (ROADMAP
 C2), sampling determinism, and chip_smoke.py's refusal to run without a
 card."""
 import os
@@ -89,13 +90,23 @@ def test_load_without_cuda_raises(monkeypatch):
 
 @pytest.mark.parametrize("kw", [
     {"dp_replicas": 3}, {"engine": "tp_nccl"}, {"dp_replicas": 2},
-    {"engine": "shard"}, {"obs": object()}])
+    {"engine": "shard"}, {"obs": "recorder"}])
 def test_later_slice_arguments_raise(kw):
-    """Cluster replicas, the multi-process engines and observability are
-    refused (chunked prefill and speculation are ported: their cases
-    went to the tests of those modules)."""
-    with pytest.raises(NotImplementedError):
-        _load(**kw)
+    """An engine the port does not have, and the multi-process engine
+    without its groups, are refused.  Cluster replicas and observability
+    are ported (cluster/, obs/; tests/test_torch_cluster.py and
+    tests/test_torch_obs.py): they load, `serve()` is a ClusterRouter
+    over the replicas, and the recorder reaches the scheduler."""
+    if "engine" in kw:
+        with pytest.raises(NotImplementedError):
+            _load(**kw)
+    elif "obs" in kw:
+        from repro_torch.obs import MetricsRegistry, Recorder
+        rec = Recorder(MetricsRegistry())
+        assert _load(obs=rec).serve().obs is rec
+    else:
+        router = _load(**kw).serve()
+        assert sorted(router.replicas) == list(range(kw["dp_replicas"]))
 
 
 @pytest.mark.parametrize("kw", [{"page_size": 8}, {"num_pages": 16}])

@@ -329,9 +329,9 @@ def test_prefix_cache_warm_equals_cold_equals_dense():
 def test_facade_paged_surface_and_later_slice_refusals():
     """LLM.load(page_size=, num_pages=) serves paged (greedy and sampled
     streams equal the dense ones, n_preempted reported); serve(**cache
-    fields) builds a fresh scheduler; chunked prefill and tree verify are
-    ported, cluster serving raises, and an int8 KV cache pages through
-    the gather -> dense -> scatter fallback."""
+    fields) builds a fresh scheduler; chunked prefill, tree verify and
+    cluster serving (serve(dp_replicas=)) are ported, and an int8 KV cache
+    pages through the gather -> dense -> scatter fallback."""
     cfg = replace(get_config("smollm-360m-reduced"), dtype="float32")
     kw = dict(tp=TP, spd=0.25, device="cpu", cache_len=48, max_batch=3)
     dense = LLM.load(cfg, **kw)
@@ -358,9 +358,15 @@ def test_facade_paged_surface_and_later_slice_refusals():
     assert leaf.shape[0] == TP
     # chunked prefill is ported: a paged scheduler takes prefill_chunk
     assert paged.serve(prefill_chunk=8).prefill_chunk == 8
-    for name in ("dp_replicas", "router"):
-        with pytest.raises(NotImplementedError):
-            paged.serve(**{name: 2})
+    # cluster serving is ported: serve(dp_replicas=) is a ClusterRouter of
+    # paged replicas, and an unknown router policy is refused
+    from repro_torch.cluster import ClusterConfigError, ClusterRouter
+    router = paged.serve(dp_replicas=2, num_pages=16)
+    assert isinstance(router, ClusterRouter)
+    assert [r.sched.pool.num_pages for r in router.replicas.values()] == \
+        [16, 16]
+    with pytest.raises(ClusterConfigError):
+        paged.serve(dp_replicas=2, router="no-such-policy")
     with pytest.raises(ValueError, match="multiple"):
         paged.serve(cache_len=44)
     # tree verify is ported: a chain-shaped ancestor matrix (lower

@@ -22,7 +22,13 @@ trajectory); then:
     within the sign-aware bound of torch_parity.assert_params_close;
   * `launch.train.main([..., "--engine", "shard"])` on ranks (2, 2):
     rank 0 prints the JSON line the sim run prints (the final loss
-    within STEP_RTOL), the other ranks nothing.
+    within STEP_RTOL), the other ranks nothing;
+  * `launch.serve.main([..., "--engine", "shard", "--replicas", "2",
+    "--router", "prefix-affinity", "--metrics-json", ...])` on ranks (2,
+    1) (paged, a pool that preempts): rank 0 prints sim's `outputs`,
+    `paged` and `cluster` blocks, token for token, and writes the
+    metrics with sim's request, token, preemption and routing counters;
+    the other rank prints nothing.
 Spawns: (2, 2) and (2, 1), each running all of its cases beside this
 process's sim runs (torch_dist.py).
 """
@@ -53,6 +59,10 @@ KW = dict(steps=4, spd=0.5, fsdp=False)
 CLI = ["--arch", "smollm-360m-reduced", "--tp", "2", "--dp", "2",
        "--steps", "3", "--batch", "8", "--seq", "32", "--device", "cpu",
        "--ckpt-every", "2"]
+SERVE_CLI = ["--arch", "smollm-360m-reduced", "--tp", "2", "--device", "cpu",
+             "--requests", "6", "--max-new", "6", "--cache-len", "64",
+             "--page-size", "8", "--num-pages", "10", "--spd", "0.25",
+             "--replicas", "2", "--router", "prefix-affinity"]
 
 
 def _cfg():
@@ -82,7 +92,8 @@ def runs(canon):
     checkpoint."""
     port, root = canon
     d = {k: str(root / k) for k in ("sim2", "r_plain", "r_fault", "r2",
-                                    "cli", "scli")}
+                                    "cli", "scli", "serve_m.json",
+                                    "sserve_m.json")}
     tr, st = TD.trainer(_cfg(), port, "sim", 2, 2, ckpt_dir=d["sim2"],
                         **dict(KW, ckpt_every=2))
     TD.trained(tr, st, 2, leaves=False)
@@ -94,7 +105,10 @@ def runs(canon):
             _case("train_ckpt", "to sim", d["r2"], steps=2, kw=every2),
             _case("train_cli", "cli",
                   argv=CLI + ["--engine", "shard", "--ckpt-dir", d["cli"]])]
-    narrow = [_case("train_ckpt", "dp1", d["sim2"], steps=2, kw=KW)]
+    narrow = [_case("train_ckpt", "dp1", d["sim2"], steps=2, kw=KW),
+              _case("serve_cli", "serve",
+                    argv=SERVE_CLI + ["--engine", "shard", "--metrics-json",
+                                      d["serve_m.json"]])]
     params = str(root / "canon.pt")
     wait22 = TD.start(dict(tp=2, dp=2, params=params, cases=wide),
                       deadline_s=600, timeout_s=120)
@@ -109,6 +123,12 @@ def runs(canon):
     with contextlib.redirect_stdout(buf):
         rc = main(CLI + ["--ckpt-dir", d["scli"]])
     sim["cli"] = {"rc": rc, "stdout": buf.getvalue()}
+    from repro_torch.launch import serve
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = serve.main(SERVE_CLI + ["--engine", "sim", "--metrics-json",
+                                     d["sserve_m.json"]])
+    sim["serve"] = {"rc": rc, "stdout": buf.getvalue()}
     ranks22 = wait22()
     for dp in (2, 1):
         tr, st = TD.trainer(_cfg(), port, "sim", 2, dp, ckpt_dir=d["r2"],
@@ -199,3 +219,24 @@ def test_cli_engine_shard_prints_sims_line(runs):
     np.testing.assert_allclose(g["final_loss"], w["final_loss"],
                                rtol=STEP_RTOL)
     assert os.path.isdir(os.path.join(got[0].split()[-1]))
+
+
+def test_serve_cli_engine_shard_prints_sims_outputs(runs):
+    _, ranks, sim, d = runs
+    assert sim["serve"]["rc"] == 0
+    assert all(r["serve"]["rc"] == 0 for r in ranks)
+    assert ranks[1]["serve"]["stdout"] == ""
+    w = json.loads(sim["serve"]["stdout"])
+    g = json.loads(ranks[0]["serve"]["stdout"])
+    assert g["completed"] == w["completed"] == 6
+    for k in ("outputs", "paged", "cluster"):
+        assert g[k] == w[k], k
+    assert g["paged"]["preemptions"] > 0
+    with open(d["serve_m.json"]) as f:
+        m = json.load(f)["metrics"]
+    with open(d["sserve_m.json"]) as f:
+        sm = json.load(f)["metrics"]
+    for k in ("requests_submitted_total", "tokens_generated_total",
+              "preemptions_total", "ttft_seconds_count",
+              'cluster_routed_total{policy="prefix-affinity",replica="1"}'):
+        assert m[k] == sm[k], k

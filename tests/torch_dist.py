@@ -490,6 +490,20 @@ def train_cli(job, case, canon):
     return {"rc": rc, "stdout": buf.getvalue()}
 
 
+def serve_cli(job, case, canon):
+    """`launch.serve.main(case["argv"])` on the ranks (seeded weights,
+    as the sim run in the parent draws them): its standard output."""
+    import contextlib
+    import io
+
+    from repro_torch.launch.serve import main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(case["argv"])
+    return {"rc": rc, "stdout": buf.getvalue()}
+
+
 def spd_report(llm, rep):
     """The plan and report of an Algorithm 1 call, as plain values."""
     out = {"modes": llm.plan.modes(), "logits_mode": (llm.plan.comm.logits_mode if llm.plan.comm
@@ -577,7 +591,7 @@ def grads_off_thread(job, case, canon):
 
 LLM_CASES["algorithm1"] = algorithm1
 CASES.update(train=train, train_ckpt=train_ckpt, train_cli=train_cli,
-             grads_off_thread=grads_off_thread)
+             serve_cli=serve_cli, grads_off_thread=grads_off_thread)
 
 
 # ---------------------------------------------------------------------------
