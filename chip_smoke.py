@@ -114,7 +114,7 @@
    and chunk calls at D 128, groups 1 and 8 (serving positions, a full
    table, holes); the fused kept sync at (2, 4096) and (2, 4096 x 512);
    B3 alone on the logits gathers (2, 16000) and (2, 25136).
-12. llama2-7b at full width on 11 of its 32 layers (d 4096, 6.74 B
+12. llama2-7b at full width on 10 of its 32 layers (d 4096, 6.74 B
    parameters at full depth; PAPER_LAYERS cuts the depth of 12-15, 20,
    its alg1 cut and its shard paths in 22, for the time limit), bf16,
    random weights from seed 0, through LLM.load(tp=2, spd=0.25, quant8
@@ -147,7 +147,7 @@
    Prints each part's wall seconds, ms per distill step, the peak
    memory and every block's losses.  B1 at the distill step's shape is
    then checked and timed for the kernels line.
-14. opt-6.7b at full width on 11 of its 32 layers (PAPER_LAYERS; LayerNorm,
+14. opt-6.7b at full width on 10 of its 32 layers (PAPER_LAYERS; LayerNorm,
    learned positions, biases, ReLU)
    through the same LLM.load: the dense path as in 3, a profile, the
    teacher-forced prefill check, and decode logits after teacher-forcing
@@ -276,7 +276,7 @@
    bf16 path of the same weights within TF_INT8_REL, and the paged path
    through the fallback: on a 128-page pool the dense tokens, on the
    40-page pool a preemption and every page back.
-21. deepseek-v2-lite-16b at full width on 10 of its 27 layers (d 2048,
+21. deepseek-v2-lite-16b at full width on 9 of its 27 layers (d 2048,
    MLA with 16 heads (8 a shard) and a 512-wide latent, 64 routed + 2
    shared experts, top-6, a dense first layer; 15.71 B parameters at
    full depth), bf16,
@@ -435,7 +435,27 @@
    timed beside both (their kernels-line rows; the chain as context),
    and the old B4 and B6 wrappers and torch.addcmul timed at
    the SmolLM shapes.
-23. Prints the seconds since the build at the end of each part, the
+23. Dry-run phase (launch/dryrun.py, after the SmolLM and mamba paths;
+   its CLI runs start before the kernels' build, run on the host beside
+   it, and are waited for before the first timed phase, so that no
+   host-timed figure is taken beside them): (a) `python -m repro_torch.launch.dryrun` on
+   the meta device for DRYRUN_CELLS (the reference test's two cells, a
+   train_4k cell and the grounding cell), each record's keys and wall
+   seconds printed; (b) the grounding cell (SmolLM-360M, prefill_32k,
+   the 16x16 mesh, spd 0.7) run for real on sim: one data rank's share,
+   2 rows x 32768 tokens, 16 model shards on the card, bf16, B1 on every
+   layer: its ledger equal to the meta record's bit for bit, the card's
+   peak (max_memory_allocated) beside the count's 16 x (argument_bytes +
+   temp_bytes), the counted FLOPs over the wall time as a share of the
+   card's bf16 peak, with the padded heads' work and without it (the
+   same rows counted at tp 1), B1 once a layer; then B1 at that shape, q (64,
+   32768, 64) kv (32, 32768, 64), against its plain version run one
+   1024-query chunk at a time (every row, the FLASH_ROW_RTOL bound),
+   timed beside the chunked plain version and SDPA (its kernels-line
+   row); (c) the decode_32k cell's data-rank share (8 rows against a
+   32768-slot cache, 16 shards) the same way when the count says it
+   fits in the card's memory.
+24. Prints the seconds since the build at the end of each part, the
    kernels JSON line (the rows above beside the earlier ones), the card
    line, and last {"ok": true, "device": {...}}.
 
@@ -1251,16 +1271,17 @@ MAIN_PATH_KERNELS = ("flash_attention_bhsd", "qdq_absmax",
 #: the MoE, MLA and hybrid families run at full width on their first
 #: layers (sim and the shard engine alike), so that the run with the
 #: families' training and Algorithm 1 fits its time limit: qwen2-moe 8
-#: of 24, deepseek 10 of 27, hymba 8 of 32 (its global attention layer
-#: 0 kept)
-FAMILY_LAYERS = {"qwen2-moe-a2.7b": 8, "deepseek-v2-lite-16b": 10,
+#: of 24, deepseek 9 of 27 (10 before the dry-run phase), hymba 8 of 32
+#: (its global attention layer 0 kept)
+FAMILY_LAYERS = {"qwen2-moe-a2.7b": 8, "deepseek-v2-lite-16b": 9,
                  "hymba-1.5b": 8}
-#: the paper's 7B models at full width on 11 of their 32 layers (sim
+#: the paper's 7B models at full width on 10 of their 32 layers (sim
 #: and the shard engine alike; every check counts from the config): at
 #: 32 the run took 1122.9 s after the build on a slow host, too near its
 #: limit; 12 since the frontend phase (21f) joined the run (16 before),
-#: 11 since the serve phase (4b)
-PAPER_LAYERS = {"llama2-7b": 11, "opt-6.7b": 11}
+#: 11 since the serve phase (4b), 10 since the dry-run phase (23; its
+#: fp32 checks take layers 6-9)
+PAPER_LAYERS = {"llama2-7b": 10, "opt-6.7b": 10}
 
 
 def model_cfg(arch):
@@ -5509,7 +5530,7 @@ def mla_decode_vs_prefill(torch, llm, prompt, toks, fp32_layers, label=""):
 
 
 def deepseek_phase(torch, np, card):
-    """deepseek-v2-lite-16b at full width (FAMILY_LAYERS: 10 of its 27
+    """deepseek-v2-lite-16b at full width (FAMILY_LAYERS: 9 of its 27
     layers, d 2048, MLA with 16 heads of nope 128 + rope 64, v 128, a
     512-wide latent; 64 routed + 2 shared experts, top-6, a dense first
     layer of 10944; 15.71 B parameters at full depth; random weights from
@@ -7933,6 +7954,273 @@ def check_shard_spec(np, ranks, card):
     return r0["launches"]
 
 
+# the dry run's cells: the reference test's two, a train_4k cell, and
+# the grounding cell that (b) runs for real
+DRYRUN_CELLS = (("smollm-360m", "decode_32k", "single", 0.0),
+                ("hymba-1.5b", "long_500k", "multi", 0.7),
+                ("smollm-360m", "train_4k", "single", 0.7),
+                ("smollm-360m", "prefill_32k", "single", 0.7))
+DRYRUN_GROUND = DRYRUN_CELLS[3]
+DRYRUN_DECODE = DRYRUN_CELLS[0]
+DRYRUN_DIR = ROOT / "build" / "dryrun"
+# queries a chunk of B1's plain version at S 32768: (64, 1024, <=32768)
+# fp32 scores, 8.6 GB at most
+FLASH_LONG_CHUNK = 1024
+DRYRUN_LONG_S = 32768
+
+
+def dryrun_name(cell) -> str:
+    arch, shape, mesh, spd = cell
+    return f"{arch}_{shape}_{mesh}_spd{int(spd * 100)}"
+
+
+def start_dryrun():
+    """The dry run's CLI on the meta device for DRYRUN_CELLS, one process
+    a cell, all at once: host work that runs beside the kernels' build
+    and ends (`dryrun_records`) before the first timed phase.  Returns
+    {cell: (json path, process, start time)}."""
+    import os
+    DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {}
+    for cell in DRYRUN_CELLS:
+        arch, shape, mesh, spd = cell
+        path = DRYRUN_DIR / (dryrun_name(cell) + ".json")
+        if path.exists():
+            path.unlink()
+        procs[cell] = (path, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", mesh, "--spd", str(spd),
+             "--json", str(path)], cwd=str(ROOT), env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+            time.perf_counter())
+    return procs
+
+
+def stop_dryrun(procs):
+    for _, proc, _ in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def dryrun_records(procs) -> dict:
+    """(a): wait for the CLI runs; print each record's keys and its wall
+    seconds (the process's, start to exit, and the count's own)."""
+    ends, deadline = {}, time.perf_counter() + 900
+    while len(ends) < len(procs):
+        for cell, (_, proc, _) in procs.items():
+            if cell not in ends and proc.poll() is not None:
+                ends[cell] = time.perf_counter()
+        if time.perf_counter() > deadline:
+            stop_dryrun(procs)
+            raise AssertionError(f"dry runs still running after 900 s: "
+                                 f"{sorted(set(procs) - set(ends))}")
+        time.sleep(0.1)
+    recs = {}
+    for cell, (path, proc, t0) in procs.items():
+        out, err = proc.communicate()
+        wall = ends[cell] - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"dry run {dryrun_name(cell)} failed "
+                                 f"({proc.returncode}): {err[-2000:]}")
+        with open(path) as f:
+            rec = json.load(f)
+        if not (rec["applicable"] and rec["flops_total"] > 0
+                and any(v > 0 for v in
+                        rec["ledger_bytes_per_device"].values())):
+            raise AssertionError(f"dry run {dryrun_name(cell)}: empty "
+                                 f"record {rec}")
+        print(f"dryrun (a) {dryrun_name(cell)}: "
+              f"{out.strip().splitlines()[-1]}")
+        print(f"  keys {sorted(rec)}; mem_per_device "
+              f"{rec['mem_per_device']}; ledger "
+              f"{rec['ledger_bytes_per_device']}; wall {wall:.1f} s "
+              f"(count {rec['count']['seconds']:.1f} s)")
+        recs[cell] = rec
+    return recs
+
+
+def dryrun_unpadded_flops(cells) -> dict:
+    """Each cell's data-rank rows counted on meta at tp 1, where no head
+    is padded (a (16 data, 1 model) mesh: the same rows on one device):
+    the FLOPs of those rows without the padded heads' work that the tp
+    16 count holds (SmolLM's 15 q and 5 kv heads become 32 and 16)."""
+    from repro_torch.config.base import SHAPES, replace
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_test_mesh
+
+    out = {}
+    for cell in cells:
+        arch, shape, _, spd = cell
+        cfg = replace(get_config(arch), attn_backend="pallas")
+        out[cell] = D.count_cell(cfg, SHAPES[shape], make_test_mesh(16, 1),
+                                 D.spd_plan_for(cfg, spd))["flops_total"]
+    return out
+
+
+def dryrun_ground(torch, cell, rec, card, unpadded):
+    """Run `cell`'s data-rank share for real on sim on the card, with
+    every kernel count zeroed just before and read just after; hold its
+    ledger to the meta record's bit for bit, print the card's peak beside
+    the count's and the counted FLOPs over the wall time.  Returns
+    (launches, the step's inputs and outputs)."""
+    from repro_torch.config.base import SHAPES, replace
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.parallel.collectives import collective_ledger
+
+    arch, shape, mesh_kind, spd = cell
+    cfg = replace(get_config(arch), attn_backend="pallas")
+    mesh = make_production_mesh(multi_pod=mesh_kind == "multi")
+    plan = D.spd_plan_for(cfg, spd)
+    covers = rec["count"]["devices"]
+    release(torch)
+    base = torch.cuda.memory_allocated()
+    step = D.serve_step(cfg, SHAPES[shape], mesh, plan, device="cuda",
+                        seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    with collective_ledger() as led, torch.no_grad():
+        out = step["step"](*step["args"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated() - base
+    got = D.ledger_bytes(led)
+    name = dryrun_name(cell)
+    if got != rec["ledger_bytes_per_device"]:
+        raise AssertionError(f"dryrun {name}: the card's ledger {got} is "
+                             f"not the meta count's "
+                             f"{rec['ledger_bytes_per_device']}")
+    lead = out[0].float()
+    if not bool(torch.isfinite(lead).all()):
+        raise AssertionError(f"dryrun {name}: non-finite outputs")
+    m = rec["mem_per_device"]
+    counted = covers * (m["argument_bytes"] + m["temp_bytes"])
+    flops = rec["flops_total"] * covers
+    print(f"dryrun {name} on the card ({card}): {step['rows']} rows, "
+          f"{covers} shards on one card, wall {wall:.3f} s; ledger equal to "
+          f"the meta count bit for bit: {got}")
+    print(f"  memory: card peak {peak} B ({peak / 2 ** 30:.2f} GiB; "
+          f"max_memory_allocated over what was allocated before the "
+          f"step's arguments) vs counted {covers} x (argument_bytes "
+          f"{m['argument_bytes']} + temp_bytes {m['temp_bytes']}) = "
+          f"{counted} B ({counted / 2 ** 30:.2f} GiB): gap {peak - counted} "
+          f"B ({peak / counted - 1:+.2%}); the count sees each storage's "
+          f"bytes, the caching allocator rounds each block up (512 B, 2 MiB "
+          f"segments) and cuBLAS takes its workspace from it")
+    print(f"  FLOPs: counted {flops:.4e} over {wall:.3f} s = "
+          f"{flops / wall / 1e12:.2f} TFLOP/s, "
+          f"{flops / wall / H100_BF16_DENSE_FLOPS:.2%} of the card's bf16 "
+          f"dense peak (989 TFLOP/s at 700 W; card {card}), the padded "
+          f"heads' work included; without it (the rows counted at tp 1) "
+          f"{unpadded:.4e}, {unpadded / wall / H100_BF16_DENSE_FLOPS:.2%}; "
+          f"launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}")
+    return launches, step, out
+
+
+def flash_long_row(torch, launches, card):
+    """B1 at the grounding cell's shape (SmolLM at tp 16: 2 q and 1 kv
+    head a shard, 16 shards x 2 rows), bf16, against its plain version
+    run one FLASH_LONG_CHUNK-query chunk at a time (chunk [a, b) is the
+    plain version on q[:, a:b] and the first b keys: the same causal
+    rows), timed beside that and SDPA: a kernels-line row."""
+    from repro_torch.kernels import flash_attention as FA
+
+    s, d = DRYRUN_LONG_S, 64
+    bh, bhkv = 64, 32
+    gen = torch.Generator(device=torch.device("cuda")).manual_seed(33)
+    q, k, v = flash_inputs(torch, gen, s, d, torch.bfloat16, bh=bh,
+                           bhkv=bhkv)
+
+    def plain():
+        return torch.cat([FA.flash_attention_plain(
+            q[:, a:a + FLASH_LONG_CHUNK], k[:, :a + FLASH_LONG_CHUNK],
+            v[:, :a + FLASH_LONG_CHUNK])
+            for a in range(0, s, FLASH_LONG_CHUNK)], 1)
+
+    def call():
+        return FA.flash_attention_bhsd(q, k, v)
+
+    out, ref = call(), plain()
+    torch.cuda.synchronize()
+    err, worst, at, rms = flash_row_errors(torch, out, ref)
+    tol = FLASH_ROW_RTOL["bfloat16"]
+    print(f"flash bf16 q ({bh},{s},{d}) kv ({bhkv},{s},{d}) against the "
+          f"chunked plain version: max_abs_err={err:.3e} worst row rel "
+          f"L2 {worst:.3e} at position {at} (tol {tol:.3e}), rel RMS "
+          f"{rms:.3e}")
+    if not worst <= tol:
+        raise AssertionError(f"B1 at S {s} disagrees with its plain "
+                             f"version: {worst} > {tol}")
+    del out, ref
+    lib = sdpa_call(torch, q, k, v, bhkv)
+    ms = cuda_ms(torch, call, iters=20, warmup=2)
+    plain_ms = cuda_ms(torch, plain, iters=2, warmup=1)
+    library_ms = cuda_ms(torch, lib, iters=20, warmup=2)
+    names = ("flash_fwd_tc_kernel", "flash_fwd_kernel")
+    ran = device_us(torch, call, names, iters=5, need=(names[0],))
+    # None where the profiler saw none of SDPA's kernels (PERF.md §7)
+    lib_us = device_total_us(torch, lib, iters=5)[0] or None
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    flops = 4.0 * bh * (s * (s + 1) / 2) * d   # QK^T and PV, causal half
+    b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
+    shape = (f"q ({bh},{s},{d}) kv ({bhkv},{s},{d}) bf16, the dry run's "
+             f"grounding prefill (SmolLM-360M at tp 16, 2 rows)")
+    print(f"flash_attention_bhsd {shape} ({card}): ms={ms:.4f} plain_ms="
+          f"{plain_ms:.4f} (chunked) library_ms={library_ms:.4f} device_us="
+          f"{ran[names[0]]} library_device_us={lib_us} bound_ms="
+          f"{b_ms:.4f} ({b_by})")
+    return {"name": "flash_attention_bhsd", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:187",
+            "launches": launches["flash_attention_bhsd"],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+            "device_us": ran[names[0]], "library_device_us": lib_us,
+            "shape": shape}
+
+
+def dryrun_phase(torch, recs, unpadded, card):
+    """Phase 23 (module doc), on the records `dryrun_records` read and
+    the unpadded counts of `dryrun_unpadded_flops`: the grounding cell
+    with B1's row, and the decode cell where the count says it fits."""
+    from repro_torch.configs import get_config
+
+    ground = DRYRUN_GROUND
+    launches, step, out = dryrun_ground(torch, ground, recs[ground], card,
+                                        unpadded[ground])
+    n_layers = get_config(ground[0]).n_layers
+    if launches["flash_attention_bhsd"] != n_layers or any(
+            v for k, v in launches.items() if k != "flash_attention_bhsd"):
+        raise AssertionError(f"the grounding prefill did not launch B1 once "
+                             f"a layer and nothing else: {launches}")
+    del step, out
+    release(torch)
+    row = flash_long_row(torch, launches, card)
+    release(torch)
+    m = recs[DRYRUN_DECODE]["mem_per_device"]
+    covers = recs[DRYRUN_DECODE]["count"]["devices"]
+    need = covers * (m["argument_bytes"] + m["temp_bytes"])
+    have = torch.cuda.get_device_properties(0).total_memory
+    if need < have:
+        dryrun_ground(torch, DRYRUN_DECODE, recs[DRYRUN_DECODE], card,
+                      unpadded[DRYRUN_DECODE])
+    else:
+        print(f"dryrun {dryrun_name(DRYRUN_DECODE)} not run: the count says "
+              f"its data-rank share needs {need} B, the card holds {have}")
+    release(torch)
+    return row
+
+
 def clock(t_start, what):
     """Where the run's time goes: seconds since the build at the end of
     each part."""
@@ -7969,14 +8257,31 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    reports = build.build_all()
-    print(f"kernel build: {time.perf_counter() - t0:.1f} s ({', '.join(reports) or 'cached'})")
+    dryrun_procs = start_dryrun()
+    try:
+        reports = build.build_all()
+    except BaseException:
+        stop_dryrun(dryrun_procs)
+        raise
+    print(f"kernel build: {time.perf_counter() - t0:.1f} s, beside the dry "
+          f"run's CLI ({', '.join(reports) or 'cached'})")
     for name, log in reports.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
 
+    # the dry run's records, on the host beside the build, and the
+    # grounded cells' unpadded counts beside them: none of them runs
+    # beside a timed phase
     t_start = time.perf_counter()
+    try:
+        dryrun_unpadded = dryrun_unpadded_flops((DRYRUN_GROUND,
+                                                 DRYRUN_DECODE))
+    except BaseException:
+        stop_dryrun(dryrun_procs)
+        raise
+    dryrun_recs = dryrun_records(dryrun_procs)
+    clock(t_start, "the dry-run records")
     launch_floor_us(torch)
     kernels = [flash_phase(torch), *paged_phase(torch), qdq_phase(torch),
                qpsum_phase(torch, card), *quant_phase(torch),
@@ -8016,6 +8321,8 @@ def main() -> int:
     del mamba
     release(torch)
     clock(t_start, "the kernel phases and the SmolLM and mamba paths")
+    dryrun_row = dryrun_phase(torch, dryrun_recs, dryrun_unpadded, card)
+    clock(t_start, "the dry-run phase")
 
     # the paper's models at full width, one at a time
     paper_rows = paper_kernel_phase(torch, card)
@@ -8151,6 +8458,8 @@ def main() -> int:
     # the send and receive kernels at the shard paths' payloads: rank 0's
     # launches on the dense shard path of each row's model
     kernels += hop_rows
+    # B1 at the dry run's grounding prefill: its launches in that run
+    kernels.append(dryrun_row)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
           f"build")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -1,7 +1,10 @@
-from repro_torch.config.base import (SYNC_LEVELS, CommPolicy, MLAConfig,
-                                     ModelConfig, MoEConfig, SPDPlanConfig,
+from repro_torch.config.base import (MULTI_POD, SHAPES, SINGLE_POD,
+                                     SMOKE_SHAPES, SYNC_LEVELS, CommPolicy,
+                                     MeshConfig, MLAConfig, ModelConfig,
+                                     MoEConfig, ShapeConfig, SPDPlanConfig,
                                      SSMConfig, replace)
 
-__all__ = ["SYNC_LEVELS", "CommPolicy", "MLAConfig",
-           "ModelConfig", "MoEConfig", "SPDPlanConfig", "SSMConfig",
-           "replace"]
+__all__ = ["MULTI_POD", "SHAPES", "SINGLE_POD", "SMOKE_SHAPES",
+           "SYNC_LEVELS", "CommPolicy", "MeshConfig", "MLAConfig",
+           "ModelConfig", "MoEConfig", "ShapeConfig", "SPDPlanConfig",
+           "SSMConfig", "replace"]

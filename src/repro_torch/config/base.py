@@ -168,6 +168,67 @@ class ModelConfig:
         return self.param_count() - inactive
 
 
+@dataclass(frozen=True)
+class ShapeConfig:
+    """A (seq_len, global_batch, kind) workload cell."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                     # train | prefill | decode
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+# reduced shapes for smoke tests
+SMOKE_SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 64, 4, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 128, 2, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 128, 4, "decode"),
+    "long_500k": ShapeConfig("long_500k", 512, 1, "decode"),
+}
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """A device mesh's shape and axis names."""
+
+    shape: Tuple[int, ...]
+    axes: Tuple[str, ...]
+
+    @property
+    def n_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+    @property
+    def tp(self) -> int:
+        return self.shape[self.axes.index("model")] if "model" in self.axes else 1
+
+    @property
+    def dp(self) -> int:
+        n = 1
+        for ax, s in zip(self.axes, self.shape):
+            if ax in ("data", "pod"):
+                n *= s
+        return n
+
+
+SINGLE_POD = MeshConfig((16, 16), ("data", "model"))
+MULTI_POD = MeshConfig((2, 16, 16), ("pod", "data", "model"))
+
+
 # Quantization levels a kept sync point (or the logits all-gather) may run at.
 SYNC_LEVELS = ("exact", "quant8", "quant4")
 

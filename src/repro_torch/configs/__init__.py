@@ -20,6 +20,8 @@ _MODULES = {
     # the paper's own models
     "llama2-7b": llama2_7b, "opt-6.7b": opt_6p7b}
 
+ASSIGNED = list(_MODULES)[:10]
+
 
 def get_config(name: str, reduced: bool = False) -> ModelConfig:
     if name.endswith("-reduced"):

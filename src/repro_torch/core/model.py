@@ -48,8 +48,11 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device="cpu",
     reference's parameters across with `core.convert.from_reference`).
     The numbers are drawn on `device`; `keep` moves each leaf there as
     soon as its layer is drawn (the shard backend keeps the canonical
-    tree on the host, so a rank's card holds only its shard)."""
-    gen = torch.Generator(device=device).manual_seed(seed)
+    tree on the host, so a rank's card holds only its shard).  On
+    `device="meta"` nothing is drawn: the leaves are meta tensors of the
+    parameters' shapes and dtypes (the dry run's parameter structs)."""
+    meta = torch.device(device).type == "meta"
+    gen = torch.Generator(device="cpu" if meta else device).manual_seed(seed)
     f32 = dict(dtype=torch.float32, device=device)
     dt = B.torch_dtype(cfg)
 

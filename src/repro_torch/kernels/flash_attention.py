@@ -9,8 +9,9 @@ tensor cores, fp32 on CUDA cores) and `paged_flash_attention` launches
 `csrc/paged_attention.cu` (a decode step, C = 1, as a split-over-keys
 kernel and a combine kernel; chunks, C > 1, as one kernel: bf16 on the
 tensor cores, fp32 on CUDA cores) for CUDA tensors; each takes its plain
-version only for CPU tensors.  The kernel sources note what bounds them
-on the card and how their design answers that.  Each wrapper's
+version only for CPU tensors and their meta branch (kernels/meta.py)
+only for meta tensors.  The kernel sources note what bounds them on the
+card and how their design answers that.  Each wrapper's
 `.launches` counts its calls that launched; `paged_flash_attention.
 chunk_launches` counts those with C > 1 apart.
 """
@@ -21,6 +22,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import meta as META
 
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
@@ -32,6 +34,17 @@ DECODE_KEYS_PER_SPLIT = 64
 CHUNK_QUERY_ROWS = 64
 CHUNK_KEYS_PER_TILE = 64
 CHUNK_MAX_SPLITS = 8
+# the dense kernel's query and key tile (TQ = TK in flash_attention.cu's
+# tensor-core kernel, BQ = BK in its fp32 CUDA-core kernel)
+FLASH_TILE = {torch.bfloat16: 64, torch.float32: 32}
+
+
+def flash_flops(bh: int, s: int, d: int, dtype) -> float:
+    """The dense kernel's product work: every causal (query tile, key
+    tile) pair it visits, QK^T and PV over whole tiles, 2 a multiply-add."""
+    t = FLASH_TILE[dtype]
+    n = -(-s // t)
+    return 4.0 * bh * (n * (n + 1) // 2) * t * t * d
 
 
 def flash_attention_plain(q, k, v, *, sm_scale=None):
@@ -110,7 +123,7 @@ def flash_attention_bhsd(q, k, v, *, sm_scale=None):
     group = check_args(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, sm_scale=sm_scale)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"no flash kernel for device {q.device}")
     scale = float(sm_scale if sm_scale is not None else q.shape[2] ** -0.5)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
@@ -137,6 +150,10 @@ class _FlashAttention(torch.autograd.Function):
 
 def _flash_launch(q, k, v, group: int, scale: float):
     bh, s, d = q.shape
+    if q.is_meta:
+        return META.launch("flash_attention_bhsd", torch.empty_like(q),
+                           flops=flash_flops(bh, s, d, q.dtype),
+                           nbytes=META.nbytes(q, k, v, q))
     lib = _lib()
     if q.dtype == torch.bfloat16:
         check_aligned(q, k, v)
@@ -293,6 +310,8 @@ def paged_flash_attention(q, k_pool, v_pool, page_table, pos, *,
         return torch.stack([paged_flash_attention_plain(
             q[t], k_pool[t], v_pool[t], page_table, pos, sm_scale=sm_scale)
             for t in range(q.shape[0])])
+    if q.device.type == "meta":
+        return _paged_meta(q, k_pool, page_table)
     if q.device.type != "cuda":
         raise ValueError(f"no paged attention kernel for device {q.device}")
     build.refuse_grad("paged_flash_attention", q, k_pool, v_pool)
@@ -336,3 +355,18 @@ def paged_flash_attention(q, k_pool, v_pool, page_table, pos, *,
 
 paged_flash_attention.launches = 0
 paged_flash_attention.chunk_launches = 0
+
+
+def _paged_meta(q, k_pool, page_table):
+    """The paged kernel's meta branch.  Its work depends on the positions,
+    which a meta tensor does not hold: it counts every key of the table's
+    width for every query (the most a call can read), QK^T and PV, and
+    the K/V bytes of those pages."""
+    b, c, hq, d = q.shape[-4:]
+    hkv = k_pool.shape[-2]
+    keys = page_table.shape[1] * k_pool.shape[-3]
+    shards = q.shape[0] if q.dim() == 5 else 1
+    kv = 2 * shards * b * keys * hkv * d * k_pool.element_size()
+    return META.launch("paged_flash_attention", torch.empty_like(q),
+                       flops=4.0 * shards * b * c * hq * keys * d,
+                       nbytes=2 * META.nbytes(q) + kv)

@@ -6,7 +6,8 @@ oracle).
 Returns (rmsnorm(x + r) * w, x + r) in x's dtype, with fp32 math, from
 one pass: the sum never makes a round trip through device memory.
 `fused_residual_rmsnorm` launches `csrc/fused_norm.cu` for a CUDA tensor
-and takes `fused_residual_rmsnorm_plain` only for a CPU tensor;
+and takes `fused_residual_rmsnorm_plain` only for a CPU tensor (a meta
+tensor takes the meta branch of kernels/meta.py);
 `.launches` counts kernel launches.  The model does not call it (nor
 does the reference's): `kernels.ops.fused_residual_rmsnorm` is the
 public op.
@@ -18,6 +19,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import meta as META
 
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -65,6 +67,10 @@ def fused_residual_rmsnorm(x, r, w, *, eps: float = 1e-5):
     check_args(x, r, w)
     if x.device.type == "cpu":
         return fused_residual_rmsnorm_plain(x, r, w, eps=eps)
+    if x.device.type == "meta":
+        return META.launch("fused_residual_rmsnorm",
+                           (torch.empty_like(x), torch.empty_like(x)),
+                           nbytes=META.nbytes(x, r, w, x, x))
     if x.device.type != "cuda":
         raise ValueError(f"no fused-norm kernel for device {x.device}")
     build.refuse_grad("fused_residual_rmsnorm", x, r, w)

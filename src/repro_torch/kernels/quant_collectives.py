@@ -22,8 +22,9 @@ Rows are chunked independently from element 0: each row is one TP
 shard's flattened payload, which the reference quantizes per shard
 under `vmap`.  Each wrapper launches its kernel in
 `csrc/quant_collectives.cu` for a CUDA tensor and takes its plain
-version only for a CPU tensor; kernel and plain version agree bit for
-bit on the card.  Each wrapper's `.launches` counts kernel launches.
+version only for a CPU tensor (a meta tensor takes the meta branch of
+kernels/meta.py); kernel and plain version agree bit for bit on the
+card.  Each wrapper's `.launches` counts kernel launches.
 The launch geometry (`qpsum_grid`, `dequant_grid`, `vector_rows`) is
 planned here, in Python, so that the CPU tests reach it.
 """
@@ -35,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
+from repro_torch.kernels import meta as META
 
 CHUNK = 128          # the kernel's fixed chunk (one warp, 4 per lane)
 LEVELS = (7, 127)    # quant4, quant8
@@ -264,6 +266,9 @@ def _launch(name: str, device, *args) -> None:
 def qdq_absmax(x, *, levels: int, chunk: int = CHUNK):
     """x (rows, n) fp32 -> fp32 (rows, n), chunks restarting at each row."""
     check_args(x, levels, chunk)
+    if x.is_meta:
+        return META.launch("qdq_absmax", torch.empty_like(x),
+                           nbytes=2 * META.nbytes(x))
     if not _on_card(x, "qdq"):
         return qdq_absmax_plain(x, levels=levels, chunk=chunk)
     build.refuse_grad("qdq", x)
@@ -293,6 +298,9 @@ def quantized_psum_absmax(x, *, levels: int, chunk: int = CHUNK):
     if not 1 <= x.shape[0] <= MAX_TP:
         raise ValueError(f"the kernel takes 1 to {MAX_TP} shards; got "
                          f"{x.shape[0]}")
+    if x.is_meta:
+        return META.launch("quantized_psum_absmax", torch.empty_like(x),
+                           nbytes=2 * META.nbytes(x))
     if not _on_card(x, "quantized-psum"):
         return quantized_psum_absmax_plain(x, levels=levels, chunk=chunk)
     build.refuse_grad("quantized-psum", x)
@@ -322,6 +330,10 @@ def quantize_message_absmax(x, *, levels: int, chunk: int = CHUNK):
     m = message_layout(n)[1]
     if rows * m >= 2 ** 31:
         raise ValueError("messages too large for the kernel's int indexing")
+    if x.is_meta:
+        msg = torch.empty((rows, m), dtype=torch.int8, device=x.device)
+        return META.launch("quantize_message_absmax", msg,
+                           nbytes=META.nbytes(x, msg))
     if not _on_card(x, "quantize-message"):
         return quantize_message_absmax_plain(x, levels=levels, chunk=chunk)
     build.refuse_grad("quantize-message", x)
@@ -355,6 +367,10 @@ def reduce_messages_absmax(msg, n: int, *, levels: int, dtype,
     if not 1 <= tp <= MAX_TP:
         raise ValueError(f"the kernel takes 1 to {MAX_TP} messages; got "
                          f"{tp}")
+    if msg.is_meta:
+        out = torch.empty((1, n), dtype=dtype, device=msg.device)
+        return META.launch("reduce_messages_absmax", out,
+                           nbytes=META.nbytes(msg, out))
     if msg.data_ptr() % 4:
         raise ValueError("messages must start on a 4-byte boundary (the "
                          "kernel reads 4 codes and a scale at a time)")
@@ -378,6 +394,12 @@ def quantize_absmax(x, *, levels: int, chunk: int = CHUNK):
     """x (rows, n) fp32 -> (int8 codes (rows, n), fp32 scales (rows,
     ceil(n/128))), chunks restarting at each row."""
     check_args(x, levels, chunk)
+    if x.is_meta:
+        q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+        s = torch.empty((x.shape[0], -(-x.shape[1] // chunk)),
+                        dtype=torch.float32, device=x.device)
+        return META.launch("quantize_absmax", (q, s),
+                           nbytes=META.nbytes(x, q, s))
     if not _on_card(x, "quantize"):
         return quantize_absmax_plain(x, levels=levels, chunk=chunk)
     build.refuse_grad("quantize", x)
@@ -398,6 +420,10 @@ def dequantize_absmax(q, s, *, chunk: int = CHUNK):
     """int8 codes (rows, n) and fp32 scales (rows, ceil(n/128)) -> fp32
     (rows, n)."""
     _check_codes(q, s, chunk)
+    if q.is_meta:
+        out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        return META.launch("dequantize_absmax", out,
+                           nbytes=META.nbytes(q, s, out))
     if not _on_card(q, "dequantize"):
         return dequantize_absmax_plain(q, s, chunk=chunk)
     build.refuse_grad("dequantize", q, s)
@@ -422,6 +448,9 @@ def dequant_accum_absmax(q, s, acc, *, chunk: int = CHUNK):
     if tuple(acc.shape) != tuple(q.shape) or acc.device != q.device:
         raise ValueError(f"acc {tuple(acc.shape)} on {acc.device} does not "
                          f"match codes {tuple(q.shape)} on {q.device}")
+    if q.is_meta:
+        return META.launch("dequant_accum_absmax", torch.empty_like(acc),
+                           nbytes=META.nbytes(q, s, acc, acc))
     if not _on_card(q, "dequant-accumulate"):
         return dequant_accum_absmax_plain(q, s, acc, chunk=chunk)
     build.refuse_grad("dequant-accumulate", q, s, acc)

@@ -11,7 +11,8 @@ not be a multiple of `chunk`: positions past S act as dt = 0 and x = 0,
 which leaves y at real positions and the state exactly as they are.
 
 `ssd_scan` launches `csrc/ssd_scan.cu` for CUDA tensors and takes
-`ssd_scan_plain` only for CPU tensors; `.launches` counts calls that
+`ssd_scan_plain` only for CPU tensors (meta tensors: the meta branch of
+kernels/meta.py, `ssd_flops`); `.launches` counts calls that
 launched.  Where autograd records and an input requires grad, the
 launch goes through `_SSDScan`: the forward is still the kernel (and
 counts), the backward the VJP of `ssd_scan_plain` recomputed from the
@@ -29,6 +30,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import meta as META
 from repro_torch.kernels.flash_attention import check_aligned
 from repro_torch.models.ssm import ssd_chunked
 
@@ -136,12 +138,35 @@ def ssd_scan(x, dt, a, bm, cm, dd, *, chunk: int):
     check_args(x, dt, a, bm, cm, dd, chunk)
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, a, bm, cm, dd, chunk=chunk)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"no ssd_scan kernel for device {x.device}")
+    launch = _ssd_meta if x.is_meta else _ssd_launch
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, dt, a, bm, cm, dd)):
-        return _SSDScan.apply(_ssd_launch, chunk, x, dt, a, bm, cm, dd)
-    return _ssd_launch(x, dt, a, bm, cm, dd, chunk=chunk)
+        return _SSDScan.apply(launch, chunk, x, dt, a, bm, cm, dd)
+    return launch(x, dt, a, bm, cm, dd, chunk=chunk)
+
+
+def ssd_flops(bt: int, s: int, h: int, p: int, g: int, n: int,
+              chunk: int) -> float:
+    """The scan's product work over whole chunks, 2 a multiply-add: C.B^T
+    per (row, group, chunk), and per (row, head, chunk) the masked
+    scores times x, the chunk's own state and the passed state's
+    output."""
+    nc = -(-s // chunk)
+    q = chunk
+    return 2.0 * bt * nc * (g * q * q * n + h * (q * q * p + 2 * q * p * n))
+
+
+def _ssd_meta(x, dt, a, bm, cm, dd, *, chunk: int):
+    """The meta branch: the kernel's outputs, empty, and its work."""
+    bt, s, h, p = x.shape
+    g, n = bm.shape[2:]
+    y = torch.empty_like(x)
+    state = torch.empty((bt, h, p, n), dtype=torch.float32, device=x.device)
+    return META.launch("ssd_scan", (y, state),
+                       flops=ssd_flops(bt, s, h, p, g, n, chunk),
+                       nbytes=META.nbytes(x, dt, a, bm, cm, dd, y, state))
 
 
 class _SSDScan(torch.autograd.Function):

@@ -20,8 +20,9 @@ from typing import Dict, Tuple, Type
 import numpy as np
 import torch
 
-# argument/result kinds a StepSpec declares (see the reference)
-KINDS = ("params", "cache", "batch", "rep")
+# argument/result kinds a StepSpec declares (see the reference);
+# "logits_shard": a result left vocab-sharded, (tp, B, Vl); `sim` only
+KINDS = ("params", "cache", "batch", "rep", "logits_shard")
 
 
 @dataclass(frozen=True)
@@ -326,6 +327,10 @@ class ShardBackend(ParallelBackend):
 
     def wrap(self, local_fn, spec: StepSpec):
         from repro_torch.parallel.collectives import model_group
+        if "logits_shard" in spec.out_kinds:
+            raise NotImplementedError(
+                "shard backend: a 'logits_shard' result (gather_logits="
+                "False) is taken by the sim backend only")
         split = spec.shard_batch and self.dp > 1
 
         def step(*args):

@@ -176,6 +176,7 @@ class _Ledger(threading.local):
         self.tp: int = 1
         self.overlap_chunks: int = 0      # 0 = not inside an overlap region
         self.share: int = 1               # data slots whose rows run at once
+        self.counts: Optional[dict] = None   # op -> executions (dry run)
 
 
 _LEDGER = _Ledger()
@@ -197,6 +198,19 @@ def collective_ledger(latency: Optional[LatencyModel] = None,
         yield _LEDGER.active
     finally:
         _LEDGER.active, _LEDGER.latency, _LEDGER.tp = prev
+
+
+@contextmanager
+def collective_counts():
+    """Count every collective executed inside, by op ({op: calls}): each
+    call counts once, whether or not a ledger is open, paused or scaled
+    (the ledger logs a segment's first layer for all of its layers; a
+    count sees each layer, each microbatch and each recomputation)."""
+    prev, _LEDGER.counts = _LEDGER.counts, {}
+    try:
+        yield _LEDGER.counts
+    finally:
+        _LEDGER.counts = prev
 
 
 @contextmanager
@@ -265,6 +279,8 @@ def comm_phase(phase: str):
 def log_collective(op: str, axis, nbytes: int, *,
                    overlappable: bool = False) -> None:
     """Ledger entry with an explicit byte count."""
+    if _LEDGER.counts is not None:
+        _LEDGER.counts[op] = _LEDGER.counts.get(op, 0) + 1
     if _LEDGER.active is None or _LEDGER.paused:
         return
     nbytes = int(nbytes) // _LEDGER.share

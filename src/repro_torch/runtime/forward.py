@@ -83,17 +83,22 @@ def greedy_token(cfg, logits):
     return COL.group_reduce(cand, "min")
 
 
-def prefill_step(cfg, plan, *, tp, q_chunk, cache_len):
+def prefill_step(cfg, plan, *, tp, q_chunk, cache_len, gather_logits=True):
     """Whole-batch prefill -> (full logits (B, V), caches); `emb` the
     frontend's embeds (B, Flen, frontend_dim) or None, a "batch"
-    argument like the tokens (reference forward.py:86-101)."""
+    argument like the tokens (reference forward.py:86-101).
+    `gather_logits=False` leaves the logits vocab-sharded, (tp, B, Vl)
+    (the "logits_shard" kind, which only the `sim` backend takes): the
+    dry run uses it, so that its ledger holds the model's own syncs and
+    not the serving gather."""
     def local(p, toks, ln, emb=None):
         lg, caches = M.prefill(cfg, p, plan, toks, tp=tp, q_chunk=q_chunk,
                                cache_len=cache_len, lengths=ln, embeds=emb)
-        return full_logits(cfg, lg), caches
+        return (full_logits(cfg, lg) if gather_logits else lg), caches
 
     return local, StepSpec(("params", "batch", "batch", "batch"),
-                           ("batch", "cache"))
+                           ("batch" if gather_logits else "logits_shard",
+                            "cache"))
 
 
 def decode_step(cfg, plan, *, tp, with_logits=False, sampled=False):

@@ -33,9 +33,9 @@ def _load(**kw):
 
 def test_port_imports_neither_jax_nor_reference():
     """In a fresh interpreter: import the whole slice (the training
-    modules by name too), run one CPU generate (dense and paged) and one
-    train step through the train CLI, and find no jax* or repro/repro.*
-    module loaded."""
+    modules by name too), run one CPU generate (dense and paged), one
+    train step through the train CLI and one dry-run cell on the meta
+    device, and find no jax* or repro/repro.* module loaded."""
     code = """
 import importlib, pkgutil, sys, tempfile
 import repro_torch
@@ -57,6 +57,10 @@ from repro_torch.api.scheduler import Request
 paged = llm.serve(page_size=8, num_pages=4)
 paged.submit(Request(uid=0, prompt=[1, 2, 3], max_new=3))
 assert len(paged.run()[0].out) == 3
+from repro_torch.launch import dryrun
+rec = dryrun.run_cell("smollm-360m", "decode_32k", "single", 0.0,
+                      verbose=False)
+assert rec["ledger_bytes_per_device"] == {"all-reduce@model": 998400}
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax", "jaxlib"))
              or m == "repro" or m.startswith("repro."))

@@ -16,7 +16,7 @@ from repro.kernels.quant_collectives import qdq_absmax as ref_qdq  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import quant_collectives as QC  # noqa: E402
-from torch_parity import one_torch_thread  # noqa: E402,F401
+from torch_parity import elsewhere, one_torch_thread  # noqa: E402,F401
 
 # fp32 online softmax (Pallas, blockwise) vs one-shot softmax (plain):
 # the two orders of summation agree to ~1e-6 on N(0,1) inputs
@@ -108,7 +108,7 @@ def test_flash_wrapper_checks_raise_without_a_card():
                             torch.zeros(1, 8, 2, 16))
     # a device that is neither CPU nor CUDA gets no silent plain path
     with pytest.raises(ValueError, match="no flash kernel"):
-        FA.flash_attention_bhsd(q.to("meta"), kv.to("meta"), kv.to("meta"))
+        FA.flash_attention_bhsd(elsewhere(q), elsewhere(kv), elsewhere(kv))
 
 
 def test_qdq_wrapper_checks_raise_without_a_card():
@@ -124,7 +124,7 @@ def test_qdq_wrapper_checks_raise_without_a_card():
     with pytest.raises(ValueError, match="chunk"):
         QC.qdq_absmax(x, levels=127, chunk=64)
     with pytest.raises(ValueError, match="no qdq kernel"):
-        QC.qdq_absmax(x.to("meta"), levels=127)
+        QC.qdq_absmax(elsewhere(x), levels=127)
 
 
 def test_cpu_calls_never_build_or_count():

@@ -21,7 +21,7 @@ from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.runtime import paging as P  # noqa: E402
-from torch_parity import one_torch_thread  # noqa: E402,F401
+from torch_parity import elsewhere, one_torch_thread  # noqa: E402,F401
 
 # fp32 online softmax (Pallas, page by page) vs one-shot softmax (plain):
 # the two orders of summation agree to ~1e-6 on N(0,1) inputs
@@ -284,7 +284,7 @@ def test_paged_wrapper_checks_raise_without_a_card():
         call(q[None].expand(2, -1, -1, -1, -1).contiguous(), pool[None],
              pool[None], table, pos)
     with pytest.raises(ValueError, match="no paged attention kernel"):
-        call(q.to("meta"), pool.to("meta"), pool.to("meta"), table, pos)
+        call(elsewhere(q), elsewhere(pool), elsewhere(pool), table, pos)
 
 
 def test_paged_cpu_calls_never_build_or_count():

@@ -28,7 +28,7 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import quant_collectives as QC  # noqa: E402
 from repro_torch.parallel import compression as C  # noqa: E402
 from repro_torch.parallel.collectives import collective_ledger  # noqa: E402
-from torch_parity import one_torch_thread  # noqa: E402,F401
+from torch_parity import elsewhere, one_torch_thread  # noqa: E402,F401
 
 LANES = 32
 PER_LANE = QC.CHUNK // LANES
@@ -301,4 +301,4 @@ def test_fused_sync_wrapper_checks():
     with pytest.raises(ValueError, match="chunk"):
         QC.quantized_psum_absmax(x, levels=127, chunk=64)
     with pytest.raises(ValueError, match="no quantized-psum kernel"):
-        QC.quantized_psum_absmax(x.to("meta"), levels=127)
+        QC.quantized_psum_absmax(elsewhere(x), levels=127)

@@ -23,7 +23,7 @@ from repro_torch.kernels import fused_norm as FN, ops  # noqa: E402
 from repro_torch.kernels import quant_collectives as QC  # noqa: E402
 from repro_torch.parallel import compression as C  # noqa: E402
 from repro_torch.parallel.collectives import collective_ledger  # noqa: E402
-from torch_parity import one_torch_thread  # noqa: E402,F401
+from torch_parity import elsewhere, one_torch_thread  # noqa: E402,F401
 
 
 def _t(a):
@@ -126,12 +126,12 @@ def test_quant_wrappers_check_arguments():
         QC.dequantize_absmax(q, s[:, :1].contiguous())
     with pytest.raises(ValueError, match="does not match"):
         QC.dequant_accum_absmax(q, s, torch.zeros(1, 256))
-    meta = torch.empty(2, 256, device="meta")
-    for call in (lambda: QC.quantize_absmax(meta, levels=7),
-                 lambda: QC.dequantize_absmax(meta.to(torch.int8),
-                                              s.to("meta")),
-                 lambda: QC.dequant_accum_absmax(
-                     meta.to(torch.int8), s.to("meta"), meta)):
+    other = elsewhere(torch.empty(2, 256))
+    codes = elsewhere(torch.empty(2, 256, dtype=torch.int8))
+    for call in (lambda: QC.quantize_absmax(other, levels=7),
+                 lambda: QC.dequantize_absmax(codes, elsewhere(s)),
+                 lambda: QC.dequant_accum_absmax(codes, elsewhere(s),
+                                                 other)):
         with pytest.raises(ValueError, match="no .* kernel for device"):
             call()
     assert QC.quantize_absmax.launches == QC.dequantize_absmax.launches \
@@ -181,9 +181,9 @@ def test_fused_norm_wrapper_checks_and_leading_axes():
     with pytest.raises(ValueError, match="contiguous"):
         FN.fused_residual_rmsnorm(x[0].t().contiguous().t(), x[1],
                                   torch.ones(64))
-    meta = torch.empty(3, 64, device="meta")
+    other = elsewhere(torch.empty(3, 64))
     with pytest.raises(ValueError, match="no fused-norm kernel"):
-        FN.fused_residual_rmsnorm(meta, meta, torch.empty(64, device="meta"))
+        FN.fused_residual_rmsnorm(other, other, elsewhere(torch.empty(64)))
 
 
 # ---------------------------------------------------------------------------

@@ -30,7 +30,7 @@ from repro.kernels import ref as R  # noqa: E402
 
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import quant_collectives as QC  # noqa: E402
-from torch_parity import one_torch_thread  # noqa: E402,F401
+from torch_parity import elsewhere, one_torch_thread  # noqa: E402,F401
 
 LANES = 32
 PER_LANE = QC.CHUNK // LANES
@@ -298,7 +298,7 @@ def test_send_and_receive_wrapper_checks():
     with pytest.raises(ValueError, match="contiguous"):
         QC.quantize_message_absmax(torch.zeros(256, 2).t(), levels=127)
     with pytest.raises(ValueError, match="no quantize-message kernel"):
-        QC.quantize_message_absmax(x.to("meta"), levels=127)
+        QC.quantize_message_absmax(elsewhere(x), levels=127)
     with pytest.raises(ValueError, match="bytes"):
         QC.reduce_messages_absmax(msg, 240, levels=7, dtype=torch.float32)
     with pytest.raises(ValueError, match="1 to 8 messages"):
@@ -310,7 +310,7 @@ def test_send_and_receive_wrapper_checks():
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         QC.reduce_messages_absmax(msg, 256, levels=7, dtype=torch.float16)
     with pytest.raises(ValueError, match="no reduce-messages kernel"):
-        QC.reduce_messages_absmax(msg.to("meta"), 256, levels=7,
+        QC.reduce_messages_absmax(elsewhere(msg), 256, levels=7,
                                   dtype=torch.float32)
     buf = torch.zeros(msg.numel() + 1, dtype=torch.int8)
     with pytest.raises(ValueError, match="4-byte boundary"):

@@ -20,7 +20,7 @@ from repro.models import ssm as RSSM  # noqa: E402
 from repro_torch.kernels import build, ops as KOPS  # noqa: E402
 from repro_torch.kernels import ssd_scan as SS  # noqa: E402
 from repro_torch.models import ssm as SSM  # noqa: E402
-from torch_parity import one_torch_thread  # noqa: E402,F401
+from torch_parity import elsewhere, one_torch_thread  # noqa: E402,F401
 
 ATOL = 1e-5
 INTERPRET = dict(atol=2e-4, rtol=2e-3)
@@ -215,7 +215,7 @@ def test_ssd_scan_rejects_what_the_kernel_does_not_take():
                     bm, cm, d2, chunk=8)
     # a device that is neither CPU nor CUDA gets no silent plain path
     with pytest.raises(ValueError, match="no ssd_scan kernel"):
-        SS.ssd_scan(*[t.to("meta") for t in (x, dt, a2, bm, cm, d2)],
+        SS.ssd_scan(*[elsewhere(t) for t in (x, dt, a2, bm, cm, d2)],
                     chunk=8)
     # CPU tensors take the plain version: nothing built, nothing counted
     before = SS.ssd_scan.launches

@@ -27,6 +27,31 @@ def one_torch_thread():
     yield
     torch.set_num_threads(n)
 
+
+class _Elsewhere(torch.Tensor):
+    """A tensor on a device that is neither cpu, cuda nor meta (it says
+    "xpu"), with its shape, dtype and strides and no storage: what a
+    kernel wrapper must refuse.  No op runs on it; `data_ptr` reads 0,
+    as a meta tensor's does."""
+
+    @staticmethod
+    def __new__(cls, t):
+        return torch.Tensor._make_wrapper_subclass(
+            cls, t.shape, dtype=t.dtype, strides=t.stride(), device="xpu")
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise RuntimeError(f"{func} on a tensor of no real device")
+
+    def data_ptr(self):
+        return 0
+
+
+def elsewhere(t):
+    """`t`'s metadata on a device the kernels do not take (_Elsewhere)."""
+    return _Elsewhere(t)
+
+
 # leaves the reference initialises to constants (0 or 1; MLA's latent
 # norm `lnorm`), and OPT's position table
 CONSTANT_LEAVES = ("b", "w", "qn", "kn", "bq", "bk", "bv", "bo", "bu",
