@@ -23,10 +23,18 @@
    call are timed and reported apart, gather + SDPA beside each.
    Fused kept sync (quantized_psum_absmax, both hops of a quantized
    all-reduce in one launch): bit-identical to its plain version at tp 1,
-   2, 4, L 127 and 7, bf16 and fp32, on a decode step's, the 512-token
-   prefill bucket's, a mamba decode step's and a ragged payload; timed at
-   the decode and prefill syncs beside the six-kernel chain it replaced
-   (context); and whether sum(dim=0) adds 4 and 8 rows left to right.
+   2, 4, 9, 16, L 127 and 7, bf16 and fp32, on a decode step's, the
+   512-token prefill bucket's, a mamba decode step's and a ragged
+   payload; timed at the decode and prefill syncs beside the six-kernel
+   chain it replaced (context); and whether sum(dim=0) adds 4 and 8 rows
+   left to right.  Past 8 shards (ROADMAP C17): the shard sync's send
+   and receive at tp 9 and 16 on the same payloads and the quant8 dry-run
+   cell's (8 x 960), bit-identical to their plain versions and the
+   receive to the fused sync's row; the fused sync and the receive at tp
+   16 on that payload timed (their kernels-line rows); and the tp 2
+   device times PERF.md keeps (the fused sync at (2, 3840) and (2, 4096
+   x 512), the receive at tp 2 on (1, 3840) and (1, 4096 x 512)) printed
+   beside PERF.md's.
 3. Dense main path: full-width SmolLM-360M through LLM.load(tp=2,
    spd=0.25, kept syncs and logits gather at quant8, flash prefill) ->
    generate on 4 seeded prompts, 16 greedy tokens each.  Every kernel's
@@ -440,7 +448,8 @@
    it, and are waited for before the first timed phase, so that no
    host-timed figure is taken beside them): (a) `python -m repro_torch.launch.dryrun` on
    the meta device for DRYRUN_CELLS (the reference test's two cells, a
-   train_4k cell and the grounding cell), each record's keys and wall
+   train_4k cell, the grounding cell and the quant8 cell of (d)), each
+   record's keys and wall
    seconds printed; (b) the grounding cell (SmolLM-360M, prefill_32k,
    the 16x16 mesh, spd 0.7) run for real on sim: one data rank's share,
    2 rows x 32768 tokens, 16 model shards on the card, bf16, B1 on every
@@ -454,7 +463,13 @@
    timed beside the chunked plain version and SDPA (its kernels-line
    row); (c) the decode_32k cell's data-rank share (8 rows against a
    32768-slot cache, 16 shards) the same way when the count says it
-   fits in the card's memory.
+   fits in the card's memory; (d) the quant8 cell (SmolLM-360M
+   decode_32k on the 16x16 mesh at spd 0.7, every kept sync quantized:
+   `--comm quant8`) the same way: its ledger equal to the meta record's
+   bit for bit, the fused kept sync launched at tp 16 once a quantized
+   kept sync of the plan, and the next ids and the K/V the step wrote
+   equal bit for bit to a rerun with the quantized collectives' plain
+   versions.
 24. Prints the seconds since the build at the end of each part, the
    kernels JSON line (the rows above beside the earlier ones), the card
    line, and last {"ok": true, "device": {...}}.
@@ -491,10 +506,21 @@ QDQ_NS = (960, 3840, 16 * 960, 24576)  # (2, N) payloads; bit-identical
 # the fused kept sync (tp, N): a batch-4 decode step's (4 x 960), the
 # 512-token prefill bucket's (512 x 960), a mamba decode step's
 # (4 x 1024) and a ragged N; bit-identical to its plain version
-QPSUM_TPS = (1, 2, 4)
+QPSUM_TPS = (1, 2, 4, 9, 16)              # 9, 16: rows streamed in groups
 QPSUM_NS = (3840, 512 * 960, 4 * 1024, 1001)
 QPSUM_TIMED = ((2, 3840), (2, 512 * 960))   # decode, prefill; bf16 L=127
 QPSUM_SUM_TPS = (4, 8)                 # rows where sum(dim=0)'s order is read
+# the send and receive past 8 ranks, and the two kernels at tp 16 on the
+# quant8 dry-run cell's payload (SmolLM-360M decode_32k at 16 x 16: 8
+# rows of d 960 a data rank); both are checked on QPSUM_NS and WIDE_N
+WIDE_TPS = (9, 16)
+WIDE_N = 8 * 960
+# the tp 2 device times (us) the widened kernels keep, as PERF.md §6 has
+# them (H100 80GB HBM3 at 700 W; PR 19 run A, PR 26 run B)
+WIDE_KEPT_US = ((("quantized_psum_absmax", 2, 3840), 2.09),
+                (("quantized_psum_absmax", 2, 4096 * 512), 8.38),
+                (("reduce_messages_absmax", 2, 3840), 1.446),
+                (("reduce_messages_absmax", 2, 4096 * 512), 5.466))
 PROMPT_LENS = (17, 64, 200, 300)
 MAX_NEW = 16
 # paged serving: 16-token pages; the 4 requests need 41 pages at their
@@ -837,9 +863,9 @@ def same_bits(torch, a, b) -> bool:
 
 def qpsum_phase(torch, card):
     """The fused kept-sync kernel against its plain version, bit for bit,
-    at tp 1, 2, 4, L 127 and 7, bf16 and fp32, on the paths' payloads and
-    a ragged one; timed at the decode and prefill syncs beside the six-
-    kernel chain it replaced.  Also reads whether sum(dim=0) on the card
+    at tp 1, 2, 4, 9, 16, L 127 and 7, bf16 and fp32, on the paths'
+    payloads and a ragged one; timed at the decode and prefill syncs
+    beside the six-kernel chain it replaced.  Also reads whether sum(dim=0) on the card
     adds the rows left to right (the plain version's order)."""
     from repro_torch.kernels import quant_collectives as QC
 
@@ -880,17 +906,18 @@ def qpsum_phase(torch, card):
     return rows[QPSUM_TIMED[0][1]]
 
 
-def qpsum_row(torch, x, card, what):
+def qpsum_row(torch, x, card, what, chain_bits=True):
     """The fused kept sync on x (tp, n) bf16 at L=127, timed (events and
     profile) beside its plain version and the six-kernel chain it
-    replaced (context), and bit-identical to the chain: a kernels-line
-    row."""
+    replaced (context), and bit-identical to the chain where
+    `chain_bits` (the chain's sum(dim=0) adds the rows in an order of
+    its own past 2): a kernels-line row."""
     from repro_torch.kernels import quant_collectives as QC
 
     tp, n = x.shape
     fused = lambda: QC.quantized_psum_absmax(x, levels=127)  # noqa: E731
     chain = lambda: unfused_sync(QC, x, 127)                 # noqa: E731
-    if not same_bits(torch, fused(), chain()):
+    if chain_bits and not same_bits(torch, fused(), chain()):
         raise AssertionError(f"fused sync differs from the chain at "
                              f"({tp},{n})")
     ms = cuda_ms(torch, fused, iters=200)
@@ -921,6 +948,110 @@ def qpsum_row(torch, x, card, what):
             "context_device_us": chain_us,
             "shape": f"({tp},{n}) bf16 L=127, {what}; context: the "
                      "six-kernel chain"}
+
+
+def wide_sync_phase(torch, card, qpsum_us):
+    """ROADMAP C17: the send and receive kernels at WIDE_TPS ranks bit for
+    bit against their plain versions, bf16 and fp32, L 127 and 7, on
+    QPSUM_NS and WIDE_N (qpsum_phase holds the fused sync there); the
+    kernels-line rows of the fused sync and the receive at tp 16 on
+    WIDE_N, each checked bit for bit on its timed inputs; the tp 2 device
+    times of WIDE_KEPT_US beside PERF.md's, the fused sync's at
+    QPSUM_TIMED[0] being qpsum_phase's `qpsum_us`.  Returns the two rows
+    (their launches come from the quant8 dry-run cell's run)."""
+    from repro_torch.kernels import quant_collectives as QC
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(34)
+    for tp in WIDE_TPS:
+        for n in QPSUM_NS + (WIDE_N,):
+            base = torch.randn(tp, n, generator=gen, device=dev)
+            base *= torch.logspace(0, 1, tp, device=dev)[:, None]
+            base[0, :QC.CHUNK] = 0.0       # an all-zero chunk: the 1e-12 floor
+            for dtype in (torch.bfloat16, torch.float32):
+                x = base.to(dtype)
+                for levels in (127, 7):
+                    msg = QC.quantize_message_absmax(x, levels=levels)
+                    y = QC.reduce_messages_absmax(msg, n, levels=levels,
+                                                  dtype=dtype)
+                    torch.cuda.synchronize()
+                    if not (torch.equal(msg, QC.quantize_message_absmax_plain(
+                                x, levels=levels))
+                            and same_bits(torch, y,
+                                          QC.reduce_messages_absmax_plain(
+                                              msg, n, levels=levels,
+                                              dtype=dtype))):
+                        raise AssertionError(
+                            f"send / receive not bit-identical to their "
+                            f"plain versions at tp {tp} (1,{n}) {dtype} "
+                            f"L={levels}")
+            print(f"send and receive at tp {tp} (1,{n}): bit-identical to "
+                  f"their plain versions in bf16 and fp32 at L 127 and 7")
+
+    tp, n = WIDE_TPS[-1], WIDE_N
+    x = torch.randn(tp, n, generator=gen, device=dev).to(torch.bfloat16)
+    if not same_bits(torch, QC.quantized_psum_absmax(x, levels=127),
+                     QC.quantized_psum_absmax_plain(x, levels=127)):
+        raise AssertionError(f"quantized_psum kernel not bit-identical at "
+                             f"({tp},{n})")
+    fused = qpsum_row(torch, x, card, f"tp {tp}: the quant8 dry-run cell's "
+                                      "kept sync (SmolLM-360M decode_32k, "
+                                      "8 rows a data rank)", chain_bits=False)
+    msgs = QC.quantize_message_absmax(x, levels=127)
+    recv = lambda: QC.reduce_messages_absmax(  # noqa: E731
+        msgs, n, levels=127, dtype=torch.bfloat16)
+    recv_plain = lambda: QC.reduce_messages_absmax_plain(  # noqa: E731
+        msgs, n, levels=127, dtype=torch.bfloat16)
+    got, want = recv(), recv_plain()
+    err = (got.float() - want.float()).abs().max().item()
+    if not same_bits(torch, got, want):
+        raise AssertionError(f"reduce_messages kernel not bit-identical at "
+                             f"tp {tp} (1,{n}): {err}")
+    m = msgs.shape[1]
+    ms = cuda_ms(torch, recv, iters=200)
+    plain_ms = cuda_ms(torch, recv_plain, iters=50)
+    dev_us = device_us(torch, recv, ("reduce_messages_kernel",),
+                       need=("reduce_messages_kernel",))[
+        "reduce_messages_kernel"]
+    nbytes = tp * m + n * x.element_size()   # read the messages, write y
+    b_ms, b_by = bound_ms(nbytes, (2.0 * tp + 7) * n, "float32")
+    print(f"reduce_messages_absmax [{card}] ({tp},{m}) -> (1,{n}) bf16 "
+          f"L=127: ms={ms:.5f} plain_ms={plain_ms:.5f} device_us={dev_us} "
+          f"bound_ms={b_ms:.7f} ({b_by}, {nbytes} bytes)")
+    receive = {"name": "reduce_messages_absmax", "route": "cuda",
+               "source": "src/repro_torch/csrc/quant_collectives.cu",
+               "replaces": "src/repro/kernels/quant_collectives.py:137",
+               "max_abs_err": err, "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": None, "device_us": dev_us,
+               "shape": f"({tp},{m}) -> (1,{n}) bf16 L=127, tp {tp}: the "
+                        "quant8 dry-run cell's kept sync as a rank of a "
+                        "16-rank world would receive it (no path runs 16 "
+                        "ranks on one card: its launches are the quant8 "
+                        "cell's, 0)"}
+
+    for (name, tp, n), was in WIDE_KEPT_US:
+        if (name, tp, n) == ("quantized_psum_absmax", *QPSUM_TIMED[0]):
+            print(f"kept tp 2 time [{card}]: {name} ({tp},{n}) bf16 "
+                  f"device_us={qpsum_us} (qpsum_phase's) against PERF.md's "
+                  f"{was} ({qpsum_us / was:.3f}x)")
+            continue
+        x = torch.randn(tp, n, generator=gen, device=dev).to(torch.bfloat16)
+        if name == "quantized_psum_absmax":
+            kname = "quantized_psum_kernel"
+            fn = lambda: QC.quantized_psum_absmax(  # noqa: E731
+                x, levels=127)
+            shape = f"({tp},{n})"
+        else:
+            kname = "reduce_messages_kernel"
+            msgs = QC.quantize_message_absmax(x, levels=127)
+            fn = lambda: QC.reduce_messages_absmax(  # noqa: E731
+                msgs, n, levels=127, dtype=torch.bfloat16)
+            shape = f"tp {tp} (1,{n})"
+        us = device_us(torch, fn, (kname,), iters=50, need=(kname,))[kname]
+        print(f"kept tp 2 time [{card}]: {name} {shape} bf16 device_us={us}"
+              f" against PERF.md's {was} ({us / was:.3f}x)")
+    return [fused, receive]
 
 
 class plain_syncs:
@@ -7954,14 +8085,18 @@ def check_shard_spec(np, ranks, card):
     return r0["launches"]
 
 
-# the dry run's cells: the reference test's two, a train_4k cell, and
-# the grounding cell that (b) runs for real
-DRYRUN_CELLS = (("smollm-360m", "decode_32k", "single", 0.0),
-                ("hymba-1.5b", "long_500k", "multi", 0.7),
-                ("smollm-360m", "train_4k", "single", 0.7),
-                ("smollm-360m", "prefill_32k", "single", 0.7))
+# the dry run's cells (arch, shape, mesh, spd, kept-sync level): the
+# reference test's two, a train_4k cell, the grounding cell that (b) runs
+# for real, and the quant8 cell (every kept sync quantized at tp 16) that
+# (d) runs for real
+DRYRUN_CELLS = (("smollm-360m", "decode_32k", "single", 0.0, "exact"),
+                ("hymba-1.5b", "long_500k", "multi", 0.7, "exact"),
+                ("smollm-360m", "train_4k", "single", 0.7, "exact"),
+                ("smollm-360m", "prefill_32k", "single", 0.7, "exact"),
+                ("smollm-360m", "decode_32k", "single", 0.7, "quant8"))
 DRYRUN_GROUND = DRYRUN_CELLS[3]
 DRYRUN_DECODE = DRYRUN_CELLS[0]
+DRYRUN_QUANT = DRYRUN_CELLS[4]
 DRYRUN_DIR = ROOT / "build" / "dryrun"
 # queries a chunk of B1's plain version at S 32768: (64, 1024, <=32768)
 # fp32 scores, 8.6 GB at most
@@ -7970,8 +8105,9 @@ DRYRUN_LONG_S = 32768
 
 
 def dryrun_name(cell) -> str:
-    arch, shape, mesh, spd = cell
-    return f"{arch}_{shape}_{mesh}_spd{int(spd * 100)}"
+    arch, shape, mesh, spd, comm = cell
+    return (f"{arch}_{shape}_{mesh}_spd{int(spd * 100)}"
+            + ("" if comm == "exact" else f"_{comm}"))
 
 
 def start_dryrun():
@@ -7984,14 +8120,14 @@ def start_dryrun():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     procs = {}
     for cell in DRYRUN_CELLS:
-        arch, shape, mesh, spd = cell
+        arch, shape, mesh, spd, comm = cell
         path = DRYRUN_DIR / (dryrun_name(cell) + ".json")
         if path.exists():
             path.unlink()
         procs[cell] = (path, subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
              arch, "--shape", shape, "--mesh", mesh, "--spd", str(spd),
-             "--json", str(path)], cwd=str(ROOT), env=env,
+             "--comm", comm, "--json", str(path)], cwd=str(ROOT), env=env,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
             time.perf_counter())
     return procs
@@ -8053,10 +8189,11 @@ def dryrun_unpadded_flops(cells) -> dict:
 
     out = {}
     for cell in cells:
-        arch, shape, _, spd = cell
+        arch, shape, _, spd, comm = cell
         cfg = replace(get_config(arch), attn_backend="pallas")
         out[cell] = D.count_cell(cfg, SHAPES[shape], make_test_mesh(16, 1),
-                                 D.spd_plan_for(cfg, spd))["flops_total"]
+                                 D.spd_plan_for(cfg, spd, comm))[
+            "flops_total"]
     return out
 
 
@@ -8072,10 +8209,10 @@ def dryrun_ground(torch, cell, rec, card, unpadded):
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.parallel.collectives import collective_ledger
 
-    arch, shape, mesh_kind, spd = cell
+    arch, shape, mesh_kind, spd, comm = cell
     cfg = replace(get_config(arch), attn_backend="pallas")
     mesh = make_production_mesh(multi_pod=mesh_kind == "multi")
-    plan = D.spd_plan_for(cfg, spd)
+    plan = D.spd_plan_for(cfg, spd, comm)
     covers = rec["count"]["devices"]
     release(torch)
     base = torch.cuda.memory_allocated()
@@ -8218,7 +8355,63 @@ def dryrun_phase(torch, recs, unpadded, card):
         print(f"dryrun {dryrun_name(DRYRUN_DECODE)} not run: the count says "
               f"its data-rank share needs {need} B, the card holds {have}")
     release(torch)
-    return row
+    quant = dryrun_quant(torch, recs[DRYRUN_QUANT], card,
+                         unpadded[DRYRUN_QUANT])
+    release(torch)
+    return row, quant
+
+
+def dryrun_quant(torch, rec, card, unpadded):
+    """(d) The quant8 cell's data-rank share (8 rows against a 32768-slot
+    cache, every kept sync quantized, 16 shards) on sim on the card, as
+    dryrun_ground: its ledger equal to the meta record's bit for bit, the
+    fused kept sync launched once a quantized kept sync of the plan at tp
+    16, and its outputs (the next ids and the K/V the step wrote at each
+    row's position) equal bit for bit to a rerun with the quantized
+    collectives' plain versions.  Returns its launches."""
+    from repro_torch.config.base import replace
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.tree import tree_leaves
+
+    arch, _, _, spd, comm = DRYRUN_QUANT
+    name = dryrun_name(DRYRUN_QUANT)
+    m = rec["mem_per_device"]
+    need = rec["count"]["devices"] * (m["argument_bytes"] + m["temp_bytes"])
+    have = torch.cuda.get_device_properties(0).total_memory
+    if need >= have:
+        raise AssertionError(f"dryrun {name}: the count says its data-rank "
+                             f"share needs {need} B, the card holds {have}")
+    launches, step, out = dryrun_ground(torch, DRYRUN_QUANT, rec, card,
+                                        unpadded)
+    cfg = replace(get_config(arch), attn_backend="pallas")
+    want = plan_kept_syncs(cfg, D.spd_plan_for(cfg, spd, comm))
+    ran = {k: v for k, v in launches.items() if v}
+    if ran != {"quantized_psum_absmax": want}:
+        raise AssertionError(f"dryrun {name}: launches {ran}, want the fused "
+                             f"kept sync {want} times and nothing else")
+    pos = step["inputs"]["pos"].long()
+    rows = torch.arange(pos.shape[0], device=pos.device)
+
+    def written(caches):
+        # each row's entry at its position, (tp, layers, rows, heads, d)
+        return [c[:, :, rows, pos].clone() for c in tree_leaves(caches)]
+
+    ids, kv = out[0].clone(), written(out[1])
+    del out
+    with plain_syncs(), torch.no_grad():
+        out = step["step"](*step["args"])
+    torch.cuda.synchronize()
+    same = torch.equal(out[0], ids) and all(
+        same_bits(torch, a, b) for a, b in zip(written(out[1]), kv))
+    if not same:
+        raise AssertionError(f"dryrun {name}: the rerun on the plain syncs "
+                             f"differs from the kernels' run")
+    print(f"dryrun {name}: the fused kept sync launched {want} times at tp "
+          f"{rec['tp']} ((16, {WIDE_N}) bf16, one a quantized kept sync of "
+          f"the plan); the next ids and the {len(kv)} cache leaves' written "
+          f"K/V equal a rerun on the plain syncs bit for bit")
+    return launches
 
 
 def clock(t_start, what):
@@ -8276,16 +8469,19 @@ def main() -> int:
     t_start = time.perf_counter()
     try:
         dryrun_unpadded = dryrun_unpadded_flops((DRYRUN_GROUND,
-                                                 DRYRUN_DECODE))
+                                                 DRYRUN_DECODE,
+                                                 DRYRUN_QUANT))
     except BaseException:
         stop_dryrun(dryrun_procs)
         raise
     dryrun_recs = dryrun_records(dryrun_procs)
     clock(t_start, "the dry-run records")
     launch_floor_us(torch)
-    kernels = [flash_phase(torch), *paged_phase(torch), qdq_phase(torch),
-               qpsum_phase(torch, card), *quant_phase(torch),
-               norm_phase(torch), ssd_phase(torch)]
+    kernels = [flash_phase(torch), *paged_phase(torch), qdq_phase(torch)]
+    qpsum = qpsum_phase(torch, card)
+    kernels += [qpsum, *quant_phase(torch), norm_phase(torch),
+                ssd_phase(torch)]
+    wide_rows = wide_sync_phase(torch, card, qpsum["device_us"])
     llm, prompts, launches, dense_tokens = main_path(torch, np, card)
     seen = profile_phase(torch, llm, prompts, card)
     if seen and not (seen["flash_fwd_tc_kernel"]
@@ -8321,7 +8517,8 @@ def main() -> int:
     del mamba
     release(torch)
     clock(t_start, "the kernel phases and the SmolLM and mamba paths")
-    dryrun_row = dryrun_phase(torch, dryrun_recs, dryrun_unpadded, card)
+    dryrun_row, quant_launches = dryrun_phase(torch, dryrun_recs,
+                                              dryrun_unpadded, card)
     clock(t_start, "the dry-run phase")
 
     # the paper's models at full width, one at a time
@@ -8460,6 +8657,11 @@ def main() -> int:
     kernels += hop_rows
     # B1 at the dry run's grounding prefill: its launches in that run
     kernels.append(dryrun_row)
+    # the fused sync and the receive at tp 16: their launches in the quant8
+    # cell's grounding (the receive's 0: no path runs 16 ranks on a card)
+    for row in wide_rows:
+        row["launches"] = quant_launches[row["name"]]
+    kernels += wide_rows
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
           f"build")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

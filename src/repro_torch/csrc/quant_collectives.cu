@@ -30,15 +30,20 @@
 // payload (tp, n), bf16 or fp32, becomes qdq(sum_r qdq(x_r)) in every
 // row.  Both hops chunk each row from its own element 0 with the same n,
 // so chunk c covers the same elements in every row and one warp owns
-// chunk c of ALL tp rows: it loads the tp rows' 4-element slices (one
-// 16- or 8-byte access per row where rows are 4-aligned), runs hop 1 on
-// each row (its own absmax), sums the tp dequantized rows in fp32 from
-// +0 in row order (__fadd_rn(acc, __fmul_rn(q, s)): no FMA contraction,
-// so it equals the plain version's row-by-row adds), runs hop 2 on the
-// sum, rounds once to the payload's type and stores it into all tp rows.
-// Nothing between the hops touches device memory, and the cast, the
-// sum, the broadcast copy and both qdq launches of the unfused chain
-// become one launch.  A warp holds tp x 4 floats a lane (tp <= 8).
+// chunk c of ALL tp rows.  It streams the rows in groups of G (tp
+// itself where tp is 1, 2, 4 or 8, one whole group whose loops unroll as
+// a kernel for that tp alone would; else 8, so any tp >= 1 runs and a
+// lane holds at most 8 x 4 floats):
+// it issues the group's loads of its
+// 4-element slices together (one 16- or 8-byte access per row where
+// rows are 4-aligned), then runs hop 1 on each row of the group (its
+// own absmax) and adds the dequantized row into an fp32 sum from +0, one
+// row at a time in row order (__fadd_rn(acc, __fmul_rn(q, s)): no FMA
+// contraction, so it equals the plain version's row-by-row adds at
+// every tp).  Then hop 2 on the sum, one rounding to the payload's type,
+// and the store into all tp rows.  Nothing between the hops touches
+// device memory, and the cast, the sum, the broadcast copy and both qdq
+// launches of the unfused chain become one launch.
 // Bound: bytes (tp*n elements read and written).
 //
 // quantize (replaces quant_collectives.py::quantize_absmax, _quant_kernel)
@@ -77,10 +82,13 @@
 // it writes the pad), lane 0 the chunk's scale.  Reads n elements,
 // writes m bytes: memory-bound.
 // reduce_messages_kernel (the receive): the gathered (tp, m) messages ->
-// y (1, n) bf16 or fp32, one warp a chunk index.  For r in rank order a
-// lane reads rank r's 4 codes as one char4 and rank r's scale (lane 0
-// loads it, a shuffle spreads it) and adds __fmul_rn(q, s) into fp32
-// from +0 with __fadd_rn, which is tp B6 steps from a zero accumulator;
+// y (1, n) bf16 or fp32, one warp a chunk index, for any tp >= 1.  For
+// each block of up to 32 ranks lane r loads rank r's scale of the chunk
+// (one load for the block, not one a rank), and the ranks stream in
+// groups of G as in the fused sync: a group's char4 code loads issue
+// together, then, in rank order, a shuffle hands each rank's scale to
+// the warp and a lane adds __fmul_rn(q, s) into fp32 from +0 with
+// __fadd_rn, which is tp B6 steps from a zero accumulator;
 // then hop 2 in registers (warp absmax, qdq_one), one rounding to y's
 // type and one packed store: B3 and both casts of the unfused chain.
 // Reads tp * m bytes, writes n elements: memory-bound.  Both kernels are
@@ -181,34 +189,44 @@ __device__ __forceinline__ void load4(const T* __restrict__ row, int i0,
   }
 }
 
-// One warp per chunk index c of all TP rows; lane l owns elements
-// c*128 + 4l .. 4l+3 of every row.  `vec`: rows 4-aligned (n % 4 == 0,
+// One warp per chunk index c of all tp rows; lane l owns elements
+// c*128 + 4l .. 4l+3 of every row.  The rows stream in groups of G;
+// WHOLE: tp == G, one group whose loops all unroll (the small-tp path,
+// as fast as one kernel a tp).  `vec`: rows 4-aligned (n % 4 == 0,
 // aligned bases), so each row's 4 elements are one access.
-template <typename T, int TP>
+template <typename T, int G, bool WHOLE>
 __global__ void __launch_bounds__(THREADS)
-quantized_psum_kernel(const T* __restrict__ x, T* __restrict__ y, int n,
-                      int chunks, float levels, int vec) {
+quantized_psum_kernel(const T* __restrict__ x, T* __restrict__ y,
+                      int tp_rows, int n, int chunks, float levels,
+                      int vec) {
+  const int tp = WHOLE ? G : tp_rows;
   const int c = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (c >= chunks) return;             // uniform across the warp
   const int i0 = c * CHUNK + lane * PER_LANE;
 
-  float v[TP][PER_LANE];
-#pragma unroll
-  for (int r = 0; r < TP; ++r) load4(x + (size_t)r * n, i0, n, vec, v[r]);
   // hop 1 on each row, summed over rows in row order from +0
   float acc[PER_LANE];
 #pragma unroll
   for (int j = 0; j < PER_LANE; ++j) acc[j] = 0.f;
+  for (int g0 = 0; g0 < tp; g0 += G) {
+    const int rows = WHOLE ? G : min(G, tp - g0);  // uniform in the warp
+    float v[G][PER_LANE];
 #pragma unroll
-  for (int r = 0; r < TP; ++r) {
-    float mx = 0.f;
+    for (int r = 0; r < G; ++r)
+      if (r < rows) load4(x + (size_t)(g0 + r) * n, i0, n, vec, v[r]);
 #pragma unroll
-    for (int j = 0; j < PER_LANE; ++j) mx = fmaxf(mx, fabsf(v[r][j]));
-    const float s = fmaxf(warp_absmax(mx) / levels, 1e-12f);
+    for (int r = 0; r < G; ++r) {
+      if (r < rows) {
+        float mx = 0.f;
 #pragma unroll
-    for (int j = 0; j < PER_LANE; ++j)
-      acc[j] = __fadd_rn(acc[j], qdq_one(v[r][j], s, levels));
+        for (int j = 0; j < PER_LANE; ++j) mx = fmaxf(mx, fabsf(v[r][j]));
+        const float s = fmaxf(warp_absmax(mx) / levels, 1e-12f);
+#pragma unroll
+        for (int j = 0; j < PER_LANE; ++j)
+          acc[j] = __fadd_rn(acc[j], qdq_one(v[r][j], s, levels));
+      }
+    }
   }
   // hop 2 on the sum, one rounding to T, stored into every row
   float mx = 0.f;
@@ -220,7 +238,7 @@ quantized_psum_kernel(const T* __restrict__ x, T* __restrict__ y, int n,
   for (int j = 0; j < PER_LANE; ++j)
     out.v[j] = from_f<T>(qdq_one(acc[j], s, levels));
 #pragma unroll
-  for (int r = 0; r < TP; ++r) {
+  for (int r = 0; r < tp; ++r) {
     T* row = y + (size_t)r * n;
     if (vec) {
       if (i0 < n) *reinterpret_cast<Pack4<T>*>(row + i0) = out;
@@ -336,38 +354,51 @@ quant_message_kernel(const T* __restrict__ x, int8_t* __restrict__ msg,
         code_one(v[2], s, levels), code_one(v[3], s, levels));
 }
 
-// One warp a chunk index c of all TP messages (rows of `m` bytes);
-// `vec`: y 4-aligned and n % 4 == 0.
-template <typename T, int TP>
+// One warp a chunk index c of all tp messages (rows of `m` bytes), the
+// ranks in blocks of 32 (a lane loads one rank's scale) and groups of G;
+// WHOLE: tp == G, as in quantized_psum_kernel.  `vec`: y 4-aligned and
+// n % 4 == 0.
+template <typename T, int G, bool WHOLE>
 __global__ void __launch_bounds__(THREADS)
 reduce_messages_kernel(const int8_t* __restrict__ msg, T* __restrict__ y,
-                       int n, int pad, int m, int chunks, float levels,
-                       int vec) {
+                       int tp_rows, int n, int pad, int m, int chunks,
+                       float levels, int vec) {
+  const int tp = WHOLE ? G : tp_rows;
   const int c = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (c >= chunks) return;             // uniform across the warp
   const int i0 = c * CHUNK + lane * PER_LANE;
-  char4 q[TP];
-  float s[TP];
-#pragma unroll
-  for (int r = 0; r < TP; ++r) {
-    const int8_t* row = msg + (size_t)r * m;
-    // i0 < n: the char4 ends inside the codes' pad16(n) bytes
-    q[r] = i0 < n ? *reinterpret_cast<const char4*>(row + i0)
-                  : make_char4(0, 0, 0, 0);
-    s[r] = __shfl_sync(
-        FULL, lane == 0 ? reinterpret_cast<const float*>(row + pad)[c] : 0.f,
-        0);
-  }
   // rank order from +0; codes past n count as 0, whatever the pad holds
   float acc[PER_LANE] = {0.f, 0.f, 0.f, 0.f};
+  for (int b0 = 0; b0 < tp; b0 += 32) {
+    const int nb = min(32, tp - b0);   // uniform across the warp
+    const float my_s =
+        lane < nb ? reinterpret_cast<const float*>(
+                        msg + (size_t)(b0 + lane) * m + pad)[c]
+                  : 0.f;
+    for (int g0 = 0; g0 < nb; g0 += G) {
+      const int rows = WHOLE ? G : min(G, nb - g0);
+      char4 q[G];
 #pragma unroll
-  for (int r = 0; r < TP; ++r) {
-    const signed char b[PER_LANE] = {q[r].x, q[r].y, q[r].z, q[r].w};
+      for (int r = 0; r < G; ++r)
+        // i0 < n: the char4 ends inside the codes' pad16(n) bytes
+        q[r] = r < rows && i0 < n
+                   ? *reinterpret_cast<const char4*>(
+                         msg + (size_t)(b0 + g0 + r) * m + i0)
+                   : make_char4(0, 0, 0, 0);
 #pragma unroll
-    for (int j = 0; j < PER_LANE; ++j) {
-      const float qf = i0 + j < n ? static_cast<float>(b[j]) : 0.f;
-      acc[j] = __fadd_rn(acc[j], __fmul_rn(qf, s[r]));
+      for (int r = 0; r < G; ++r) {
+        // g0 + r < 32: G divides 32 and g0 < nb <= 32
+        const float s = __shfl_sync(FULL, my_s, g0 + r);
+        if (r < rows) {
+          const signed char b[PER_LANE] = {q[r].x, q[r].y, q[r].z, q[r].w};
+#pragma unroll
+          for (int j = 0; j < PER_LANE; ++j) {
+            const float qf = i0 + j < n ? static_cast<float>(b[j]) : 0.f;
+            acc[j] = __fadd_rn(acc[j], __fmul_rn(qf, s));
+          }
+        }
+      }
     }
   }
   // hop 2 on the sum, one rounding to T, one packed store
@@ -416,27 +447,33 @@ int quantize_absmax_fwd(const float* x, int8_t* q, float* s, int rows,
   return cudaGetLastError();
 }
 
-// x, y: (tp, n), fp32 (bf16 == 0) or bf16, contiguous; 1 <= tp <= 8.
-// `blocks` blocks of `warps` warps cover the ceil(n/128) chunk indices;
-// `vec`: n % 4 == 0 and both bases aligned to 4 elements.
+// x, y: (tp, n), fp32 (bf16 == 0) or bf16, contiguous; any tp >= 1,
+// streamed G rows at a time: tp itself where tp is 1, 2, 4 or 8 (one
+// whole group), else 8 (the last group partial).  The wrapper's
+// qpsum_group(tp) states the same rule for the CPU tests' emulations of
+// this plan.  `blocks` blocks of `warps` warps cover the ceil(n/128)
+// chunk indices; `vec`: n % 4 == 0 and both bases aligned to 4 elements.
 int quantized_psum_absmax_fwd(const void* x, void* y, int tp, int n,
                               int levels, int bf16, int blocks, int warps,
                               int vec, void* stream) {
   if (tp <= 0 || n <= 0) return 0;
-  if (tp > 8 || warps <= 0 || warps > THREADS / 32 || blocks <= 0)
+  if (warps <= 0 || warps > THREADS / 32 || blocks <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int chunks = (n + CHUNK - 1) / CHUNK;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float lv = static_cast<float>(levels);
-#define QPSUM_CASE(T, R)                                                 \
-  case R:                                                                \
-    quantized_psum_kernel<T, R><<<blocks, warps * 32, 0, st>>>(          \
-        static_cast<const T*>(x), static_cast<T*>(y), n, chunks, lv, vec); \
+#define QPSUM_LAUNCH(T, G, W)                                            \
+  quantized_psum_kernel<T, G, W><<<blocks, warps * 32, 0, st>>>(         \
+      static_cast<const T*>(x), static_cast<T*>(y), tp, n, chunks, lv,   \
+      vec)
+#define QPSUM_CASE(T, G)                                                 \
+  case G:                                                                \
+    QPSUM_LAUNCH(T, G, true);                                            \
     break;
 #define QPSUM_SWITCH(T)                                                  \
   switch (tp) {                                                          \
-    QPSUM_CASE(T, 1) QPSUM_CASE(T, 2) QPSUM_CASE(T, 3) QPSUM_CASE(T, 4)  \
-    QPSUM_CASE(T, 5) QPSUM_CASE(T, 6) QPSUM_CASE(T, 7) QPSUM_CASE(T, 8)  \
+    QPSUM_CASE(T, 1) QPSUM_CASE(T, 2) QPSUM_CASE(T, 4) QPSUM_CASE(T, 8)  \
+    default: QPSUM_LAUNCH(T, 8, false);                                  \
   }
   if (bf16) {
     QPSUM_SWITCH(__nv_bfloat16)
@@ -445,6 +482,7 @@ int quantized_psum_absmax_fwd(const void* x, void* y, int tp, int n,
   }
 #undef QPSUM_SWITCH
 #undef QPSUM_CASE
+#undef QPSUM_LAUNCH
   return cudaGetLastError();
 }
 
@@ -500,29 +538,32 @@ int quantize_message_absmax_fwd(const void* x, int8_t* msg, int rows, int n,
   return cudaGetLastError();
 }
 
-// msg: (tp, m) int8, rank r's message in row r, 1 <= tp <= 8; y: (1, n)
-// fp32 (bf16 == 0) or bf16.  `vec`: n % 4 == 0 and y 4-element aligned.
+// msg: (tp, m) int8, rank r's message in row r, any tp >= 1, streamed
+// G ranks at a time by the fused sync's rule; y: (1, n) fp32 (bf16 == 0)
+// or bf16.  `vec`: n % 4 == 0 and y 4-element aligned.
 int reduce_messages_absmax_fwd(const int8_t* msg, void* y, int tp, int n,
                                int levels, int bf16, int blocks, int warps,
                                int vec, void* stream) {
   if (tp <= 0 || n <= 0) return 0;
-  if (tp > 8 || warps <= 0 || warps > THREADS / 32 || blocks <= 0)
+  if (warps <= 0 || warps > THREADS / 32 || blocks <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int chunks = (n + CHUNK - 1) / CHUNK;
   const int pad = (n + 15) / 16 * 16;
   const int m = pad + 4 * chunks;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float lv = static_cast<float>(levels);
-#define REDUCE_CASE(T, R)                                                \
-  case R:                                                                \
-    reduce_messages_kernel<T, R><<<blocks, warps * 32, 0, st>>>(         \
-        msg, static_cast<T*>(y), n, pad, m, chunks, lv, vec);            \
+#define REDUCE_LAUNCH(T, G, W)                                           \
+  reduce_messages_kernel<T, G, W><<<blocks, warps * 32, 0, st>>>(        \
+      msg, static_cast<T*>(y), tp, n, pad, m, chunks, lv, vec)
+#define REDUCE_CASE(T, G)                                                \
+  case G:                                                                \
+    REDUCE_LAUNCH(T, G, true);                                           \
     break;
 #define REDUCE_SWITCH(T)                                                 \
   switch (tp) {                                                          \
-    REDUCE_CASE(T, 1) REDUCE_CASE(T, 2) REDUCE_CASE(T, 3)                \
-    REDUCE_CASE(T, 4) REDUCE_CASE(T, 5) REDUCE_CASE(T, 6)                \
-    REDUCE_CASE(T, 7) REDUCE_CASE(T, 8)                                  \
+    REDUCE_CASE(T, 1) REDUCE_CASE(T, 2) REDUCE_CASE(T, 4)                \
+    REDUCE_CASE(T, 8)                                                    \
+    default: REDUCE_LAUNCH(T, 8, false);                                 \
   }
   if (bf16) {
     REDUCE_SWITCH(__nv_bfloat16)
@@ -531,6 +572,7 @@ int reduce_messages_absmax_fwd(const int8_t* msg, void* y, int tp, int n,
   }
 #undef REDUCE_SWITCH
 #undef REDUCE_CASE
+#undef REDUCE_LAUNCH
   return cudaGetLastError();
 }
 

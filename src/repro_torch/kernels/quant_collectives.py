@@ -25,8 +25,11 @@ under `vmap`.  Each wrapper launches its kernel in
 version only for a CPU tensor (a meta tensor takes the meta branch of
 kernels/meta.py); kernel and plain version agree bit for bit on the
 card.  Each wrapper's `.launches` counts kernel launches.
-The launch geometry (`qpsum_grid`, `dequant_grid`, `vector_rows`) is
-planned here, in Python, so that the CPU tests reach it.
+The fused sync and the receive take any number of shards: their
+kernels stream the rows `qpsum_group(tp)` at a time (the C entries pick
+the group from tp by the same rule).  The launch geometry (`qpsum_grid`,
+`dequant_grid`, `vector_rows`) is planned here, in Python, so that the
+CPU tests reach it.
 """
 from __future__ import annotations
 
@@ -41,7 +44,7 @@ from repro_torch.kernels import meta as META
 CHUNK = 128          # the kernel's fixed chunk (one warp, 4 per lane)
 LEVELS = (7, 127)    # quant4, quant8
 PSUM_DTYPES = (torch.float32, torch.bfloat16)
-MAX_TP = 8           # the fused kernel keeps tp x 4 floats a lane
+MAX_GROUP = 8        # rows a lane holds at a time (8 x 4 floats)
 WARPS = 8            # warps of a full block (256 threads)
 
 
@@ -187,6 +190,16 @@ def qpsum_grid(n: int, sms: int) -> tuple:
     return -(-chunks // warps), warps
 
 
+def qpsum_group(tp: int) -> int:
+    """Rows (ranks) the fused sync's and the receive's kernels stream at
+    a time: tp itself where it is 1, 2, 4 or 8 (one whole group, every
+    loop unrolled: the small-tp path), else MAX_GROUP (the last group
+    partial).  A warp loads a group's rows together, then adds them in
+    row order.  The C entries choose the group from tp themselves; this
+    states their rule for the CPU tests' emulations of the plan."""
+    return tp if tp in (1, 2, 4, MAX_GROUP) else MAX_GROUP
+
+
 def dequant_grid(rows: int, n: int, sms: int) -> int:
     """Blocks of WARPS warps for the dequantize kernel's grid-stride loop
     over rows * ceil(n/128) chunks: one chunk a warp, at most a full
@@ -295,9 +308,6 @@ def quantized_psum_absmax(x, *, levels: int, chunk: int = CHUNK):
     _check_2d("x", x, x.dtype)
     _check_levels(levels)
     _check_chunk(chunk)
-    if not 1 <= x.shape[0] <= MAX_TP:
-        raise ValueError(f"the kernel takes 1 to {MAX_TP} shards; got "
-                         f"{x.shape[0]}")
     if x.is_meta:
         return META.launch("quantized_psum_absmax", torch.empty_like(x),
                            nbytes=2 * META.nbytes(x))
@@ -364,9 +374,8 @@ def reduce_messages_absmax(msg, n: int, *, levels: int, dtype,
     if m != message_layout(n)[1]:
         raise ValueError(f"messages of {n} elements are "
                          f"{message_layout(n)[1]} bytes; got {m}")
-    if not 1 <= tp <= MAX_TP:
-        raise ValueError(f"the kernel takes 1 to {MAX_TP} messages; got "
-                         f"{tp}")
+    if tp < 1:
+        raise ValueError("no messages to reduce")
     if msg.is_meta:
         out = torch.empty((1, n), dtype=dtype, device=msg.device)
         return META.launch("reduce_messages_absmax", out,

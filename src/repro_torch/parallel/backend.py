@@ -21,7 +21,8 @@ import numpy as np
 import torch
 
 # argument/result kinds a StepSpec declares (see the reference);
-# "logits_shard": a result left vocab-sharded, (tp, B, Vl); `sim` only
+# "logits_shard": a result left vocab-sharded, (tp, B, Vl) on `sim`, a
+# rank's (1, B / dp, Vl) slice of it on `shard`
 KINDS = ("params", "cache", "batch", "rep", "logits_shard")
 
 
@@ -326,11 +327,10 @@ class ShardBackend(ParallelBackend):
         return a
 
     def wrap(self, local_fn, spec: StepSpec):
+        """A "logits_shard" result stays this rank's: its vocab slice
+        (sim's stacked result at [model_rank]) of its own data rank's
+        rows, as the reference's P(dpx, MODEL_AXIS) places it."""
         from repro_torch.parallel.collectives import model_group
-        if "logits_shard" in spec.out_kinds:
-            raise NotImplementedError(
-                "shard backend: a 'logits_shard' result (gather_logits="
-                "False) is taken by the sim backend only")
         split = spec.shard_batch and self.dp > 1
 
         def step(*args):

@@ -88,9 +88,9 @@ def prefill_step(cfg, plan, *, tp, q_chunk, cache_len, gather_logits=True):
     frontend's embeds (B, Flen, frontend_dim) or None, a "batch"
     argument like the tokens (reference forward.py:86-101).
     `gather_logits=False` leaves the logits vocab-sharded, (tp, B, Vl)
-    (the "logits_shard" kind, which only the `sim` backend takes): the
-    dry run uses it, so that its ledger holds the model's own syncs and
-    not the serving gather."""
+    (the "logits_shard" kind; on `shard` each rank keeps its own slice):
+    the dry run uses it, so that its ledger holds the model's own syncs
+    and not the serving gather."""
     def local(p, toks, ln, emb=None):
         lg, caches = M.prefill(cfg, p, plan, toks, tp=tp, q_chunk=q_chunk,
                                cache_len=cache_len, lengths=ln, embeds=emb)

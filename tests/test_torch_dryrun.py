@@ -320,32 +320,6 @@ def test_the_card_check_still_refuses_what_is_not_cpu_or_cuda():
     assert QC._on_card(torch.empty(2, 256), "qdq") is False
 
 
-def test_shard_backend_refuses_the_vocab_sharded_logits():
-    """`gather_logits=False` (the "logits_shard" kind) is the sim
-    backend's only; the shard backend refuses it before any step."""
-    from repro_torch.parallel.backend import ShardBackend
-    from repro_torch.runtime import forward as F
-
-    cfg = get_config("smollm-360m-reduced")
-    local, spec = F.prefill_step(cfg, D.spd_plan_for(cfg, 0.0), tp=2,
-                                 q_chunk=8, cache_len=0, gather_logits=False)
-    with pytest.raises(NotImplementedError, match="logits_shard"):
-        ShardBackend.wrap(object.__new__(ShardBackend), local, spec)
-
-
-@pytest.mark.parametrize("flags", [dict(comm="quant8"), dict(sync_q8=True)],
-                         ids=["comm-quant8", "sync-q8"])
-def test_a_quantized_kept_sync_is_refused_at_tp_16(flags):
-    """ROADMAP C17: the fused kept sync takes at most MAX_TP shards, so a
-    quantized plan at the production tp 16 raises where the reference's
-    dry run lowers it."""
-    assert QC.MAX_TP < TP
-    with pytest.raises(ValueError, match=f"1 to {QC.MAX_TP} shards; got "
-                                         f"{TP}"):
-        D.run_cell("smollm-360m", "decode_32k", "single", 0.7,
-                   verbose=False, **flags)
-
-
 # ---------------------------------------------------------------------------
 # The counter
 # ---------------------------------------------------------------------------

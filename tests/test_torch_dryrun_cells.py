@@ -10,7 +10,10 @@ equal.  A train cell at the production mesh takes over 30 s on meta
 reference's train lowering in this process at a (2 data, 4 model) mesh
 and SMOKE_SHAPES, on conftest's 8 CPU devices; the CLI's own train
 cell runs on the card in chip_smoke.py.  FLOPs are printed beside
-benchmarks.analytic and held within the stated band.  Then the port's
+benchmarks.analytic and held within the stated band.  The quantized
+kept syncs at the production tp 16 (QUANT_CELL) run the same way under
+the per-plan policy (`--comm quant8`) and the reference's trace-time
+blanket (`--sync-q8`), their CLI runs beside the CELLS'.  Then the port's
 CLI itself: the reference test's two cells with that test's asserts
 (tests/test_cli_and_backend.py::test_dryrun_single_cell), and `--all`
 over two archs x one shape (file names, `SKIP`, `cached`, the green
@@ -41,6 +44,11 @@ CELLS = (("smollm-360m", "decode_32k", "single", 0.0),
          ("smollm-360m", "prefill_32k", "single", 0.7),
          ("qwen2-moe-a2.7b", "decode_32k", "single", 0.7),
          ("hymba-1.5b", "long_500k", "multi", 0.7))
+# quantized kept syncs at the production tp 16: the CLI flags of each
+# case and the port's run_cell arguments
+QUANT_CELL = ("smollm-360m", "decode_32k", "single", 0.7)
+QUANT_FLAGS = {"comm-quant8": (["--comm", "quant8"], dict(comm="quant8")),
+               "sync-q8": (["--sync-q8"], dict(sync_q8=True))}
 EQUAL = ("params", "active_params", "tokens", "kind", "applicable",
          "n_devices", "tp", "ledger_bytes_per_device")
 SHAPE_SUMS = ("argument_bytes", "alias_bytes", "output_bytes")
@@ -58,16 +66,20 @@ def _name(cell):
 
 @pytest.fixture(scope="module")
 def ref_runs(tmp_path_factory):
-    """The reference's CLI for CELLS, all at once (one process a cell)."""
+    """The reference's CLI for CELLS and QUANT_CELL's flags, all at once
+    (one process a record), keyed by cell or flags' id."""
     out = tmp_path_factory.mktemp("ref_dryrun")
+    runs = [(cell, _name(cell), []) for cell in CELLS]
+    runs += [(key, f"{_name(QUANT_CELL)}_{key}", flags)
+             for key, (flags, _) in QUANT_FLAGS.items()]
     procs = {}
-    for cell in CELLS:
-        arch, shape, mesh, spd = cell
-        path = out / (_name(cell) + ".json")
-        procs[cell] = (path, subprocess.Popen(
+    for key, name, flags in runs:
+        arch, shape, mesh, spd = key if key in CELLS else QUANT_CELL
+        path = out / (name + ".json")
+        procs[key] = (path, subprocess.Popen(
             [sys.executable, "-m", "repro.launch.dryrun", "--arch", arch,
              "--shape", shape, "--mesh", mesh, "--spd", str(spd), "--json",
-             str(path)], cwd=ROOT, env=ENV, stdout=subprocess.PIPE,
+             str(path)] + flags, cwd=ROOT, env=ENV, stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True))
     yield procs
     for _, p in procs.values():
@@ -139,6 +151,32 @@ def test_record_equals_the_references(cell, ref_runs):
           f"{port['mem_per_device']['temp_bytes']} vs XLA's "
           f"{ref['mem_per_device']['temp_bytes']}")
     assert FLOPS_BAND[0] <= ratio <= FLOPS_BAND[1], ratio
+
+
+@pytest.mark.parametrize("key", QUANT_FLAGS)
+def test_a_quantized_kept_sync_at_tp_16_equals_the_references(key,
+                                                              ref_runs):
+    """ROADMAP C17: every kept sync of the plan quantized at tp 16, by the
+    per-plan CommPolicy or by the reference's trace-time blanket
+    (`--sync-q8`): the ledger (each sync's two quantized hops), the
+    shape sums and the cell facts equal the reference's record, and the
+    meta count runs the fused kept sync once a quantized kept sync."""
+    from repro_torch.core.layer_kinds import layer_kinds
+
+    port = D.run_cell(*QUANT_CELL, verbose=False, **QUANT_FLAGS[key][1])
+    ref = _ref_record(ref_runs, key)
+    for k in EQUAL + ("comm", "sync_q8"):
+        assert port[k] == ref[k], (k, port[k], ref[k])
+    for k in SHAPE_SUMS:
+        assert port["mem_per_device"][k] == ref["mem_per_device"][k], k
+    assert port["tp"] == 16
+    assert port["ledger_bytes_per_device"]["reduce-scatter@model"] > 0
+    cfg = get_config(QUANT_CELL[0])
+    plan = D.spd_plan_for(cfg, QUANT_CELL[3])
+    kept = sum(1 if plan.drop_mask[i] else 2
+               for i, _ in enumerate(layer_kinds(cfg)))
+    assert port["count"]["kernels"]["quantized_psum_absmax"]["calls"] == kept
+    assert port["collective_op_counts"]["reduce-scatter"] == kept
 
 
 def _ref_train_record(arch, spd, dp, tp):

@@ -5,8 +5,9 @@ redesigned dequantize kernel (B5), on the CPU.
     `quantized_psum(kernel=False)` under `jax.vmap(axis_name=...)`, with
     its ledger entries; and against the unfused composition it replaced.
 (b) A numpy emulation of the fused kernel's plan (warp per chunk index
-    over all shards, each lane's 4 elements, the tail mask, the shard
-    sum's order, one rounding to bf16) held bit for bit against
+    over all shards, each lane's 4 elements, the tail mask, the rows
+    streamed in groups of `qpsum_group(tp)` up to tp 16, the shard sum's
+    order, one rounding to bf16) held bit for bit against
     `quantized_psum_absmax_plain`, which the card holds the kernel to.
 (c) The same for the dequantize kernel's grid-stride plan.
 (d) On the CPU the wrappers take their plain versions and count nothing.
@@ -126,13 +127,18 @@ def _qdq_lane(v, levels):
 def emulate_qpsum(x, levels, sms):
     """The fused kernel's plan over x (tp, n) float32 values: blocks of
     `warps` warps from qpsum_grid, warp -> chunk index c, lane l ->
-    elements c*128 + 4l .. 4l+3 of every row, masked past n.  Returns
-    (y float32 values before the cast, writes per element)."""
+    elements c*128 + 4l .. 4l+3 of every row, masked past n; the rows
+    streamed in groups of qpsum_group(tp) (a group's loads first, then
+    hop 1 and the add a row at a time, the last group's missing rows
+    skipped).  Returns (y float32 values before the cast, writes per
+    element, the rows added into chunk 0's sum in order)."""
     tp, n = x.shape
     blocks, warps = QC.qpsum_grid(n, sms)
+    group = QC.qpsum_group(tp)
     chunks = -(-n // QC.CHUNK)
     y = np.zeros((tp, n), np.float32)
     writes = np.zeros((tp, n), np.int64)
+    order = []
     idx = (np.arange(LANES)[:, None] * PER_LANE
            + np.arange(PER_LANE)[None, :])            # (32, 4) lane map
     for b in range(blocks):
@@ -144,30 +150,48 @@ def emulate_qpsum(x, levels, sms):
             live = i < n
             ic = np.where(live, i, 0)
             acc = np.zeros((LANES, PER_LANE), np.float32)   # +0
-            for r in range(tp):
-                v = np.where(live, x[r][ic], np.float32(0))
-                acc = (acc + _qdq_lane(v, levels)).astype(np.float32)
+            for g0 in range(0, tp, group):
+                rows = min(group, tp - g0)
+                v = [np.where(live, x[g0 + r][ic], np.float32(0))
+                     for r in range(rows)]
+                for r in range(group):
+                    if r < rows:
+                        acc = (acc + _qdq_lane(v[r], levels)).astype(
+                            np.float32)
+                        if c == 0:
+                            order.append(g0 + r)
             out = _qdq_lane(acc, levels)
             for r in range(tp):
                 y[r][i[live]] = out[live]
                 writes[r][i[live]] += 1
-    return y, writes
+    return y, writes, order
 
 
 @settings(max_examples=40, deadline=None)
-@given(tp=st.integers(1, 8), n=st.integers(1, 1200),
+@given(tp=st.integers(1, 16), n=st.integers(1, 1200),
        levels=st.sampled_from(QC.LEVELS),
        dtype=st.sampled_from(["float32", "bfloat16"]),
        sms=st.sampled_from([1, 3, 132]), seed=st.integers(0, 2 ** 16))
 def test_fused_plan_emulation_equals_plain(tp, n, levels, dtype, sms, seed):
     x = _payload(tp, n, seed, DTYPES[dtype])
-    y, writes = emulate_qpsum(x.float().numpy(), levels, sms)
+    y, writes, order = emulate_qpsum(x.float().numpy(), levels, sms)
     assert (writes == 1).all()                 # every element once a row
+    assert order == list(range(tp))            # every row once, in order
     if dtype == "bfloat16":
         y = _bf16_round(y)
     plain = QC.quantized_psum_absmax_plain(x, levels=levels)
     want = torch.from_numpy(y).to(plain.dtype)  # exact: y is on the grid
     np.testing.assert_array_equal(_bits(plain), _bits(want))
+
+
+@pytest.mark.parametrize("tp,want", [
+    (1, 1), (2, 2), (3, 8), (4, 4), (5, 8), (8, 8), (9, 8), (16, 8),
+    (33, 8)])
+def test_qpsum_group(tp, want):
+    """Rows a warp streams at a time: tp where one whole group of a
+    kernel template takes it (1, 2, 4, 8), else MAX_GROUP (a lane's
+    8 x 4 floats), whatever tp."""
+    assert QC.qpsum_group(tp) == want
 
 
 @pytest.mark.parametrize("n,sms,want", [
@@ -290,8 +314,11 @@ def test_fused_sync_wrapper_checks():
     x = torch.zeros(2, 256)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         QC.quantized_psum_absmax(x.half(), levels=127)
-    with pytest.raises(ValueError, match="1 to 8 shards"):
-        QC.quantized_psum_absmax(torch.zeros(9, 256), levels=127)
+    # any number of shards; tp * n past int indexing is refused (meta:
+    # nothing allocated)
+    with pytest.raises(ValueError, match="int indexing"):
+        QC.quantized_psum_absmax(torch.empty(16, 2 ** 27, device="meta"),
+                                 levels=127)
     with pytest.raises(ValueError, match=r"\(rows, n\)"):
         QC.quantized_psum_absmax(torch.zeros(256), levels=127)
     with pytest.raises(ValueError, match="contiguous"):

@@ -19,7 +19,12 @@ it.
   * teacher-forced fp32 logits within 2e-5 of sim's (the reference's own
     sim-vs-shard bound, tests/test_engines.py; see LOGITS_ATOL);
   * every rank returns the same values, and each rank checked at every
-    step that the others took the same tokens.
+    step that the others took the same tokens;
+  * a vocab-sharded prefill ("logits_shard", gather_logits=False) leaves
+    each rank sim's stacked slice at its model rank, of its own data
+    rank's rows, within the same bound; sim's stacked (tp, B, Vl) equals
+    the reference's sim backend on the same step within it too, at a
+    vocab that tp 2 pads (255 -> 256).
 """
 import numpy as np
 import pytest
@@ -32,6 +37,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.api import LLM as RLLM, SamplingParams as RSP  # noqa: E402
 from repro.config.base import replace as rreplace  # noqa: E402
 from repro.configs import get_config as rget  # noqa: E402
+from repro.runtime import forward as RF  # noqa: E402
 
 from repro_torch.config.base import replace  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
@@ -55,20 +61,27 @@ STREAM = [11, 7, 301, 42, 5]
 # 1.3e-6 between one shard a process and two stacked (SmolLM's agree
 # bit for bit), so the bound is the same at both
 LOGITS_ATOL = 2e-5
+# the vocab-sharded prefill's model: reduced SmolLM with a vocab of 255,
+# which tp 2 pads to 256 (shard 1's last column is padding)
+LS_ARCH, LS_VOCAB, LS_LEN, LS_ROWS = "smollm-360m v255", 255, 9, 4
 
 
 def _cfg(arch):
+    if arch == LS_ARCH:
+        return replace(_cfg("smollm-360m"), vocab_size=LS_VOCAB)
     return replace(get_config(arch, reduced=True), dtype="float32")
 
 
 def _rcfg(arch):
+    if arch == LS_ARCH:
+        return rreplace(_rcfg("smollm-360m"), vocab_size=LS_VOCAB)
     return rreplace(rget(arch, reduced=True), dtype="float32")
 
 
 @pytest.fixture(scope="module")
 def canon(tmp_path_factory):
     """{arch: (reference numpy tree, port tree)} and the ranks' file."""
-    trees = {a: perturbed_canonical(_rcfg(a)) for a in ARCHS}
+    trees = {a: perturbed_canonical(_rcfg(a)) for a in ARCHS + (LS_ARCH,)}
     port = {a: from_reference(t, _cfg(a)) for a, t in trees.items()}
     path = tmp_path_factory.mktemp("shard") / "canon.pt"
     torch.save(port, path)
@@ -86,6 +99,10 @@ def _cases(tp, dp):
                  lens=LENS, load=dict(comm="quant8", comm_logits="quant8")),
             dict(kind="logits", name=f"{a} logits", arch=a, cfg=cfg, len=13,
                  stream=STREAM)]
+    if tp == 2:
+        cases.append(dict(kind="logits_shard", name="logits_shard",
+                          arch=LS_ARCH, cfg=_cfg(LS_ARCH), len=LS_LEN,
+                          rows=LS_ROWS))
     if dp > 1:
         # one request on two data ranks: the prefill pads to two rows
         cases.append(dict(kind="serve", name="single", arch="llama2-7b",
@@ -110,8 +127,7 @@ def runs(canon):
             for case in job["cases"]:
                 llm = TD.load(case["cfg"], port[case["arch"]], "sim", tp,
                               **case.get("load", {}))
-                fn = TD.serve if case["kind"] == "serve" else TD.logits
-                sim[case["name"]] = fn(llm, case)
+                sim[case["name"]] = TD.LLM_CASES[case["kind"]](llm, case)
             done[(tp, dp)] = ranks, sim
         return done[(tp, dp)]
 
@@ -213,6 +229,47 @@ def test_teacher_forced_logits(runs, case):
     for r in ranks:
         np.testing.assert_allclose(r[name], sim[name], rtol=0,
                                    atol=LOGITS_ATOL)
+
+
+@pytest.mark.parametrize("dp", [1, 2], ids=["tp2dp1", "tp2dp2"])
+def test_shard_backend_keeps_each_ranks_vocab_sharded_logits(runs, dp):
+    """The "logits_shard" kind on `shard` (the reference's P(dpx,
+    MODEL_AXIS)): rank (m, d) holds sim's (tp, B, Vl) at [m], rows d*B/dp
+    .. (d+1)*B/dp, and every (m, d) is held by one rank."""
+    ranks, sim = runs(2, dp)
+    want = sim["logits_shard"]["logits"]
+    tp, b, vl = want.shape
+    k = b // dp
+    seen = []
+    for r in ranks:
+        got = r["logits_shard"]
+        m, d = got["at"]
+        seen.append((m, d))
+        assert got["logits"].shape == (1, k, vl)
+        np.testing.assert_allclose(got["logits"],
+                                   want[m:m + 1, d * k:(d + 1) * k],
+                                   rtol=0, atol=LOGITS_ATOL)
+    assert sorted(seen) == [(m, d) for m in range(tp) for d in range(dp)]
+
+
+def test_sims_vocab_sharded_logits_equal_the_references(canon, runs):
+    """The other half of the chain above: sim's stacked (tp, B, Vl) of
+    the vocab-sharded prefill equals the reference's sim backend
+    (`prefill_step(gather_logits=False)` wrapped by its VmapSimBackend,
+    which stacks "logits_shard" the same way) on the same params and
+    prompts, within LOGITS_ATOL, the padded vocab column included."""
+    trees, _, _ = canon
+    want = runs(2, 1)[1]["logits_shard"]["logits"]
+    ref = RLLM.load(_rcfg(LS_ARCH), tp=2, engine="sim", spd=0.25,
+                    cache_len=64, max_batch=4, q_chunk=64,
+                    params=jax.tree.map(jnp.asarray, trees[LS_ARCH]))
+    step = ref.engine.backend.wrap(*RF.prefill_step(
+        ref.cfg, ref.plan, tp=2, q_chunk=64, cache_len=0,
+        gather_logits=False))
+    toks = np.stack(TD.prompts(LS_VOCAB, (LS_LEN,) * LS_ROWS, 11))
+    got = np.asarray(step(ref.params, jnp.asarray(toks), None, None)[0])
+    assert want.shape == got.shape == (2, LS_ROWS, (LS_VOCAB + 1) // 2)
+    np.testing.assert_allclose(want, got, rtol=0, atol=LOGITS_ATOL)
 
 
 def test_single_request_pads_over_data_ranks(runs):

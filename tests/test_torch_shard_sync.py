@@ -15,7 +15,9 @@ messages -> the sum in rank order from +0 and hop 2).
     one fp32 scale a chunk.
 (d) numpy emulations of both kernels' plans (a warp a chunk, lane l's
     elements 4l .. 4l+3, char4 code stores that cover the pad, the tail's
-    masked reads) held bit for bit against the plain versions.
+    masked reads; the receive's ranks in blocks of 32 scales and groups
+    of `qpsum_group(tp)`, up to tp 33) held bit for bit against the plain
+    versions.
 (e) On the CPU the wrappers take the plain versions and count nothing;
     their argument checks.
 """
@@ -204,40 +206,57 @@ def emulate_send(x, levels, sms):
 
 def emulate_receive(msg, n, levels, sms, dtype):
     """The receive kernel's plan over messages (tp, m): warp -> chunk c,
-    lane l reads rank r's char4 at 4l + 128c where that is < n (it then
-    ends inside the codes' pad16(n) bytes), codes past n as 0, scale r at
-    pad + 4c; acc = acc + q * s from +0 in rank order (each op rounded
-    to fp32), hop 2, one rounding to dtype.  Returns (y float32 values,
-    writes per element)."""
+    the ranks in blocks of 32 (lane l loads rank b0 + l's scale at pad +
+    4c) and groups of qpsum_group(tp) (lane l reads each rank's char4 at
+    4l + 128c where that is < n: it then ends inside the codes' pad16(n)
+    bytes; codes past n as 0); then, rank by rank, the scale shuffled
+    from lane g0 + r and acc = acc + q * s from +0 (each op rounded to
+    fp32); hop 2, one rounding to dtype.  Returns (y float32 values,
+    writes per element, the ranks added into chunk 0's sum in order)."""
     tp, m = msg.shape
     pad, _ = QC.message_layout(n)
     blocks, warps = QC.qpsum_grid(n, sms)
+    group = QC.qpsum_group(tp)
     chunks = -(-n // QC.CHUNK)
     lv = np.float32(levels)
     y = np.zeros(n, np.float32)
     writes = np.zeros(n, np.int64)
+    order = []
     scales = np.ascontiguousarray(msg[:, pad:]).view(np.float32)
     for c in range(blocks * warps):
         if c >= chunks:
             continue
         i = _lane_map(c)
         acc = np.zeros((LANES, PER_LANE), np.float32)
-        for r in range(tp):
-            q = np.zeros((LANES, PER_LANE), np.float32)
-            for lane in range(LANES):
-                i0 = i[lane, 0]
-                if i0 < n:
-                    assert i0 % 4 == 0 and i0 + 4 <= pad
-                    q[lane] = msg[r, i0:i0 + 4]
-            q = np.where(i < n, q, np.float32(0))
-            acc = (acc + (q * scales[r, c]).astype(np.float32)).astype(
-                np.float32)
+        for b0 in range(0, tp, LANES):
+            nb = min(LANES, tp - b0)
+            my_s = np.array([scales[b0 + lane, c] if lane < nb else 0.0
+                             for lane in range(LANES)], np.float32)
+            for g0 in range(0, nb, group):
+                rows = min(group, nb - g0)
+                q = np.zeros((rows, LANES, PER_LANE), np.float32)
+                for r in range(rows):
+                    for lane in range(LANES):
+                        i0 = i[lane, 0]
+                        if i0 < n:
+                            assert i0 % 4 == 0 and i0 + 4 <= pad
+                            q[r, lane] = msg[b0 + g0 + r, i0:i0 + 4]
+                for r in range(group):
+                    assert g0 + r < LANES       # a lane of the warp
+                    s = my_s[g0 + r]
+                    if r < rows:
+                        qr = np.where(i < n, q[r], np.float32(0))
+                        acc = (acc + (qr * s).astype(np.float32)).astype(
+                            np.float32)
+                        if c == 0:
+                            order.append(b0 + g0 + r)
         s = _scale(acc, levels)
         out = (np.clip(np.rint(acc / s), -lv, lv) * s).astype(np.float32)
         live = i < n
         y[i[live]] = out[live]
         writes[i[live]] += 1
-    return (_bf16_round(y) if dtype == torch.bfloat16 else y), writes
+    y = _bf16_round(y) if dtype == torch.bfloat16 else y
+    return y, writes, order
 
 
 @pytest.mark.parametrize("tp,n,levels,dtype,sms", [
@@ -247,6 +266,9 @@ def emulate_receive(msg, n, levels, sms, dtype):
     (8, 960, 7, "float32", 132),
     (4, 3840, 127, "bfloat16", 132),
     (5, 257, 127, "float32", 2),
+    (9, 1001, 127, "bfloat16", 3),
+    (16, 3840, 7, "float32", 132),
+    (33, 130, 127, "bfloat16", 1),
 ])
 def test_kernel_plans_equal_plain(tp, n, levels, dtype, sms):
     x = _partials(tp, n, seed=tp + n, dtype=DTYPES[dtype])
@@ -258,8 +280,9 @@ def test_kernel_plans_equal_plain(tp, n, levels, dtype, sms):
     pad, _ = QC.message_layout(n)
     dirty = msg.copy()
     dirty[:, n:pad] = np.int8(-7)
-    y, writes = emulate_receive(dirty, n, levels, sms, DTYPES[dtype])
+    y, writes, order = emulate_receive(dirty, n, levels, sms, DTYPES[dtype])
     assert (writes == 1).all()
+    assert order == list(range(tp))            # every rank once, in order
     want = QC.reduce_messages_absmax_plain(plain, n, levels=levels,
                                            dtype=DTYPES[dtype])
     np.testing.assert_array_equal(
@@ -301,9 +324,13 @@ def test_send_and_receive_wrapper_checks():
         QC.quantize_message_absmax(elsewhere(x), levels=127)
     with pytest.raises(ValueError, match="bytes"):
         QC.reduce_messages_absmax(msg, 240, levels=7, dtype=torch.float32)
-    with pytest.raises(ValueError, match="1 to 8 messages"):
-        QC.reduce_messages_absmax(msg.expand(9, -1).contiguous(), 256,
-                                  levels=7, dtype=torch.float32)
+    # any number of messages; tp * m past int indexing is refused (meta:
+    # nothing allocated)
+    n = 2 ** 27
+    with pytest.raises(ValueError, match="int indexing"):
+        QC.reduce_messages_absmax(
+            torch.empty(16, QC.message_layout(n)[1], dtype=torch.int8,
+                        device="meta"), n, levels=7, dtype=torch.float32)
     with pytest.raises(TypeError, match="int8"):
         QC.reduce_messages_absmax(msg.float(), 256, levels=7,
                                   dtype=torch.float32)

@@ -203,8 +203,29 @@ def frontend(llm, case):
     return {"tokens": lgs.argmax(-1), "logits": lgs}
 
 
+def logits_shard(llm, case):
+    """The vocab-sharded logits of a whole-batch prefill
+    (`prefill_step(gather_logits=False)`, the "logits_shard" kind,
+    wrapped by the engine's backend) of `case["rows"]` prompts of
+    `case["len"]` tokens: {"logits": sim's stacked (tp, B, Vl), a rank's
+    (1, B / dp, Vl) slice; "at": (model rank, data rank), (0, 0) on
+    sim}."""
+    from repro_torch.runtime import forward as F
+    be = llm.engine.backend
+    step = be.wrap(*F.prefill_step(llm.cfg, llm.plan, tp=be.tp,
+                                   q_chunk=64, cache_len=0,
+                                   gather_logits=False))
+    toks = np.stack(prompts(llm.cfg.vocab_size,
+                            (case["len"],) * case["rows"], 11))
+    lg, _ = step(llm.params, toks, None)
+    g = getattr(be, "groups", None)
+    return {"logits": lg.numpy(),
+            "at": (g.model_rank, g.data_rank) if g else (0, 0)}
+
+
 LLM_CASES = {"serve": serve, "logits": logits, "spec_logits": spec_logits,
-             "draft_policy": draft_policy, "frontend": frontend}
+             "draft_policy": draft_policy, "frontend": frontend,
+             "logits_shard": logits_shard}
 
 
 def start(job, **kw):
